@@ -1,0 +1,21 @@
+"""rwrt_tpu_torch: the PyTorch/CUDA port of rwrt_tpu.
+
+Barotropic Rossby-wave ray tracing with plain PyTorch around hand-written
+CUDA kernels for the RHS, the dense Dormand-Prince group and the spectral
+sampler (built from ``csrc/`` at first use on a CUDA device). The JAX
+package ``rwrt_tpu`` is the reference each module is tested against; this
+package never imports it or JAX.
+"""
+
+from rwrt_tpu_torch.config import RunConfig
+from rwrt_tpu_torch.models.basic_state import BasicState, prepare
+from rwrt_tpu_torch.tracer import RayTrajectories, source_matrix, trace_rays
+
+__all__ = [
+    "RunConfig",
+    "BasicState",
+    "prepare",
+    "RayTrajectories",
+    "source_matrix",
+    "trace_rays",
+]

@@ -1,0 +1,59 @@
+"""Carry state across from the JAX package as numpy.
+
+The JAX package's ``BasicState`` and ``Background`` are NamedTuples of
+arrays; ``{k: np.asarray(v) for k, v in state._asdict().items()}`` turns
+one into a mapping of numpy arrays and scalars, and these functions build
+the port's counterpart from it. That lets a test hold the port's tracer
+against the JAX package on the very same background.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from rwrt_tpu_torch.models.basic_state import BasicState, as_dtype
+from rwrt_tpu_torch.models.ray import Background
+from rwrt_tpu_torch.solvers.rk45 import as_scalar
+
+
+def _tensor(a, device, dtype):
+    return torch.as_tensor(np.array(a)).to(device=device, dtype=dtype)
+
+
+def basic_state_from_numpy(d: Mapping, *, device=None,
+                           dtype=None) -> BasicState:
+    """A port ``BasicState`` from a mapping shaped like the JAX one.
+
+    ``fields``, ``lon``, ``lat``, ``betam``, ``ks`` and ``q`` are arrays;
+    ``xcyclic``, ``bg_t0`` and ``bg_dt`` scalars. ``dtype`` defaults to the
+    dtype of ``fields``.
+    """
+    dtype = as_dtype(np.asarray(d["fields"]).dtype if dtype is None
+                     else dtype)
+    return BasicState(
+        **{k: _tensor(d[k], device, dtype)
+           for k in ("fields", "lon", "lat", "betam", "ks", "q")},
+        xcyclic=bool(np.asarray(d["xcyclic"])),
+        bg_t0=float(np.asarray(d.get("bg_t0", 0.0))),
+        bg_dt=float(np.asarray(d.get("bg_dt", 1.0))),
+    )
+
+
+def background_from_numpy(d: Mapping, *, device=None,
+                          dtype=None) -> Background:
+    """A port ``Background`` from a mapping shaped like the JAX one
+    (static backgrounds: ``member_ids`` must be absent or None)."""
+    if d.get("member_ids") is not None and np.asarray(
+            d["member_ids"]).ndim > 0:
+        raise NotImplementedError("ensemble backgrounds are not ported yet "
+                                  "(ROADMAP Queue 1 item 14)")
+    dtype = as_dtype(np.asarray(d["fields"]).dtype if dtype is None
+                     else dtype)
+    scalars = {k: as_scalar(np.asarray(d[k], np.float64), dtype)
+               for k in ("lon0", "lat0", "dx", "dy", "freq", "bg_t0",
+                         "bg_dt") if k in d}
+    return Background(fields=_tensor(d["fields"], device, dtype).contiguous(),
+                      **scalars)

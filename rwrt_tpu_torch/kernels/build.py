@@ -1,0 +1,106 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+``nvcc`` compiles every ``rwrt_tpu_torch/csrc/*.cu`` into one shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds), in
+``rwrt_tpu_torch/_build/<hash of the sources>/``. The hash covers the
+sources, the headers and the flags, so an edited source rebuilds and an
+unchanged one loads the library already built. Nothing here runs at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC = PKG_DIR / "csrc"
+BUILD_ROOT = PKG_DIR / "_build"
+LIB_NAME = "librwrt_kernels.so"
+
+# -fmad=false: no implicit a*b+c -> fma contraction, so every kernel
+# expression rounds exactly as the plain PyTorch version's separate ops do
+# and the kernels are bit-comparable to it (the adaptive controller
+# amplifies one-ulp differences chaotically). Explicit fma() calls, as in
+# the spectral contraction, are unaffected.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_D = ctypes.c_double
+
+#: C signature of every exported function; each returns a cudaError_t.
+SIGNATURES = {
+    # packed, W, H, lon0, lat0, dx, dy, y, R, dy_out, err, ug, vg, stream
+    "rwrt_rhs": (_P, _I, _I, _D, _D, _D, _D, _P, _I, _P, _P, _P, _P, _P),
+    # packed, W, H, lon0, lat0, dx, dy, y, t, h, f, rejected, new_step,
+    # lane_att, hist, bounds, G, R, rtol, atol, min_step, max_iters,
+    # pin_limit, pin_mwn, stream
+    "rwrt_dense_group": (_P, _I, _I, _D, _D, _D, _D, _P, _P, _P, _P, _P, _P,
+                         _P, _P, _P, _I, _I, _D, _D, _D, _L, _L, _D, _P),
+    # lon, lat, tht, coeffs, R, Mp, L, C, round_bf16, out, stream
+    "rwrt_spectral": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+}
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    cu, cuh = _sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in cu + cuh:
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    return digest.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda); "
+                       "the port's CUDA kernels cannot be built")
+
+
+def build() -> Path:
+    """Compile the kernels if no library for these sources exists; returns
+    the library's path. Raises on a failed build."""
+    out_dir = BUILD_ROOT / source_hash()
+    lib = out_dir / LIB_NAME
+    if lib.is_file():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu, _ = _sources()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the library with every signature set."""
+    lib = ctypes.CDLL(str(build()))
+    for suffix in ("_f32", "_f64"):
+        for name, args in SIGNATURES.items():
+            fn = getattr(lib, name + suffix)
+            fn.argtypes = list(args)
+            fn.restype = ctypes.c_int
+    lib.rwrt_error_string.argtypes = [ctypes.c_int]
+    lib.rwrt_error_string.restype = ctypes.c_char_p
+    return lib

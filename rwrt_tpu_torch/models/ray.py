@@ -1,0 +1,270 @@
+"""Ray ODE right-hand side and termination physics.
+
+Port of ``rwrt_tpu/models/ray.py``. State layout: 5 prognostic variables per
+ray stacked as a (5, R) tensor [lon, lat, kx, ky, amp]; dead rays are NaN
+lanes, never control flow.
+
+The RHS is one of the port's hand-written kernels (``csrc/ray_rhs.cuh``,
+launched by ``csrc/rhs.cu``). ``rhs`` and ``rhs_and_gv`` dispatch on the
+state's device: a CPU tensor runs the plain PyTorch version ``_rhs_core``; a
+CUDA tensor launches the kernel (or raises). ``LAUNCHES`` counts kernel
+launches.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from rwrt_tpu_torch import kernels
+from rwrt_tpu_torch.constants import mwn_cap, pi, rearth
+from rwrt_tpu_torch.ops import groupvel as groupvel_mod
+from rwrt_tpu_torch.ops import interp
+from rwrt_tpu_torch.ops.groupvel import group_velocity
+
+# State variable indices.
+S_LON, S_LAT, S_KX, S_KY, S_AMP = range(5)
+NUM_VARS = 5
+
+#: Number of RHS kernel launches in this process.
+LAUNCHES = 0
+
+
+class Background(NamedTuple):
+    """Per-run inputs to the RHS.
+
+    fields: (nlon_wrap, nlat, 4 * NUM_HOT) corner-packed hot stack (see
+        tracer.make_background), or an unpacked (nlon_wrap, nlat, C) stack.
+    lon0, lat0: grid origin in radians; dx, dy: grid spacing in radians;
+        freq: wave frequency (rad/s). Python floats already rounded to the
+        fields' dtype, so the plain version and the kernel see one value.
+    bg_t0, bg_dt: time axis of a time-varying background (not ported yet).
+    member_ids: ensemble lane -> member map (not ported yet).
+    """
+
+    fields: torch.Tensor
+    lon0: float
+    lat0: float
+    dx: float
+    dy: float
+    freq: float
+    bg_t0: float = 0.0
+    bg_dt: float = 1.0
+    member_ids: Optional[torch.Tensor] = None
+
+
+def sample_bg(bg: Background, lon, lat, t=0.0):
+    """Sample the static Mercator background at positions; returns (C, R).
+
+    Packed (4 * NUM_HOT channels) and unpacked stacks are accepted. The
+    time-varying and ensemble branches of the JAX package are not ported.
+    """
+    if bg.member_ids is not None or bg.fields.ndim != 3:
+        raise NotImplementedError(
+            "time-varying and ensemble backgrounds are not ported yet "
+            "(ROADMAP Queue 1 items 13-14)")
+    if bg.fields.shape[-1] == 4 * interp.NUM_HOT:
+        return interp.sample_mercator_packed(
+            bg.fields, bg.lon0, bg.lat0, bg.dx, bg.dy, lon, lat)
+    return interp.sample_mercator(
+        bg.fields, bg.lon0, bg.lat0, bg.dx, bg.dy, lon, lat)
+
+
+def fail_mask(y: torch.Tensor) -> torch.Tensor:
+    """True where |lat| >= pi/2 or |ky| >= 100; NaN states compare False."""
+    return (torch.abs(y[S_LAT]) >= 0.5 * pi) | (torch.abs(y[S_KY]) >= mwn_cap)
+
+
+def rhs(bg: Background, y: torch.Tensor,
+        t=0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dy/dt for the ray batch: (dy (5, R), err (R,) bool).
+
+      dlon/dt = ug / R
+      dlat/dt = vg cos(lat) / R
+      dk/dt   = -k [(fmux + kap fmvx) + (kap fmqxx - fmqyx)/K^2] / R
+      dl/dt   = -k [(fmuy + kap fmvy) + (kap fmqxy - fmqyy)/K^2] / R
+      damp/dt = amp [2(fmux + fmvy + kap(fmvx + fmuy))/(1+kap^2)
+                     + 2(kap(fmqxx - fmqyy) + (kap^2-1) fmqxy)/(K^2(1+kap^2))
+                     - 2 sin(lat) fmv] / R
+
+    err flags rays whose derivatives were forced NaN (|lat| or |ky| out of
+    bounds).
+    """
+    dy, err, _, _ = _rhs(bg, y, t, False)
+    return dy, err
+
+
+def rhs_and_gv(bg: Background, y: torch.Tensor, t=0.0):
+    """rhs plus the raw-ky (ug, vg) of the evaluated state from the same
+    background sample. Returns (dy (5, R), ug (R,), vg (R,))."""
+    dy, _, ug, vg = _rhs(bg, y, t, True)
+    return dy, ug, vg
+
+
+class RayRHS:
+    """The ray RHS over one background as a ``(y, t) -> dy`` callable, the
+    form the integrators take; the dense-group kernel reads ``bg`` from
+    it."""
+
+    def __init__(self, bg: Background):
+        self.bg = bg
+
+    def __call__(self, y, t=0.0):
+        return rhs(self.bg, y, t)[0]
+
+
+def _rhs(bg, y, t, with_raw_gv: bool):
+    if y.is_cuda:
+        return _rhs_cuda(bg, y, with_raw_gv)
+    return _rhs_core(bg, y, t, with_raw_gv)
+
+
+def _rhs_cuda(bg: Background, y: torch.Tensor, with_raw_gv: bool):
+    """Launch the RHS kernel: one thread per lane."""
+    global LAUNCHES
+    packed = bg.fields
+    if bg.member_ids is not None or packed.ndim != 3 or (
+            packed.shape[-1] != 4 * interp.NUM_HOT):
+        raise ValueError("the RHS kernel needs a static corner-packed "
+                         "(W, H, 48) background (tracer.make_background)")
+    kernels.check_tensor(packed, "fields", device=y.device, dtype=y.dtype)
+    kernels.check_tensor(y, "y", device=y.device, dtype=y.dtype)
+    if y.ndim != 2 or y.shape[0] != 5:
+        raise ValueError(f"y must be (5, R); got {tuple(y.shape)}")
+    r = y.shape[1]
+    dy = torch.empty_like(y)
+    err = torch.empty(r, dtype=torch.bool, device=y.device)
+    ug = torch.empty(r, dtype=y.dtype, device=y.device) if with_raw_gv else None
+    vg = torch.empty(r, dtype=y.dtype, device=y.device) if with_raw_gv else None
+    w, h, _ = packed.shape
+    kernels.launch(
+        "rwrt_rhs", y.dtype, packed, w, h, bg.lon0, bg.lat0, bg.dx, bg.dy,
+        y, r, dy, err, ug, vg, kernels.stream(y.device))
+    LAUNCHES += 1
+    return dy, err, ug, vg
+
+
+def _rhs_core(bg: Background, y: torch.Tensor, t, with_raw_gv: bool):
+    """The plain PyTorch RHS (any device).
+
+    Every NaN the semantics call for is applied as a FINAL where over values
+    computed from NaN-free substitutes: dead lanes sample cell (0, 0), bad
+    lanes compute with kx = 1, ky = 0, and the per-row NaN sets r0n..r4n are
+    applied last. A NaN amp poisons row 4 only.
+    """
+    if y.dtype != bg.fields.dtype:
+        raise NotImplementedError(
+            "mixed precision (state_dtype='float64') is not ported yet "
+            "(ROADMAP Queue 1 item 12)")
+    lon, lat, kx, ky, amp = y[S_LON], y[S_LAT], y[S_KX], y[S_KY], y[S_AMP]
+
+    err = fail_mask(y)
+
+    dead = (torch.isnan(lon) | torch.isnan(lat) | torch.isnan(kx)
+            | torch.isnan(ky))
+    ampn = torch.isnan(amp)
+    bad = err | dead
+    zero = torch.zeros_like(lon)
+    one = torch.ones_like(lon)
+    lon_q = torch.where(dead, zero, lon)
+    lat_q = torch.where(dead, zero, lat)
+    kx_q = torch.where(bad, one, kx)
+    ky_q = torch.where(bad, zero, ky)
+    amp_q = torch.where(ampn, zero, amp)
+
+    f = sample_bg(bg, lon_q, lat_q, t)
+    fn = torch.isnan(f)
+    f_q = torch.where(fn, torch.zeros_like(f), f)
+    fmu, fmv = f_q[interp.M_U], f_q[interp.M_V]
+    fmux, fmuy = f_q[interp.M_UX], f_q[interp.M_UY]
+    fmvx, fmvy = f_q[interp.M_VX], f_q[interp.M_VY]
+    fmqx, fmqy = f_q[interp.M_QX], f_q[interp.M_QY]
+    fmqxx, fmqxy = f_q[interp.M_QXX], f_q[interp.M_QXY]
+    fmqyx, fmqyy = f_q[interp.M_QYX], f_q[interp.M_QYY]
+    n_u, n_v = fn[interp.M_U], fn[interp.M_V]
+    n_qx, n_qy = fn[interp.M_QX], fn[interp.M_QY]
+
+    ug, vg, _, _ = groupvel_mod.group_velocity_core(
+        fmu, fmv, fmqx, fmqy, kx_q, ky_q)
+
+    kap = ky_q / kx_q
+    kap2 = kap * kap
+    kap1 = 1.0 + kap2
+    kk = kx_q * kx_q * kap1  # K^2 = k^2 + m^2
+
+    dzwn = -kx_q * ((fmux + kap * fmvx) + (kap * fmqxx - fmqyx) / kk)
+    dmwn = -kx_q * ((fmuy + kap * fmvy) + (kap * fmqxy - fmqyy) / kk)
+
+    damp1 = 2.0 * (fmux + fmvy + kap * (fmvx + fmuy)) / kap1
+    damp2 = 2.0 * (kap * (fmqxx - fmqyy) + (kap2 - 1.0) * fmqxy) / (kk * kap1)
+    damp3 = -2.0 * torch.sin(lat_q) * fmv
+    damp = damp1 + damp2 + damp3
+
+    r0n = bad | n_u | n_qx | n_qy
+    r1n = bad | n_v | n_qx | n_qy
+    r2n = (bad | fn[interp.M_UX] | fn[interp.M_VX] | fn[interp.M_QXX]
+           | fn[interp.M_QYX])
+    r3n = (bad | fn[interp.M_UY] | fn[interp.M_VY] | fn[interp.M_QXY]
+           | fn[interp.M_QYY])
+    r4n = (bad | ampn | fn[interp.M_UX] | fn[interp.M_UY] | fn[interp.M_VX]
+           | fn[interp.M_VY] | fn[interp.M_QXX] | fn[interp.M_QXY]
+           | fn[interp.M_QYY] | n_v)
+
+    inv_r = 1.0 / rearth
+    nan = torch.full_like(lon, float("nan"))
+    dy = torch.stack(
+        [
+            torch.where(r0n, nan, ug * inv_r),
+            torch.where(r1n, nan, vg * torch.cos(lat_q) * inv_r),
+            torch.where(r2n, nan, dzwn * inv_r),
+            torch.where(r3n, nan, dmwn * inv_r),
+            torch.where(r4n, nan, damp * amp_q * inv_r),
+        ]
+    )
+    if with_raw_gv:
+        # Raw semantics: err-by-|ky| lanes keep their real ky; dead lanes
+        # and NaN-field samples are NaN.
+        ug_r, vg_r = group_velocity(
+            f[interp.M_U], f[interp.M_V], f[interp.M_QX], f[interp.M_QY],
+            kx, ky)
+        return dy, err, torch.where(dead, nan, ug_r), torch.where(
+            dead, nan, vg_r)
+    return dy, err, None, None
+
+
+def group_velocity_at(bg: Background, lon, lat, kx, ky, t=0.0, *,
+                      zero_invalid=False):
+    """Diagnostic (ug, vg) at given positions/wavenumbers; NaN positions
+    sample a sanitized cell and get their NaN back as a final where."""
+    posn = torch.isnan(lon) | torch.isnan(lat)
+    lon_q = torch.where(posn, torch.zeros_like(lon), lon)
+    lat_q = torch.where(posn, torch.zeros_like(lat), lat)
+    f = sample_bg(bg, lon_q, lat_q, t)
+    ug, vg = group_velocity(
+        f[interp.M_U], f[interp.M_V], f[interp.M_QX], f[interp.M_QY],
+        kx, ky, zero_invalid=zero_invalid,
+    )
+    nan = torch.full_like(ug, float("nan"))
+    mask = posn if not zero_invalid else (posn & (kx != 0.0))
+    return torch.where(mask, nan, ug), torch.where(mask, nan, vg)
+
+
+def haversine(lon_a, lat_a, lon_b, lat_b) -> torch.Tensor:
+    """Angular distance between two points."""
+    dlon = lon_a - lon_b
+    dlat = lat_a - lat_b
+    a = (
+        torch.sin(dlat / 2.0) ** 2
+        + torch.cos(lat_b) * torch.cos(lat_a) * torch.sin(dlon / 2.0) ** 2
+    )
+    return torch.abs(2.0 * torch.atan2(torch.sqrt(a), torch.sqrt(1.0 - a)))
+
+
+def kill_mask(y_new: torch.Tensor, lon_prev, lat_prev,
+              cut_off) -> torch.Tensor:
+    """Post-step termination: True where |lat| >= pi/2 or the step jumped
+    more than ``cut_off`` radians (haversine displacement)."""
+    lat_kill = torch.abs(y_new[S_LAT]) >= 0.5 * pi
+    ddis = haversine(y_new[S_LON], y_new[S_LAT], lon_prev, lat_prev)
+    return lat_kill | (ddis >= cut_off)

@@ -1,0 +1,201 @@
+"""Bilinear sampling of the background-field stack at ray positions.
+
+Port of the static samplers of ``rwrt_tpu/ops/interp.py``: the 4-gather
+sampler (``bilinear_gather``, ``sample_raw``, ``sample_mercator``), the
+corner-packed single-gather sampler the RHS uses (``pack_corners``,
+``_packed_cell``, ``_packed_corner_lerp``, ``sample_raw_packed``,
+``sample_mercator_packed``) and the Mercator transform with its polar-cap
+guard. The time-varying and ensemble variants are not ported yet.
+
+Index conversion: the JAX package converts floor(index) to int32 and then
+clips. Here the clip happens in floating point first (NaN goes to cell 0),
+which is the same cell for every finite index and avoids torch's undefined
+float-to-int conversion of NaN and out-of-range values.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from rwrt_tpu_torch.constants import pi, polar_cos_cap
+
+# Indices into the raw 18-field stack (models/basic_state.py FIELD_NAMES).
+(F_U, F_V, F_UX, F_UY, F_VX, F_VY, F_QX, F_QY, F_QXX, F_QXY, F_QYX, F_QYY,
+ F_QXXX, F_QXXY, F_QXYY, F_QYYY, F_QYXX, F_QYYX) = range(18)
+
+# Indices into the Mercator-transformed sample.
+(M_U, M_V, M_UX, M_UY, M_VX, M_VY, M_QX, M_QY, M_QXX, M_QXY, M_QYX, M_QYY,
+ M_QXXX, M_QXXY, M_QXYY, M_QYYY, M_QYXX, M_QYYX) = range(18)
+
+#: The ray RHS consumes only the first 12 fields; the third derivatives are
+#: diagnostic-only.
+NUM_HOT = 12
+
+
+def true_div(x: torch.Tensor, s) -> torch.Tensor:
+    """x / s with IEEE division on every device. PyTorch's CUDA division by
+    a CPU scalar multiplies by its reciprocal instead, which rounds
+    differently from the kernels and from the JAX package. The divisor is
+    filled on the device, not copied from the host, so nothing waits."""
+    return x / torch.full((), s, dtype=x.dtype, device=x.device)
+
+
+def _cell_index(x: torch.Tensor, n: int) -> torch.Tensor:
+    """floor(x) clipped to [0, n-1] as int64; NaN maps to 0."""
+    xf = torch.floor(x).clamp(0, n - 1)
+    return torch.where(torch.isnan(xf), torch.zeros_like(xf), xf).long()
+
+
+def bilinear_gather(fields: torch.Tensor, x: torch.Tensor,
+                    y: torch.Tensor) -> torch.Tensor:
+    """4-corner bilinear gather at fractional grid indices.
+
+    fields: (W, H, C); x, y: (R,). Returns (R, C). Weights are computed
+    against the CLIPPED corner indices, so out-of-range points extrapolate.
+    """
+    w, h, _ = fields.shape
+    x0 = _cell_index(x, w)
+    x1 = (x0 + 1).clamp(0, w - 1)
+    y0 = _cell_index(y, h)
+    y1 = (y0 + 1).clamp(0, h - 1)
+
+    sx = x - x0.to(x.dtype)
+    sy = y - y0.to(y.dtype)
+
+    flat = fields.reshape(w * h, -1)
+    fa = flat.index_select(0, x0 * h + y1)
+    fb = flat.index_select(0, x1 * h + y1)
+    fc = flat.index_select(0, x0 * h + y0)
+    fd = flat.index_select(0, x1 * h + y0)
+
+    wa = ((1.0 - sx) * sy)[:, None]
+    wb = (sx * sy)[:, None]
+    wc = ((1.0 - sx) * (1.0 - sy))[:, None]
+    wd = (sx * (1.0 - sy))[:, None]
+    return fa * wa + fb * wb + fc * wc + fd * wd
+
+
+def _nan_outside_band(vals: torch.Tensor, lat: torch.Tensor) -> torch.Tensor:
+    in_range = torch.abs(lat) <= 0.5 * pi
+    return torch.where(in_range[:, None], vals,
+                       torch.full_like(vals, float("nan")))
+
+
+def sample_raw(bs_fields, lon0, lat0, dx, dy, lon, lat) -> torch.Tensor:
+    """Interpolate the raw field stack at (lon, lat); rows with
+    |lat| > pi/2 are NaN. Returns (R, C)."""
+    ix = true_div(torch.remainder(lon - lon0, 2.0 * pi), dx)
+    iy = true_div(lat - lat0, dy)
+    return _nan_outside_band(bilinear_gather(bs_fields, ix, iy), lat)
+
+
+def mercator_transform(raw: torch.Tensor, lat: torch.Tensor) -> torch.Tensor:
+    """Convert raw interpolated fields to Mercator coordinates.
+
+    - everything is zeroed where |cos(lat)| <= polar_cos_cap; the mask is
+      NOT(|cos| <= cap), so NaN latitudes stay live and propagate NaN;
+    - fmuy = fuy + tan(lat) fu, with no division by cos (the convention the
+      Fortran code kept);
+    - both fmqxy and fmqyx come from the SMOOTHED qxy sample (index 9).
+
+    raw: (R, 12) or (R, 18). Returns (C, R) in M_* order.
+    """
+    cos_phi = torch.cos(lat)
+    sin_phi = torch.sin(lat)
+    live = torch.logical_not(torch.abs(cos_phi) <= polar_cos_cap)
+    cosm = torch.where(live, cos_phi, torch.full_like(cos_phi, 1e-6))
+    tan_phi = sin_phi / cosm
+
+    f = raw.T
+    full = raw.shape[-1] > NUM_HOT
+    zero = torch.zeros_like(cos_phi)
+
+    def m(expr):
+        return torch.where(live, expr, zero)
+
+    fmqyx = m(f[F_QXY] * cosm)
+    out = [None] * (18 if full else NUM_HOT)
+    out[M_U] = m(f[F_U] / cosm)
+    out[M_V] = m(f[F_V] / cosm)
+    out[M_UX] = m(f[F_UX] / cosm)
+    out[M_UY] = m(f[F_UY] + tan_phi * f[F_U])
+    out[M_VX] = m(f[F_VX] / cosm)
+    out[M_VY] = m(f[F_VY] + tan_phi * f[F_V])
+    out[M_QX] = m(f[F_QX])
+    out[M_QY] = m(f[F_QY] * cosm)
+    out[M_QXX] = m(f[F_QXX])
+    out[M_QXY] = fmqyx
+    out[M_QYX] = fmqyx
+    out[M_QYY] = m((f[F_QYY] * cosm - f[F_QY] * sin_phi) * cosm)
+    if full:
+        out[M_QXXX] = m(f[F_QXXX])
+        out[M_QXXY] = m(f[F_QXXY] * cosm)
+        out[M_QXYY] = m((f[F_QXYY] * cosm - f[F_QXY] * sin_phi) * cosm)
+        out[M_QYYY] = m(f[F_QYYY])
+        out[M_QYXX] = m(f[F_QYXX] * cosm)
+        out[M_QYYX] = m((f[F_QYYX] * cosm - f[F_QXY] * sin_phi) * cosm)
+    return torch.stack(out, dim=0)
+
+
+def sample_mercator(bs_fields, lon0, lat0, dx, dy, lon, lat) -> torch.Tensor:
+    """Interpolate + Mercator-transform; returns (C, R)."""
+    raw = sample_raw(bs_fields, lon0, lat0, dx, dy, lon, lat)
+    return mercator_transform(raw, lat)
+
+
+def pack_corners(fields: torch.Tensor) -> torch.Tensor:
+    """Pack each cell's 2x2 corner neighbourhood into one (W, H, 4C) row:
+    [F(w,h), F(w+1,h), F(w,h+1), F(w+1,h+1)], the +1 neighbours clamped at
+    the array edges exactly as the 4-gather path clamps its indices."""
+
+    def shift(f, dim):
+        return torch.cat([f.narrow(dim, 1, f.shape[dim] - 1),
+                          f.narrow(dim, f.shape[dim] - 1, 1)], dim=dim)
+
+    right = shift(fields, fields.ndim - 3)
+    up = shift(fields, fields.ndim - 2)
+    right_up = shift(right, fields.ndim - 2)
+    return torch.cat([fields, right, up, right_up], dim=-1)
+
+
+def _packed_cell(w, h, lon0, lat0, dx, dy, lon, lat):
+    """Clamped (x0, y0) cell plus the bilinear offsets (sx, sy)."""
+    ix = true_div(torch.remainder(lon - lon0, 2.0 * pi), dx)
+    iy = true_div(lat - lat0, dy)
+    x0 = _cell_index(ix, w)
+    y0 = _cell_index(iy, h)
+    sx = ix - x0.to(ix.dtype)
+    sy = iy - y0.to(iy.dtype)
+    return x0, y0, sx, sy
+
+
+def _packed_corner_lerp(flat, row_idx, sx, sy, c):
+    """ONE row gather + the bilinear corner combination, with the weight
+    expression and summation order of the 4-gather path."""
+    rows = flat.index_select(0, row_idx)
+    fc = rows[:, 0:c]            # (x0, y0)
+    fd = rows[:, c: 2 * c]       # (x1, y0)
+    fa = rows[:, 2 * c: 3 * c]   # (x0, y1)
+    fb = rows[:, 3 * c: 4 * c]   # (x1, y1)
+    wa = ((1.0 - sx) * sy)[:, None]
+    wb = (sx * sy)[:, None]
+    wc = ((1.0 - sx) * (1.0 - sy))[:, None]
+    wd = (sx * (1.0 - sy))[:, None]
+    return fa * wa + fb * wb + fc * wc + fd * wd
+
+
+def sample_raw_packed(packed, lon0, lat0, dx, dy, lon, lat) -> torch.Tensor:
+    """Bilinear sample from a corner-packed stack: ONE row gather per point.
+    Equal to sample_raw on the unpacked stack."""
+    w, h, c4 = packed.shape
+    c = c4 // 4
+    x0, y0, sx, sy = _packed_cell(w, h, lon0, lat0, dx, dy, lon, lat)
+    vals = _packed_corner_lerp(packed.reshape(w * h, c4), x0 * h + y0,
+                               sx, sy, c)
+    return _nan_outside_band(vals, lat)
+
+
+def sample_mercator_packed(packed, lon0, lat0, dx, dy, lon, lat):
+    """Corner-packed sample + Mercator transform; returns (C, R)."""
+    raw = sample_raw_packed(packed, lon0, lat0, dx, dy, lon, lat)
+    return mercator_transform(raw, lat)

@@ -1,0 +1,241 @@
+"""Tensor-product spectral background sampling.
+
+Port of ``rwrt_tpu/ops/spectral_sample.py`` (static fits). Each field channel
+is expanded as
+
+    f(lon, lat) = sum_{m=0}^{M} sum_{l=0}^{L-1}
+        [a_{ml} cos(m lon) + b_{ml} sin(m lon)] * cos(l * (lat - lat0))
+
+which is exact on the stack's own grid at full truncation. Evaluation at R
+points is a (R, Mp) @ (Mp, L*C) product followed by a latitude contraction.
+
+``fit_spectral`` is host numpy, carried over from the JAX package.
+``sample_spectral`` is the plain PyTorch evaluation. ``sample_spectral_cuda``
+replaces the JAX package's Pallas kernel ``sample_spectral_pallas``: on a
+CUDA tensor it launches ``csrc/spectral.cu``, which builds the basis rows
+and contracts them without materializing (R, Mp) or (R, L*C); on a CPU
+tensor it runs ``sample_spectral``. ``LAUNCHES`` counts kernel launches.
+The time-varying fit (``fit_spectral_time``, ``lerp_coeffs``) is not ported
+yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from rwrt_tpu_torch import kernels
+from rwrt_tpu_torch.constants import pi
+from rwrt_tpu_torch.models.basic_state import as_dtype
+from rwrt_tpu_torch.ops.interp import mercator_transform
+
+#: Number of spectral kernel launches in this process.
+LAUNCHES = 0
+
+
+class SpectralBackground(NamedTuple):
+    """Spectral coefficients of the background-field stack.
+
+    coeffs: (Mp, L, C) with Mp rows [cos 0, cos 1..cos M, sin 1..sin M].
+    lat0: 0-d tensor, latitude of the first grid row (radians).
+    """
+
+    coeffs: torch.Tensor
+    lat0: torch.Tensor
+
+    @property
+    def m_max(self) -> int:
+        return (self.coeffs.shape[-3] - 1) // 2
+
+    @property
+    def l_max(self) -> int:
+        return self.coeffs.shape[-2]
+
+    @property
+    def num_fields(self) -> int:
+        return self.coeffs.shape[-1]
+
+
+def fit_spectral(bs_or_fields, *, m_max=None, l_max=None, lon=None, lat=None,
+                 xcyclic=None, dtype=None, device=None) -> SpectralBackground:
+    """Fit the tensor-product spectral representation of a field stack.
+
+    Args:
+      bs_or_fields: a ``BasicState`` (its ``fields`` stack is fitted, the
+        wrap column dropped when ``xcyclic``) or a raw (nlon, nlat, C) array.
+      m_max: zonal truncation, default nlon//2 (exact).
+      l_max: number of latitude cosine modes, default nlat (exact).
+      lon, lat: grid coordinates in radians for a raw array.
+      xcyclic: whether the last lon column is a cyclic wrap duplicate.
+      dtype: coefficient dtype; defaults to the stack's dtype.
+      device: where the coefficients go; defaults to the stack's device.
+
+    The fit runs on the host in float64 (rFFT in lon, DCT-I in lat).
+    """
+    if hasattr(bs_or_fields, "fields"):
+        bs = bs_or_fields
+        if bs.fields.ndim == 4:
+            raise NotImplementedError(
+                "time-varying fits (fit_spectral_time) are not ported yet "
+                "(ROADMAP Queue 1 item 13)")
+        fields = bs.fields.detach().cpu().numpy().astype(np.float64)
+        if xcyclic is None:
+            xcyclic = bool(bs.xcyclic)
+        lon = bs.lon.detach().cpu().numpy().astype(np.float64)
+        lat = bs.lat.detach().cpu().numpy().astype(np.float64)
+        if dtype is None:
+            dtype = bs.fields.dtype
+        if device is None:
+            device = bs.fields.device
+    else:
+        arr = (bs_or_fields.detach().cpu().numpy()
+               if torch.is_tensor(bs_or_fields) else np.asarray(bs_or_fields))
+        fields = arr.astype(np.float64)
+        if dtype is None:
+            dtype = arr.dtype
+        xcyclic = bool(xcyclic) if xcyclic is not None else False
+        if fields.ndim == 4:
+            raise ValueError("4-D stacks are time-varying; fit_spectral_time "
+                             "is not ported yet")
+    dtype = as_dtype(dtype)
+    if fields.ndim == 2:
+        fields = fields[..., None]
+    if xcyclic:
+        fields = fields[:-1]
+    n, nlat = fields.shape[0], fields.shape[1]
+    lon0 = 0.0 if lon is None else float(lon[0])
+    lat0 = -0.5 * pi if lat is None else float(lat[0])
+
+    if m_max is None:
+        m_max = n // 2
+    if l_max is None:
+        l_max = nlat
+    if not (0 <= m_max <= n // 2):
+        raise ValueError(f"m_max must be in [0, nlon//2={n // 2}]; got {m_max}")
+    if not (1 <= l_max <= nlat):
+        raise ValueError(f"l_max must be in [1, nlat={nlat}]; got {l_max}")
+
+    # Longitude: complex coefficients with the grid-origin phase folded in.
+    X = np.fft.rfft(fields, axis=0) / n
+    marr = np.arange(X.shape[0])
+    X = X * np.exp(-1j * marr * lon0)[:, None, None]
+    a = 2.0 * X.real
+    b = -2.0 * X.imag
+    a[0] *= 0.5
+    if n % 2 == 0:
+        # Nyquist column: no doubling; the phase fold rotates it into the
+        # sin component too.
+        a[n // 2] *= 0.5
+        b[n // 2] *= 0.5
+
+    rows = np.concatenate([a[: m_max + 1], b[1: m_max + 1]], axis=0)
+
+    # Latitude: DCT-I analysis (theta_j = j*pi/(nlat-1), endpoints in).
+    from scipy.fft import dct
+
+    G = dct(rows, type=1, axis=1) / (nlat - 1)
+    G[:, 0] *= 0.5
+    G[:, -1] *= 0.5
+    coeffs = G[:, :l_max]
+
+    return SpectralBackground(
+        coeffs=torch.as_tensor(coeffs).to(device=device, dtype=dtype),
+        lat0=torch.tensor(lat0, dtype=dtype, device=device),
+    )
+
+
+def _basis_lon(lon: torch.Tensor, m_max: int) -> torch.Tensor:
+    """(R, 2*m_max+1) rows [1, cos(1..M * lon), sin(1..M * lon)]."""
+    one = torch.ones_like(lon)[:, None]
+    if m_max == 0:
+        return one
+    marr = torch.arange(1, m_max + 1, dtype=lon.dtype, device=lon.device)
+    ang = lon[:, None] * marr[None, :]
+    return torch.cat([one, torch.cos(ang), torch.sin(ang)], dim=1)
+
+
+def _basis_lat(lat: torch.Tensor, lat0, l_max: int) -> torch.Tensor:
+    """(R, l_max) rows cos(l * (lat - lat0))."""
+    larr = torch.arange(l_max, dtype=lat.dtype, device=lat.device)
+    return torch.cos((lat - lat0)[:, None] * larr[None, :])
+
+
+def sample_spectral(sbg: SpectralBackground, lon, lat, *,
+                    matmul_dtype=None) -> torch.Tensor:
+    """Evaluate the spectral background at (lon, lat); returns (R, C).
+
+    Rows with |lat| > pi/2 are NaN; NaN positions propagate through the
+    basis. ``matmul_dtype`` (e.g. torch.bfloat16) rounds both product
+    operands to that dtype and accumulates in the coefficient dtype.
+    """
+    coeffs = sbg.coeffs
+    mp, l_max, c = coeffs.shape
+    acc_dtype = coeffs.dtype
+    lon = torch.as_tensor(lon).to(device=coeffs.device, dtype=acc_dtype)
+    lat = torch.as_tensor(lat).to(device=coeffs.device, dtype=acc_dtype)
+    blon = _basis_lon(lon, (mp - 1) // 2)
+    blat = _basis_lat(lat, sbg.lat0, l_max)
+    dflat = coeffs.reshape(mp, l_max * c)
+    if matmul_dtype is not None:
+        # Products of two bf16 values are exact in float32, so rounding the
+        # operands and multiplying in acc_dtype IS accumulation in acc_dtype.
+        blon = blon.to(matmul_dtype).to(acc_dtype)
+        dflat = dflat.to(matmul_dtype).to(acc_dtype)
+    w = blon @ dflat
+    out = torch.einsum("rl,rlc->rc", blat, w.reshape(-1, l_max, c))
+    in_range = torch.abs(lat) <= 0.5 * pi
+    return torch.where(in_range[:, None], out,
+                       torch.full_like(out, float("nan")))
+
+
+def sample_mercator_spectral(sbg: SpectralBackground, lon,
+                             lat) -> torch.Tensor:
+    """Spectral sample + Mercator transform; returns (C, R)."""
+    lat = torch.as_tensor(lat).to(device=sbg.coeffs.device,
+                                  dtype=sbg.coeffs.dtype)
+    return mercator_transform(sample_spectral(sbg, lon, lat), lat)
+
+
+def sample_spectral_cuda(sbg: SpectralBackground, lon, lat, *,
+                         matmul_dtype=None) -> torch.Tensor:
+    """Kernel-backed evaluation (counterpart of ``sample_spectral_pallas``).
+
+    On CUDA tensors it launches ``csrc/spectral.cu``; on CPU tensors it runs
+    ``sample_spectral``. The result equals ``sample_spectral`` up to the
+    order of the contraction's sums. ``matmul_dtype`` may be None or
+    torch.bfloat16 (float32 coefficients only, on the card).
+    """
+    coeffs = sbg.coeffs
+    if not coeffs.is_cuda:
+        return sample_spectral(sbg, lon, lat, matmul_dtype=matmul_dtype)
+    global LAUNCHES
+    dtype, dev = coeffs.dtype, coeffs.device
+    mp, l_max, c = coeffs.shape
+    round_bf16 = 0
+    if matmul_dtype is not None:
+        if matmul_dtype != torch.bfloat16 or dtype != torch.float32:
+            raise ValueError("the spectral kernel takes matmul_dtype=None, "
+                             "or torch.bfloat16 with float32 coefficients")
+        round_bf16 = 1
+    lon = torch.as_tensor(lon).to(device=dev, dtype=dtype).contiguous()
+    lat = torch.as_tensor(lat).to(device=dev, dtype=dtype).contiguous()
+    if lon.ndim != 1 or lon.shape != lat.shape:
+        raise ValueError("lon and lat must be matching (R,) vectors")
+    r = lon.shape[0]
+    tht = (lat - sbg.lat0.to(device=dev, dtype=dtype)).contiguous()
+    dflat = coeffs.reshape(mp, l_max * c)
+    if round_bf16:
+        dflat = dflat.to(torch.bfloat16).to(dtype)
+    dflat = dflat.contiguous()
+    for name, x in (("lon", lon), ("lat", lat), ("tht", tht),
+                    ("coeffs", dflat)):
+        kernels.check_tensor(x, name, device=dev, dtype=dtype)
+    out = torch.empty((r, c), dtype=dtype, device=dev)
+    if r == 0:
+        return out
+    kernels.launch("rwrt_spectral", dtype, lon, lat, tht, dflat, r, mp,
+                   l_max, c, round_bf16, out, kernels.stream(dev))
+    LAUNCHES += 1
+    return out

@@ -1,0 +1,165 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``; each test skips when no CUDA device is present (decided in
+a fixture, never at import). The file needs neither JAX nor the conftest,
+so on a GPU machine without JAX run it as
+
+    python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
+
+The library is built with -fmad=false, so the RHS and dense-group kernels
+must equal their plain versions bitwise; the spectral kernel sums its
+contraction in another order than the matmul, so it is held to 1e-12
+(float64) and 1e-5 (float32) of each channel's max |value|.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import rwrt_tpu_torch as pt
+from rwrt_tpu_torch import tracer
+from rwrt_tpu_torch.models import ray
+from rwrt_tpu_torch.ops import spectral_sample as spec
+from rwrt_tpu_torch.solvers import rk45
+
+pytestmark = pytest.mark.cuda
+
+DTYPES = [torch.float32, torch.float64]
+
+
+@pytest.fixture(scope="module")
+def jet_field():
+    """The conftest's synthetic jet, repeated so the file runs without it."""
+    nlon, nlat = 72, 37
+    lat = np.linspace(-np.pi / 2, np.pi / 2, nlat)
+    lon = np.arange(nlon) * 2 * np.pi / nlon
+    u = (
+        20.0 * np.cos(lat)[None, :] ** 2
+        + 8.0 * np.cos(2 * lon)[:, None] * np.cos(lat)[None, :] ** 2
+        + 25.0 * np.exp(-(((np.degrees(lat)[None, :] - 40.0) / 12.0) ** 2))
+    )
+    v = 3.0 * np.sin(lon)[:, None] * np.cos(lat)[None, :]
+    return u, v, lat, lon
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on a GPU machine)")
+    return torch.device("cuda", 0)
+
+
+def same(a, b):
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+        torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+def background(jet_field, dtype, dev):
+    u, v, lat, lon = jet_field
+    bs = pt.prepare(u, v, lat, lon, cal_dtype=dtype, device=dev)
+    return bs, tracer.make_background(bs, 0.0)
+
+
+def seeded_states(dtype, dev, n=5000):
+    rng = np.random.default_rng(11)
+    y = np.stack([rng.uniform(-1.0, 7.3, n), rng.uniform(-1.65, 1.65, n),
+                  rng.uniform(1.0, 7.0, n), rng.normal(0.0, 30.0, n),
+                  rng.uniform(0.5, 2.0, n)])
+    for row in (0, 3, 4):
+        y[row, rng.choice(n, 50, replace=False)] = np.nan
+    return torch.as_tensor(y, dtype=dtype, device=dev).contiguous()
+
+
+@pytest.mark.parametrize("gv", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rhs_kernel_equals_plain(jet_field, dev, dtype, gv):
+    _, bg = background(jet_field, dtype, dev)
+    y = seeded_states(dtype, dev)
+    before = ray.LAUNCHES
+    k = ray._rhs(bg, y, 0.0, gv)
+    p = ray._rhs_core(bg, y, 0.0, gv)
+    assert ray.LAUNCHES == before + 1
+    assert torch.equal(k[1], p[1])
+    for a, b in zip(k[:1] + k[2:], p[:1] + p[2:]):
+        if a is not None:
+            assert same(a, b)
+
+
+@pytest.mark.parametrize("pin", [None, (40, 0.0)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dense_group_kernel_equals_plain(jet_field, dev, dtype, pin):
+    _, bg = background(jet_field, dtype, dev)
+    slon, slat = tracer.source_matrix(0.0, -40.0, 10.0, 5.0, 36, 17)
+    y0, _, _ = tracer.initialize(
+        bg, torch.as_tensor(slon, dtype=dtype, device=dev),
+        torch.as_tensor(slat, dtype=dtype, device=dev),
+        torch.arange(1, 8, dtype=dtype, device=dev))
+    y0 = y0.contiguous()
+    rtol = rk45.validate_tol(1e-6, dtype)
+    h0 = tracer.initial_step_sizes(bg, y0, rtol, 1e-6)
+    t0 = torch.zeros_like(y0[0])
+    f0 = ray.RayRHS(bg)(y0)
+    bounds = torch.arange(1, 25, dtype=dtype, device=dev) * 7200.0
+    pin_kw = {} if pin is None else dict(pin_limit=pin[0], pin_mwn=pin[1])
+    before = rk45.LAUNCHES
+    k = rk45.integrate_group_dense(ray.RayRHS(bg), y0, t0, h0, f0, bounds,
+                                   rtol, 1e-6, 7.2, **pin_kw)
+    assert rk45.LAUNCHES == before + 1
+    plain_rhs = lambda yy, tt=0.0: ray._rhs_core(bg, yy, tt, False)[0]  # noqa: E731
+    p = rk45._integrate_group_dense_plain(
+        plain_rhs, y0, t0, h0, f0, bounds, rtol, 1e-6, 7.2, 1_000_000,
+        **pin_kw)
+    for i in (0, 1, 2, 3, 4):
+        assert same(k[i], p[i]), i
+    for i in (7, 8, 9):
+        assert torch.equal(k[i], p[i]), i
+    assert int(k[5]) == p[5]
+
+
+@pytest.mark.parametrize("case", ["float64", "float32", "bf16"])
+def test_spectral_kernel_matches_plain(jet_field, dev, case):
+    dtype = torch.float64 if case == "float64" else torch.float32
+    bs, _ = background(jet_field, dtype, dev)
+    sbg = spec.fit_spectral(bs)
+    rng = np.random.default_rng(12)
+    lon = torch.as_tensor(rng.uniform(-1, 7, 3000), dtype=dtype, device=dev)
+    lat = torch.as_tensor(rng.uniform(-1.6, 1.6, 3000), dtype=dtype,
+                          device=dev)
+    lon[:5] = float("nan")
+    mm = torch.bfloat16 if case == "bf16" else None
+    k = spec.sample_spectral_cuda(sbg, lon, lat, matmul_dtype=mm)
+    p = spec.sample_spectral(sbg, lon, lat, matmul_dtype=mm)
+    assert torch.equal(torch.isnan(k), torch.isnan(p))
+    scale = torch.nan_to_num(p.abs()).amax(dim=0)
+    err = (torch.nan_to_num((k - p).abs()) / scale).max()
+    assert float(err) <= (1e-12 if case == "float64" else 1e-5)
+
+
+def test_trace_rays_on_cuda_goes_through_the_kernels(jet_field, dev):
+    u, v, lat, lon = jet_field
+    bs = pt.prepare(u, v, lat, lon, cal_dtype="float32", device=dev)
+    cfg = pt.RunConfig(zwn=(2.0, 4.0, 6.0), sw_lon=0.0, sw_lat=5.0,
+                       dlon=36.0, dlat=8.0, nnx=5, nny=4, tstep=7200.0,
+                       ttotal=4 * 86400.0, integrator="rk45",
+                       bound_mode="dense", interval_batch=16, pin_limit=500,
+                       pin_mwn=0.0)
+    r0, d0 = ray.LAUNCHES, rk45.LAUNCHES
+    out = pt.trace_rays(bs, cfg)
+    assert ray.LAUNCHES > r0 and rk45.LAUNCHES > d0
+    assert out.lon.shape == (49, 3, 20, 3) and out.lon.is_cuda
+    alive = torch.isfinite(out.ky[-1])
+    assert alive.any() and torch.isfinite(out.lat[-1][alive]).all()
+
+
+def test_wrappers_refuse_bad_inputs(jet_field, dev):
+    _, bg = background(jet_field, torch.float32, dev)
+    y = seeded_states(torch.float64, dev, n=64)
+    with pytest.raises(ValueError):
+        ray._rhs_cuda(bg, y, False)          # dtype mismatch
+    with pytest.raises(ValueError):
+        ray._rhs_cuda(bg, y.float().T.contiguous().T, False)  # layout
+    with pytest.raises(TypeError):
+        yf = y.float().contiguous()
+        rk45.integrate_group_dense(
+            lambda yy, tt=0.0: yy, yf, yf[0], yf[0], yf,
+            torch.ones(3, device=dev), 1e-5, 1e-6, 7.2)
