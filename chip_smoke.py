@@ -20,7 +20,9 @@ Phases (any failed check raises; nothing is caught):
                (the spectral kernel at the day-10 positions) with its own
                counter, since ``trace_rays`` never calls the sampler
   spectral     spectral kernel vs ``sample_spectral`` at the day-10
-               positions, float64, float32 and bf16 operands
+               positions, float64, float64 with bf16 operands, float32 and
+               float32 with bf16 operands; kernel-alone, wrapper (with the
+               coefficient repack) and plain times, achieved TFLOP/s
 
 Prints the card (``nvidia-smi`` name and power limit), per-phase numbers,
 one ``{"kernels": [...]}`` JSON line and, last, the ``{"ok": true, ...}``
@@ -352,6 +354,7 @@ def phase_spectral(run):
     extra_lon = torch.tensor([0.3, float("nan"), 1.0], device=run.dev)
     extra_lat = torch.tensor([2.0, 0.1, -1.7], device=run.dev)
     for dtype, bar, mm in ((torch.float64, 1e-12, None),
+                           (torch.float64, 1e-12, torch.bfloat16),
                            (torch.float32, 1e-5, None),
                            (torch.float32, 1e-5, torch.bfloat16)):
         sbg = spec.fit_spectral(run.bs(dtype))
@@ -361,18 +364,30 @@ def phase_spectral(run):
         la = torch.cat([lat.to(dtype), extra_lat.to(dtype)])
         k = spec.sample_spectral_cuda(sbg, lo, la, matmul_dtype=mm)
         p = spec.sample_spectral(sbg, lo, la, matmul_dtype=mm)
+        k2 = spec.sample_spectral_cuda(sbg, lo, la, matmul_dtype=mm)
         torch.cuda.synchronize()
-        check(same_nan(k, p), f"spectral NaN rows differ ({dtype}, {mm})")
-        check(bool(torch.isnan(k[-3:]).all()), "spectral NaN rows missing")
-        e = rel_err(p.T, k.T, dim=1)
         tag = str(dtype)[6:] + ("_bf16" if mm is not None else "")
+        check(same_nan(k, p), f"spectral NaN rows differ ({tag})")
+        check(bool(torch.isnan(k[-3:]).all()), "spectral NaN rows missing")
+        check(torch.equal(torch.nan_to_num(k), torch.nan_to_num(k2)),
+              f"spectral {tag}: two launches differ")
+        e = rel_err(p.T, k.T, dim=1)
+        # The kernel alone, on operands the wrapper would prepare.
+        bf16 = mm is not None
+        packed = spec.pack_coeffs(sbg.coeffs, bf16)
+        tht = (la - sbg.lat0).contiguous()
+        out = torch.empty_like(k)
+        kern = cuda_ms(lambda: spec.launch_kernel(
+            packed, lo, la, tht, sbg.coeffs.shape, bf16, out), 20)
         ms = cuda_ms(lambda: spec.sample_spectral_cuda(
-            sbg, lo, la, matmul_dtype=mm), 5)
+            sbg, lo, la, matmul_dtype=mm), 20)
         plain = cuda_ms(lambda: spec.sample_spectral(
             sbg, lo, la, matmul_dtype=mm), 5)
+        flop = 2.0 * lo.shape[0] * math.prod(sbg.coeffs.shape)
         print(f"spectral {tag}: R={lo.shape[0]}, max err / channel max "
-              f"{e:.3e} (bar {bar:g}), kernel {ms:.3f} ms, plain "
-              f"{plain:.3f} ms")
+              f"{e:.3e} (bar {bar:g}), kernel alone {kern:.4f} ms "
+              f"({flop / kern * 1e-9:.1f} TFLOP/s), wrapper {ms:.4f} ms, "
+              f"plain {plain:.4f} ms")
         check(e <= bar, f"spectral {tag} error {e} > {bar}")
         if tag == "float32":
             run.kernels["spectral"] = dict(

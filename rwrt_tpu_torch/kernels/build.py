@@ -1,10 +1,13 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-``nvcc`` compiles every ``rwrt_tpu_torch/csrc/*.cu`` into one shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds), in
-``rwrt_tpu_torch/_build/<hash of the sources>/``. The hash covers the
-sources, the headers and the flags, so an edited source rebuilds and an
-unchanged one loads the library already built. Nothing here runs at import.
+One ``nvcc`` per ``rwrt_tpu_torch/csrc/*.cu``, all started together,
+compiles an object each; one more links them into a shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds), in
+``rwrt_tpu_torch/_build/<hash of the sources>/``, beside ``nvcc.log`` (the
+compiler's ``-Xptxas -v`` report: registers, shared memory, spills per
+kernel). The hash covers the sources, the headers and the flags, so an
+edited source rebuilds and an unchanged one loads the library already
+built. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ LIB_NAME = "librwrt_kernels.so"
 # amplifies one-ulp differences chaotically). Explicit fma() calls, as in
 # the spectral contraction, are unaffected.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,8 +47,8 @@ SIGNATURES = {
     # pin_limit, pin_mwn, stream
     "rwrt_dense_group": (_P, _I, _I, _D, _D, _D, _D, _P, _P, _P, _P, _P, _P,
                          _P, _P, _P, _I, _I, _D, _D, _D, _L, _L, _D, _P),
-    # lon, lat, tht, coeffs, R, Mp, L, C, round_bf16, out, stream
-    "rwrt_spectral": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+    # lon, lat, tht, packed, R, Mp, L, C, Kp, Lp, bf16, out, stream
+    "rwrt_spectral": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
 }
 
 
@@ -80,16 +83,29 @@ def build() -> Path:
     if lib.is_file():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu, _ = _sources()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
+        jobs, objs = [], []
+        for src in _sources()[0]:
+            objs.append(os.path.join(tmp_dir, src.stem + ".o"))
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1], str(src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log = []
+        for cmd, proc in jobs:
+            log.append(f"$ {' '.join(cmd)}\n{proc.communicate()[0]}")
+        (out_dir / "nvcc.log").write_text("\n".join(log))
+        if any(proc.returncode != 0 for _, proc in jobs):
+            raise RuntimeError("nvcc failed:\n" + "\n".join(log))
+        tmp = os.path.join(tmp_dir, LIB_NAME)
+        cmd = [nvcc, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, lib)  # atomic: a concurrent loader never sees half
     return lib
 
 

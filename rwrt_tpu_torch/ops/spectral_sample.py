@@ -12,9 +12,11 @@ points is a (R, Mp) @ (Mp, L*C) product followed by a latitude contraction.
 ``fit_spectral`` is host numpy, carried over from the JAX package.
 ``sample_spectral`` is the plain PyTorch evaluation. ``sample_spectral_cuda``
 replaces the JAX package's Pallas kernel ``sample_spectral_pallas``: on a
-CUDA tensor it launches ``csrc/spectral.cu``, which builds the basis rows
-and contracts them without materializing (R, Mp) or (R, L*C); on a CPU
-tensor it runs ``sample_spectral``. ``LAUNCHES`` counts kernel launches.
+CUDA tensor it repacks the coefficients (``pack_coeffs``) and launches
+``csrc/spectral.cu``, which builds the basis rows in shared memory and
+contracts them on the tensor cores without materializing (R, Mp) or
+(R, L*C); on a CPU tensor it runs ``sample_spectral``. ``LAUNCHES`` counts
+kernel launches.
 The time-varying fit (``fit_spectral_time``, ``lerp_coeffs``) is not ported
 yet.
 """
@@ -198,44 +200,128 @@ def sample_mercator_spectral(sbg: SpectralBackground, lon,
     return mercator_transform(sample_spectral(sbg, lon, lat), lat)
 
 
+#: One coefficient tile of ``csrc/spectral.cu``: its k depth (kKC) and its
+#: latitude columns (kGroupCols).
+KC = 32
+GROUP = 80
+
+
+def packed_dims(mp: int, l_max: int) -> tuple[int, int]:
+    """(Kp, Lp): Mp rounded up to ``KC``, L rounded up to 8 (the MMA n
+    width)."""
+    return -(-mp // KC) * KC, -(-l_max // 8) * 8
+
+
+def tile_row(dtype: torch.dtype) -> int:
+    """Elements in a tile row: ``KC`` plus the kernel's pad (kPad), which
+    makes its shared-memory fragment loads free of bank conflicts."""
+    return KC + (8 if dtype == torch.bfloat16 else 4)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32 (10 mantissa bits), nearest with ties away from
+    zero, as ``cvt.rna.tf32.f32``: the result is a float32 whose low 13 bits
+    are zero. For finite values."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def pack_coeffs(coeffs: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+    """Repack (Mp, L, C) coefficients into the kernel's tiles:
+    (C, G, Kp / KC, P, GROUP, tile_row), G = ceil(L / GROUP) column groups.
+
+    Tile (c, g, k) holds coeffs[k * KC + kk, g * GROUP + n, c] at [.., p, n,
+    kk], as the kernel's shared memory holds it, so one bulk copy stages it;
+    zero past Mp, past L and in the row pad. float32: P = 2 planes, the
+    3xTF32 split hi = tf32(x), lo = tf32(x - hi). bf16 operands: P = 1,
+    bfloat16 (float32 coefficients) or bfloat16 values held in float64.
+    float64: P = 1, as is.
+    """
+    mp, l_max, c = coeffs.shape
+    kp, _ = packed_dims(mp, l_max)
+    g = -(-l_max // GROUP)
+    b = torch.nn.functional.pad(coeffs.permute(2, 1, 0),
+                                (0, kp - mp, 0, g * GROUP - l_max))
+    if bf16:
+        b = b.to(torch.bfloat16)
+        planes = (b.to(torch.float64) if coeffs.dtype == torch.float64
+                  else b)[:, None]
+    elif coeffs.dtype == torch.float32:
+        hi = tf32_round(b)
+        planes = torch.stack([hi, tf32_round(b - hi)], dim=1)
+    else:
+        planes = b[:, None]
+    tiles = planes.reshape(c, -1, g, GROUP, kp // KC, KC)
+    tiles = tiles.permute(0, 2, 4, 1, 3, 5)
+    return torch.nn.functional.pad(
+        tiles, (0, tile_row(tiles.dtype) - KC)).contiguous()
+
+
+def _kernel_bf16(dtype: torch.dtype, matmul_dtype) -> bool:
+    """Whether the kernel takes bf16 operands; raises on a matmul_dtype it
+    does not serve."""
+    if matmul_dtype is None or matmul_dtype == dtype:
+        return False
+    if matmul_dtype == torch.bfloat16:
+        return True
+    raise NotImplementedError(
+        f"matmul_dtype={matmul_dtype} over {dtype} coefficients is not "
+        "served by the spectral kernel (ROADMAP Queue 2(c), spectral "
+        "operand dtypes); use None or torch.bfloat16")
+
+
 def sample_spectral_cuda(sbg: SpectralBackground, lon, lat, *,
                          matmul_dtype=None) -> torch.Tensor:
     """Kernel-backed evaluation (counterpart of ``sample_spectral_pallas``).
 
     On CUDA tensors it launches ``csrc/spectral.cu``; on CPU tensors it runs
     ``sample_spectral``. The result equals ``sample_spectral`` up to the
-    order of the contraction's sums. ``matmul_dtype`` may be None or
-    torch.bfloat16 (float32 coefficients only, on the card).
+    order of the contraction's sums. ``matmul_dtype`` is None, the
+    coefficient dtype (the same as None) or torch.bfloat16; any other dtype
+    raises NotImplementedError, on either device.
     """
     coeffs = sbg.coeffs
+    bf16 = _kernel_bf16(coeffs.dtype, matmul_dtype)
     if not coeffs.is_cuda:
-        return sample_spectral(sbg, lon, lat, matmul_dtype=matmul_dtype)
+        return sample_spectral(sbg, lon, lat,
+                               matmul_dtype=torch.bfloat16 if bf16 else None)
     global LAUNCHES
     dtype, dev = coeffs.dtype, coeffs.device
-    mp, l_max, c = coeffs.shape
-    round_bf16 = 0
-    if matmul_dtype is not None:
-        if matmul_dtype != torch.bfloat16 or dtype != torch.float32:
-            raise ValueError("the spectral kernel takes matmul_dtype=None, "
-                             "or torch.bfloat16 with float32 coefficients")
-        round_bf16 = 1
     lon = torch.as_tensor(lon).to(device=dev, dtype=dtype).contiguous()
     lat = torch.as_tensor(lat).to(device=dev, dtype=dtype).contiguous()
     if lon.ndim != 1 or lon.shape != lat.shape:
         raise ValueError("lon and lat must be matching (R,) vectors")
-    r = lon.shape[0]
     tht = (lat - sbg.lat0.to(device=dev, dtype=dtype)).contiguous()
-    dflat = coeffs.reshape(mp, l_max * c)
-    if round_bf16:
-        dflat = dflat.to(torch.bfloat16).to(dtype)
-    dflat = dflat.contiguous()
-    for name, x in (("lon", lon), ("lat", lat), ("tht", tht),
-                    ("coeffs", dflat)):
-        kernels.check_tensor(x, name, device=dev, dtype=dtype)
-    out = torch.empty((r, c), dtype=dtype, device=dev)
-    if r == 0:
+    out = torch.empty((lon.shape[0], coeffs.shape[2]), dtype=dtype,
+                      device=dev)
+    if lon.shape[0] == 0:
         return out
-    kernels.launch("rwrt_spectral", dtype, lon, lat, tht, dflat, r, mp,
-                   l_max, c, round_bf16, out, kernels.stream(dev))
+    launch_kernel(pack_coeffs(coeffs, bf16), lon, lat, tht, coeffs.shape,
+                  bf16, out)
     LAUNCHES += 1
     return out
+
+
+def launch_kernel(packed, lon, lat, tht, coeffs_shape, bf16: bool,
+                  out) -> None:
+    """Launch ``csrc/spectral.cu`` on prepared operands: ``packed`` from
+    ``pack_coeffs``, contiguous (R,) lon, lat and tht = lat - lat0, and the
+    (R, C) output, all on one card in the coefficient dtype. Checks them and
+    raises on what the kernel does not take; counts nothing (the wrapper
+    does)."""
+    mp, l_max, c = coeffs_shape
+    if mp % 2 != 1:
+        raise ValueError(f"coefficients need Mp = 2 * m_max + 1 rows, got {mp}")
+    dtype, dev, r = lon.dtype, lon.device, lon.shape[0]
+    kp, lp = packed_dims(mp, l_max)
+    for name, x in (("lon", lon), ("lat", lat), ("tht", tht)):
+        kernels.check_tensor(x, name, device=dev, dtype=dtype, shape=(r,))
+    kernels.check_tensor(out, "out", device=dev, dtype=dtype, shape=(r, c))
+    op = torch.bfloat16 if bf16 and dtype == torch.float32 else dtype
+    kernels.check_tensor(
+        packed, "packed coeffs", device=dev, dtype=op,
+        shape=(c, -(-l_max // GROUP), kp // KC,
+               2 if dtype == torch.float32 and not bf16 else 1, GROUP,
+               tile_row(op)))
+    kernels.launch("rwrt_spectral", dtype, lon, lat, tht, packed, r, mp,
+                   l_max, c, kp, lp, int(bf16), out, kernels.stream(dev))

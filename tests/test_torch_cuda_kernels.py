@@ -8,8 +8,10 @@ so on a GPU machine without JAX run it as
 
 The library is built with -fmad=false, so the RHS and dense-group kernels
 must equal their plain versions bitwise; the spectral kernel sums its
-contraction in another order than the matmul, so it is held to 1e-12
-(float64) and 1e-5 (float32) of each channel's max |value|.
+contraction on the tensor cores in another order than the matmul, so it is
+held to 1e-12 (float64, and bf16 operands over float64) and 1e-5
+(float32 by 3xTF32, and bf16 operands over float32) of each channel's max
+|value|, and to bitwise equality between two of its own launches.
 """
 
 import numpy as np
@@ -116,23 +118,68 @@ def test_dense_group_kernel_equals_plain(jet_field, dev, dtype, pin):
     assert int(k[5]) == p[5]
 
 
-@pytest.mark.parametrize("case", ["float64", "float32", "bf16"])
-def test_spectral_kernel_matches_plain(jet_field, dev, case):
-    dtype = torch.float64 if case == "float64" else torch.float32
+SPECTRAL_BARS = {"float64": 1e-12, "float64_bf16": 1e-12, "float32": 1e-5,
+                 "bf16": 1e-5}
+
+
+@pytest.mark.parametrize("n_rays", [1, 127, 129, 3000])
+@pytest.mark.parametrize("n_fields", [1, 12, 18])
+@pytest.mark.parametrize("trunc", [(None, None), (9, 11), (0, None),
+                                   (None, 1)],
+                         ids=["full", "m9_l11", "m0", "l1"])
+@pytest.mark.parametrize("case", list(SPECTRAL_BARS))
+def test_spectral_kernel_matches_plain(jet_field, dev, case, trunc, n_fields,
+                                       n_rays):
+    """Every truncation the JAX kernel serves (m_max 0 is Mp = 1, l_max 1 a
+    single latitude mode), C of 1 to 18, ragged R, and NaN lon, NaN lat and
+    |lat| > pi/2 rows; max |diff| over each channel's max |value| on the
+    3000 points."""
+    dtype = torch.float64 if case.startswith("float64") else torch.float32
     bs, _ = background(jet_field, dtype, dev)
-    sbg = spec.fit_spectral(bs)
+    fit = spec.fit_spectral(bs, m_max=trunc[0], l_max=trunc[1])
+    sbg = spec.SpectralBackground(fit.coeffs[..., :n_fields].contiguous(),
+                                  fit.lat0)
     rng = np.random.default_rng(12)
     lon = torch.as_tensor(rng.uniform(-1, 7, 3000), dtype=dtype, device=dev)
     lat = torch.as_tensor(rng.uniform(-1.6, 1.6, 3000), dtype=dtype,
                           device=dev)
-    lon[:5] = float("nan")
-    mm = torch.bfloat16 if case == "bf16" else None
+    lat[0] = 0.3                         # row 0 in range, for R = 1
+    lon[1:6] = float("nan")
+    lat[6:9] = float("nan")
+    lat[9], lat[10] = 1.58, -1.6         # |lat| > pi/2
+    mm = torch.bfloat16 if case.endswith("bf16") else None
+    scale = torch.nan_to_num(
+        spec.sample_spectral(sbg, lon, lat, matmul_dtype=mm).abs()).amax(0)
+    lon, lat = lon[:n_rays], lat[:n_rays]
+    before = spec.LAUNCHES
     k = spec.sample_spectral_cuda(sbg, lon, lat, matmul_dtype=mm)
+    assert spec.LAUNCHES == before + 1
     p = spec.sample_spectral(sbg, lon, lat, matmul_dtype=mm)
+    assert k.shape == (n_rays, n_fields)
     assert torch.equal(torch.isnan(k), torch.isnan(p))
-    scale = torch.nan_to_num(p.abs()).amax(dim=0)
-    err = (torch.nan_to_num((k - p).abs()) / scale).max()
-    assert float(err) <= (1e-12 if case == "float64" else 1e-5)
+    if n_rays > 10:
+        # NaN lat and |lat| > pi/2 rows; NaN lon rows too, except at
+        # m_max = 0, whose lon basis is the constant 1.
+        assert torch.isnan(k[6:11]).all()
+        assert torch.isnan(k[1:6]).all() == (trunc[0] != 0)
+    # Channels that vanish at this truncation (lon derivatives at m_max = 0)
+    # have scale 0 and must come out exactly 0.
+    diff = torch.nan_to_num((k - p).abs())
+    err = torch.where(diff == 0, 0.0, diff / scale).max()
+    assert float(err) <= SPECTRAL_BARS[case]
+    # A fixed summation order: a second launch is bitwise equal.
+    assert same(k, spec.sample_spectral_cuda(sbg, lon, lat, matmul_dtype=mm))
+
+
+def test_spectral_wrapper_refuses_other_matmul_dtypes(jet_field, dev):
+    bs, _ = background(jet_field, torch.float32, dev)
+    sbg = spec.fit_spectral(bs)
+    lon = torch.zeros(4, device=dev)
+    with pytest.raises(NotImplementedError):
+        spec.sample_spectral_cuda(sbg, lon, lon, matmul_dtype=torch.float16)
+    same_as_none = spec.sample_spectral_cuda(sbg, lon, lon,
+                                             matmul_dtype=torch.float32)
+    assert same(same_as_none, spec.sample_spectral_cuda(sbg, lon, lon))
 
 
 def test_trace_rays_on_cuda_goes_through_the_kernels(jet_field, dev):
