@@ -13,16 +13,36 @@ the spectral fit of the same background at the day-10 positions.
 Phases (any failed check raises; nothing is caught):
   rhs          ``ray.rhs`` and ``ray.rhs_and_gv`` (the kernel) vs the
                plain ``ray._rhs_core`` on 100,800 seeded states
-  dense_group  one 60-bound group on the 100,800-ray seed batch, kernel vs
-               the plain loop, float64 and float32
+  dense_group  one 60-bound group on the 100,800-ray seed batch, the
+               single-group kernel (``integrate_group_dense``) vs the plain
+               loop, float64 and float32
+  dense_run    the whole-run kernel (``tracer._dense_run``: every group,
+               the kill cascade, (ug, vg)) vs the plain ``_dense_run_plain``
+               over all 360 bounds, bitwise: float32 on the production
+               run's own entry state (the 60,784 compacted lanes), and the
+               first 4,096 of those lanes in float32 (against the full
+               run's rows) and in float64 (against the plain run)
   main_path    the run above through ``trace_rays``, launch counters reset
-               just before it and read just after; then a sampler stage
-               (the spectral kernel at the day-10 positions) with its own
-               counter, since ``trace_rays`` never calls the sampler
+               just before it and read just after (one whole-run launch,
+               no single-group launch), step attempts from its ``stats``,
+               peak device memory, rows bitwise equal to the dense_run
+               phase's; then a sampler stage (the spectral kernel at the
+               day-10 positions) with its own counter, since ``trace_rays``
+               never calls the sampler
   spectral     spectral kernel vs ``sample_spectral`` at the day-10
                positions, float64, float64 with bf16 operands, float32 and
                float32 with bf16 operands; kernel-alone, wrapper (with the
-               coefficient repack) and plain times, achieved TFLOP/s
+               coefficient repack) and plain times, achieved TFLOP/s, and
+               the library call ``torch.matmul`` of the (R, Mp) basis by the
+               (Mp, L * C) coefficients
+
+Each kernel's bound is the larger of its bytes (each input read once, each
+output written once) over 3.35 TB/s and its flops over the data sheet's
+peak for the units that do them: for the RHS and dense kernels, the flops
+counted from the sources for this run's data (step attempts, rows kept)
+over the peak outside the tensor cores (67 TFLOP/s float32, 34 float64);
+for the spectral kernel's float32 case, which runs 3xTF32 on the tensor
+cores, three times the product's flops over the TF32 peak (495 TFLOP/s).
 
 Prints the card (``nvidia-smi`` name and power limit), per-phase numbers,
 one ``{"kernels": [...]}`` JSON line and, last, the ``{"ok": true, ...}``
@@ -47,6 +67,24 @@ HOUR = 3600.0
 #: The production workload (the repo benchmark's seeding and horizon).
 N_SOURCES = 4800
 N_DAYS = 30
+#: Lanes of the dense_run phase's float64 comparison.
+N_SUBSET = 4096
+
+#: H100 SXM data sheet: HBM bandwidth, the peaks outside the tensor cores
+#: and the dense TF32 tensor-core peak.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "tf32": 495e12}
+#: Flops counted from the sources (an add, multiply, divide, sqrt or
+#: transcendental each): one ray_rhs evaluation (csrc/ray_rhs.cuh: 119 for
+#: the sample, of which 84 blend the 12 fields; 19 group velocity; 44
+#: tendencies and outputs); a step attempt of csrc/dense_run.cu beyond its
+#: six evaluations (175 stage sums, 65 the 5th-order sum, 95 the error
+#: terms, 7 norm and controller); an emitted bound (126 the quartic
+#: interpolant); its kill test and (ug, vg) sample (18 + 138).
+RHS_FLOPS = 182
+ATTEMPT_FLOPS = 6 * RHS_FLOPS + 342
+ROW_FLOPS = 126
+CASCADE_FLOPS = 156
 
 
 def climatology_background(nlon=144, nlat=73):
@@ -103,6 +141,28 @@ def wall_s(fn):
     return out, time.perf_counter() - t0
 
 
+def bound(nbytes, flops, unit):
+    """The least time for the work: the larger of bytes over the memory
+    rate and flops over the peak of ``unit`` (a key of ``PEAK_FLOPS``),
+    and which of the two it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[unit]
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def same(a, b):
+    """Equal to the bit, NaN where NaN."""
+    import torch
+
+    return same_nan(a, b) and bool(torch.equal(torch.nan_to_num(a),
+                                               torch.nan_to_num(b)))
+
+
 def same_nan(a, b):
     import torch
 
@@ -137,16 +197,48 @@ class Run:
                                cal_dtype=dtype, device=self.dev)
 
     def seed_batch(self, dtype):
+        """The production run's seed batch: (bs, bg, y0, ug0, vg0)."""
         from rwrt_tpu_torch import tracer
 
         bs = self.bs(dtype)
         bg = tracer.make_background(bs, 0.0)
         t = self.torch
-        y0, _, _ = tracer.initialize(
+        y0, ug0, vg0 = tracer.initialize(
             bg, t.as_tensor(self.slon, dtype=dtype, device=self.dev),
             t.as_tensor(self.slat, dtype=dtype, device=self.dev),
             t.arange(1, 8, dtype=dtype, device=self.dev))
-        return bs, bg, y0.contiguous()
+        return bs, bg, y0.contiguous(), ug0, vg0
+
+    def run_inputs(self, dtype):
+        """``trace_rays``' entry state for the production run, as it hands
+        it to ``_dense_run``: the compacted lanes, their (ug0, vg0), h0, f0,
+        the padded bounds and the run's scalars. Returns (bg, args, kw,
+        idx) with idx the compacted lanes' indices in the seed batch."""
+        from rwrt_tpu_torch import tracer
+        from rwrt_tpu_torch.models import ray
+        from rwrt_tpu_torch.solvers import rk45
+
+        torch = self.torch
+        cfg = production_config(self.rt)
+        _, bg, y0, ug0, vg0 = self.seed_batch(dtype)
+        idx = tracer.compact_lane_indices(
+            torch.isfinite(y0[4]).cpu().numpy())
+        take = torch.as_tensor(idx, device=self.dev)
+        y0 = y0.index_select(1, take).contiguous()
+        ug0, vg0 = ug0.index_select(0, take), vg0.index_select(0, take)
+        rtol = rk45.validate_tol(cfg.rtol, dtype)
+        atol = rk45.as_scalar(cfg.atol, dtype)
+        min_step = rk45.as_scalar(min(cfg.min_step_factor * cfg.tstep,
+                                      cfg.tstep * 1e-3), dtype)
+        h0 = tracer.initial_step_sizes(bg, y0, rtol, atol)
+        f0 = ray.RayRHS(bg)(y0)
+        bounds_g = tracer.padded_bounds(
+            rk45.as_scalar(cfg.tstep, dtype), cfg.nt,
+            min(cfg.interval_batch, cfg.nt - 1), dtype, self.dev)
+        args = (bg, y0, ug0, vg0, h0, f0, bounds_g, cfg.nt - 1,
+                rk45.as_scalar(cfg.cut_off_rad, dtype), rtol, atol, min_step)
+        kw = dict(pin_limit=cfg.pin_limit, pin_mwn=cfg.pin_mwn)
+        return bg, args, kw, idx
 
 
 def phase_rhs(run):
@@ -166,7 +258,7 @@ def phase_rhs(run):
         y[row, rng.choice(n, 500, replace=False)] = np.nan
     y[1, :200] = np.pi / 2 - 1e-3           # inside the polar cap
     for dtype, bar in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
-        _, bg, _ = run.seed_batch(dtype)
+        _, bg, _, _, _ = run.seed_batch(dtype)
         yt = torch.as_tensor(y, dtype=dtype, device=run.dev).contiguous()
         for gv in (False, True):
             # Through the public wrappers, which must launch the kernel.
@@ -194,11 +286,15 @@ def phase_rhs(run):
         if dtype == torch.float32:
             ms = cuda_ms(lambda: ray.rhs(bg, yt), 50)
             plain = cuda_ms(lambda: ray._rhs_core(bg, yt, 0.0, False), 20)
-            print(f"rhs time at R={n}: kernel {ms:.4f} ms, plain {plain:.4f} ms")
+            # y in, dy and err out, the background once.
+            b = bound(2 * nbytes(yt) + n + nbytes(bg.fields), n * RHS_FLOPS,
+                      "float32")
+            print(f"rhs time at R={n}: kernel {ms:.4f} ms, plain {plain:.4f} "
+                  f"ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
             run.kernels["rhs"] = dict(
                 max_abs_err=float(torch.nan_to_num(
                     torch.abs(k[0] - p[0]), nan=0.0).max()),
-                ms=ms, plain_ms=plain)
+                ms=ms, plain_ms=plain, library_ms=None, **b)
 
 
 def _group_pos_diff_deg(a, b):
@@ -215,7 +311,7 @@ def phase_dense_group(run):
     from rwrt_tpu_torch import tracer
 
     for dtype in (torch.float64, torch.float32):
-        bs, bg, y0 = run.seed_batch(dtype)
+        bs, bg, y0, _, _ = run.seed_batch(dtype)
         r = y0.shape[1]
         rhs_fn = ray.RayRHS(bg)
         rtol = rk45.validate_tol(1e-6, dtype)
@@ -268,15 +364,105 @@ def phase_dense_group(run):
             check(med_deg <= 0.01, f"float32 median {med_deg} deg > 0.01")
             ms = cuda_ms(run_kernel, 5)
             plain_ms = cuda_ms(run_plain, 1)
+            # State and bounds in; rows, carry, flags and attempts out.
+            frozen = torch.isnan(y0.mean(dim=0))
+            rows = int((torch.isfinite(kern[0][:, 0]) & ~frozen).sum())
+            b = bound(nbytes(y0, t0, h0, f0, bounds, bg.fields, kern[0],
+                             *kern[1:5], kern[7], kern[8], kern[9]),
+                      int(kern[7].sum()) * ATTEMPT_FLOPS + rows * ROW_FLOPS,
+                      "float32")
             print(f"  float32 device time (CUDA events): kernel {ms:.3f} ms, "
-                  f"plain {plain_ms:.1f} ms")
+                  f"plain {plain_ms:.1f} ms, bound {b['bound_ms']:.4f} ms "
+                  f"({b['bound_by']})")
             run.kernels["dense_group"] = dict(
-                max_abs_err=float(dpos.max()), ms=ms, plain_ms=plain_ms)
+                max_abs_err=float(dpos.max()), ms=ms, plain_ms=plain_ms,
+                library_ms=None, **b)
+
+
+def dense_run_bound(args, out, dtype):
+    """Bytes: the entry state, bounds and background in, every output out;
+    flops: this run's step attempts, and the rows it keeps, each with its
+    interpolant, kill test and (ug, vg) sample."""
+    bg, y0, ug0, vg0, h0, f0, bounds_g = args[:7]
+    rows = int(out.ys[1:, 0].isfinite().sum())
+    return bound(nbytes(bg.fields, y0, ug0, vg0, h0, f0, bounds_g, out.ys,
+                        out.ugs, out.vgs, out.lane_att, out.trunc,
+                        *out.carry),
+                 int(out.lane_att.sum()) * ATTEMPT_FLOPS
+                 + rows * (ROW_FLOPS + CASCADE_FLOPS), str(dtype)[6:])
+
+
+def lane_subset(args, n):
+    """``_dense_run``'s arguments cut to their first n lanes."""
+    r = args[1].shape[1]
+    return tuple(a[..., :n].contiguous() if hasattr(a, "shape") and a.ndim
+                 and a.shape[-1] == r else a for a in args)
+
+
+def phase_dense_run(run):
+    torch = run.torch
+    from rwrt_tpu_torch import tracer
+
+    def equal(k, p, what):
+        for name in ("ys", "ugs", "vgs", "lane_att", "trunc"):
+            check(same(getattr(k, name), getattr(p, name)),
+                  f"dense_run {what}: {name} differs from the plain run")
+        for a, b in zip(k.carry, p.carry):
+            check(same(a, b), f"dense_run {what}: carry differs")
+
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype)[6:]
+        _, args, kw, idx = run.run_inputs(dtype)
+        if dtype == torch.float64:
+            # The first N_SUBSET lanes: lanes are independent.
+            args = lane_subset(args, N_SUBSET)
+        r = args[1].shape[1]
+        before = tracer.LAUNCHES
+        kern = tracer._dense_run(*args, **kw)
+        check(tracer.LAUNCHES == before + 1, "dense_run did not launch once")
+        ms = cuda_ms(lambda: tracer._dense_run(*args, **kw), 5)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain = tracer._dense_run_plain(*args, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        equal(kern, plain, f"{name}, {r} lanes")
+        b = dense_run_bound(args, kern, dtype)
+        trips = kern.lane_att.sum(dim=0)
+        print(f"dense_run {name}: R={r}, {kern.ys.shape[0] - 1} bounds in "
+              f"{kern.lane_att.shape[0]} groups, bitwise equal to the plain "
+              f"run (rows, ug, vg, lane_att, trunc, carry); kernel "
+              f"{ms:.3f} ms (CUDA events), plain {plain_ms:.1f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}); step attempts "
+              f"{int(kern.lane_att.sum())}, max trips per group "
+              f"{kern.lane_att.amax(dim=1).tolist()}, longest lane "
+              f"{int(trips.max())} trips in all, truncated lane-groups "
+              f"{int(kern.trunc.sum())}")
+        if dtype == torch.float32:
+            err = max(float(torch.nan_to_num(torch.abs(k - p), nan=0.0).max())
+                      for k, p in ((kern.ys, plain.ys), (kern.ugs, plain.ugs),
+                                   (kern.vgs, plain.vgs)))
+            run.kernels["dense_run"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                **b)
+            run.dense_run = (idx, kern)
+            # The first N_SUBSET lanes alone give the full run's rows.
+            part = tracer._dense_run(*lane_subset(args, N_SUBSET), **kw)
+            for n in ("ys", "ugs", "vgs", "lane_att", "trunc"):
+                check(same(getattr(part, n),
+                           getattr(kern, n)[..., :N_SUBSET].contiguous()),
+                      f"dense_run: the first {N_SUBSET} lanes' {n} differ "
+                      "from the full run's")
+            print(f"  the first {N_SUBSET} lanes alone: bitwise equal to "
+                  "the full run's")
 
 
 def phase_main_path(run):
     torch = run.torch
     from rwrt_tpu_torch.models import ray
+    from rwrt_tpu_torch import tracer
     from rwrt_tpu_torch.ops import spectral_sample as spec
     from rwrt_tpu_torch.solvers import rk45
 
@@ -284,31 +470,25 @@ def phase_main_path(run):
     bs = run.bs(torch.float32)
     sbg = spec.fit_spectral(bs)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
 
-    # Step attempts: each group's per-lane counts, kept on the card and
-    # summed once after the run, so the count adds no host read per group.
-    lane_atts = []
-    integrate = rk45.integrate_group_dense
-
-    def counted(*args, **kw):
-        out = integrate(*args, **kw)
-        lane_atts.append(out[7])
-        return out
-
-    rk45.integrate_group_dense = counted
-    try:
-        ray.LAUNCHES = rk45.LAUNCHES = spec.LAUNCHES = 0
-        t0 = time.perf_counter()
-        traj = run.rt.trace_rays(bs, cfg, source_lon=run.slon,
-                                 source_lat=run.slat)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {"rhs": ray.LAUNCHES, "dense_group": rk45.LAUNCHES,
-                    "spectral": spec.LAUNCHES}
-    finally:
-        rk45.integrate_group_dense = integrate
-    attempts = int(sum(int(a.sum()) for a in lane_atts))
+    stats = {}
+    ray.LAUNCHES = rk45.LAUNCHES = tracer.LAUNCHES = spec.LAUNCHES = 0
+    t0 = time.perf_counter()
+    traj = run.rt.trace_rays(bs, cfg, source_lon=run.slon,
+                             source_lat=run.slat, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"rhs": ray.LAUNCHES, "dense_group": rk45.LAUNCHES,
+                "dense_run": tracer.LAUNCHES, "spectral": spec.LAUNCHES}
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    attempts = int(stats["lane_att"].sum())
     check(launches["spectral"] == 0, "trace_rays launched the spectral kernel")
+    check(launches["dense_run"] == 1,
+          f"trace_rays made {launches['dense_run']} whole-run launches, not 1")
+    check(launches["dense_group"] == 0,
+          "trace_rays launched the single-group kernel")
     # chip_smoke's own sampler stage after the tracer: the spectral fit of
     # the same background at the day-10 positions the tracer emitted. Its
     # counter is read separately: trace_rays never calls the sampler.
@@ -331,17 +511,29 @@ def phase_main_path(run):
         check(bool(torch.isfinite(getattr(traj, k)[-1][alive_end]).all()),
               f"non-finite {k} on a lane alive at day 30")
     check(bool(torch.isfinite(samples).all()), "non-finite spectral sample")
-    for k, n in launches.items():
-        check(n > 0, f"{k} kernel was not launched")
+    for k in ("rhs", "dense_run", "spectral"):
+        check(launches[k] > 0, f"{k} kernel was not launched")
+    # The dense_run phase ran the kernel on this run's entry state.
+    idx, kern = run.dense_run
+    flat = {k: getattr(traj, k).reshape(nt, -1)[:, idx]
+            for k in traj._fields}
+    for k, row in (("lon", 0), ("lat", 1), ("kx", 2), ("ky", 3), ("amp", 4)):
+        check(same(flat[k], kern.ys[:, row]),
+              f"trace_rays {k} differs from the dense_run phase's rows")
+    check(same(flat["ug"], kern.ugs) and same(flat["vg"], kern.vgs),
+          "trace_rays (ug, vg) differ from the dense_run phase's")
     alive = {d: float(torch.isfinite(traj.ky[12 * d]).float().mean())
              for d in (10, 20, 30) if 12 * d < nt}
     rate = n_rays * (nt - 1) / wall
     print(f"main_path ray-steps/s {rate:.1f}")
     print(f"main_path: {n_rays} rays x {N_DAYS} days, wall {wall:.3f} s, "
-          f"alive fraction by day {alive}, step attempts {attempts}")
-    print(f"launches: trace_rays rhs {launches['rhs']}, dense_group "
-          f"{launches['dense_group']}; sampler stage after it: spectral "
-          f"{launches['spectral']} at {pos[0].shape[0]} day-10 points")
+          f"alive fraction by day {alive}, step attempts {attempts}, peak "
+          f"device memory {peak:.1f} MiB above the prepared state; rows "
+          f"bitwise equal to the dense_run phase's")
+    print(f"launches: trace_rays rhs {launches['rhs']}, dense_run "
+          f"{launches['dense_run']}, dense_group {launches['dense_group']}; "
+          f"sampler stage after it: spectral {launches['spectral']} at "
+          f"{pos[0].shape[0]} day-10 points")
     run.launches = launches
     run.day10 = pos
 
@@ -390,16 +582,27 @@ def phase_spectral(run):
               f"plain {plain:.4f} ms")
         check(e <= bar, f"spectral {tag} error {e} > {bar}")
         if tag == "float32":
+            # The library call: the product alone, on the prepared basis.
+            mp, nl, nc = sbg.coeffs.shape
+            basis = spec._basis_lon(lo, (mp - 1) // 2)
+            dflat = sbg.coeffs.reshape(mp, nl * nc)
+            library = cuda_ms(lambda: torch.matmul(basis, dflat), 20)
+            # 3xTF32: three TF32 tensor-core products per useful one.
+            b = bound(nbytes(lo, la, sbg.coeffs, k), 3 * flop, "tf32")
+            print(f"  library torch.matmul (R, Mp) @ (Mp, L*C): {library:.4f}"
+                  f" ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
             run.kernels["spectral"] = dict(
                 max_abs_err=float(torch.nan_to_num(
                     torch.abs(k - p), nan=0.0).max()),
-                ms=ms, plain_ms=plain)
+                ms=ms, plain_ms=plain, library_ms=library, **b)
 
 
 KERNELS = (
     ("rhs", "rwrt_tpu_torch/csrc/rhs.cu", "rwrt_tpu/models/ray.py:163"),
-    ("dense_group", "rwrt_tpu_torch/csrc/dense_group.cu",
+    ("dense_group", "rwrt_tpu_torch/csrc/dense_run.cu",
      "rwrt_tpu/solvers/rk45.py:494"),
+    ("dense_run", "rwrt_tpu_torch/csrc/dense_run.cu",
+     "rwrt_tpu/tracer.py:861"),
     ("spectral", "rwrt_tpu_torch/csrc/spectral.cu",
      "rwrt_tpu/ops/spectral_sample.py:324"),
 )
@@ -434,8 +637,8 @@ def main() -> int:
     print(f"build {time.perf_counter() - t0:.1f} s")
 
     run = Run(torch, rt)
-    for phase in (phase_rhs, phase_dense_group, phase_main_path,
-                  phase_spectral):
+    for phase in (phase_rhs, phase_dense_group, phase_dense_run,
+                  phase_main_path, phase_spectral):
         t0 = time.perf_counter()
         phase(run)
         print(f"phase {phase.__name__[6:]} ok in "

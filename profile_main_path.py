@@ -7,11 +7,12 @@ Runs chip_smoke.py's production workload (100,800 rays, 30 days, dense
 RK45, pin (500, 0), float32) through ``rwrt_tpu_torch.trace_rays``: one
 warm-up run, then ``--runs`` timed runs (host wall to a device synchronize),
 then one run under ``torch.profiler``. Prints the card (``nvidia-smi`` name
-and power limit), each wall, the peak device memory, the device span and
-kernel-busy time of the profiled run (so the device's idle share), each
-dense group's kernel time (CUDA events), trips and step attempts, and the
-profiler's top operators; the full operator table goes to
-``DIR/profile_main_path.txt``. The profiler inflates the host side, so the
+and power limit), each wall, the peak device memory, the device span,
+kernel-busy time and kernel count of the profiled run (so the device's
+idle share), the whole-run dense kernel's device time, each group's most
+trips and step attempts and the longest lane's trips over all groups (from
+``trace_rays``' ``stats``), and the profiler's top operators; the full
+operator table goes to ``DIR/profile_main_path.txt``. The profiler inflates the host side, so the
 profiled run's span is longer than an untraced run's wall. Imports no JAX.
 """
 
@@ -39,7 +40,6 @@ def main() -> int:
         print("profile_main_path: no CUDA device", file=sys.stderr)
         return 1
     import rwrt_tpu_torch as rt
-    from rwrt_tpu_torch.solvers import rk45
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -49,9 +49,11 @@ def main() -> int:
     cfg = cs.production_config(rt)
     bs = run.bs(torch.float32)
 
+    stats = {}
+
     def trace():
         return rt.trace_rays(bs, cfg, source_lon=run.slon,
-                             source_lat=run.slat)
+                             source_lat=run.slat, stats=stats)
 
     _, first = cs.wall_s(trace)
     walls = [cs.wall_s(trace)[1] for _ in range(args.runs)]
@@ -60,41 +62,29 @@ def main() -> int:
     print(f"peak device memory MiB "
           f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f}")
 
-    # Per-group kernel time, trips and attempts, read after the run.
-    groups = []
-    integrate = rk45.integrate_group_dense
+    from torch.profiler import ProfilerActivity, profile
 
-    def timed(*a, **kw):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = integrate(*a, **kw)
-        end.record()
-        groups.append((start, end, out[5], out[7]))
-        return out
-
-    rk45.integrate_group_dense = timed
-    try:
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            trace()
-            torch.cuda.synchronize()
-    finally:
-        rk45.integrate_group_dense = integrate
-    print("dense groups (kernel ms, max trips, step attempts):", [
-        (s.elapsed_time(e), int(it), int(la.sum()))
-        for s, e, it, la in groups])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trace()
+        torch.cuda.synchronize()
+    lane_att = stats["lane_att"]
+    print("dense groups (max trips, step attempts):", list(zip(
+        lane_att.amax(dim=1).tolist(), lane_att.sum(dim=1).tolist())))
+    print(f"step attempts {int(lane_att.sum())}, longest lane "
+          f"{int(lane_att.sum(dim=0).max())} trips over all groups")
 
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     span = (max(e.time_range.end for e in dev)
             - min(e.time_range.start for e in dev))
     busy = sum(e.time_range.elapsed_us() for e in dev)
+    dense = [e.time_range.elapsed_us() for e in dev
+             if "dense_kernel" in e.name]
     print(f"profiled run: device span {span:.1f} us, kernel-busy "
           f"{busy:.1f} us, idle share {1 - busy / span:.4f}, "
-          f"{len(dev)} device events")
+          f"{len(dev)} device events; dense kernel launches {len(dense)}, "
+          f"{sum(dense):.1f} us")
     key = ("self_device_time_total" if hasattr(
         prof.key_averages()[0], "self_device_time_total")
         else "self_cuda_time_total")

@@ -23,7 +23,7 @@ def _tensor(a, device, dtype):
     return torch.as_tensor(np.array(a)).to(device=device, dtype=dtype)
 
 
-def basic_state_from_numpy(d: Mapping, *, device=None,
+def basic_state_from_numpy(d: Mapping, *, device="cuda",
                            dtype=None) -> BasicState:
     """A port ``BasicState`` from a mapping shaped like the JAX one.
 
@@ -42,7 +42,7 @@ def basic_state_from_numpy(d: Mapping, *, device=None,
     )
 
 
-def background_from_numpy(d: Mapping, *, device=None,
+def background_from_numpy(d: Mapping, *, device="cuda",
                           dtype=None) -> Background:
     """A port ``Background`` from a mapping shaped like the JAX one
     (static backgrounds: ``member_ids`` must be absent or None)."""

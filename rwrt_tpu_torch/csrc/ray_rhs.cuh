@@ -1,13 +1,15 @@
-// The ray RHS for one lane, as a __device__ function shared by the RHS
-// kernel (rhs.cu) and the dense-group kernel (dense_group.cu).
+// The ray RHS and the termination physics for one lane, as __device__
+// functions shared by the RHS kernel (rhs.cu) and the dense kernels
+// (dense_run.cu).
 //
 // Replaces (rwrt_tpu, fused by XLA there, no Pallas original):
 //   ops/interp.py       _packed_cell, _packed_corner_lerp (one packed row),
 //                       mercator_transform on the 12 hot fields
 //   ops/groupvel.py     group_velocity_core
-//   models/ray.py       _rhs_core (tendencies, err flag, per-row NaN sets)
-// and the plain PyTorch version beside it, rwrt_tpu_torch/models/ray.py
-// _rhs_core, whose expressions and operation order this file follows.
+//   models/ray.py       _rhs_core (tendencies, err flag, per-row NaN sets),
+//                       group_velocity_at, haversine, kill_mask
+// and the plain PyTorch versions beside them in rwrt_tpu_torch/models/ray.py,
+// whose expressions and operation order this file follows.
 //
 // What bounds it on an H100: one 48-value row (192 B in float32) gathered
 // per lane per call from a ~2 MB packed background that every lane shares,
@@ -102,6 +104,27 @@ __device__ __forceinline__ void sample_mercator(const Background<T>& bg,
   T sx = ix - T(x0);
   T sy = iy - T(y0);
   const T* row = bg.packed + (static_cast<long long>(x0) * bg.H + y0) * kPacked;
+  // The row by 16-byte loads: 12 (float32) or 24 (float64) instead of 48,
+  // which the scattered rows of a warp otherwise pay for one by one. A row
+  // is 192 or 384 B and the wrappers check that the stack is 16-B aligned.
+  T rv[kPacked];
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int q = 0; q < kPacked / 4; ++q) {
+      const float4 x = __ldg(reinterpret_cast<const float4*>(row) + q);
+      rv[4 * q] = x.x;
+      rv[4 * q + 1] = x.y;
+      rv[4 * q + 2] = x.z;
+      rv[4 * q + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < kPacked / 2; ++q) {
+      const double2 x = __ldg(reinterpret_cast<const double2*>(row) + q);
+      rv[2 * q] = x.x;
+      rv[2 * q + 1] = x.y;
+    }
+  }
   T wa = (T(1) - sx) * sy;
   T wb = sx * sy;
   T wc = (T(1) - sx) * (T(1) - sy);
@@ -110,10 +133,10 @@ __device__ __forceinline__ void sample_mercator(const Background<T>& bg,
   T raw[kHot];
 #pragma unroll
   for (int c = 0; c < kHot; ++c) {
-    T fc = __ldg(row + c);             // (x0, y0)
-    T fd = __ldg(row + kHot + c);      // (x1, y0)
-    T fa = __ldg(row + 2 * kHot + c);  // (x0, y1)
-    T fb = __ldg(row + 3 * kHot + c);  // (x1, y1)
+    T fc = rv[c];             // (x0, y0)
+    T fd = rv[kHot + c];      // (x1, y0)
+    T fa = rv[2 * kHot + c];  // (x0, y1)
+    T fb = rv[3 * kHot + c];  // (x1, y1)
     T v = fa * wa + fb * wb + fc * wc + fd * wd;
     raw[c] = in_range ? v : nan_value<T>();
   }
@@ -144,6 +167,24 @@ __device__ __forceinline__ void sample_mercator(const Background<T>& bg,
   }
   *cos_out = cos_phi;
   *sin_out = sin_phi;
+}
+
+// group_velocity on a raw sample f (NaN flags fn) and raw (kx, ky):
+// NaN-free substitutes, then the IEEE-propagation masks (ug: fu, qx, qy,
+// kx, ky; vg: fv, qx, qy, kx, ky), then `dead` -> NaN.
+template <typename T>
+__device__ __forceinline__ void group_velocity_masked(const T f[kHot],
+                                                      const bool fn[kHot],
+                                                      T kx, T ky, bool dead,
+                                                      T* ug, T* vg) {
+  const bool nk = isnan(kx), nm = isnan(ky);
+  T gu, gv;
+  group_velocity_clean(fn[0] ? T(0) : f[0], fn[1] ? T(0) : f[1],
+                       fn[6] ? T(0) : f[6], fn[7] ? T(0) : f[7],
+                       nk ? T(1) : kx, nm ? T(0) : ky, &gu, &gv);
+  const bool shared = fn[6] || fn[7] || nk || nm;
+  *ug = (dead || fn[0] || shared) ? nan_value<T>() : gu;
+  *vg = (dead || fn[1] || shared) ? nan_value<T>() : gv;
 }
 
 // dy/dt of one lane. Writes dy[5] and the err flag; when ug_raw is not
@@ -210,17 +251,49 @@ __device__ __forceinline__ void ray_rhs(const Background<T>& bg, const T y[5],
   *err_out = err;
 
   if (ug_raw != nullptr) {
-    // group_velocity on the raw sample and raw (kx, ky): NaN-free
-    // substitutes, then the IEEE-propagation masks, then dead -> NaN.
-    const bool nk = isnan(kx), nm = isnan(ky);
-    T gu, gv;
-    group_velocity_clean(fn[0] ? T(0) : f[0], fn[1] ? T(0) : f[1],
-                         fn[6] ? T(0) : f[6], fn[7] ? T(0) : f[7],
-                         nk ? T(1) : kx, nm ? T(0) : ky, &gu, &gv);
-    const bool shared = fn[6] || fn[7] || nk || nm;
-    *ug_raw = (dead || fn[0] || shared) ? nan : gu;
-    *vg_raw = (dead || fn[1] || shared) ? nan : gv;
+    group_velocity_masked(f, fn, kx, ky, dead, ug_raw, vg_raw);
   }
+}
+
+// models/ray.py group_velocity_at (zero_invalid off) at a state y[5]: a NaN
+// position samples the sanitized cell (lon = lat = 0) and gets its NaN back.
+template <typename T>
+__device__ __forceinline__ void group_velocity_at(const Background<T>& bg,
+                                                  const T y[5], T* ug,
+                                                  T* vg) {
+  const bool posn = isnan(y[0]) || isnan(y[1]);
+  T f[kHot];
+  bool fn[kHot];
+  T cos_q, sin_q;
+  sample_mercator(bg, posn ? T(0) : y[0], posn ? T(0) : y[1], f, fn, &cos_q,
+                  &sin_q);
+  group_velocity_masked(f, fn, y[2], y[3], posn, ug, vg);
+}
+
+// models/ray.py kill_mask: |lat| >= pi/2, or the haversine distance from
+// (lon_prev, lat_prev) is >= cut_off. NaN states compare false. The
+// halvings and squares are exact, as torch's / 2.0 and ** 2 are.
+//
+// The haversine runs only where a cheap bound cannot rule the kill out.
+// With s = |dlat| + |dlon|, sin x <= x and cos <= 1 give a <= (s/2)^2, and
+// asin x <= x (1 + 0.571 x^2) on [0, 1], so the distance is at most
+// s (1 + s^2) (and at most pi). The float haversine rounds within a few
+// ulps of the distance, so where s (1 + s^2), widened by 0.1 %, is under
+// cut_off it compares below cut_off too, and the answer is the same. NaN
+// or infinite differences fail the test and take the haversine.
+template <typename T>
+__device__ __forceinline__ bool kill_mask(const T y[5], T lon_prev,
+                                          T lat_prev, T cut_off) {
+  if (fabs(y[1]) >= T(0.5 * kPi)) return true;
+  const T dlon = y[0] - lon_prev;
+  const T dlat = y[1] - lat_prev;
+  const T s = fabs(dlat) + fabs(dlon);
+  if (s * (T(1) + s * s) * T(1.001) < cut_off) return false;
+  const T s_lat = sin(dlat / T(2));
+  const T s_lon = sin(dlon / T(2));
+  const T a = s_lat * s_lat + cos(lat_prev) * cos(y[1]) * (s_lon * s_lon);
+  const T ddis = fabs(T(2) * atan2(sqrt(a), sqrt(T(1) - a)));
+  return ddis >= cut_off;
 }
 
 }  // namespace rwrt

@@ -5,7 +5,7 @@
 // groupvel.group_velocity_core fused in (XLA fused these on the TPU; there
 // is no Pallas original). Plain PyTorch version: rwrt_tpu_torch/models/ray.py
 // _rhs_core. Used for the initial FSAL stage f0 and by select_initial_step;
-// the dense-group kernel calls the same __device__ function inline.
+// the dense kernels (dense_run.cu) call the same __device__ function inline.
 //
 // What bounds it on an H100: per lane 40 B of state in, 41-57 B out and one
 // 192 B (float32) row gathered from the ~2 MB packed background, which stays

@@ -40,6 +40,13 @@ def check_tensor(t: torch.Tensor, name: str, *, device, dtype,
         raise ValueError(f"{name} must be contiguous")
 
 
+def check_aligned(t: torch.Tensor, name: str, nbytes: int = 16) -> None:
+    """Raise unless ``t``'s data starts on an ``nbytes`` boundary (the
+    kernels read the background stack by 16-byte loads)."""
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{name} must start on a {nbytes}-byte boundary")
+
+
 def stream(device) -> int:
     """The raw handle of PyTorch's current stream on ``device``."""
     return torch.cuda.current_stream(device).cuda_stream

@@ -47,6 +47,12 @@ SIGNATURES = {
     # pin_limit, pin_mwn, stream
     "rwrt_dense_group": (_P, _I, _I, _D, _D, _D, _D, _P, _P, _P, _P, _P, _P,
                          _P, _P, _P, _I, _I, _D, _D, _D, _L, _L, _D, _P),
+    # packed, W, H, lon0, lat0, dx, dy, y, t, h, f, ug0, vg0, hist, ugs,
+    # vgs, lane_att, trunc, plon, plat, bounds, G, n_groups, R, cut_off,
+    # rtol, atol, min_step, max_iters, pin_limit, pin_mwn, stream
+    "rwrt_dense_run": (_P, _I, _I, _D, _D, _D, _D, _P, _P, _P, _P, _P, _P,
+                       _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _D,
+                       _D, _D, _L, _L, _D, _P),
     # lon, lat, tht, packed, R, Mp, L, C, Kp, Lp, bf16, out, stream
     "rwrt_spectral": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
 }

@@ -13,7 +13,7 @@ The field tensor layout is ``(nlon_wrap, nlat, 18)``, as in the JAX package.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -168,7 +168,7 @@ def prepare(
     xcyclic: bool = True,
     read_dtype=torch.float32,
     cal_dtype=torch.float32,
-    device: Optional[torch.device | str] = None,
+    device: torch.device | str = "cuda",
 ) -> BasicState:
     """Build the BasicState from a gridded wind field.
 
@@ -178,7 +178,8 @@ def prepare(
       lat, lon: coordinates in RADIANS, ascending; None = the regular global
         grid (lat from -pi/2 to pi/2, lon from 0).
       xcyclic: append the cyclic wrap column.
-      device: where the state lives (default: the CPU).
+      device: where the state lives (default: the card; pass "cpu" to
+        run on the host).
     """
     read_dtype = as_dtype(read_dtype)
     cal_dtype = as_dtype(cal_dtype)

@@ -104,8 +104,8 @@ def rhs_and_gv(bg: Background, y: torch.Tensor, t=0.0):
 
 class RayRHS:
     """The ray RHS over one background as a ``(y, t) -> dy`` callable, the
-    form the integrators take; the dense-group kernel reads ``bg`` from
-    it."""
+    form the integrators take; the single-group dense kernel reads ``bg``
+    from it."""
 
     def __init__(self, bg: Background):
         self.bg = bg
@@ -129,6 +129,7 @@ def _rhs_cuda(bg: Background, y: torch.Tensor, with_raw_gv: bool):
         raise ValueError("the RHS kernel needs a static corner-packed "
                          "(W, H, 48) background (tracer.make_background)")
     kernels.check_tensor(packed, "fields", device=y.device, dtype=y.dtype)
+    kernels.check_aligned(packed, "fields")
     kernels.check_tensor(y, "y", device=y.device, dtype=y.dtype)
     if y.ndim != 2 or y.shape[0] != 5:
         raise ValueError(f"y must be (5, R); got {tuple(y.shape)}")

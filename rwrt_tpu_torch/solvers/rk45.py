@@ -5,11 +5,14 @@ controller constants, ``select_initial_step``, ``validate_tol``,
 ``dense_entry_state`` and ``integrate_group_dense`` with its straggler
 pin-kill. The exact-mode integrators are not ported yet.
 
-``integrate_group_dense`` is one of the port's hand-written kernels
-(``csrc/dense_group.cu``): on a CUDA state it launches one thread per lane,
-each looping to the group's last bound inside one launch; on a CPU state it
-runs the plain PyTorch loop ``_integrate_group_dense_plain``, the JAX
-``while_loop`` written out. ``LAUNCHES`` counts kernel launches.
+``integrate_group_dense`` is one of the port's hand-written kernels (the
+single-group instance of ``csrc/dense_run.cu``): on a CUDA state it launches
+one thread per lane, each looping to the group's last bound inside one
+launch; on a CPU state it runs the plain PyTorch loop
+``_integrate_group_dense_plain``, the JAX ``while_loop`` written out.
+``LAUNCHES`` counts kernel launches. ``trace_rays`` does not call it: the
+whole-run instance of the same kernel (``tracer._dense_run``) runs every
+group in one launch.
 """
 
 from __future__ import annotations
@@ -277,6 +280,7 @@ def _integrate_group_dense_cuda(
         kernels.check_tensor(x, name, device=dev, dtype=dt, shape=shape)
     packed = bg.fields
     kernels.check_tensor(packed, "fields", device=dev, dtype=dt)
+    kernels.check_aligned(packed, "fields")
     if packed.ndim != 3 or packed.shape[-1] != 48 or bg.member_ids is not None:
         raise ValueError("the dense-group kernel needs a static "
                          "corner-packed (W, H, 48) background")

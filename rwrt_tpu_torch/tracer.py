@@ -5,6 +5,12 @@ serves integrator='rk45', bound_mode='dense', state_dtype='compute' and
 root_order='canonical', with or without pin_limit, on one device; every
 other branch raises NotImplementedError naming its ROADMAP item.
 
+The dense run (``_dense_run``: every group's integration, the kill cascade
+and (ug, vg) at each bound) is one of the port's hand-written kernels,
+``csrc/dense_run.cu``: on a CUDA state one launch runs the whole of it,
+one thread per lane; on a CPU state the plain version ``_dense_run_plain``
+runs. ``LAUNCHES`` counts its launches.
+
 The ray batch is flattened to R = 3 * nsource * nzwn lanes in C order of
 (root, source, zwn), so results reshape directly to (nt, 3, nsource, nzwn).
 """
@@ -16,6 +22,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from rwrt_tpu_torch import kernels
 from rwrt_tpu_torch.config import RunConfig
 from rwrt_tpu_torch.constants import deg2rad, undef
 from rwrt_tpu_torch.models import ray as ray_mod
@@ -130,14 +137,16 @@ def initialize(
     return y0, ug0.reshape(-1), vg0.reshape(-1)
 
 
-def _dense_postpass(bg, hist, y, t, h, f, prev_lon, prev_lat, bounds,
-                    cut_off, nan0, iters, nfev, lane_att):
-    """Kill cascade + per-bound (ug, vg) over dense-emitted history.
+def _dense_postpass(bg, hist, y, t, h, f, prev_lon, prev_lat, cut_off,
+                    nan0):
+    """Kill cascade + per-bound (ug, vg) over one group's dense-emitted
+    history (G, 5, R).
 
     Exact with respect to per-bound termination: a kill at bound j only
     affects output at bounds >= j, and the killed lane's chunk-end carry is
     NaNed here. Frozen lanes (nan0: NaN state at chunk entry) bypass the
-    cascade and keep their prefilled rows.
+    cascade and keep their prefilled rows. Returns ((y, t, h, f, plon,
+    plat) carry, (hist, ugs, vgs)).
     """
     frozen = nan0
     plon, plat, alive = prev_lon, prev_lat, ~nan0
@@ -164,7 +173,7 @@ def _dense_postpass(bg, hist, y, t, h, f, prev_lon, prev_lat, bounds,
     y_carry = torch.where((alive | frozen)[None, :], y,
                           torch.full_like(y, float("nan")))
     return (y_carry, t, h, f, plon, plat), (
-        hist_k, ugs.reshape(g, r), vgs.reshape(g, r), iters, nfev, lane_att)
+        hist_k, ugs.reshape(g, r), vgs.reshape(g, r))
 
 
 def initial_step_sizes(bg, y0, rtol, atol):
@@ -173,56 +182,181 @@ def initial_step_sizes(bg, y0, rtol, atol):
     return rk45_mod.select_initial_step(rhs_fn, y0, rhs_fn(y0), rtol, atol)
 
 
+#: Number of whole-run dense kernel launches (``csrc/dense_run.cu``) in
+#: this process.
+LAUNCHES = 0
+
+
+class DenseRun(NamedTuple):
+    """The dense adaptive run over every group of output bounds.
+
+    ys (nt, 5, R) with y0 in row 0; ugs, vgs (nt, R) with ug0, vg0 in row
+    0; lane_att (n_groups, R) int32, each group's step attempts per lane;
+    trunc (R,) int32, the groups in which the max_iters backstop left the
+    lane short of the group's last bound while alive; carry (y, t, h, f,
+    plon, plat) after the last group. ys, ugs and vgs are views of
+    (n_groups * G + 1)-row buffers whose padded rows are cut off.
+    """
+
+    ys: torch.Tensor
+    ugs: torch.Tensor
+    vgs: torch.Tensor
+    lane_att: torch.Tensor
+    trunc: torch.Tensor
+    carry: Tuple[torch.Tensor, ...]
+
+
+def _dense_run(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off, rtol,
+               atol, min_step, max_iters=1_000_000, pin_limit=None,
+               pin_mwn=None) -> DenseRun:
+    """Integrate every group of output bounds with dense output, apply the
+    kill cascade and sample (ug, vg) at each bound (the JAX package's
+    grouped dense run: per group ``integrate_group_dense``, the truncation
+    count, then ``_dense_postpass``).
+
+    Args:
+      bg: the static corner-packed background.
+      y0 (5, R), f0 (5, R) = rhs(y0), h0 (R,): the run's entry state, at
+        t = 0; ug0, vg0 (R,): row 0 of the (ug, vg) output.
+      bounds_g: (n_groups, G) output times, padded rows repeating the last.
+      n_bounds: the real bounds; the output keeps n_bounds + 1 rows.
+      cut_off, rtol, atol, min_step, max_iters, pin_limit, pin_mwn: as for
+        ``integrate_group_dense`` and the kill cascade.
+
+    On a CUDA state one launch of ``csrc/dense_run.cu`` does it all, one
+    thread per lane through every group; on a CPU state the plain version
+    ``_dense_run_plain`` runs.
+    """
+    run = _dense_run_cuda if y0.is_cuda else _dense_run_plain
+    return run(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off, rtol,
+               atol, min_step, max_iters, pin_limit, pin_mwn)
+
+
+def _dense_run_plain(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
+                     rtol, atol, min_step, max_iters=1_000_000,
+                     pin_limit=None, pin_mwn=None) -> DenseRun:
+    """The plain PyTorch version (any device): group by group the plain
+    dense loop with the plain RHS, the truncation count and
+    ``_dense_postpass``, rows written into one preallocated output."""
+
+    def rhs_fn(y, t=0.0):
+        return ray_mod._rhs_core(bg, y, t, False)[0]
+
+    n_groups, group = bounds_g.shape
+    r = y0.shape[1]
+    rows = n_groups * group + 1
+    ys = torch.empty((rows, 5, r), dtype=y0.dtype, device=y0.device)
+    ugs = torch.empty((rows, r), dtype=y0.dtype, device=y0.device)
+    vgs = torch.empty_like(ugs)
+    ys[0], ugs[0], vgs[0] = y0, ug0, vg0
+    lane_att = torch.empty((n_groups, r), dtype=torch.int32,
+                           device=y0.device)
+    trunc = torch.zeros(r, dtype=torch.int32, device=y0.device)
+    y, t, h, f, pl, pa = (y0, torch.zeros_like(y0[0]), h0, f0, y0[S_LON],
+                          y0[S_LAT])
+    for g, bounds in enumerate(bounds_g):
+        nan0 = torch.isnan(torch.mean(y, dim=0))
+        hist, y2, t2, h2, f2, _, _, la, _, _ = (
+            rk45_mod._integrate_group_dense_plain(
+                rhs_fn, y, t, h, f, bounds, rtol, atol, min_step, max_iters,
+                pin_limit, pin_mwn))
+        # Counted at integration end, before the kill cascade reads a
+        # truncated lane's unreached bounds as death.
+        trunc += (t2 < bounds[-1]) & ~torch.isnan(y2[0])
+        (y, t, h, f, pl, pa), (hist, gu, gv) = _dense_postpass(
+            bg, hist, y2, t2, h2, f2, pl, pa, cut_off, nan0)
+        sl = slice(1 + g * group, 1 + (g + 1) * group)
+        ys[sl], ugs[sl], vgs[sl] = hist, gu, gv
+        lane_att[g] = la
+    nt = n_bounds + 1
+    return DenseRun(ys[:nt], ugs[:nt], vgs[:nt], lane_att, trunc,
+                    (y, t, h, f, pl, pa))
+
+
+def _dense_run_cuda(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
+                    rtol, atol, min_step, max_iters, pin_limit,
+                    pin_mwn) -> DenseRun:
+    """Launch the whole-run dense kernel once: one thread per lane walks
+    every group and writes its rows straight into the output. Reads
+    nothing back from the card."""
+    global LAUNCHES
+    dev, dt = y0.device, y0.dtype
+    if y0.ndim != 2 or y0.shape[0] != 5:
+        raise ValueError(f"y0 must be (5, R); got {tuple(y0.shape)}")
+    if bounds_g.ndim != 2 or 0 in bounds_g.shape:
+        raise ValueError("bounds_g must be a non-empty (n_groups, G) tensor")
+    r = y0.shape[1]
+    n_groups, group = bounds_g.shape
+    if not 0 <= n_bounds <= n_groups * group:
+        raise ValueError(f"n_bounds {n_bounds} outside [0, {n_groups * group}]")
+    for name, x, shape in (("y0", y0, (5, r)), ("f0", f0, (5, r)),
+                           ("h0", h0, (r,)), ("ug0", ug0, (r,)),
+                           ("vg0", vg0, (r,)),
+                           ("bounds_g", bounds_g, (n_groups, group))):
+        kernels.check_tensor(x, name, device=dev, dtype=dt, shape=shape)
+    packed = bg.fields
+    kernels.check_tensor(packed, "fields", device=dev, dtype=dt)
+    kernels.check_aligned(packed, "fields")
+    if packed.ndim != 3 or packed.shape[-1] != 48 or bg.member_ids is not None:
+        raise ValueError("the dense-run kernel needs a static corner-packed "
+                         "(W, H, 48) background")
+    rtol, atol, min_step, pin_limit, pin_mwn = rk45_mod._scalar_args(
+        dt, rtol, atol, min_step, pin_limit, pin_mwn)
+    cut_off = rk45_mod.as_scalar(cut_off, dt)
+
+    rows = n_groups * group + 1
+    ys = torch.empty((rows, 5, r), dtype=dt, device=dev)
+    ugs = torch.empty((rows, r), dtype=dt, device=dev)
+    vgs = torch.empty_like(ugs)
+    lane_att = torch.empty((n_groups, r), dtype=torch.int32, device=dev)
+    trunc = torch.empty(r, dtype=torch.int32, device=dev)
+    # The carry, updated in place by the kernel.
+    y, h, f = y0.clone(), h0.clone(), f0.clone()
+    t = torch.zeros_like(h0)
+    plon = torch.empty_like(h0)
+    plat = torch.empty_like(h0)
+    w, hh, _ = packed.shape
+    kernels.launch(
+        "rwrt_dense_run", dt, packed, w, hh, bg.lon0, bg.lat0, bg.dx, bg.dy,
+        y, t, h, f, ug0, vg0, ys, ugs, vgs, lane_att, trunc, plon, plat,
+        bounds_g, group, n_groups, r, cut_off, rtol, atol, min_step,
+        int(max_iters), pin_limit, pin_mwn, kernels.stream(dev))
+    LAUNCHES += 1
+    nt = n_bounds + 1
+    return DenseRun(ys[:nt], ugs[:nt], vgs[:nt], lane_att, trunc,
+                    (y, t, h, f, plon, plat))
+
+
+def padded_bounds(dt, nt, group, dtype, device):
+    """The (n_groups, group) output times of a run of nt rows: bounds dt,
+    2 dt, ..., padded to whole groups by repeating the final time, which
+    finished rays cross at once (the extra rows are discarded)."""
+    n_groups = -(-(nt - 1) // group)
+    bounds = torch.arange(1, n_groups * group + 1, dtype=dtype,
+                          device=device) * dt
+    return torch.clamp(bounds, max=(nt - 1) * dt).reshape(n_groups, group)
+
+
 def _run_rk45_grouped(bg, y0, ug0, vg0, dt, nt, cut_off, rtol, atol,
                       min_step, group: int = 8, pin_limit=None, pin_mwn=None,
                       max_iters: int = 1_000_000):
-    """Adaptive run over groups of ``group`` output bounds, each integrated
-    by ``integrate_group_dense`` and post-passed by ``_dense_postpass`` (the
-    JAX package's dense=True branch; exact mode is not ported yet).
-    Returns (ys, ugs, vgs, iters, nfev, trunc); ``trunc`` counts lanes the
-    max_iters backstop left short of a group's final bound while alive."""
-    rhs_fn = ray_mod.RayRHS(bg)
+    """Adaptive run over groups of ``group`` output bounds (the JAX
+    package's dense=True branch; exact mode is not ported yet): the set-up
+    (initial steps, f0, padded bounds), then ``_dense_run``.
+
+    Returns (ys, ugs, vgs, iters, nfev, trunc, lane_att): iters (n_groups,)
+    the trips per group (max over lanes of its attempts), nfev = 6 * iters,
+    ``trunc`` the lanes the max_iters backstop left short of a group's final
+    bound while alive, summed over groups (the run's one host read), and
+    lane_att (n_groups, R) the step attempts per group and lane."""
     h0 = initial_step_sizes(bg, y0, rtol, atol)
-    t0 = torch.zeros_like(y0[0])
-    f0 = rhs_fn(y0, t0)
-
-    n_bounds = nt - 1
-    n_groups = -(-n_bounds // group)
-    # Padded bounds repeat the final time: finished rays cross them at once
-    # and the extra slots are discarded.
-    padded = n_groups * group
-    bounds_all = torch.arange(1, padded + 1, dtype=y0.dtype,
-                              device=y0.device) * dt
-    bounds_all = torch.clamp(bounds_all, max=(nt - 1) * dt)
-    bounds_g = bounds_all.reshape(n_groups, group)
-
-    y, t, h, f, pl, pa = y0, t0, h0, f0, y0[S_LON], y0[S_LAT]
-    hists, ugss, vgss, iters, nfev, truncs = [], [], [], [], [], []
-    for bounds in bounds_g:
-        nan0 = torch.isnan(torch.mean(y, dim=0))
-        hist, y2, t2, h2, f2, it, nf, la, _, _ = (
-            rk45_mod.integrate_group_dense(
-                rhs_fn, y, t, h, f, bounds, rtol, atol, min_step,
-                max_iters=max_iters, pin_limit=pin_limit, pin_mwn=pin_mwn))
-        # Counted at integration end, before the kill cascade reads a
-        # truncated lane's unreached bounds as death; read on the host once,
-        # after the last group, so no group waits for the card.
-        truncs.append(torch.sum((t2 < bounds[-1]) & ~torch.isnan(y2[0])))
-        (y, t, h, f, pl, pa), (hist, ugs, vgs, _, _, _) = _dense_postpass(
-            bg, hist, y2, t2, h2, f2, pl, pa, bounds, cut_off, nan0,
-            it, nf, la)
-        hists.append(hist)
-        ugss.append(ugs)
-        vgss.append(vgs)
-        iters.append(it)
-        nfev.append(nf)
-    ys = torch.cat(hists)[:n_bounds]
-    ugs = torch.cat(ugss)[:n_bounds]
-    vgs = torch.cat(vgss)[:n_bounds]
-    ys = torch.cat([y0[None], ys], dim=0)
-    ugs = torch.cat([ug0[None], ugs], dim=0)
-    vgs = torch.cat([vg0[None], vgs], dim=0)
-    return ys, ugs, vgs, iters, nfev, int(torch.stack(truncs).sum())
+    f0 = ray_mod.RayRHS(bg)(y0, torch.zeros_like(y0[0]))
+    bounds_g = padded_bounds(dt, nt, group, y0.dtype, y0.device)
+    run = _dense_run(bg, y0, ug0, vg0, h0, f0, bounds_g, nt - 1, cut_off,
+                     rtol, atol, min_step, max_iters, pin_limit, pin_mwn)
+    iters = run.lane_att.amax(dim=1)
+    return (run.ys, run.ugs, run.vgs, iters, 6 * iters,
+            int(run.trunc.sum()), run.lane_att)
 
 
 class MaxItersTruncation(RuntimeError):
@@ -287,6 +421,7 @@ def trace_rays(
     mesh=None,
     initial_state=None,
     auto_chunk_bytes: Optional[int] = 2 << 30,
+    stats: Optional[dict] = None,
 ) -> RayTrajectories:
     """Run the dense adaptive ray-tracing pipeline on ``bs``'s device.
 
@@ -299,6 +434,9 @@ def trace_rays(
       auto_chunk_bytes: past this estimate of the (nt, 7, R) history the
         JAX package reroutes to its chunked driver; the port raises there
         until that driver is ported. None disables the check.
+      stats: optional dict; receives "lane_att", the (n_groups, R') int32
+        step attempts per group of the R' integrated (compacted) lanes, on
+        the run's device.
     """
     config.validate()
     why = _unsupported(config, mesh, initial_state)
@@ -354,12 +492,14 @@ def trace_rays(
     rtol = rk45_mod.validate_tol(config.rtol, dtype)
     atol = rk45_mod.as_scalar(config.atol, dtype)
     min_step = rk45_mod.as_scalar(min_step, dtype)
-    ys, ugs, vgs, _, _, trunc = _run_rk45_grouped(
+    ys, ugs, vgs, _, _, trunc, lane_att = _run_rk45_grouped(
         bg, y0, ug0, vg0, dt, nt, cut_off, rtol, atol, min_step,
         group=min(config.interval_batch, nt - 1), pin_limit=config.pin_limit,
         pin_mwn=None if config.pin_limit is None else config.pin_mwn,
     )
     _check_truncation(trunc)
+    if stats is not None:
+        stats["lane_att"] = lane_att
 
     if take is not None:
         # Rootless lanes are frozen at their seed state (finite lon/lat/kx,

@@ -97,7 +97,7 @@ def test_prepare_matches_jax(jet_field, background):
     u, v, lat, lon = (jet_field if background == "jet"
                       else climatology_background())
     ref = rt.prepare(u, v, lat, lon, cal_dtype="float64")
-    out = pt.prepare(u, v, lat, lon, cal_dtype="float64")
+    out = pt.prepare(u, v, lat, lon, cal_dtype="float64", device="cpu")
     for name in ("fields", "lon", "lat", "betam", "ks", "q"):
         assert_field_close(getattr(ref, name), getattr(out, name), name)
     assert out.xcyclic is True and out.fields.dtype == torch.float64
@@ -111,7 +111,7 @@ def test_prepare_rolls_lon_like_jax(jet_field):
     lon_shift = np.where(lon_shift >= np.pi, lon_shift - 2 * np.pi, lon_shift)
     args = (np.roll(u, k, axis=0), np.roll(v, k, axis=0), lat, lon_shift)
     ref = rt.prepare(*args, cal_dtype="float64")
-    out = pt.prepare(*args, cal_dtype="float64")
+    out = pt.prepare(*args, cal_dtype="float64", device="cpu")
     assert_field_close(ref.fields, out.fields, "fields")
     assert_field_close(ref.lon, out.lon, "lon")
 
@@ -121,7 +121,7 @@ def test_prepare_float32_ingest_matches_jax(jet_field):
     casts (1e-5 of each field's max: float32 round-off)."""
     u, v, lat, lon = jet_field
     ref = np.asarray(rt.prepare(u, v, lat, lon).fields)
-    out = pt.prepare(u, v, lat, lon).fields.numpy()
+    out = pt.prepare(u, v, lat, lon, device="cpu").fields.numpy()
     assert out.dtype == np.float32
     assert np.abs(ref - out).max() / np.abs(ref).max() < 1e-5
 
@@ -139,7 +139,7 @@ def test_prepare_refuses_non_uniform_axes(jet_field, bad):
     with pytest.raises(ValueError):
         rt.prepare(u, v, lat, lon)
     with pytest.raises(ValueError):
-        pt.prepare(u, v, lat, lon)
+        pt.prepare(u, v, lat, lon, device="cpu")
 
 
 def test_run_config_defaults_match_jax():

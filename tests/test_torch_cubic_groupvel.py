@@ -116,7 +116,7 @@ def test_initialize_matches_jax(jet_field):
     bgj = jtracer.make_background(bs, 0.0)
     bgt = convert.background_from_numpy(
         {k: np.asarray(x) for k, x in bgj._asdict().items()
-         if x is not None})
+         if x is not None}, device="cpu")
     slon, slat = jtracer.source_matrix(0.0, -20.0, 24.0, 8.0, 15, 6)
     zwn = np.arange(1.0, 8.0)
     ref = jtracer.initialize(bgj, jnp.asarray(slon), jnp.asarray(slat),

@@ -6,7 +6,8 @@ so on a GPU machine without JAX run it as
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
 
-The library is built with -fmad=false, so the RHS and dense-group kernels
+The library is built with -fmad=false, so the RHS kernel and both dense
+kernels (one group, and the whole run with the kill cascade and (ug, vg))
 must equal their plain versions bitwise; the spectral kernel sums its
 contraction on the tensor cores in another order than the matmul, so it is
 held to 1e-12 (float64, and bf16 operands over float64) and 1e-5
@@ -118,6 +119,78 @@ def test_dense_group_kernel_equals_plain(jet_field, dev, dtype, pin):
     assert int(k[5]) == p[5]
 
 
+def dense_run_inputs(bg, dtype, dev, group=5, nt=13):
+    """The entry state of a run over a 5 x 4 source grid plus three polar
+    sources, zwn 2, 4, 6 (207 lanes, 72 rootless), and its padded bounds."""
+    slon, slat = tracer.source_matrix(0.0, 5.0, 36.0, 8.0, 5, 4)
+    slon = np.concatenate([slon, np.radians([10.0, 100.0, 200.0])])
+    slat = np.concatenate([slat, np.radians([86.0, 88.5, -87.0])])
+    y0, ug0, vg0 = tracer.initialize(
+        bg, torch.as_tensor(slon, dtype=dtype, device=dev),
+        torch.as_tensor(slat, dtype=dtype, device=dev),
+        torch.tensor([2.0, 4.0, 6.0], dtype=dtype, device=dev))
+    y0 = y0.contiguous()
+    rtol = rk45.validate_tol(1e-6, dtype)
+    h0 = tracer.initial_step_sizes(bg, y0, rtol, 1e-6)
+    f0 = ray.RayRHS(bg)(y0)
+    bounds_g = tracer.padded_bounds(7200.0, nt, group, dtype, dev)
+    return (y0, ug0.contiguous(), vg0.contiguous(), h0, f0, bounds_g,
+            nt - 1), rtol
+
+
+DENSE_RUN_CASES = {
+    "pin": dict(cut_off=0.2, pin_limit=500, pin_mwn=0.0),
+    "nopin": dict(cut_off=0.2),
+    "cutoff": dict(cut_off=0.03, pin_limit=500, pin_mwn=0.0),
+    "maxiters": dict(cut_off=0.2, pin_limit=500, pin_mwn=0.0, max_iters=3),
+    "pin8": dict(cut_off=0.2, pin_limit=8, pin_mwn=0.0),
+}
+
+
+@pytest.mark.parametrize("case", list(DENSE_RUN_CASES))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dense_run_kernel_equals_plain(jet_field, dev, dtype, case):
+    """One launch; rows, ug, vg, per-group attempts, truncation counts and
+    the carry bitwise equal to the plain run, NaN masks included."""
+    _, bg = background(jet_field, dtype, dev)
+    (y0, ug0, vg0, h0, f0, bounds_g, n_bounds), rtol = dense_run_inputs(
+        bg, dtype, dev)
+    kw = dict(DENSE_RUN_CASES[case])
+    cut_off = kw.pop("cut_off")
+    args = (bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off, rtol,
+            1e-6, 7.2)
+    before = tracer.LAUNCHES, rk45.LAUNCHES, ray.LAUNCHES
+    k = tracer._dense_run(*args, **kw)
+    assert (tracer.LAUNCHES, rk45.LAUNCHES, ray.LAUNCHES) == (
+        before[0] + 1, before[1], before[2])
+    p = tracer._dense_run_plain(*args, **kw)
+    assert k.ys.shape == (n_bounds + 1, 5, y0.shape[1])
+    for a, b in zip(k[:3] + k.carry, p[:3] + p.carry):
+        assert same(a, b)
+    assert torch.equal(k.lane_att, p.lane_att)
+    assert torch.equal(k.trunc, p.trunc)
+    if case == "maxiters":
+        assert int(k.trunc.sum()) > 0
+    if case == "cutoff":
+        # Born lanes (finite ky) killed by the cascade.
+        assert (torch.isnan(k.ys[-1, 0]) & ~torch.isnan(y0[3])).any()
+
+
+def test_dense_run_wrapper_refuses_bad_inputs(jet_field, dev):
+    _, bg = background(jet_field, torch.float32, dev)
+    (y0, ug0, vg0, h0, f0, bounds_g, n_bounds), rtol = dense_run_inputs(
+        bg, torch.float32, dev)
+    good = [bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, 0.2, rtol, 1e-6,
+            7.2]
+    for pos, bad in ((1, y0.double()), (1, y0.T.contiguous().T),
+                     (4, h0[:-1]), (6, bounds_g.reshape(-1)),
+                     (7, bounds_g.numel() + 1)):
+        args = list(good)
+        args[pos] = bad
+        with pytest.raises(ValueError):
+            tracer._dense_run(*args)
+
+
 SPECTRAL_BARS = {"float64": 1e-12, "float64_bf16": 1e-12, "float32": 1e-5,
                  "bf16": 1e-5}
 
@@ -190,9 +263,12 @@ def test_trace_rays_on_cuda_goes_through_the_kernels(jet_field, dev):
                        ttotal=4 * 86400.0, integrator="rk45",
                        bound_mode="dense", interval_batch=16, pin_limit=500,
                        pin_mwn=0.0)
-    r0, d0 = ray.LAUNCHES, rk45.LAUNCHES
+    r0, d0, t0 = ray.LAUNCHES, rk45.LAUNCHES, tracer.LAUNCHES
     out = pt.trace_rays(bs, cfg)
-    assert ray.LAUNCHES > r0 and rk45.LAUNCHES > d0
+    # The RHS kernel for the set-up, one whole-run dense launch, and no
+    # single-group launch.
+    assert ray.LAUNCHES > r0 and tracer.LAUNCHES == t0 + 1
+    assert rk45.LAUNCHES == d0
     assert out.lon.shape == (49, 3, 20, 3) and out.lon.is_cuda
     alive = torch.isfinite(out.ky[-1])
     assert alive.any() and torch.isfinite(out.lat[-1][alive]).all()

@@ -38,7 +38,8 @@ def backgrounds(jet_field):
     bgj = jtracer.make_background(
         rt.prepare(u, v, lat, lon, cal_dtype="float64"), 0.0)
     bgt = convert.background_from_numpy(
-        {k: np.asarray(x) for k, x in bgj._asdict().items() if x is not None})
+        {k: np.asarray(x) for k, x in bgj._asdict().items() if x is not None},
+        device="cpu")
     return bgj, bgt
 
 

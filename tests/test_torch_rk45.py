@@ -46,7 +46,8 @@ def ray_case(jet_field):
     bgj = jtracer.make_background(
         rt.prepare(u, v, lat, lon, cal_dtype="float64"), 0.0)
     bgt = convert.background_from_numpy(
-        {k: np.asarray(x) for k, x in bgj._asdict().items() if x is not None})
+        {k: np.asarray(x) for k, x in bgj._asdict().items() if x is not None},
+        device="cpu")
     slon, slat = jtracer.source_matrix(0.0, 5.0, 36.0, 8.0, 5, 4)
     y0, _, _ = jtracer.initialize(bgj, jnp.asarray(slon), jnp.asarray(slat),
                                   jnp.asarray([2.0, 4.0, 6.0]))

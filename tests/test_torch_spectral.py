@@ -96,7 +96,8 @@ def test_fit_of_basic_state_is_exact_at_grid_points(jet_field):
     u, v, lat, lon = jet_field
     bsj = rt.prepare(u, v, lat, lon, cal_dtype="float64")
     bst = convert.basic_state_from_numpy(
-        {k: np.asarray(x) for k, x in bsj._asdict().items()})
+        {k: np.asarray(x) for k, x in bsj._asdict().items()},
+        device="cpu")
     ref, out = jspec.fit_spectral(bsj), tspec.fit_spectral(bst)
     np.testing.assert_allclose(out.coeffs.numpy(), np.asarray(ref.coeffs),
                                rtol=0, atol=1e-9)
@@ -222,7 +223,8 @@ def climatology_fit(dtype):
     name = "float64" if dtype == np.float64 else "float32"
     bsj = rt.prepare(u, v, lat, lon, cal_dtype=name)
     bst = convert.basic_state_from_numpy(
-        {k: np.asarray(x) for k, x in bsj._asdict().items()})
+        {k: np.asarray(x) for k, x in bsj._asdict().items()},
+        device="cpu")
     return jspec.fit_spectral(bsj), tspec.fit_spectral(bst)
 
 

@@ -38,7 +38,8 @@ def states(jet_field):
     u, v, lat, lon = jet_field
     bsj = rt.prepare(u, v, lat, lon, cal_dtype="float64")
     bst = convert.basic_state_from_numpy(
-        {k: np.asarray(x) for k, x in bsj._asdict().items()})
+        {k: np.asarray(x) for k, x in bsj._asdict().items()},
+        device="cpu")
     return bsj, bst
 
 
@@ -108,10 +109,10 @@ def test_convert_round_trip_equals_own_prepare(jet_field):
     """The port's own state, sent through numpy and back, traces the same
     trajectories (within 1e-10; it is in fact bitwise)."""
     u, v, lat, lon = jet_field
-    bs = pt.prepare(u, v, lat, lon, cal_dtype="float64")
+    bs = pt.prepare(u, v, lat, lon, cal_dtype="float64", device="cpu")
     back = convert.basic_state_from_numpy(
         {k: (x.numpy() if torch.is_tensor(x) else x)
-         for k, x in bs._asdict().items()})
+         for k, x in bs._asdict().items()}, device="cpu")
     cfg = pt.RunConfig(**dict(CFG, ttotal=2 * DAY))
     a, b = pt.trace_rays(bs, cfg), pt.trace_rays(back, cfg)
     for name in a._fields:
