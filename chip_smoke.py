@@ -8,9 +8,17 @@ against its plain PyTorch version on the card, then runs the production
 workload through ``rwrt_tpu_torch.trace_rays``: the 144 x 73 climatology
 background, 4800 random sources x zwn 1..7 = 100,800 rays, 30 days at a 2 h
 cadence, dense adaptive RK45 with pin-kill (500, 0), float32, and samples
-the spectral fit of the same background at the day-10 positions.
+the spectral fit of the same background at the day-10 positions. Then the
+library's two default integrators on the same background, float32: RK4 in
+``RunConfig()``'s default run (the 21 x 15 source matrix x zwn 1..7 =
+6,615 rays, 90 days) and at the production seeding (30 days), and exact-
+bound RK45 in the README's Usage run (the default sources, interval_batch
+16, rtol = atol = 1e-6), its 90 days cut to 40: from day 49 one of its
+lanes stalls at the max_iters backstop (a 52-day run checks that
+``trace_rays`` then raises ``MaxItersTruncation``).
 
-Phases (any failed check raises; nothing is caught):
+Phases (any failed check raises; nothing is caught but the truncation the
+exact_path phase requires):
   rhs          ``ray.rhs`` and ``ray.rhs_and_gv`` (the kernel) vs the
                plain ``ray._rhs_core`` on 100,800 seeded states
   dense_group  one 60-bound group on the 100,800-ray seed batch, the
@@ -35,6 +43,28 @@ Phases (any failed check raises; nothing is caught):
                coefficient repack) and plain times, achieved TFLOP/s, and
                the library call ``torch.matmul`` of the (R, Mp) basis by the
                (Mp, L * C) coefficients
+  rk4          the RK4 kernel (``tracer._run_rk4``) vs the plain
+               ``_run_rk4_plain`` over all 360 steps of the production
+               seeding's entry state (60,784 lanes), float32, and its first
+               4,096 lanes in float64, bitwise; the kernel's time there and
+               on the default run's entry state
+  exact_group  one 16-bound group (``integrate_group`` on CUDA) vs the plain
+               loop on the production seeding's entry state, float32 and
+               float64, bitwise
+  exact_run    the whole-run exact kernel (``tracer._exact_run``) vs the
+               plain ``_exact_run_plain`` on the README run's entry state
+               over README_DAYS days, float32, and on its first
+               EXACT_SUBSET lanes over EXACT_DAYS days in float64, bitwise
+  rk4_path     the two RK4 runs through ``trace_rays``, counters reset just
+               before each and read just after: one RK4 launch each, no
+               other whole-run launch, rows bitwise equal to the rk4 phase's;
+               the kernels line reports the production run's launches
+  exact_path   the README run through ``trace_rays`` the same way: one
+               exact-run launch, no single-group or dense launch, rows
+               bitwise equal to the exact_run phase's; wall, peak memory,
+               step attempts; then over TRUNC_DAYS days, where a lane
+               stalls at the max_iters backstop and ``trace_rays`` must raise
+               ``MaxItersTruncation``
 
 Each kernel's bound is the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and its flops over the data sheet's
@@ -85,6 +115,29 @@ RHS_FLOPS = 182
 ATTEMPT_FLOPS = 6 * RHS_FLOPS + 342
 ROW_FLOPS = 126
 CASCADE_FLOPS = 156
+#: csrc/rk4_run.cu, a step: four evaluations, 65 for the stage inputs and
+#: the update, the kill test and (ug, vg) sample. csrc/exact_run.cu: a step
+#: attempt as dense_run.cu's plus 19 for the 7th stage's (ug, vg); a crossing
+#: its kill test (18).
+RK4_STEP_FLOPS = 4 * RHS_FLOPS + 65 + CASCADE_FLOPS
+EXACT_ATTEMPT_FLOPS = ATTEMPT_FLOPS + 19
+KILL_FLOPS = 18
+#: The production run's step attempts (dense, pin (500, 0), float32): the
+#: dense kernel's arithmetic and its plain version give this count; a
+#: change to either shows here.
+DENSE_ATTEMPTS = 6_893_062
+#: The README run's horizon here: 40 days (30 groups of 16 bounds), short
+#: of the 38th group (day 49.3), where one lane stalls at the max_iters
+#: backstop (a 1,000,000-trip group) and stays there: at 90 days that is 31
+#: lane-groups, and the kernel takes 205 s (PERF.md, exact_backstop.py).
+#: The truncation check runs 52 days (39 groups, two of them truncated).
+README_DAYS = 40
+TRUNC_DAYS = 52
+#: The grouped adaptive run's backstop: trips per lane and group.
+MAX_ITERS = 1_000_000
+#: The exact_run phase's plain comparison: lanes and days.
+EXACT_SUBSET = 2048
+EXACT_DAYS = 16
 
 
 def climatology_background(nlon=144, nlat=73):
@@ -101,13 +154,36 @@ def climatology_background(nlon=144, nlat=73):
     return u, v, lat, lon
 
 
-def production_config(rt):
-    """The production run's RunConfig (sources are passed separately)."""
-    return rt.RunConfig(
+def production_config(rt, **changes):
+    """The production run's RunConfig (sources are passed separately),
+    with ``changes`` applied."""
+    import dataclasses
+
+    return dataclasses.replace(rt.RunConfig(
         zwn=tuple(float(z) for z in range(1, 8)), tstep=2 * HOUR,
         ttotal=N_DAYS * DAY, integrator="rk45", bound_mode="dense",
         interval_batch=60, rtol=1e-6, atol=1e-6, min_step_factor=1e-3,
-        cut_off=0.1, pin_limit=500, pin_mwn=0.0, cal_dtype="float32")
+        cut_off=0.1, pin_limit=500, pin_mwn=0.0, cal_dtype="float32"),
+        **changes)
+
+
+def rk4_production_config(rt):
+    """The production seeding in RK4 (30 days, 2 h steps)."""
+    return production_config(rt, integrator="rk4", bound_mode="exact",
+                             interval_batch=16, pin_limit=None)
+
+
+def default_config(rt):
+    """``RunConfig()``: RK4, the 21 x 15 source matrix from 70E, 4S x zwn
+    1..7 (6,615 rays), 90 days of 2 h steps: the CLI's default run."""
+    return rt.RunConfig()
+
+
+def readme_config(rt, days=README_DAYS):
+    """The README's Usage run: the default source matrix (6,615 rays),
+    exact-bound RK45, interval_batch 16, rtol = atol = 1e-6; ``days`` of
+    its 90."""
+    return rt.RunConfig(integrator="rk45", ttotal=days * DAY)
 
 
 def check(cond, msg):
@@ -209,23 +285,43 @@ class Run:
             t.arange(1, 8, dtype=dtype, device=self.dev))
         return bs, bg, y0.contiguous(), ug0, vg0
 
-    def run_inputs(self, dtype):
-        """``trace_rays``' entry state for the production run, as it hands
-        it to ``_dense_run``: the compacted lanes, their (ug0, vg0), h0, f0,
-        the padded bounds and the run's scalars. Returns (bg, args, kw,
-        idx) with idx the compacted lanes' indices in the seed batch."""
+    def entry(self, dtype, matrix=None):
+        """``trace_rays``' compacted entry state (bg, y0, ug0, vg0, idx) for
+        the production seeding or, given a RunConfig ``matrix``, its source
+        matrix; idx the compacted lanes' indices in the seed batch."""
+        from rwrt_tpu_torch import tracer
+
+        torch = self.torch
+        if matrix is None:
+            _, bg, y0, ug0, vg0 = self.seed_batch(dtype)
+        else:
+            m = matrix
+            bg = tracer.make_background(self.bs(dtype), m.freq)
+            slon, slat = tracer.source_matrix(m.sw_lon, m.sw_lat, m.dlon,
+                                              m.dlat, m.nnx, m.nny)
+            y0, ug0, vg0 = tracer.initialize(bg, *(
+                torch.as_tensor(x, dtype=dtype, device=self.dev)
+                for x in (slon, slat, m.zwn_array())))
+        idx = tracer.compact_lane_indices(
+            torch.isfinite(y0[4]).cpu().numpy())
+        take = torch.as_tensor(idx, device=self.dev)
+        return (bg, y0.index_select(1, take).contiguous(),
+                ug0.index_select(0, take), vg0.index_select(0, take), idx)
+
+    def run_inputs(self, dtype, cfg=None, matrix=None):
+        """``trace_rays``' entry state for an adaptive run ``cfg`` (default:
+        the production run) from the production seeding or ``matrix``'s
+        source matrix, as it hands it to ``_dense_run`` or ``_exact_run``:
+        the compacted lanes, their (ug0, vg0), h0, f0, the padded bounds and
+        the run's scalars. Returns (bg, args, kw, idx) with idx the
+        compacted lanes' indices in the seed batch, kw the pin-kill of a
+        dense run."""
         from rwrt_tpu_torch import tracer
         from rwrt_tpu_torch.models import ray
         from rwrt_tpu_torch.solvers import rk45
 
-        torch = self.torch
-        cfg = production_config(self.rt)
-        _, bg, y0, ug0, vg0 = self.seed_batch(dtype)
-        idx = tracer.compact_lane_indices(
-            torch.isfinite(y0[4]).cpu().numpy())
-        take = torch.as_tensor(idx, device=self.dev)
-        y0 = y0.index_select(1, take).contiguous()
-        ug0, vg0 = ug0.index_select(0, take), vg0.index_select(0, take)
+        cfg = production_config(self.rt) if cfg is None else cfg
+        bg, y0, ug0, vg0, idx = self.entry(dtype, matrix)
         rtol = rk45.validate_tol(cfg.rtol, dtype)
         atol = rk45.as_scalar(cfg.atol, dtype)
         min_step = rk45.as_scalar(min(cfg.min_step_factor * cfg.tstep,
@@ -237,7 +333,8 @@ class Run:
             min(cfg.interval_batch, cfg.nt - 1), dtype, self.dev)
         args = (bg, y0, ug0, vg0, h0, f0, bounds_g, cfg.nt - 1,
                 rk45.as_scalar(cfg.cut_off_rad, dtype), rtol, atol, min_step)
-        kw = dict(pin_limit=cfg.pin_limit, pin_mwn=cfg.pin_mwn)
+        kw = ({} if cfg.pin_limit is None
+              else dict(pin_limit=cfg.pin_limit, pin_mwn=cfg.pin_mwn))
         return bg, args, kw, idx
 
 
@@ -475,6 +572,7 @@ def phase_main_path(run):
 
     stats = {}
     ray.LAUNCHES = rk45.LAUNCHES = tracer.LAUNCHES = spec.LAUNCHES = 0
+    rk45.EXACT_LAUNCHES = tracer.RK4_LAUNCHES = tracer.EXACT_LAUNCHES = 0
     t0 = time.perf_counter()
     traj = run.rt.trace_rays(bs, cfg, source_lon=run.slon,
                              source_lat=run.slat, stats=stats)
@@ -489,6 +587,11 @@ def phase_main_path(run):
           f"trace_rays made {launches['dense_run']} whole-run launches, not 1")
     check(launches["dense_group"] == 0,
           "trace_rays launched the single-group kernel")
+    check(rk45.EXACT_LAUNCHES == tracer.RK4_LAUNCHES
+          == tracer.EXACT_LAUNCHES == 0,
+          "the dense trace_rays launched an RK4 or exact kernel")
+    check(attempts == DENSE_ATTEMPTS,
+          f"{attempts} step attempts, not {DENSE_ATTEMPTS}")
     # chip_smoke's own sampler stage after the tracer: the spectral fit of
     # the same background at the day-10 positions the tracer emitted. Its
     # counter is read separately: trace_rays never calls the sampler.
@@ -597,6 +700,309 @@ def phase_spectral(run):
                 ms=ms, plain_ms=plain, library_ms=library, **b)
 
 
+def rk4_bound(bg, y0, ug0, vg0, out, dtype):
+    """Bytes: the entry state and background in, the rows out; flops: the
+    steps of the lanes alive after them (a dead lane's arithmetic is not
+    needed)."""
+    live_steps = int(out[0][1:, 0].isfinite().sum())
+    return bound(nbytes(bg.fields, y0, ug0, vg0, *out),
+                 live_steps * RK4_STEP_FLOPS, str(dtype)[6:])
+
+
+def phase_rk4(run):
+    """The RK4 kernel against the plain run over all 360 steps of the
+    production seeding's entry state (float32, 60,784 lanes; float64 on its
+    first N_SUBSET lanes), bitwise; the kernel's time there and on the
+    default run's entry state (~4,000 lanes, 1,080 steps)."""
+    torch = run.torch
+    from rwrt_tpu_torch import tracer
+    from rwrt_tpu_torch.solvers import rk45
+
+    run.rk4 = {}
+    for name, cfg in (("production", rk4_production_config(run.rt)),
+                      ("default", default_config(run.rt))):
+        for dtype in ((torch.float32, torch.float64) if name == "production"
+                      else (torch.float32,)):
+            bg, y0, ug0, vg0, idx = run.entry(
+                dtype, None if name == "production" else cfg)
+            if dtype == torch.float64:
+                y0, ug0, vg0 = (x[..., :N_SUBSET].contiguous()
+                                for x in (y0, ug0, vg0))
+            args = (bg, y0, ug0, vg0, rk45.as_scalar(cfg.tstep, dtype),
+                    cfg.nt, rk45.as_scalar(cfg.cut_off_rad, dtype))
+            before = tracer.RK4_LAUNCHES
+            kern = tracer._run_rk4(*args)
+            check(tracer.RK4_LAUNCHES == before + 1, "rk4 did not launch once")
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            plain = tracer._run_rk4_plain(*args)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+            for k, p, what in zip(kern, plain, ("rows", "ug", "vg")):
+                check(same(k, p), f"rk4 {name} {dtype}: {what} differ from "
+                      "the plain run")
+            tag = f"rk4 {name} {str(dtype)[6:]}"
+            if dtype == torch.float64:
+                print(f"{tag}: R={y0.shape[1]}, {cfg.nt - 1} steps, bitwise "
+                      f"equal to the plain run; plain {plain_ms:.1f} ms")
+                continue
+            ms = cuda_ms(lambda: tracer._run_rk4_cuda(*args), 3)
+            b = rk4_bound(bg, y0, ug0, vg0, kern, dtype)
+            alive = float(kern[0][-1, 0].isfinite().float().mean())
+            print(f"{tag}: R={y0.shape[1]}, {cfg.nt - 1} steps, bitwise equal "
+                  f"to the plain run; kernel {ms:.3f} ms (CUDA events), plain "
+                  f"{plain_ms:.1f} ms; bound {b['bound_ms']:.4f} ms "
+                  f"({b['bound_by']}); lanes alive at the end {alive:.4f}")
+            run.rk4[name] = (idx, kern)
+            if name == "production":
+                err = max(float(torch.nan_to_num(torch.abs(k - p),
+                                                 nan=0.0).max())
+                          for k, p in zip(kern, plain))
+                run.kernels["rk4_run"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    library_ms=None, **b)
+
+
+def exact_bound(args, out, dtype, attempts, crossings):
+    """Bytes: the entry state, bounds and background in, every output out;
+    flops: this run's step attempts and crossings."""
+    bg, y0, ug0, vg0, h0, f0, bounds_g = args[:7]
+    return bound(nbytes(bg.fields, y0, ug0, vg0, h0, f0, bounds_g, *out),
+                 attempts * EXACT_ATTEMPT_FLOPS + crossings * KILL_FLOPS,
+                 str(dtype)[6:])
+
+
+def phase_exact_group(run):
+    """The first 16-bound group of the production seeding in exact mode,
+    ``integrate_group``'s kernel against the plain loop on its entry state
+    (60,784 lanes), float32 and float64: hist, carry, iters, attempts,
+    flags and next bounds bitwise."""
+    torch = run.torch
+    from rwrt_tpu_torch.models import ray
+    from rwrt_tpu_torch.solvers import rk45
+
+    cfg = production_config(run.rt, bound_mode="exact", pin_limit=None,
+                            interval_batch=16)
+    for dtype in (torch.float32, torch.float64):
+        bg, args, _, _ = run.run_inputs(dtype, cfg)
+        _, y0, _, _, h0, f0, bounds_g, _, cut_off, rtol, atol, min_step = args
+        carry = (y0, torch.zeros_like(h0), h0, f0, y0[0].clone(),
+                 y0[1].clone())
+        tail = (bounds_g[0], *carry[4:], cut_off, rtol, atol, min_step)
+
+        def plain_rhs(yy, tt=0.0):
+            return ray._rhs_core(bg, yy, tt, False)[0]
+
+        def plain_gv(yy, tt=0.0):
+            dy, _, ug, vg = ray._rhs_core(bg, yy, tt, True)
+            return dy, ug, vg
+
+        def kernel():
+            return rk45.integrate_group(ray.RayRHS(bg), None, *carry[:4],
+                                        *tail)
+
+        before = rk45.EXACT_LAUNCHES
+        kern = kernel()
+        check(rk45.EXACT_LAUNCHES == before + 1, "exact group did not launch")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain = rk45._integrate_group_plain(plain_rhs, plain_gv, *carry[:4],
+                                            *tail)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        name = str(dtype)[6:]
+        for i in range(7):
+            check(same(kern[i], plain[i]), f"exact_group {name}: output {i} "
+                  "differs from the plain loop")
+        check(int(kern[7]) == plain[7], f"exact_group {name}: iters differ")
+        for i in (9, 10, 11, 12):
+            check(torch.equal(kern[i], plain[i]),
+                  f"exact_group {name}: output {i} differs")
+        ms = cuda_ms(kernel, 5)
+        attempts = int(kern[9].sum())
+        b = exact_bound(args, kern[:7] + kern[9:], dtype, attempts,
+                        int(kern[0][:, 5].isfinite().sum()))
+        print(f"exact_group {name}: R={y0.shape[1]}, 16 bounds, bitwise equal "
+              f"to the plain loop; trips {int(kern[7])}, step attempts "
+              f"{attempts}; kernel {ms:.3f} ms (CUDA events), plain "
+              f"{plain_ms:.1f} ms, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']})")
+        if dtype == torch.float32:
+            run.kernels["exact_group"] = dict(
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                **b)
+
+
+def phase_exact_run(run):
+    """The whole-run exact kernel against the plain ``_exact_run_plain``:
+    float32 on the README run's entry state (4,288 lanes) over README_DAYS
+    days (480 bounds in 30 groups of 16; the plain run takes ~45 s), timed;
+    float64 on its first EXACT_SUBSET lanes over its first EXACT_DAYS days
+    (12 groups, ~20 s); rows, (ug, vg), attempts, truncation counts and
+    carry bitwise."""
+    torch = run.torch
+    from rwrt_tpu_torch import tracer
+
+    cfg = readme_config(run.rt)
+    n_bounds = int(EXACT_DAYS * DAY / cfg.tstep)
+    for dtype in (torch.float32, torch.float64):
+        _, args, _, idx = run.run_inputs(dtype, cfg, cfg)
+        name = str(dtype)[6:]
+        if dtype == torch.float64:
+            args = lane_subset(args, EXACT_SUBSET)
+            groups = args[6][:n_bounds // args[6].shape[1]]
+            args = args[:6] + (groups, n_bounds) + args[8:]
+        before = tracer.EXACT_LAUNCHES
+        kern = tracer._exact_run(*args)
+        check(tracer.EXACT_LAUNCHES == before + 1,
+              "exact_run did not launch once")
+        ms = cuda_ms(lambda: tracer._exact_run(*args), 3)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain = tracer._exact_run_plain(*args)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        for n in ("ys", "ugs", "vgs", "lane_att", "trunc"):
+            check(same(getattr(kern, n), getattr(plain, n)),
+                  f"exact_run {name}: {n} differs from the plain run")
+        for a, b in zip(kern.carry, plain.carry):
+            check(same(a, b), f"exact_run {name}: carry differs")
+        trips = kern.lane_att.sum(dim=0)
+        attempts = int(kern.lane_att.sum())
+        bnd = exact_bound(args, kern[:5] + kern.carry, dtype, attempts,
+                          int(kern.ugs[1:].isfinite().sum()))
+        print(f"exact_run {name}: R={args[1].shape[1]}, "
+              f"{kern.ys.shape[0] - 1} bounds in {kern.lane_att.shape[0]} "
+              f"groups, bitwise equal to the plain run (rows, ug, vg, "
+              f"lane_att, trunc, carry); kernel {ms:.3f} ms (CUDA events), "
+              f"plain {plain_ms:.1f} ms, bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']}); step attempts {attempts}, most trips "
+              f"per group {kern.lane_att.amax(dim=1).tolist()}, longest lane "
+              f"{int(trips.max())} trips in all, truncated lane-groups "
+              f"{int(kern.trunc.sum())}")
+        if dtype == torch.float32:
+            run.exact_run = (idx, kern)
+            run.kernels["exact_run"] = dict(
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                **bnd)
+
+
+def traced(run, cfg, launches_of, **kw):
+    """One ``trace_rays`` on the climatology background, float32, with
+    every launch counter set to 0 just before it and read just after.
+    Returns (traj, launches, wall s, peak MiB above the prepared state,
+    stats, the MaxItersTruncation that refused the run or None; traj is
+    None then)."""
+    torch = run.torch
+    from rwrt_tpu_torch import tracer
+    from rwrt_tpu_torch.models import ray
+    from rwrt_tpu_torch.ops import spectral_sample as spec
+    from rwrt_tpu_torch.solvers import rk45
+
+    bs = run.bs(torch.float32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    stats = {}
+    ray.LAUNCHES = rk45.LAUNCHES = rk45.EXACT_LAUNCHES = spec.LAUNCHES = 0
+    tracer.LAUNCHES = tracer.RK4_LAUNCHES = tracer.EXACT_LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        traj, refused = run.rt.trace_rays(bs, cfg, stats=stats, **kw), None
+    except tracer.MaxItersTruncation as e:
+        traj, refused = None, e
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"rhs": ray.LAUNCHES, "dense_group": rk45.LAUNCHES,
+                "dense_run": tracer.LAUNCHES, "spectral": spec.LAUNCHES,
+                "rk4_run": tracer.RK4_LAUNCHES,
+                "exact_group": rk45.EXACT_LAUNCHES,
+                "exact_run": tracer.EXACT_LAUNCHES}
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    for k, n in launches.items():
+        want = 1 if k == launches_of else None if k == "rhs" else 0
+        check(want is None or n == want,
+              f"trace_rays made {n} {k} launches, not {want}")
+    return traj, launches, wall, peak, stats, refused
+
+
+def check_rows(traj, idx, kern, what):
+    """The trajectory's compacted lanes equal a kernel run's rows."""
+    nt = kern[0].shape[0]
+    flat = {k: getattr(traj, k).reshape(nt, -1)[:, idx]
+            for k in traj._fields}
+    for k, row in (("lon", 0), ("lat", 1), ("kx", 2), ("ky", 3), ("amp", 4)):
+        check(same(flat[k], kern[0][:, row]),
+              f"{what}: trace_rays {k} differs from the kernel phase's rows")
+    check(same(flat["ug"], kern[1]) and same(flat["vg"], kern[2]),
+          f"{what}: trace_rays (ug, vg) differ from the kernel phase's")
+    alive_end = traj.ky[-1].isfinite()
+    for k in traj._fields:
+        check(bool(getattr(traj, k)[-1][alive_end].isfinite().all()),
+              f"{what}: non-finite {k} on a lane alive at the end")
+
+
+def phase_rk4_path(run):
+    """The two RK4 runs through ``trace_rays``: ``RunConfig()`` (6,615
+    rays, 90 days) and the production seeding (100,800 rays, 30 days). The
+    kernels line reports the production run's launches."""
+    for name, cfg, kw in (
+            ("default", default_config(run.rt), {}),
+            ("production", rk4_production_config(run.rt),
+             dict(source_lon=run.slon, source_lat=run.slat))):
+        traj, launches, wall, peak, stats, refused = traced(
+            run, cfg, "rk4_run", **kw)
+        check(refused is None and not stats, "an rk4 run filled stats")
+        idx, kern = run.rk4[name]
+        check_rows(traj, idx, kern, f"rk4 {name}")
+        n_rays = traj.lon[0].numel()
+        alive = float(traj.lon[-1].isfinite().float().mean())
+        print(f"rk4_path {name}: {n_rays} rays x {cfg.nt - 1} steps, wall "
+              f"{wall:.3f} s, peak device memory {peak:.1f} MiB above the "
+              f"prepared state, alive fraction at the end {alive:.4f}; "
+              f"launches {launches}; rows bitwise equal to the rk4 phase's")
+        run.launches["rk4_run"] = launches["rk4_run"]
+
+
+def phase_exact_path(run):
+    """The README run through ``trace_rays`` over README_DAYS days; then
+    over TRUNC_DAYS days, where it must raise ``MaxItersTruncation`` after
+    its one launch, with its attempts in ``stats``."""
+    cfg = readme_config(run.rt)
+    traj, launches, wall, peak, stats, refused = traced(run, cfg,
+                                                        "exact_run")
+    check(refused is None, f"the README run was refused: {refused}")
+    idx, kern = run.exact_run
+    check_rows(traj, idx, kern, "exact")
+    lane_att = stats["lane_att"]
+    check(run.torch.equal(lane_att, kern.lane_att),
+          "trace_rays' attempts differ from the exact_run phase's")
+    print(f"exact_path: {traj.lon[0].numel()} rays x {cfg.nt - 1} bounds, "
+          f"wall {wall:.3f} s, peak device memory {peak:.1f} MiB above the "
+          f"prepared state, step attempts {int(lane_att.sum())}, longest "
+          f"lane {int(lane_att.sum(dim=0).max())} trips; launches "
+          f"{launches}; rows bitwise equal to the exact_run phase's")
+    run.launches["exact_run"] = launches["exact_run"]
+    run.launches["exact_group"] = launches["exact_group"]
+    cfg = readme_config(run.rt, TRUNC_DAYS)
+    _, launches, wall, _, stats, refused = traced(run, cfg, "exact_run")
+    lane_att = stats["lane_att"]
+    capped = lane_att.amax(dim=1) == MAX_ITERS
+    check(refused is not None, f"the {TRUNC_DAYS}-day README run was not "
+          "refused by MaxItersTruncation")
+    check(bool(capped.any()), "no group reached the max_iters backstop")
+    print(f"exact_path {TRUNC_DAYS} days: refused by MaxItersTruncation "
+          f"({refused}) after {wall:.3f} s and one launch; groups at the "
+          f"{MAX_ITERS:,}-trip backstop: "
+          f"{capped.nonzero().flatten().tolist()}")
+
+
 KERNELS = (
     ("rhs", "rwrt_tpu_torch/csrc/rhs.cu", "rwrt_tpu/models/ray.py:163"),
     ("dense_group", "rwrt_tpu_torch/csrc/dense_run.cu",
@@ -605,6 +1011,11 @@ KERNELS = (
      "rwrt_tpu/tracer.py:861"),
     ("spectral", "rwrt_tpu_torch/csrc/spectral.cu",
      "rwrt_tpu/ops/spectral_sample.py:324"),
+    ("rk4_run", "rwrt_tpu_torch/csrc/rk4_run.cu", "rwrt_tpu/tracer.py:819"),
+    ("exact_group", "rwrt_tpu_torch/csrc/exact_run.cu",
+     "rwrt_tpu/solvers/rk45.py:302"),
+    ("exact_run", "rwrt_tpu_torch/csrc/exact_run.cu",
+     "rwrt_tpu/tracer.py:861"),
 )
 
 
@@ -638,7 +1049,9 @@ def main() -> int:
 
     run = Run(torch, rt)
     for phase in (phase_rhs, phase_dense_group, phase_dense_run,
-                  phase_main_path, phase_spectral):
+                  phase_main_path, phase_spectral, phase_rk4,
+                  phase_exact_group, phase_exact_run, phase_rk4_path,
+                  phase_exact_path):
         t0 = time.perf_counter()
         phase(run)
         print(f"phase {phase.__name__[6:]} ok in "

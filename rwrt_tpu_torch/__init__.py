@@ -1,7 +1,8 @@
 """rwrt_tpu_torch: the PyTorch/CUDA port of rwrt_tpu.
 
 Barotropic Rossby-wave ray tracing with plain PyTorch around hand-written
-CUDA kernels for the RHS, the dense Dormand-Prince group and the spectral
+CUDA kernels for the RHS, the whole RK4, exact-bound and dense
+Dormand-Prince runs (and single groups of the latter two) and the spectral
 sampler (built from ``csrc/`` at first use on a CUDA device). The JAX
 package ``rwrt_tpu`` is the reference each module is tested against; this
 package never imports it or JAX.

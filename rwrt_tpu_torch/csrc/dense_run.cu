@@ -63,6 +63,9 @@
 // rule the kill out (ray_rhs.cuh kill_mask); and the background row comes
 // in 16-byte loads.
 //
+// The Dormand-Prince stages, error norm and step factors are dp45.cuh's,
+// shared with the exact kernels (exact_run.cu).
+//
 // Rounding: built with -fmad=false (kernels/build.py), so each expression
 // rounds as the plain version's separate tensor ops do; with FMA
 // contraction the one-ulp differences were amplified by the error
@@ -74,24 +77,12 @@
 // lane_att.
 #include <cuda_runtime.h>
 
-#include "ray_rhs.cuh"
+#include "dp45.cuh"
 
 namespace {
 
-constexpr double kSafety = 0.9;
-constexpr double kMinFactor = 0.2;
-constexpr double kMaxFactor = 10.0;
-constexpr double kErrorExponent = -0.2;
-
-// jnp.maximum / jnp.minimum: NaN-propagating (fmax/fmin are not).
-template <typename T>
-__device__ __forceinline__ T nan_max(T a, T b) {
-  return (isnan(a) || isnan(b)) ? rwrt::nan_value<T>() : (a > b ? a : b);
-}
-template <typename T>
-__device__ __forceinline__ T nan_min(T a, T b) {
-  return (isnan(a) || isnan(b)) ? rwrt::nan_value<T>() : (a < b ? a : b);
-}
+using rwrt::dp45::nan_max;
+using rwrt::dp45::nan_min;
 
 template <typename T>
 struct DenseArgs {
@@ -131,25 +122,9 @@ struct DenseArgs {
 template <typename T, bool kRun>
 __global__ void __launch_bounds__(128)
 dense_kernel(const DenseArgs<T> a) {
-  // Dormand-Prince 5(4) tableau and dense-output quartic (solvers/rk45.py
-  // DP_*), double literals rounded to T where used, as the JAX package's
-  // weakly typed constants are. Local constexpr arrays, so the unrolled
-  // loops index them at compile time.
-  constexpr double kA[6][5] = {
-      {0.0, 0.0, 0.0, 0.0, 0.0},
-      {1.0 / 5, 0.0, 0.0, 0.0, 0.0},
-      {3.0 / 40, 9.0 / 40, 0.0, 0.0, 0.0},
-      {44.0 / 45, -56.0 / 15, 32.0 / 9, 0.0, 0.0},
-      {19372.0 / 6561, -25360.0 / 2187, 64448.0 / 6561, -212.0 / 729, 0.0},
-      {9017.0 / 3168, -355.0 / 33, 46732.0 / 5247, 49.0 / 176,
-       -5103.0 / 18656},
-  };
-
-  constexpr double kB[6] = {35.0 / 384, 0.0, 500.0 / 1113, 125.0 / 192,
-                            -2187.0 / 6784, 11.0 / 84};
-  constexpr double kE[7] = {-71.0 / 57600,  0.0,         71.0 / 16695,
-                            -71.0 / 1920,   17253.0 / 339200,
-                            -22.0 / 525,    1.0 / 40};
+  // The dense-output quartic (solvers/rk45.py DP_P), double literals
+  // rounded to T where used. A local constexpr array, so the unrolled loops
+  // index it at compile time.
   constexpr double kP[7][4] = {
       {1.0, -8048581381.0 / 2820520608, 8663915743.0 / 2820520608,
        -12715105075.0 / 11282082432},
@@ -271,60 +246,22 @@ dense_kernel(const DenseArgs<T> a) {
       T k[7][5];
 #pragma unroll
       for (int v = 0; v < 5; ++v) k[0][v] = fl[v];
-      bool e;
-#pragma unroll
-      for (int s = 1; s < 6; ++s) {
-        T ys[5];
-#pragma unroll
-        for (int v = 0; v < 5; ++v) {
-          T acc = T(0);
-          bool first = true;
-#pragma unroll
-          for (int j = 0; j < s; ++j) {
-            if (kA[s][j] != 0.0) {
-              T term = T(kA[s][j]) * k[j][v];
-              acc = first ? term : acc + term;
-              first = false;
-            }
-          }
-          ys[v] = yl[v] + hs * acc;
-        }
-        rwrt::ray_rhs(a.bg, ys, k[s], &e);
-      }
       T y_new[5];
-#pragma unroll
-      for (int v = 0; v < 5; ++v) {
-        T acc = T(kB[0]) * k[0][v];
-#pragma unroll
-        for (int j = 1; j < 6; ++j) acc = acc + T(kB[j]) * k[j][v];
-        y_new[v] = yl[v] + hs * acc;
-      }
+      rwrt::dp45::trial(a.bg, yl, hs, k, y_new);
+      bool e;
       rwrt::ray_rhs(a.bg, y_new, k[6], &e);
-
-      T sq = T(0);
-#pragma unroll
-      for (int v = 0; v < 5; ++v) {
-        T acc = T(kE[0]) * k[0][v];
-#pragma unroll
-        for (int j = 1; j < 7; ++j) acc = acc + T(kE[j]) * k[j][v];
-        const T err = hs * acc;
-        const T scale = a.atol + nan_max(fabs(yl[v]), fabs(y_new[v])) * a.rtol;
-        const T x = err / scale;
-        sq = (v == 0) ? x * x : sq + x * x;
-      }
-      const T error_norm = sqrt(sq / T(5));
+      const T error_norm =
+          rwrt::dp45::error_norm(k, hs, yl, y_new, a.atol, a.rtol);
 
       const bool nan_err = isnan(error_norm);
       const bool dead_now = isnan(yl[0]);
       const bool at_floor = hs <= a.min_step;
       const bool accept =
           nan_err ? (dead_now || at_floor) : (error_norm < T(1));
-      const T raw = T(kSafety) * pow(error_norm, T(kErrorExponent));
-      T fac_acc = nan_min(T(kMaxFactor), raw);
-      if (rej) fac_acc = nan_min(T(1), fac_acc);
+      T fac_acc, fac_rej;
+      rwrt::dp45::step_factors(error_norm, rej, &fac_acc, &fac_rej);
       if (nan_err) fac_acc = T(1);
-      T fac_rej = nan_max(T(kMinFactor), raw);
-      if (nan_err) fac_rej = T(kMinFactor);
+      if (nan_err) fac_rej = T(rwrt::dp45::kMinFactor);
       const T h_next = accept ? hs * fac_acc : hs * fac_rej;
 
       if (accept) {

@@ -1,6 +1,7 @@
 // The ray RHS and the termination physics for one lane, as __device__
-// functions shared by the RHS kernel (rhs.cu) and the dense kernels
-// (dense_run.cu).
+// functions shared by the RHS kernel (rhs.cu), the dense kernels
+// (dense_run.cu), the RK4 kernel (rk4_run.cu) and the exact kernels
+// (exact_run.cu).
 //
 // Replaces (rwrt_tpu, fused by XLA there, no Pallas original):
 //   ops/interp.py       _packed_cell, _packed_corner_lerp (one packed row),

@@ -53,6 +53,22 @@ SIGNATURES = {
     "rwrt_dense_run": (_P, _I, _I, _D, _D, _D, _D, _P, _P, _P, _P, _P, _P,
                        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _D,
                        _D, _D, _L, _L, _D, _P),
+    # packed, W, H, lon0, lat0, dx, dy, y, ug0, vg0, ys, ugs, vgs, n_steps,
+    # row_offset, R, dt, half, sixth, cut_off, stream
+    "rwrt_rk4_run": (_P, _I, _I, _D, _D, _D, _D, _P, _P, _P, _P, _P, _P, _I,
+                     _I, _I, _D, _D, _D, _D, _P),
+    # packed, W, H, lon0, lat0, dx, dy, y, t, h, f, plon, plat, rejected,
+    # new_step, lane_att, idx, trips, hist, bounds, G, R, resume, cut_off,
+    # rtol, atol, min_step, max_iters, stream
+    "rwrt_exact_group": (_P, _I, _I, _D, _D, _D, _D, _P, _P, _P, _P, _P, _P,
+                         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _D, _D,
+                         _D, _L, _P),
+    # packed, W, H, lon0, lat0, dx, dy, y, t, h, f, plon, plat, ug0, vg0,
+    # hist, ugs, vgs, lane_att, trunc, bounds, G, n_groups, R, cut_off, rtol,
+    # atol, min_step, max_iters, stream
+    "rwrt_exact_run": (_P, _I, _I, _D, _D, _D, _D, _P, _P, _P, _P, _P, _P, _P,
+                       _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _D, _D, _D,
+                       _L, _P),
     # lon, lat, tht, packed, R, Mp, L, C, Kp, Lp, bf16, out, stream
     "rwrt_spectral": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
 }

@@ -1,0 +1,99 @@
+"""Fixed-step RK4 ray integration.
+
+Port of ``rwrt_tpu/solvers/rk4.py``, the plain PyTorch version: the JAX
+``scan`` over output steps becomes a Python loop. Per-step semantics are the
+JAX package's:
+
+- a ray advances only if none of its four RK stages raised the RHS's fail
+  flag (|lat| >= pi/2 or |ky| >= 100); otherwise it keeps its previous
+  state. A NaN state raises no flag, so a rootless lane writes its NaN
+  proposal and is NaN from step 1;
+- after the update, rays whose new |lat| >= pi/2 or whose haversine move
+  from the previous carry reaches cut_off are NaN-killed;
+- (ug, vg) are re-derived at the new state (NaN propagating).
+
+On the card the whole run is one launch of ``csrc/rk4_run.cu``
+(``tracer._run_rk4``); this module is what that kernel is held against. It
+calls the plain RHS (``models/ray._rhs_core``) on every device.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from rwrt_tpu_torch.models import ray as ray_mod
+from rwrt_tpu_torch.models.ray import Background, S_KX, S_KY, S_LAT, S_LON
+
+
+def step_factors(dt, dtype: torch.dtype) -> Tuple[float, float, float]:
+    """(dt, 0.5 * dt, dt / 6.0), each rounded to ``dtype`` where the JAX
+    expression rounds it (``dt`` a 0-d array of the state's dtype): the
+    halving is exact, the division is IEEE in ``dtype``."""
+    d = torch.tensor(float(dt), dtype=torch.float64).to(dtype)
+    return float(d), float(0.5 * d), float(d / torch.tensor(6.0, dtype=dtype))
+
+
+def rk4_step(bg: Background, y: torch.Tensor, dt, t=0.0) -> torch.Tensor:
+    """One RK4 step with per-ray freeze semantics. y: (5, R) -> (5, R)."""
+    dt, half, sixth = step_factors(dt, y.dtype)
+
+    def rhs(yy):
+        dy, err, _, _ = ray_mod._rhs_core(bg, yy, t, False)
+        return dy, err
+
+    k1, m1 = rhs(y)
+    k2, m2 = rhs(y + half * k1)
+    k3, m3 = rhs(y + half * k2)
+    k4, m4 = rhs(y + dt * k3)
+    valid = ~(m1 | m2 | m3 | m4)
+    y_prop = y + sixth * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+    return torch.where(valid[None, :], y_prop, y)
+
+
+def trace_into(bg: Background, y: torch.Tensor, dt, n_steps: int, cut_off,
+               ys: torch.Tensor, ugs: torch.Tensor, vgs: torch.Tensor,
+               row_offset: int = 0) -> torch.Tensor:
+    """``n_steps`` output steps from carry ``y``, each written at row
+    ``row_offset + step`` of ys (rows, 5, R) and ugs, vgs (rows, R).
+    Returns the carry after the last step."""
+    for s in range(n_steps):
+        y_new = rk4_step(bg, y, dt)
+        kill = ray_mod.kill_mask(y_new, y[S_LON], y[S_LAT], cut_off)
+        y_new = torch.where(kill[None, :], torch.full_like(y_new, float("nan")),
+                            y_new)
+        ug, vg = ray_mod.group_velocity_at(
+            bg, y_new[S_LON], y_new[S_LAT], y_new[S_KX], y_new[S_KY])
+        ys[row_offset + s], ugs[row_offset + s], vgs[row_offset + s] = (
+            y_new, ug, vg)
+        y = y_new
+    return y
+
+
+def trace(bg: Background, y0: torch.Tensor, dt, nt: int, cut_off, ug0=None,
+          vg0=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Integrate the ray batch for nt output steps.
+
+    Args:
+      bg: the background.
+      y0: (5, R) initial state [lon, lat, kx, ky, amp].
+      dt: time step in seconds.
+      nt: total number of saved times (including t=0).
+      cut_off: haversine displacement kill threshold in radians per step.
+      ug0, vg0: initial group velocities; default: the zero-invalid
+        group velocity at y0.
+
+    Returns ys (nt, 5, R) with y0 in row 0, and ug, vg (nt, R) whose row 0
+    uses the zero-invalid initialization semantics.
+    """
+    if ug0 is None or vg0 is None:
+        ug0, vg0 = ray_mod.group_velocity_at(
+            bg, y0[S_LON], y0[S_LAT], y0[S_KX], y0[S_KY], zero_invalid=True)
+    r = y0.shape[1]
+    ys = torch.empty((nt, 5, r), dtype=y0.dtype, device=y0.device)
+    ugs = torch.empty((nt, r), dtype=y0.dtype, device=y0.device)
+    vgs = torch.empty_like(ugs)
+    ys[0], ugs[0], vgs[0] = y0, ug0, vg0
+    trace_into(bg, y0, dt, nt - 1, cut_off, ys, ugs, vgs, row_offset=1)
+    return ys, ugs, vgs

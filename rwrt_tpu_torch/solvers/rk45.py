@@ -1,18 +1,22 @@
-"""Adaptive Dormand-Prince 5(4) with per-ray step control, dense output.
+"""Adaptive Dormand-Prince 5(4) with per-ray step control.
 
-Port of the dense path of ``rwrt_tpu/solvers/rk45.py``: the tableau and
-controller constants, ``select_initial_step``, ``validate_tol``,
-``dense_entry_state`` and ``integrate_group_dense`` with its straggler
-pin-kill. The exact-mode integrators are not ported yet.
+Port of ``rwrt_tpu/solvers/rk45.py``: the tableau and controller constants,
+``select_initial_step``, ``validate_tol``; the exact-bound integrators
+(``integrate_interval``, the per-interval barrier path, and
+``integrate_group`` with its entry state ``group_entry_state`` and its
+suspend/resume ``state0``); the dense-output integrator
+(``dense_entry_state``, ``integrate_group_dense`` with its straggler
+pin-kill).
 
-``integrate_group_dense`` is one of the port's hand-written kernels (the
-single-group instance of ``csrc/dense_run.cu``): on a CUDA state it launches
-one thread per lane, each looping to the group's last bound inside one
-launch; on a CPU state it runs the plain PyTorch loop
-``_integrate_group_dense_plain``, the JAX ``while_loop`` written out.
-``LAUNCHES`` counts kernel launches. ``trace_rays`` does not call it: the
-whole-run instance of the same kernel (``tracer._dense_run``) runs every
-group in one launch.
+Two of these are hand-written kernels, each the single-group instance of a
+whole-run kernel: ``integrate_group_dense`` (``csrc/dense_run.cu``) and
+``integrate_group`` (``csrc/exact_run.cu``). On a CUDA state each launches
+one thread per lane, looping through the group inside one launch; on a CPU
+state each runs its plain PyTorch loop (``_integrate_group_dense_plain``,
+``_integrate_group_plain``), the JAX ``while_loop`` written out.
+``LAUNCHES`` and ``EXACT_LAUNCHES`` count their launches. ``trace_rays``
+calls neither: the whole-run instances (``tracer._dense_run``,
+``tracer._exact_run``) run every group in one launch.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import math
 import torch
 
 from rwrt_tpu_torch import kernels
+from rwrt_tpu_torch.models import ray as ray_mod
 from rwrt_tpu_torch.models.ray import RayRHS
 from rwrt_tpu_torch.ops.interp import true_div
 
@@ -67,6 +72,8 @@ PIN_OFF = 2 ** 30
 
 #: Number of dense-group kernel launches in this process.
 LAUNCHES = 0
+#: Number of exact-group kernel launches (``integrate_group`` on CUDA).
+EXACT_LAUNCHES = 0
 
 
 def as_scalar(x, dtype: torch.dtype) -> float:
@@ -109,6 +116,309 @@ def select_initial_step(rhs_fn, y0, f0, rtol, atol, t0=0.0):
     both_small = torch.logical_not(d1 > 1e-15) & torch.logical_not(d2 > 1e-15)
     h1 = torch.where(both_small, torch.clamp(h0 * 1e-3, min=1e-6), h1)
     return torch.minimum(100.0 * h0, h1)
+
+
+def _dp_trial(rhs_fn, y, t, hstep, f0):
+    """Stages 2-6 of a Dormand-Prince trial step from the FSAL stage ``f0``:
+    returns (the stage list k[0..5], the 5th-order proposal y_new)."""
+    k = [f0]
+    for s in range(1, 6):
+        dy = hstep[None, :] * sum(
+            DP_A[s][j] * k[j] for j in range(s) if DP_A[s][j] != 0.0
+        )
+        k.append(rhs_fn(y + dy, t + DP_C[s] * hstep))
+    return k, y + hstep[None, :] * sum(DP_B[j] * k[j] for j in range(6))
+
+
+def _error_norm(k, hstep, y, y_new, rtol, atol):
+    """The scaled RMS norm of the embedded error estimate."""
+    err = hstep[None, :] * sum(DP_E[j] * k[j] for j in range(7))
+    scale = atol + torch.maximum(torch.abs(y), torch.abs(y_new)) * rtol
+    return _norm(err / scale)
+
+
+def _exact_error_norm(k, hstep, y, y_new, rtol, atol):
+    """The exact integrators' error norm: a NaN norm counts as 0 (accept),
+    as the reference's solver does."""
+    error_norm = _error_norm(k, hstep, y, y_new, rtol, atol)
+    return torch.where(torch.isnan(error_norm), torch.zeros_like(error_norm),
+                       error_norm)
+
+
+def _exact_factors(error_norm, rejected):
+    """(fac_acc, fac_rej) of the exact integrators' step controller."""
+    raw = SAFETY * error_norm ** ERROR_EXPONENT  # error 0 -> inf
+    fac_acc = torch.clamp(raw, max=MAX_FACTOR)
+    fac_acc = torch.where(rejected, torch.clamp(fac_acc, max=1.0), fac_acc)
+    return fac_acc, torch.clamp(raw, min=MIN_FACTOR)
+
+
+def integrate_interval(rhs_fn, y, t, h, t_bound, rtol, atol, min_step,
+                       max_iters: int = 100_000):
+    """Advance every ray from its own t to t_bound with adaptive stepping
+    (the barrier path; plain PyTorch on every device).
+
+    Lanes with a NaN component, or already at t_bound, are done at entry
+    (NaN lanes jump to t_bound). The FSAL stage is evaluated at entry.
+
+    Returns (y, t, h, iters, nfev, lane_att): iters the batch-wide attempt
+    count, nfev = 6 * iters, and lane_att (R,) int32 each lane's attempts
+    (an addition to the JAX return, for ``trace_rays``' stats).
+    """
+    rtol, atol, min_step = (as_scalar(x, y.dtype)
+                            for x in (rtol, atol, min_step))
+    tb = torch.as_tensor(t_bound, dtype=y.dtype,
+                         device=y.device).expand_as(t)
+    nan_mean = torch.isnan(torch.mean(y, dim=0))
+    t = torch.where(nan_mean, tb, t)
+    done = nan_mean | (t >= tb)
+    f = rhs_fn(y, t)
+    rejected = torch.zeros_like(done)
+    new_step = torch.ones_like(done)
+    lane_att = torch.zeros(y.shape[1], dtype=torch.int32, device=y.device)
+
+    iters = 0
+    while iters < max_iters and bool(torch.any(~done)):
+        heff = torch.where(new_step, torch.clamp(h, min=min_step), h)
+        t_new = t + heff
+        t_new = torch.where(t_new > tb, tb, t_new)
+        hstep = t_new - t
+
+        k, y_new = _dp_trial(rhs_fn, y, t, hstep, f)
+        f_new = rhs_fn(y_new, t_new)
+        k.append(f_new)
+        error_norm = _exact_error_norm(k, hstep, y, y_new, rtol, atol)
+
+        accept = error_norm < 1.0
+        fac_acc, fac_rej = _exact_factors(error_norm, rejected)
+        h_next = torch.where(accept, hstep * fac_acc, hstep * fac_rej)
+
+        act = ~done
+        upd = act & accept
+        y = torch.where(upd[None, :], y_new, y)
+        f = torch.where(upd[None, :], f_new, f)
+        t_out = torch.where(upd, t_new, t)
+        t = torch.where(torch.isnan(t_out), tb, t_out)
+        h = torch.where(act, h_next, h)
+        rejected = torch.where(act, ~accept, rejected)
+        new_step = torch.where(act, accept, new_step)
+        done = done | (upd & (t >= tb))
+        lane_att = lane_att + act.to(torch.int32)
+        iters += 1
+    return y, t, h, iters, 6 * iters, lane_att
+
+
+def group_entry_state(y, bounds):
+    """NaN-entry prefill for the exact grouped integrator.
+
+    Lanes whose DYNAMICS rows (lon, lat, kx, ky) hold a NaN (rootless or
+    dead lanes) save their unchanged state at every bound with NaN (ug, vg)
+    and finish at entry. A lane with a NaN amp and finite dynamics is not
+    finished here: ``integrate_group`` walks it one bound per trip.
+
+    Returns (hist0 (G, 7, R), rejected0, new_step0, lane_att0, idx0,
+    t_shift) with t_shift = bounds[-1] on finished lanes and NaN elsewhere;
+    apply as ``t = where(isnan(t_shift), t, t_shift)``.
+    """
+    g = bounds.shape[0]
+    r = y.shape[1]
+    nan_dyn = torch.isnan(torch.mean(y[:4], dim=0))
+    idx0 = nan_dyn.to(torch.int32) * g
+    t_shift = torch.where(nan_dyn, bounds[-1],
+                          torch.full_like(y[0], float("nan")))
+    filled = torch.cat([y[None].expand(g, *y.shape),
+                        torch.full((g, 2, r), float("nan"), dtype=y.dtype,
+                                   device=y.device)], dim=1)
+    hist0 = torch.where(nan_dyn[None, None, :], filled,
+                        torch.full_like(filled, float("nan")))
+    return (hist0, torch.zeros_like(nan_dyn), torch.ones_like(nan_dyn),
+            torch.zeros(r, dtype=torch.int32, device=y.device), idx0,
+            t_shift)
+
+
+def integrate_group(
+    rhs_fn, rhs_gv_fn, y, t, h, f, bounds, prev_lon, prev_lat, cut_off,
+    rtol, atol, min_step, max_iters=1_000_000, state0=None,
+):
+    """Advance every ray through a GROUP of output bounds, each ray on its
+    own: numerically identical to ``integrate_interval`` once per bound
+    with the tracer's kill test between intervals.
+
+    Each ray clamps its step at every bound, applies the kill test at each
+    crossing against its own last saved position, NaNs the saved row (state
+    and (ug, vg)) of a killed crossing and skips its remaining bounds. The
+    (ug, vg) saved at a crossing come from the 7th stage's sample of the
+    saved state (``rhs_gv_fn``). A lane with a NaN amp and finite dynamics
+    is walked one bound per trip, its state unchanged, its attempts not
+    counted.
+
+    Args:
+      rhs_fn: (y, t) -> dy; on CUDA a ``models.ray.RayRHS``.
+      rhs_gv_fn: (y, t) -> (dy, ug, vg), the same dy plus the raw-ky group
+        velocity of the evaluated state (``models.ray.rhs_and_gv``); not
+        called on CUDA.
+      y, f: (5, R) state and its rhs (FSAL carry); t, h, prev_lon,
+        prev_lat: (R,).
+      bounds: (G,) non-decreasing output times.
+      state0: None, or the (hist, rejected, new_step, lane_att, idx) tail
+        of an earlier return to resume a suspended group (the entry prefill
+        is then skipped; it may be gathered to a lane subset).
+
+    Returns (hist (G, 7, R), y, t, h, f, prev_lon, prev_lat, iters, nfev,
+    lane_att, rejected, new_step, idx): iters the batch-wide trip count
+    (each lane stops after max_iters trips; a device scalar on CUDA), nfev
+    = 6 * iters, lane_att (R,) int32 the step attempts per lane.
+    """
+    run = _integrate_group_cuda if y.is_cuda else _integrate_group_plain
+    return run(rhs_fn, rhs_gv_fn, y, t, h, f, bounds, prev_lon, prev_lat,
+               cut_off, rtol, atol, min_step, max_iters, state0)
+
+
+def _integrate_group_plain(rhs_fn, rhs_gv_fn, y, t, h, f, bounds, prev_lon,
+                           prev_lat, cut_off, rtol, atol, min_step,
+                           max_iters=1_000_000, state0=None):
+    """The plain PyTorch version: the batch-wide JAX loop written out."""
+    rtol, atol, min_step, cut_off = (as_scalar(x, y.dtype)
+                                     for x in (rtol, atol, min_step, cut_off))
+    g = bounds.shape[0]
+    if state0 is None:
+        hist, rejected, new_step, lane_att, idx, t_shift = (
+            group_entry_state(y, bounds))
+        t = torch.where(torch.isnan(t_shift), t, t_shift)
+    else:
+        hist, rejected, new_step, lane_att, idx = (x.clone() for x in state0)
+    slot = torch.arange(g, dtype=torch.int32, device=y.device)[:, None]
+    nan = torch.full_like(y, float("nan"))
+    nan_gv = torch.full_like(y[:2], float("nan"))
+
+    iters = 0
+    while iters < max_iters and bool(torch.any(idx < g)):
+        done = idx >= g
+        bound = bounds[torch.clamp(idx, max=g - 1).long()]
+        frozen = ~done & torch.isnan(y[4]) & ~torch.isnan(
+            torch.mean(y[:4], dim=0))
+
+        heff = torch.where(new_step, torch.clamp(h, min=min_step), h)
+        t_new = t + heff
+        t_new = torch.where(t_new > bound, bound, t_new)
+        t_new = torch.where(frozen, bound, t_new)
+        hstep = t_new - t
+
+        k, y_new = _dp_trial(rhs_fn, y, t, hstep, f)
+        y_new = torch.where(frozen[None, :], y, y_new)
+        f_new, ug_new, vg_new = rhs_gv_fn(y_new, t_new)
+        k.append(f_new)
+        error_norm = _exact_error_norm(k, hstep, y, y_new, rtol, atol)
+
+        accept = (error_norm < 1.0) | frozen
+        fac_acc, fac_rej = _exact_factors(error_norm, rejected)
+        h_next = torch.where(accept, hstep * fac_acc, hstep * fac_rej)
+        h_next = torch.where(frozen, h, h_next)
+
+        act = ~done
+        upd = act & accept
+        t_out = torch.where(upd, t_new, t)
+        t_out = torch.where(act & torch.isnan(t_out), bound, t_out)
+        crossing = upd & (t_out >= bound)
+
+        y_upd = torch.where(upd[None, :], y_new, y)
+        # The kill test at the bound, against the ray's last saved position.
+        kill = crossing & ray_mod.kill_mask(y_upd, prev_lon, prev_lat,
+                                            cut_off)
+        y_sav = torch.where(kill[None, :], nan, y_upd)
+        gv_sav = torch.where(kill[None, :], nan_gv,
+                             torch.stack([ug_new, vg_new]))
+        sel = crossing[None, :] & (slot == idx[None, :])
+        hist = torch.where(sel[:, None, :],
+                           torch.cat([y_sav, gv_sav])[None], hist)
+        # Dead after a crossing: skip the remaining bounds (NaN rows).
+        dead_after = crossing & torch.isnan(y_sav[0])
+        idx = torch.where(dead_after, g, torch.where(crossing, idx + 1, idx)
+                          ).to(torch.int32)
+
+        y = y_sav  # y_upd, NaN where a crossing was killed
+        t = t_out
+        f = torch.where(upd[None, :], f_new, f)
+        h = torch.where(act, h_next, h)
+        stepping = act & ~frozen
+        rejected = torch.where(stepping, ~accept, rejected)
+        new_step = torch.where(stepping, accept, new_step)
+        prev_lon = torch.where(crossing, y_sav[0], prev_lon)
+        prev_lat = torch.where(crossing, y_sav[1], prev_lat)
+        lane_att = lane_att + stepping.to(torch.int32)
+        iters += 1
+
+    return (hist, y, t, h, f, prev_lon, prev_lat, iters, 6 * iters, lane_att,
+            rejected, new_step, idx)
+
+
+def _integrate_group_cuda(rhs_fn, rhs_gv_fn, y, t, h, f, bounds, prev_lon,
+                          prev_lat, cut_off, rtol, atol, min_step,
+                          max_iters=1_000_000, state0=None):
+    """Launch the exact-group kernel: one thread per lane, the whole group
+    in one launch. The entry state (or the resumed ``state0``) is read
+    inside the kernel."""
+    global EXACT_LAUNCHES
+    if not isinstance(rhs_fn, RayRHS):
+        raise TypeError("on CUDA the exact-group kernel integrates the ray "
+                        "RHS only: pass models.ray.RayRHS(bg)")
+    bg = rhs_fn.bg
+    dev, dt = y.device, y.dtype
+    if y.ndim != 2 or y.shape[0] != 5:
+        raise ValueError(f"y must be (5, R); got {tuple(y.shape)}")
+    r = y.shape[1]
+    g = bounds.shape[0]
+    if bounds.ndim != 1 or g < 1:
+        raise ValueError("bounds must be a non-empty (G,) tensor")
+    for name, x, shape in (("y", y, (5, r)), ("t", t, (r,)), ("h", h, (r,)),
+                           ("f", f, (5, r)), ("prev_lon", prev_lon, (r,)),
+                           ("prev_lat", prev_lat, (r,)),
+                           ("bounds", bounds, (g,))):
+        kernels.check_tensor(x, name, device=dev, dtype=dt, shape=shape)
+    check_packed(bg, dev, dt)
+    rtol, atol, min_step, cut_off = (as_scalar(x, dt)
+                                     for x in (rtol, atol, min_step, cut_off))
+
+    # The carry and the resumable tail, updated in place by the kernel.
+    y, t, h, f, prev_lon, prev_lat = (
+        x.clone() for x in (y, t, h, f, prev_lon, prev_lat))
+    if state0 is None:
+        hist = torch.empty((g, 7, r), dtype=dt, device=dev)
+        rejected = torch.empty(r, dtype=torch.bool, device=dev)
+        new_step = torch.empty_like(rejected)
+        lane_att = torch.empty(r, dtype=torch.int32, device=dev)
+        idx = torch.empty_like(lane_att)
+    else:
+        hist, rejected, new_step, lane_att, idx = (x.clone() for x in state0)
+        for name, x, shape, xdt in (
+                ("hist", hist, (g, 7, r), dt),
+                ("rejected", rejected, (r,), torch.bool),
+                ("new_step", new_step, (r,), torch.bool),
+                ("lane_att", lane_att, (r,), torch.int32),
+                ("idx", idx, (r,), torch.int32)):
+            kernels.check_tensor(x, name, device=dev, dtype=xdt, shape=shape)
+    trips = torch.empty(r, dtype=torch.int32, device=dev)
+    w, hh, _ = bg.fields.shape
+    kernels.launch(
+        "rwrt_exact_group", dt, bg.fields, w, hh, bg.lon0, bg.lat0, bg.dx,
+        bg.dy, y, t, h, f, prev_lon, prev_lat, rejected, new_step, lane_att,
+        idx, trips, hist, bounds, g, r, int(state0 is not None), cut_off,
+        rtol, atol, min_step, int(max_iters), kernels.stream(dev))
+    EXACT_LAUNCHES += 1
+    iters = trips.max() if r else 0
+    return (hist, y, t, h, f, prev_lon, prev_lat, iters, 6 * iters, lane_att,
+            rejected, new_step, idx)
+
+
+def check_packed(bg, device, dtype) -> None:
+    """Raise unless ``bg`` holds the static corner-packed (W, H, 48) stack
+    the kernels read, on ``device`` in ``dtype``, 16-byte aligned."""
+    packed = bg.fields
+    kernels.check_tensor(packed, "fields", device=device, dtype=dtype)
+    kernels.check_aligned(packed, "fields")
+    if packed.ndim != 3 or packed.shape[-1] != 48 or bg.member_ids is not None:
+        raise ValueError("the kernels need a static corner-packed (W, H, 48) "
+                         "background (tracer.make_background)")
 
 
 def dense_entry_state(y, bounds):
@@ -195,19 +505,10 @@ def _integrate_group_dense_plain(
         t_new = torch.minimum(t + heff, t_end)
         hstep = t_new - t
 
-        k = [f0]
-        for s in range(1, 6):
-            dy = hstep[None, :] * sum(
-                DP_A[s][j] * k[j] for j in range(s) if DP_A[s][j] != 0.0
-            )
-            k.append(rhs_fn(y + dy, t + DP_C[s] * hstep))
-        y_new = y + hstep[None, :] * sum(DP_B[j] * k[j] for j in range(6))
+        k, y_new = _dp_trial(rhs_fn, y, t, hstep, f0)
         f_new = rhs_fn(y_new, t_new)
         k.append(f_new)
-
-        err = hstep[None, :] * sum(DP_E[j] * k[j] for j in range(7))
-        scale = atol + torch.maximum(torch.abs(y), torch.abs(y_new)) * rtol
-        error_norm = _norm(err / scale)
+        error_norm = _error_norm(k, hstep, y, y_new, rtol, atol)
 
         nan_err = torch.isnan(error_norm)
         dead_now = torch.isnan(y[0])
@@ -278,12 +579,7 @@ def _integrate_group_dense_cuda(
     for name, x, shape in (("y", y, (5, r)), ("t", t, (r,)), ("h", h, (r,)),
                            ("f", f, (5, r)), ("bounds", bounds, (g,))):
         kernels.check_tensor(x, name, device=dev, dtype=dt, shape=shape)
-    packed = bg.fields
-    kernels.check_tensor(packed, "fields", device=dev, dtype=dt)
-    kernels.check_aligned(packed, "fields")
-    if packed.ndim != 3 or packed.shape[-1] != 48 or bg.member_ids is not None:
-        raise ValueError("the dense-group kernel needs a static "
-                         "corner-packed (W, H, 48) background")
+    check_packed(bg, dev, dt)
     if g < 1:
         raise ValueError("bounds must be non-empty")
     rtol, atol, min_step, pin_limit, pin_mwn = _scalar_args(
@@ -294,9 +590,9 @@ def _integrate_group_dense_cuda(
     rejected = torch.empty(r, dtype=torch.bool, device=dev)
     new_step = torch.empty(r, dtype=torch.bool, device=dev)
     lane_att = torch.empty(r, dtype=torch.int32, device=dev)
-    w, hh, _ = packed.shape
+    w, hh, _ = bg.fields.shape
     kernels.launch(
-        "rwrt_dense_group", dt, packed, w, hh, bg.lon0, bg.lat0, bg.dx,
+        "rwrt_dense_group", dt, bg.fields, w, hh, bg.lon0, bg.lat0, bg.dx,
         bg.dy, y, t, h, f, rejected, new_step, lane_att, hist, bounds, g, r,
         rtol, atol, min_step, int(max_iters), pin_limit, pin_mwn,
         kernels.stream(dev))

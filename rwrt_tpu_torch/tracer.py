@@ -1,15 +1,23 @@
 """Ray-tracing orchestration: seeding, initialization, integration, results.
 
-Port of the dense adaptive path of ``rwrt_tpu/tracer.py``. ``trace_rays``
-serves integrator='rk45', bound_mode='dense', state_dtype='compute' and
-root_order='canonical', with or without pin_limit, on one device; every
-other branch raises NotImplementedError naming its ROADMAP item.
+Port of ``rwrt_tpu/tracer.py``. ``trace_rays`` serves three branches, each
+in state_dtype='compute' and root_order='canonical' on one device:
 
-The dense run (``_dense_run``: every group's integration, the kill cascade
-and (ug, vg) at each bound) is one of the port's hand-written kernels,
-``csrc/dense_run.cu``: on a CUDA state one launch runs the whole of it,
-one thread per lane; on a CPU state the plain version ``_dense_run_plain``
-runs. ``LAUNCHES`` counts its launches.
+- integrator='rk4' (``_run_rk4``), the library default;
+- integrator='rk45', bound_mode='exact' (``_run_rk45_grouped`` over
+  ``_exact_run``, or ``_run_rk45`` when interval_batch is 1 or nt <= 2);
+- integrator='rk45', bound_mode='dense', with or without pin_limit
+  (``_run_rk45_grouped`` over ``_dense_run``).
+
+Every other branch raises NotImplementedError naming its ROADMAP item.
+
+Each branch's run is one of the port's hand-written kernels: on a CUDA
+state one launch runs the whole of it, one thread per lane; on a CPU state
+its plain version runs. ``_run_rk4``: ``csrc/rk4_run.cu``, plain
+``solvers/rk4.trace`` (``RK4_LAUNCHES``); ``_exact_run``:
+``csrc/exact_run.cu``, plain ``_exact_run_plain`` (``EXACT_LAUNCHES``);
+``_dense_run``: ``csrc/dense_run.cu``, plain ``_dense_run_plain``
+(``LAUNCHES``).
 
 The ray batch is flattened to R = 3 * nsource * nzwn lanes in C order of
 (root, source, zwn), so results reshape directly to (nt, 3, nsource, nzwn).
@@ -32,6 +40,7 @@ from rwrt_tpu_torch.models.ray import (Background, S_AMP, S_KX, S_KY, S_LAT,
 from rwrt_tpu_torch.ops import interp
 from rwrt_tpu_torch.ops.cubic import solve_dispersion_cubic
 from rwrt_tpu_torch.ops.groupvel import group_velocity
+from rwrt_tpu_torch.solvers import rk4 as rk4_mod
 from rwrt_tpu_torch.solvers import rk45 as rk45_mod
 
 
@@ -182,13 +191,16 @@ def initial_step_sizes(bg, y0, rtol, atol):
     return rk45_mod.select_initial_step(rhs_fn, y0, rhs_fn(y0), rtol, atol)
 
 
-#: Number of whole-run dense kernel launches (``csrc/dense_run.cu``) in
-#: this process.
+#: Whole-run kernel launches in this process: the dense run
+#: (``csrc/dense_run.cu``), the RK4 run (``csrc/rk4_run.cu``) and the exact
+#: run (``csrc/exact_run.cu``).
 LAUNCHES = 0
+RK4_LAUNCHES = 0
+EXACT_LAUNCHES = 0
 
 
-class DenseRun(NamedTuple):
-    """The dense adaptive run over every group of output bounds.
+class GroupedRun(NamedTuple):
+    """An adaptive run over every group of output bounds, dense or exact.
 
     ys (nt, 5, R) with y0 in row 0; ugs, vgs (nt, R) with ug0, vg0 in row
     0; lane_att (n_groups, R) int32, each group's step attempts per lane;
@@ -206,9 +218,44 @@ class DenseRun(NamedTuple):
     carry: Tuple[torch.Tensor, ...]
 
 
+def _run_buffers(y0, n_groups, group):
+    """Outputs of a run over n_groups groups of ``group`` bounds: (ys, ugs,
+    vgs) of n_groups * group + 1 empty rows, lane_att (n_groups, R) empty
+    and trunc (R,) zeros."""
+    r = y0.shape[1]
+    rows = n_groups * group + 1
+    ys = torch.empty((rows, 5, r), dtype=y0.dtype, device=y0.device)
+    ugs = torch.empty((rows, r), dtype=y0.dtype, device=y0.device)
+    lane_att = torch.empty((n_groups, r), dtype=torch.int32, device=y0.device)
+    return (ys, ugs, torch.empty_like(ugs), lane_att,
+            torch.zeros(r, dtype=torch.int32, device=y0.device))
+
+
+def _check_run_args(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds,
+                    min_groups):
+    """Raise unless a whole-run kernel takes these inputs."""
+    dev, dt = y0.device, y0.dtype
+    if y0.ndim != 2 or y0.shape[0] != 5:
+        raise ValueError(f"y0 must be (5, R); got {tuple(y0.shape)}")
+    if (bounds_g.ndim != 2 or bounds_g.shape[1] < 1
+            or bounds_g.shape[0] < min_groups):
+        raise ValueError(f"bounds_g must be a (n_groups >= {min_groups}, "
+                         "G >= 1) tensor")
+    r = y0.shape[1]
+    n_groups, group = bounds_g.shape
+    if not 0 <= n_bounds <= n_groups * group:
+        raise ValueError(f"n_bounds {n_bounds} outside [0, {n_groups * group}]")
+    for name, x, shape in (("y0", y0, (5, r)), ("f0", f0, (5, r)),
+                           ("h0", h0, (r,)), ("ug0", ug0, (r,)),
+                           ("vg0", vg0, (r,)),
+                           ("bounds_g", bounds_g, (n_groups, group))):
+        kernels.check_tensor(x, name, device=dev, dtype=dt, shape=shape)
+    rk45_mod.check_packed(bg, dev, dt)
+
+
 def _dense_run(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off, rtol,
                atol, min_step, max_iters=1_000_000, pin_limit=None,
-               pin_mwn=None) -> DenseRun:
+               pin_mwn=None) -> GroupedRun:
     """Integrate every group of output bounds with dense output, apply the
     kill cascade and sample (ug, vg) at each bound (the JAX package's
     grouped dense run: per group ``integrate_group_dense``, the truncation
@@ -234,7 +281,7 @@ def _dense_run(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off, rtol,
 
 def _dense_run_plain(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
                      rtol, atol, min_step, max_iters=1_000_000,
-                     pin_limit=None, pin_mwn=None) -> DenseRun:
+                     pin_limit=None, pin_mwn=None) -> GroupedRun:
     """The plain PyTorch version (any device): group by group the plain
     dense loop with the plain RHS, the truncation count and
     ``_dense_postpass``, rows written into one preallocated output."""
@@ -243,15 +290,8 @@ def _dense_run_plain(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
         return ray_mod._rhs_core(bg, y, t, False)[0]
 
     n_groups, group = bounds_g.shape
-    r = y0.shape[1]
-    rows = n_groups * group + 1
-    ys = torch.empty((rows, 5, r), dtype=y0.dtype, device=y0.device)
-    ugs = torch.empty((rows, r), dtype=y0.dtype, device=y0.device)
-    vgs = torch.empty_like(ugs)
+    ys, ugs, vgs, lane_att, trunc = _run_buffers(y0, n_groups, group)
     ys[0], ugs[0], vgs[0] = y0, ug0, vg0
-    lane_att = torch.empty((n_groups, r), dtype=torch.int32,
-                           device=y0.device)
-    trunc = torch.zeros(r, dtype=torch.int32, device=y0.device)
     y, t, h, f, pl, pa = (y0, torch.zeros_like(y0[0]), h0, f0, y0[S_LON],
                           y0[S_LAT])
     for g, bounds in enumerate(bounds_g):
@@ -269,62 +309,136 @@ def _dense_run_plain(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
         ys[sl], ugs[sl], vgs[sl] = hist, gu, gv
         lane_att[g] = la
     nt = n_bounds + 1
-    return DenseRun(ys[:nt], ugs[:nt], vgs[:nt], lane_att, trunc,
-                    (y, t, h, f, pl, pa))
+    return GroupedRun(ys[:nt], ugs[:nt], vgs[:nt], lane_att, trunc,
+                      (y, t, h, f, pl, pa))
 
 
 def _dense_run_cuda(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
                     rtol, atol, min_step, max_iters, pin_limit,
-                    pin_mwn) -> DenseRun:
+                    pin_mwn) -> GroupedRun:
     """Launch the whole-run dense kernel once: one thread per lane walks
     every group and writes its rows straight into the output. Reads
     nothing back from the card."""
     global LAUNCHES
+    _check_run_args(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, 1)
     dev, dt = y0.device, y0.dtype
-    if y0.ndim != 2 or y0.shape[0] != 5:
-        raise ValueError(f"y0 must be (5, R); got {tuple(y0.shape)}")
-    if bounds_g.ndim != 2 or 0 in bounds_g.shape:
-        raise ValueError("bounds_g must be a non-empty (n_groups, G) tensor")
-    r = y0.shape[1]
-    n_groups, group = bounds_g.shape
-    if not 0 <= n_bounds <= n_groups * group:
-        raise ValueError(f"n_bounds {n_bounds} outside [0, {n_groups * group}]")
-    for name, x, shape in (("y0", y0, (5, r)), ("f0", f0, (5, r)),
-                           ("h0", h0, (r,)), ("ug0", ug0, (r,)),
-                           ("vg0", vg0, (r,)),
-                           ("bounds_g", bounds_g, (n_groups, group))):
-        kernels.check_tensor(x, name, device=dev, dtype=dt, shape=shape)
-    packed = bg.fields
-    kernels.check_tensor(packed, "fields", device=dev, dtype=dt)
-    kernels.check_aligned(packed, "fields")
-    if packed.ndim != 3 or packed.shape[-1] != 48 or bg.member_ids is not None:
-        raise ValueError("the dense-run kernel needs a static corner-packed "
-                         "(W, H, 48) background")
     rtol, atol, min_step, pin_limit, pin_mwn = rk45_mod._scalar_args(
         dt, rtol, atol, min_step, pin_limit, pin_mwn)
     cut_off = rk45_mod.as_scalar(cut_off, dt)
-
-    rows = n_groups * group + 1
-    ys = torch.empty((rows, 5, r), dtype=dt, device=dev)
-    ugs = torch.empty((rows, r), dtype=dt, device=dev)
-    vgs = torch.empty_like(ugs)
-    lane_att = torch.empty((n_groups, r), dtype=torch.int32, device=dev)
-    trunc = torch.empty(r, dtype=torch.int32, device=dev)
+    r = y0.shape[1]
+    n_groups, group = bounds_g.shape
+    ys, ugs, vgs, lane_att, trunc = _run_buffers(y0, n_groups, group)
     # The carry, updated in place by the kernel.
     y, h, f = y0.clone(), h0.clone(), f0.clone()
     t = torch.zeros_like(h0)
     plon = torch.empty_like(h0)
     plat = torch.empty_like(h0)
-    w, hh, _ = packed.shape
+    w, hh, _ = bg.fields.shape
     kernels.launch(
-        "rwrt_dense_run", dt, packed, w, hh, bg.lon0, bg.lat0, bg.dx, bg.dy,
-        y, t, h, f, ug0, vg0, ys, ugs, vgs, lane_att, trunc, plon, plat,
-        bounds_g, group, n_groups, r, cut_off, rtol, atol, min_step,
+        "rwrt_dense_run", dt, bg.fields, w, hh, bg.lon0, bg.lat0, bg.dx,
+        bg.dy, y, t, h, f, ug0, vg0, ys, ugs, vgs, lane_att, trunc, plon,
+        plat, bounds_g, group, n_groups, r, cut_off, rtol, atol, min_step,
         int(max_iters), pin_limit, pin_mwn, kernels.stream(dev))
     LAUNCHES += 1
     nt = n_bounds + 1
-    return DenseRun(ys[:nt], ugs[:nt], vgs[:nt], lane_att, trunc,
-                    (y, t, h, f, plon, plat))
+    return GroupedRun(ys[:nt], ugs[:nt], vgs[:nt], lane_att, trunc,
+                      (y, t, h, f, plon, plat))
+
+
+def _rk45_group_chunk(bg, y, t, h, f, prev_lon, prev_lat, bounds, cut_off,
+                      rtol, atol, min_step, max_iters=1_000_000):
+    """One GROUP of output bounds in exact mode, plain PyTorch on every
+    device (``solvers/rk45._integrate_group_plain`` with the plain RHS): the
+    per-group unit of ``_exact_run_plain``. Numerically identical to
+    ``_rk45_chunk`` over the same bounds.
+
+    Returns ((y, t, h, f, prev_lon, prev_lat), (hist, ugs, vgs, iters,
+    nfev, lane_att)), hist (G, 5, R), ugs and vgs (G, R).
+    """
+
+    def rhs_fn(yy, tt=0.0):
+        return ray_mod._rhs_core(bg, yy, tt, False)[0]
+
+    def rhs_gv_fn(yy, tt=0.0):
+        dy, _, ug, vg = ray_mod._rhs_core(bg, yy, tt, True)
+        return dy, ug, vg
+
+    hist, y, t, h, f, prev_lon, prev_lat, iters, nfev, lane_att = (
+        rk45_mod._integrate_group_plain(
+            rhs_fn, rhs_gv_fn, y, t, h, f, bounds, prev_lon, prev_lat,
+            cut_off, rtol, atol, min_step, max_iters)[:10])
+    return (y, t, h, f, prev_lon, prev_lat), (
+        hist[:, :5], hist[:, 5], hist[:, 6], iters, nfev, lane_att)
+
+
+def _exact_run(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off, rtol,
+               atol, min_step, max_iters=1_000_000) -> GroupedRun:
+    """Integrate every group of output bounds in exact mode (the JAX
+    package's grouped exact run: per group ``_rk45_group_chunk``, then the
+    truncation count). Arguments as ``_dense_run``'s, without the pin-kill;
+    bounds_g may have no group (a run of row 0 alone).
+
+    On a CUDA state one launch of ``csrc/exact_run.cu`` does it all, one
+    thread per lane through every group; on a CPU state the plain version
+    ``_exact_run_plain`` runs.
+    """
+    run = _exact_run_cuda if y0.is_cuda else _exact_run_plain
+    return run(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off, rtol,
+               atol, min_step, max_iters)
+
+
+def _exact_run_plain(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
+                     rtol, atol, min_step,
+                     max_iters=1_000_000) -> GroupedRun:
+    """The plain PyTorch version (any device): group by group
+    ``_rk45_group_chunk`` and the truncation count, rows written into one
+    preallocated output."""
+    n_groups, group = bounds_g.shape
+    ys, ugs, vgs, lane_att, trunc = _run_buffers(y0, n_groups, group)
+    ys[0], ugs[0], vgs[0] = y0, ug0, vg0
+    carry = (y0, torch.zeros_like(y0[0]), h0, f0, y0[S_LON], y0[S_LAT])
+    for g, bounds in enumerate(bounds_g):
+        carry, (hist, gu, gv, _, _, la) = _rk45_group_chunk(
+            bg, *carry, bounds, cut_off, rtol, atol, min_step, max_iters)
+        # Counted after the group: a lane short of its last bound while
+        # alive (a killed lane's state is NaN).
+        trunc += (carry[1] < bounds[-1]) & ~torch.isnan(carry[0][0])
+        sl = slice(1 + g * group, 1 + (g + 1) * group)
+        ys[sl], ugs[sl], vgs[sl] = hist, gu, gv
+        lane_att[g] = la
+    nt = n_bounds + 1
+    return GroupedRun(ys[:nt], ugs[:nt], vgs[:nt], lane_att, trunc, carry)
+
+
+def _exact_run_cuda(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
+                    rtol, atol, min_step,
+                    max_iters=1_000_000) -> GroupedRun:
+    """Launch the whole-run exact kernel once: one thread per lane walks
+    every group and writes its rows straight into the output. Reads
+    nothing back from the card."""
+    global EXACT_LAUNCHES
+    _check_run_args(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, 0)
+    dev, dt = y0.device, y0.dtype
+    cut_off, rtol, atol, min_step = (rk45_mod.as_scalar(x, dt)
+                                     for x in (cut_off, rtol, atol, min_step))
+    r = y0.shape[1]
+    n_groups, group = bounds_g.shape
+    ys, ugs, vgs, lane_att, trunc = _run_buffers(y0, n_groups, group)
+    # The carry, updated in place by the kernel.
+    y, h, f = y0.clone(), h0.clone(), f0.clone()
+    t = torch.zeros_like(h0)
+    plon = torch.empty_like(h0)
+    plat = torch.empty_like(h0)
+    w, hh, _ = bg.fields.shape
+    kernels.launch(
+        "rwrt_exact_run", dt, bg.fields, w, hh, bg.lon0, bg.lat0, bg.dx,
+        bg.dy, y, t, h, f, plon, plat, ug0, vg0, ys, ugs, vgs, lane_att,
+        trunc, bounds_g, group, n_groups, r, cut_off, rtol, atol, min_step,
+        int(max_iters), kernels.stream(dev))
+    EXACT_LAUNCHES += 1
+    nt = n_bounds + 1
+    return GroupedRun(ys[:nt], ugs[:nt], vgs[:nt], lane_att, trunc,
+                      (y, t, h, f, plon, plat))
 
 
 def padded_bounds(dt, nt, group, dtype, device):
@@ -337,33 +451,195 @@ def padded_bounds(dt, nt, group, dtype, device):
     return torch.clamp(bounds, max=(nt - 1) * dt).reshape(n_groups, group)
 
 
-def _run_rk45_grouped(bg, y0, ug0, vg0, dt, nt, cut_off, rtol, atol,
-                      min_step, group: int = 8, pin_limit=None, pin_mwn=None,
-                      max_iters: int = 1_000_000):
-    """Adaptive run over groups of ``group`` output bounds (the JAX
-    package's dense=True branch; exact mode is not ported yet): the set-up
-    (initial steps, f0, padded bounds), then ``_dense_run``.
-
-    Returns (ys, ugs, vgs, iters, nfev, trunc, lane_att): iters (n_groups,)
-    the trips per group (max over lanes of its attempts), nfev = 6 * iters,
-    ``trunc`` the lanes the max_iters backstop left short of a group's final
-    bound while alive, summed over groups (the run's one host read), and
-    lane_att (n_groups, R) the step attempts per group and lane."""
-    h0 = initial_step_sizes(bg, y0, rtol, atol)
-    f0 = ray_mod.RayRHS(bg)(y0, torch.zeros_like(y0[0]))
-    bounds_g = padded_bounds(dt, nt, group, y0.dtype, y0.device)
-    run = _dense_run(bg, y0, ug0, vg0, h0, f0, bounds_g, nt - 1, cut_off,
-                     rtol, atol, min_step, max_iters, pin_limit, pin_mwn)
+def _run_outputs(run: GroupedRun):
+    """(ys, ugs, vgs, iters, nfev, trunc, lane_att) of a grouped run: iters
+    (n_groups,) the most step attempts of a lane in each group, nfev =
+    6 * iters, trunc the lane-groups the backstop cut short summed (the
+    run's one host read)."""
     iters = run.lane_att.amax(dim=1)
     return (run.ys, run.ugs, run.vgs, iters, 6 * iters,
             int(run.trunc.sum()), run.lane_att)
 
 
+def _run_rk45_grouped(bg, y0, ug0, vg0, dt, nt, cut_off, rtol, atol,
+                      min_step, group: int = 8, dense: bool = False,
+                      pin_limit=None, pin_mwn=None,
+                      max_iters: int = 1_000_000):
+    """Adaptive run over groups of ``group`` output bounds (the JAX
+    package's grouped runner): the set-up (initial steps, f0, padded
+    bounds), then ``_dense_run`` (dense=True, with the optional pin-kill)
+    or ``_exact_run``.
+
+    Returns ``_run_outputs``: (ys, ugs, vgs, iters, nfev, trunc, lane_att),
+    lane_att (n_groups, R) the step attempts per group and lane. In exact
+    mode iters leaves out the bound-per-trip walk of NaN-amp lanes, which
+    the JAX package's trip count includes.
+    """
+    h0 = initial_step_sizes(bg, y0, rtol, atol)
+    f0 = ray_mod.RayRHS(bg)(y0, torch.zeros_like(y0[0]))
+    bounds_g = padded_bounds(dt, nt, group, y0.dtype, y0.device)
+    args = (bg, y0, ug0, vg0, h0, f0, bounds_g, nt - 1, cut_off, rtol, atol,
+            min_step, max_iters)
+    if dense:
+        return _run_outputs(_dense_run(*args, pin_limit, pin_mwn))
+    if pin_limit is not None:
+        raise ValueError("pin_limit is implemented for dense mode only")
+    return _run_outputs(_exact_run(*args))
+
+
+def _rk45_chunk(bg, y, t, h, t_bounds, cut_off, rtol, atol, min_step,
+                max_iters=100_000):
+    """Adaptive steps to each of t_bounds from carry (y, t, h): the barrier
+    path, plain PyTorch on every device. Per bound ``integrate_interval``,
+    then the kill test against the interval's entry state and (ug, vg) at
+    the saved state.
+
+    Returns ((y, t, h), (ys, ugs, vgs, iters, nfev, lane_att, trunc)), each
+    stacked over the bounds: ys (n, 5, R), ugs and vgs (n, R), iters and
+    nfev (n,) the batch-wide attempts, and two additions to the JAX
+    return: lane_att (n, R) int32 each lane's attempts, trunc (n,) the
+    lanes each interval's backstop left short of its bound while alive.
+    """
+
+    def rhs_fn(yy, tt=0.0):
+        return ray_mod._rhs_core(bg, yy, tt, False)[0]
+
+    cut_off = rk45_mod.as_scalar(cut_off, y.dtype)
+    n, r = t_bounds.shape[0], y.shape[1]
+    ys = torch.empty((n, 5, r), dtype=y.dtype, device=y.device)
+    ugs = torch.empty((n, r), dtype=y.dtype, device=y.device)
+    vgs = torch.empty_like(ugs)
+    lane_att = torch.empty((n, r), dtype=torch.int32, device=y.device)
+    iters = torch.empty(n, dtype=torch.int64)
+    trunc = torch.empty(n, dtype=torch.int64, device=y.device)
+    for j, t_bound in enumerate(t_bounds):
+        y_new, t, h, iters[j], _, lane_att[j] = rk45_mod.integrate_interval(
+            rhs_fn, y, t, h, t_bound, rtol, atol, min_step, max_iters)
+        trunc[j] = torch.sum((t < t_bound) & ~torch.isnan(y_new[S_LON]))
+        kill = ray_mod.kill_mask(y_new, y[S_LON], y[S_LAT], cut_off)
+        y = torch.where(kill[None, :], torch.full_like(y_new, float("nan")),
+                        y_new)
+        ys[j] = y
+        ugs[j], vgs[j] = ray_mod.group_velocity_at(
+            bg, y[S_LON], y[S_LAT], y[S_KX], y[S_KY])
+    return (y, t, h), (ys, ugs, vgs, iters, 6 * iters, lane_att, trunc)
+
+
+def _run_rk45(bg, y0, ug0, vg0, dt, nt, cut_off, rtol, atol, min_step,
+              max_iters: int = 100_000):
+    """The exact adaptive run bound by bound (the JAX package's barrier
+    path, which ``trace_rays`` takes when interval_batch is 1 or nt <= 2).
+
+    On a CPU state the plain barrier path ``_rk45_chunk`` runs. On a CUDA
+    state the exact-run kernel runs it with one bound per group, which the
+    JAX package keeps bitwise equal to the barrier path: one launch.
+    Truncation is counted per interval on both: a lane the max_iters
+    backstop leaves short of any bound while alive counts, where the JAX
+    package counts only lanes short of the final bound and returns the
+    frozen rows of the others (ROADMAP Queue 3).
+
+    Returns (ys, ugs, vgs, iters, nfev, trunc, lane_att) as
+    ``_run_rk45_grouped`` does, with one group per output interval.
+    """
+    h0 = initial_step_sizes(bg, y0, rtol, atol)
+    if y0.is_cuda:
+        f0 = ray_mod.RayRHS(bg)(y0)
+        bounds_g = padded_bounds(dt, nt, 1, y0.dtype, y0.device)
+        return _run_outputs(_exact_run_cuda(
+            bg, y0, ug0, vg0, h0, f0, bounds_g, nt - 1, cut_off, rtol, atol,
+            min_step, max_iters))
+    t_bounds = torch.arange(1, nt, dtype=y0.dtype, device=y0.device) * dt
+    _, (ys, ugs, vgs, iters, nfev, lane_att, trunc) = _rk45_chunk(
+        bg, y0, torch.zeros_like(y0[0]), h0, t_bounds, cut_off, rtol, atol,
+        min_step, max_iters)
+    return (torch.cat([y0[None], ys]), torch.cat([ug0[None], ugs]),
+            torch.cat([vg0[None], vgs]), iters, nfev, int(trunc.sum()),
+            lane_att)
+
+
+def _run_rk4(bg, y0, ug0, vg0, dt, nt, cut_off):
+    """The fixed-step RK4 run of nt rows, (ys (nt, 5, R), ugs, vgs (nt, R))
+    with y0, ug0, vg0 in row 0. On a CUDA state one launch of
+    ``csrc/rk4_run.cu`` (``_run_rk4_cuda``); on a CPU state the plain
+    ``solvers/rk4.trace`` (``_run_rk4_plain``)."""
+    run = _run_rk4_cuda if y0.is_cuda else _run_rk4_plain
+    return run(bg, y0, ug0, vg0, dt, nt, cut_off)
+
+
+def _run_rk4_plain(bg, y0, ug0, vg0, dt, nt, cut_off):
+    """The plain PyTorch version (any device)."""
+    return rk4_mod.trace(bg, y0, dt, nt, cut_off, ug0, vg0)
+
+
+def _rk4_buffers(y, rows):
+    r = y.shape[1]
+    ys = torch.empty((rows, 5, r), dtype=y.dtype, device=y.device)
+    ugs = torch.empty((rows, r), dtype=y.dtype, device=y.device)
+    return ys, ugs, torch.empty_like(ugs)
+
+
+def _run_rk4_cuda(bg, y0, ug0, vg0, dt, nt, cut_off):
+    """One launch of the RK4 kernel writes all nt rows, row 0 included."""
+    ys, ugs, vgs = _rk4_buffers(y0, nt)
+    _rk4_launch(bg, y0, dt, nt - 1, cut_off, ys, ugs, vgs, 1, ug0, vg0)
+    return ys, ugs, vgs
+
+
+def _rk4_chunk(bg, y, dt, n_steps: int, cut_off):
+    """n_steps RK4 output steps from carry y; returns (y, (ys, ugs, vgs))
+    with n_steps rows each. On a CUDA state one launch of the RK4 kernel;
+    on a CPU state the plain loop. (The JAX signature's t_start is not
+    taken: the static background does not read the time.)"""
+    ys, ugs, vgs = _rk4_buffers(y, n_steps)
+    if y.is_cuda:
+        y = _rk4_launch(bg, y, dt, n_steps, cut_off, ys, ugs, vgs, 0)
+    else:
+        y = rk4_mod.trace_into(bg, y, dt, n_steps, cut_off, ys, ugs, vgs)
+    return y, (ys, ugs, vgs)
+
+
+def _rk4_launch(bg, y, dt, n_steps, cut_off, ys, ugs, vgs, row_offset,
+                ug0=None, vg0=None):
+    """Launch the RK4 kernel once: n_steps steps from carry y (5, R), step
+    s written at row row_offset + s of ys (rows, 5, R), ugs and vgs
+    (rows, R); with ug0, vg0 (R,) given, row row_offset - 1 receives y and
+    them. Returns the carry after the last step; reads nothing back from
+    the card."""
+    global RK4_LAUNCHES
+    dev, dtype = y.device, y.dtype
+    if y.ndim != 2 or y.shape[0] != 5:
+        raise ValueError(f"y must be (5, R); got {tuple(y.shape)}")
+    if (ug0 is None) != (vg0 is None):
+        raise ValueError("ug0 and vg0 are given together")
+    r = y.shape[1]
+    rows = ys.shape[0]
+    first = row_offset - (ug0 is not None)
+    if n_steps < 0 or first < 0 or row_offset + n_steps > rows:
+        raise ValueError(f"rows {first}..{row_offset + n_steps - 1} outside "
+                         f"the {rows}-row output")
+    checks = [("y", y, (5, r)), ("ys", ys, (rows, 5, r)),
+              ("ugs", ugs, (rows, r)), ("vgs", vgs, (rows, r))]
+    if ug0 is not None:
+        checks += [("ug0", ug0, (r,)), ("vg0", vg0, (r,))]
+    for name, x, shape in checks:
+        kernels.check_tensor(x, name, device=dev, dtype=dtype, shape=shape)
+    rk45_mod.check_packed(bg, dev, dtype)
+    dt, half, sixth = rk4_mod.step_factors(dt, dtype)
+    y = y.clone()  # the carry, updated in place by the kernel
+    w, hh, _ = bg.fields.shape
+    kernels.launch(
+        "rwrt_rk4_run", dtype, bg.fields, w, hh, bg.lon0, bg.lat0, bg.dx,
+        bg.dy, y, ug0, vg0, ys, ugs, vgs, n_steps, row_offset, r, dt, half,
+        sixth, rk45_mod.as_scalar(cut_off, dtype), kernels.stream(dev))
+    RK4_LAUNCHES += 1
+    return y
+
+
 class MaxItersTruncation(RuntimeError):
     """The adaptive loop's max_iters backstop cut lanes off short of their
     output bounds: the emitted history would be silently frozen mid-interval
-    for those lanes, so the fused runner refuses to return it. Arm the
-    straggler pin-kill (RunConfig.pin_limit, pin_mwn=0)."""
+    for those lanes, so the runner refuses to return it. In dense mode, arm
+    the straggler pin-kill (RunConfig.pin_limit, pin_mwn=0)."""
 
 
 def _check_truncation(trunc):
@@ -373,7 +649,7 @@ def _check_truncation(trunc):
             f"adaptive integration hit the max_iters backstop with {n} "
             "unfinished lane-group(s); history would be silently frozen "
             "mid-interval. Arm the straggler pin-kill (pin_limit, "
-            "pin_mwn=0)."
+            "pin_mwn=0) in dense mode."
         )
 
 
@@ -398,10 +674,6 @@ def compact_lane_indices(born: np.ndarray):
 
 def _unsupported(config: RunConfig, mesh, initial_state):
     """The branches of the JAX trace_rays this port does not serve yet."""
-    if config.integrator != "rk45":
-        return "integrator='rk4' (ROADMAP Queue 1 item 10)"
-    if config.bound_mode != "dense":
-        return "bound_mode='exact' (ROADMAP Queue 1 item 11)"
     if mesh is not None:
         return "a device mesh (ROADMAP Slice 6, multi-GPU)"
     if config.state_dtype != "compute":
@@ -423,7 +695,10 @@ def trace_rays(
     auto_chunk_bytes: Optional[int] = 2 << 30,
     stats: Optional[dict] = None,
 ) -> RayTrajectories:
-    """Run the dense adaptive ray-tracing pipeline on ``bs``'s device.
+    """Run the ray-tracing pipeline on ``bs``'s device: fixed-step RK4
+    (integrator='rk4'), or adaptive RK45 with exact bounds
+    (bound_mode='exact') or dense output (bound_mode='dense', optionally
+    with pin_limit). On the card the integration is one kernel launch.
 
     Args:
       bs: prepared basic state (its device and dtype are the run's).
@@ -434,9 +709,12 @@ def trace_rays(
       auto_chunk_bytes: past this estimate of the (nt, 7, R) history the
         JAX package reroutes to its chunked driver; the port raises there
         until that driver is ported. None disables the check.
-      stats: optional dict; receives "lane_att", the (n_groups, R') int32
-        step attempts per group of the R' integrated (compacted) lanes, on
-        the run's device.
+      stats: optional dict. An rk45 run (either bound mode) puts
+        "lane_att" there: the (n_groups, R') int32 step attempts per group
+        of bounds (one group per output interval when interval_batch is 1
+        or nt <= 2) of the R' integrated (compacted) lanes, on the run's
+        device, also when the run then raises ``MaxItersTruncation``. An
+        rk4 run takes no adaptive steps and puts nothing there.
     """
     config.validate()
     why = _unsupported(config, mesh, initial_state)
@@ -487,24 +765,43 @@ def trace_rays(
     nt = config.nt
     dt = rk45_mod.as_scalar(config.tstep, dtype)
     cut_off = rk45_mod.as_scalar(config.cut_off_rad, dtype)
-    min_step = min(config.min_step_factor * config.tstep,
-                   config.tstep * 1e-3)
-    rtol = rk45_mod.validate_tol(config.rtol, dtype)
-    atol = rk45_mod.as_scalar(config.atol, dtype)
-    min_step = rk45_mod.as_scalar(min_step, dtype)
-    ys, ugs, vgs, _, _, trunc, lane_att = _run_rk45_grouped(
-        bg, y0, ug0, vg0, dt, nt, cut_off, rtol, atol, min_step,
-        group=min(config.interval_batch, nt - 1), pin_limit=config.pin_limit,
-        pin_mwn=None if config.pin_limit is None else config.pin_mwn,
-    )
-    _check_truncation(trunc)
-    if stats is not None:
-        stats["lane_att"] = lane_att
+    if config.integrator == "rk4":
+        ys, ugs, vgs = _run_rk4(bg, y0, ug0, vg0, dt, nt, cut_off)
+    else:
+        min_step = min(config.min_step_factor * config.tstep,
+                       config.tstep * 1e-3)
+        rtol = rk45_mod.validate_tol(config.rtol, dtype)
+        atol = rk45_mod.as_scalar(config.atol, dtype)
+        min_step = rk45_mod.as_scalar(min_step, dtype)
+        if config.interval_batch > 1 and nt > 2:
+            out = _run_rk45_grouped(
+                bg, y0, ug0, vg0, dt, nt, cut_off, rtol, atol, min_step,
+                group=min(config.interval_batch, nt - 1),
+                dense=config.bound_mode == "dense",
+                pin_limit=config.pin_limit,
+                pin_mwn=None if config.pin_limit is None else config.pin_mwn,
+            )
+        else:
+            out = _run_rk45(bg, y0, ug0, vg0, dt, nt, cut_off, rtol, atol,
+                            min_step)
+        ys, ugs, vgs, _, _, trunc, lane_att = out
+        if stats is not None:
+            stats["lane_att"] = lane_att
+        _check_truncation(trunc)
 
     if take is not None:
-        # Rootless lanes are frozen at their seed state (finite lon/lat/kx,
-        # NaN ky/amp); their (ug, vg) are NaN beyond step 0.
-        ys_f = y0_full[None].expand((nt,) + tuple(y0_full.shape)).clone()
+        # Expand the compacted lanes back into the full layout. Rootless
+        # lanes' histories are integrator-specific, as in the JAX package:
+        # the adaptive solver freezes them at their seed state (finite
+        # lon/lat/kx, NaN ky/amp), while RK4 writes the NaN step proposal
+        # back (all NaN from step 1). (ug, vg) are NaN beyond step 0 either
+        # way.
+        if config.integrator == "rk45":
+            ys_f = y0_full[None].expand((nt,) + tuple(y0_full.shape)).clone()
+        else:
+            ys_f = torch.full((nt,) + tuple(y0_full.shape), float("nan"),
+                              dtype=dtype, device=device)
+            ys_f[0] = y0_full
         ys_f[..., take] = ys[..., :n_lanes]
         ugs_f = torch.full((nt, n_rays), float("nan"), dtype=dtype,
                            device=device)

@@ -6,9 +6,11 @@ so on a GPU machine without JAX run it as
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
 
-The library is built with -fmad=false, so the RHS kernel and both dense
-kernels (one group, and the whole run with the kill cascade and (ug, vg))
-must equal their plain versions bitwise; the spectral kernel sums its
+The library is built with -fmad=false, so the RHS kernel, both dense
+kernels (one group, and the whole run with the kill cascade and (ug, vg)),
+the RK4 kernel and both exact kernels (one group with its suspend/resume
+state, and the whole run) must equal their plain versions bitwise; the
+spectral kernel sums its
 contraction on the tensor cores in another order than the matmul, so it is
 held to 1e-12 (float64, and bf16 operands over float64) and 1e-5
 (float32 by 3xTF32, and bf16 operands over float32) of each channel's max
@@ -23,7 +25,7 @@ import rwrt_tpu_torch as pt
 from rwrt_tpu_torch import tracer
 from rwrt_tpu_torch.models import ray
 from rwrt_tpu_torch.ops import spectral_sample as spec
-from rwrt_tpu_torch.solvers import rk45
+from rwrt_tpu_torch.solvers import rk4, rk45
 
 pytestmark = pytest.mark.cuda
 
@@ -191,6 +193,149 @@ def test_dense_run_wrapper_refuses_bad_inputs(jet_field, dev):
             tracer._dense_run(*args)
 
 
+def amp_nan(y0):
+    """y0 with the amp of two born lanes NaN (exact mode walks them)."""
+    y0 = y0.clone()
+    born = torch.nonzero(torch.isfinite(y0[3])).flatten()
+    y0[4, born[[0, 5]]] = float("nan")
+    return y0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rk4_kernel_equals_plain(jet_field, dev, dtype):
+    """The whole run (row 0 from the kernel), and a chunk written at row
+    offset 4 of a larger output from a carry: rows, (ug, vg) and carry
+    bitwise equal to the plain loop."""
+    _, bg = background(jet_field, dtype, dev)
+    (y0, ug0, vg0, *_), _ = dense_run_inputs(bg, dtype, dev)
+    before = tracer.RK4_LAUNCHES, ray.LAUNCHES
+    k = tracer._run_rk4(bg, y0, ug0, vg0, 7200.0, 25, 0.03)
+    assert (tracer.RK4_LAUNCHES, ray.LAUNCHES) == (before[0] + 1, before[1])
+    p = tracer._run_rk4_plain(bg, y0, ug0, vg0, 7200.0, 25, 0.03)
+    for a, b in zip(k, p):
+        assert same(a, b)
+    assert torch.isnan(k[0][-1, 0]).any() and torch.isfinite(k[0][-1, 0]).any()
+    carry = k[0][10].contiguous()
+    outs = [torch.full((12,) + tuple(x.shape[1:]), 7.0, dtype=dtype,
+                       device=dev) for x in k]
+    y_k = tracer._rk4_launch(bg, carry, 7200.0, 6, 0.03, *outs, 4)
+    ref = [x.clone() for x in outs]
+    for x in ref:
+        x[4:10] = float("nan")
+    y_p = rk4.trace_into(bg, carry, 7200.0, 6, 0.03, *ref, 4)
+    for a, b in zip(outs, ref):
+        assert same(a, b)
+    assert same(y_k, y_p)
+    assert same(outs[0][4:10], k[0][11:17])
+
+
+@pytest.mark.parametrize("resume", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_exact_group_kernel_equals_plain(jet_field, dev, dtype, resume):
+    """One 10-bound group, NaN-amp lanes included; with resume, both
+    versions stop after 7 trips and resume from their own state."""
+    _, bg = background(jet_field, dtype, dev)
+    (y0, _, _, h0, f0, _, _), rtol = dense_run_inputs(bg, dtype, dev)
+    y0 = amp_nan(y0)
+    f0 = ray.RayRHS(bg)(y0)
+    bounds = torch.arange(1, 11, dtype=dtype, device=dev) * 7200.0
+    carry = (y0, torch.zeros_like(h0), h0, f0, y0[0].clone(), y0[1].clone())
+
+    def plain_rhs(yy, tt=0.0):
+        return ray._rhs_core(bg, yy, tt, False)[0]
+
+    def plain_gv(yy, tt=0.0):
+        dy, _, ug, vg = ray._rhs_core(bg, yy, tt, True)
+        return dy, ug, vg
+
+    def run(kernel, carry, max_iters, state0=None):
+        if kernel:
+            return rk45.integrate_group(
+                ray.RayRHS(bg), None, *carry[:4], bounds, *carry[4:], 0.03,
+                rtol, 1e-6, 7.2, max_iters, state0)
+        return rk45._integrate_group_plain(
+            plain_rhs, plain_gv, *carry[:4], bounds, *carry[4:], 0.03, rtol,
+            1e-6, 7.2, max_iters, state0)
+
+    before = rk45.EXACT_LAUNCHES
+    k = run(True, carry, 7 if resume else 1_000_000)
+    assert rk45.EXACT_LAUNCHES == before + 1
+    p = run(False, carry, 7 if resume else 1_000_000)
+    if resume:
+        tails = [[x[i] for i in (0, 10, 11, 9, 12)] for x in (k, p)]
+        k = run(True, k[1:7], 1_000_000, tails[0])
+        p = run(False, p[1:7], 1_000_000, tails[1])
+    for i in range(7):
+        assert same(k[i], p[i]), i
+    assert int(k[7]) == p[7]
+    for i in (9, 10, 11, 12):
+        assert torch.equal(k[i], p[i]), i
+
+
+EXACT_RUN_CASES = {
+    "default": dict(cut_off=0.2),
+    "cutoff": dict(cut_off=0.03),
+    "maxiters": dict(cut_off=0.2, max_iters=3),
+    "one_bound": dict(cut_off=0.2, max_iters=100_000, group=1),
+    "row0": dict(cut_off=0.2, group=1, nt=1),
+}
+
+
+@pytest.mark.parametrize("case", list(EXACT_RUN_CASES))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_exact_run_kernel_equals_plain(jet_field, dev, dtype, case):
+    """One launch; rows, ug, vg, per-group attempts, truncation counts and
+    the carry bitwise equal to the plain run, NaN-amp lanes included."""
+    _, bg = background(jet_field, dtype, dev)
+    kw = dict(EXACT_RUN_CASES[case])
+    group, nt = kw.pop("group", 5), kw.pop("nt", 13)
+    (y0, ug0, vg0, h0, _, _, _), rtol = dense_run_inputs(bg, dtype, dev)
+    y0 = amp_nan(y0)
+    f0 = ray.RayRHS(bg)(y0)
+    bounds_g = tracer.padded_bounds(7200.0, nt, group, dtype, dev)
+    cut_off = kw.pop("cut_off")
+    args = (bg, y0, ug0, vg0, h0, f0, bounds_g, nt - 1, cut_off, rtol, 1e-6,
+            7.2)
+    before = tracer.EXACT_LAUNCHES, rk45.EXACT_LAUNCHES, ray.LAUNCHES
+    k = tracer._exact_run(*args, **kw)
+    assert (tracer.EXACT_LAUNCHES, rk45.EXACT_LAUNCHES, ray.LAUNCHES) == (
+        before[0] + 1, before[1], before[2])
+    p = tracer._exact_run_plain(*args, **kw)
+    assert k.ys.shape == (nt, 5, y0.shape[1])
+    for a, b in zip(k[:3] + k.carry, p[:3] + p.carry):
+        assert same(a, b)
+    assert torch.equal(k.lane_att, p.lane_att)
+    assert torch.equal(k.trunc, p.trunc)
+    if case == "maxiters":
+        assert int(k.trunc.sum()) > 0
+    if case == "cutoff":
+        assert (torch.isnan(k.ys[-1, 0]) & ~torch.isnan(y0[3])).any()
+
+
+def test_exact_and_rk4_wrappers_refuse_bad_inputs(jet_field, dev):
+    _, bg = background(jet_field, torch.float32, dev)
+    (y0, ug0, vg0, h0, f0, bounds_g, n_bounds), rtol = dense_run_inputs(
+        bg, torch.float32, dev)
+    good = [bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, 0.2, rtol, 1e-6,
+            7.2]
+    for pos, bad in ((1, y0.double()), (4, h0[:-1]),
+                     (6, bounds_g.reshape(-1)), (7, bounds_g.numel() + 1)):
+        args = list(good)
+        args[pos] = bad
+        with pytest.raises(ValueError):
+            tracer._exact_run(*args)
+    ys, ugs, vgs = tracer._rk4_buffers(y0, 5)
+    with pytest.raises(ValueError):   # ug0 without vg0
+        tracer._rk4_launch(bg, y0, 7200.0, 4, 0.2, ys, ugs, vgs, 1, ug0, None)
+    with pytest.raises(ValueError):   # rows past the output
+        tracer._rk4_launch(bg, y0, 7200.0, 5, 0.2, ys, ugs, vgs, 1)
+    with pytest.raises(ValueError):   # row 0 needs row_offset >= 1
+        tracer._rk4_launch(bg, y0, 7200.0, 4, 0.2, ys, ugs, vgs, 0, ug0, vg0)
+    with pytest.raises(TypeError):
+        rk45.integrate_group(lambda yy, tt=0.0: yy, None, y0, h0, h0, f0,
+                             bounds_g[0], h0, h0, 0.2, rtol, 1e-6, 7.2)
+
+
 SPECTRAL_BARS = {"float64": 1e-12, "float64_bf16": 1e-12, "float32": 1e-5,
                  "bf16": 1e-5}
 
@@ -269,6 +414,29 @@ def test_trace_rays_on_cuda_goes_through_the_kernels(jet_field, dev):
     # single-group launch.
     assert ray.LAUNCHES > r0 and tracer.LAUNCHES == t0 + 1
     assert rk45.LAUNCHES == d0
+    assert out.lon.shape == (49, 3, 20, 3) and out.lon.is_cuda
+    alive = torch.isfinite(out.ky[-1])
+    assert alive.any() and torch.isfinite(out.lat[-1][alive]).all()
+
+
+@pytest.mark.parametrize("branch", ["rk4", "exact", "exact_batch1"])
+def test_trace_rays_other_branches_launch_once(jet_field, dev, branch):
+    """rk4 and exact mode on the card: one launch of the branch's kernel,
+    no dense launch, finite rows on the lanes alive at the end."""
+    u, v, lat, lon = jet_field
+    bs = pt.prepare(u, v, lat, lon, cal_dtype="float32", device=dev)
+    cfg = pt.RunConfig(
+        zwn=(2.0, 4.0, 6.0), sw_lon=0.0, sw_lat=5.0, dlon=36.0, dlat=8.0,
+        nnx=5, nny=4, tstep=7200.0, ttotal=4 * 86400.0,
+        integrator="rk4" if branch == "rk4" else "rk45",
+        interval_batch=1 if branch == "exact_batch1" else 16)
+    before = (tracer.LAUNCHES, tracer.RK4_LAUNCHES, tracer.EXACT_LAUNCHES)
+    stats = {}
+    out = pt.trace_rays(bs, cfg, stats=stats)
+    after = (tracer.LAUNCHES, tracer.RK4_LAUNCHES, tracer.EXACT_LAUNCHES)
+    want = (0, 1, 0) if branch == "rk4" else (0, 0, 1)
+    assert tuple(a - b for a, b in zip(after, before)) == want
+    assert ("lane_att" in stats) == (branch != "rk4")
     assert out.lon.shape == (49, 3, 20, 3) and out.lon.is_cuda
     alive = torch.isfinite(out.ky[-1])
     assert alive.any() and torch.isfinite(out.lat[-1][alive]).all()

@@ -86,7 +86,7 @@ def port_run(bgt, y0, ug0, vg0, case):
     pin = case["pin"]
     return ttracer._run_rk45_grouped(
         bgt, *(torch.as_tensor(x) for x in (y0, ug0, vg0)), DT, NT,
-        case["cut_off"], RTOL, ATOL, MIN_STEP, group=GROUP,
+        case["cut_off"], RTOL, ATOL, MIN_STEP, group=GROUP, dense=True,
         pin_limit=None if pin is None else pin[0],
         pin_mwn=None if pin is None else pin[1],
         max_iters=case["max_iters"])

@@ -133,18 +133,13 @@ def test_rootless_lanes_stay_frozen(states):
 
 
 @pytest.mark.parametrize("branch", [
-    "rk4", "exact", "mesh", "state_float64", "fortran", "initial_state",
-    "auto_chunk",
+    "mesh", "state_float64", "fortran", "initial_state", "auto_chunk",
 ])
 def test_unported_branches_raise(states, branch):
     _, bst = states
     cfg = dict(CFG, ttotal=2 * DAY)
     kw = {}
-    if branch == "rk4":
-        cfg.update(integrator="rk4", bound_mode="exact", pin_limit=None)
-    elif branch == "exact":
-        cfg.update(bound_mode="exact", pin_limit=None)
-    elif branch == "state_float64":
+    if branch == "state_float64":
         cfg.update(state_dtype="float64")
     elif branch == "fortran":
         cfg.update(root_order="fortran")
