@@ -47,15 +47,19 @@ exact_path phase requires):
                ``_run_rk4_plain`` over all 360 steps of the production
                seeding's entry state (60,784 lanes), float32, and its first
                4,096 lanes in float64, bitwise; the kernel's time there and
-               on the default run's entry state
+               on the default run's entry state; every instance
+               (``kernels.INSTANCES``) bitwise and timed in turns
   exact_group  one 16-bound group (``integrate_group`` on CUDA) vs the plain
                loop on the production seeding's entry state, float32 and
-               float64, bitwise
+               float64, bitwise; every instance bitwise and timed in turns
   exact_run    the whole-run exact kernel (``tracer._exact_run``) vs the
                plain ``_exact_run_plain`` on the README run's entry state
                over README_DAYS days, float32, and on its first
-               EXACT_SUBSET lanes over EXACT_DAYS days in float64, bitwise
-  rk4_path     the two RK4 runs through ``trace_rays``, counters reset just
+               EXACT_SUBSET lanes over EXACT_DAYS days in float64, bitwise;
+               every instance bitwise and timed in turns; the barrier
+               flag's kernel (``_run_rk45`` on the card: one bound per
+               group) vs the flagged plain run on that subset
+  rk4_path    the two RK4 runs through ``trace_rays``, counters reset just
                before each and read just after: one RK4 launch each, no
                other whole-run launch, rows bitwise equal to the rk4 phase's;
                the kernels line reports the production run's launches
@@ -64,7 +68,17 @@ exact_path phase requires):
                bitwise equal to the exact_run phase's; wall, peak memory,
                step attempts; then over TRUNC_DAYS days, where a lane
                stalls at the max_iters backstop and ``trace_rays`` must raise
-               ``MaxItersTruncation``
+               ``MaxItersTruncation``; the longest lane's us per trip there,
+               and that lane alone over TRUNC_DAYS days (backstop
+               LONE_MAX_ITERS) in every instance in turns
+
+The RK4 and exact kernels' instances are timed in turns (TURNS) on the
+same inputs at five shapes (RK4 at production seeding and in the default
+run, the first exact group at production seeding, the README exact run,
+the lone stalled lane); the launcher's choice at each is printed beside
+them, and the phase fails if it ran slower than Lane there.
+``profile_instances.py`` times them over lane counts and reports their
+registers and SASS.
 
 Each kernel's bound is the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and its flops over the data sheet's
@@ -138,6 +152,12 @@ MAX_ITERS = 1_000_000
 #: The exact_run phase's plain comparison: lanes and days.
 EXACT_SUBSET = 2048
 EXACT_DAYS = 16
+#: The lone stalled lane's timing run: its backstop per group.
+LONE_MAX_ITERS = 100_000
+#: The exact_run phase's barrier-flag comparison: days of one-bound groups.
+BARRIER_DAYS = 2
+#: The order in which the RK4 and exact kernels' instances are timed.
+TURNS = ("lane", "split8", "lane")
 
 
 def climatology_background(nlon=144, nlat=73):
@@ -254,6 +274,38 @@ def rel_err(a, b, dim):
     return float((d / torch.clamp(s, min=1e-300)).max())
 
 
+def in_turns(run, shape, launch, reps, same_as):
+    """Each RK4 or exact kernel instance at one shape: its output held to
+    ``same_as`` (a predicate on the output), then its device time in turns
+    (TURNS, ``reps`` launches each). Records and prints the times in ms."""
+    names = list(dict.fromkeys(TURNS))
+    for name in names:
+        check(same_as(launch(name)),
+              f"{shape}: instance {name} differs from the plain version")
+    times = {}
+    for name in TURNS:
+        times.setdefault(name, []).append(cuda_ms(lambda: launch(name), reps))
+    run.turns[shape] = times
+    print(f"  {shape}, instances in turns {'/'.join(TURNS)}, bitwise equal "
+          "to the plain version: " + ", ".join(
+              f"{n} {' / '.join(f'{t:.4f}' for t in ts)} ms"
+              for n, ts in times.items()))
+    return times
+
+
+def print_choice(run, shape, chosen, strict=True):
+    """The launcher's instance at a shape beside the Lane time of the same
+    turns (each instance's best turn); with ``strict``, fails if the choice
+    ran slower than Lane there."""
+    times = {n: min(ts) for n, ts in run.turns[shape].items()}
+    ratio = times[chosen] / times["lane"]
+    run.choices[shape] = (chosen, ratio)
+    print(f"  {shape}: the launcher takes {chosen}, {ratio:.3f} x lane's "
+          f"time ({'slower' if ratio > 1 else 'not slower'} than lane)")
+    check(not strict or ratio <= 1.0, f"{shape}: the launcher's {chosen} "
+          f"ran {ratio:.3f} x lane's time")
+
+
 class Run:
     """State shared by the phases: device, backgrounds, seeds, results."""
 
@@ -267,6 +319,8 @@ class Run:
         self.slat = rng.uniform(np.radians(-65), np.radians(65),
                                 N_SOURCES)
         self.kernels = {}
+        self.turns = {}
+        self.choices = {}
 
     def bs(self, dtype):
         return self.rt.prepare(self.u, self.v, self.lat, self.lon,
@@ -715,7 +769,7 @@ def phase_rk4(run):
     first N_SUBSET lanes), bitwise; the kernel's time there and on the
     default run's entry state (~4,000 lanes, 1,080 steps)."""
     torch = run.torch
-    from rwrt_tpu_torch import tracer
+    from rwrt_tpu_torch import kernels, tracer
     from rwrt_tpu_torch.solvers import rk45
 
     run.rk4 = {}
@@ -744,9 +798,20 @@ def phase_rk4(run):
                 check(same(k, p), f"rk4 {name} {dtype}: {what} differ from "
                       "the plain run")
             tag = f"rk4 {name} {str(dtype)[6:]}"
+
+            def launch(inst):
+                return tracer._run_rk4_cuda(*args, inst)
+
+            def same_as(out):
+                return all(same(a, b) for a, b in zip(out, plain))
+
             if dtype == torch.float64:
-                print(f"{tag}: R={y0.shape[1]}, {cfg.nt - 1} steps, bitwise "
-                      f"equal to the plain run; plain {plain_ms:.1f} ms")
+                for inst in kernels.INSTANCES:
+                    check(same_as(launch(inst)),
+                          f"{tag}: instance {inst} differs from the plain run")
+                print(f"{tag}: R={y0.shape[1]}, {cfg.nt - 1} steps, every "
+                      f"instance bitwise equal to the plain run; plain "
+                      f"{plain_ms:.1f} ms")
                 continue
             ms = cuda_ms(lambda: tracer._run_rk4_cuda(*args), 3)
             b = rk4_bound(bg, y0, ug0, vg0, kern, dtype)
@@ -755,6 +820,8 @@ def phase_rk4(run):
                   f"to the plain run; kernel {ms:.3f} ms (CUDA events), plain "
                   f"{plain_ms:.1f} ms; bound {b['bound_ms']:.4f} ms "
                   f"({b['bound_by']}); lanes alive at the end {alive:.4f}")
+            in_turns(run, tag, launch, 3, same_as)
+            print_choice(run, tag, tracer.rk4_instance(y0.shape[1], dtype))
             run.rk4[name] = (idx, kern)
             if name == "production":
                 err = max(float(torch.nan_to_num(torch.abs(k - p),
@@ -780,6 +847,7 @@ def phase_exact_group(run):
     (60,784 lanes), float32 and float64: hist, carry, iters, attempts,
     flags and next bounds bitwise."""
     torch = run.torch
+    from rwrt_tpu_torch import kernels
     from rwrt_tpu_torch.models import ray
     from rwrt_tpu_torch.solvers import rk45
 
@@ -822,6 +890,26 @@ def phase_exact_group(run):
         for i in (9, 10, 11, 12):
             check(torch.equal(kern[i], plain[i]),
                   f"exact_group {name}: output {i} differs")
+
+        def launch(inst):
+            return rk45._integrate_group_cuda(
+                ray.RayRHS(bg), None, *carry[:4], *tail, MAX_ITERS, None, inst)
+
+        def same_as(out):
+            return (all(same(out[i], plain[i]) for i in range(7))
+                    and int(out[7]) == plain[7]
+                    and all(torch.equal(out[i], plain[i])
+                            for i in (9, 10, 11, 12)))
+
+        tag = f"exact_group {name}"
+        if dtype == torch.float64:
+            for inst in kernels.INSTANCES:
+                check(same_as(launch(inst)),
+                      f"{tag}: instance {inst} differs from the plain loop")
+        else:
+            in_turns(run, tag, launch, 5, same_as)
+            print_choice(run, tag, rk45.exact_instance(y0.shape[1], dtype,
+                                                       run=False))
         ms = cuda_ms(kernel, 5)
         attempts = int(kern[9].sum())
         b = exact_bound(args, kern[:7] + kern[9:], dtype, attempts,
@@ -845,7 +933,9 @@ def phase_exact_run(run):
     (12 groups, ~20 s); rows, (ug, vg), attempts, truncation counts and
     carry bitwise."""
     torch = run.torch
-    from rwrt_tpu_torch import tracer
+    from rwrt_tpu_torch import kernels, tracer
+    from rwrt_tpu_torch.models import ray
+    from rwrt_tpu_torch.solvers import rk45
 
     cfg = readme_config(run.rt)
     n_bounds = int(EXACT_DAYS * DAY / cfg.tstep)
@@ -873,6 +963,49 @@ def phase_exact_run(run):
                   f"exact_run {name}: {n} differs from the plain run")
         for a, b in zip(kern.carry, plain.carry):
             check(same(a, b), f"exact_run {name}: carry differs")
+
+        def launch(inst, args=args, **kw):
+            return tracer._exact_run_cuda(*args, instance=inst, **kw)
+
+        def same_as(out, plain=plain):
+            return (all(same(getattr(out, n), getattr(plain, n))
+                        for n in ("ys", "ugs", "vgs", "lane_att", "trunc"))
+                    and all(same(a, b) for a, b in zip(out.carry,
+                                                       plain.carry)))
+
+        tag = f"exact_run {name}"
+        if dtype == torch.float64:
+            for inst in kernels.INSTANCES:
+                check(same_as(launch(inst)),
+                      f"{tag}: instance {inst} differs from the plain run")
+        else:
+            in_turns(run, tag, launch, 3, same_as)
+            print_choice(run, tag, rk45.exact_instance(args[1].shape[1],
+                                                       dtype))
+        # The barrier flag (``_run_rk45`` on the card): one bound per group
+        # over BARRIER_DAYS days, every 7th lane's amp at the dtype's
+        # largest value (it overflows to NaN inside the first interval).
+        sub = lane_subset(args, EXACT_SUBSET)
+        y0 = sub[1].clone()
+        y0[4, ::7] = torch.finfo(dtype).max
+        f0 = ray.RayRHS(sub[0])(y0)
+        n_b = int(BARRIER_DAYS * DAY / cfg.tstep)
+        one = tracer.padded_bounds(rk45.as_scalar(cfg.tstep, dtype), n_b + 1,
+                                   1, dtype, run.dev)
+        bargs = (sub[0], y0, *sub[2:5], f0, one, n_b, *sub[8:])
+        bplain = tracer._exact_run_plain(*bargs, 100_000, barrier=True)
+        for inst in kernels.INSTANCES:
+            check(same_as(launch(inst, bargs, max_iters=100_000,
+                                 barrier=True), bplain),
+                  f"{tag}: barrier kernel, instance {inst}, differs from "
+                  "the flagged plain run")
+        grouped = tracer._exact_run_plain(*bargs, 100_000)
+        moved = int((~((grouped.ys == bplain.ys)
+                       | (grouped.ys.isnan() & bplain.ys.isnan()))
+                     ).any(dim=1).any(dim=0).sum())
+        print(f"  barrier flag: {EXACT_SUBSET} lanes x {n_b} one-bound "
+              f"groups, every instance bitwise equal to the flagged plain "
+              f"run; lanes whose rows the flag changes: {moved}")
         trips = kern.lane_att.sum(dim=0)
         attempts = int(kern.lane_att.sum())
         bnd = exact_bound(args, kern[:5] + kern.carry, dtype, attempts,
@@ -997,10 +1130,49 @@ def phase_exact_path(run):
     check(refused is not None, f"the {TRUNC_DAYS}-day README run was not "
           "refused by MaxItersTruncation")
     check(bool(capped.any()), "no group reached the max_iters backstop")
+    trips = lane_att.sum(dim=0)
+    lone = int(trips.argmax())
     print(f"exact_path {TRUNC_DAYS} days: refused by MaxItersTruncation "
           f"({refused}) after {wall:.3f} s and one launch; groups at the "
           f"{MAX_ITERS:,}-trip backstop: "
-          f"{capped.nonzero().flatten().tolist()}")
+          f"{capped.nonzero().flatten().tolist()}; the longest lane "
+          f"(compacted lane {lone}) {int(trips[lone])} trips, "
+          f"{wall / int(trips[lone]) * 1e6:.3f} us per trip of the wall")
+    phase_lone_lane(run, cfg, lone)
+
+
+def phase_lone_lane(run, cfg, lane):
+    """The stalled lane of the TRUNC_DAYS-day README run alone (R = 1) over
+    those days, with a backstop of LONE_MAX_ITERS trips per group: every
+    instance bitwise equal to Lane's run and timed in turns, as us per
+    trip."""
+    torch = run.torch
+    from rwrt_tpu_torch import tracer
+    from rwrt_tpu_torch.solvers import rk45
+
+    _, args, _, _ = run.run_inputs(torch.float32, cfg, cfg)
+    r = args[1].shape[1]
+    one = tuple(a[..., lane:lane + 1].contiguous()
+                if hasattr(a, "shape") and a.ndim and a.shape[-1] == r else a
+                for a in args)
+
+    def launch(inst):
+        return tracer._exact_run_cuda(*one, LONE_MAX_ITERS, instance=inst)
+
+    ref = launch("lane")
+    trips = int(ref.lane_att.sum())
+
+    def same_as(out):
+        return all(same(getattr(out, n), getattr(ref, n))
+                   for n in ("ys", "ugs", "vgs", "lane_att", "trunc"))
+
+    tag = "exact lone lane"
+    times = in_turns(run, tag, launch, 1, same_as)
+    print(f"  {tag}: {trips} trips over {cfg.nt - 1} bounds (backstop "
+          f"{LONE_MAX_ITERS:,}), us per trip " + ", ".join(
+              f"{n} {' / '.join(f'{t / trips * 1e3:.3f}' for t in ts)}"
+              for n, ts in times.items()))
+    print_choice(run, tag, rk45.exact_instance(1, torch.float32))
 
 
 KERNELS = (

@@ -1,0 +1,256 @@
+#!/usr/bin/env python3
+"""Time the RK4 and exact kernels' instances against each other on one card.
+
+    python3 profile_instances.py [--parts report,sweep,tiled,stall]
+
+The instances (``kernels.INSTANCES``, ``csrc/ray_rhs.cuh``) run in turns
+(chip_smoke's ``TURNS``) on the same inputs, each bitwise equal to Lane's
+output there, with the launcher's choice (``tracer.rk4_instance``,
+``rk45.exact_instance``) and its time over Lane's printed beside them.
+All runs use chip_smoke.py's climatology background. Parts:
+
+  report  each RHS, RK4 and exact kernel instance's registers and spills
+          (the build's ``-Xptxas -v`` report in ``nvcc.log``) and SASS
+          instruction counts (``cuobjdump -sass``, where the toolkit has
+          it): all, and the loads, shared loads and stores, shuffles and
+          special-function (MUFU) instructions among them
+  sweep   the first R lanes of the production seeding's entry state, R over
+          SWEEP_LANES, float32 and float64: RK4 over SWEEP_STEPS steps and
+          the first 16-bound exact group
+  tiled   the default source matrix's 4,288 lanes repeated to R lanes, R
+          over TILED_LANES, float32: the whole ``RunConfig()`` RK4 run
+          (1,080 steps) and the README exact run cut to README_DAYS days
+  stall   the README exact run over TRUNC_DAYS days through the whole-run
+          kernel: from day 49 one lane stalls at the max_iters backstop, and
+          its trips are most of the run
+
+Prints the card (``nvidia-smi`` name and power limit) first. Imports no
+JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import chip_smoke as cs
+
+#: The sweep: lane counts (the first R lanes of the production seeding's
+#: entry state) and RK4 steps.
+SWEEP_LANES = (1, 8, 16, 32, 64, 128, 512, 2048, 4288, 5120, 6144, 7168,
+               8192, 16384, 32768)
+SWEEP_STEPS = 120
+#: The default source matrix's lanes, repeated to these counts.
+TILED_LANES = (4288, 5120, 6144, 7168, 8192)
+
+
+def demangle(names):
+    """Readable kernel names (c++filt where the toolkit's host has it)."""
+    if not names or shutil.which("c++filt") is None:
+        return {n: n for n in names}
+    out = subprocess.run(["c++filt"], input="\n".join(names),
+                         capture_output=True, text=True).stdout.splitlines()
+    short = [o.replace("(anonymous namespace)::", "").removeprefix("void ")
+             .split("(")[0] for o in out]
+    return dict(zip(names, short))
+
+
+def part_report(run):
+    from rwrt_tpu_torch.kernels import build
+
+    lib = build.build()
+    regs, name = {}, None
+    for line in (lib.parent / "nvcc.log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            regs.setdefault(name, {})["spill"] = (int(m.group(1)),
+                                                  int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            regs.setdefault(name, {})["regs"] = int(m.group(1))
+    sass = {}
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if Path(cuobjdump).is_file():
+        text = subprocess.run([cuobjdump, "-sass", str(lib)],
+                              capture_output=True, text=True).stdout
+        fn = None
+        for line in text.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                sass[fn] = {}
+                continue
+            m = re.match(
+                r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)", line)
+            if m and fn:
+                op = m.group(1).split(".")[0]
+                counts = sass[fn]
+                counts["all"] = counts.get("all", 0) + 1
+                if op in ("LDG", "LDS", "STS", "SHFL", "MUFU"):
+                    counts[op] = counts.get(op, 0) + 1
+    names = sorted(n for n in set(regs) | set(sass)
+                   if re.search(r"(rk4|exact|rhs)_kernel", n))
+    pretty = demangle(names)
+    for n in names:
+        r, c = regs.get(n, {}), sass.get(n, {})
+        print(f"kernel {pretty[n]}: {r.get('regs', '?')} registers, spill "
+              f"stores/loads {r.get('spill', '?')}; SASS "
+              + (", ".join(f"{k} {c.get(k, 0)}" for k in
+                           ("all", "LDG", "LDS", "STS", "SHFL", "MUFU"))
+                 if c else "not available"))
+
+
+def same_all(out, ref, names=None):
+    """Every output of ``out`` bitwise equal to ``ref``'s (by field name, or
+    position)."""
+    if names:
+        return all(cs.same(getattr(out, n), getattr(ref, n)) for n in names)
+    return all(cs.same(a, b) for a, b in zip(out, ref))
+
+
+def part_sweep(run):
+    torch = run.torch
+    from rwrt_tpu_torch import tracer
+    from rwrt_tpu_torch.models import ray
+    from rwrt_tpu_torch.solvers import rk45
+
+    cfg = cs.production_config(run.rt, bound_mode="exact", pin_limit=None,
+                               interval_batch=16)
+    for dtype in (torch.float32, torch.float64):
+        bg, args, _, _ = run.run_inputs(dtype, cfg)
+        _, y0, ug0, vg0, h0, f0, bounds_g, _, cut_off, rtol, atol, mstep = args
+        dt = rk45.as_scalar(cfg.tstep, dtype)
+        name = str(dtype)[6:]
+        for r in SWEEP_LANES:
+            y, ug, vg, h, f = (x[..., :r].contiguous()
+                               for x in (y0, ug0, vg0, h0, f0))
+            rk = (bg, y, ug, vg, dt, SWEEP_STEPS + 1, cut_off)
+            ref = tracer._run_rk4_cuda(*rk, "lane")
+            tag = f"sweep rk4 {name} R={r}"
+            cs.in_turns(run, tag, lambda n: tracer._run_rk4_cuda(*rk, n), 3,
+                        lambda out: same_all(out, ref))
+            cs.print_choice(run, tag, tracer.rk4_instance(r, dtype), False)
+            carry = (y, torch.zeros_like(h), h, f, y[0].clone(), y[1].clone())
+            tail = (bounds_g[0], *carry[4:], cut_off, rtol, atol, mstep)
+
+            def launch(inst):
+                return rk45._integrate_group_cuda(
+                    ray.RayRHS(bg), None, *carry[:4], *tail, cs.MAX_ITERS,
+                    None, inst)
+
+            gref = launch("lane")
+            tag = f"sweep exact_group {name} R={r}"
+            cs.in_turns(run, tag, launch, 3,
+                        lambda out: same_all(out[:7], gref[:7]))
+            cs.print_choice(run, tag, rk45.exact_instance(r, dtype, run=False),
+                            False)
+
+
+def tile(xs, r):
+    """Each (..., R0) tensor of ``xs`` with its lanes repeated to r."""
+    import torch
+
+    return [x.index_select(-1, torch.arange(r, device=x.device) % x.shape[-1])
+            .contiguous() for x in xs]
+
+
+def part_tiled(run):
+    torch = run.torch
+    from rwrt_tpu_torch import tracer
+    from rwrt_tpu_torch.solvers import rk45
+
+    dtype = torch.float32
+    dcfg = cs.default_config(run.rt)
+    bg, y0, ug0, vg0, _ = run.entry(dtype, dcfg)
+    ecfg = cs.readme_config(run.rt)
+    _, args, _, _ = run.run_inputs(dtype, ecfg, ecfg)
+    for r in TILED_LANES:
+        y, ug, vg = tile((y0, ug0, vg0), r)
+        rk = (bg, y, ug, vg, rk45.as_scalar(dcfg.tstep, dtype), dcfg.nt,
+              rk45.as_scalar(dcfg.cut_off_rad, dtype))
+        ref = tracer._run_rk4_cuda(*rk, "lane")
+        tag = f"tiled rk4 default R={r}"
+        cs.in_turns(run, tag, lambda n: tracer._run_rk4_cuda(*rk, n), 2,
+                    lambda out: same_all(out, ref))
+        cs.print_choice(run, tag, tracer.rk4_instance(r, dtype), False)
+        ex = (args[0], *tile(args[1:6], r), *args[6:])
+
+        def launch(inst):
+            return tracer._exact_run_cuda(*ex, instance=inst)
+
+        eref = launch("lane")
+        tag = f"tiled exact README {cs.README_DAYS} days R={r}"
+        cs.in_turns(run, tag, launch, 2,
+                    lambda out: same_all(out, eref, ("ys", "ugs", "vgs",
+                                                     "lane_att", "trunc")))
+        cs.print_choice(run, tag, rk45.exact_instance(r, dtype), False)
+
+
+def part_stall(run):
+    torch = run.torch
+    from rwrt_tpu_torch import tracer
+    from rwrt_tpu_torch.solvers import rk45
+
+    cfg = cs.readme_config(run.rt, cs.TRUNC_DAYS)
+    _, args, _, _ = run.run_inputs(torch.float32, cfg, cfg)
+
+    def launch(inst):
+        return tracer._exact_run_cuda(*args, cs.MAX_ITERS, instance=inst)
+
+    ref = launch("lane")
+    trips = ref.lane_att.sum(dim=0)
+    tag = f"stall exact README {cs.TRUNC_DAYS} days"
+    times = cs.in_turns(run, tag, launch, 1, lambda out: same_all(
+        out, ref, ("ys", "ugs", "vgs", "lane_att", "trunc")))
+    top = int(trips.max())
+    print(f"  {tag}: R={args[1].shape[1]}, truncated lane-groups "
+          f"{int(ref.trunc.sum())}, longest lane {top} trips; us per trip "
+          "of that lane " + ", ".join(
+              f"{n} {' / '.join(f'{t / top * 1e3:.3f}' for t in ts)}"
+              for n, ts in times.items()))
+    cs.print_choice(run, tag, rk45.exact_instance(args[1].shape[1],
+                                                  torch.float32), False)
+
+
+PARTS = {"report": part_report, "sweep": part_sweep, "tiled": part_tiled,
+         "stall": part_stall}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parts", default=",".join(PARTS))
+    args = ap.parse_args()
+    parts = args.parts.split(",")
+    unknown = set(parts) - set(PARTS)
+    if unknown:
+        ap.error(f"unknown parts {sorted(unknown)}; of {sorted(PARTS)}")
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_instances: no CUDA device", file=sys.stderr)
+        return 1
+    import rwrt_tpu_torch as rt
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    run = cs.Run(torch, rt)
+    for p in parts:
+        PARTS[p](run)
+        print(f"part {p} done", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

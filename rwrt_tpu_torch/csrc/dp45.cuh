@@ -33,8 +33,9 @@ __device__ __forceinline__ T nan_min(T a, T b) {
 }
 
 // Stages 2-6 of a trial step of size hs from y, given the FSAL stage in
-// k[0]: fills k[1..5] and the 5th-order proposal y_new.
-template <typename T>
+// k[0]: fills k[1..5] and the 5th-order proposal y_new. I is the
+// evaluation's instance (ray_rhs.cuh).
+template <typename T, class I = Lane>
 __device__ __forceinline__ void trial(const Background<T>& bg, const T y[5],
                                       T hs, T k[7][5], T y_new[5]) {
   constexpr double kA[6][5] = {
@@ -66,7 +67,7 @@ __device__ __forceinline__ void trial(const Background<T>& bg, const T y[5],
       }
       ys[v] = y[v] + hs * acc;
     }
-    ray_rhs(bg, ys, k[s], &e);
+    ray_rhs<T, I>(bg, ys, k[s], &e);
   }
 #pragma unroll
   for (int v = 0; v < 5; ++v) {

@@ -1,11 +1,13 @@
 // Exact-bound Dormand-Prince kernels: every step clamps at every output
 // bound, one thread per lane, from one templated body.
 //
-//   exact_kernel<T, false>  one group of output bounds in one launch
+//   exact_kernel<T, false, false, I>
+//                           one group of output bounds in one launch
 //                           (rwrt_exact_group: solvers/rk45.py
 //                           integrate_group on CUDA), with its suspend /
 //                           resume state;
-//   exact_kernel<T, true>   the whole exact run in one launch
+//   exact_kernel<T, true, kBarrier, I>
+//                           the whole exact run in one launch
 //                           (rwrt_exact_run: tracer._exact_run on CUDA).
 //                           Each lane walks every group of bounds with each
 //                           group's semantics and writes its rows straight
@@ -21,10 +23,13 @@
 //   lane's last saved position, (ug, vg) from the 7th-stage sample, the skip
 //   of a dead lane's remaining bounds, the bound-per-trip walk of NaN-amp
 //   lanes) with its entry state group_entry_state (rootless and dead lanes
-//   prefilled and finished at entry). With one bound per group and
-//   max_iters 100,000 it is also tracer.py:824-856 _run_rk45, the barrier
-//   path over integrate_interval, which the JAX package keeps bitwise equal
-//   to the grouped one.
+//   prefilled and finished at entry). With one bound per group, max_iters
+//   100,000 and kBarrier it is also tracer.py:824-856 _run_rk45, the
+//   barrier path over integrate_interval: there a lane whose amp turns NaN
+//   inside an interval keeps stepping its dynamics to the bound and is
+//   frozen only at the next interval's entry, so under kBarrier "frozen"
+//   (the NaN-amp walk) is decided once, at each group's entry, where the
+//   grouped path decides it on every trip.
 // Plain PyTorch versions: rwrt_tpu_torch/tracer.py _exact_run_plain and
 // rwrt_tpu_torch/solvers/rk45.py _integrate_group_plain, whose expressions
 // and order this follows; the Dormand-Prince arithmetic is dp45.cuh's,
@@ -52,7 +57,13 @@
 // kill_mask). A row is written once: at its crossing; at a lane's entry
 // prefill; or NaN at the group's end for the bounds a live lane never
 // saved (killed, or cut short by max_iters). Blocks of 128 threads, as the
-// other integrator kernels.
+// other integrator kernels. The kernel is templated on the evaluation's
+// instance (ray_rhs.cuh: Lane, Split), which the wrappers choose
+// (solvers/rk45.py exact_instance): 8 threads per lane for the launches
+// of some dozens to a few thousand lanes, one thread per lane elsewhere.
+// A team's threads take the same branches on the same state, so exact
+// mode's per-lane branching never splits a team; its first thread writes
+// the rows and the carry.
 //
 // Rounding: built with -fmad=false (kernels/build.py), so each expression
 // rounds as the plain version's separate tensor ops do.
@@ -106,10 +117,13 @@ struct ExactArgs {
   long long max_iters;
 };
 
-template <typename T, bool kRun>
-__global__ void __launch_bounds__(128) exact_kernel(const ExactArgs<T> a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+template <typename T, bool kRun, bool kBarrier, class I>
+__global__ void __launch_bounds__(rwrt::kBlock)
+    exact_kernel(const ExactArgs<T> a) {
+  static_assert(kRun || !kBarrier, "barrier semantics are a run's");
+  const int i = (blockIdx.x * blockDim.x + threadIdx.x) / I::kThreads;
   if (i >= a.R) return;
+  const bool lead = I::lead();
   const long long RL = a.R;
   const int G = a.G;
   const T nan = rwrt::nan_value<T>();
@@ -126,10 +140,12 @@ __global__ void __launch_bounds__(128) exact_kernel(const ExactArgs<T> a) {
   if constexpr (kRun) {
     plon = yl[0];
     plat = yl[1];
+    if (lead) {
 #pragma unroll
-    for (int v = 0; v < 5; ++v) a.hist[v * RL + i] = yl[v];
-    a.ugs[i] = a.ug0[i];
-    a.vgs[i] = a.vg0[i];
+      for (int v = 0; v < 5; ++v) a.hist[v * RL + i] = yl[v];
+      a.ugs[i] = a.ug0[i];
+      a.vgs[i] = a.vg0[i];
+    }
   } else {
     plon = a.plon[i];
     plat = a.plat[i];
@@ -145,10 +161,12 @@ __global__ void __launch_bounds__(128) exact_kernel(const ExactArgs<T> a) {
   int nb = 0;
   bool rej = false;
   bool ns = true;
+  bool frozen_g = false;  // kBarrier: the NaN-amp walk, fixed at entry
   int att = 0;
   long long trips = 0;
   int trunc = 0;
   auto store = [&](int b, const T row[5], T ug, T vg) {
+    if (!lead) return;
     if constexpr (kRun) {
       const long long r = 1 + static_cast<long long>(g) * G + b;
 #pragma unroll
@@ -178,7 +196,7 @@ __global__ void __launch_bounds__(128) exact_kernel(const ExactArgs<T> a) {
         if constexpr (kRun) {
           if (tl < t_end && !isnan(yl[0])) ++trunc;
         }
-        a.lane_att[g * RL + i] = att;
+        if (lead) a.lane_att[g * RL + i] = att;
       }
       if (++g == a.n_groups) break;
       // Open group g.
@@ -205,6 +223,8 @@ __global__ void __launch_bounds__(128) exact_kernel(const ExactArgs<T> a) {
           tl = t_end;
         }
       }
+      frozen_g =
+          isnan(yl[4]) && !isnan((yl[0] + yl[1] + yl[2] + yl[3]) / T(4));
       continue;
     }
 
@@ -213,7 +233,9 @@ __global__ void __launch_bounds__(128) exact_kernel(const ExactArgs<T> a) {
     // A NaN amp with finite dynamics: walk to the bound, state unchanged,
     // attempts not counted.
     const bool frozen =
-        isnan(yl[4]) && !isnan((yl[0] + yl[1] + yl[2] + yl[3]) / T(4));
+        kBarrier ? frozen_g
+                 : isnan(yl[4]) &&
+                       !isnan((yl[0] + yl[1] + yl[2] + yl[3]) / T(4));
     const T heff = ns ? nan_max(hl, a.min_step) : hl;
     T t_new = tl + heff;
     if (t_new > bound) t_new = bound;
@@ -224,7 +246,7 @@ __global__ void __launch_bounds__(128) exact_kernel(const ExactArgs<T> a) {
 #pragma unroll
     for (int v = 0; v < 5; ++v) k[0][v] = fl[v];
     T y_new[5];
-    rwrt::dp45::trial(a.bg, yl, hs, k, y_new);
+    rwrt::dp45::trial<T, I>(a.bg, yl, hs, k, y_new);
     if (frozen) {
 #pragma unroll
       for (int v = 0; v < 5; ++v) y_new[v] = yl[v];
@@ -233,7 +255,7 @@ __global__ void __launch_bounds__(128) exact_kernel(const ExactArgs<T> a) {
     // the row's.
     bool e;
     T ug_new, vg_new;
-    rwrt::ray_rhs(a.bg, y_new, k[6], &e, &ug_new, &vg_new);
+    rwrt::ray_rhs<T, I>(a.bg, y_new, k[6], &e, &ug_new, &vg_new);
     T error_norm = rwrt::dp45::error_norm(k, hs, yl, y_new, a.atol, a.rtol);
     if (isnan(error_norm)) error_norm = T(0);
 
@@ -277,6 +299,7 @@ __global__ void __launch_bounds__(128) exact_kernel(const ExactArgs<T> a) {
     ++trips;
   }
 
+  if (!lead) return;
 #pragma unroll
   for (int v = 0; v < 5; ++v) {
     a.y[v * RL + i] = yl[v];
@@ -296,14 +319,26 @@ __global__ void __launch_bounds__(128) exact_kernel(const ExactArgs<T> a) {
   }
 }
 
-template <typename T, bool kRun>
-int launch_exact(const ExactArgs<T>& a, cudaStream_t stream) {
+template <typename T, bool kRun, bool kBarrier>
+int launch_exact(const ExactArgs<T>& a, int inst, cudaStream_t stream) {
   // A whole run with no group still writes row 0.
   if (a.R <= 0 || a.G <= 0 || (!kRun && a.n_groups <= 0)) return cudaSuccess;
-  const int block = 128;
-  const int grid = (a.R + block - 1) / block;
-  exact_kernel<T, kRun><<<grid, block, 0, stream>>>(a);
-  return cudaGetLastError();
+  return rwrt::with_instance(inst, [&](auto tag) {
+    using I = decltype(tag);
+    return rwrt::launch_as<I>(exact_kernel<T, kRun, kBarrier, I>, a, a.R,
+                                 stream);
+  });
+}
+
+template <typename T>
+int exact_resident(int run, int inst, int* out) {
+  return rwrt::with_instance(inst, [&](auto tag) {
+    using I = decltype(tag);
+    return run ? rwrt::resident_threads(exact_kernel<T, true, false, I>,
+                                              out)
+               : rwrt::resident_threads(
+                     exact_kernel<T, false, false, I>, out);
+  });
 }
 
 template <typename T>
@@ -347,7 +382,7 @@ extern "C" {
       void* rejected, void* new_step, void* lane_att, void* idx, void* trips, \
       void* hist, const void* bounds, int G, int R, int resume,               \
       double cut_off, double rtol, double atol, double min_step,              \
-      long long max_iters, void* stream) {                                    \
+      long long max_iters, int inst, void* stream) {                          \
     ExactArgs<T> a = exact_args<T>(packed, W, H, lon0, lat0, dx, dy, y, t, h, \
                                    f, plon, plat, lane_att, hist, bounds, G,  \
                                    1, R, cut_off, rtol, atol, min_step,       \
@@ -357,7 +392,8 @@ extern "C" {
     a.idx = static_cast<int*>(idx);                                           \
     a.trips = static_cast<int*>(trips);                                       \
     a.resume = resume != 0;                                                   \
-    return launch_exact<T, false>(a, static_cast<cudaStream_t>(stream));     \
+    return launch_exact<T, false, false>(a, inst,                             \
+                                         static_cast<cudaStream_t>(stream));  \
   }                                                                           \
   int rwrt_exact_run_##SUFFIX(                                                \
       const void* packed, int W, int H, double lon0, double lat0, double dx,  \
@@ -365,7 +401,7 @@ extern "C" {
       const void* ug0, const void* vg0, void* hist, void* ugs, void* vgs,     \
       void* lane_att, void* trunc, const void* bounds, int G, int n_groups,   \
       int R, double cut_off, double rtol, double atol, double min_step,       \
-      long long max_iters, void* stream) {                                    \
+      long long max_iters, int barrier, int inst, void* stream) {             \
     ExactArgs<T> a = exact_args<T>(packed, W, H, lon0, lat0, dx, dy, y, t, h, \
                                    f, plon, plat, lane_att, hist, bounds, G,  \
                                    n_groups, R, cut_off, rtol, atol,          \
@@ -375,11 +411,21 @@ extern "C" {
     a.ugs = static_cast<T*>(ugs);                                             \
     a.vgs = static_cast<T*>(vgs);                                             \
     a.trunc = static_cast<int*>(trunc);                                       \
-    return launch_exact<T, true>(a, static_cast<cudaStream_t>(stream));      \
+    const auto s = static_cast<cudaStream_t>(stream);                         \
+    return barrier ? launch_exact<T, true, true>(a, inst, s)                  \
+                   : launch_exact<T, true, false>(a, inst, s);                \
+  }                                                                           \
+  int rwrt_exact_resident_##SUFFIX(int run, int inst, void* out) {            \
+    return exact_resident<T>(run, inst, static_cast<int*>(out));              \
   }
 
+// One precision per translation unit, so that the two compile in parallel
+// (exact_run_f64.cu includes this file for the float64 entry points).
+#ifndef RWRT_EXACT_F64
 RWRT_EXACT(f32, float)
+#else
 RWRT_EXACT(f64, double)
+#endif
 
 #undef RWRT_EXACT
 

@@ -14,13 +14,47 @@
 //
 // What bounds it on an H100: one 48-value row (192 B in float32) gathered
 // per lane per call from a ~2 MB packed background that every lane shares,
-// plus ~150 flops and two sin/cos pairs. The background fits the 50 MB L2
-// many times over, so the gather is an L2 hit after warm-up; the arithmetic
-// is short, so latency of the dependent gather dominates a single call.
-// Design: the row is read with __ldg through the read-only path, the cell
-// index is computed first so the 48 loads go out back to back, and every
-// NaN rule is an explicit mask (never IEEE propagation), as in the plain
-// version, so kx = 0 or infinite inputs give the same NaN pattern.
+// plus ~150 flops and a sin/cos pair. The background fits the 50 MB L2
+// many times over, so the gather is an L2 hit after warm-up. The
+// dependent chain of one evaluation holds the kernels at every lane count
+// (~1 us in float32 for a lone lane: fmod, divisions, the gather, the
+// lerps, the Mercator and tendency divisions); contention between lanes
+// only stretches it, 3.4x at 60,784 lanes. A warp-staged gather, which
+// cut the global wavefronts of a warp's evaluation from 384 to ~70
+// through a shared-memory tile, lengthened the chain 2.7x and ran
+// 1.5-2.2x slower at full launches (PERF.md).
+//
+// Design. Every NaN rule is an explicit mask (never IEEE propagation), as
+// in the plain version, so kx = 0 or infinite inputs give the same NaN
+// pattern. The sample-independent terms (the latitude's sin and cos, the
+// wavenumber ratios and denominators) are computed before the gather so
+// that they may overlap its latency, and floor_mod skips fmod where it is
+// the identity. How a lane's evaluation spreads over threads is the
+// kernel's INSTANCE, a template argument of every function that samples
+// the background:
+//   Lane      one thread per lane: the row by 12 (float32) or 24 (float64)
+//             16-byte loads of its own, and the evaluation's 10-12 IEEE
+//             divisions one after another. The dense and RHS kernels, and
+//             the RK4 and exact kernels where the lanes fill the card or
+//             are few.
+//   Split     8 threads per lane, an aligned group of a warp: six owner
+//             threads each load and lerp 2 of the 12 fields (8-byte or
+//             16-byte loads); each IEEE division of the Mercator transform
+//             (4), of group velocity and the tendencies (6) and of a raw
+//             group velocity (2) runs on its own thread, one division
+//             instruction for the warp; shuffles give every thread of the
+//             team all fields and all quotients. Everything else runs
+//             identically in every thread of the team, so the team never
+//             diverges and the state needs no broadcast. For launches of
+//             some dozens to a few thousand lanes, where it shortens the
+//             chain by the divisions' latency and spreads the lanes over
+//             the idle SMs. In a warp the threads of different roles run
+//             one after another, so a split that gave each thread its own
+//             expression would not shorten the chain: the split is by
+//             operands, not by code. Teams that shared only the loads and
+//             lerps (of 4 and of 8 threads) lost to Split (PERF.md).
+// Each field and each quotient is computed by one thread with the same
+// expression in every instance, so all instances give the same bits.
 //
 // Semantics kept (see models/ray.py _rhs_core):
 //   - (lon - lon0) mod 2*pi is a FLOOR mod (fmod truncates; fixed below);
@@ -45,6 +79,8 @@ constexpr double kPolarCosCap = 0.0175;
 constexpr double kMwnCap = 100.0;
 constexpr int kHot = 12;
 constexpr int kPacked = 4 * kHot;
+// Threads per block of every integrator kernel.
+constexpr int kBlock = 128;
 
 template <typename T>
 struct Background {
@@ -59,10 +95,17 @@ __device__ __forceinline__ T nan_value() {
   return static_cast<T>(NAN);
 }
 
-// Floor mod with the divisor's sign, as jnp/torch remainder.
+// Floor mod with the divisor's sign, as jnp/torch remainder, for m > 0.
+// Inside (-m, m) fmod(x, m) is x exactly, so its loop is skipped there;
+// x = -m is left to fmod, which returns -0 for it.
 template <typename T>
 __device__ __forceinline__ T floor_mod(T x, T m) {
-  T r = fmod(x, m);
+  T r;
+  if (x > -m && x < m) {
+    r = x;
+  } else {
+    r = fmod(x, m);
+  }
   if (r != T(0) && ((r < T(0)) != (m < T(0)))) r += m;
   return r;
 }
@@ -76,23 +119,226 @@ __device__ __forceinline__ int cell_index(T x, int n) {
   return static_cast<int>(f);
 }
 
-// Group velocity on sanitized (NaN-free) inputs: groupvel.py core.
+// N values from p by 16-byte loads (8-byte ones for two floats) through the
+// read-only path; p is aligned to the load's width.
+template <typename T, int N>
+__device__ __forceinline__ void load_vals(const T* p, T* out) {
+  if constexpr (sizeof(T) == 4 && N % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q) {
+      const float4 x = __ldg(reinterpret_cast<const float4*>(p) + q);
+      out[4 * q] = x.x;
+      out[4 * q + 1] = x.y;
+      out[4 * q + 2] = x.z;
+      out[4 * q + 3] = x.w;
+    }
+  } else if constexpr (sizeof(T) == 4) {
+    static_assert(N % 2 == 0, "pairs of floats");
+#pragma unroll
+    for (int q = 0; q < N / 2; ++q) {
+      const float2 x = __ldg(reinterpret_cast<const float2*>(p) + q);
+      out[2 * q] = x.x;
+      out[2 * q + 1] = x.y;
+    }
+  } else {
+    static_assert(N % 2 == 0, "pairs of doubles");
+#pragma unroll
+    for (int q = 0; q < N / 2; ++q) {
+      const double2 x = __ldg(reinterpret_cast<const double2*>(p) + q);
+      out[2 * q] = x.x;
+      out[2 * q + 1] = x.y;
+    }
+  }
+}
+
+// The bilinear blend of one field from its corners (x0,y0), (x1,y0),
+// (x0,y1), (x1,y1), with w = {wa, wb, wc, wd}: fa wa + fb wb + fc wc + fd wd
+// in that order, fa the (x0,y1) corner.
 template <typename T>
-__device__ __forceinline__ void group_velocity_clean(T fu, T fv, T fqx, T fqy,
-                                                     T zwn, T mwn, T* ug,
-                                                     T* vg) {
-  T kap = mwn / zwn;
-  T kap2 = kap * kap;
-  T kap1 = T(1) + kap2;
-  T denom = zwn * zwn * kap1 * kap1;
-  *ug = fu + ((T(1) - kap2) * fqy - T(2) * kap * fqx) / denom;
-  *vg = fv + (T(2) * kap * fqy + (T(1) - kap2) * fqx) / denom;
+__device__ __forceinline__ T lerp4(T c00, T c10, T c01, T c11, const T w[4]) {
+  return c01 * w[0] + c11 * w[1] + c00 * w[2] + c10 * w[3];
+}
+
+// ---- Instances: the lane's row to its 12 lerped fields, and the IEEE
+// divisions of an evaluation (divide: q[j] = num[j] / den[j]). ----
+
+struct Lane {
+  static constexpr int kThreads = 1;
+  static constexpr int kId = 0;
+  static __device__ __forceinline__ bool lead() { return true; }
+  template <typename T>
+  static __device__ __forceinline__ void lerp_row(const T* packed, int cell,
+                                                  const T w[4],
+                                                  T raw[kHot]) {
+    T rv[kPacked];
+    load_vals<T, kPacked>(packed + static_cast<long long>(cell) * kPacked, rv);
+#pragma unroll
+    for (int c = 0; c < kHot; ++c) {
+      raw[c] = lerp4(rv[c], rv[kHot + c], rv[2 * kHot + c], rv[3 * kHot + c],
+                     w);
+    }
+  }
+  template <typename T, int N>
+  static __device__ __forceinline__ void divide(const T num[N],
+                                                const T den[N], T q[N]) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) q[j] = num[j] / den[j];
+  }
+};
+
+// 8 threads a lane (see the head of this file).
+struct Split {
+  static constexpr int kThreads = 8;
+  static constexpr int kId = 8;
+  // Owner threads and the fields each lerps: 6 x 2.
+  static constexpr int kOwners = 6;
+  static constexpr int kPer = kHot / kOwners;
+  static __device__ __forceinline__ int rank() {
+    return threadIdx.x & (kThreads - 1);
+  }
+  static __device__ __forceinline__ bool lead() { return rank() == 0; }
+  // The shuffle mask of this thread's team.
+  static __device__ __forceinline__ unsigned mask() {
+    return 0xffu << ((threadIdx.x & 31) & ~(kThreads - 1));
+  }
+  template <typename T>
+  static __device__ __forceinline__ void lerp_row(const T* packed, int cell,
+                                                  const T w[4],
+                                                  T raw[kHot]) {
+    const int t = rank();
+    const unsigned team = mask();
+    // A thread past the owners repeats owner 0's loads (the same
+    // addresses, so no extra traffic) and lerps nothing anyone reads.
+    const int o = t < kOwners ? t : 0;
+    const T* row = packed + static_cast<long long>(cell) * kPacked + o * kPer;
+    T cv[4][kPer];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) load_vals<T, kPer>(row + k * kHot, cv[k]);
+    T mine[kPer];
+#pragma unroll
+    for (int c = 0; c < kPer; ++c) {
+      mine[c] = lerp4(cv[0][c], cv[1][c], cv[2][c], cv[3][c], w);
+    }
+#pragma unroll
+    for (int s = 0; s < kOwners; ++s) {
+#pragma unroll
+      for (int c = 0; c < kPer; ++c) {
+        raw[s * kPer + c] = __shfl_sync(team, mine[c], s, kThreads);
+      }
+    }
+  }
+  // Thread j of the team divides num[j] by den[j] (one division
+  // instruction for the whole warp, each thread on its own operands; the
+  // threads past N repeat j = 0's) and shuffles give every thread all N
+  // quotients.
+  template <typename T, int N>
+  static __device__ __forceinline__ void divide(const T num[N],
+                                                const T den[N], T q[N]) {
+    static_assert(N <= kThreads, "one division a thread");
+    const int t = rank();
+    T n = num[0], d = den[0];
+#pragma unroll
+    for (int j = 1; j < N; ++j) {
+      if (t == j) {
+        n = num[j];
+        d = den[j];
+      }
+    }
+    const T mine = n / d;
+    const unsigned team = mask();
+#pragma unroll
+    for (int j = 0; j < N; ++j) q[j] = __shfl_sync(team, mine, j, kThreads);
+  }
+};
+
+// f(I{}) for the instance I whose kId is inst; an unknown id is refused.
+template <typename F>
+int with_instance(int inst, F&& f) {
+  switch (inst) {
+    case Lane::kId:
+      return f(Lane{});
+    case Split::kId:
+      return f(Split{});
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Threads of `kernel` (blocks of kBlock) the current card keeps resident at
+// once: blocks per SM x SMs x kBlock.
+template <typename F>
+int resident_threads(F* kernel, int* out) {
+  int dev = 0, sms = 0, blocks = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kBlock,
+                                                      0);
+  }
+  *out = blocks * sms * kBlock;
+  return e;
+}
+
+// Launch `kernel` over R lanes as instance I on `stream`.
+template <class I, typename F, typename A>
+int launch_as(F* kernel, const A& args, int R, cudaStream_t stream) {
+  const long long threads = static_cast<long long>(R) * I::kThreads;
+  const int grid = static_cast<int>((threads + kBlock - 1) / kBlock);
+  kernel<<<grid, kBlock, 0, stream>>>(args);
+  return cudaGetLastError();
+}
+
+// Group velocity (groupvel.py core) on sanitized (NaN-free) inputs is
+// ug = fu + nu / denom, vg = fv + nv / denom, from the wavenumber terms
+// kap = mwn / zwn, kap2 and denom = zwn^2 kap1^2; these are the numerators.
+template <typename T>
+__device__ __forceinline__ void group_velocity_nums(T fqx, T fqy, T kap,
+                                                    T kap2, T* nu, T* nv) {
+  *nu = (T(1) - kap2) * fqy - T(2) * kap * fqx;
+  *nv = T(2) * kap * fqy + (T(1) - kap2) * fqx;
+}
+
+// The wavenumber terms of group_velocity on a raw (kx, ky): NaN-free
+// substitutes (kx -> 1, ky -> 0) and the two NaN flags. They do not need
+// the sample.
+template <typename T>
+struct GvTerms {
+  T kap, kap2, denom;
+  bool nk, nm;
+};
+
+template <typename T>
+__device__ __forceinline__ GvTerms<T> gv_terms(T kx, T ky) {
+  GvTerms<T> g;
+  g.nk = isnan(kx);
+  g.nm = isnan(ky);
+  const T zwn = g.nk ? T(1) : kx;
+  const T mwn = g.nm ? T(0) : ky;
+  g.kap = mwn / zwn;
+  g.kap2 = g.kap * g.kap;
+  const T kap1 = T(1) + g.kap2;
+  g.denom = zwn * zwn * kap1 * kap1;
+  return g;
+}
+
+// group_velocity's IEEE-propagation masks on the clean (gu, gv) of a raw
+// sample (NaN flags fn): ug NaN with fu, qx, qy, kx, ky; vg with fv, qx,
+// qy, kx, ky; both with `dead`.
+template <typename T>
+__device__ __forceinline__ void group_velocity_masks(const bool fn[kHot],
+                                                     const GvTerms<T>& g,
+                                                     bool dead, T gu, T gv,
+                                                     T* ug, T* vg) {
+  const bool shared = fn[6] || fn[7] || g.nk || g.nm;
+  *ug = (dead || fn[0] || shared) ? nan_value<T>() : gu;
+  *vg = (dead || fn[1] || shared) ? nan_value<T>() : gv;
 }
 
 // Mercator sample of the 12 hot fields at a (sanitized) position.
 // f[] receives the M_* fields, fn[] their NaN flags; cos/sin of lat are
 // returned for reuse.
-template <typename T>
+template <typename T, class I = Lane>
 __device__ __forceinline__ void sample_mercator(const Background<T>& bg,
                                                 T lon, T lat, T f[kHot],
                                                 bool fn[kHot], T* cos_out,
@@ -104,56 +350,33 @@ __device__ __forceinline__ void sample_mercator(const Background<T>& bg,
   int y0 = cell_index(iy, bg.H);
   T sx = ix - T(x0);
   T sy = iy - T(y0);
-  const T* row = bg.packed + (static_cast<long long>(x0) * bg.H + y0) * kPacked;
-  // The row by 16-byte loads: 12 (float32) or 24 (float64) instead of 48,
-  // which the scattered rows of a warp otherwise pay for one by one. A row
-  // is 192 or 384 B and the wrappers check that the stack is 16-B aligned.
-  T rv[kPacked];
-  if constexpr (sizeof(T) == 4) {
-#pragma unroll
-    for (int q = 0; q < kPacked / 4; ++q) {
-      const float4 x = __ldg(reinterpret_cast<const float4*>(row) + q);
-      rv[4 * q] = x.x;
-      rv[4 * q + 1] = x.y;
-      rv[4 * q + 2] = x.z;
-      rv[4 * q + 3] = x.w;
-    }
-  } else {
-#pragma unroll
-    for (int q = 0; q < kPacked / 2; ++q) {
-      const double2 x = __ldg(reinterpret_cast<const double2*>(row) + q);
-      rv[2 * q] = x.x;
-      rv[2 * q + 1] = x.y;
-    }
-  }
-  T wa = (T(1) - sx) * sy;
-  T wb = sx * sy;
-  T wc = (T(1) - sx) * (T(1) - sy);
-  T wd = sx * (T(1) - sy);
-  bool in_range = fabs(lat) <= T(0.5 * kPi);
-  T raw[kHot];
-#pragma unroll
-  for (int c = 0; c < kHot; ++c) {
-    T fc = rv[c];             // (x0, y0)
-    T fd = rv[kHot + c];      // (x1, y0)
-    T fa = rv[2 * kHot + c];  // (x0, y1)
-    T fb = rv[3 * kHot + c];  // (x1, y1)
-    T v = fa * wa + fb * wb + fc * wc + fd * wd;
-    raw[c] = in_range ? v : nan_value<T>();
-  }
-
-  T cos_phi = cos(lat);
-  T sin_phi = sin(lat);
+  // The latitude terms do not need the sample: ahead of the gather.
+  T sin_phi, cos_phi;
+  sincos(lat, &sin_phi, &cos_phi);
   bool live = !(fabs(cos_phi) <= T(kPolarCosCap));
   T cosm = live ? cos_phi : T(1e-6);
   T tan_phi = sin_phi / cosm;
+  const T w[4] = {(T(1) - sx) * sy, sx * sy, (T(1) - sx) * (T(1) - sy),
+                  sx * (T(1) - sy)};
+  T raw[kHot];
+  I::template lerp_row<T>(bg.packed, x0 * bg.H + y0, w, raw);
+  bool in_range = fabs(lat) <= T(0.5 * kPi);
+#pragma unroll
+  for (int c = 0; c < kHot; ++c) {
+    if (!in_range) raw[c] = nan_value<T>();
+  }
+
   // Field order: u v ux uy vx vy qx qy qxx qxy qyx qyy.
+  const T num[4] = {raw[0], raw[1], raw[2], raw[4]};
+  const T den[4] = {cosm, cosm, cosm, cosm};
+  T q[4];
+  I::template divide<T, 4>(num, den, q);
   T fmqyx = raw[9] * cosm;
-  f[0] = raw[0] / cosm;
-  f[1] = raw[1] / cosm;
-  f[2] = raw[2] / cosm;
+  f[0] = q[0];
+  f[1] = q[1];
+  f[2] = q[2];
   f[3] = raw[3] + tan_phi * raw[0];
-  f[4] = raw[4] / cosm;
+  f[4] = q[3];
   f[5] = raw[5] + tan_phi * raw[1];
   f[6] = raw[6];
   f[7] = raw[7] * cosm;
@@ -170,31 +393,13 @@ __device__ __forceinline__ void sample_mercator(const Background<T>& bg,
   *sin_out = sin_phi;
 }
 
-// group_velocity on a raw sample f (NaN flags fn) and raw (kx, ky):
-// NaN-free substitutes, then the IEEE-propagation masks (ug: fu, qx, qy,
-// kx, ky; vg: fv, qx, qy, kx, ky), then `dead` -> NaN.
-template <typename T>
-__device__ __forceinline__ void group_velocity_masked(const T f[kHot],
-                                                      const bool fn[kHot],
-                                                      T kx, T ky, bool dead,
-                                                      T* ug, T* vg) {
-  const bool nk = isnan(kx), nm = isnan(ky);
-  T gu, gv;
-  group_velocity_clean(fn[0] ? T(0) : f[0], fn[1] ? T(0) : f[1],
-                       fn[6] ? T(0) : f[6], fn[7] ? T(0) : f[7],
-                       nk ? T(1) : kx, nm ? T(0) : ky, &gu, &gv);
-  const bool shared = fn[6] || fn[7] || nk || nm;
-  *ug = (dead || fn[0] || shared) ? nan_value<T>() : gu;
-  *vg = (dead || fn[1] || shared) ? nan_value<T>() : gv;
-}
-
-// dy/dt of one lane. Writes dy[5] and the err flag; when ug_raw is not
-// null also the raw-ky group velocity of the evaluated state (rhs_and_gv).
-template <typename T>
-__device__ __forceinline__ void ray_rhs(const Background<T>& bg, const T y[5],
-                                        T dy[5], bool* err_out,
-                                        T* ug_raw = nullptr,
-                                        T* vg_raw = nullptr) {
+// dy/dt of one lane. Writes dy[5] and the err flag; with kGv also the
+// raw-(kx, ky) group velocity of the evaluated state (rhs_and_gv) to
+// ug_raw, vg_raw.
+template <typename T, class I, bool kGv>
+__device__ __forceinline__ void rhs_core(const Background<T>& bg,
+                                         const T y[5], T dy[5], bool* err_out,
+                                         T* ug_raw, T* vg_raw) {
   const T lon = y[0], lat = y[1], kx = y[2], ky = y[3], amp = y[4];
   const bool err =
       (fabs(lat) >= T(0.5 * kPi)) || (fabs(ky) >= T(kMwnCap));
@@ -207,10 +412,19 @@ __device__ __forceinline__ void ray_rhs(const Background<T>& bg, const T y[5],
   const T ky_q = bad ? T(0) : ky;
   const T amp_q = ampn ? T(0) : amp;
 
+  // The wavenumber terms do not need the sample: ahead of the gather.
+  const T kap = ky_q / kx_q;
+  const T kap2 = kap * kap;
+  const T kap1 = T(1) + kap2;
+  const T kk = kx_q * kx_q * kap1;
+  const T denom = kx_q * kx_q * kap1 * kap1;
+  GvTerms<T> g{};
+  if constexpr (kGv) g = gv_terms(kx, ky);
+
   T f[kHot];
   bool fn[kHot];
   T cos_q, sin_q;
-  sample_mercator(bg, lon_q, lat_q, f, fn, &cos_q, &sin_q);
+  sample_mercator<T, I>(bg, lon_q, lat_q, f, fn, &cos_q, &sin_q);
   T fq[kHot];
 #pragma unroll
   for (int c = 0; c < kHot; ++c) fq[c] = fn[c] ? T(0) : f[c];
@@ -218,20 +432,31 @@ __device__ __forceinline__ void ray_rhs(const Background<T>& bg, const T y[5],
   const T fmvx = fq[4], fmvy = fq[5], fmqx = fq[6], fmqy = fq[7];
   const T fmqxx = fq[8], fmqxy = fq[9], fmqyx = fq[10], fmqyy = fq[11];
 
-  T ug, vg;
-  group_velocity_clean(fmu, fmv, fmqx, fmqy, kx_q, ky_q, &ug, &vg);
+  // The divisions of group velocity and the tendencies (and of the raw
+  // group velocity), side by side in a split team.
+  constexpr int N = kGv ? 8 : 6;
+  T num[N], den[N], q[N];
+  group_velocity_nums(fmqx, fmqy, kap, kap2, &num[0], &num[1]);
+  den[0] = den[1] = denom;
+  num[2] = kap * fmqxx - fmqyx;
+  num[3] = kap * fmqxy - fmqyy;
+  den[2] = den[3] = kk;
+  num[4] = T(2) * (fmux + fmvy + kap * (fmvx + fmuy));
+  den[4] = kap1;
+  num[5] = T(2) * (kap * (fmqxx - fmqyy) + (kap2 - T(1)) * fmqxy);
+  den[5] = kk * kap1;
+  if constexpr (kGv) {
+    group_velocity_nums(fmqx, fmqy, g.kap, g.kap2, &num[6], &num[7]);
+    den[6] = den[7] = g.denom;
+  }
+  I::template divide<T, N>(num, den, q);
 
-  const T kap = ky_q / kx_q;
-  const T kap2 = kap * kap;
-  const T kap1 = T(1) + kap2;
-  const T kk = kx_q * kx_q * kap1;
-
-  const T dzwn = -kx_q * ((fmux + kap * fmvx) + (kap * fmqxx - fmqyx) / kk);
-  const T dmwn = -kx_q * ((fmuy + kap * fmvy) + (kap * fmqxy - fmqyy) / kk);
-
-  const T damp1 = T(2) * (fmux + fmvy + kap * (fmvx + fmuy)) / kap1;
-  const T damp2 =
-      T(2) * (kap * (fmqxx - fmqyy) + (kap2 - T(1)) * fmqxy) / (kk * kap1);
+  const T ug = fmu + q[0];
+  const T vg = fmv + q[1];
+  const T dzwn = -kx_q * ((fmux + kap * fmvx) + q[2]);
+  const T dmwn = -kx_q * ((fmuy + kap * fmvy) + q[3]);
+  const T damp1 = q[4];
+  const T damp2 = q[5];
   const T damp3 = T(-2) * sin_q * fmv;
   const T damp = damp1 + damp2 + damp3;
 
@@ -251,24 +476,45 @@ __device__ __forceinline__ void ray_rhs(const Background<T>& bg, const T y[5],
   dy[4] = r4n ? nan : damp * amp_q * inv_r;
   *err_out = err;
 
-  if (ug_raw != nullptr) {
-    group_velocity_masked(f, fn, kx, ky, dead, ug_raw, vg_raw);
+  if constexpr (kGv) {
+    group_velocity_masks(fn, g, dead, fmu + q[6], fmv + q[7], ug_raw,
+                         vg_raw);
   }
+}
+
+template <typename T, class I = Lane>
+__device__ __forceinline__ void ray_rhs(const Background<T>& bg, const T y[5],
+                                        T dy[5], bool* err_out) {
+  rhs_core<T, I, false>(bg, y, dy, err_out, nullptr, nullptr);
+}
+
+template <typename T, class I = Lane>
+__device__ __forceinline__ void ray_rhs(const Background<T>& bg, const T y[5],
+                                        T dy[5], bool* err_out, T* ug_raw,
+                                        T* vg_raw) {
+  rhs_core<T, I, true>(bg, y, dy, err_out, ug_raw, vg_raw);
 }
 
 // models/ray.py group_velocity_at (zero_invalid off) at a state y[5]: a NaN
 // position samples the sanitized cell (lon = lat = 0) and gets its NaN back.
-template <typename T>
+template <typename T, class I = Lane>
 __device__ __forceinline__ void group_velocity_at(const Background<T>& bg,
                                                   const T y[5], T* ug,
                                                   T* vg) {
   const bool posn = isnan(y[0]) || isnan(y[1]);
+  const GvTerms<T> g = gv_terms(y[2], y[3]);
   T f[kHot];
   bool fn[kHot];
   T cos_q, sin_q;
-  sample_mercator(bg, posn ? T(0) : y[0], posn ? T(0) : y[1], f, fn, &cos_q,
-                  &sin_q);
-  group_velocity_masked(f, fn, y[2], y[3], posn, ug, vg);
+  sample_mercator<T, I>(bg, posn ? T(0) : y[0], posn ? T(0) : y[1], f, fn,
+                        &cos_q, &sin_q);
+  T num[2], q[2];
+  const T den[2] = {g.denom, g.denom};
+  group_velocity_nums(fn[6] ? T(0) : f[6], fn[7] ? T(0) : f[7], g.kap,
+                      g.kap2, &num[0], &num[1]);
+  I::template divide<T, 2>(num, den, q);
+  group_velocity_masks(fn, g, posn, (fn[0] ? T(0) : f[0]) + q[0],
+                       (fn[1] ? T(0) : f[1]) + q[1], ug, vg);
 }
 
 // models/ray.py kill_mask: |lat| >= pi/2, or the haversine distance from

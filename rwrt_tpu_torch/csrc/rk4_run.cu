@@ -31,8 +31,12 @@
 // ug0 / vg0 given, row row_offset - 1 receives the entry state and them
 // (the run's row 0). The scalar factors come rounded from the wrapper (dt,
 // 0.5 * dt and dt / 6 in T), as the plain version rounds them. Blocks of
-// 128 threads, as the other integrator kernels: 32 or 64 on the 6,615-ray
-// default run's ~4,000 lanes measured the same (PERF.md).
+// 128 threads. The kernel is templated on the evaluation's instance
+// (ray_rhs.cuh: Lane, Split), which the wrapper chooses
+// (tracer.rk4_instance): 8 threads per lane for the launches of some
+// dozens to a few thousand lanes, one thread per lane elsewhere. In a
+// team every thread runs the same steps on the same state and its first
+// thread writes the rows.
 //
 // Rounding: built with -fmad=false (kernels/build.py), so each expression
 // rounds as the plain version's separate tensor ops do.
@@ -58,10 +62,11 @@ struct Rk4Args {
   T cut_off;
 };
 
-template <typename T>
-__global__ void __launch_bounds__(128) rk4_kernel(const Rk4Args<T> a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+template <typename T, class I>
+__global__ void __launch_bounds__(rwrt::kBlock) rk4_kernel(const Rk4Args<T> a) {
+  const int i = (blockIdx.x * blockDim.x + threadIdx.x) / I::kThreads;
   if (i >= a.R) return;
+  const bool lead = I::lead();
   const long long RL = a.R;
   const T nan = rwrt::nan_value<T>();
 
@@ -69,6 +74,7 @@ __global__ void __launch_bounds__(128) rk4_kernel(const Rk4Args<T> a) {
 #pragma unroll
   for (int v = 0; v < 5; ++v) yl[v] = a.y[v * RL + i];
   auto store = [&](long long r, const T row[5], T ug, T vg) {
+    if (!lead) return;
 #pragma unroll
     for (int v = 0; v < 5; ++v) a.ys[(r * 5 + v) * RL + i] = row[v];
     a.ugs[r * RL + i] = ug;
@@ -79,16 +85,16 @@ __global__ void __launch_bounds__(128) rk4_kernel(const Rk4Args<T> a) {
   for (int s = 0; s < a.n_steps; ++s) {
     T k1[5], k2[5], k3[5], k4[5], ys[5];
     bool m1, m2, m3, m4;
-    rwrt::ray_rhs(a.bg, yl, k1, &m1);
+    rwrt::ray_rhs<T, I>(a.bg, yl, k1, &m1);
 #pragma unroll
     for (int v = 0; v < 5; ++v) ys[v] = yl[v] + a.half * k1[v];
-    rwrt::ray_rhs(a.bg, ys, k2, &m2);
+    rwrt::ray_rhs<T, I>(a.bg, ys, k2, &m2);
 #pragma unroll
     for (int v = 0; v < 5; ++v) ys[v] = yl[v] + a.half * k2[v];
-    rwrt::ray_rhs(a.bg, ys, k3, &m3);
+    rwrt::ray_rhs<T, I>(a.bg, ys, k3, &m3);
 #pragma unroll
     for (int v = 0; v < 5; ++v) ys[v] = yl[v] + a.dt * k3[v];
-    rwrt::ray_rhs(a.bg, ys, k4, &m4);
+    rwrt::ray_rhs<T, I>(a.bg, ys, k4, &m4);
     // A lane advances only if no stage raised the fail flag.
     const bool valid = !(m1 || m2 || m3 || m4);
     T yn[5];
@@ -103,22 +109,32 @@ __global__ void __launch_bounds__(128) rk4_kernel(const Rk4Args<T> a) {
       for (int v = 0; v < 5; ++v) yn[v] = nan;
     }
     T ug, vg;
-    rwrt::group_velocity_at(a.bg, yn, &ug, &vg);
+    rwrt::group_velocity_at<T, I>(a.bg, yn, &ug, &vg);
     store(a.row_offset + s, yn, ug, vg);
 #pragma unroll
     for (int v = 0; v < 5; ++v) yl[v] = yn[v];
   }
+  if (lead) {
 #pragma unroll
-  for (int v = 0; v < 5; ++v) a.y[v * RL + i] = yl[v];
+    for (int v = 0; v < 5; ++v) a.y[v * RL + i] = yl[v];
+  }
 }
 
 template <typename T>
-int launch_rk4(const Rk4Args<T>& a, cudaStream_t stream) {
+int launch_rk4(const Rk4Args<T>& a, int inst, cudaStream_t stream) {
   if (a.R <= 0) return cudaSuccess;
-  const int block = 128;
-  const int grid = (a.R + block - 1) / block;
-  rk4_kernel<T><<<grid, block, 0, stream>>>(a);
-  return cudaGetLastError();
+  return rwrt::with_instance(inst, [&](auto tag) {
+    using I = decltype(tag);
+    return rwrt::launch_as<I>(rk4_kernel<T, I>, a, a.R, stream);
+  });
+}
+
+template <typename T>
+int rk4_resident(int inst, int* out) {
+  return rwrt::with_instance(inst, [&](auto tag) {
+    using I = decltype(tag);
+    return rwrt::resident_threads(rk4_kernel<T, I>, out);
+  });
 }
 
 }  // namespace
@@ -130,7 +146,7 @@ extern "C" {
       const void* packed, int W, int H, double lon0, double lat0, double dx,  \
       double dy, void* y, const void* ug0, const void* vg0, void* ys,         \
       void* ugs, void* vgs, int n_steps, int row_offset, int R, double dt,    \
-      double half, double sixth, double cut_off, void* stream) {              \
+      double half, double sixth, double cut_off, int inst, void* stream) {    \
     Rk4Args<T> a{};                                                           \
     a.bg = rwrt::Background<T>{static_cast<const T*>(packed), W, H, T(lon0),  \
                                T(lat0), T(dx), T(dy)};                        \
@@ -147,7 +163,10 @@ extern "C" {
     a.half = T(half);                                                         \
     a.sixth = T(sixth);                                                       \
     a.cut_off = T(cut_off);                                                   \
-    return launch_rk4<T>(a, static_cast<cudaStream_t>(stream));               \
+    return launch_rk4<T>(a, inst, static_cast<cudaStream_t>(stream));         \
+  }                                                                           \
+  int rwrt_rk4_resident_##SUFFIX(int inst, void* out) {                       \
+    return rk4_resident<T>(inst, static_cast<int*>(out));                     \
   }
 
 RWRT_RK4(f32, float)

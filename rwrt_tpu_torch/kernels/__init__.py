@@ -1,9 +1,10 @@
 """Launch plumbing shared by the kernel wrappers.
 
 The wrappers live in the modules that own their ops (``models/ray.py``,
-``solvers/rk45.py``, ``ops/spectral_sample.py``); this package only builds
-and loads the library (``build.py``), checks tensors and turns a nonzero
-``cudaError_t`` into an exception.
+``solvers/rk45.py``, ``ops/spectral_sample.py``); this package builds and
+loads the library (``build.py``), checks tensors, turns a nonzero
+``cudaError_t`` into an exception, and chooses the integrator kernels'
+instance for a launch (``choose_instance``).
 """
 
 from __future__ import annotations
@@ -14,6 +15,18 @@ import torch
 
 _SUFFIX = {torch.float32: "_f32", torch.float64: "_f64"}
 
+#: How the RK4 and exact kernels spread a lane's evaluation over threads
+#: (``csrc/ray_rhs.cuh``), by the id their C entry points take: one thread
+#: per lane (``lane``), or a team of 8 threads per lane that shares the
+#: row's loads and lerps and its IEEE divisions (``split8``).
+INSTANCES = {"lane": 0, "split8": 8}
+
+#: The team instance the launcher takes, and the lane counts (least, most)
+#: at which it does: measured on an NVIDIA H100 by ``profile_instances.py``
+#: (PERF.md section 6), for the RK4 and exact kernels in both dtypes.
+TEAM = "split8"
+TEAM_LANES = (32, 6144)
+
 
 @functools.cache
 def library():
@@ -21,6 +34,38 @@ def library():
     from rwrt_tpu_torch.kernels import build
 
     return build.load()
+
+
+def choose_instance(r: int, team_resident: int) -> str:
+    """The instance a launch of ``r`` lanes takes: the team ``TEAM`` where
+    ``TEAM_LANES`` holds r (the lane counts at which the team was measured
+    faster: it lengthens a lone lane's chain and multiplies the card's work
+    by 8) and r * 8 threads fit in what the card keeps resident of the team
+    at once (``team_resident`` threads), so that no lane waits for a second
+    wave; else one thread per lane."""
+    if TEAM_LANES[0] <= r <= min(TEAM_LANES[1], team_resident // 8):
+        return TEAM
+    return "lane"
+
+
+def instance_id(name: str) -> int:
+    """The C id of instance ``name``; raises on an unknown one."""
+    if name not in INSTANCES:
+        raise ValueError(f"unknown kernel instance {name!r}; one of "
+                         f"{sorted(INSTANCES)}")
+    return INSTANCES[name]
+
+
+@functools.cache
+def resident(kernel: str, instance: str, dtype: torch.dtype, *args) -> int:
+    """Threads of ``instance`` of ``rwrt_<kernel>`` (in ``dtype``) that the
+    current card keeps resident at once, from the CUDA occupancy
+    calculator (``rwrt_<kernel>_resident``, which takes ``args`` first):
+    read once per process."""
+    out = torch.zeros(1, dtype=torch.int32)
+    launch(f"rwrt_{kernel}_resident", dtype, *args, instance_id(instance),
+           out)
+    return int(out[0])
 
 
 def check_tensor(t: torch.Tensor, name: str, *, device, dtype,

@@ -54,21 +54,25 @@ SIGNATURES = {
                        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _D,
                        _D, _D, _L, _L, _D, _P),
     # packed, W, H, lon0, lat0, dx, dy, y, ug0, vg0, ys, ugs, vgs, n_steps,
-    # row_offset, R, dt, half, sixth, cut_off, stream
+    # row_offset, R, dt, half, sixth, cut_off, instance, stream
     "rwrt_rk4_run": (_P, _I, _I, _D, _D, _D, _D, _P, _P, _P, _P, _P, _P, _I,
-                     _I, _I, _D, _D, _D, _D, _P),
+                     _I, _I, _D, _D, _D, _D, _I, _P),
+    # instance, out (int32 on the host): threads the card keeps resident
+    "rwrt_rk4_resident": (_I, _P),
     # packed, W, H, lon0, lat0, dx, dy, y, t, h, f, plon, plat, rejected,
     # new_step, lane_att, idx, trips, hist, bounds, G, R, resume, cut_off,
-    # rtol, atol, min_step, max_iters, stream
+    # rtol, atol, min_step, max_iters, instance, stream
     "rwrt_exact_group": (_P, _I, _I, _D, _D, _D, _D, _P, _P, _P, _P, _P, _P,
                          _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _D, _D,
-                         _D, _L, _P),
+                         _D, _L, _I, _P),
     # packed, W, H, lon0, lat0, dx, dy, y, t, h, f, plon, plat, ug0, vg0,
     # hist, ugs, vgs, lane_att, trunc, bounds, G, n_groups, R, cut_off, rtol,
-    # atol, min_step, max_iters, stream
+    # atol, min_step, max_iters, barrier, instance, stream
     "rwrt_exact_run": (_P, _I, _I, _D, _D, _D, _D, _P, _P, _P, _P, _P, _P, _P,
                        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _D, _D, _D,
-                       _L, _P),
+                       _L, _I, _I, _P),
+    # run (1: the whole-run kernel, 0: the single group), instance, out
+    "rwrt_exact_resident": (_I, _I, _P),
     # lon, lat, tht, packed, R, Mp, L, C, Kp, Lp, bf16, out, stream
     "rwrt_spectral": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
 }

@@ -11,7 +11,8 @@ pin-kill).
 Two of these are hand-written kernels, each the single-group instance of a
 whole-run kernel: ``integrate_group_dense`` (``csrc/dense_run.cu``) and
 ``integrate_group`` (``csrc/exact_run.cu``). On a CUDA state each launches
-one thread per lane, looping through the group inside one launch; on a CPU
+one thread (the exact kernel: or a team of 8 threads, ``exact_instance``)
+per lane, looping through the group inside one launch; on a CPU
 state each runs its plain PyTorch loop (``_integrate_group_dense_plain``,
 ``_integrate_group_plain``), the JAX ``while_loop`` written out.
 ``LAUNCHES`` and ``EXACT_LAUNCHES`` count their launches. ``trace_rays``
@@ -74,6 +75,13 @@ PIN_OFF = 2 ** 30
 LAUNCHES = 0
 #: Number of exact-group kernel launches (``integrate_group`` on CUDA).
 EXACT_LAUNCHES = 0
+
+def exact_instance(r: int, dtype: torch.dtype, run: bool = True) -> str:
+    """The exact kernel's instance for a launch of ``r`` lanes on the card:
+    the whole run (``run``, ``tracer._exact_run``) or the single group
+    (``integrate_group``)."""
+    return kernels.choose_instance(
+        r, kernels.resident("exact", kernels.TEAM, dtype, int(run)))
 
 
 def as_scalar(x, dtype: torch.dtype) -> float:
@@ -276,11 +284,27 @@ def integrate_group(
 
 def _integrate_group_plain(rhs_fn, rhs_gv_fn, y, t, h, f, bounds, prev_lon,
                            prev_lat, cut_off, rtol, atol, min_step,
-                           max_iters=1_000_000, state0=None):
-    """The plain PyTorch version: the batch-wide JAX loop written out."""
+                           max_iters=1_000_000, state0=None, barrier=False):
+    """The plain PyTorch version: the batch-wide JAX loop written out.
+
+    With ``barrier`` a lane is frozen (walked bound by bound, its state
+    unchanged) only if its amp is NaN with finite dynamics at the group's
+    entry; a lane whose amp turns NaN inside the group keeps stepping. Over
+    one bound that is the barrier path's ``integrate_interval``, which
+    freezes such a lane only at the next interval's entry.
+    """
+    if barrier and state0 is not None:
+        raise ValueError("barrier semantics decide the frozen lanes at a "
+                         "group's entry; a resumed group has none")
     rtol, atol, min_step, cut_off = (as_scalar(x, y.dtype)
                                      for x in (rtol, atol, min_step, cut_off))
     g = bounds.shape[0]
+    # The NaN-amp lanes with finite dynamics: walked as frozen on every trip
+    # where they are so now, or under ``barrier`` where they were at entry.
+    def nan_amp(y):
+        return torch.isnan(y[4]) & ~torch.isnan(torch.mean(y[:4], dim=0))
+
+    frozen0 = nan_amp(y) if barrier else None
     if state0 is None:
         hist, rejected, new_step, lane_att, idx, t_shift = (
             group_entry_state(y, bounds))
@@ -295,8 +319,7 @@ def _integrate_group_plain(rhs_fn, rhs_gv_fn, y, t, h, f, bounds, prev_lon,
     while iters < max_iters and bool(torch.any(idx < g)):
         done = idx >= g
         bound = bounds[torch.clamp(idx, max=g - 1).long()]
-        frozen = ~done & torch.isnan(y[4]) & ~torch.isnan(
-            torch.mean(y[:4], dim=0))
+        frozen = ~done & (frozen0 if barrier else nan_amp(y))
 
         heff = torch.where(new_step, torch.clamp(h, min=min_step), h)
         t_new = t + heff
@@ -354,10 +377,11 @@ def _integrate_group_plain(rhs_fn, rhs_gv_fn, y, t, h, f, bounds, prev_lon,
 
 def _integrate_group_cuda(rhs_fn, rhs_gv_fn, y, t, h, f, bounds, prev_lon,
                           prev_lat, cut_off, rtol, atol, min_step,
-                          max_iters=1_000_000, state0=None):
-    """Launch the exact-group kernel: one thread per lane, the whole group
-    in one launch. The entry state (or the resumed ``state0``) is read
-    inside the kernel."""
+                          max_iters=1_000_000, state0=None, instance=None):
+    """Launch the exact-group kernel: the whole group in one launch, one
+    thread (or a team of threads) per lane as ``exact_instance``
+    chooses, or as ``instance`` says. The entry state (or the resumed
+    ``state0``) is read inside the kernel."""
     global EXACT_LAUNCHES
     if not isinstance(rhs_fn, RayRHS):
         raise TypeError("on CUDA the exact-group kernel integrates the ray "
@@ -403,7 +427,9 @@ def _integrate_group_cuda(rhs_fn, rhs_gv_fn, y, t, h, f, bounds, prev_lon,
         "rwrt_exact_group", dt, bg.fields, w, hh, bg.lon0, bg.lat0, bg.dx,
         bg.dy, y, t, h, f, prev_lon, prev_lat, rejected, new_step, lane_att,
         idx, trips, hist, bounds, g, r, int(state0 is not None), cut_off,
-        rtol, atol, min_step, int(max_iters), kernels.stream(dev))
+        rtol, atol, min_step, int(max_iters), kernels.instance_id(
+            instance or exact_instance(r, dt, run=False)),
+        kernels.stream(dev))
     EXACT_LAUNCHES += 1
     iters = trips.max() if r else 0
     return (hist, y, t, h, f, prev_lon, prev_lat, iters, 6 * iters, lane_att,

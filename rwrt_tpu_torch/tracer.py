@@ -12,12 +12,14 @@ in state_dtype='compute' and root_order='canonical' on one device:
 Every other branch raises NotImplementedError naming its ROADMAP item.
 
 Each branch's run is one of the port's hand-written kernels: on a CUDA
-state one launch runs the whole of it, one thread per lane; on a CPU state
-its plain version runs. ``_run_rk4``: ``csrc/rk4_run.cu``, plain
-``solvers/rk4.trace`` (``RK4_LAUNCHES``); ``_exact_run``:
-``csrc/exact_run.cu``, plain ``_exact_run_plain`` (``EXACT_LAUNCHES``);
-``_dense_run``: ``csrc/dense_run.cu``, plain ``_dense_run_plain``
-(``LAUNCHES``).
+state one launch runs the whole of it; on a CPU state its plain version
+runs. ``_run_rk4``: ``csrc/rk4_run.cu``, plain ``solvers/rk4.trace``
+(``RK4_LAUNCHES``); ``_exact_run``: ``csrc/exact_run.cu``, plain
+``_exact_run_plain`` (``EXACT_LAUNCHES``); ``_dense_run``:
+``csrc/dense_run.cu``, plain ``_dense_run_plain`` (``LAUNCHES``). The
+dense kernel runs one thread per lane; the RK4 and exact kernels one
+thread, or a team of 8 threads, per lane, as ``rk4_instance`` and
+``solvers/rk45.exact_instance`` choose from the lane count.
 
 The ray batch is flattened to R = 3 * nsource * nzwn lanes in C order of
 (root, source, zwn), so results reshape directly to (nt, 3, nsource, nzwn).
@@ -198,6 +200,11 @@ LAUNCHES = 0
 RK4_LAUNCHES = 0
 EXACT_LAUNCHES = 0
 
+def rk4_instance(r: int, dtype: torch.dtype) -> str:
+    """The RK4 kernel's instance for a launch of ``r`` lanes on the card."""
+    return kernels.choose_instance(
+        r, kernels.resident("rk4", kernels.TEAM, dtype))
+
 
 class GroupedRun(NamedTuple):
     """An adaptive run over every group of output bounds, dense or exact.
@@ -346,11 +353,13 @@ def _dense_run_cuda(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
 
 
 def _rk45_group_chunk(bg, y, t, h, f, prev_lon, prev_lat, bounds, cut_off,
-                      rtol, atol, min_step, max_iters=1_000_000):
+                      rtol, atol, min_step, max_iters=1_000_000,
+                      barrier=False):
     """One GROUP of output bounds in exact mode, plain PyTorch on every
     device (``solvers/rk45._integrate_group_plain`` with the plain RHS): the
     per-group unit of ``_exact_run_plain``. Numerically identical to
-    ``_rk45_chunk`` over the same bounds.
+    ``_rk45_chunk`` over the same bounds where no lane's amp turns NaN
+    inside the group; with ``barrier`` (one bound) also where one does.
 
     Returns ((y, t, h, f, prev_lon, prev_lat), (hist, ugs, vgs, iters,
     nfev, lane_att)), hist (G, 5, R), ugs and vgs (G, R).
@@ -366,30 +375,36 @@ def _rk45_group_chunk(bg, y, t, h, f, prev_lon, prev_lat, bounds, cut_off,
     hist, y, t, h, f, prev_lon, prev_lat, iters, nfev, lane_att = (
         rk45_mod._integrate_group_plain(
             rhs_fn, rhs_gv_fn, y, t, h, f, bounds, prev_lon, prev_lat,
-            cut_off, rtol, atol, min_step, max_iters)[:10])
+            cut_off, rtol, atol, min_step, max_iters,
+            barrier=barrier)[:10])
     return (y, t, h, f, prev_lon, prev_lat), (
         hist[:, :5], hist[:, 5], hist[:, 6], iters, nfev, lane_att)
 
 
 def _exact_run(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off, rtol,
-               atol, min_step, max_iters=1_000_000) -> GroupedRun:
+               atol, min_step, max_iters=1_000_000,
+               barrier=False) -> GroupedRun:
     """Integrate every group of output bounds in exact mode (the JAX
     package's grouped exact run: per group ``_rk45_group_chunk``, then the
     truncation count). Arguments as ``_dense_run``'s, without the pin-kill;
-    bounds_g may have no group (a run of row 0 alone).
+    bounds_g may have no group (a run of row 0 alone). With ``barrier`` a
+    lane is walked as frozen (NaN amp, finite dynamics) only if it is so at
+    a group's entry: with one bound per group, the barrier path's semantics
+    (``_run_rk45``).
 
     On a CUDA state one launch of ``csrc/exact_run.cu`` does it all, one
-    thread per lane through every group; on a CPU state the plain version
+    thread (or a team of threads, ``solvers/rk45.exact_instance``) per
+    lane through every group; on a CPU state the plain version
     ``_exact_run_plain`` runs.
     """
     run = _exact_run_cuda if y0.is_cuda else _exact_run_plain
     return run(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off, rtol,
-               atol, min_step, max_iters)
+               atol, min_step, max_iters, barrier)
 
 
 def _exact_run_plain(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
-                     rtol, atol, min_step,
-                     max_iters=1_000_000) -> GroupedRun:
+                     rtol, atol, min_step, max_iters=1_000_000,
+                     barrier=False) -> GroupedRun:
     """The plain PyTorch version (any device): group by group
     ``_rk45_group_chunk`` and the truncation count, rows written into one
     preallocated output."""
@@ -399,7 +414,8 @@ def _exact_run_plain(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
     carry = (y0, torch.zeros_like(y0[0]), h0, f0, y0[S_LON], y0[S_LAT])
     for g, bounds in enumerate(bounds_g):
         carry, (hist, gu, gv, _, _, la) = _rk45_group_chunk(
-            bg, *carry, bounds, cut_off, rtol, atol, min_step, max_iters)
+            bg, *carry, bounds, cut_off, rtol, atol, min_step, max_iters,
+            barrier)
         # Counted after the group: a lane short of its last bound while
         # alive (a killed lane's state is NaN).
         trunc += (carry[1] < bounds[-1]) & ~torch.isnan(carry[0][0])
@@ -411,10 +427,11 @@ def _exact_run_plain(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
 
 
 def _exact_run_cuda(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
-                    rtol, atol, min_step,
-                    max_iters=1_000_000) -> GroupedRun:
-    """Launch the whole-run exact kernel once: one thread per lane walks
-    every group and writes its rows straight into the output. Reads
+                    rtol, atol, min_step, max_iters=1_000_000,
+                    barrier=False, instance=None) -> GroupedRun:
+    """Launch the whole-run exact kernel once: each lane walks every group
+    and writes its rows straight into the output. ``instance`` (a key of
+    ``kernels.INSTANCES``) overrides ``rk45.exact_instance``'s choice. Reads
     nothing back from the card."""
     global EXACT_LAUNCHES
     _check_run_args(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, 0)
@@ -434,7 +451,8 @@ def _exact_run_cuda(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
         "rwrt_exact_run", dt, bg.fields, w, hh, bg.lon0, bg.lat0, bg.dx,
         bg.dy, y, t, h, f, plon, plat, ug0, vg0, ys, ugs, vgs, lane_att,
         trunc, bounds_g, group, n_groups, r, cut_off, rtol, atol, min_step,
-        int(max_iters), kernels.stream(dev))
+        int(max_iters), int(barrier), kernels.instance_id(
+            instance or rk45_mod.exact_instance(r, dt)), kernels.stream(dev))
     EXACT_LAUNCHES += 1
     nt = n_bounds + 1
     return GroupedRun(ys[:nt], ugs[:nt], vgs[:nt], lane_att, trunc,
@@ -531,8 +549,11 @@ def _run_rk45(bg, y0, ug0, vg0, dt, nt, cut_off, rtol, atol, min_step,
     path, which ``trace_rays`` takes when interval_batch is 1 or nt <= 2).
 
     On a CPU state the plain barrier path ``_rk45_chunk`` runs. On a CUDA
-    state the exact-run kernel runs it with one bound per group, which the
-    JAX package keeps bitwise equal to the barrier path: one launch.
+    state the exact-run kernel runs it in one launch, with one bound per
+    group and the barrier flag: a lane whose amp turns NaN inside an
+    interval keeps stepping to the bound, as on the barrier path, and is
+    walked as frozen from the next bound on. So the two are bitwise equal
+    (``_exact_run_plain`` with the same arguments is what the card runs).
     Truncation is counted per interval on both: a lane the max_iters
     backstop leaves short of any bound while alive counts, where the JAX
     package counts only lanes short of the final bound and returns the
@@ -547,7 +568,7 @@ def _run_rk45(bg, y0, ug0, vg0, dt, nt, cut_off, rtol, atol, min_step,
         bounds_g = padded_bounds(dt, nt, 1, y0.dtype, y0.device)
         return _run_outputs(_exact_run_cuda(
             bg, y0, ug0, vg0, h0, f0, bounds_g, nt - 1, cut_off, rtol, atol,
-            min_step, max_iters))
+            min_step, max_iters, barrier=True))
     t_bounds = torch.arange(1, nt, dtype=y0.dtype, device=y0.device) * dt
     _, (ys, ugs, vgs, iters, nfev, lane_att, trunc) = _rk45_chunk(
         bg, y0, torch.zeros_like(y0[0]), h0, t_bounds, cut_off, rtol, atol,
@@ -578,10 +599,11 @@ def _rk4_buffers(y, rows):
     return ys, ugs, torch.empty_like(ugs)
 
 
-def _run_rk4_cuda(bg, y0, ug0, vg0, dt, nt, cut_off):
+def _run_rk4_cuda(bg, y0, ug0, vg0, dt, nt, cut_off, instance=None):
     """One launch of the RK4 kernel writes all nt rows, row 0 included."""
     ys, ugs, vgs = _rk4_buffers(y0, nt)
-    _rk4_launch(bg, y0, dt, nt - 1, cut_off, ys, ugs, vgs, 1, ug0, vg0)
+    _rk4_launch(bg, y0, dt, nt - 1, cut_off, ys, ugs, vgs, 1, ug0, vg0,
+                instance)
     return ys, ugs, vgs
 
 
@@ -599,12 +621,13 @@ def _rk4_chunk(bg, y, dt, n_steps: int, cut_off):
 
 
 def _rk4_launch(bg, y, dt, n_steps, cut_off, ys, ugs, vgs, row_offset,
-                ug0=None, vg0=None):
+                ug0=None, vg0=None, instance=None):
     """Launch the RK4 kernel once: n_steps steps from carry y (5, R), step
     s written at row row_offset + s of ys (rows, 5, R), ugs and vgs
     (rows, R); with ug0, vg0 (R,) given, row row_offset - 1 receives y and
-    them. Returns the carry after the last step; reads nothing back from
-    the card."""
+    them. ``instance`` (a key of ``kernels.INSTANCES``) overrides
+    ``rk4_instance``'s choice. Returns the carry after the last step; reads
+    nothing back from the card."""
     global RK4_LAUNCHES
     dev, dtype = y.device, y.dtype
     if y.ndim != 2 or y.shape[0] != 5:
@@ -630,7 +653,9 @@ def _rk4_launch(bg, y, dt, n_steps, cut_off, ys, ugs, vgs, row_offset,
     kernels.launch(
         "rwrt_rk4_run", dtype, bg.fields, w, hh, bg.lon0, bg.lat0, bg.dx,
         bg.dy, y, ug0, vg0, ys, ugs, vgs, n_steps, row_offset, r, dt, half,
-        sixth, rk45_mod.as_scalar(cut_off, dtype), kernels.stream(dev))
+        sixth, rk45_mod.as_scalar(cut_off, dtype),
+        kernels.instance_id(instance or rk4_instance(r, dtype)),
+        kernels.stream(dev))
     RK4_LAUNCHES += 1
     return y
 

@@ -9,7 +9,9 @@ so on a GPU machine without JAX run it as
 The library is built with -fmad=false, so the RHS kernel, both dense
 kernels (one group, and the whole run with the kill cascade and (ug, vg)),
 the RK4 kernel and both exact kernels (one group with its suspend/resume
-state, and the whole run) must equal their plain versions bitwise; the
+state, and the whole run, with and without the barrier flag), each RK4 and
+exact kernel in every instance (``kernels.INSTANCES``), must equal their
+plain versions bitwise; the
 spectral kernel sums its
 contraction on the tensor cores in another order than the matmul, so it is
 held to 1e-12 (float64, and bf16 operands over float64) and 1e-5
@@ -22,7 +24,7 @@ import pytest
 import torch
 
 import rwrt_tpu_torch as pt
-from rwrt_tpu_torch import tracer
+from rwrt_tpu_torch import kernels, tracer
 from rwrt_tpu_torch.models import ray
 from rwrt_tpu_torch.ops import spectral_sample as spec
 from rwrt_tpu_torch.solvers import rk4, rk45
@@ -312,6 +314,118 @@ def test_exact_run_kernel_equals_plain(jet_field, dev, dtype, case):
         assert (torch.isnan(k.ys[-1, 0]) & ~torch.isnan(y0[3])).any()
 
 
+INSTANCES = list(kernels.INSTANCES)
+#: Lane counts of the instance tests: the 207 lanes of dense_run_inputs
+#: and their first 37 (neither a multiple of 8, 32 or 128).
+LANES = [207, 37]
+
+
+def lanes(xs, n):
+    return [x[..., :n].contiguous() for x in xs]
+
+
+@pytest.mark.parametrize("n", LANES)
+@pytest.mark.parametrize("instance", INSTANCES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rk4_instances_equal_plain(jet_field, dev, dtype, instance, n):
+    """Every instance of the RK4 kernel (one thread per lane, a team of 8
+    threads per lane) gives the plain loop's rows, (ug, vg) and
+    carry bitwise; rootless lanes and kills included."""
+    _, bg = background(jet_field, dtype, dev)
+    (y0, ug0, vg0, *_), _ = dense_run_inputs(bg, dtype, dev)
+    y0, ug0, vg0 = lanes((amp_nan(y0), ug0, vg0), n)
+    k = tracer._run_rk4_cuda(bg, y0, ug0, vg0, 7200.0, 25, 0.03, instance)
+    p = tracer._run_rk4_plain(bg, y0, ug0, vg0, 7200.0, 25, 0.03)
+    for a, b in zip(k, p):
+        assert same(a, b)
+    assert torch.isnan(k[0][-1, 0]).any() and torch.isfinite(k[0][-1, 0]).any()
+
+
+@pytest.mark.parametrize("n", LANES)
+@pytest.mark.parametrize("instance", INSTANCES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_exact_group_instances_equal_plain(jet_field, dev, dtype, instance,
+                                           n):
+    """Every instance of the single-group exact kernel against the plain
+    loop, stopped after 7 trips and resumed: the lanes of a warp leave the
+    loop at different trips, NaN-amp and rootless lanes included."""
+    _, bg = background(jet_field, dtype, dev)
+    (y0, _, _, h0, _, _, _), rtol = dense_run_inputs(bg, dtype, dev)
+    y0, h0 = lanes((amp_nan(y0), h0), n)
+    f0 = ray.RayRHS(bg)(y0)
+    bounds = torch.arange(1, 11, dtype=dtype, device=dev) * 7200.0
+    carry = (y0, torch.zeros_like(h0), h0, f0, y0[0].clone(), y0[1].clone())
+
+    def plain_rhs(yy, tt=0.0):
+        return ray._rhs_core(bg, yy, tt, False)[0]
+
+    def plain_gv(yy, tt=0.0):
+        dy, _, ug, vg = ray._rhs_core(bg, yy, tt, True)
+        return dy, ug, vg
+
+    def run(kernel, carry, max_iters, state0=None):
+        if kernel:
+            return rk45._integrate_group_cuda(
+                ray.RayRHS(bg), None, *carry[:4], bounds, *carry[4:], 0.03,
+                rtol, 1e-6, 7.2, max_iters, state0, instance)
+        return rk45._integrate_group_plain(
+            plain_rhs, plain_gv, *carry[:4], bounds, *carry[4:], 0.03, rtol,
+            1e-6, 7.2, max_iters, state0)
+
+    k, p = run(True, carry, 7), run(False, carry, 7)
+    tails = [[x[i] for i in (0, 10, 11, 9, 12)] for x in (k, p)]
+    k = run(True, k[1:7], 1_000_000, tails[0])
+    p = run(False, p[1:7], 1_000_000, tails[1])
+    for i in range(7):
+        assert same(k[i], p[i]), i
+    assert int(k[7]) == p[7]
+    for i in (9, 10, 11, 12):
+        assert torch.equal(k[i], p[i]), i
+
+
+def overflow(y0):
+    """y0 with every born lane's amp at the dtype's largest value: it
+    overflows to NaN inside the first interval, dynamics finite."""
+    y0 = y0.clone()
+    y0[4, torch.isfinite(y0[4])] = torch.finfo(y0.dtype).max
+    return y0
+
+
+EXACT_INSTANCE_CASES = {
+    "default": dict(group=5, cut_off=0.2),
+    "maxiters": dict(group=5, cut_off=0.2, max_iters=3),
+    "barrier": dict(group=1, cut_off=0.2, max_iters=100_000, barrier=True),
+    "grouped_overflow": dict(group=1, cut_off=0.2, max_iters=100_000),
+}
+
+
+@pytest.mark.parametrize("case", list(EXACT_INSTANCE_CASES))
+@pytest.mark.parametrize("n", LANES)
+@pytest.mark.parametrize("instance", INSTANCES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_exact_run_instances_equal_plain(jet_field, dev, dtype, instance, n,
+                                         case):
+    """Every instance of the whole-run exact kernel against the plain run,
+    bitwise: rows, (ug, vg), attempts, truncation counts and carry. The
+    overflow cases run the amp-overflow entry state one bound per group,
+    with the barrier flag (what ``_run_rk45`` launches) and without it."""
+    _, bg = background(jet_field, dtype, dev)
+    kw = dict(EXACT_INSTANCE_CASES[case])
+    group, cut_off = kw.pop("group"), kw.pop("cut_off")
+    (y0, ug0, vg0, h0, _, _, _), rtol = dense_run_inputs(bg, dtype, dev)
+    y0 = overflow(y0) if group == 1 else amp_nan(y0)
+    y0, ug0, vg0, h0 = lanes((y0, ug0, vg0, h0), n)
+    f0 = ray.RayRHS(bg)(y0)
+    bounds_g = tracer.padded_bounds(7200.0, 13, group, dtype, dev)
+    args = (bg, y0, ug0, vg0, h0, f0, bounds_g, 12, cut_off, rtol, 1e-6, 7.2)
+    k = tracer._exact_run_cuda(*args, instance=instance, **kw)
+    p = tracer._exact_run_plain(*args, **kw)
+    for a, b in zip(k[:3] + k.carry, p[:3] + p.carry):
+        assert same(a, b)
+    assert torch.equal(k.lane_att, p.lane_att)
+    assert torch.equal(k.trunc, p.trunc)
+
+
 def test_exact_and_rk4_wrappers_refuse_bad_inputs(jet_field, dev):
     _, bg = background(jet_field, torch.float32, dev)
     (y0, ug0, vg0, h0, f0, bounds_g, n_bounds), rtol = dense_run_inputs(
@@ -334,6 +448,8 @@ def test_exact_and_rk4_wrappers_refuse_bad_inputs(jet_field, dev):
     with pytest.raises(TypeError):
         rk45.integrate_group(lambda yy, tt=0.0: yy, None, y0, h0, h0, f0,
                              bounds_g[0], h0, h0, 0.2, rtol, 1e-6, 7.2)
+    with pytest.raises(ValueError):   # no such instance
+        tracer._run_rk4_cuda(bg, y0, ug0, vg0, 7200.0, 5, 0.2, "team16")
 
 
 SPECTRAL_BARS = {"float64": 1e-12, "float64_bf16": 1e-12, "float32": 1e-5,

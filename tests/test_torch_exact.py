@@ -330,8 +330,9 @@ def test_exact_run_matches_jax(batch, jax_spread, name):
 
 def test_one_bound_groups_equal_the_barrier_run_bitwise(batch):
     """What the card runs for interval_batch 1 (the exact run with one
-    bound per group, max_iters 100,000) equals the barrier path ``_run_rk45``
-    runs on the CPU, rows, attempts and truncation count."""
+    bound per group, max_iters 100,000, the barrier flag) equals the
+    barrier path ``_run_rk45`` runs on the CPU, rows, attempts and
+    truncation count."""
     _, bgt, seeds, _ = batch
     y0, ug0, vg0 = (torch.as_tensor(x) for x in seeds)
     barrier = ttracer._run_rk45(bgt, y0, ug0, vg0, DT, 13, CUT_OFF, RTOL,
@@ -340,7 +341,7 @@ def test_one_bound_groups_equal_the_barrier_run_bitwise(batch):
     run = ttracer._exact_run(
         bgt, y0, ug0, vg0, h0, tray.RayRHS(bgt)(y0),
         ttracer.padded_bounds(DT, 13, 1, torch.float64, "cpu"), 12, CUT_OFF,
-        RTOL, ATOL, MIN_STEP, 100_000)
+        RTOL, ATOL, MIN_STEP, 100_000, barrier=True)
     grouped = ttracer._run_outputs(run)
     for i in range(3):
         assert same(barrier[i], grouped[i]), i
@@ -472,3 +473,74 @@ def test_trace_rays_matches_jax(trace_states, trace_spread, batch_size,
     grouped = batch_size > 1 and nt > 2
     n_groups = -(-(nt - 1) // batch_size) if grouped else nt - 1
     assert tuple(stats["lane_att"].shape) == (n_groups, 128)
+
+
+@pytest.fixture(scope="module", params=["float64", "float32"])
+def overflow_batch(jet_field, request):
+    """The 5 x 4 source grid at zwn 2, 4, 6 in ``request.param``, every born
+    lane's amp set to the dtype's largest value: its growth overflows the
+    amp to inf, then NaN, inside the first interval while the dynamics
+    stay finite. Returns (JAX background, port background, y0, ug0, vg0,
+    born lane indices)."""
+    u, v, lat, lon = jet_field
+    dtype = request.param
+    bgj = jtracer.make_background(
+        rt.prepare(u, v, lat, lon, cal_dtype=dtype), 0.0)
+    bgt = convert.background_from_numpy(
+        {k: np.asarray(x) for k, x in bgj._asdict().items() if x is not None},
+        device="cpu")
+    slon, slat = jtracer.source_matrix(0.0, 5.0, 36.0, 8.0, 5, 4)
+    y0, ug0, vg0 = (np.array(x) for x in jtracer.initialize(
+        bgj, jnp.asarray(slon, dtype), jnp.asarray(slat, dtype),
+        jnp.asarray([2.0, 4.0, 6.0], dtype)))
+    born = np.flatnonzero(np.isfinite(y0[4]))
+    y0[4, born] = np.finfo(y0.dtype).max
+    return bgj, bgt, y0, ug0, vg0, born
+
+
+#: Bars of the one-bound runs against the JAX barrier path over 3 bounds,
+#: of each row's scale: float64 round-off (1e-12, as the step-level tests);
+#: in float32 the RHS's own bar against the plain version (1e-5, as
+#: chip_smoke's), since XLA contracts FMAs. The unflagged run leaves them
+#: by orders of magnitude: it misses the overflowed lanes' last steps.
+OVERFLOW_BARS = {np.dtype("float64"): 1e-12, np.dtype("float32"): 1e-5}
+
+
+def test_one_bound_barrier_run_matches_jax_on_amp_overflow(overflow_batch):
+    """What the card runs for interval_batch 1 (one bound per group, the
+    barrier flag) keeps stepping a lane whose amp turns NaN inside an
+    interval, as the JAX package's barrier path ``_run_rk45`` does: every
+    row within the bars. Without the flag the grouped semantics walk that
+    lane to the bound frozen, and its rows leave the bars: the fault the
+    flag repairs. On the CPU the port's barrier path equals the flagged run
+    bitwise."""
+    bgj, bgt, y0, ug0, vg0, born = overflow_batch
+    nt, bar = 4, OVERFLOW_BARS[y0.dtype]
+    dt = y0.dtype.name
+    ref = [np.asarray(x) for x in jtracer._run_rk45(
+        bgj, *(jnp.asarray(x) for x in (y0, ug0, vg0)), jnp.asarray(DT, dt),
+        nt, jnp.asarray(CUT_OFF, dt), jnp.asarray(RTOL, dt),
+        jnp.asarray(ATOL, dt), jnp.asarray(MIN_STEP, dt))]
+    assert np.isnan(ref[0][1, 4, born]).any()
+    assert np.isfinite(ref[0][1, :4, born]).any()
+    y, ug, vg = (torch.as_tensor(x) for x in (y0, ug0, vg0))
+    rtol = trk.validate_tol(RTOL, y.dtype)
+    args = (bgt, y, ug, vg, ttracer.initial_step_sizes(bgt, y, rtol, ATOL),
+            tray.RayRHS(bgt)(y),
+            ttracer.padded_bounds(DT, nt, 1, y.dtype, "cpu"), nt - 1,
+            CUT_OFF, rtol, ATOL, MIN_STEP, 100_000)
+    flagged = ttracer._exact_run_plain(*args, barrier=True)
+    grouped = ttracer._exact_run_plain(*args)
+    scales = [np.nanmax(np.abs(a), axis=(0, 2))[None, :, None]
+              for a in rows(ref)]
+    for out, within in ((flagged, True), (grouped, False)):
+        got = rows(np_out(out[:3]))
+        for a, b in zip(rows(ref), got):
+            np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+        d = per_lane_diff(rows(ref), got, scales)
+        assert (d.max() <= bar) == within, (within, d.max())
+    barrier = ttracer._run_rk45(bgt, y, ug, vg, DT, nt, CUT_OFF, rtol, ATOL,
+                                MIN_STEP)
+    for a, b in zip(barrier[:3], flagged[:3]):
+        assert same(a, b)
+    assert torch.equal(barrier[6], flagged.lane_att)
