@@ -15,7 +15,12 @@ library's two default integrators on the same background, float32: RK4 in
 bound RK45 in the README's Usage run (the default sources, interval_batch
 16, rtol = atol = 1e-6), its 90 days cut to 40: from day 49 one of its
 lanes stalls at the max_iters backstop (a 52-day run checks that
-``trace_rays`` then raises ``MaxItersTruncation``).
+``trace_rays`` then raises ``MaxItersTruncation``). Last, the same runs in
+mixed precision (``state_dtype="float64"``: a float64 state over the
+float32 background, the whole-run kernels' ``_mix`` instances): the dense
+production run, its drift against float32 and float64, both RK4 runs and
+the README run at its full 90 days, which the float64 time carry lets
+finish.
 
 Phases (any failed check raises; nothing is caught but the truncation the
 exact_path phase requires):
@@ -71,12 +76,31 @@ exact_path phase requires):
                ``MaxItersTruncation``; the longest lane's us per trip there,
                and that lane alone over TRUNC_DAYS days (backstop
                LONE_MAX_ITERS) in every instance in turns
+  mixed_dense  the production run in mixed precision: the dense kernel's
+               mixed instance on its entry state, timed, and on its first
+               N_SUBSET lanes bitwise against the plain run; then through
+               ``trace_rays`` (one launch, seven float64 outputs, rows
+               bitwise equal to the kernel's)
+  mixed_drift  the production run through ``trace_rays`` in float32, mixed
+               and float64: each run's attempts and dense kernel time, and
+               the day-30 median great-circle drift of float32 and of mixed
+               against float64 (a record, not a gate)
+  mixed_rk4    both RK4 runs in mixed precision: the kernel against the
+               plain run, bitwise, every instance in turns, and through
+               ``trace_rays`` as rk4_path
+  mixed_exact  the README run over MIXED_README_DAYS days in mixed
+               precision: no lane-group at the backstop, every instance in
+               turns, every instance bitwise against the plain run on
+               EXACT_SUBSET lanes x EXACT_DAYS days and, with the barrier
+               flag, against the flagged plain run; then through
+               ``trace_rays`` as exact_path, with no ``MaxItersTruncation``
 
 The RK4 and exact kernels' instances are timed in turns (TURNS) on the
-same inputs at five shapes (RK4 at production seeding and in the default
+same inputs at eight shapes (RK4 at production seeding and in the default
 run, the first exact group at production seeding, the README exact run,
-the lone stalled lane); the launcher's choice at each is printed beside
-them, and the phase fails if it ran slower than Lane there.
+the lone stalled lane; in mixed precision both RK4 runs and the README
+run); the launcher's choice at each is printed beside them, and the phase
+fails if it ran slower than Lane there.
 ``profile_instances.py`` times them over lane counts and reports their
 registers and SASS.
 
@@ -84,7 +108,9 @@ Each kernel's bound is the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and its flops over the data sheet's
 peak for the units that do them: for the RHS and dense kernels, the flops
 counted from the sources for this run's data (step attempts, rows kept)
-over the peak outside the tensor cores (67 TFLOP/s float32, 34 float64);
+over the peak outside the tensor cores (67 TFLOP/s float32, 34 float64;
+a mixed instance's float32 and float64 flops each over its own peak, the
+two times added);
 for the spectral kernel's float32 case, which runs 3xTF32 on the tensor
 cores, three times the product's flops over the TF32 peak (495 TFLOP/s).
 
@@ -136,6 +162,23 @@ CASCADE_FLOPS = 156
 RK4_STEP_FLOPS = 4 * RHS_FLOPS + 65 + CASCADE_FLOPS
 EXACT_ATTEMPT_FLOPS = ATTEMPT_FLOPS + 19
 KILL_FLOPS = 18
+#: Mixed precision (a float64 state over float32 fields): the same counts
+#: split by the units that do them. A step attempt: the six evaluations and
+#: the products and adds of the stage, 5th-order and error sums (125 + 55 +
+#: 65) in float32; the step products and the adds into y (50 + 10), the
+#: error's scaling (30), the norm and the controller (7) in float64; the
+#: exact kernels' 7th-stage (ug, vg) in float32. An emitted row, its kill
+#: test and (ug, vg) sample, and a crossing's kill test: float64. An RK4
+#: step: the evaluations and the stage sum (25) in float32; the stage
+#: inputs (30), the update (10), the kill test and (ug, vg) in float64.
+MIX_ATTEMPT_FLOPS = {"float32": 6 * RHS_FLOPS + 245, "float64": 97}
+MIX_EXACT_ATTEMPT_FLOPS = {"float32": 6 * RHS_FLOPS + 245 + 19,
+                           "float64": 97}
+MIX_RK4_STEP_FLOPS = {"float32": 4 * RHS_FLOPS + 25,
+                      "float64": 40 + CASCADE_FLOPS}
+assert sum(MIX_ATTEMPT_FLOPS.values()) == ATTEMPT_FLOPS
+assert sum(MIX_EXACT_ATTEMPT_FLOPS.values()) == EXACT_ATTEMPT_FLOPS
+assert sum(MIX_RK4_STEP_FLOPS.values()) == RK4_STEP_FLOPS
 #: The production run's step attempts (dense, pin (500, 0), float32): the
 #: dense kernel's arithmetic and its plain version give this count; a
 #: change to either shows here.
@@ -158,6 +201,12 @@ LONE_MAX_ITERS = 100_000
 BARRIER_DAYS = 2
 #: The order in which the RK4 and exact kernels' instances are timed.
 TURNS = ("lane", "split8", "lane")
+#: The README run's horizon in mixed precision: its full 90 days (the
+#: float64 time carry does not stall where float32's does).
+MIXED_README_DAYS = 90
+#: The mixed dense run's plain comparison: its first groups (of 60 bounds),
+#: on N_SUBSET lanes.
+MIXED_PLAIN_GROUPS = 2
 
 
 def climatology_background(nlon=144, nlat=73):
@@ -237,12 +286,15 @@ def wall_s(fn):
     return out, time.perf_counter() - t0
 
 
-def bound(nbytes, flops, unit):
+def bound(nbytes, flops, unit=None):
     """The least time for the work: the larger of bytes over the memory
     rate and flops over the peak of ``unit`` (a key of ``PEAK_FLOPS``),
-    and which of the two it is."""
+    and which of the two it is. ``flops`` may be a dict {unit: flops} of
+    work split between units: their times add."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[unit]
+    if not isinstance(flops, dict):
+        flops = {unit: flops}
+    t_ops = sum(n / PEAK_FLOPS[u] for u, n in flops.items())
     return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -339,10 +391,13 @@ class Run:
             t.arange(1, 8, dtype=dtype, device=self.dev))
         return bs, bg, y0.contiguous(), ug0, vg0
 
-    def entry(self, dtype, matrix=None):
+    def entry(self, dtype, matrix=None, state=None):
         """``trace_rays``' compacted entry state (bg, y0, ug0, vg0, idx) for
         the production seeding or, given a RunConfig ``matrix``, its source
-        matrix; idx the compacted lanes' indices in the seed batch."""
+        matrix, over a ``dtype`` background; idx the compacted lanes'
+        indices in the seed batch. ``state`` (float64 over a float32
+        background: mixed precision) widens y0 as ``trace_rays`` does;
+        ug0 and vg0 keep the background's dtype."""
         from rwrt_tpu_torch import tracer
 
         torch = self.torch
@@ -359,34 +414,37 @@ class Run:
         idx = tracer.compact_lane_indices(
             torch.isfinite(y0[4]).cpu().numpy())
         take = torch.as_tensor(idx, device=self.dev)
-        return (bg, y0.index_select(1, take).contiguous(),
-                ug0.index_select(0, take), vg0.index_select(0, take), idx)
+        y0 = y0.index_select(1, take).to(state or dtype).contiguous()
+        return (bg, y0, ug0.index_select(0, take),
+                vg0.index_select(0, take), idx)
 
-    def run_inputs(self, dtype, cfg=None, matrix=None):
+    def run_inputs(self, dtype, cfg=None, matrix=None, state=None):
         """``trace_rays``' entry state for an adaptive run ``cfg`` (default:
         the production run) from the production seeding or ``matrix``'s
         source matrix, as it hands it to ``_dense_run`` or ``_exact_run``:
         the compacted lanes, their (ug0, vg0), h0, f0, the padded bounds and
         the run's scalars. Returns (bg, args, kw, idx) with idx the
         compacted lanes' indices in the seed batch, kw the pin-kill of a
-        dense run."""
+        dense run. ``state`` as for ``entry``: the run's scalars, h0 and
+        the bounds then take the state's dtype, f0 the background's."""
         from rwrt_tpu_torch import tracer
         from rwrt_tpu_torch.models import ray
         from rwrt_tpu_torch.solvers import rk45
 
         cfg = production_config(self.rt) if cfg is None else cfg
-        bg, y0, ug0, vg0, idx = self.entry(dtype, matrix)
-        rtol = rk45.validate_tol(cfg.rtol, dtype)
-        atol = rk45.as_scalar(cfg.atol, dtype)
+        bg, y0, ug0, vg0, idx = self.entry(dtype, matrix, state)
+        sdt = y0.dtype
+        rtol = rk45.validate_tol(cfg.rtol, sdt)
+        atol = rk45.as_scalar(cfg.atol, sdt)
         min_step = rk45.as_scalar(min(cfg.min_step_factor * cfg.tstep,
-                                      cfg.tstep * 1e-3), dtype)
+                                      cfg.tstep * 1e-3), sdt)
         h0 = tracer.initial_step_sizes(bg, y0, rtol, atol)
         f0 = ray.RayRHS(bg)(y0)
         bounds_g = tracer.padded_bounds(
-            rk45.as_scalar(cfg.tstep, dtype), cfg.nt,
-            min(cfg.interval_batch, cfg.nt - 1), dtype, self.dev)
+            rk45.as_scalar(cfg.tstep, sdt), cfg.nt,
+            min(cfg.interval_batch, cfg.nt - 1), sdt, self.dev)
         args = (bg, y0, ug0, vg0, h0, f0, bounds_g, cfg.nt - 1,
-                rk45.as_scalar(cfg.cut_off_rad, dtype), rtol, atol, min_step)
+                rk45.as_scalar(cfg.cut_off_rad, sdt), rtol, atol, min_step)
         kw = ({} if cfg.pin_limit is None
               else dict(pin_limit=cfg.pin_limit, pin_mwn=cfg.pin_mwn))
         return bg, args, kw, idx
@@ -533,14 +591,20 @@ def phase_dense_group(run):
 def dense_run_bound(args, out, dtype):
     """Bytes: the entry state, bounds and background in, every output out;
     flops: this run's step attempts, and the rows it keeps, each with its
-    interpolant, kill test and (ug, vg) sample."""
+    interpolant, kill test and (ug, vg) sample. ``dtype`` "mixed": the
+    flops split as MIX_ATTEMPT_FLOPS, the rows' in float64."""
     bg, y0, ug0, vg0, h0, f0, bounds_g = args[:7]
     rows = int(out.ys[1:, 0].isfinite().sum())
+    attempts = int(out.lane_att.sum())
+    if dtype == "mixed":
+        flops = {u: attempts * n for u, n in MIX_ATTEMPT_FLOPS.items()}
+        flops["float64"] += rows * (ROW_FLOPS + CASCADE_FLOPS)
+    else:
+        flops = {str(dtype)[6:]: attempts * ATTEMPT_FLOPS
+                 + rows * (ROW_FLOPS + CASCADE_FLOPS)}
     return bound(nbytes(bg.fields, y0, ug0, vg0, h0, f0, bounds_g, out.ys,
                         out.ugs, out.vgs, out.lane_att, out.trunc,
-                        *out.carry),
-                 int(out.lane_att.sum()) * ATTEMPT_FLOPS
-                 + rows * (ROW_FLOPS + CASCADE_FLOPS), str(dtype)[6:])
+                        *out.carry), flops)
 
 
 def lane_subset(args, n):
@@ -757,10 +821,12 @@ def phase_spectral(run):
 def rk4_bound(bg, y0, ug0, vg0, out, dtype):
     """Bytes: the entry state and background in, the rows out; flops: the
     steps of the lanes alive after them (a dead lane's arithmetic is not
-    needed)."""
+    needed); ``dtype`` "mixed" splits them as MIX_RK4_STEP_FLOPS."""
     live_steps = int(out[0][1:, 0].isfinite().sum())
-    return bound(nbytes(bg.fields, y0, ug0, vg0, *out),
-                 live_steps * RK4_STEP_FLOPS, str(dtype)[6:])
+    flops = ({u: live_steps * n for u, n in MIX_RK4_STEP_FLOPS.items()}
+             if dtype == "mixed" else
+             {str(dtype)[6:]: live_steps * RK4_STEP_FLOPS})
+    return bound(nbytes(bg.fields, y0, ug0, vg0, *out), flops)
 
 
 def phase_rk4(run):
@@ -834,11 +900,17 @@ def phase_rk4(run):
 
 def exact_bound(args, out, dtype, attempts, crossings):
     """Bytes: the entry state, bounds and background in, every output out;
-    flops: this run's step attempts and crossings."""
+    flops: this run's step attempts and crossings; ``dtype`` "mixed"
+    splits them as MIX_EXACT_ATTEMPT_FLOPS, the crossings' in float64."""
     bg, y0, ug0, vg0, h0, f0, bounds_g = args[:7]
+    if dtype == "mixed":
+        flops = {u: attempts * n for u, n in MIX_EXACT_ATTEMPT_FLOPS.items()}
+        flops["float64"] += crossings * KILL_FLOPS
+    else:
+        flops = {str(dtype)[6:]: attempts * EXACT_ATTEMPT_FLOPS
+                 + crossings * KILL_FLOPS}
     return bound(nbytes(bg.fields, y0, ug0, vg0, h0, f0, bounds_g, *out),
-                 attempts * EXACT_ATTEMPT_FLOPS + crossings * KILL_FLOPS,
-                 str(dtype)[6:])
+                 flops)
 
 
 def phase_exact_group(run):
@@ -1175,6 +1247,301 @@ def phase_lone_lane(run, cfg, lane):
     print_choice(run, tag, rk45.exact_instance(1, torch.float32))
 
 
+def mixed(cfg, **changes):
+    """``cfg`` in mixed precision: a float64 state over its float32
+    background."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, state_dtype="float64", **changes)
+
+
+def all_float64(traj, what):
+    """Every output of a trajectory is float64."""
+    for k in traj._fields:
+        dt = getattr(traj, k).dtype
+        check(str(dt) == "torch.float64", f"{what}: {k} is {dt}, not float64")
+
+
+def phase_mixed_dense(run):
+    """The production run in mixed precision (a float64 state over the
+    float32 background): the whole-run kernel's mixed instance on
+    ``trace_rays``' entry state, timed, and on its first N_SUBSET lanes
+    over its first MIXED_PLAIN_GROUPS groups bitwise against the plain
+    ``_dense_run_plain`` (and against the full run's rows); then the run
+    through ``trace_rays``: one whole-run launch, all seven outputs
+    float64, rows bitwise equal to the kernel's."""
+    torch = run.torch
+    from rwrt_tpu_torch import tracer
+
+    _, args, kw, idx = run.run_inputs(torch.float32, state=torch.float64)
+    before = tracer.LAUNCHES
+    kern = tracer._dense_run(*args, **kw)
+    check(tracer.LAUNCHES == before + 1, "mixed dense_run did not launch once")
+    ms = cuda_ms(lambda: tracer._dense_run(*args, **kw), 3)
+    sub = lane_subset(args, N_SUBSET)
+    groups = sub[6][:MIXED_PLAIN_GROUPS]
+    n_rows = groups.numel()
+    sub = sub[:6] + (groups, n_rows) + sub[8:]
+    part = tracer._dense_run(*sub, **kw)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain = tracer._dense_run_plain(*sub, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    for n in ("ys", "ugs", "vgs", "lane_att", "trunc"):
+        check(same(getattr(part, n), getattr(plain, n)),
+              f"mixed dense_run: {n} differs from the plain run")
+        full = getattr(kern, n)[..., :N_SUBSET]
+        if n in ("ys", "ugs", "vgs"):
+            full = full[:n_rows + 1]
+        elif n == "lane_att":
+            full = full[:MIXED_PLAIN_GROUPS]
+        else:
+            continue  # the truncation count is the whole run's
+        check(same(getattr(part, n), full.contiguous()),
+              f"mixed dense_run: the first {N_SUBSET} lanes' {n} differ "
+              "from the full run's")
+    for a, b in zip(part.carry, plain.carry):
+        check(same(a, b), "mixed dense_run: carry differs")
+    b = dense_run_bound(args, kern, "mixed")
+    trips = kern.lane_att.sum(dim=0)
+    attempts = int(kern.lane_att.sum())
+    print(f"mixed dense_run: R={args[1].shape[1]}, {kern.ys.shape[0] - 1} "
+          f"bounds in {kern.lane_att.shape[0]} groups; kernel {ms:.3f} ms "
+          f"(CUDA events), bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
+          f"step attempts {attempts}, longest lane {int(trips.max())} trips "
+          f"in all, truncated lane-groups {int(kern.trunc.sum())}; the first "
+          f"{N_SUBSET} lanes over the first {MIXED_PLAIN_GROUPS} groups "
+          f"bitwise equal to the plain run (rows, ug, vg, lane_att, trunc, "
+          f"carry; plain {plain_ms:.1f} ms) and to the full run's rows")
+    cfg = mixed(production_config(run.rt))
+    traj, launches, wall, peak, stats, refused = traced(
+        run, cfg, "dense_run", source_lon=run.slon, source_lat=run.slat)
+    check(refused is None, f"the mixed production run was refused: {refused}")
+    all_float64(traj, "mixed dense trace_rays")
+    check_rows(traj, idx, kern, "mixed dense")
+    check(torch.equal(stats["lane_att"], kern.lane_att),
+          "mixed dense: trace_rays' attempts differ from the kernel's")
+    print(f"mixed dense trace_rays: wall {wall:.3f} s, peak device memory "
+          f"{peak:.1f} MiB above the prepared state; launches {launches}; "
+          "all seven outputs float64, rows bitwise equal to the kernel's")
+    err = max(float(torch.nan_to_num(torch.abs(k - p), nan=0.0).max())
+              for k, p in ((part.ys, plain.ys), (part.ugs, plain.ugs),
+                           (part.vgs, plain.vgs)))
+    run.kernels["dense_run_mix"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+    run.launches["dense_run_mix"] = launches["dense_run"]
+
+
+def phase_mixed_drift(run):
+    """The production run through ``trace_rays`` in float32, in mixed
+    precision and in float64 (a float64 background): the day-30 median
+    great-circle drift of float32 and of mixed against float64, in
+    degrees, over the rays finite at day 30 in both; each run's step
+    attempts and its whole-run kernel's time. A record, not a gate."""
+    torch = run.torch
+    from rwrt_tpu_torch import tracer
+
+    f32, f64 = torch.float32, torch.float64
+    res = {}
+    for name, bs_dtype, state in (("float32", f32, None),
+                                  ("mixed", f32, f64),
+                                  ("float64", f64, None)):
+        cfg = production_config(
+            run.rt, cal_dtype=str(bs_dtype)[6:],
+            state_dtype="compute" if state is None else "float64")
+        stats = {}
+        # The float64 history (4.1 GB) is past the 2 GiB estimate at which
+        # trace_rays raises (trace_rays_chunked is not ported); the card
+        # holds it.
+        traj = run.rt.trace_rays(run.bs(bs_dtype), cfg, source_lon=run.slon,
+                                 source_lat=run.slat, stats=stats,
+                                 auto_chunk_bytes=None)
+        _, args, kw, _ = run.run_inputs(bs_dtype, state=state)
+        ms = cuda_ms(lambda: tracer._dense_run(*args, **kw), 3)
+        res[name] = (torch.stack([traj.lon[-1], traj.lat[-1]]).reshape(2, -1)
+                     .double(), int(stats["lane_att"].sum()), ms)
+        del traj, args
+        print(f"drift {name}: step attempts {res[name][1]}, dense kernel "
+              f"{ms:.3f} ms (CUDA events)")
+    ref = res["float64"][0]
+    for name in ("float32", "mixed"):
+        pos = res[name][0]
+        both = pos.isfinite().all(dim=0) & ref.isfinite().all(dim=0)
+        d = _group_pos_diff_deg(pos[:, both], ref[:, both])
+        print(f"drift {name} against float64: day-30 median "
+              f"{float(d.median())!r} deg over {int(both.sum())} rays finite "
+              "in both")
+
+
+def phase_mixed_rk4(run):
+    """RK4 in mixed precision at the production seeding (30 days) and in
+    the default run: the kernel's mixed instance against the plain run
+    over all steps, bitwise, every instance bitwise and timed in turns;
+    then each run through ``trace_rays`` with state_dtype float64: one RK4
+    launch, float64 outputs, rows bitwise equal to the kernel's."""
+    torch = run.torch
+    from rwrt_tpu_torch import tracer
+    from rwrt_tpu_torch.solvers import rk45
+
+    f64 = torch.float64
+    key = (f64, torch.float32)
+    for name, cfg, kw in (
+            ("production", rk4_production_config(run.rt),
+             dict(source_lon=run.slon, source_lat=run.slat)),
+            ("default", default_config(run.rt), {})):
+        bg, y0, ug0, vg0, idx = run.entry(
+            torch.float32, None if name == "production" else cfg, f64)
+        args = (bg, y0, ug0, vg0, rk45.as_scalar(cfg.tstep, f64), cfg.nt,
+                rk45.as_scalar(cfg.cut_off_rad, f64))
+        before = tracer.RK4_LAUNCHES
+        kern = tracer._run_rk4(*args)
+        check(tracer.RK4_LAUNCHES == before + 1,
+              "mixed rk4 did not launch once")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain = tracer._run_rk4_plain(*args)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        tag = f"mixed rk4 {name}"
+        for k, p, what in zip(kern, plain, ("rows", "ug", "vg")):
+            check(same(k, p), f"{tag}: {what} differ from the plain run")
+        ms = cuda_ms(lambda: tracer._run_rk4_cuda(*args), 3)
+        b = rk4_bound(bg, y0, ug0, vg0, kern, "mixed")
+        print(f"{tag}: R={y0.shape[1]}, {cfg.nt - 1} steps, bitwise equal "
+              f"to the plain run; kernel {ms:.3f} ms (CUDA events), plain "
+              f"{plain_ms:.1f} ms; bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']})")
+
+        def launch(inst):
+            return tracer._run_rk4_cuda(*args, inst)
+
+        def same_as(out):
+            return all(same(a, b) for a, b in zip(out, plain))
+
+        in_turns(run, tag, launch, 3, same_as)
+        print_choice(run, tag, tracer.rk4_instance(y0.shape[1], key))
+        traj, launches, wall, peak, stats, refused = traced(
+            run, mixed(cfg), "rk4_run", **kw)
+        check(refused is None and not stats, "an rk4 run filled stats")
+        all_float64(traj, f"{tag} trace_rays")
+        check_rows(traj, idx, kern, tag)
+        print(f"{tag} trace_rays: wall {wall:.3f} s; launches {launches}; "
+              "float64 outputs, rows bitwise equal to the kernel's")
+        if name == "production":
+            err = max(float(torch.nan_to_num(torch.abs(k - p),
+                                             nan=0.0).max())
+                      for k, p in zip(kern, plain))
+            run.kernels["rk4_run_mix"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                **b)
+            run.launches["rk4_run_mix"] = launches["rk4_run"]
+
+
+def phase_mixed_exact(run):
+    """The README run at its full MIXED_README_DAYS days in mixed
+    precision: the whole-run kernel's mixed instance, timed, no lane-group
+    cut short by the max_iters backstop, every instance bitwise equal to
+    the launcher's run and timed in turns; every instance bitwise against
+    the plain ``_exact_run_plain`` on its first EXACT_SUBSET lanes over
+    EXACT_DAYS days, and the barrier flag's instances against the flagged
+    plain run there; then the run through ``trace_rays``: one exact launch,
+    no ``MaxItersTruncation``, float64 outputs, rows bitwise equal to the
+    kernel's."""
+    torch = run.torch
+    from rwrt_tpu_torch import kernels, tracer
+    from rwrt_tpu_torch.models import ray
+    from rwrt_tpu_torch.solvers import rk45
+
+    f64 = torch.float64
+    key = (f64, torch.float32)
+    cfg = readme_config(run.rt, MIXED_README_DAYS)
+    _, args, _, idx = run.run_inputs(torch.float32, cfg, cfg, state=f64)
+    before = tracer.EXACT_LAUNCHES
+    kern = tracer._exact_run(*args)
+    check(tracer.EXACT_LAUNCHES == before + 1,
+          "mixed exact_run did not launch once")
+    trunc = int(kern.trunc.sum())
+    capped = (kern.lane_att == MAX_ITERS).any(dim=0)
+    check(trunc == 0, f"mixed exact_run over {MIXED_README_DAYS} days: "
+          f"{trunc} truncated lane-groups (lanes at the backstop "
+          f"{capped.nonzero().flatten().tolist()})")
+    ms = cuda_ms(lambda: tracer._exact_run(*args), 3)
+    tag = "mixed exact_run"
+
+    def launch(inst, args=args, **kw):
+        return tracer._exact_run_cuda(*args, instance=inst, **kw)
+
+    def same_as(out, ref=kern):
+        return (all(same(getattr(out, n), getattr(ref, n))
+                    for n in ("ys", "ugs", "vgs", "lane_att", "trunc"))
+                and all(same(a, b) for a, b in zip(out.carry, ref.carry)))
+
+    in_turns(run, tag, launch, 3, same_as)
+    print_choice(run, tag, rk45.exact_instance(args[1].shape[1], key))
+    # The plain comparison on a subset: EXACT_SUBSET lanes, EXACT_DAYS days.
+    n_bounds = int(EXACT_DAYS * DAY / cfg.tstep)
+    sub = lane_subset(args, EXACT_SUBSET)
+    sub = sub[:6] + (sub[6][:n_bounds // sub[6].shape[1]], n_bounds) + sub[8:]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain = tracer._exact_run_plain(*sub)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    for inst in kernels.INSTANCES:
+        check(same_as(launch(inst, sub), plain),
+              f"{tag}: instance {inst} differs from the plain run")
+    # The barrier flag: one bound per group over BARRIER_DAYS days, every
+    # 7th lane's amp at float64's largest value.
+    y0 = sub[1].clone()
+    y0[4, ::7] = torch.finfo(f64).max
+    f0 = ray.RayRHS(sub[0])(y0)
+    n_b = int(BARRIER_DAYS * DAY / cfg.tstep)
+    one = tracer.padded_bounds(rk45.as_scalar(cfg.tstep, f64), n_b + 1, 1,
+                               f64, run.dev)
+    bargs = (sub[0], y0, *sub[2:5], f0, one, n_b, *sub[8:])
+    bplain = tracer._exact_run_plain(*bargs, 100_000, barrier=True)
+    for inst in kernels.INSTANCES:
+        check(same_as(launch(inst, bargs, max_iters=100_000, barrier=True),
+                      bplain),
+              f"{tag}: barrier kernel, instance {inst}, differs from the "
+              "flagged plain run")
+    trips = kern.lane_att.sum(dim=0)
+    attempts = int(kern.lane_att.sum())
+    bnd = exact_bound(args, kern[:5] + kern.carry, "mixed", attempts,
+                      int(kern.ugs[1:].isfinite().sum()))
+    print(f"{tag}: R={args[1].shape[1]}, {kern.ys.shape[0] - 1} bounds "
+          f"({MIXED_README_DAYS} days) in {kern.lane_att.shape[0]} groups, "
+          f"no truncated lane-group; kernel {ms:.3f} ms (CUDA events), bound "
+          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); step attempts "
+          f"{attempts}, most trips per group "
+          f"{kern.lane_att.amax(dim=1).tolist()}, longest lane "
+          f"{int(trips.max())} trips in all; every instance bitwise equal to "
+          f"the plain run on {EXACT_SUBSET} lanes x {EXACT_DAYS} days (plain "
+          f"{plain_ms:.1f} ms) and, with the barrier flag, to the flagged "
+          f"plain run over {BARRIER_DAYS} days")
+    traj, launches, wall, peak, stats, refused = traced(run, mixed(cfg),
+                                                        "exact_run")
+    check(refused is None, f"the mixed README run was refused: {refused}")
+    all_float64(traj, "mixed exact trace_rays")
+    check_rows(traj, idx, kern, tag)
+    check(torch.equal(stats["lane_att"], kern.lane_att),
+          f"{tag}: trace_rays' attempts differ from the kernel's")
+    print(f"{tag} trace_rays: {traj.lon[0].numel()} rays x {cfg.nt - 1} "
+          f"bounds, wall {wall:.3f} s, peak device memory {peak:.1f} MiB "
+          f"above the prepared state; launches {launches}; float64 outputs, "
+          "rows bitwise equal to the kernel's")
+    run.kernels["exact_run_mix"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **bnd)
+    run.launches["exact_run_mix"] = launches["exact_run"]
+
+
 KERNELS = (
     ("rhs", "rwrt_tpu_torch/csrc/rhs.cu", "rwrt_tpu/models/ray.py:163"),
     ("dense_group", "rwrt_tpu_torch/csrc/dense_run.cu",
@@ -1187,6 +1554,12 @@ KERNELS = (
     ("exact_group", "rwrt_tpu_torch/csrc/exact_run.cu",
      "rwrt_tpu/solvers/rk45.py:302"),
     ("exact_run", "rwrt_tpu_torch/csrc/exact_run.cu",
+     "rwrt_tpu/tracer.py:861"),
+    ("dense_run_mix", "rwrt_tpu_torch/csrc/dense_run_mix.cu",
+     "rwrt_tpu/tracer.py:861"),
+    ("rk4_run_mix", "rwrt_tpu_torch/csrc/rk4_run_mix.cu",
+     "rwrt_tpu/tracer.py:819"),
+    ("exact_run_mix", "rwrt_tpu_torch/csrc/exact_run_mix.cu",
      "rwrt_tpu/tracer.py:861"),
 )
 
@@ -1223,7 +1596,8 @@ def main() -> int:
     for phase in (phase_rhs, phase_dense_group, phase_dense_run,
                   phase_main_path, phase_spectral, phase_rk4,
                   phase_exact_group, phase_exact_run, phase_rk4_path,
-                  phase_exact_path):
+                  phase_exact_path, phase_mixed_dense, phase_mixed_drift,
+                  phase_mixed_rk4, phase_mixed_exact):
         t0 = time.perf_counter()
         phase(run)
         print(f"phase {phase.__name__[6:]} ok in "

@@ -2,6 +2,7 @@
 """Find the lanes of an exact-bound run that reach the max_iters backstop.
 
     python3 exact_backstop.py [--path exact|readme] [--lanes 6]
+                              [--state-dtype compute|float64]
                               [--out DIR (profile_out)]
 
 On one CUDA card, runs ``profile_main_path.py``'s exact run (``exact``: the
@@ -16,7 +17,10 @@ group first) it writes ``DIR/exact_backstop_<path>.npz``: the background's
 winds, the lanes' sources, their carry (y, t, h, f, prev_lon, prev_lat) at
 the entry of that group and its (t, h) at the group's exit, the group's
 bounds and the run's scalars, so that ``backstop_jax.py`` can run the JAX
-package on the same lanes. Imports no JAX.
+package on the same lanes. With ``--state-dtype float64`` the run is in
+mixed precision (a float64 state, t and h over the float32 background) and
+the file is ``exact_backstop_<path>_float64.npz``; where no lane reaches
+the backstop, it says so and writes nothing. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=("exact", "readme"), default="exact")
     ap.add_argument("--lanes", type=int, default=6)
+    ap.add_argument("--state-dtype", choices=("compute", "float64"),
+                    default="compute")
     ap.add_argument("--out", type=Path, default=Path("profile_out"))
     args = ap.parse_args()
 
@@ -54,7 +60,8 @@ def main() -> int:
     run = cs.Run(torch, rt)
     cfg = pmp.config(rt, args.path)
     matrix = cfg if args.path == "readme" else None
-    _, run_args, _, idx = run.run_inputs(torch.float32, cfg, matrix)
+    state = torch.float64 if args.state_dtype == "float64" else None
+    _, run_args, _, idx = run.run_inputs(torch.float32, cfg, matrix, state)
     if idx is None:
         idx = np.arange(run_args[1].shape[1])
     out = tracer._exact_run(*run_args, max_iters=cs.MAX_ITERS)
@@ -63,10 +70,15 @@ def main() -> int:
     first = capped[:, stuck].argmax(axis=0)
     order = np.lexsort((stuck, first))
     stuck, first = stuck[order], first[order]
-    print(f"path {args.path}: {out.lane_att.shape[1]} lanes, "
+    print(f"path {args.path}, state {run_args[1].dtype}: "
+          f"{out.lane_att.shape[1]} lanes, "
           f"{out.lane_att.shape[0]} groups of {run_args[6].shape[1]} bounds; "
           f"{int(out.trunc.sum())} truncated lane-groups; {stuck.size} lanes "
-          f"reach the {cs.MAX_ITERS:,}-trip backstop")
+          f"reach the {cs.MAX_ITERS:,}-trip backstop; most trips per group "
+          f"{out.lane_att.amax(dim=1).tolist()}")
+    if stuck.size == 0:
+        print("no lane reaches the backstop: nothing to write")
+        return 0
 
     nsource = (cfg.nsource if matrix is not None else cs.N_SOURCES)
     nzwn = cfg.nzwn
@@ -87,7 +99,7 @@ def main() -> int:
               f"({np.degrees(slon[src[j]]):.4f}E, "
               f"{np.degrees(slat[src[j]]):.4f}N), zwn {zwn[j]:g}): first "
               f"backstop group {first[j]}; at the end t {float(t_end[j])!r} "
-              f"s, h {float(h_end[j])!r} s, float32 spacing at t "
+              f"s, h {float(h_end[j])!r} s, {t_end.dtype} spacing at t "
               f"{float(np.spacing(t_end[j]))!r} s; trips per group "
               f"{att[:, j].tolist()}")
 
@@ -96,8 +108,10 @@ def main() -> int:
     # The carry at the entry of each lane's group g and at its exit: the
     # run cut to its first g and g + 1 groups (lanes are independent, so a
     # cut changes no lane's path).
+    dtypes = [x.cpu().numpy().dtype for x in out.carry]
+    dtypes += dtypes[1:3]
     carry = [np.empty((5, lanes.size) if k in (0, 3) else lanes.size,
-                      np.float32) for k in range(8)]
+                      dtypes[k]) for k in range(8)]
     bounds_g = run_args[6]
     for g in np.unique(groups):
         sel = groups == g
@@ -111,7 +125,8 @@ def main() -> int:
                          else ((6, got[1]), (7, got[2]))):
                 carry[k][..., sel] = x
     args.out.mkdir(parents=True, exist_ok=True)
-    path = args.out / f"exact_backstop_{args.path}.npz"
+    tag = args.path + ("_float64" if state is not None else "")
+    path = args.out / f"exact_backstop_{tag}.npz"
     np.savez(
         path, u=run.u, v=run.v, lat=run.lat, lon=run.lon, lane=lanes,
         ray=ray[keep], root=root[keep], source_lon=slon[src[keep]],

@@ -2,6 +2,7 @@
 """Time the RK4 and exact kernels' instances against each other on one card.
 
     python3 profile_instances.py [--parts report,sweep,tiled,stall]
+                                 [--parent DIR]
 
 The instances (``kernels.INSTANCES``, ``csrc/ray_rhs.cuh``) run in turns
 (chip_smoke's ``TURNS``) on the same inputs, each bitwise equal to Lane's
@@ -9,14 +10,22 @@ output there, with the launcher's choice (``tracer.rk4_instance``,
 ``rk45.exact_instance``) and its time over Lane's printed beside them.
 All runs use chip_smoke.py's climatology background. Parts:
 
-  report  each RHS, RK4 and exact kernel instance's registers and spills
+  report  each RHS, RK4, exact and dense kernel instance's registers and spills
           (the build's ``-Xptxas -v`` report in ``nvcc.log``) and SASS
           instruction counts (``cuobjdump -sass``, where the toolkit has
           it): all, and the loads, shared loads and stores, shuffles and
-          special-function (MUFU) instructions among them
+          special-function (MUFU) instructions among them; with
+          ``--parent DIR`` (a checkout of another commit, as ``git archive``
+          unpacks it) also that checkout's kernels, built there, and for
+          each kernel of both whether its SASS is the same instruction for
+          instruction (a one-type instance ``<T, T, ...>`` is read as the
+          older ``<T, ...>``)
   sweep   the first R lanes of the production seeding's entry state, R over
-          SWEEP_LANES, float32 and float64: RK4 over SWEEP_STEPS steps and
-          the first 16-bound exact group
+          SWEEP_LANES, float32, float64 and mixed precision (a float64
+          state over the float32 background): RK4 over SWEEP_STEPS steps
+          and the first 16-bound exact group (in mixed precision the
+          whole-run kernel over that one group: the single-group kernel
+          has no mixed instance)
   tiled   the default source matrix's 4,288 lanes repeated to R lanes, R
           over TILED_LANES, float32: the whole ``RunConfig()`` RK4 run
           (1,080 steps) and the README exact run cut to README_DAYS days
@@ -59,6 +68,51 @@ def demangle(names):
     return dict(zip(names, short))
 
 
+def sass_of(lib):
+    """Each kernel's SASS instructions (``cuobjdump -sass``), by mangled
+    name; empty where the toolkit has no cuobjdump."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(cuobjdump).is_file():
+        return {}
+    text = subprocess.run([cuobjdump, "-sass", str(lib)],
+                          capture_output=True, text=True).stdout
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = []
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if m and fn:
+            out[fn].append(m.group(1))
+    return out
+
+
+def compare_parent(lib, parent):
+    """Build the kernels of the checkout ``parent`` there and print, for
+    each kernel of both libraries, whether its SASS is the same."""
+    built = subprocess.run(
+        [sys.executable, "-c", "from rwrt_tpu_torch.kernels import build; "
+         "print(build.build())"], cwd=parent, capture_output=True,
+        text=True, check=True).stdout.strip().splitlines()[-1]
+
+    def by_name(path):
+        code = sass_of(path)
+        pretty = demangle(list(code))
+        # A one-type instance <T, T, ...> is the older <T, ...>.
+        return {re.sub(r"<(float|double), \1", r"<\1", pretty[n]): c
+                for n, c in code.items()}
+
+    old, new = by_name(built), by_name(lib)
+    for n in sorted(set(old) & set(new)):
+        same = old[n] == new[n]
+        print(f"SASS {n}: parent {len(old[n])} instructions, this tree "
+              f"{len(new[n])}, {'the same' if same else 'different'}")
+    print(f"SASS: only in this tree {sorted(set(new) - set(old))}; only in "
+          f"the parent {sorted(set(old) - set(new))}")
+
+
 def part_report(run):
     from rwrt_tpu_torch.kernels import build
 
@@ -77,27 +131,15 @@ def part_report(run):
         if m and name:
             regs.setdefault(name, {})["regs"] = int(m.group(1))
     sass = {}
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if Path(cuobjdump).is_file():
-        text = subprocess.run([cuobjdump, "-sass", str(lib)],
-                              capture_output=True, text=True).stdout
-        fn = None
-        for line in text.splitlines():
-            m = re.search(r"Function : (\S+)", line)
-            if m:
-                fn = m.group(1)
-                sass[fn] = {}
-                continue
-            m = re.match(
-                r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)", line)
-            if m and fn:
-                op = m.group(1).split(".")[0]
-                counts = sass[fn]
-                counts["all"] = counts.get("all", 0) + 1
-                if op in ("LDG", "LDS", "STS", "SHFL", "MUFU"):
-                    counts[op] = counts.get(op, 0) + 1
+    for fn, code in sass_of(lib).items():
+        counts = sass[fn] = {"all": len(code)}
+        for ins in code:
+            op = re.sub(r"^@!?U?P\w+\s+", "", ins).split(" ")[0]
+            op = op.split(".")[0]
+            if op in ("LDG", "LDS", "STS", "SHFL", "MUFU"):
+                counts[op] = counts.get(op, 0) + 1
     names = sorted(n for n in set(regs) | set(sass)
-                   if re.search(r"(rk4|exact|rhs)_kernel", n))
+                   if re.search(r"(rk4|exact|rhs|dense)_kernel", n))
     pretty = demangle(names)
     for n in names:
         r, c = regs.get(n, {}), sass.get(n, {})
@@ -106,6 +148,8 @@ def part_report(run):
               + (", ".join(f"{k} {c.get(k, 0)}" for k in
                            ("all", "LDG", "LDS", "STS", "SHFL", "MUFU"))
                  if c else "not available"))
+    if run.parent is not None:
+        compare_parent(lib, run.parent)
 
 
 def same_all(out, ref, names=None):
@@ -124,11 +168,14 @@ def part_sweep(run):
 
     cfg = cs.production_config(run.rt, bound_mode="exact", pin_limit=None,
                                interval_batch=16)
-    for dtype in (torch.float32, torch.float64):
-        bg, args, _, _ = run.run_inputs(dtype, cfg)
+    f32, f64 = torch.float32, torch.float64
+    for name, dtype, state in (("float32", f32, None),
+                               ("float64", f64, None),
+                               ("mixed", f32, f64)):
+        bg, args, _, _ = run.run_inputs(dtype, cfg, state=state)
         _, y0, ug0, vg0, h0, f0, bounds_g, _, cut_off, rtol, atol, mstep = args
-        dt = rk45.as_scalar(cfg.tstep, dtype)
-        name = str(dtype)[6:]
+        key = (y0.dtype, dtype)
+        dt = rk45.as_scalar(cfg.tstep, y0.dtype)
         for r in SWEEP_LANES:
             y, ug, vg, h, f = (x[..., :r].contiguous()
                                for x in (y0, ug0, vg0, h0, f0))
@@ -137,7 +184,20 @@ def part_sweep(run):
             tag = f"sweep rk4 {name} R={r}"
             cs.in_turns(run, tag, lambda n: tracer._run_rk4_cuda(*rk, n), 3,
                         lambda out: same_all(out, ref))
-            cs.print_choice(run, tag, tracer.rk4_instance(r, dtype), False)
+            cs.print_choice(run, tag, tracer.rk4_instance(r, key), False)
+            if state is not None:
+                one = (bg, y, ug, vg, h, f, bounds_g[:1], bounds_g.shape[1],
+                       cut_off, rtol, atol, mstep)
+
+                def launch(inst):
+                    return tracer._exact_run_cuda(*one, instance=inst)
+
+                gref = launch("lane")
+                tag = f"sweep exact_run one group {name} R={r}"
+                cs.in_turns(run, tag, launch, 3, lambda out: same_all(
+                    out, gref, ("ys", "ugs", "vgs", "lane_att")))
+                cs.print_choice(run, tag, rk45.exact_instance(r, key), False)
+                continue
             carry = (y, torch.zeros_like(h), h, f, y[0].clone(), y[1].clone())
             tail = (bounds_g[0], *carry[4:], cut_off, rtol, atol, mstep)
 
@@ -227,6 +287,7 @@ PARTS = {"report": part_report, "sweep": part_sweep, "tiled": part_tiled,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parts", default=",".join(PARTS))
+    ap.add_argument("--parent", type=Path, default=None)
     args = ap.parse_args()
     parts = args.parts.split(",")
     unknown = set(parts) - set(PARTS)
@@ -246,6 +307,7 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip())
     torch.backends.cuda.matmul.allow_tf32 = False
     run = cs.Run(torch, rt)
+    run.parent = args.parent
     for p in parts:
         PARTS[p](run)
         print(f"part {p} done", flush=True)

@@ -2,6 +2,7 @@
 """Time and profile the PyTorch/CUDA port's production run on one CUDA card.
 
     python3 profile_main_path.py [--path dense|rk4|exact|readme]
+                                 [--state-dtype compute|float64]
                                  [--warmup 1] [--runs 5]
                                  [--out DIR (profile_out)]
 
@@ -10,8 +11,10 @@ through ``rwrt_tpu_torch.trace_rays`` with one of three integrators:
 ``dense`` (the production run: dense RK45, pin (500, 0), interval_batch
 60), ``rk4`` (fixed-step RK4) or ``exact`` (exact-bound RK45,
 interval_batch 16, no pin); or, with ``readme``, the README's Usage run
-(the default 6,615-ray source matrix, 90 days, exact-bound RK45). One
-warm-up run (``--warmup 0`` skips it), then ``--runs`` timed runs (host
+(the default 6,615-ray source matrix, 90 days, exact-bound RK45). With
+``--state-dtype float64`` the run is in mixed precision (a float64 state
+over the float32 background: the whole-run kernels' ``_mix`` instances).
+One warm-up run (``--warmup 0`` skips it), then ``--runs`` timed runs (host
 wall to a device synchronize), then one run under ``torch.profiler``. Prints the card (``nvidia-smi`` name and power limit),
 each wall, the peak device memory, the device span, kernel-busy time and
 kernel count of the profiled run (so the device's idle share), the
@@ -20,13 +23,15 @@ trips and step attempts and the longest lane's trips over all groups (from
 ``trace_rays``' ``stats``), whether the run hit the max_iters backstop
 (``MaxItersTruncation``: then the run is refused and reported as such),
 and the profiler's top operators; the full operator table goes to
-``DIR/profile_main_path_<path>.txt``. The profiler inflates the host side, so the
+``DIR/profile_main_path_<path>.txt`` (``_<path>_float64.txt`` in mixed
+precision). The profiler inflates the host side, so the
 profiled run's span is longer than an untraced run's wall. Imports no JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import statistics
 import subprocess
 import sys
@@ -53,6 +58,8 @@ def config(rt, path):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=sorted(KERNEL), default="dense")
+    ap.add_argument("--state-dtype", choices=("compute", "float64"),
+                    default="compute")
     ap.add_argument("--warmup", type=int, default=1)
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--out", type=Path, default=Path("profile_out"))
@@ -71,7 +78,8 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
     run = cs.Run(torch, rt)
-    cfg = config(rt, args.path)
+    cfg = dataclasses.replace(config(rt, args.path),
+                              state_dtype=args.state_dtype)
     print(f"path {args.path}: {cfg}")
     bs = run.bs(torch.float32)
 
@@ -123,7 +131,8 @@ def main() -> int:
         else "self_cuda_time_total")
     table = prof.key_averages().table(sort_by=key, row_limit=60)
     args.out.mkdir(parents=True, exist_ok=True)
-    (args.out / f"profile_main_path_{args.path}.txt").write_text(table)
+    tag = args.path + ("_float64" if args.state_dtype == "float64" else "")
+    (args.out / f"profile_main_path_{tag}.txt").write_text(table)
     print("\n".join(prof.key_averages().table(
         sort_by=key, row_limit=12).splitlines()[:16]))
     return 0

@@ -49,7 +49,7 @@ def background_from_numpy(d: Mapping, *, device="cuda",
     if d.get("member_ids") is not None and np.asarray(
             d["member_ids"]).ndim > 0:
         raise NotImplementedError("ensemble backgrounds are not ported yet "
-                                  "(ROADMAP Queue 1 item 14)")
+                                  "(ROADMAP Queue 1 item 13)")
     dtype = as_dtype(np.asarray(d["fields"]).dtype if dtype is None
                      else dtype)
     scalars = {k: as_scalar(np.asarray(d[k], np.float64), dtype)

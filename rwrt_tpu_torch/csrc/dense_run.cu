@@ -66,6 +66,16 @@
 // The Dormand-Prince stages, error norm and step factors are dp45.cuh's,
 // shared with the exact kernels (exact_run.cu).
 //
+// Types: the state S (y, t, h, the controller, the emitted rows, the kill
+// cascade, (ug, vg)) and the background F (the RHS, the stages k, the FSAL
+// carry f): dense_kernel<T, T, kRun> is the one-type kernel;
+// dense_kernel<double, float, true> the mixed-precision whole run (the
+// _mix entry point, compiled in dense_run_mix.cu; the single group has no
+// mixed instance). The Dormand-Prince casts are dp45.cuh's; the dense
+// interpolant runs in S, its weights b_i(theta) times the widened stages,
+// summed in S, as the JAX package's promotion has it; the post-pass's
+// (ug, vg) are group_velocity_at<S, F> at the S rows.
+//
 // Rounding: built with -fmad=false (kernels/build.py), so each expression
 // rounds as the plain version's separate tensor ops do; with FMA
 // contraction the one-ulp differences were amplified by the error
@@ -84,46 +94,46 @@ namespace {
 using rwrt::dp45::nan_max;
 using rwrt::dp45::nan_min;
 
-template <typename T>
+template <typename S, typename F>
 struct DenseArgs {
-  rwrt::Background<T> bg;
+  rwrt::Background<F> bg;
   // Carry, (5, R) / (R,): read at entry, written at exit. The whole run
   // enters with t = 0.
-  T* y;
-  T* t;
-  T* h;
-  T* f;
+  S* y;
+  S* t;
+  S* h;
+  F* f;
   bool* rejected;  // single group: the controller flags at exit
   bool* new_step;
   int* lane_att;   // (n_groups, R): step attempts per group
   // Single group: (G, 5, R). Whole run: (n_groups * G + 1, 5, R), row 0
   // the entry state, row 1 + g * G + b bound b of group g.
-  T* hist;
-  const T* bounds;  // (n_groups, G), non-decreasing within a group
+  S* hist;
+  const S* bounds;  // (n_groups, G), non-decreasing within a group
   int G;
   int n_groups;
   int R;
-  T rtol, atol, min_step;
+  S rtol, atol, min_step;
   long long max_iters, pin_limit;
-  T pin_mwn;
+  S pin_mwn;
   // Whole run only: row 0 of (ug, vg); the (n_groups * G + 1, R) (ug, vg)
   // rows; the truncation count per lane; the cascade's last alive position
   // at exit; the haversine kill threshold.
-  const T* ug0;
-  const T* vg0;
-  T* ugs;
-  T* vgs;
+  const S* ug0;
+  const S* vg0;
+  S* ugs;
+  S* vgs;
   int* trunc;
-  T* plon;
-  T* plat;
-  T cut_off;
+  S* plon;
+  S* plat;
+  S cut_off;
 };
 
-template <typename T, bool kRun>
+template <typename S, typename F, bool kRun>
 __global__ void __launch_bounds__(128)
-dense_kernel(const DenseArgs<T> a) {
+dense_kernel(const DenseArgs<S, F> a) {
   // The dense-output quartic (solvers/rk45.py DP_P), double literals
-  // rounded to T where used. A local constexpr array, so the unrolled loops
+  // rounded to S where used. A local constexpr array, so the unrolled loops
   // index it at compile time.
   constexpr double kP[7][4] = {
       {1.0, -8048581381.0 / 2820520608, 8663915743.0 / 2820520608,
@@ -145,23 +155,24 @@ dense_kernel(const DenseArgs<T> a) {
   if (i >= a.R) return;
   const long long RL = a.R;
   const int G = a.G;
-  const T nan = rwrt::nan_value<T>();
+  const S nan = rwrt::nan_value<S>();
 
-  T yl[5], fl[5];
+  S yl[5];
+  F fl[5];
 #pragma unroll
   for (int v = 0; v < 5; ++v) {
     yl[v] = a.y[v * RL + i];
     fl[v] = a.f[v * RL + i];
   }
-  T tl = a.t[i];
-  T hl = a.h[i];
+  S tl = a.t[i];
+  S hl = a.h[i];
   bool rej = false;
   bool ns = true;
 
   // Kill-cascade state of the whole run: the lane's last alive emitted
   // position, and whether it is alive in the current group.
-  T plon = yl[0];
-  T plat = yl[1];
+  S plon = yl[0];
+  S plat = yl[1];
   bool alive = true;
   int trunc = 0;
   if constexpr (kRun) {
@@ -174,23 +185,23 @@ dense_kernel(const DenseArgs<T> a) {
   // The current group g (-1 before the first): its bounds, final time,
   // first output row, entry freeze, next bound to emit, and attempts.
   int g = -1;
-  const T* bounds = a.bounds;
-  T t_end = tl;  // no trip before the first group opens
+  const S* bounds = a.bounds;
+  S t_end = tl;  // no trip before the first group opens
   long long row0 = 0;
   bool frozen = false;
   int nb = 0;
   int att = 0;
-  auto store = [&](int b, const T row[5]) {
+  auto store = [&](int b, const S row[5]) {
 #pragma unroll
     for (int v = 0; v < 5; ++v) a.hist[((row0 + b) * 5 + v) * RL + i] = row[v];
   };
   // A NaN row: an unreached bound, or one the cascade killed.
   auto store_dead = [&](int b) {
-    const T row[5] = {nan, nan, nan, nan, nan};
+    const S row[5] = {nan, nan, nan, nan, nan};
     store(b, row);
     if constexpr (kRun) alive = false;
   };
-  const T floor_thr = a.min_step * T(1.0 + 1e-6);
+  const S floor_thr = a.min_step * S(1.0 + 1e-6);
 
   // ONE loop over the trips and the group changes, so the lanes of a warp
   // that are stepping run each trip together, whichever group each is in
@@ -221,7 +232,7 @@ dense_kernel(const DenseArgs<T> a) {
       row0 = kRun ? 1 + static_cast<long long>(g) * G : 0;
       // Entry state: any NaN component (isnan(mean(y))) freezes the lane
       // at its entry state for every bound, outside the cascade.
-      frozen = isnan((yl[0] + yl[1] + yl[2] + yl[3] + yl[4]) / T(5));
+      frozen = isnan((yl[0] + yl[1] + yl[2] + yl[3] + yl[4]) / S(5));
       alive = !frozen;
       if (frozen) {
         for (int b = 0; b < G; ++b) store(b, yl);
@@ -239,52 +250,55 @@ dense_kernel(const DenseArgs<T> a) {
       }
     } else {
       // One trip of group g.
-      const T heff = ns ? nan_max(hl, a.min_step) : hl;
-      const T t_new = nan_min(tl + heff, t_end);
-      const T hs = t_new - tl;
+      const S heff = ns ? nan_max(hl, a.min_step) : hl;
+      const S t_new = nan_min(tl + heff, t_end);
+      const S hs = t_new - tl;
 
-      T k[7][5];
+      F k[7][5];
 #pragma unroll
       for (int v = 0; v < 5; ++v) k[0][v] = fl[v];
-      T y_new[5];
+      S y_new[5];
       rwrt::dp45::trial(a.bg, yl, hs, k, y_new);
       bool e;
-      rwrt::ray_rhs(a.bg, y_new, k[6], &e);
-      const T error_norm =
+      F y7[5];
+#pragma unroll
+      for (int v = 0; v < 5; ++v) y7[v] = F(y_new[v]);
+      rwrt::ray_rhs(a.bg, y7, k[6], &e);
+      const S error_norm =
           rwrt::dp45::error_norm(k, hs, yl, y_new, a.atol, a.rtol);
 
       const bool nan_err = isnan(error_norm);
       const bool dead_now = isnan(yl[0]);
       const bool at_floor = hs <= a.min_step;
       const bool accept =
-          nan_err ? (dead_now || at_floor) : (error_norm < T(1));
-      T fac_acc, fac_rej;
+          nan_err ? (dead_now || at_floor) : (error_norm < S(1));
+      S fac_acc, fac_rej;
       rwrt::dp45::step_factors(error_norm, rej, &fac_acc, &fac_rej);
-      if (nan_err) fac_acc = T(1);
-      if (nan_err) fac_rej = T(rwrt::dp45::kMinFactor);
-      const T h_next = accept ? hs * fac_acc : hs * fac_rej;
+      if (nan_err) fac_acc = S(1);
+      if (nan_err) fac_rej = S(rwrt::dp45::kMinFactor);
+      const S h_next = accept ? hs * fac_acc : hs * fac_rej;
 
       if (accept) {
         // Dense emission: every bound in (t, t_new] from the quartic
         // interpolant of this step's stages.
-        const T hden = (hs == T(0)) ? T(1) : hs;
+        const S hden = (hs == S(0)) ? S(1) : hs;
         while (nb < G) {
-          const T bnd = __ldg(bounds + nb);
+          const S bnd = __ldg(bounds + nb);
           if (!(bnd <= t_new)) break;
-          const T th = (bnd - tl) / hden;
-          T bp[7];
+          const S th = (bnd - tl) / hden;
+          S bp[7];
 #pragma unroll
           for (int q = 0; q < 7; ++q) {
-            bp[q] = th * (T(kP[q][0]) +
-                          th * (T(kP[q][1]) +
-                                th * (T(kP[q][2]) + th * T(kP[q][3]))));
+            bp[q] = th * (S(kP[q][0]) +
+                          th * (S(kP[q][1]) +
+                                th * (S(kP[q][2]) + th * S(kP[q][3]))));
           }
-          T row[5];
+          S row[5];
 #pragma unroll
           for (int v = 0; v < 5; ++v) {
-            T acc = bp[0] * k[0][v];
+            S acc = bp[0] * S(k[0][v]);
 #pragma unroll
-            for (int q = 1; q < 7; ++q) acc = acc + bp[q] * k[q][v];
+            for (int q = 1; q < 7; ++q) acc = acc + bp[q] * S(k[q][v]);
             row[v] = yl[v] + hs * acc;
           }
           if constexpr (kRun) {
@@ -304,10 +318,10 @@ dense_kernel(const DenseArgs<T> a) {
         }
       }
 
-      T y_out[5];
+      S y_out[5];
 #pragma unroll
       for (int v = 0; v < 5; ++v) y_out[v] = accept ? y_new[v] : yl[v];
-      T t_out = accept ? t_new : tl;
+      S t_out = accept ? t_new : tl;
 
       // Straggler pin-kill: accepted steps and rejections at the step floor.
       att += 1;
@@ -349,10 +363,10 @@ dense_kernel(const DenseArgs<T> a) {
     // (neighbouring lanes, neighbouring addresses).
     const long long rows = static_cast<long long>(a.n_groups) * G;
     for (long long r = 1; r <= rows; ++r) {
-      T row[5];
+      S row[5];
 #pragma unroll
       for (int v = 0; v < 5; ++v) row[v] = a.hist[(r * 5 + v) * RL + i];
-      T ug, vg;
+      S ug, vg;
       rwrt::group_velocity_at(a.bg, row, &ug, &vg);
       a.ugs[r * RL + i] = ug;
       a.vgs[r * RL + i] = vg;
@@ -366,42 +380,42 @@ dense_kernel(const DenseArgs<T> a) {
   }
 }
 
-template <typename T, bool kRun>
-int launch_dense(const DenseArgs<T>& a, cudaStream_t stream) {
+template <typename S, typename F, bool kRun>
+int launch_dense(const DenseArgs<S, F>& a, cudaStream_t stream) {
   if (a.R <= 0 || a.G <= 0 || a.n_groups <= 0) return cudaSuccess;
   const int block = 128;
   const int grid = (a.R + block - 1) / block;
-  dense_kernel<T, kRun><<<grid, block, 0, stream>>>(a);
+  dense_kernel<S, F, kRun><<<grid, block, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-DenseArgs<T> dense_args(const void* packed, int W, int H, double lon0,
-                        double lat0, double dx, double dy, void* y, void* t,
-                        void* h, void* f, void* lane_att, void* hist,
-                        const void* bounds, int G, int n_groups, int R,
-                        double rtol, double atol, double min_step,
-                        long long max_iters, long long pin_limit,
-                        double pin_mwn) {
-  DenseArgs<T> a{};
-  a.bg = rwrt::Background<T>{static_cast<const T*>(packed), W, H, T(lon0),
-                             T(lat0), T(dx), T(dy)};
-  a.y = static_cast<T*>(y);
-  a.t = static_cast<T*>(t);
-  a.h = static_cast<T*>(h);
-  a.f = static_cast<T*>(f);
+template <typename S, typename F>
+DenseArgs<S, F> dense_args(const void* packed, int W, int H, double lon0,
+                           double lat0, double dx, double dy, void* y,
+                           void* t, void* h, void* f, void* lane_att,
+                           void* hist, const void* bounds, int G,
+                           int n_groups, int R, double rtol, double atol,
+                           double min_step, long long max_iters,
+                           long long pin_limit, double pin_mwn) {
+  DenseArgs<S, F> a{};
+  a.bg = rwrt::Background<F>{static_cast<const F*>(packed), W, H, F(lon0),
+                             F(lat0), F(dx), F(dy)};
+  a.y = static_cast<S*>(y);
+  a.t = static_cast<S*>(t);
+  a.h = static_cast<S*>(h);
+  a.f = static_cast<F*>(f);
   a.lane_att = static_cast<int*>(lane_att);
-  a.hist = static_cast<T*>(hist);
-  a.bounds = static_cast<const T*>(bounds);
+  a.hist = static_cast<S*>(hist);
+  a.bounds = static_cast<const S*>(bounds);
   a.G = G;
   a.n_groups = n_groups;
   a.R = R;
-  a.rtol = T(rtol);
-  a.atol = T(atol);
-  a.min_step = T(min_step);
+  a.rtol = S(rtol);
+  a.atol = S(atol);
+  a.min_step = S(min_step);
   a.max_iters = max_iters;
   a.pin_limit = pin_limit;
-  a.pin_mwn = T(pin_mwn);
+  a.pin_mwn = S(pin_mwn);
   return a;
 }
 
@@ -409,21 +423,25 @@ DenseArgs<T> dense_args(const void* packed, int W, int H, double lon0,
 
 extern "C" {
 
-#define RWRT_DENSE(SUFFIX, T)                                                \
+// The single group, one type T.
+#define RWRT_DENSE_GROUP(SUFFIX, T)                                          \
   int rwrt_dense_group_##SUFFIX(                                             \
       const void* packed, int W, int H, double lon0, double lat0, double dx, \
       double dy, void* y, void* t, void* h, void* f, void* rejected,         \
       void* new_step, void* lane_att, void* hist, const void* bounds, int G, \
       int R, double rtol, double atol, double min_step, long long max_iters, \
       long long pin_limit, double pin_mwn, void* stream) {                   \
-    DenseArgs<T> a = dense_args<T>(packed, W, H, lon0, lat0, dx, dy, y, t,   \
-                                   h, f, lane_att, hist, bounds, G, 1, R,    \
-                                   rtol, atol, min_step, max_iters,          \
-                                   pin_limit, pin_mwn);                      \
+    DenseArgs<T, T> a = dense_args<T, T>(                                    \
+        packed, W, H, lon0, lat0, dx, dy, y, t, h, f, lane_att, hist,        \
+        bounds, G, 1, R, rtol, atol, min_step, max_iters, pin_limit,         \
+        pin_mwn);                                                            \
     a.rejected = static_cast<bool*>(rejected);                               \
     a.new_step = static_cast<bool*>(new_step);                               \
-    return launch_dense<T, false>(a, static_cast<cudaStream_t>(stream));     \
-  }                                                                          \
+    return launch_dense<T, T, false>(a, static_cast<cudaStream_t>(stream));  \
+  }
+
+// The whole run, state type S over background type F.
+#define RWRT_DENSE_RUN(SUFFIX, S, F)                                         \
   int rwrt_dense_run_##SUFFIX(                                               \
       const void* packed, int W, int H, double lon0, double lat0, double dx, \
       double dy, void* y, void* t, void* h, void* f, const void* ug0,        \
@@ -432,24 +450,34 @@ extern "C" {
       int n_groups, int R, double cut_off, double rtol, double atol,         \
       double min_step, long long max_iters, long long pin_limit,             \
       double pin_mwn, void* stream) {                                        \
-    DenseArgs<T> a = dense_args<T>(packed, W, H, lon0, lat0, dx, dy, y, t,   \
-                                   h, f, lane_att, hist, bounds, G,          \
-                                   n_groups, R, rtol, atol, min_step,        \
-                                   max_iters, pin_limit, pin_mwn);           \
-    a.ug0 = static_cast<const T*>(ug0);                                      \
-    a.vg0 = static_cast<const T*>(vg0);                                      \
-    a.ugs = static_cast<T*>(ugs);                                            \
-    a.vgs = static_cast<T*>(vgs);                                            \
+    DenseArgs<S, F> a = dense_args<S, F>(                                    \
+        packed, W, H, lon0, lat0, dx, dy, y, t, h, f, lane_att, hist,        \
+        bounds, G, n_groups, R, rtol, atol, min_step, max_iters, pin_limit,  \
+        pin_mwn);                                                            \
+    a.ug0 = static_cast<const S*>(ug0);                                      \
+    a.vg0 = static_cast<const S*>(vg0);                                      \
+    a.ugs = static_cast<S*>(ugs);                                            \
+    a.vgs = static_cast<S*>(vgs);                                            \
     a.trunc = static_cast<int*>(trunc);                                      \
-    a.plon = static_cast<T*>(plon);                                          \
-    a.plat = static_cast<T*>(plat);                                          \
-    a.cut_off = T(cut_off);                                                  \
-    return launch_dense<T, true>(a, static_cast<cudaStream_t>(stream));      \
+    a.plon = static_cast<S*>(plon);                                          \
+    a.plat = static_cast<S*>(plat);                                          \
+    a.cut_off = S(cut_off);                                                  \
+    return launch_dense<S, F, true>(a, static_cast<cudaStream_t>(stream));   \
   }
 
-RWRT_DENSE(f32, float)
-RWRT_DENSE(f64, double)
+// The one-type entry points here; the mixed whole run in its own unit
+// (dense_run_mix.cu includes this file), so that the two compile in
+// parallel.
+#ifndef RWRT_DENSE_MIX
+RWRT_DENSE_GROUP(f32, float)
+RWRT_DENSE_GROUP(f64, double)
+RWRT_DENSE_RUN(f32, float, float)
+RWRT_DENSE_RUN(f64, double, double)
+#else
+RWRT_DENSE_RUN(mix, double, float)
+#endif
 
-#undef RWRT_DENSE
+#undef RWRT_DENSE_GROUP
+#undef RWRT_DENSE_RUN
 
 }  // extern "C"

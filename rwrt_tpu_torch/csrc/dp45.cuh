@@ -8,8 +8,16 @@
 //
 // The tableau lives in local constexpr arrays of each function, so the
 // unrolled loops index it at compile time (a namespace-scope host array is
-// not readable in device code); double literals are rounded to T where
-// used, as the JAX package's weakly typed constants are.
+// not readable in device code); double literals are rounded to the type of
+// the operand they meet, as the JAX package's weakly typed constants are.
+//
+// Types: S is the state's (y, t, h, the step products, the error norm and
+// the controller), F the background's (the stages k and the sums of
+// tableau coefficients times stages). In mixed precision (S double, F
+// float) each stage sum is taken in F, widened and multiplied by the S
+// step, and each stage input is rounded to F for the RHS, exactly where
+// the JAX package's type promotion puts the casts; with S == F every cast
+// is the identity.
 #pragma once
 
 #include "ray_rhs.cuh"
@@ -35,9 +43,9 @@ __device__ __forceinline__ T nan_min(T a, T b) {
 // Stages 2-6 of a trial step of size hs from y, given the FSAL stage in
 // k[0]: fills k[1..5] and the 5th-order proposal y_new. I is the
 // evaluation's instance (ray_rhs.cuh).
-template <typename T, class I = Lane>
-__device__ __forceinline__ void trial(const Background<T>& bg, const T y[5],
-                                      T hs, T k[7][5], T y_new[5]) {
+template <typename S, typename F, class I = Lane>
+__device__ __forceinline__ void trial(const Background<F>& bg, const S y[5],
+                                      S hs, F k[7][5], S y_new[5]) {
   constexpr double kA[6][5] = {
       {0.0, 0.0, 0.0, 0.0, 0.0},
       {1.0 / 5, 0.0, 0.0, 0.0, 0.0},
@@ -52,53 +60,53 @@ __device__ __forceinline__ void trial(const Background<T>& bg, const T y[5],
   bool e;
 #pragma unroll
   for (int s = 1; s < 6; ++s) {
-    T ys[5];
+    F ys[5];
 #pragma unroll
     for (int v = 0; v < 5; ++v) {
-      T acc = T(0);
+      F acc = F(0);
       bool first = true;
 #pragma unroll
       for (int j = 0; j < s; ++j) {
         if (kA[s][j] != 0.0) {
-          T term = T(kA[s][j]) * k[j][v];
+          F term = F(kA[s][j]) * k[j][v];
           acc = first ? term : acc + term;
           first = false;
         }
       }
-      ys[v] = y[v] + hs * acc;
+      ys[v] = F(y[v] + hs * S(acc));
     }
-    ray_rhs<T, I>(bg, ys, k[s], &e);
+    ray_rhs<F, I>(bg, ys, k[s], &e);
   }
 #pragma unroll
   for (int v = 0; v < 5; ++v) {
-    T acc = T(kB[0]) * k[0][v];
+    F acc = F(kB[0]) * k[0][v];
 #pragma unroll
-    for (int j = 1; j < 6; ++j) acc = acc + T(kB[j]) * k[j][v];
-    y_new[v] = y[v] + hs * acc;
+    for (int j = 1; j < 6; ++j) acc = acc + F(kB[j]) * k[j][v];
+    y_new[v] = y[v] + hs * S(acc);
   }
 }
 
 // sqrt(mean over the 5 rows of (err / scale)^2), err = hs * sum(E k) over
-// the 7 stages, scale = atol + max(|y|, |y_new|) * rtol; squares summed in
-// row order.
-template <typename T>
-__device__ __forceinline__ T error_norm(const T k[7][5], T hs, const T y[5],
-                                        const T y_new[5], T atol, T rtol) {
+// the 7 stages (the sum in F), scale = atol + max(|y|, |y_new|) * rtol;
+// squares summed in row order.
+template <typename S, typename F>
+__device__ __forceinline__ S error_norm(const F k[7][5], S hs, const S y[5],
+                                        const S y_new[5], S atol, S rtol) {
   constexpr double kE[7] = {-71.0 / 57600,  0.0,         71.0 / 16695,
                             -71.0 / 1920,   17253.0 / 339200,
                             -22.0 / 525,    1.0 / 40};
-  T sq = T(0);
+  S sq = S(0);
 #pragma unroll
   for (int v = 0; v < 5; ++v) {
-    T acc = T(kE[0]) * k[0][v];
+    F acc = F(kE[0]) * k[0][v];
 #pragma unroll
-    for (int j = 1; j < 7; ++j) acc = acc + T(kE[j]) * k[j][v];
-    const T err = hs * acc;
-    const T scale = atol + nan_max(fabs(y[v]), fabs(y_new[v])) * rtol;
-    const T x = err / scale;
+    for (int j = 1; j < 7; ++j) acc = acc + F(kE[j]) * k[j][v];
+    const S err = hs * S(acc);
+    const S scale = atol + nan_max(fabs(y[v]), fabs(y_new[v])) * rtol;
+    const S x = err / scale;
     sq = (v == 0) ? x * x : sq + x * x;
   }
-  return sqrt(sq / T(5));
+  return sqrt(sq / S(5));
 }
 
 // The controller's factors on an accepted (fac_acc, at most 1 after a

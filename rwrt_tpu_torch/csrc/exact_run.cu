@@ -65,6 +65,18 @@
 // mode's per-lane branching never splits a team; its first thread writes
 // the rows and the carry.
 //
+// Types: the state S (y, t, h, the controller, the kill test, the rows)
+// and the background F (the RHS, the stages k and the FSAL carry f):
+// exact_kernel<T, T, ...> is the one-type kernel; exact_kernel<double,
+// float, true, kBarrier, I> the mixed-precision whole run (the _mix entry
+// points, compiled in exact_run_mix.cu; the single group has no mixed
+// instance). The Dormand-Prince casts are dp45.cuh's. The (ug, vg) of a
+// row are the 7th stage's F sample, widened, as the JAX package's grouped
+// path has them; under kBarrier in mixed precision they are sampled at
+// the saved state in S instead (ray_rhs.cuh group_velocity_at<S, F>), as
+// its barrier path has them (tracer.py _rk45_chunk). With S == F the two
+// are the same values, and the one-type kernels keep the stage's.
+//
 // Rounding: built with -fmad=false (kernels/build.py), so each expression
 // rounds as the plain version's separate tensor ops do.
 //
@@ -74,23 +86,25 @@
 // lanes of its trips.
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "dp45.cuh"
 
 namespace {
 
 using rwrt::dp45::nan_max;
 
-template <typename T>
+template <typename S, typename F>
 struct ExactArgs {
-  rwrt::Background<T> bg;
+  rwrt::Background<F> bg;
   // Carry, (5, R) / (R,): read at entry, written at exit. The whole run
   // enters with t = 0 and takes its last saved position from y.
-  T* y;
-  T* t;
-  T* h;
-  T* f;
-  T* plon;
-  T* plat;
+  S* y;
+  S* t;
+  S* h;
+  F* f;
+  S* plon;
+  S* plat;
   int* lane_att;  // (n_groups, R): step attempts per group
   // Single group: the controller flags, the next bound and the attempts,
   // read at entry on resume; written at exit; and the trips per lane.
@@ -103,40 +117,44 @@ struct ExactArgs {
   // run: hist (n_groups * G + 1, 5, R), row 0 the entry state, row
   // 1 + g * G + b bound b of group g, and (ug, vg) in ugs, vgs
   // (n_groups * G + 1, R).
-  T* hist;
-  T* ugs;
-  T* vgs;
-  const T* ug0;  // whole run: row 0 of (ug, vg)
-  const T* vg0;
+  S* hist;
+  S* ugs;
+  S* vgs;
+  const S* ug0;  // whole run: row 0 of (ug, vg)
+  const S* vg0;
   int* trunc;    // whole run: groups the backstop left the live lane short
-  const T* bounds;  // (n_groups, G), non-decreasing within a group
+  const S* bounds;  // (n_groups, G), non-decreasing within a group
   int G;
   int n_groups;
   int R;
-  T cut_off, rtol, atol, min_step;
+  S cut_off, rtol, atol, min_step;
   long long max_iters;
 };
 
-template <typename T, bool kRun, bool kBarrier, class I>
+template <typename S, typename F, bool kRun, bool kBarrier, class I>
 __global__ void __launch_bounds__(rwrt::kBlock)
-    exact_kernel(const ExactArgs<T> a) {
+    exact_kernel(const ExactArgs<S, F> a) {
   static_assert(kRun || !kBarrier, "barrier semantics are a run's");
+  // The barrier path's mixed-precision (ug, vg): sampled at the saved
+  // state in S (see the head of this file).
+  constexpr bool kGvAtSave = kBarrier && !std::is_same<S, F>::value;
   const int i = (blockIdx.x * blockDim.x + threadIdx.x) / I::kThreads;
   if (i >= a.R) return;
   const bool lead = I::lead();
   const long long RL = a.R;
   const int G = a.G;
-  const T nan = rwrt::nan_value<T>();
+  const S nan = rwrt::nan_value<S>();
 
-  T yl[5], fl[5];
+  S yl[5];
+  F fl[5];
 #pragma unroll
   for (int v = 0; v < 5; ++v) {
     yl[v] = a.y[v * RL + i];
     fl[v] = a.f[v * RL + i];
   }
-  T tl = a.t[i];
-  T hl = a.h[i];
-  T plon, plat;
+  S tl = a.t[i];
+  S hl = a.h[i];
+  S plon, plat;
   if constexpr (kRun) {
     plon = yl[0];
     plat = yl[1];
@@ -155,8 +173,8 @@ __global__ void __launch_bounds__(rwrt::kBlock)
   // lane's next bound idx (G: finished), the next row to save, the
   // controller flags, attempts and trips.
   int g = -1;
-  const T* bounds = a.bounds;
-  T t_end = tl;
+  const S* bounds = a.bounds;
+  S t_end = tl;
   int idx = 0;
   int nb = 0;
   bool rej = false;
@@ -165,7 +183,7 @@ __global__ void __launch_bounds__(rwrt::kBlock)
   int att = 0;
   long long trips = 0;
   int trunc = 0;
-  auto store = [&](int b, const T row[5], T ug, T vg) {
+  auto store = [&](int b, const S row[5], S ug, S vg) {
     if (!lead) return;
     if constexpr (kRun) {
       const long long r = 1 + static_cast<long long>(g) * G + b;
@@ -188,7 +206,7 @@ __global__ void __launch_bounds__(rwrt::kBlock)
         // Close group g: the bounds a live lane never saved stay NaN (the
         // entry state's prefill).
         if (!a.resume) {
-          const T row[5] = {nan, nan, nan, nan, nan};
+          const S row[5] = {nan, nan, nan, nan, nan};
           for (int b = nb; b < G; ++b) store(b, row, nan, nan);
         }
         // Counted after the group: a lane the backstop left short of the
@@ -217,55 +235,65 @@ __global__ void __launch_bounds__(rwrt::kBlock)
         att = 0;
         idx = 0;
         nb = 0;
-        if (isnan((yl[0] + yl[1] + yl[2] + yl[3]) / T(4))) {
+        if (isnan((yl[0] + yl[1] + yl[2] + yl[3]) / S(4))) {
           for (int b = 0; b < G; ++b) store(b, yl, nan, nan);
           idx = nb = G;
           tl = t_end;
         }
       }
       frozen_g =
-          isnan(yl[4]) && !isnan((yl[0] + yl[1] + yl[2] + yl[3]) / T(4));
+          isnan(yl[4]) && !isnan((yl[0] + yl[1] + yl[2] + yl[3]) / S(4));
       continue;
     }
 
     // One trip toward bound idx of group g.
-    const T bound = __ldg(bounds + idx);
+    const S bound = __ldg(bounds + idx);
     // A NaN amp with finite dynamics: walk to the bound, state unchanged,
     // attempts not counted.
     const bool frozen =
         kBarrier ? frozen_g
                  : isnan(yl[4]) &&
-                       !isnan((yl[0] + yl[1] + yl[2] + yl[3]) / T(4));
-    const T heff = ns ? nan_max(hl, a.min_step) : hl;
-    T t_new = tl + heff;
+                       !isnan((yl[0] + yl[1] + yl[2] + yl[3]) / S(4));
+    const S heff = ns ? nan_max(hl, a.min_step) : hl;
+    S t_new = tl + heff;
     if (t_new > bound) t_new = bound;
     if (frozen) t_new = bound;
-    const T hs = t_new - tl;
+    const S hs = t_new - tl;
 
-    T k[7][5];
+    F k[7][5];
 #pragma unroll
     for (int v = 0; v < 5; ++v) k[0][v] = fl[v];
-    T y_new[5];
-    rwrt::dp45::trial<T, I>(a.bg, yl, hs, k, y_new);
+    S y_new[5];
+    rwrt::dp45::trial<S, F, I>(a.bg, yl, hs, k, y_new);
     if (frozen) {
 #pragma unroll
       for (int v = 0; v < 5; ++v) y_new[v] = yl[v];
     }
     // The 7th stage samples the state a crossing saves: its (ug, vg) are
-    // the row's.
+    // the row's (but under kGvAtSave).
     bool e;
-    T ug_new, vg_new;
-    rwrt::ray_rhs<T, I>(a.bg, y_new, k[6], &e, &ug_new, &vg_new);
-    T error_norm = rwrt::dp45::error_norm(k, hs, yl, y_new, a.atol, a.rtol);
-    if (isnan(error_norm)) error_norm = T(0);
+    S ug_new, vg_new;
+    F y7[5];
+#pragma unroll
+    for (int v = 0; v < 5; ++v) y7[v] = F(y_new[v]);
+    if constexpr (kGvAtSave) {
+      rwrt::ray_rhs<F, I>(a.bg, y7, k[6], &e);
+    } else {
+      F ug7, vg7;
+      rwrt::ray_rhs<F, I>(a.bg, y7, k[6], &e, &ug7, &vg7);
+      ug_new = S(ug7);
+      vg_new = S(vg7);
+    }
+    S error_norm = rwrt::dp45::error_norm(k, hs, yl, y_new, a.atol, a.rtol);
+    if (isnan(error_norm)) error_norm = S(0);
 
-    const bool accept = (error_norm < T(1)) || frozen;
-    T fac_acc, fac_rej;
+    const bool accept = (error_norm < S(1)) || frozen;
+    S fac_acc, fac_rej;
     rwrt::dp45::step_factors(error_norm, rej, &fac_acc, &fac_rej);
-    T h_next = accept ? hs * fac_acc : hs * fac_rej;
+    S h_next = accept ? hs * fac_acc : hs * fac_rej;
     if (frozen) h_next = hl;
 
-    T t_out = accept ? t_new : tl;
+    S t_out = accept ? t_new : tl;
     if (isnan(t_out)) t_out = bound;
     if (accept) {
 #pragma unroll
@@ -277,10 +305,16 @@ __global__ void __launch_bounds__(rwrt::kBlock)
     if (accept && t_out >= bound) {
       // Crossing: the kill test against the last saved position; a killed
       // row is NaN (state and (ug, vg)) and so is the carry.
-      if (rwrt::kill_mask(yl, plon, plat, a.cut_off)) {
+      const bool killed = rwrt::kill_mask(yl, plon, plat, a.cut_off);
+      if (killed) {
 #pragma unroll
         for (int v = 0; v < 5; ++v) yl[v] = nan;
         ug_new = vg_new = nan;
+      }
+      if constexpr (kGvAtSave) {
+        if (!killed) {
+          rwrt::group_velocity_at<S, F, I>(a.bg, yl, &ug_new, &vg_new);
+        }
       }
       store(idx, yl, ug_new, vg_new);
       nb = idx + 1;
@@ -319,54 +353,61 @@ __global__ void __launch_bounds__(rwrt::kBlock)
   }
 }
 
-template <typename T, bool kRun, bool kBarrier>
-int launch_exact(const ExactArgs<T>& a, int inst, cudaStream_t stream) {
+template <typename S, typename F, bool kRun, bool kBarrier>
+int launch_exact(const ExactArgs<S, F>& a, int inst, cudaStream_t stream) {
   // A whole run with no group still writes row 0.
   if (a.R <= 0 || a.G <= 0 || (!kRun && a.n_groups <= 0)) return cudaSuccess;
   return rwrt::with_instance(inst, [&](auto tag) {
     using I = decltype(tag);
-    return rwrt::launch_as<I>(exact_kernel<T, kRun, kBarrier, I>, a, a.R,
-                                 stream);
+    return rwrt::launch_as<I>(exact_kernel<S, F, kRun, kBarrier, I>, a, a.R,
+                              stream);
   });
 }
 
-template <typename T>
+// Resident threads of the whole run (run != 0) or, with kGroup, the single
+// group (run == 0; a unit without the single group refuses it).
+template <typename S, typename F, bool kGroup>
 int exact_resident(int run, int inst, int* out) {
   return rwrt::with_instance(inst, [&](auto tag) {
     using I = decltype(tag);
-    return run ? rwrt::resident_threads(exact_kernel<T, true, false, I>,
-                                              out)
-               : rwrt::resident_threads(
-                     exact_kernel<T, false, false, I>, out);
+    if (run) {
+      return rwrt::resident_threads(exact_kernel<S, F, true, false, I>, out);
+    }
+    if constexpr (kGroup) {
+      return rwrt::resident_threads(exact_kernel<S, F, false, false, I>,
+                                    out);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
   });
 }
 
-template <typename T>
-ExactArgs<T> exact_args(const void* packed, int W, int H, double lon0,
-                        double lat0, double dx, double dy, void* y, void* t,
-                        void* h, void* f, void* plon, void* plat,
-                        void* lane_att, void* hist, const void* bounds, int G,
-                        int n_groups, int R, double cut_off, double rtol,
-                        double atol, double min_step, long long max_iters) {
-  ExactArgs<T> a{};
-  a.bg = rwrt::Background<T>{static_cast<const T*>(packed), W, H, T(lon0),
-                             T(lat0), T(dx), T(dy)};
-  a.y = static_cast<T*>(y);
-  a.t = static_cast<T*>(t);
-  a.h = static_cast<T*>(h);
-  a.f = static_cast<T*>(f);
-  a.plon = static_cast<T*>(plon);
-  a.plat = static_cast<T*>(plat);
+template <typename S, typename F>
+ExactArgs<S, F> exact_args(const void* packed, int W, int H, double lon0,
+                           double lat0, double dx, double dy, void* y,
+                           void* t, void* h, void* f, void* plon, void* plat,
+                           void* lane_att, void* hist, const void* bounds,
+                           int G, int n_groups, int R, double cut_off,
+                           double rtol, double atol, double min_step,
+                           long long max_iters) {
+  ExactArgs<S, F> a{};
+  a.bg = rwrt::Background<F>{static_cast<const F*>(packed), W, H, F(lon0),
+                             F(lat0), F(dx), F(dy)};
+  a.y = static_cast<S*>(y);
+  a.t = static_cast<S*>(t);
+  a.h = static_cast<S*>(h);
+  a.f = static_cast<F*>(f);
+  a.plon = static_cast<S*>(plon);
+  a.plat = static_cast<S*>(plat);
   a.lane_att = static_cast<int*>(lane_att);
-  a.hist = static_cast<T*>(hist);
-  a.bounds = static_cast<const T*>(bounds);
+  a.hist = static_cast<S*>(hist);
+  a.bounds = static_cast<const S*>(bounds);
   a.G = G;
   a.n_groups = n_groups;
   a.R = R;
-  a.cut_off = T(cut_off);
-  a.rtol = T(rtol);
-  a.atol = T(atol);
-  a.min_step = T(min_step);
+  a.cut_off = S(cut_off);
+  a.rtol = S(rtol);
+  a.atol = S(atol);
+  a.min_step = S(min_step);
   a.max_iters = max_iters;
   return a;
 }
@@ -375,7 +416,8 @@ ExactArgs<T> exact_args(const void* packed, int W, int H, double lon0,
 
 extern "C" {
 
-#define RWRT_EXACT(SUFFIX, T)                                                 \
+// The single group, one type T.
+#define RWRT_EXACT_GROUP(SUFFIX, T)                                           \
   int rwrt_exact_group_##SUFFIX(                                              \
       const void* packed, int W, int H, double lon0, double lat0, double dx,  \
       double dy, void* y, void* t, void* h, void* f, void* plon, void* plat,  \
@@ -383,18 +425,21 @@ extern "C" {
       void* hist, const void* bounds, int G, int R, int resume,               \
       double cut_off, double rtol, double atol, double min_step,              \
       long long max_iters, int inst, void* stream) {                          \
-    ExactArgs<T> a = exact_args<T>(packed, W, H, lon0, lat0, dx, dy, y, t, h, \
-                                   f, plon, plat, lane_att, hist, bounds, G,  \
-                                   1, R, cut_off, rtol, atol, min_step,       \
-                                   max_iters);                                \
+    ExactArgs<T, T> a = exact_args<T, T>(                                     \
+        packed, W, H, lon0, lat0, dx, dy, y, t, h, f, plon, plat, lane_att,   \
+        hist, bounds, G, 1, R, cut_off, rtol, atol, min_step, max_iters);     \
     a.rejected = static_cast<bool*>(rejected);                                \
     a.new_step = static_cast<bool*>(new_step);                                \
     a.idx = static_cast<int*>(idx);                                           \
     a.trips = static_cast<int*>(trips);                                       \
     a.resume = resume != 0;                                                   \
-    return launch_exact<T, false, false>(a, inst,                             \
-                                         static_cast<cudaStream_t>(stream));  \
-  }                                                                           \
+    return launch_exact<T, T, false, false>(                                  \
+        a, inst, static_cast<cudaStream_t>(stream));                          \
+  }
+
+// The whole run, state type S over background type F, and the resident
+// counts (kGroup: the unit also has the single group).
+#define RWRT_EXACT_RUN(SUFFIX, S, F, kGroup)                                  \
   int rwrt_exact_run_##SUFFIX(                                                \
       const void* packed, int W, int H, double lon0, double lat0, double dx,  \
       double dy, void* y, void* t, void* h, void* f, void* plon, void* plat,  \
@@ -402,31 +447,37 @@ extern "C" {
       void* lane_att, void* trunc, const void* bounds, int G, int n_groups,   \
       int R, double cut_off, double rtol, double atol, double min_step,       \
       long long max_iters, int barrier, int inst, void* stream) {             \
-    ExactArgs<T> a = exact_args<T>(packed, W, H, lon0, lat0, dx, dy, y, t, h, \
-                                   f, plon, plat, lane_att, hist, bounds, G,  \
-                                   n_groups, R, cut_off, rtol, atol,          \
-                                   min_step, max_iters);                      \
-    a.ug0 = static_cast<const T*>(ug0);                                       \
-    a.vg0 = static_cast<const T*>(vg0);                                       \
-    a.ugs = static_cast<T*>(ugs);                                             \
-    a.vgs = static_cast<T*>(vgs);                                             \
+    ExactArgs<S, F> a = exact_args<S, F>(                                     \
+        packed, W, H, lon0, lat0, dx, dy, y, t, h, f, plon, plat, lane_att,   \
+        hist, bounds, G, n_groups, R, cut_off, rtol, atol, min_step,          \
+        max_iters);                                                           \
+    a.ug0 = static_cast<const S*>(ug0);                                       \
+    a.vg0 = static_cast<const S*>(vg0);                                       \
+    a.ugs = static_cast<S*>(ugs);                                             \
+    a.vgs = static_cast<S*>(vgs);                                             \
     a.trunc = static_cast<int*>(trunc);                                       \
     const auto s = static_cast<cudaStream_t>(stream);                         \
-    return barrier ? launch_exact<T, true, true>(a, inst, s)                  \
-                   : launch_exact<T, true, false>(a, inst, s);                \
+    return barrier ? launch_exact<S, F, true, true>(a, inst, s)               \
+                   : launch_exact<S, F, true, false>(a, inst, s);             \
   }                                                                           \
   int rwrt_exact_resident_##SUFFIX(int run, int inst, void* out) {            \
-    return exact_resident<T>(run, inst, static_cast<int*>(out));              \
+    return exact_resident<S, F, kGroup>(run, inst, static_cast<int*>(out));   \
   }
 
-// One precision per translation unit, so that the two compile in parallel
-// (exact_run_f64.cu includes this file for the float64 entry points).
-#ifndef RWRT_EXACT_F64
-RWRT_EXACT(f32, float)
+// One precision per translation unit, so that they compile in parallel
+// (exact_run_f64.cu and exact_run_mix.cu include this file for the
+// float64 and the mixed-precision entry points).
+#if defined(RWRT_EXACT_F64)
+RWRT_EXACT_GROUP(f64, double)
+RWRT_EXACT_RUN(f64, double, double, true)
+#elif defined(RWRT_EXACT_MIX)
+RWRT_EXACT_RUN(mix, double, float, false)
 #else
-RWRT_EXACT(f64, double)
+RWRT_EXACT_GROUP(f32, float)
+RWRT_EXACT_RUN(f32, float, float, true)
 #endif
 
-#undef RWRT_EXACT
+#undef RWRT_EXACT_GROUP
+#undef RWRT_EXACT_RUN
 
 }  // extern "C"

@@ -56,6 +56,15 @@
 // Each field and each quotient is computed by one thread with the same
 // expression in every instance, so all instances give the same bits.
 //
+// Mixed precision (a float64 state S over a float32 background F, the JAX
+// package's state_dtype='float64'): the RHS takes its state rounded to F
+// by the caller, as the JAX package casts it at entry, and runs in F
+// throughout. The diagnostic (ug, vg) of a saved state does not round it:
+// sample_mercator and group_velocity_at are templated on (S, F), reading
+// the F corners and computing the cell, the lerp, the Mercator transform
+// and group velocity in S, where JAX's promotion puts them. With S == F
+// every cast below is the identity, and the code is the one-type code.
+//
 // Semantics kept (see models/ray.py _rhs_core):
 //   - (lon - lon0) mod 2*pi is a FLOOR mod (fmod truncates; fixed below);
 //   - the cell index is floor() clipped to [0, W-1] x [0, H-1] with NaN
@@ -153,25 +162,28 @@ __device__ __forceinline__ void load_vals(const T* p, T* out) {
 
 // The bilinear blend of one field from its corners (x0,y0), (x1,y0),
 // (x0,y1), (x1,y1), with w = {wa, wb, wc, wd}: fa wa + fb wb + fc wc + fd wd
-// in that order, fa the (x0,y1) corner.
-template <typename T>
-__device__ __forceinline__ T lerp4(T c00, T c10, T c01, T c11, const T w[4]) {
-  return c01 * w[0] + c11 * w[1] + c00 * w[2] + c10 * w[3];
+// in that order, fa the (x0,y1) corner. Corners of the background's type F
+// are widened to the weights' type S first.
+template <typename S, typename F>
+__device__ __forceinline__ S lerp4(F c00, F c10, F c01, F c11,
+                                   const S w[4]) {
+  return S(c01) * w[0] + S(c11) * w[1] + S(c00) * w[2] + S(c10) * w[3];
 }
 
-// ---- Instances: the lane's row to its 12 lerped fields, and the IEEE
-// divisions of an evaluation (divide: q[j] = num[j] / den[j]). ----
+// ---- Instances: the lane's row (type F) to its 12 lerped fields (type
+// S), and the IEEE divisions of an evaluation (divide: q[j] = num[j] /
+// den[j]). ----
 
 struct Lane {
   static constexpr int kThreads = 1;
   static constexpr int kId = 0;
   static __device__ __forceinline__ bool lead() { return true; }
-  template <typename T>
-  static __device__ __forceinline__ void lerp_row(const T* packed, int cell,
-                                                  const T w[4],
-                                                  T raw[kHot]) {
-    T rv[kPacked];
-    load_vals<T, kPacked>(packed + static_cast<long long>(cell) * kPacked, rv);
+  template <typename S, typename F>
+  static __device__ __forceinline__ void lerp_row(const F* packed, int cell,
+                                                  const S w[4],
+                                                  S raw[kHot]) {
+    F rv[kPacked];
+    load_vals<F, kPacked>(packed + static_cast<long long>(cell) * kPacked, rv);
 #pragma unroll
     for (int c = 0; c < kHot; ++c) {
       raw[c] = lerp4(rv[c], rv[kHot + c], rv[2 * kHot + c], rv[3 * kHot + c],
@@ -201,20 +213,20 @@ struct Split {
   static __device__ __forceinline__ unsigned mask() {
     return 0xffu << ((threadIdx.x & 31) & ~(kThreads - 1));
   }
-  template <typename T>
-  static __device__ __forceinline__ void lerp_row(const T* packed, int cell,
-                                                  const T w[4],
-                                                  T raw[kHot]) {
+  template <typename S, typename F>
+  static __device__ __forceinline__ void lerp_row(const F* packed, int cell,
+                                                  const S w[4],
+                                                  S raw[kHot]) {
     const int t = rank();
     const unsigned team = mask();
     // A thread past the owners repeats owner 0's loads (the same
     // addresses, so no extra traffic) and lerps nothing anyone reads.
     const int o = t < kOwners ? t : 0;
-    const T* row = packed + static_cast<long long>(cell) * kPacked + o * kPer;
-    T cv[4][kPer];
+    const F* row = packed + static_cast<long long>(cell) * kPacked + o * kPer;
+    F cv[4][kPer];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) load_vals<T, kPer>(row + k * kHot, cv[k]);
-    T mine[kPer];
+    for (int k = 0; k < 4; ++k) load_vals<F, kPer>(row + k * kHot, cv[k]);
+    S mine[kPer];
 #pragma unroll
     for (int c = 0; c < kPer; ++c) {
       mine[c] = lerp4(cv[0][c], cv[1][c], cv[2][c], cv[3][c], w);
@@ -335,17 +347,19 @@ __device__ __forceinline__ void group_velocity_masks(const bool fn[kHot],
   *vg = (dead || fn[1] || shared) ? nan_value<T>() : gv;
 }
 
-// Mercator sample of the 12 hot fields at a (sanitized) position.
+// Mercator sample of the 12 hot fields at a (sanitized) position of type
+// T over a background of type F (T = F in the RHS; T = S for a saved
+// state's (ug, vg), where the grid scalars and the corners widen to T).
 // f[] receives the M_* fields, fn[] their NaN flags; cos/sin of lat are
 // returned for reuse.
-template <typename T, class I = Lane>
-__device__ __forceinline__ void sample_mercator(const Background<T>& bg,
+template <typename T, typename F, class I = Lane>
+__device__ __forceinline__ void sample_mercator(const Background<F>& bg,
                                                 T lon, T lat, T f[kHot],
                                                 bool fn[kHot], T* cos_out,
                                                 T* sin_out) {
   const T two_pi = T(2.0 * kPi);
-  T ix = floor_mod(lon - bg.lon0, two_pi) / bg.dx;
-  T iy = (lat - bg.lat0) / bg.dy;
+  T ix = floor_mod(lon - T(bg.lon0), two_pi) / T(bg.dx);
+  T iy = (lat - T(bg.lat0)) / T(bg.dy);
   int x0 = cell_index(ix, bg.W);
   int y0 = cell_index(iy, bg.H);
   T sx = ix - T(x0);
@@ -359,7 +373,7 @@ __device__ __forceinline__ void sample_mercator(const Background<T>& bg,
   const T w[4] = {(T(1) - sx) * sy, sx * sy, (T(1) - sx) * (T(1) - sy),
                   sx * (T(1) - sy)};
   T raw[kHot];
-  I::template lerp_row<T>(bg.packed, x0 * bg.H + y0, w, raw);
+  I::template lerp_row<T, F>(bg.packed, x0 * bg.H + y0, w, raw);
   bool in_range = fabs(lat) <= T(0.5 * kPi);
 #pragma unroll
   for (int c = 0; c < kHot; ++c) {
@@ -424,7 +438,7 @@ __device__ __forceinline__ void rhs_core(const Background<T>& bg,
   T f[kHot];
   bool fn[kHot];
   T cos_q, sin_q;
-  sample_mercator<T, I>(bg, lon_q, lat_q, f, fn, &cos_q, &sin_q);
+  sample_mercator<T, T, I>(bg, lon_q, lat_q, f, fn, &cos_q, &sin_q);
   T fq[kHot];
 #pragma unroll
   for (int c = 0; c < kHot; ++c) fq[c] = fn[c] ? T(0) : f[c];
@@ -495,10 +509,12 @@ __device__ __forceinline__ void ray_rhs(const Background<T>& bg, const T y[5],
   rhs_core<T, I, true>(bg, y, dy, err_out, ug_raw, vg_raw);
 }
 
-// models/ray.py group_velocity_at (zero_invalid off) at a state y[5]: a NaN
-// position samples the sanitized cell (lon = lat = 0) and gets its NaN back.
-template <typename T, class I = Lane>
-__device__ __forceinline__ void group_velocity_at(const Background<T>& bg,
+// models/ray.py group_velocity_at (zero_invalid off) at a state y[5] of
+// type T over a background of type F (T = S, a mixed-precision state, is
+// not rounded: see the head of this file): a NaN position samples the
+// sanitized cell (lon = lat = 0) and gets its NaN back.
+template <typename T, typename F, class I = Lane>
+__device__ __forceinline__ void group_velocity_at(const Background<F>& bg,
                                                   const T y[5], T* ug,
                                                   T* vg) {
   const bool posn = isnan(y[0]) || isnan(y[1]);
@@ -506,8 +522,8 @@ __device__ __forceinline__ void group_velocity_at(const Background<T>& bg,
   T f[kHot];
   bool fn[kHot];
   T cos_q, sin_q;
-  sample_mercator<T, I>(bg, posn ? T(0) : y[0], posn ? T(0) : y[1], f, fn,
-                        &cos_q, &sin_q);
+  sample_mercator<T, F, I>(bg, posn ? T(0) : y[0], posn ? T(0) : y[1], f, fn,
+                           &cos_q, &sin_q);
   T num[2], q[2];
   const T den[2] = {g.denom, g.denom};
   group_velocity_nums(fn[6] ? T(0) : f[6], fn[7] ? T(0) : f[7], g.kap,

@@ -38,6 +38,16 @@
 // team every thread runs the same steps on the same state and its first
 // thread writes the rows.
 //
+// Types: the state S (the carry, the stage inputs before their rounding,
+// the update, the kill test, (ug, vg) and the rows) and the background F
+// (the RHS and the stages k). rk4_kernel<T, T, I> is the one-type kernel
+// (float32 and float64 entry points); rk4_kernel<double, float, I> is
+// mixed precision (the _mix entry points, compiled in rk4_run_mix.cu),
+// where, as in the JAX package, each stage input y + (0.5 dt) k is a
+// double product and sum rounded to float for the RHS, the sum
+// k1 + 2 k2 + 2 k3 + k4 is float, and the update and (ug, vg) at the new
+// state are double (ray_rhs.cuh group_velocity_at<S, F>).
+//
 // Rounding: built with -fmad=false (kernels/build.py), so each expression
 // rounds as the plain version's separate tensor ops do.
 #include <cuda_runtime.h>
@@ -46,34 +56,35 @@
 
 namespace {
 
-template <typename T>
+template <typename S, typename F>
 struct Rk4Args {
-  rwrt::Background<T> bg;
-  T* y;         // (5, R) carry: read at entry, written at exit
-  const T* ug0;  // (R,) or null: row row_offset - 1's (ug, vg)
-  const T* vg0;
-  T* ys;        // (rows, 5, R)
-  T* ugs;       // (rows, R)
-  T* vgs;
+  rwrt::Background<F> bg;
+  S* y;         // (5, R) carry: read at entry, written at exit
+  const S* ug0;  // (R,) or null: row row_offset - 1's (ug, vg)
+  const S* vg0;
+  S* ys;        // (rows, 5, R)
+  S* ugs;       // (rows, R)
+  S* vgs;
   int n_steps;
   int row_offset;
   int R;
-  T dt, half, sixth;  // dt, 0.5 * dt, dt / 6, rounded to T
-  T cut_off;
+  S dt, half, sixth;  // dt, 0.5 * dt, dt / 6, rounded to S
+  S cut_off;
 };
 
-template <typename T, class I>
-__global__ void __launch_bounds__(rwrt::kBlock) rk4_kernel(const Rk4Args<T> a) {
+template <typename S, typename F, class I>
+__global__ void __launch_bounds__(rwrt::kBlock)
+    rk4_kernel(const Rk4Args<S, F> a) {
   const int i = (blockIdx.x * blockDim.x + threadIdx.x) / I::kThreads;
   if (i >= a.R) return;
   const bool lead = I::lead();
   const long long RL = a.R;
-  const T nan = rwrt::nan_value<T>();
+  const S nan = rwrt::nan_value<S>();
 
-  T yl[5];
+  S yl[5];
 #pragma unroll
   for (int v = 0; v < 5; ++v) yl[v] = a.y[v * RL + i];
-  auto store = [&](long long r, const T row[5], T ug, T vg) {
+  auto store = [&](long long r, const S row[5], S ug, S vg) {
     if (!lead) return;
 #pragma unroll
     for (int v = 0; v < 5; ++v) a.ys[(r * 5 + v) * RL + i] = row[v];
@@ -83,33 +94,35 @@ __global__ void __launch_bounds__(rwrt::kBlock) rk4_kernel(const Rk4Args<T> a) {
   if (a.ug0 != nullptr) store(a.row_offset - 1, yl, a.ug0[i], a.vg0[i]);
 
   for (int s = 0; s < a.n_steps; ++s) {
-    T k1[5], k2[5], k3[5], k4[5], ys[5];
+    F k1[5], k2[5], k3[5], k4[5], ys[5];
     bool m1, m2, m3, m4;
-    rwrt::ray_rhs<T, I>(a.bg, yl, k1, &m1);
 #pragma unroll
-    for (int v = 0; v < 5; ++v) ys[v] = yl[v] + a.half * k1[v];
-    rwrt::ray_rhs<T, I>(a.bg, ys, k2, &m2);
+    for (int v = 0; v < 5; ++v) ys[v] = F(yl[v]);
+    rwrt::ray_rhs<F, I>(a.bg, ys, k1, &m1);
 #pragma unroll
-    for (int v = 0; v < 5; ++v) ys[v] = yl[v] + a.half * k2[v];
-    rwrt::ray_rhs<T, I>(a.bg, ys, k3, &m3);
+    for (int v = 0; v < 5; ++v) ys[v] = F(yl[v] + a.half * S(k1[v]));
+    rwrt::ray_rhs<F, I>(a.bg, ys, k2, &m2);
 #pragma unroll
-    for (int v = 0; v < 5; ++v) ys[v] = yl[v] + a.dt * k3[v];
-    rwrt::ray_rhs<T, I>(a.bg, ys, k4, &m4);
+    for (int v = 0; v < 5; ++v) ys[v] = F(yl[v] + a.half * S(k2[v]));
+    rwrt::ray_rhs<F, I>(a.bg, ys, k3, &m3);
+#pragma unroll
+    for (int v = 0; v < 5; ++v) ys[v] = F(yl[v] + a.dt * S(k3[v]));
+    rwrt::ray_rhs<F, I>(a.bg, ys, k4, &m4);
     // A lane advances only if no stage raised the fail flag.
     const bool valid = !(m1 || m2 || m3 || m4);
-    T yn[5];
+    S yn[5];
 #pragma unroll
     for (int v = 0; v < 5; ++v) {
-      const T sum = ((k1[v] + T(2) * k2[v]) + T(2) * k3[v]) + k4[v];
-      yn[v] = valid ? yl[v] + a.sixth * sum : yl[v];
+      const F sum = ((k1[v] + F(2) * k2[v]) + F(2) * k3[v]) + k4[v];
+      yn[v] = valid ? yl[v] + a.sixth * S(sum) : yl[v];
     }
     // The kill test against the previous carry (NaN there kills nothing).
     if (rwrt::kill_mask(yn, yl[0], yl[1], a.cut_off)) {
 #pragma unroll
       for (int v = 0; v < 5; ++v) yn[v] = nan;
     }
-    T ug, vg;
-    rwrt::group_velocity_at<T, I>(a.bg, yn, &ug, &vg);
+    S ug, vg;
+    rwrt::group_velocity_at<S, F, I>(a.bg, yn, &ug, &vg);
     store(a.row_offset + s, yn, ug, vg);
 #pragma unroll
     for (int v = 0; v < 5; ++v) yl[v] = yn[v];
@@ -120,20 +133,20 @@ __global__ void __launch_bounds__(rwrt::kBlock) rk4_kernel(const Rk4Args<T> a) {
   }
 }
 
-template <typename T>
-int launch_rk4(const Rk4Args<T>& a, int inst, cudaStream_t stream) {
+template <typename S, typename F>
+int launch_rk4(const Rk4Args<S, F>& a, int inst, cudaStream_t stream) {
   if (a.R <= 0) return cudaSuccess;
   return rwrt::with_instance(inst, [&](auto tag) {
     using I = decltype(tag);
-    return rwrt::launch_as<I>(rk4_kernel<T, I>, a, a.R, stream);
+    return rwrt::launch_as<I>(rk4_kernel<S, F, I>, a, a.R, stream);
   });
 }
 
-template <typename T>
+template <typename S, typename F>
 int rk4_resident(int inst, int* out) {
   return rwrt::with_instance(inst, [&](auto tag) {
     using I = decltype(tag);
-    return rwrt::resident_threads(rk4_kernel<T, I>, out);
+    return rwrt::resident_threads(rk4_kernel<S, F, I>, out);
   });
 }
 
@@ -141,36 +154,43 @@ int rk4_resident(int inst, int* out) {
 
 extern "C" {
 
-#define RWRT_RK4(SUFFIX, T)                                                   \
+// S the state's type, F the background's.
+#define RWRT_RK4(SUFFIX, S, F)                                                \
   int rwrt_rk4_run_##SUFFIX(                                                  \
       const void* packed, int W, int H, double lon0, double lat0, double dx,  \
       double dy, void* y, const void* ug0, const void* vg0, void* ys,         \
       void* ugs, void* vgs, int n_steps, int row_offset, int R, double dt,    \
       double half, double sixth, double cut_off, int inst, void* stream) {    \
-    Rk4Args<T> a{};                                                           \
-    a.bg = rwrt::Background<T>{static_cast<const T*>(packed), W, H, T(lon0),  \
-                               T(lat0), T(dx), T(dy)};                        \
-    a.y = static_cast<T*>(y);                                                 \
-    a.ug0 = static_cast<const T*>(ug0);                                       \
-    a.vg0 = static_cast<const T*>(vg0);                                       \
-    a.ys = static_cast<T*>(ys);                                               \
-    a.ugs = static_cast<T*>(ugs);                                             \
-    a.vgs = static_cast<T*>(vgs);                                             \
+    Rk4Args<S, F> a{};                                                        \
+    a.bg = rwrt::Background<F>{static_cast<const F*>(packed), W, H, F(lon0),  \
+                               F(lat0), F(dx), F(dy)};                        \
+    a.y = static_cast<S*>(y);                                                 \
+    a.ug0 = static_cast<const S*>(ug0);                                       \
+    a.vg0 = static_cast<const S*>(vg0);                                       \
+    a.ys = static_cast<S*>(ys);                                               \
+    a.ugs = static_cast<S*>(ugs);                                             \
+    a.vgs = static_cast<S*>(vgs);                                             \
     a.n_steps = n_steps;                                                      \
     a.row_offset = row_offset;                                                \
     a.R = R;                                                                  \
-    a.dt = T(dt);                                                             \
-    a.half = T(half);                                                         \
-    a.sixth = T(sixth);                                                       \
-    a.cut_off = T(cut_off);                                                   \
-    return launch_rk4<T>(a, inst, static_cast<cudaStream_t>(stream));         \
+    a.dt = S(dt);                                                             \
+    a.half = S(half);                                                         \
+    a.sixth = S(sixth);                                                       \
+    a.cut_off = S(cut_off);                                                   \
+    return launch_rk4<S, F>(a, inst, static_cast<cudaStream_t>(stream));      \
   }                                                                           \
   int rwrt_rk4_resident_##SUFFIX(int inst, void* out) {                       \
-    return rk4_resident<T>(inst, static_cast<int*>(out));                     \
+    return rk4_resident<S, F>(inst, static_cast<int*>(out));                  \
   }
 
-RWRT_RK4(f32, float)
-RWRT_RK4(f64, double)
+// The one-type entry points here; the mixed ones in their own unit
+// (rk4_run_mix.cu includes this file), so that the two compile in parallel.
+#ifndef RWRT_RK4_MIX
+RWRT_RK4(f32, float, float)
+RWRT_RK4(f64, double, double)
+#else
+RWRT_RK4(mix, double, float)
+#endif
 
 #undef RWRT_RK4
 

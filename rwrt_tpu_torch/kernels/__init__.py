@@ -13,7 +13,12 @@ import functools
 
 import torch
 
-_SUFFIX = {torch.float32: "_f32", torch.float64: "_f64"}
+#: The C entry points' suffix by (state dtype, field dtype): one type, or
+#: mixed precision, a float64 state over float32 fields (``build.MIXED``
+#: names the entry points that have it).
+_SUFFIX = {(torch.float32, torch.float32): "_f32",
+           (torch.float64, torch.float64): "_f64",
+           (torch.float64, torch.float32): "_mix"}
 
 #: How the RK4 and exact kernels spread a lane's evaluation over threads
 #: (``csrc/ray_rhs.cuh``), by the id their C entry points take: one thread
@@ -56,10 +61,30 @@ def instance_id(name: str) -> int:
     return INSTANCES[name]
 
 
+def dtype_key(dtype) -> tuple:
+    """The (state, field) dtypes of a launch: a torch dtype stands for
+    itself twice; a pair is returned as it is."""
+    if isinstance(dtype, (tuple, list)):
+        return tuple(dtype)
+    return dtype, dtype
+
+
+def state_key(y: torch.Tensor, fields: torch.Tensor) -> tuple:
+    """The (state, field) dtype pair of a launch over state ``y`` and
+    background ``fields``; raises unless a kernel instance takes it."""
+    key = (y.dtype, fields.dtype)
+    if key not in _SUFFIX:
+        raise ValueError(f"the kernels take a state of the background's "
+                         f"dtype or a float64 state over float32 fields, "
+                         f"not a {y.dtype} state over {fields.dtype}")
+    return key
+
+
 @functools.cache
-def resident(kernel: str, instance: str, dtype: torch.dtype, *args) -> int:
-    """Threads of ``instance`` of ``rwrt_<kernel>`` (in ``dtype``) that the
-    current card keeps resident at once, from the CUDA occupancy
+def resident(kernel: str, instance: str, dtype, *args) -> int:
+    """Threads of ``instance`` of ``rwrt_<kernel>`` (in ``dtype``, a torch
+    dtype or a (state, field) pair) that the current card keeps resident
+    at once, from the CUDA occupancy
     calculator (``rwrt_<kernel>_resident``, which takes ``args`` first):
     read once per process."""
     out = torch.zeros(1, dtype=torch.int32)
@@ -97,16 +122,20 @@ def stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def launch(name: str, dtype: torch.dtype, *args) -> None:
-    """Call ``<name>_f32`` or ``<name>_f64``; tensors pass as pointers and
-    None as NULL. Raises if the launch returned a CUDA error."""
-    if dtype not in _SUFFIX:
-        raise ValueError(f"the kernels take float32 or float64, not {dtype}")
+def launch(name: str, dtype, *args) -> None:
+    """Call ``<name>_f32``, ``<name>_f64`` or, for a (float64 state,
+    float32 field) ``dtype`` pair, ``<name>_mix``; tensors pass as pointers
+    and None as NULL. Raises if the launch returned a CUDA error."""
+    from rwrt_tpu_torch.kernels import build
+
+    suffix = _SUFFIX.get(dtype_key(dtype))
+    if suffix is None or (suffix == "_mix" and name not in build.MIXED):
+        raise ValueError(f"{name} has no instance for dtype {dtype}")
     lib = library()
-    fn = getattr(lib, name + _SUFFIX[dtype])
+    fn = getattr(lib, name + suffix)
     c_args = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
     code = fn(*c_args)
     if code != 0:
         msg = lib.rwrt_error_string(code).decode()
-        raise RuntimeError(f"{name}{_SUFFIX[dtype]} failed: CUDA error "
+        raise RuntimeError(f"{name}{suffix} failed: CUDA error "
                            f"{code} ({msg})")

@@ -78,6 +78,13 @@ SIGNATURES = {
 }
 
 
+#: The entry points that also have a mixed-precision instance (``_mix``: a
+#: float64 state over float32 fields): the whole-run kernels and their
+#: occupancy counts.
+MIXED = ("rwrt_rk4_run", "rwrt_rk4_resident", "rwrt_exact_run",
+         "rwrt_exact_resident", "rwrt_dense_run")
+
+
 def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
 
@@ -138,8 +145,10 @@ def build() -> Path:
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the library with every signature set."""
     lib = ctypes.CDLL(str(build()))
-    for suffix in ("_f32", "_f64"):
+    for suffix in ("_f32", "_f64", "_mix"):
         for name, args in SIGNATURES.items():
+            if suffix == "_mix" and name not in MIXED:
+                continue
             fn = getattr(lib, name + suffix)
             fn.argtypes = list(args)
             fn.restype = ctypes.c_int

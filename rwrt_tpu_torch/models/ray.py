@@ -63,7 +63,7 @@ def sample_bg(bg: Background, lon, lat, t=0.0):
     if bg.member_ids is not None or bg.fields.ndim != 3:
         raise NotImplementedError(
             "time-varying and ensemble backgrounds are not ported yet "
-            "(ROADMAP Queue 1 items 13-14)")
+            "(ROADMAP Queue 1 item 13)")
     if bg.fields.shape[-1] == 4 * interp.NUM_HOT:
         return interp.sample_mercator_packed(
             bg.fields, bg.lon0, bg.lat0, bg.dx, bg.dy, lon, lat)
@@ -121,13 +121,16 @@ def _rhs(bg, y, t, with_raw_gv: bool):
 
 
 def _rhs_cuda(bg: Background, y: torch.Tensor, with_raw_gv: bool):
-    """Launch the RHS kernel: one thread per lane."""
+    """Launch the RHS kernel: one thread per lane. A state wider than the
+    background (mixed precision) is cast to the background's dtype first,
+    as ``_rhs_core`` casts it at entry."""
     global LAUNCHES
     packed = bg.fields
     if bg.member_ids is not None or packed.ndim != 3 or (
             packed.shape[-1] != 4 * interp.NUM_HOT):
         raise ValueError("the RHS kernel needs a static corner-packed "
                          "(W, H, 48) background (tracer.make_background)")
+    y = y.to(packed.dtype)
     kernels.check_tensor(packed, "fields", device=y.device, dtype=y.dtype)
     kernels.check_aligned(packed, "fields")
     kernels.check_tensor(y, "y", device=y.device, dtype=y.dtype)
@@ -153,11 +156,12 @@ def _rhs_core(bg: Background, y: torch.Tensor, t, with_raw_gv: bool):
     computed from NaN-free substitutes: dead lanes sample cell (0, 0), bad
     lanes compute with kx = 1, ky = 0, and the per-row NaN sets r0n..r4n are
     applied last. A NaN amp poisons row 4 only.
+
+    Mixed precision (a float64 state over a float32 background): the state
+    is rounded to the background's dtype at entry, so the sample and all
+    the algebra run there and dy comes out in it, as in the JAX package.
     """
-    if y.dtype != bg.fields.dtype:
-        raise NotImplementedError(
-            "mixed precision (state_dtype='float64') is not ported yet "
-            "(ROADMAP Queue 1 item 12)")
+    y = y.to(bg.fields.dtype)
     lon, lat, kx, ky, amp = y[S_LON], y[S_LAT], y[S_KX], y[S_KY], y[S_AMP]
 
     err = fail_mask(y)
@@ -237,7 +241,12 @@ def _rhs_core(bg: Background, y: torch.Tensor, t, with_raw_gv: bool):
 def group_velocity_at(bg: Background, lon, lat, kx, ky, t=0.0, *,
                       zero_invalid=False):
     """Diagnostic (ug, vg) at given positions/wavenumbers; NaN positions
-    sample a sanitized cell and get their NaN back as a final where."""
+    sample a sanitized cell and get their NaN back as a final where.
+
+    Positions wider than the background (a float64 state over float32
+    fields) are not rounded: the cell, the lerp over the background's
+    corners, the Mercator transform and group velocity run in the
+    positions' dtype, as the JAX package's promotion has them."""
     posn = torch.isnan(lon) | torch.isnan(lat)
     lon_q = torch.where(posn, torch.zeros_like(lon), lon)
     lat_q = torch.where(posn, torch.zeros_like(lat), lat)

@@ -28,27 +28,37 @@ from rwrt_tpu_torch.models.ray import Background, S_KX, S_KY, S_LAT, S_LON
 
 
 def step_factors(dt, dtype: torch.dtype) -> Tuple[float, float, float]:
-    """(dt, 0.5 * dt, dt / 6.0), each rounded to ``dtype`` where the JAX
-    expression rounds it (``dt`` a 0-d array of the state's dtype): the
-    halving is exact, the division is IEEE in ``dtype``."""
+    """(dt, 0.5 * dt, dt / 6.0), each rounded to the state's ``dtype``
+    where the JAX expression rounds it (``dt`` a 0-d array of the state's
+    dtype): the halving is exact, the division is IEEE in ``dtype``."""
     d = torch.tensor(float(dt), dtype=torch.float64).to(dtype)
     return float(d), float(0.5 * d), float(d / torch.tensor(6.0, dtype=dtype))
 
 
 def rk4_step(bg: Background, y: torch.Tensor, dt, t=0.0) -> torch.Tensor:
-    """One RK4 step with per-ray freeze semantics. y: (5, R) -> (5, R)."""
+    """One RK4 step with per-ray freeze semantics. y: (5, R) -> (5, R).
+
+    In mixed precision (a float64 state over a float32 background) the
+    stages k come out in the background's dtype and their sum
+    k1 + 2 k2 + 2 k3 + k4 is taken there; each product with dt, 0.5 dt or
+    dt / 6 (0-d arrays of the state's dtype in the JAX package) is taken in
+    the state's dtype, so the stages are widened first. PyTorch would keep
+    a Python scalar times a float32 tensor in float32."""
     dt, half, sixth = step_factors(dt, y.dtype)
 
     def rhs(yy):
         dy, err, _, _ = ray_mod._rhs_core(bg, yy, t, False)
         return dy, err
 
+    def wide(k):
+        return k.to(y.dtype)
+
     k1, m1 = rhs(y)
-    k2, m2 = rhs(y + half * k1)
-    k3, m3 = rhs(y + half * k2)
-    k4, m4 = rhs(y + dt * k3)
+    k2, m2 = rhs(y + half * wide(k1))
+    k3, m3 = rhs(y + half * wide(k2))
+    k4, m4 = rhs(y + dt * wide(k3))
     valid = ~(m1 | m2 | m3 | m4)
-    y_prop = y + sixth * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+    y_prop = y + sixth * wide(k1 + 2.0 * k2 + 2.0 * k3 + k4)
     return torch.where(valid[None, :], y_prop, y)
 
 

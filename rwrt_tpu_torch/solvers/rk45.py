@@ -18,6 +18,17 @@ state each runs its plain PyTorch loop (``_integrate_group_dense_plain``,
 ``LAUNCHES`` and ``EXACT_LAUNCHES`` count their launches. ``trace_rays``
 calls neither: the whole-run instances (``tracer._dense_run``,
 ``tracer._exact_run``) run every group in one launch.
+
+Mixed precision (a float64 state over a float32 background, the JAX
+package's ``state_dtype='float64'``): the RHS rounds the state to the
+background's dtype at entry, so the stages k and the FSAL carry f are
+float32, and every expression here promotes as JAX's does: a stage sum
+``sum(a_j k_j)`` is taken in float32 and multiplied by the float64 step,
+the error estimate, the norm, the controller and the dense interpolant's
+weights run in float64. The scalars (rtol, atol, min_step, cut_off,
+pin_mwn) are rounded to the state's dtype. The plain versions serve it
+on every device; on the card only the whole-run kernels do
+(``tracer``), and the single-group entry points raise.
 """
 
 from __future__ import annotations
@@ -76,10 +87,11 @@ LAUNCHES = 0
 #: Number of exact-group kernel launches (``integrate_group`` on CUDA).
 EXACT_LAUNCHES = 0
 
-def exact_instance(r: int, dtype: torch.dtype, run: bool = True) -> str:
+def exact_instance(r: int, dtype, run: bool = True) -> str:
     """The exact kernel's instance for a launch of ``r`` lanes on the card:
     the whole run (``run``, ``tracer._exact_run``) or the single group
-    (``integrate_group``)."""
+    (``integrate_group``). ``dtype`` is a torch dtype or a (state, field)
+    pair (``kernels.launch``)."""
     return kernels.choose_instance(
         r, kernels.resident("exact", kernels.TEAM, dtype, int(run)))
 
@@ -100,8 +112,8 @@ def _norm(x):
 
 
 def validate_tol(rtol, dtype) -> float:
-    """Clamp rtol to 100 * eps of the compute dtype (float32 gives about
-    1.19e-5)."""
+    """Clamp rtol to 100 * eps of the state's dtype (float32 gives about
+    1.19e-5; a float64 state over float32 fields keeps 1e-6)."""
     return max(as_scalar(rtol, dtype), 100 * torch.finfo(dtype).eps)
 
 
@@ -387,6 +399,7 @@ def _integrate_group_cuda(rhs_fn, rhs_gv_fn, y, t, h, f, bounds, prev_lon,
         raise TypeError("on CUDA the exact-group kernel integrates the ray "
                         "RHS only: pass models.ray.RayRHS(bg)")
     bg = rhs_fn.bg
+    check_single_dtype(y, bg)
     dev, dt = y.device, y.dtype
     if y.ndim != 2 or y.shape[0] != 5:
         raise ValueError(f"y must be (5, R); got {tuple(y.shape)}")
@@ -434,6 +447,16 @@ def _integrate_group_cuda(rhs_fn, rhs_gv_fn, y, t, h, f, bounds, prev_lon,
     iters = trips.max() if r else 0
     return (hist, y, t, h, f, prev_lon, prev_lat, iters, 6 * iters, lane_att,
             rejected, new_step, idx)
+
+
+def check_single_dtype(y, bg) -> None:
+    """Raise on a mixed-precision state: the single-group kernels have no
+    mixed instance (their plain versions serve it on the CPU)."""
+    if y.dtype != bg.fields.dtype:
+        raise NotImplementedError(
+            "the single-group kernels do not serve a state wider than the "
+            "background (mixed precision) on the card yet (ROADMAP Queue 1 "
+            "item 17); tracer.trace_rays' whole-run kernels do")
 
 
 def check_packed(bg, device, dtype) -> None:
@@ -597,6 +620,7 @@ def _integrate_group_dense_cuda(
         raise TypeError("on CUDA the dense-group kernel integrates the ray "
                         "RHS only: pass models.ray.RayRHS(bg)")
     bg = rhs_fn.bg
+    check_single_dtype(y, bg)
     dev, dt = y.device, y.dtype
     if y.ndim != 2 or y.shape[0] != 5:
         raise ValueError(f"y must be (5, R); got {tuple(y.shape)}")

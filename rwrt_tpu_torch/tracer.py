@@ -1,7 +1,10 @@
 """Ray-tracing orchestration: seeding, initialization, integration, results.
 
 Port of ``rwrt_tpu/tracer.py``. ``trace_rays`` serves three branches, each
-in state_dtype='compute' and root_order='canonical' on one device:
+with root_order='canonical' on one device, in state_dtype 'compute' and
+in 'float64' (mixed precision: a float64 state, stage accumulation and
+controller over float32 sampling and RHS algebra when cal_dtype is
+float32; a no-op when it is float64):
 
 - integrator='rk4' (``_run_rk4``), the library default;
 - integrator='rk45', bound_mode='exact' (``_run_rk45_grouped`` over
@@ -19,7 +22,10 @@ runs. ``_run_rk4``: ``csrc/rk4_run.cu``, plain ``solvers/rk4.trace``
 ``csrc/dense_run.cu``, plain ``_dense_run_plain`` (``LAUNCHES``). The
 dense kernel runs one thread per lane; the RK4 and exact kernels one
 thread, or a team of 8 threads, per lane, as ``rk4_instance`` and
-``solvers/rk45.exact_instance`` choose from the lane count.
+``solvers/rk45.exact_instance`` choose from the lane count. Each kernel
+has a mixed instance (``_mix``, ``kernels.launch``) beside its float32
+and float64 ones, which the wrappers take for a float64 state over a
+float32 background.
 
 The ray batch is flattened to R = 3 * nsource * nzwn lanes in C order of
 (root, source, zwn), so results reshape directly to (nt, 3, nsource, nzwn).
@@ -200,8 +206,9 @@ LAUNCHES = 0
 RK4_LAUNCHES = 0
 EXACT_LAUNCHES = 0
 
-def rk4_instance(r: int, dtype: torch.dtype) -> str:
-    """The RK4 kernel's instance for a launch of ``r`` lanes on the card."""
+def rk4_instance(r: int, dtype) -> str:
+    """The RK4 kernel's instance for a launch of ``r`` lanes on the card;
+    ``dtype`` a torch dtype or a (state, field) pair."""
     return kernels.choose_instance(
         r, kernels.resident("rk4", kernels.TEAM, dtype))
 
@@ -240,8 +247,11 @@ def _run_buffers(y0, n_groups, group):
 
 def _check_run_args(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds,
                     min_groups):
-    """Raise unless a whole-run kernel takes these inputs."""
+    """Raise unless a whole-run kernel takes these inputs: y0, h0 and the
+    bounds in the state's dtype, f0 in the background's, ug0 and vg0 in
+    either. Returns the launch's (state, field) dtype pair."""
     dev, dt = y0.device, y0.dtype
+    key = kernels.state_key(y0, bg.fields)
     if y0.ndim != 2 or y0.shape[0] != 5:
         raise ValueError(f"y0 must be (5, R); got {tuple(y0.shape)}")
     if (bounds_g.ndim != 2 or bounds_g.shape[1] < 1
@@ -252,12 +262,17 @@ def _check_run_args(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds,
     n_groups, group = bounds_g.shape
     if not 0 <= n_bounds <= n_groups * group:
         raise ValueError(f"n_bounds {n_bounds} outside [0, {n_groups * group}]")
-    for name, x, shape in (("y0", y0, (5, r)), ("f0", f0, (5, r)),
-                           ("h0", h0, (r,)), ("ug0", ug0, (r,)),
-                           ("vg0", vg0, (r,)),
+    for name, x, shape in (("y0", y0, (5, r)), ("h0", h0, (r,)),
                            ("bounds_g", bounds_g, (n_groups, group))):
         kernels.check_tensor(x, name, device=dev, dtype=dt, shape=shape)
-    rk45_mod.check_packed(bg, dev, dt)
+    kernels.check_tensor(f0, "f0", device=dev, dtype=key[1], shape=(5, r))
+    for name, x in (("ug0", ug0), ("vg0", vg0)):
+        kernels.check_tensor(x, name, device=dev, dtype=x.dtype, shape=(r,))
+        if x.dtype not in key:
+            raise ValueError(f"{name} has dtype {x.dtype}, expected one of "
+                             f"{sorted(set(map(str, key)))}")
+    rk45_mod.check_packed(bg, dev, key[1])
+    return key
 
 
 def _dense_run(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off, rtol,
@@ -325,9 +340,11 @@ def _dense_run_cuda(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
                     pin_mwn) -> GroupedRun:
     """Launch the whole-run dense kernel once: one thread per lane walks
     every group and writes its rows straight into the output. Reads
-    nothing back from the card."""
+    nothing back from the card. A float64 state over a float32 background
+    takes the mixed instance; ug0 and vg0 are widened to the state's
+    dtype for row 0."""
     global LAUNCHES
-    _check_run_args(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, 1)
+    key = _check_run_args(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, 1)
     dev, dt = y0.device, y0.dtype
     rtol, atol, min_step, pin_limit, pin_mwn = rk45_mod._scalar_args(
         dt, rtol, atol, min_step, pin_limit, pin_mwn)
@@ -340,9 +357,10 @@ def _dense_run_cuda(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
     t = torch.zeros_like(h0)
     plon = torch.empty_like(h0)
     plat = torch.empty_like(h0)
+    ug0, vg0 = ug0.to(dt), vg0.to(dt)
     w, hh, _ = bg.fields.shape
     kernels.launch(
-        "rwrt_dense_run", dt, bg.fields, w, hh, bg.lon0, bg.lat0, bg.dx,
+        "rwrt_dense_run", key, bg.fields, w, hh, bg.lon0, bg.lat0, bg.dx,
         bg.dy, y, t, h, f, ug0, vg0, ys, ugs, vgs, lane_att, trunc, plon,
         plat, bounds_g, group, n_groups, r, cut_off, rtol, atol, min_step,
         int(max_iters), pin_limit, pin_mwn, kernels.stream(dev))
@@ -368,7 +386,16 @@ def _rk45_group_chunk(bg, y, t, h, f, prev_lon, prev_lat, bounds, cut_off,
     def rhs_fn(yy, tt=0.0):
         return ray_mod._rhs_core(bg, yy, tt, False)[0]
 
+    # In mixed precision the barrier path samples (ug, vg) at the saved
+    # state in the state's dtype (``_rk45_chunk``), where the 7th stage
+    # samples it rounded to the background's; the grouped path keeps the
+    # stage's values (the JAX package's two paths differ so).
+    gv_at_save = barrier and y.dtype != bg.fields.dtype
+
     def rhs_gv_fn(yy, tt=0.0):
+        if gv_at_save:
+            return (rhs_fn(yy, tt), *ray_mod.group_velocity_at(
+                bg, yy[S_LON], yy[S_LAT], yy[S_KX], yy[S_KY]))
         dy, _, ug, vg = ray_mod._rhs_core(bg, yy, tt, True)
         return dy, ug, vg
 
@@ -432,9 +459,10 @@ def _exact_run_cuda(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
     """Launch the whole-run exact kernel once: each lane walks every group
     and writes its rows straight into the output. ``instance`` (a key of
     ``kernels.INSTANCES``) overrides ``rk45.exact_instance``'s choice. Reads
-    nothing back from the card."""
+    nothing back from the card. A float64 state over a float32 background
+    takes the mixed instance, as ``_dense_run_cuda``."""
     global EXACT_LAUNCHES
-    _check_run_args(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, 0)
+    key = _check_run_args(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, 0)
     dev, dt = y0.device, y0.dtype
     cut_off, rtol, atol, min_step = (rk45_mod.as_scalar(x, dt)
                                      for x in (cut_off, rtol, atol, min_step))
@@ -446,13 +474,15 @@ def _exact_run_cuda(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
     t = torch.zeros_like(h0)
     plon = torch.empty_like(h0)
     plat = torch.empty_like(h0)
+    ug0, vg0 = ug0.to(dt), vg0.to(dt)
     w, hh, _ = bg.fields.shape
     kernels.launch(
-        "rwrt_exact_run", dt, bg.fields, w, hh, bg.lon0, bg.lat0, bg.dx,
+        "rwrt_exact_run", key, bg.fields, w, hh, bg.lon0, bg.lat0, bg.dx,
         bg.dy, y, t, h, f, plon, plat, ug0, vg0, ys, ugs, vgs, lane_att,
         trunc, bounds_g, group, n_groups, r, cut_off, rtol, atol, min_step,
         int(max_iters), int(barrier), kernels.instance_id(
-            instance or rk45_mod.exact_instance(r, dt)), kernels.stream(dev))
+            instance or rk45_mod.exact_instance(r, key)),
+        kernels.stream(dev))
     EXACT_LAUNCHES += 1
     nt = n_bounds + 1
     return GroupedRun(ys[:nt], ugs[:nt], vgs[:nt], lane_att, trunc,
@@ -625,11 +655,13 @@ def _rk4_launch(bg, y, dt, n_steps, cut_off, ys, ugs, vgs, row_offset,
     """Launch the RK4 kernel once: n_steps steps from carry y (5, R), step
     s written at row row_offset + s of ys (rows, 5, R), ugs and vgs
     (rows, R); with ug0, vg0 (R,) given, row row_offset - 1 receives y and
-    them. ``instance`` (a key of ``kernels.INSTANCES``) overrides
-    ``rk4_instance``'s choice. Returns the carry after the last step; reads
-    nothing back from the card."""
+    them (widened to the state's dtype). ``instance`` (a key of
+    ``kernels.INSTANCES``) overrides ``rk4_instance``'s choice. A float64
+    state over a float32 background takes the mixed instance. Returns the
+    carry after the last step; reads nothing back from the card."""
     global RK4_LAUNCHES
     dev, dtype = y.device, y.dtype
+    key = kernels.state_key(y, bg.fields)
     if y.ndim != 2 or y.shape[0] != 5:
         raise ValueError(f"y must be (5, R); got {tuple(y.shape)}")
     if (ug0 is None) != (vg0 is None):
@@ -643,18 +675,19 @@ def _rk4_launch(bg, y, dt, n_steps, cut_off, ys, ugs, vgs, row_offset,
     checks = [("y", y, (5, r)), ("ys", ys, (rows, 5, r)),
               ("ugs", ugs, (rows, r)), ("vgs", vgs, (rows, r))]
     if ug0 is not None:
+        ug0, vg0 = ug0.to(dtype), vg0.to(dtype)
         checks += [("ug0", ug0, (r,)), ("vg0", vg0, (r,))]
     for name, x, shape in checks:
         kernels.check_tensor(x, name, device=dev, dtype=dtype, shape=shape)
-    rk45_mod.check_packed(bg, dev, dtype)
+    rk45_mod.check_packed(bg, dev, key[1])
     dt, half, sixth = rk4_mod.step_factors(dt, dtype)
     y = y.clone()  # the carry, updated in place by the kernel
     w, hh, _ = bg.fields.shape
     kernels.launch(
-        "rwrt_rk4_run", dtype, bg.fields, w, hh, bg.lon0, bg.lat0, bg.dx,
+        "rwrt_rk4_run", key, bg.fields, w, hh, bg.lon0, bg.lat0, bg.dx,
         bg.dy, y, ug0, vg0, ys, ugs, vgs, n_steps, row_offset, r, dt, half,
         sixth, rk45_mod.as_scalar(cut_off, dtype),
-        kernels.instance_id(instance or rk4_instance(r, dtype)),
+        kernels.instance_id(instance or rk4_instance(r, key)),
         kernels.stream(dev))
     RK4_LAUNCHES += 1
     return y
@@ -701,8 +734,6 @@ def _unsupported(config: RunConfig, mesh, initial_state):
     """The branches of the JAX trace_rays this port does not serve yet."""
     if mesh is not None:
         return "a device mesh (ROADMAP Slice 6, multi-GPU)"
-    if config.state_dtype != "compute":
-        return "state_dtype='float64' (ROADMAP Queue 1 item 12)"
     if config.root_order != "canonical":
         return "root_order='fortran' (ROADMAP Queue 1 item 15)"
     if initial_state is not None:
@@ -724,9 +755,13 @@ def trace_rays(
     (integrator='rk4'), or adaptive RK45 with exact bounds
     (bound_mode='exact') or dense output (bound_mode='dense', optionally
     with pin_limit). On the card the integration is one kernel launch.
+    With state_dtype='float64' the state is carried in float64 over the
+    background's dtype (mixed precision when that is float32): all seven
+    outputs are float64.
 
     Args:
-      bs: prepared basic state (its device and dtype are the run's).
+      bs: prepared basic state (its device and dtype are the background's,
+        and the run's unless state_dtype is 'float64').
       config: run configuration.
       source_lon/source_lat: optional explicit source arrays in RADIANS;
         default: the config's regular source matrix.
@@ -788,6 +823,13 @@ def trace_rays(
     n_lanes = y0.shape[1]
 
     nt = config.nt
+    if config.state_dtype == "float64":
+        # Mixed precision: the state, the run's scalars and the controller
+        # in float64; the RHS rounds the state to the background's dtype
+        # at entry (models/ray.py). The cast is exact, and a no-op over a
+        # float64 background.
+        y0 = y0.to(torch.float64)
+        dtype = y0.dtype
     dt = rk45_mod.as_scalar(config.tstep, dtype)
     cut_off = rk45_mod.as_scalar(config.cut_off_rad, dtype)
     if config.integrator == "rk4":
@@ -820,9 +862,11 @@ def trace_rays(
         # the adaptive solver freezes them at their seed state (finite
         # lon/lat/kx, NaN ky/amp), while RK4 writes the NaN step proposal
         # back (all NaN from step 1). (ug, vg) are NaN beyond step 0 either
-        # way.
+        # way. The targets take the history's dtype, which a float64 state
+        # makes wider than the seeds'.
         if config.integrator == "rk45":
-            ys_f = y0_full[None].expand((nt,) + tuple(y0_full.shape)).clone()
+            ys_f = y0_full[None].to(dtype).expand(
+                (nt,) + tuple(y0_full.shape)).clone()
         else:
             ys_f = torch.full((nt,) + tuple(y0_full.shape), float("nan"),
                               dtype=dtype, device=device)

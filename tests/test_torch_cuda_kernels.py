@@ -10,8 +10,9 @@ The library is built with -fmad=false, so the RHS kernel, both dense
 kernels (one group, and the whole run with the kill cascade and (ug, vg)),
 the RK4 kernel and both exact kernels (one group with its suspend/resume
 state, and the whole run, with and without the barrier flag), each RK4 and
-exact kernel in every instance (``kernels.INSTANCES``), must equal their
-plain versions bitwise; the
+exact kernel in every instance (``kernels.INSTANCES``), and the whole-run
+kernels' mixed-precision instances (a float64 state over a float32
+background), must equal their plain versions bitwise; the
 spectral kernel sums its
 contraction on the tensor cores in another order than the matmul, so it is
 held to 1e-12 (float64, and bf16 operands over float64) and 1e-5
@@ -123,9 +124,12 @@ def test_dense_group_kernel_equals_plain(jet_field, dev, dtype, pin):
     assert int(k[5]) == p[5]
 
 
-def dense_run_inputs(bg, dtype, dev, group=5, nt=13):
+def dense_run_inputs(bg, dtype, dev, group=5, nt=13, state=None):
     """The entry state of a run over a 5 x 4 source grid plus three polar
-    sources, zwn 2, 4, 6 (207 lanes, 72 rootless), and its padded bounds."""
+    sources, zwn 2, 4, 6 (207 lanes, 72 rootless), and its padded bounds.
+    ``state`` (float64 over a float32 ``bg``: mixed precision) widens y0,
+    and h0, rtol and the bounds follow it; f0, ug0 and vg0 keep
+    ``dtype``."""
     slon, slat = tracer.source_matrix(0.0, 5.0, 36.0, 8.0, 5, 4)
     slon = np.concatenate([slon, np.radians([10.0, 100.0, 200.0])])
     slat = np.concatenate([slat, np.radians([86.0, 88.5, -87.0])])
@@ -133,11 +137,12 @@ def dense_run_inputs(bg, dtype, dev, group=5, nt=13):
         bg, torch.as_tensor(slon, dtype=dtype, device=dev),
         torch.as_tensor(slat, dtype=dtype, device=dev),
         torch.tensor([2.0, 4.0, 6.0], dtype=dtype, device=dev))
-    y0 = y0.contiguous()
-    rtol = rk45.validate_tol(1e-6, dtype)
+    state = state or dtype
+    y0 = y0.to(state).contiguous()
+    rtol = rk45.validate_tol(1e-6, state)
     h0 = tracer.initial_step_sizes(bg, y0, rtol, 1e-6)
     f0 = ray.RayRHS(bg)(y0)
-    bounds_g = tracer.padded_bounds(7200.0, nt, group, dtype, dev)
+    bounds_g = tracer.padded_bounds(7200.0, nt, group, state, dev)
     return (y0, ug0.contiguous(), vg0.contiguous(), h0, f0, bounds_g,
             nt - 1), rtol
 
@@ -561,8 +566,12 @@ def test_trace_rays_other_branches_launch_once(jet_field, dev, branch):
 def test_wrappers_refuse_bad_inputs(jet_field, dev):
     _, bg = background(jet_field, torch.float32, dev)
     y = seeded_states(torch.float64, dev, n=64)
-    with pytest.raises(ValueError):
-        ray._rhs_cuda(bg, y, False)          # dtype mismatch
+    # A float64 state over float32 fields (mixed precision) is rounded to
+    # float32 at entry, as the plain RHS rounds it.
+    for a, b in zip(ray._rhs_cuda(bg, y, False),
+                    ray._rhs_cuda(bg, y.float(), False)):
+        if a is not None:
+            assert same(a, b) if a.is_floating_point() else torch.equal(a, b)
     with pytest.raises(ValueError):
         ray._rhs_cuda(bg, y.float().T.contiguous().T, False)  # layout
     with pytest.raises(TypeError):
@@ -570,3 +579,126 @@ def test_wrappers_refuse_bad_inputs(jet_field, dev):
         rk45.integrate_group_dense(
             lambda yy, tt=0.0: yy, yf, yf[0], yf[0], yf,
             torch.ones(3, device=dev), 1e-5, 1e-6, 7.2)
+
+
+# ---- Mixed precision: a float64 state over a float32 background. ----
+
+MIXED = (torch.float64, torch.float32)
+
+
+def mixed_inputs(jet_field, dev, group=5, nt=13):
+    _, bg = background(jet_field, torch.float32, dev)
+    return (bg,) + dense_run_inputs(bg, torch.float32, dev, group, nt,
+                                    state=torch.float64)
+
+
+@pytest.mark.parametrize("case", list(DENSE_RUN_CASES))
+def test_dense_run_mixed_equals_plain(jet_field, dev, case):
+    """The whole-run dense kernel's mixed instance: one launch; rows, ug,
+    vg, attempts, truncation counts and carry (f in float32, the rest in
+    float64) bitwise equal to the plain run."""
+    bg, (y0, ug0, vg0, h0, f0, bounds_g, n_bounds), rtol = mixed_inputs(
+        jet_field, dev)
+    assert (y0.dtype, f0.dtype, ug0.dtype) == MIXED + (torch.float32,)
+    kw = dict(DENSE_RUN_CASES[case])
+    cut_off = kw.pop("cut_off")
+    args = (bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off, rtol,
+            1e-6, 7.2)
+    before = tracer.LAUNCHES
+    k = tracer._dense_run(*args, **kw)
+    assert tracer.LAUNCHES == before + 1
+    p = tracer._dense_run_plain(*args, **kw)
+    assert k.ys.dtype == k.ugs.dtype == torch.float64
+    assert k.carry[3].dtype == torch.float32
+    for a, b in zip(k[:3] + k.carry, p[:3] + p.carry):
+        assert a.dtype == b.dtype and same(a, b)
+    assert torch.equal(k.lane_att, p.lane_att)
+    assert torch.equal(k.trunc, p.trunc)
+
+
+@pytest.mark.parametrize("n", LANES)
+@pytest.mark.parametrize("instance", INSTANCES)
+def test_rk4_mixed_instances_equal_plain(jet_field, dev, instance, n):
+    """Every instance of the RK4 kernel's mixed instance against the plain
+    loop: rows, (ug, vg) bitwise, float64; and a chunk from a carry."""
+    bg, (y0, ug0, vg0, *_), _ = mixed_inputs(jet_field, dev)
+    y0, ug0, vg0 = lanes((amp_nan(y0), ug0, vg0), n)
+    k = tracer._run_rk4_cuda(bg, y0, ug0, vg0, 7200.0, 25, 0.03, instance)
+    p = tracer._run_rk4_plain(bg, y0, ug0, vg0, 7200.0, 25, 0.03)
+    for a, b in zip(k, p):
+        assert a.dtype == torch.float64 and same(a, b)
+    assert torch.isnan(k[0][-1, 0]).any() and torch.isfinite(k[0][-1, 0]).any()
+    carry = k[0][10].contiguous()
+    outs = tracer._rk4_buffers(carry, 6)
+    y_k = tracer._rk4_launch(bg, carry, 7200.0, 6, 0.03, *outs, 0,
+                             instance=instance)
+    ref = tracer._rk4_buffers(carry, 6)
+    y_p = rk4.trace_into(bg, carry, 7200.0, 6, 0.03, *ref)
+    for a, b in zip(outs + (y_k,), ref + (y_p,)):
+        assert same(a, b)
+
+
+@pytest.mark.parametrize("case", list(EXACT_INSTANCE_CASES))
+@pytest.mark.parametrize("n", LANES)
+@pytest.mark.parametrize("instance", INSTANCES)
+def test_exact_run_mixed_instances_equal_plain(jet_field, dev, instance, n,
+                                               case):
+    """Every instance of the whole-run exact kernel's mixed instance, grouped
+    and with the barrier flag (whose (ug, vg) are sampled at the saved
+    state in float64), against the plain run, bitwise."""
+    kw = dict(EXACT_INSTANCE_CASES[case])
+    group, cut_off = kw.pop("group"), kw.pop("cut_off")
+    bg, (y0, ug0, vg0, h0, _, _, _), rtol = mixed_inputs(jet_field, dev)
+    y0 = overflow(y0) if group == 1 else amp_nan(y0)
+    y0, ug0, vg0, h0 = lanes((y0, ug0, vg0, h0), n)
+    f0 = ray.RayRHS(bg)(y0)
+    bounds_g = tracer.padded_bounds(7200.0, 13, group, torch.float64, dev)
+    args = (bg, y0, ug0, vg0, h0, f0, bounds_g, 12, cut_off, rtol, 1e-6, 7.2)
+    k = tracer._exact_run_cuda(*args, instance=instance, **kw)
+    p = tracer._exact_run_plain(*args, **kw)
+    for a, b in zip(k[:3] + k.carry, p[:3] + p.carry):
+        assert a.dtype == b.dtype and same(a, b)
+    assert torch.equal(k.lane_att, p.lane_att)
+    assert torch.equal(k.trunc, p.trunc)
+
+
+def test_single_group_kernels_refuse_mixed(jet_field, dev):
+    """``integrate_group`` and ``integrate_group_dense`` have no mixed
+    kernel instance: on the card they raise, naming the ROADMAP item."""
+    bg, (y0, _, _, h0, f0, bounds_g, _), rtol = mixed_inputs(jet_field, dev)
+    t0 = torch.zeros_like(h0)
+    with pytest.raises(NotImplementedError, match="item 17"):
+        rk45.integrate_group(ray.RayRHS(bg), None, y0, t0, h0, f0,
+                             bounds_g[0], y0[0], y0[1], 0.2, rtol, 1e-6, 7.2)
+    with pytest.raises(NotImplementedError, match="item 17"):
+        rk45.integrate_group_dense(ray.RayRHS(bg), y0, t0, h0, f0,
+                                   bounds_g[0], rtol, 1e-6, 7.2)
+
+
+@pytest.mark.parametrize("branch", ["rk4", "exact", "exact_batch1", "dense"])
+def test_trace_rays_mixed_launches_once(jet_field, dev, branch):
+    """state_dtype='float64' over a float32 background on the card: one
+    launch of the branch's kernel, all seven outputs float64, finite rows
+    on the lanes alive at the end."""
+    u, v, lat, lon = jet_field
+    bs = pt.prepare(u, v, lat, lon, cal_dtype="float32", device=dev)
+    cfg = pt.RunConfig(
+        zwn=(2.0, 4.0, 6.0), sw_lon=0.0, sw_lat=5.0, dlon=36.0, dlat=8.0,
+        nnx=5, nny=4, tstep=7200.0, ttotal=4 * 86400.0,
+        integrator="rk4" if branch == "rk4" else "rk45",
+        bound_mode="dense" if branch == "dense" else "exact",
+        interval_batch=1 if branch == "exact_batch1" else 16,
+        state_dtype="float64")
+    before = (tracer.LAUNCHES, tracer.RK4_LAUNCHES, tracer.EXACT_LAUNCHES,
+              rk45.LAUNCHES, rk45.EXACT_LAUNCHES)
+    out = pt.trace_rays(bs, cfg)
+    after = (tracer.LAUNCHES, tracer.RK4_LAUNCHES, tracer.EXACT_LAUNCHES,
+             rk45.LAUNCHES, rk45.EXACT_LAUNCHES)
+    want = {"rk4": (0, 1, 0, 0, 0), "dense": (1, 0, 0, 0, 0)}.get(
+        branch, (0, 0, 1, 0, 0))
+    assert tuple(a - b for a, b in zip(after, before)) == want
+    for name in out._fields:
+        assert getattr(out, name).dtype == torch.float64, name
+    assert out.lon.shape == (49, 3, 20, 3) and out.lon.is_cuda
+    alive = torch.isfinite(out.ky[-1])
+    assert alive.any() and torch.isfinite(out.lat[-1][alive]).all()

@@ -133,15 +133,13 @@ def test_rootless_lanes_stay_frozen(states):
 
 
 @pytest.mark.parametrize("branch", [
-    "mesh", "state_float64", "fortran", "initial_state", "auto_chunk",
+    "mesh", "fortran", "initial_state", "auto_chunk",
 ])
 def test_unported_branches_raise(states, branch):
     _, bst = states
     cfg = dict(CFG, ttotal=2 * DAY)
     kw = {}
-    if branch == "state_float64":
-        cfg.update(state_dtype="float64")
-    elif branch == "fortran":
+    if branch == "fortran":
         cfg.update(root_order="fortran")
     elif branch == "mesh":
         kw = dict(mesh=object())
