@@ -20,15 +20,18 @@ mixed precision (``state_dtype="float64"``: a float64 state over the
 float32 background, the whole-run kernels' ``_mix`` instances): the dense
 production run, its drift against float32 and float64, both RK4 runs and
 the README run at its full 90 days, which the float64 time carry lets
-finish.
+finish. The chunked driver (``utils.checkpoint.trace_rays_chunked``) runs
+the production seeding, the RK4 default run and the mixed runs again in
+chunks, one launch each, and the 90-day production run through
+``trace_rays``, which reroutes it there.
 
 Phases (any failed check raises; nothing is caught but the truncation the
-exact_path phase requires):
+exact_path phase requires and the chunk budget the chunked phase sets):
   rhs          ``ray.rhs`` and ``ray.rhs_and_gv`` (the kernel) vs the
                plain ``ray._rhs_core`` on 100,800 seeded states
   dense_group  one 60-bound group on the 100,800-ray seed batch, the
                single-group kernel (``integrate_group_dense``) vs the plain
-               loop, float64 and float32
+               loop, float64 and float32; its mixed instance bitwise
   dense_run    the whole-run kernel (``tracer._dense_run``: every group,
                the kill cascade, (ug, vg)) vs the plain ``_dense_run_plain``
                over all 360 bounds, bitwise: float32 on the production
@@ -56,7 +59,8 @@ exact_path phase requires):
                (``kernels.INSTANCES``) bitwise and timed in turns
   exact_group  one 16-bound group (``integrate_group`` on CUDA) vs the plain
                loop on the production seeding's entry state, float32 and
-               float64, bitwise; every instance bitwise and timed in turns
+               float64, bitwise; every instance bitwise and timed in turns;
+               every instance of its mixed instance bitwise
   exact_run    the whole-run exact kernel (``tracer._exact_run``) vs the
                plain ``_exact_run_plain`` on the README run's entry state
                over README_DAYS days, float32, and on its first
@@ -76,6 +80,19 @@ exact_path phase requires):
                ``MaxItersTruncation``; the longest lane's us per trip there,
                and that lane alone over TRUNC_DAYS days (backstop
                LONE_MAX_ITERS) in every instance in turns
+  chunked      the chunked driver, every counter reset just before each
+               run and read just after: the production run in 6 chunks of
+               60 (one dense launch each, rows bitwise equal to main_path's,
+               its 6,893,062 attempts); cut by a 2-chunk budget with a
+               checkpoint and streamed history, then resumed (bitwise); on
+               CHUNK_PLAIN_SOURCES sources over 2 chunks against the driver
+               with ``tracer._dense_run`` set to its plain version
+               (bitwise); the 90-day production run through ``trace_rays``
+               (rerouted: 17 launches, CPU rows, no non-finite alive lane;
+               the wall split into kernel, device-to-host copy, host
+               scatter, compaction and the rest, peak device memory, host
+               history bytes); the RK4 default run in chunks of 64, rows
+               bitwise equal to rk4_path's
   mixed_dense  the production run in mixed precision: the dense kernel's
                mixed instance on its entry state, timed, and on its first
                N_SUBSET lanes bitwise against the plain run; then through
@@ -94,6 +111,10 @@ exact_path phase requires):
                EXACT_SUBSET lanes x EXACT_DAYS days and, with the barrier
                flag, against the flagged plain run; then through
                ``trace_rays`` as exact_path, with no ``MaxItersTruncation``
+  mixed_chunked  the mixed README run (90 days, chunks of 16: 68 exact
+               launches) and the mixed dense production run (30 days,
+               chunks of 60: 6 launches) through the chunked driver, float64
+               rows bitwise equal to mixed_exact's and mixed_dense's
 
 The RK4 and exact kernels' instances are timed in turns (TURNS) on the
 same inputs at eight shapes (RK4 at production seeding and in the default
@@ -207,6 +228,17 @@ MIXED_README_DAYS = 90
 #: The mixed dense run's plain comparison: its first groups (of 60 bounds),
 #: on N_SUBSET lanes.
 MIXED_PLAIN_GROUPS = 2
+#: The chunked driver: the production run's chunks (its group), the RK4
+#: default run's, the driver's default (what a rerouted ``trace_rays``
+#: takes), and the rerouted production run's horizon.
+CHUNK_STEPS = 60
+RK4_CHUNK_STEPS = 64
+DEFAULT_CHUNK_STEPS = 64
+LONG_DAYS = 90
+#: The chunked driver against its plain units: the first sources of the
+#: production seeding (~4,100 lanes after compaction) over two chunks.
+CHUNK_PLAIN_SOURCES = 324
+CHUNK_PLAIN_CHUNKS = 2
 
 
 def climatology_background(nlon=144, nlat=73):
@@ -586,6 +618,66 @@ def phase_dense_group(run):
             run.kernels["dense_group"] = dict(
                 max_abs_err=float(dpos.max()), ms=ms, plain_ms=plain_ms,
                 library_ms=None, **b)
+    dense_group_mixed(run)
+
+
+def dense_group_mixed(run):
+    """The single-group dense kernel's mixed instance (a float64 state over
+    the float32 background) on the seed batch's 60 bounds with pin-kill,
+    against the plain loop: every output bitwise."""
+    torch = run.torch
+    from rwrt_tpu_torch.models import ray
+    from rwrt_tpu_torch.solvers import rk45
+    from rwrt_tpu_torch import tracer
+
+    f64 = torch.float64
+    _, bg, y0, _, _ = run.seed_batch(torch.float32)
+    y0 = y0.to(f64)
+    rtol = rk45.validate_tol(1e-6, f64)
+    min_step = 1e-3 * 2 * HOUR
+    h0 = tracer.initial_step_sizes(bg, y0, rtol, 1e-6)
+    t0 = torch.zeros_like(h0)
+    f0 = ray.RayRHS(bg)(y0)
+    bounds = torch.arange(1, 61, dtype=f64, device=run.dev) * (2 * HOUR)
+    args = (y0, t0, h0, f0, bounds, rtol, 1e-6, min_step)
+    pin = dict(pin_limit=500, pin_mwn=0.0)
+
+    def plain_rhs(yy, tt=0.0):
+        return ray._rhs_core(bg, yy, tt, False)[0]
+
+    def run_kernel():
+        return rk45.integrate_group_dense(ray.RayRHS(bg), *args, **pin)
+
+    def run_plain():
+        return rk45._integrate_group_dense_plain(plain_rhs, *args, 1_000_000,
+                                                 **pin)
+
+    before = rk45.LAUNCHES
+    kern = run_kernel()
+    check(rk45.LAUNCHES == before + 1, "mixed dense_group did not launch")
+    plain, p_s = wall_s(run_plain)
+    for i in (0, 1, 2, 3, 4):
+        check(kern[i].dtype == plain[i].dtype and same(kern[i], plain[i]),
+              f"mixed dense_group: output {i} differs from the plain loop")
+    for i in (7, 8, 9):
+        check(torch.equal(kern[i], plain[i]),
+              f"mixed dense_group: output {i} differs from the plain loop")
+    check(int(kern[5]) == plain[5], "mixed dense_group: trips differ")
+    ms = cuda_ms(run_kernel, 5)
+    frozen = torch.isnan(y0.mean(dim=0))
+    rows = int((torch.isfinite(kern[0][:, 0]) & ~frozen).sum())
+    attempts = int(kern[7].sum())
+    flops = {u: attempts * n for u, n in MIX_ATTEMPT_FLOPS.items()}
+    flops["float64"] += rows * ROW_FLOPS
+    b = bound(nbytes(y0, t0, h0, f0, bounds, bg.fields, kern[0], *kern[1:5],
+                     kern[7], kern[8], kern[9]), flops)
+    print(f"dense_group mixed: R={y0.shape[1]}, 60 bounds, bitwise equal to "
+          f"the plain loop (rows, carry, trips, attempts, flags); step "
+          f"attempts {attempts}; kernel {ms:.3f} ms (CUDA events), plain "
+          f"{p_s * 1e3:.1f} ms (wall), bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']})")
+    run.kernels["dense_group_mix"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=p_s * 1e3, library_ms=None, **b)
 
 
 def dense_run_bound(args, out, dtype):
@@ -995,6 +1087,70 @@ def phase_exact_group(run):
             run.kernels["exact_group"] = dict(
                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
                 **b)
+    exact_group_mixed(run, cfg)
+
+
+def exact_group_mixed(run, cfg):
+    """The single-group exact kernel's mixed instance (a float64 state over
+    the float32 background) on the first 16-bound group of the production
+    seeding: every instance bitwise equal to the plain loop."""
+    torch = run.torch
+    from rwrt_tpu_torch import kernels
+    from rwrt_tpu_torch.models import ray
+    from rwrt_tpu_torch.solvers import rk45
+
+    f64 = torch.float64
+    key = (f64, torch.float32)
+    bg, args, _, _ = run.run_inputs(torch.float32, cfg, state=f64)
+    _, y0, _, _, h0, f0, bounds_g, _, cut_off, rtol, atol, min_step = args
+    carry = (y0, torch.zeros_like(h0), h0, f0, y0[0].clone(), y0[1].clone())
+    tail = (bounds_g[0], *carry[4:], cut_off, rtol, atol, min_step)
+
+    def plain_rhs(yy, tt=0.0):
+        return ray._rhs_core(bg, yy, tt, False)[0]
+
+    def plain_gv(yy, tt=0.0):
+        dy, _, ug, vg = ray._rhs_core(bg, yy, tt, True)
+        return dy, ug, vg
+
+    def launch(inst=None):
+        return rk45._integrate_group_cuda(
+            ray.RayRHS(bg), None, *carry[:4], *tail, MAX_ITERS, None, inst)
+
+    before = rk45.EXACT_LAUNCHES
+    kern = rk45.integrate_group(ray.RayRHS(bg), None, *carry[:4], *tail)
+    check(rk45.EXACT_LAUNCHES == before + 1, "mixed exact group did not launch")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain = rk45._integrate_group_plain(plain_rhs, plain_gv, *carry[:4], *tail)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+
+    def same_as(out):
+        return (all(out[i].dtype == plain[i].dtype and same(out[i], plain[i])
+                    for i in range(7))
+                and int(out[7]) == plain[7]
+                and all(torch.equal(out[i], plain[i])
+                        for i in (9, 10, 11, 12)))
+
+    check(same_as(kern), "mixed exact_group differs from the plain loop")
+    for inst in kernels.INSTANCES:
+        check(same_as(launch(inst)),
+              f"mixed exact_group: instance {inst} differs from the plain loop")
+    ms = cuda_ms(launch, 5)
+    attempts = int(kern[9].sum())
+    b = exact_bound(args, kern[:7] + kern[9:], "mixed", attempts,
+                    int(kern[0][:, 5].isfinite().sum()))
+    print(f"exact_group mixed: R={y0.shape[1]}, 16 bounds, every instance "
+          f"bitwise equal to the plain loop; trips {int(kern[7])}, step "
+          f"attempts {attempts}; launcher's instance "
+          f"{rk45.exact_instance(y0.shape[1], key, run=False)}, kernel "
+          f"{ms:.3f} ms (CUDA events), plain {plain_ms:.1f} ms, bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+    run.kernels["exact_group_mix"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
 def phase_exact_run(run):
@@ -1098,12 +1254,15 @@ def phase_exact_run(run):
                 **bnd)
 
 
-def traced(run, cfg, launches_of, **kw):
-    """One ``trace_rays`` on the climatology background, float32, with
-    every launch counter set to 0 just before it and read just after.
-    Returns (traj, launches, wall s, peak MiB above the prepared state,
-    stats, the MaxItersTruncation that refused the run or None; traj is
-    None then)."""
+def traced(run, cfg, launches_of, n_launches=1, driver=None, stop=(),
+           **kw):
+    """One ``trace_rays`` (or ``driver``, a function of the same
+    arguments) on the climatology background, float32, with every launch
+    counter set to 0 just before it and read just after: ``n_launches``
+    of ``launches_of`` and none of the other kernels but the RHS. Returns
+    (traj, launches, wall s, peak MiB above the prepared state, stats,
+    the MaxItersTruncation, or exception of a type in ``stop``, that
+    ended the run, or None; traj is None then)."""
     torch = run.torch
     from rwrt_tpu_torch import tracer
     from rwrt_tpu_torch.models import ray
@@ -1119,8 +1278,9 @@ def traced(run, cfg, launches_of, **kw):
     tracer.LAUNCHES = tracer.RK4_LAUNCHES = tracer.EXACT_LAUNCHES = 0
     t0 = time.perf_counter()
     try:
-        traj, refused = run.rt.trace_rays(bs, cfg, stats=stats, **kw), None
-    except tracer.MaxItersTruncation as e:
+        traj = (driver or run.rt.trace_rays)(bs, cfg, stats=stats, **kw)
+        refused = None
+    except (tracer.MaxItersTruncation, *stop) as e:
         traj, refused = None, e
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1131,14 +1291,16 @@ def traced(run, cfg, launches_of, **kw):
                 "exact_run": tracer.EXACT_LAUNCHES}
     peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
     for k, n in launches.items():
-        want = 1 if k == launches_of else None if k == "rhs" else 0
+        want = n_launches if k == launches_of else None if k == "rhs" else 0
         check(want is None or n == want,
               f"trace_rays made {n} {k} launches, not {want}")
     return traj, launches, wall, peak, stats, refused
 
 
 def check_rows(traj, idx, kern, what):
-    """The trajectory's compacted lanes equal a kernel run's rows."""
+    """The trajectory's compacted lanes equal a kernel run's rows (moved to
+    the trajectory's device: the chunked driver's are on the host)."""
+    kern = [k.to(traj.lon.device) for k in kern[:3]]
     nt = kern[0].shape[0]
     flat = {k: getattr(traj, k).reshape(nt, -1)[:, idx]
             for k in traj._fields}
@@ -1247,6 +1409,168 @@ def phase_lone_lane(run, cfg, lane):
     print_choice(run, tag, rk45.exact_instance(1, torch.float32))
 
 
+def phase_chunked(run):
+    """The chunked driver (``utils.checkpoint.trace_rays_chunked``): the
+    30-day production run in chunks of its group (CHUNK_STEPS), one dense
+    launch per chunk, rows bitwise equal to main_path's; the same run cut
+    by a two-chunk budget with a checkpoint and streamed history, then
+    resumed, bitwise equal to it; the driver on a subset of the sources
+    over CHUNK_PLAIN_CHUNKS chunks with ``tracer._dense_run`` replaced by
+    its plain version, bitwise equal to the kernel's; the LONG_DAYS-day
+    production run through ``trace_rays``, which must reroute to the
+    driver (default chunk_steps), with the wall's split, peak device
+    memory and host history bytes; the RK4 default run in chunks of
+    RK4_CHUNK_STEPS, rows bitwise equal to rk4_path's."""
+    import os
+    import tempfile
+
+    torch = run.torch
+    from rwrt_tpu_torch import tracer
+    from rwrt_tpu_torch.utils import checkpoint
+
+    driver = checkpoint.trace_rays_chunked
+    src = dict(source_lon=run.slon, source_lat=run.slat)
+    cfg = production_config(run.rt)
+    n_chunks = -(-(cfg.nt - 1) // CHUNK_STEPS)
+    kw = dict(chunk_steps=CHUNK_STEPS, verbose=False, **src)
+    traj, launches, wall, peak, stats, refused = traced(
+        run, cfg, "dense_run", n_chunks, driver, **kw)
+    check(refused is None, f"the chunked production run was refused: "
+          f"{refused}")
+    check(traj.lon.device.type == "cpu", "the chunked rows are not on the "
+          "host")
+    idx, kern = run.dense_run
+    check_rows(traj, idx, kern, "chunked 30 days")
+    attempts = sum(int(a.sum()) for a in stats["lane_att"])
+    widths = [a.shape[1] for a in stats["lane_att"]]
+    check(attempts == DENSE_ATTEMPTS,
+          f"chunked: {attempts} step attempts, not {DENSE_ATTEMPTS}")
+    print(f"chunked {N_DAYS} days: {n_chunks} chunks of {CHUNK_STEPS}, "
+          f"launches {launches}, wall {wall:.3f} s, kernel per chunk "
+          f"{[round(x, 3) for x in stats['chunk_ms']]} ms, host "
+          f"{ {k: round(v, 4) for k, v in stats['seconds'].items()} } s, "
+          f"lanes per chunk {widths}, peak device memory {peak:.1f} MiB "
+          f"above the prepared state; step attempts {attempts}; rows "
+          "bitwise equal to main_path's")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ck.npz")
+        paths = dict(checkpoint_path=path, stream_dir=os.path.join(tmp, "s"))
+        _, first, wall1, _, _, stopped = traced(
+            run, cfg, "dense_run", 2, driver, stop=(
+                checkpoint.ChunkBudgetReached,), max_chunks=2, **paths, **kw)
+        check(isinstance(stopped, checkpoint.ChunkBudgetReached)
+              and stopped.step == 1 + 2 * CHUNK_STEPS,
+              f"the budgeted run ended with {stopped!r}")
+        resumed, rest, wall2, _, _, refused = traced(
+            run, cfg, "dense_run", n_chunks - 2, driver, **paths, **kw)
+        check(refused is None, f"the resumed run was refused: {refused}")
+        for k in traj._fields:
+            check(same(getattr(resumed, k), getattr(traj, k)),
+                  f"resumed: {k} differs from the uninterrupted run")
+        del resumed
+    print(f"chunked resume: {CHUNK_STEPS * 2}-step budget "
+          f"(ChunkBudgetReached at step {stopped.step}, {wall1:.3f} s, "
+          f"launches {first}), resumed from the checkpoint and the streamed "
+          f"history ({wall2:.3f} s, launches {rest}); rows bitwise equal to "
+          "the uninterrupted run's")
+    del traj
+
+    part = dict(kw, source_lon=run.slon[:CHUNK_PLAIN_SOURCES],
+                source_lat=run.slat[:CHUNK_PLAIN_SOURCES])
+    cfg_p = production_config(
+        run.rt, ttotal=CHUNK_PLAIN_CHUNKS * CHUNK_STEPS * cfg.tstep)
+    k_traj, k_launch, k_wall, _, k_stats, _ = traced(
+        run, cfg_p, "dense_run", CHUNK_PLAIN_CHUNKS, driver, **part)
+    unit = tracer._dense_run
+    tracer._dense_run = tracer._dense_run_plain
+    try:
+        p_traj, p_launch, p_wall, _, _, _ = traced(
+            run, cfg_p, "dense_run", 0, driver, **part)
+    finally:
+        tracer._dense_run = unit
+    for k in k_traj._fields:
+        check(same(getattr(k_traj, k), getattr(p_traj, k)),
+              f"chunked plain units: {k} differs from the kernel's")
+    print(f"chunked against its plain units: {CHUNK_PLAIN_SOURCES} sources "
+          f"({k_stats['lane_att'][0].shape[1]} lanes) x "
+          f"{CHUNK_PLAIN_CHUNKS} chunks, rows bitwise equal; kernel driver "
+          f"{k_wall:.3f} s (launches {k_launch}), plain driver {p_wall:.1f} s "
+          f"(launches {p_launch})")
+
+    cfg90 = production_config(run.rt, ttotal=LONG_DAYS * DAY)
+    n90 = -(-(cfg90.nt - 1) // DEFAULT_CHUNK_STEPS)
+    traj, launches, wall, peak, stats, refused = traced(
+        run, cfg90, "dense_run", n90, **src)
+    check(refused is None, f"the {LONG_DAYS}-day run was refused: {refused}")
+    check(traj.lon.device.type == "cpu",
+          f"the {LONG_DAYS}-day trace_rays did not reroute")
+    n_rays = 3 * N_SOURCES * 7
+    for k in traj._fields:
+        check(tuple(getattr(traj, k).shape) == (cfg90.nt, 3, N_SOURCES, 7),
+              f"{LONG_DAYS} days: {k} shape {tuple(getattr(traj, k).shape)}")
+    alive_end = traj.ky[-1].isfinite()
+    for k in traj._fields:
+        check(bool(getattr(traj, k)[-1][alive_end].isfinite().all()),
+              f"{LONG_DAYS} days: non-finite {k} on a lane alive at the end")
+    kernel_s = sum(stats["chunk_ms"]) / 1e3
+    host = stats["seconds"]
+    other = wall - kernel_s - sum(host.values())
+    hist_bytes = 7 * cfg90.nt * n_rays * traj.lon.element_size()
+    split = dict(wall=wall, kernel=kernel_s, **host, other=other)
+    print(f"chunked {LONG_DAYS} days through trace_rays (rerouted): {n_rays} "
+          f"rays x {cfg90.nt - 1} steps, {n90} chunks of "
+          f"{DEFAULT_CHUNK_STEPS}, launches {launches}; alive fraction at the "
+          f"end {float(alive_end.float().mean()):.4f}; step attempts "
+          f"{sum(int(a.sum()) for a in stats['lane_att'])}; lanes per chunk "
+          f"{[a.shape[1] for a in stats['lane_att']]}; peak device memory "
+          f"{peak:.1f} MiB above the prepared state; host history "
+          f"{hist_bytes} B")
+    print(f"chunked {LONG_DAYS} days wall split (s): " + json.dumps(split))
+    print(f"chunked {LONG_DAYS} days kernel per chunk (ms): "
+          f"{[round(x, 3) for x in stats['chunk_ms']]}")
+    del traj
+
+    cfg = default_config(run.rt)
+    n_rk4 = -(-(cfg.nt - 1) // RK4_CHUNK_STEPS)
+    traj, launches, wall, _, stats, _ = traced(
+        run, cfg, "rk4_run", n_rk4, driver, chunk_steps=RK4_CHUNK_STEPS,
+        verbose=False)
+    check_rows(traj, *run.rk4["default"], "chunked rk4 default")
+    print(f"chunked rk4 default: {n_rk4} chunks of {RK4_CHUNK_STEPS}, wall "
+          f"{wall:.3f} s, kernel {sum(stats['chunk_ms']):.3f} ms in all, "
+          f"launches {launches}; rows bitwise equal to rk4_path's")
+
+
+def phase_mixed_chunked(run):
+    """The chunked driver in mixed precision: the README run over
+    MIXED_README_DAYS days in chunks of its group (16), one exact launch
+    per chunk, and the production dense run over N_DAYS days in chunks of
+    CHUNK_STEPS, one dense launch per chunk; float64 rows bitwise equal to
+    mixed_exact's and mixed_dense's."""
+    from rwrt_tpu_torch.utils import checkpoint
+
+    driver = checkpoint.trace_rays_chunked
+    for name, cfg, of, group, ref, kw in (
+            ("readme exact", readme_config(run.rt, MIXED_README_DAYS),
+             "exact_run", 16, run.mixed_exact, {}),
+            ("production dense", production_config(run.rt), "dense_run",
+             CHUNK_STEPS, run.mixed_dense,
+             dict(source_lon=run.slon, source_lat=run.slat))):
+        n = -(-(cfg.nt - 1) // group)
+        traj, launches, wall, peak, stats, refused = traced(
+            run, mixed(cfg), of, n, driver, chunk_steps=group, verbose=False,
+            **kw)
+        check(refused is None, f"mixed chunked {name} was refused: {refused}")
+        all_float64(traj, f"mixed chunked {name}")
+        check_rows(traj, *ref, f"mixed chunked {name}")
+        print(f"mixed chunked {name}: {n} chunks of {group}, wall "
+              f"{wall:.3f} s, kernel {sum(stats['chunk_ms']):.3f} ms in all, "
+              f"peak device memory {peak:.1f} MiB above the prepared state; "
+              f"launches {launches}; float64 rows bitwise equal to the "
+              "one-launch run's")
+
+
 def mixed(cfg, **changes):
     """``cfg`` in mixed precision: a float64 state over its float32
     background."""
@@ -1333,6 +1657,8 @@ def phase_mixed_dense(run):
     run.kernels["dense_run_mix"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
     run.launches["dense_run_mix"] = launches["dense_run"]
+    run.launches["dense_group_mix"] = launches["dense_group"]
+    run.mixed_dense = (idx, kern)
 
 
 def phase_mixed_drift(run):
@@ -1354,8 +1680,8 @@ def phase_mixed_drift(run):
             state_dtype="compute" if state is None else "float64")
         stats = {}
         # The float64 history (4.1 GB) is past the 2 GiB estimate at which
-        # trace_rays raises (trace_rays_chunked is not ported); the card
-        # holds it.
+        # trace_rays reroutes to the chunked driver; the card holds it, and
+        # the drift is the one-launch run's.
         traj = run.rt.trace_rays(run.bs(bs_dtype), cfg, source_lon=run.slon,
                                  source_lat=run.slat, stats=stats,
                                  auto_chunk_bytes=None)
@@ -1540,6 +1866,8 @@ def phase_mixed_exact(run):
     run.kernels["exact_run_mix"] = dict(
         max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **bnd)
     run.launches["exact_run_mix"] = launches["exact_run"]
+    run.launches["exact_group_mix"] = launches["exact_group"]
+    run.mixed_exact = (idx, kern)
 
 
 KERNELS = (
@@ -1561,6 +1889,10 @@ KERNELS = (
      "rwrt_tpu/tracer.py:819"),
     ("exact_run_mix", "rwrt_tpu_torch/csrc/exact_run_mix.cu",
      "rwrt_tpu/tracer.py:861"),
+    ("dense_group_mix", "rwrt_tpu_torch/csrc/dense_run_mix.cu",
+     "rwrt_tpu/solvers/rk45.py:494"),
+    ("exact_group_mix", "rwrt_tpu_torch/csrc/exact_run_mix.cu",
+     "rwrt_tpu/solvers/rk45.py:302"),
 )
 
 
@@ -1596,8 +1928,9 @@ def main() -> int:
     for phase in (phase_rhs, phase_dense_group, phase_dense_run,
                   phase_main_path, phase_spectral, phase_rk4,
                   phase_exact_group, phase_exact_run, phase_rk4_path,
-                  phase_exact_path, phase_mixed_dense, phase_mixed_drift,
-                  phase_mixed_rk4, phase_mixed_exact):
+                  phase_exact_path, phase_chunked, phase_mixed_dense,
+                  phase_mixed_drift, phase_mixed_rk4, phase_mixed_exact,
+                  phase_mixed_chunked):
         t0 = time.perf_counter()
         phase(run)
         print(f"phase {phase.__name__[6:]} ok in "

@@ -3,7 +3,8 @@
 Barotropic Rossby-wave ray tracing with plain PyTorch around hand-written
 CUDA kernels for the RHS, the whole RK4, exact-bound and dense
 Dormand-Prince runs (and single groups of the latter two) and the spectral
-sampler (built from ``csrc/`` at first use on a CUDA device). The JAX
+sampler (built from ``csrc/`` at first use on a CUDA device), and the
+chunked checkpoint/resume driver over them (``utils/checkpoint.py``). The JAX
 package ``rwrt_tpu`` is the reference each module is tested against; this
 package never imports it or JAX.
 """
@@ -11,6 +12,7 @@ package never imports it or JAX.
 from rwrt_tpu_torch.config import RunConfig
 from rwrt_tpu_torch.models.basic_state import BasicState, prepare
 from rwrt_tpu_torch.tracer import RayTrajectories, source_matrix, trace_rays
+from rwrt_tpu_torch.utils.checkpoint import trace_rays_chunked
 
 __all__ = [
     "RunConfig",
@@ -19,4 +21,5 @@ __all__ = [
     "RayTrajectories",
     "source_matrix",
     "trace_rays",
+    "trace_rays_chunked",
 ]

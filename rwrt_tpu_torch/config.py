@@ -44,7 +44,10 @@ class RunConfig:
     # 'exact' clamps every step at every output bound; 'dense' steps past
     # the bounds and emits them from the Dormand-Prince quartic interpolant.
     bound_mode: str = "exact"
-    # Peel scheduling of the chunked driver (not ported yet).
+    # Peel scheduling of the JAX chunked driver. The port's chunked driver
+    # takes it and the difficulty buckets below at any value: each is
+    # bitwise equal per lane to the plain chunk, which one kernel launch
+    # runs here (utils/checkpoint.py).
     peel: bool = True
     peel_caps: Sequence[int] = (24, 96)
     peel_caps_exact: Optional[Sequence[int]] = None
@@ -52,7 +55,7 @@ class RunConfig:
     # step-attempt count reaches pin_limit while |l| >= pin_mwn. None = off.
     pin_limit: Optional[int] = None
     pin_mwn: float = 50.0
-    # Difficulty-bucketed lane scheduling (not ported yet).
+    # Difficulty-bucketed lane scheduling (see peel).
     difficulty_buckets: int = 1
     # Displacement kill threshold, radians per tstep-hour.
     cut_off: float = 0.1

@@ -69,9 +69,10 @@
 // Types: the state S (y, t, h, the controller, the emitted rows, the kill
 // cascade, (ug, vg)) and the background F (the RHS, the stages k, the FSAL
 // carry f): dense_kernel<T, T, kRun> is the one-type kernel;
-// dense_kernel<double, float, true> the mixed-precision whole run (the
-// _mix entry point, compiled in dense_run_mix.cu; the single group has no
-// mixed instance). The Dormand-Prince casts are dp45.cuh's; the dense
+// dense_kernel<double, float, true> the mixed-precision whole run and
+// dense_kernel<double, float, false> its single group (the _mix entry
+// points, compiled in dense_run_mix.cu). The Dormand-Prince casts are
+// dp45.cuh's; the dense
 // interpolant runs in S, its weights b_i(theta) times the widened stages,
 // summed in S, as the JAX package's promotion has it; the post-pass's
 // (ug, vg) are group_velocity_at<S, F> at the S rows.
@@ -423,21 +424,21 @@ DenseArgs<S, F> dense_args(const void* packed, int W, int H, double lon0,
 
 extern "C" {
 
-// The single group, one type T.
-#define RWRT_DENSE_GROUP(SUFFIX, T)                                          \
+// The single group, state type S over background type F.
+#define RWRT_DENSE_GROUP(SUFFIX, S, F)                                       \
   int rwrt_dense_group_##SUFFIX(                                             \
       const void* packed, int W, int H, double lon0, double lat0, double dx, \
       double dy, void* y, void* t, void* h, void* f, void* rejected,         \
       void* new_step, void* lane_att, void* hist, const void* bounds, int G, \
       int R, double rtol, double atol, double min_step, long long max_iters, \
       long long pin_limit, double pin_mwn, void* stream) {                   \
-    DenseArgs<T, T> a = dense_args<T, T>(                                    \
+    DenseArgs<S, F> a = dense_args<S, F>(                                    \
         packed, W, H, lon0, lat0, dx, dy, y, t, h, f, lane_att, hist,        \
         bounds, G, 1, R, rtol, atol, min_step, max_iters, pin_limit,         \
         pin_mwn);                                                            \
     a.rejected = static_cast<bool*>(rejected);                               \
     a.new_step = static_cast<bool*>(new_step);                               \
-    return launch_dense<T, T, false>(a, static_cast<cudaStream_t>(stream));  \
+    return launch_dense<S, F, false>(a, static_cast<cudaStream_t>(stream));  \
   }
 
 // The whole run, state type S over background type F.
@@ -465,16 +466,18 @@ extern "C" {
     return launch_dense<S, F, true>(a, static_cast<cudaStream_t>(stream));   \
   }
 
-// The one-type entry points here; the mixed whole run in its own unit
-// (dense_run_mix.cu includes this file), so that the two compile in
-// parallel.
-#ifndef RWRT_DENSE_MIX
-RWRT_DENSE_GROUP(f32, float)
-RWRT_DENSE_GROUP(f64, double)
-RWRT_DENSE_RUN(f32, float, float)
+// One precision per translation unit, so that they compile in parallel
+// (dense_run_f64.cu and dense_run_mix.cu include this file for the float64
+// and the mixed-precision entry points).
+#if defined(RWRT_DENSE_F64)
+RWRT_DENSE_GROUP(f64, double, double)
 RWRT_DENSE_RUN(f64, double, double)
-#else
+#elif defined(RWRT_DENSE_MIX)
+RWRT_DENSE_GROUP(mix, double, float)
 RWRT_DENSE_RUN(mix, double, float)
+#else
+RWRT_DENSE_GROUP(f32, float, float)
+RWRT_DENSE_RUN(f32, float, float)
 #endif
 
 #undef RWRT_DENSE_GROUP

@@ -20,6 +20,8 @@
 // is the identity.
 #pragma once
 
+#include <type_traits>
+
 #include "ray_rhs.cuh"
 
 namespace rwrt {
@@ -109,12 +111,22 @@ __device__ __forceinline__ S error_norm(const F k[7][5], S hs, const S y[5],
   return sqrt(sq / S(5));
 }
 
+// libdevice's float64 pow as PyTorch's build rounds it (pow_fmad.cu).
+__device__ double pow_fmad(double x, double y);
+
 // The controller's factors on an accepted (fac_acc, at most 1 after a
-// rejection in the same step) and a rejected (fac_rej) trial.
+// rejection in the same step) and a rejected (fac_rej) trial. In float64
+// the pow is pow_fmad's.
 template <typename T>
 __device__ __forceinline__ void step_factors(T error_norm, bool rejected,
                                              T* fac_acc, T* fac_rej) {
-  const T raw = T(kSafety) * pow(error_norm, T(kErrorExponent));
+  T p;
+  if constexpr (std::is_same<T, double>::value) {
+    p = pow_fmad(error_norm, T(kErrorExponent));
+  } else {
+    p = pow(error_norm, T(kErrorExponent));
+  }
+  const T raw = T(kSafety) * p;
   *fac_acc = nan_min(T(kMaxFactor), raw);
   if (rejected) *fac_acc = nan_min(T(1), *fac_acc);
   *fac_rej = nan_max(T(kMinFactor), raw);

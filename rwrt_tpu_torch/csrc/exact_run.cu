@@ -68,9 +68,10 @@
 // Types: the state S (y, t, h, the controller, the kill test, the rows)
 // and the background F (the RHS, the stages k and the FSAL carry f):
 // exact_kernel<T, T, ...> is the one-type kernel; exact_kernel<double,
-// float, true, kBarrier, I> the mixed-precision whole run (the _mix entry
-// points, compiled in exact_run_mix.cu; the single group has no mixed
-// instance). The Dormand-Prince casts are dp45.cuh's. The (ug, vg) of a
+// float, true, kBarrier, I> the mixed-precision whole run and
+// exact_kernel<double, float, false, false, I> its single group (the _mix
+// entry points, compiled in exact_run_mix.cu). The Dormand-Prince casts are
+// dp45.cuh's. The (ug, vg) of a
 // row are the 7th stage's F sample, widened, as the JAX package's grouped
 // path has them; under kBarrier in mixed precision they are sampled at
 // the saved state in S instead (ray_rhs.cuh group_velocity_at<S, F>), as
@@ -364,20 +365,15 @@ int launch_exact(const ExactArgs<S, F>& a, int inst, cudaStream_t stream) {
   });
 }
 
-// Resident threads of the whole run (run != 0) or, with kGroup, the single
-// group (run == 0; a unit without the single group refuses it).
-template <typename S, typename F, bool kGroup>
+// Resident threads of the whole run (run != 0) or the single group.
+template <typename S, typename F>
 int exact_resident(int run, int inst, int* out) {
   return rwrt::with_instance(inst, [&](auto tag) {
     using I = decltype(tag);
     if (run) {
       return rwrt::resident_threads(exact_kernel<S, F, true, false, I>, out);
     }
-    if constexpr (kGroup) {
-      return rwrt::resident_threads(exact_kernel<S, F, false, false, I>,
-                                    out);
-    }
-    return static_cast<int>(cudaErrorInvalidValue);
+    return rwrt::resident_threads(exact_kernel<S, F, false, false, I>, out);
   });
 }
 
@@ -416,8 +412,8 @@ ExactArgs<S, F> exact_args(const void* packed, int W, int H, double lon0,
 
 extern "C" {
 
-// The single group, one type T.
-#define RWRT_EXACT_GROUP(SUFFIX, T)                                           \
+// The single group, state type S over background type F.
+#define RWRT_EXACT_GROUP(SUFFIX, S, F)                                        \
   int rwrt_exact_group_##SUFFIX(                                              \
       const void* packed, int W, int H, double lon0, double lat0, double dx,  \
       double dy, void* y, void* t, void* h, void* f, void* plon, void* plat,  \
@@ -425,7 +421,7 @@ extern "C" {
       void* hist, const void* bounds, int G, int R, int resume,               \
       double cut_off, double rtol, double atol, double min_step,              \
       long long max_iters, int inst, void* stream) {                          \
-    ExactArgs<T, T> a = exact_args<T, T>(                                     \
+    ExactArgs<S, F> a = exact_args<S, F>(                                     \
         packed, W, H, lon0, lat0, dx, dy, y, t, h, f, plon, plat, lane_att,   \
         hist, bounds, G, 1, R, cut_off, rtol, atol, min_step, max_iters);     \
     a.rejected = static_cast<bool*>(rejected);                                \
@@ -433,13 +429,13 @@ extern "C" {
     a.idx = static_cast<int*>(idx);                                           \
     a.trips = static_cast<int*>(trips);                                       \
     a.resume = resume != 0;                                                   \
-    return launch_exact<T, T, false, false>(                                  \
+    return launch_exact<S, F, false, false>(                                  \
         a, inst, static_cast<cudaStream_t>(stream));                          \
   }
 
 // The whole run, state type S over background type F, and the resident
-// counts (kGroup: the unit also has the single group).
-#define RWRT_EXACT_RUN(SUFFIX, S, F, kGroup)                                  \
+// counts of the whole run and the single group.
+#define RWRT_EXACT_RUN(SUFFIX, S, F)                                          \
   int rwrt_exact_run_##SUFFIX(                                                \
       const void* packed, int W, int H, double lon0, double lat0, double dx,  \
       double dy, void* y, void* t, void* h, void* f, void* plon, void* plat,  \
@@ -461,20 +457,21 @@ extern "C" {
                    : launch_exact<S, F, true, false>(a, inst, s);             \
   }                                                                           \
   int rwrt_exact_resident_##SUFFIX(int run, int inst, void* out) {            \
-    return exact_resident<S, F, kGroup>(run, inst, static_cast<int*>(out));   \
+    return exact_resident<S, F>(run, inst, static_cast<int*>(out));           \
   }
 
 // One precision per translation unit, so that they compile in parallel
 // (exact_run_f64.cu and exact_run_mix.cu include this file for the
 // float64 and the mixed-precision entry points).
 #if defined(RWRT_EXACT_F64)
-RWRT_EXACT_GROUP(f64, double)
-RWRT_EXACT_RUN(f64, double, double, true)
+RWRT_EXACT_GROUP(f64, double, double)
+RWRT_EXACT_RUN(f64, double, double)
 #elif defined(RWRT_EXACT_MIX)
-RWRT_EXACT_RUN(mix, double, float, false)
+RWRT_EXACT_GROUP(mix, double, float)
+RWRT_EXACT_RUN(mix, double, float)
 #else
-RWRT_EXACT_GROUP(f32, float)
-RWRT_EXACT_RUN(f32, float, float, true)
+RWRT_EXACT_GROUP(f32, float, float)
+RWRT_EXACT_RUN(f32, float, float)
 #endif
 
 #undef RWRT_EXACT_GROUP

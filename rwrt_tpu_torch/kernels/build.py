@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
 One ``nvcc`` per ``rwrt_tpu_torch/csrc/*.cu``, all started together,
-compiles an object each; one more links them into a shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds), in
+compiles a relocatable object each; one more links them (device code
+included) into a shared library with a plain C interface (no PyTorch
+headers, so a build takes seconds), in
 ``rwrt_tpu_torch/_build/<hash of the sources>/``, beside ``nvcc.log`` (the
 compiler's ``-Xptxas -v`` report: registers, shared memory, spills per
 kernel). The hash covers the sources, the headers and the flags, so an
@@ -30,8 +31,21 @@ LIB_NAME = "librwrt_kernels.so"
 # and the kernels are bit-comparable to it (the adaptive controller
 # amplifies one-ulp differences chaotically). Explicit fma() calls, as in
 # the spectral contraction, are unaffected.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+              "-fPIC", "-Xptxas=-v")
+#: The units built WITH contraction (``-fmad=true``): libdevice's float64
+#: pow as PyTorch's own build rounds it, which the plain versions' ``**``
+#: runs (csrc/pow_fmad.cu says why).
+CONTRACTED = ("pow_fmad.cu",)
+#: The units built as relocatable device code (``-rdc=true``): those whose
+#: kernels carry a float64 step controller and so call ``CONTRACTED``'s pow
+#: across units, and that unit. The others stay whole-program units: -rdc
+#: costs the float32 kernels registers and 2-35 % of their time (measured
+#: on an H100 when every unit was relocatable), since calls into the math
+#: library's slow paths then take the standard calling convention.
+RELOCATABLE = ("dense_run_f64.cu", "dense_run_mix.cu", "exact_run_f64.cu",
+               "exact_run_mix.cu", *CONTRACTED)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -79,10 +93,19 @@ SIGNATURES = {
 
 
 #: The entry points that also have a mixed-precision instance (``_mix``: a
-#: float64 state over float32 fields): the whole-run kernels and their
-#: occupancy counts.
+#: float64 state over float32 fields): the integrator kernels, whole run
+#: and single group, and their occupancy counts.
 MIXED = ("rwrt_rk4_run", "rwrt_rk4_resident", "rwrt_exact_run",
-         "rwrt_exact_resident", "rwrt_dense_run")
+         "rwrt_exact_group", "rwrt_exact_resident", "rwrt_dense_run",
+         "rwrt_dense_group")
+
+
+def unit_flags(name: str) -> list:
+    """The nvcc flags of the unit ``name``: ``NVCC_FLAGS``, with
+    contraction for ``CONTRACTED`` and -rdc=true for ``RELOCATABLE``."""
+    flags = [("-fmad=true" if f == "-fmad=false" and name in CONTRACTED
+              else f) for f in NVCC_FLAGS]
+    return flags + (["-rdc=true"] if name in RELOCATABLE else [])
 
 
 def _sources():
@@ -91,7 +114,8 @@ def _sources():
 
 def source_hash() -> str:
     cu, cuh = _sources()
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(
+        " ".join(NVCC_FLAGS + CONTRACTED + RELOCATABLE).encode())
     for path in cu + cuh:
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
@@ -121,7 +145,8 @@ def build() -> Path:
         jobs, objs = [], []
         for src in _sources()[0]:
             objs.append(os.path.join(tmp_dir, src.stem + ".o"))
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1], str(src)]
+            cmd = [nvcc, *unit_flags(src.name), "-c", "-o", objs[-1],
+                   str(src)]
             jobs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -132,7 +157,7 @@ def build() -> Path:
         if any(proc.returncode != 0 for _, proc in jobs):
             raise RuntimeError("nvcc failed:\n" + "\n".join(log))
         tmp = os.path.join(tmp_dir, LIB_NAME)
-        cmd = [nvcc, "-shared", "-o", tmp, *objs]
+        cmd = [nvcc, *ARCH, "-shared", "-rdc=true", "-o", tmp, *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"

@@ -393,13 +393,14 @@ def _integrate_group_cuda(rhs_fn, rhs_gv_fn, y, t, h, f, bounds, prev_lon,
     """Launch the exact-group kernel: the whole group in one launch, one
     thread (or a team of threads) per lane as ``exact_instance``
     chooses, or as ``instance`` says. The entry state (or the resumed
-    ``state0``) is read inside the kernel."""
+    ``state0``) is read inside the kernel. A float64 state over a float32
+    background (f in the background's dtype) takes the mixed instance."""
     global EXACT_LAUNCHES
     if not isinstance(rhs_fn, RayRHS):
         raise TypeError("on CUDA the exact-group kernel integrates the ray "
                         "RHS only: pass models.ray.RayRHS(bg)")
     bg = rhs_fn.bg
-    check_single_dtype(y, bg)
+    key = kernels.state_key(y, bg.fields)
     dev, dt = y.device, y.dtype
     if y.ndim != 2 or y.shape[0] != 5:
         raise ValueError(f"y must be (5, R); got {tuple(y.shape)}")
@@ -408,11 +409,12 @@ def _integrate_group_cuda(rhs_fn, rhs_gv_fn, y, t, h, f, bounds, prev_lon,
     if bounds.ndim != 1 or g < 1:
         raise ValueError("bounds must be a non-empty (G,) tensor")
     for name, x, shape in (("y", y, (5, r)), ("t", t, (r,)), ("h", h, (r,)),
-                           ("f", f, (5, r)), ("prev_lon", prev_lon, (r,)),
+                           ("prev_lon", prev_lon, (r,)),
                            ("prev_lat", prev_lat, (r,)),
                            ("bounds", bounds, (g,))):
         kernels.check_tensor(x, name, device=dev, dtype=dt, shape=shape)
-    check_packed(bg, dev, dt)
+    kernels.check_tensor(f, "f", device=dev, dtype=key[1], shape=(5, r))
+    check_packed(bg, dev, key[1])
     rtol, atol, min_step, cut_off = (as_scalar(x, dt)
                                      for x in (rtol, atol, min_step, cut_off))
 
@@ -437,26 +439,16 @@ def _integrate_group_cuda(rhs_fn, rhs_gv_fn, y, t, h, f, bounds, prev_lon,
     trips = torch.empty(r, dtype=torch.int32, device=dev)
     w, hh, _ = bg.fields.shape
     kernels.launch(
-        "rwrt_exact_group", dt, bg.fields, w, hh, bg.lon0, bg.lat0, bg.dx,
+        "rwrt_exact_group", key, bg.fields, w, hh, bg.lon0, bg.lat0, bg.dx,
         bg.dy, y, t, h, f, prev_lon, prev_lat, rejected, new_step, lane_att,
         idx, trips, hist, bounds, g, r, int(state0 is not None), cut_off,
         rtol, atol, min_step, int(max_iters), kernels.instance_id(
-            instance or exact_instance(r, dt, run=False)),
+            instance or exact_instance(r, key, run=False)),
         kernels.stream(dev))
     EXACT_LAUNCHES += 1
     iters = trips.max() if r else 0
     return (hist, y, t, h, f, prev_lon, prev_lat, iters, 6 * iters, lane_att,
             rejected, new_step, idx)
-
-
-def check_single_dtype(y, bg) -> None:
-    """Raise on a mixed-precision state: the single-group kernels have no
-    mixed instance (their plain versions serve it on the CPU)."""
-    if y.dtype != bg.fields.dtype:
-        raise NotImplementedError(
-            "the single-group kernels do not serve a state wider than the "
-            "background (mixed precision) on the card yet (ROADMAP Queue 1 "
-            "item 17); tracer.trace_rays' whole-run kernels do")
 
 
 def check_packed(bg, device, dtype) -> None:
@@ -614,22 +606,25 @@ def _integrate_group_dense_cuda(
         rhs_fn, y, t, h, f, bounds, rtol, atol, min_step, max_iters,
         pin_limit, pin_mwn):
     """Launch the dense-group kernel: one thread per lane, the whole group
-    in one launch. The entry state is computed inside the kernel."""
+    in one launch. The entry state is computed inside the kernel. A float64
+    state over a float32 background (f in the background's dtype) takes the
+    mixed instance."""
     global LAUNCHES
     if not isinstance(rhs_fn, RayRHS):
         raise TypeError("on CUDA the dense-group kernel integrates the ray "
                         "RHS only: pass models.ray.RayRHS(bg)")
     bg = rhs_fn.bg
-    check_single_dtype(y, bg)
+    key = kernels.state_key(y, bg.fields)
     dev, dt = y.device, y.dtype
     if y.ndim != 2 or y.shape[0] != 5:
         raise ValueError(f"y must be (5, R); got {tuple(y.shape)}")
     r = y.shape[1]
     g = bounds.shape[0]
     for name, x, shape in (("y", y, (5, r)), ("t", t, (r,)), ("h", h, (r,)),
-                           ("f", f, (5, r)), ("bounds", bounds, (g,))):
+                           ("bounds", bounds, (g,))):
         kernels.check_tensor(x, name, device=dev, dtype=dt, shape=shape)
-    check_packed(bg, dev, dt)
+    kernels.check_tensor(f, "f", device=dev, dtype=key[1], shape=(5, r))
+    check_packed(bg, dev, key[1])
     if g < 1:
         raise ValueError("bounds must be non-empty")
     rtol, atol, min_step, pin_limit, pin_mwn = _scalar_args(
@@ -642,7 +637,7 @@ def _integrate_group_dense_cuda(
     lane_att = torch.empty(r, dtype=torch.int32, device=dev)
     w, hh, _ = bg.fields.shape
     kernels.launch(
-        "rwrt_dense_group", dt, bg.fields, w, hh, bg.lon0, bg.lat0, bg.dx,
+        "rwrt_dense_group", key, bg.fields, w, hh, bg.lon0, bg.lat0, bg.dx,
         bg.dy, y, t, h, f, rejected, new_step, lane_att, hist, bounds, g, r,
         rtol, atol, min_step, int(max_iters), pin_limit, pin_mwn,
         kernels.stream(dev))

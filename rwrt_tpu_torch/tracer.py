@@ -12,7 +12,10 @@ float32; a no-op when it is float64):
 - integrator='rk45', bound_mode='dense', with or without pin_limit
   (``_run_rk45_grouped`` over ``_dense_run``).
 
-Every other branch raises NotImplementedError naming its ROADMAP item.
+A run whose history would pass ``auto_chunk_bytes`` on the device goes
+through the chunked driver (``utils/checkpoint.py``), one launch of the
+same kernel per chunk. Every other branch (a mesh, root_order='fortran',
+initial_state) raises NotImplementedError naming its ROADMAP item.
 
 Each branch's run is one of the port's hand-written kernels: on a CUDA
 state one launch runs the whole of it; on a CPU state its plain version
@@ -277,7 +280,7 @@ def _check_run_args(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds,
 
 def _dense_run(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off, rtol,
                atol, min_step, max_iters=1_000_000, pin_limit=None,
-               pin_mwn=None) -> GroupedRun:
+               pin_mwn=None, t0=None) -> GroupedRun:
     """Integrate every group of output bounds with dense output, apply the
     kill cascade and sample (ug, vg) at each bound (the JAX package's
     grouped dense run: per group ``integrate_group_dense``, the truncation
@@ -285,12 +288,16 @@ def _dense_run(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off, rtol,
 
     Args:
       bg: the static corner-packed background.
-      y0 (5, R), f0 (5, R) = rhs(y0), h0 (R,): the run's entry state, at
-        t = 0; ug0, vg0 (R,): row 0 of the (ug, vg) output.
+      y0 (5, R), f0 (5, R) = rhs(y0), h0 (R,): the run's entry state;
+        ug0, vg0 (R,): row 0 of the (ug, vg) output.
       bounds_g: (n_groups, G) output times, padded rows repeating the last.
       n_bounds: the real bounds; the output keeps n_bounds + 1 rows.
       cut_off, rtol, atol, min_step, max_iters, pin_limit, pin_mwn: as for
         ``integrate_group_dense`` and the kill cascade.
+      t0: the lanes' entry times (R,) in the state's dtype; None: zeros.
+        The kill test's last position starts at y0's, so a run from the
+        carry of an earlier one is one chunk of the chunked driver
+        (``utils/checkpoint.py``).
 
     On a CUDA state one launch of ``csrc/dense_run.cu`` does it all, one
     thread per lane through every group; on a CPU state the plain version
@@ -298,12 +305,21 @@ def _dense_run(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off, rtol,
     """
     run = _dense_run_cuda if y0.is_cuda else _dense_run_plain
     return run(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off, rtol,
-               atol, min_step, max_iters, pin_limit, pin_mwn)
+               atol, min_step, max_iters, pin_limit, pin_mwn, t0)
+
+
+def _entry_time(t0, h0):
+    """The lanes' entry times: ``t0``, or zeros like ``h0``."""
+    if t0 is None:
+        return torch.zeros_like(h0)
+    kernels.check_tensor(t0, "t0", device=h0.device, dtype=h0.dtype,
+                         shape=h0.shape)
+    return t0
 
 
 def _dense_run_plain(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
                      rtol, atol, min_step, max_iters=1_000_000,
-                     pin_limit=None, pin_mwn=None) -> GroupedRun:
+                     pin_limit=None, pin_mwn=None, t0=None) -> GroupedRun:
     """The plain PyTorch version (any device): group by group the plain
     dense loop with the plain RHS, the truncation count and
     ``_dense_postpass``, rows written into one preallocated output."""
@@ -314,7 +330,7 @@ def _dense_run_plain(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
     n_groups, group = bounds_g.shape
     ys, ugs, vgs, lane_att, trunc = _run_buffers(y0, n_groups, group)
     ys[0], ugs[0], vgs[0] = y0, ug0, vg0
-    y, t, h, f, pl, pa = (y0, torch.zeros_like(y0[0]), h0, f0, y0[S_LON],
+    y, t, h, f, pl, pa = (y0, _entry_time(t0, h0), h0, f0, y0[S_LON],
                           y0[S_LAT])
     for g, bounds in enumerate(bounds_g):
         nan0 = torch.isnan(torch.mean(y, dim=0))
@@ -337,7 +353,7 @@ def _dense_run_plain(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
 
 def _dense_run_cuda(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
                     rtol, atol, min_step, max_iters, pin_limit,
-                    pin_mwn) -> GroupedRun:
+                    pin_mwn, t0=None) -> GroupedRun:
     """Launch the whole-run dense kernel once: one thread per lane walks
     every group and writes its rows straight into the output. Reads
     nothing back from the card. A float64 state over a float32 background
@@ -354,7 +370,7 @@ def _dense_run_cuda(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
     ys, ugs, vgs, lane_att, trunc = _run_buffers(y0, n_groups, group)
     # The carry, updated in place by the kernel.
     y, h, f = y0.clone(), h0.clone(), f0.clone()
-    t = torch.zeros_like(h0)
+    t = _entry_time(t0, h0).clone()
     plon = torch.empty_like(h0)
     plat = torch.empty_like(h0)
     ug0, vg0 = ug0.to(dt), vg0.to(dt)
@@ -410,10 +426,11 @@ def _rk45_group_chunk(bg, y, t, h, f, prev_lon, prev_lat, bounds, cut_off,
 
 def _exact_run(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off, rtol,
                atol, min_step, max_iters=1_000_000,
-               barrier=False) -> GroupedRun:
+               barrier=False, t0=None) -> GroupedRun:
     """Integrate every group of output bounds in exact mode (the JAX
     package's grouped exact run: per group ``_rk45_group_chunk``, then the
-    truncation count). Arguments as ``_dense_run``'s, without the pin-kill;
+    truncation count). Arguments as ``_dense_run``'s (t0 too), without the
+    pin-kill;
     bounds_g may have no group (a run of row 0 alone). With ``barrier`` a
     lane is walked as frozen (NaN amp, finite dynamics) only if it is so at
     a group's entry: with one bound per group, the barrier path's semantics
@@ -426,19 +443,19 @@ def _exact_run(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off, rtol,
     """
     run = _exact_run_cuda if y0.is_cuda else _exact_run_plain
     return run(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off, rtol,
-               atol, min_step, max_iters, barrier)
+               atol, min_step, max_iters, barrier, t0=t0)
 
 
 def _exact_run_plain(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
                      rtol, atol, min_step, max_iters=1_000_000,
-                     barrier=False) -> GroupedRun:
+                     barrier=False, t0=None) -> GroupedRun:
     """The plain PyTorch version (any device): group by group
     ``_rk45_group_chunk`` and the truncation count, rows written into one
     preallocated output."""
     n_groups, group = bounds_g.shape
     ys, ugs, vgs, lane_att, trunc = _run_buffers(y0, n_groups, group)
     ys[0], ugs[0], vgs[0] = y0, ug0, vg0
-    carry = (y0, torch.zeros_like(y0[0]), h0, f0, y0[S_LON], y0[S_LAT])
+    carry = (y0, _entry_time(t0, h0), h0, f0, y0[S_LON], y0[S_LAT])
     for g, bounds in enumerate(bounds_g):
         carry, (hist, gu, gv, _, _, la) = _rk45_group_chunk(
             bg, *carry, bounds, cut_off, rtol, atol, min_step, max_iters,
@@ -455,7 +472,7 @@ def _exact_run_plain(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
 
 def _exact_run_cuda(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
                     rtol, atol, min_step, max_iters=1_000_000,
-                    barrier=False, instance=None) -> GroupedRun:
+                    barrier=False, instance=None, t0=None) -> GroupedRun:
     """Launch the whole-run exact kernel once: each lane walks every group
     and writes its rows straight into the output. ``instance`` (a key of
     ``kernels.INSTANCES``) overrides ``rk45.exact_instance``'s choice. Reads
@@ -471,7 +488,7 @@ def _exact_run_cuda(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
     ys, ugs, vgs, lane_att, trunc = _run_buffers(y0, n_groups, group)
     # The carry, updated in place by the kernel.
     y, h, f = y0.clone(), h0.clone(), f0.clone()
-    t = torch.zeros_like(h0)
+    t = _entry_time(t0, h0).clone()
     plon = torch.empty_like(h0)
     plat = torch.empty_like(h0)
     ug0, vg0 = ug0.to(dt), vg0.to(dt)
@@ -766,15 +783,21 @@ def trace_rays(
       source_lon/source_lat: optional explicit source arrays in RADIANS;
         default: the config's regular source matrix.
       mesh, initial_state: not ported yet; must be None.
-      auto_chunk_bytes: past this estimate of the (nt, 7, R) history the
-        JAX package reroutes to its chunked driver; the port raises there
-        until that driver is ported. None disables the check.
+      auto_chunk_bytes: the run holds its whole (nt, 7, R) history on the
+        device; past this estimate of it (2 * nt * R * 7 * itemsize of the
+        background's dtype) the run goes through the chunked driver
+        (``utils.checkpoint.trace_rays_chunked``, default chunk_steps),
+        which keeps the history on the host, as the JAX package does. Such
+        a run returns CPU tensors, and in dense mode its rows depend on the
+        chunk split at tolerance level (chunk boundaries clamp a step as a
+        group's last bound does). None disables the rerouting.
       stats: optional dict. An rk45 run (either bound mode) puts
         "lane_att" there: the (n_groups, R') int32 step attempts per group
         of bounds (one group per output interval when interval_batch is 1
         or nt <= 2) of the R' integrated (compacted) lanes, on the run's
         device, also when the run then raises ``MaxItersTruncation``. An
-        rk4 run takes no adaptive steps and puts nothing there.
+        rk4 run takes no adaptive steps and puts nothing there. A rerouted
+        run fills it as ``trace_rays_chunked`` does.
     """
     config.validate()
     why = _unsupported(config, mesh, initial_state)
@@ -788,11 +811,11 @@ def trace_rays(
         itemsize = torch.empty((), dtype=dtype).element_size()
         est = 2 * config.nt * n_lanes * 7 * itemsize
         if est > auto_chunk_bytes:
-            raise NotImplementedError(
-                f"the history estimate ({est} B) exceeds auto_chunk_bytes "
-                f"({auto_chunk_bytes} B), where the JAX package reroutes to "
-                "its chunked driver, which is not ported yet (ROADMAP Queue "
-                "1 item 8)")
+            from rwrt_tpu_torch.utils import checkpoint
+
+            return checkpoint.trace_rays_chunked(
+                bs, config, verbose=False, source_lon=source_lon,
+                source_lat=source_lat, stats=stats)
     if source_lon is None:
         source_lon, source_lat = source_matrix(
             config.sw_lon, config.sw_lat, config.dlon, config.dlat,

@@ -1,0 +1,62 @@
+"""Observability: the run banner and the chunked driver's progress bar.
+
+Port of ``rwrt_tpu/utils/observability.py``'s ``run_banner`` and
+``Progress`` (the reference's configuration banner and text progress bar),
+host-side and unchanged. The device profile (``profile``) is not ported
+yet: in this port it is ``torch.profiler`` (ROADMAP Slice 3); the step
+attempts come from the integrators themselves (``stats["lane_att"]``).
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+from rwrt_tpu_torch.config import RunConfig
+from rwrt_tpu_torch.constants import day
+
+
+def run_banner(config: RunConfig, nlon: int, nlat: int, *, file=sys.stdout):
+    """Print the run-configuration banner (reference ray_info)."""
+    w = file.write
+    w("=" * 78 + "\n")
+    w(" rwrt_tpu_torch: Barotropic Horizontal Rossby Wave Ray Tracing\n")
+    w(f" Basic flow grid (nlon x nlat): {nlon} x {nlat}\n")
+    w(f" Initial zonal wavenumbers ({config.nzwn}): "
+      + " ".join(f"{z:.1f}" for z in config.zwn) + "\n")
+    w(f" Sources: {config.nsource} points, SW corner "
+      f"({config.sw_lon:.2f}E, {config.sw_lat:.2f}N), "
+      f"d(lon,lat)=({config.dlon:.2f}, {config.dlat:.2f}) deg, "
+      f"{config.nnx} x {config.nny}\n")
+    w(f" Time step (s): {config.tstep:.1f}\n")
+    w(f" Total integration time (day): {config.ttotal / day:.1f}\n")
+    w(f" Total output steps (nt): {config.nt}\n")
+    w(f" Integrator: {config.integrator}  dtype: {config.cal_dtype}\n")
+    w("=" * 78 + "\n")
+    file.flush()
+
+
+class Progress:
+    """Progress bar and ray-step-rate reporter."""
+
+    def __init__(self, total: int, bar_length: int = 50, file=sys.stdout):
+        self.total = total
+        self.bar_length = bar_length
+        self.file = file
+        self.t0 = time.perf_counter()
+        self.ray_steps = 0
+
+    def update(self, current: int, ray_steps: int = 0, alive_frac=None):
+        self.ray_steps += ray_steps
+        frac = current / max(self.total, 1)
+        n = int(round(frac * self.bar_length))
+        arrow = "=" * max(n - 1, 0) + ">"
+        spaces = " " * (self.bar_length - len(arrow))
+        rate = self.ray_steps / max(time.perf_counter() - self.t0, 1e-9)
+        extra = f" {rate:,.0f} ray-steps/s" if self.ray_steps else ""
+        if alive_frac is not None:
+            extra += f" alive {alive_frac:5.1%}"
+        self.file.write(f"\rprogress: [{arrow}{spaces}] {frac:5.1%}{extra}")
+        self.file.flush()
+        if current >= self.total:
+            self.file.write("\n")

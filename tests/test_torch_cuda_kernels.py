@@ -663,16 +663,49 @@ def test_exact_run_mixed_instances_equal_plain(jet_field, dev, instance, n,
 
 
 def test_single_group_kernels_refuse_mixed(jet_field, dev):
-    """``integrate_group`` and ``integrate_group_dense`` have no mixed
-    kernel instance: on the card they raise, naming the ROADMAP item."""
+    """``integrate_group`` and ``integrate_group_dense`` on a mixed state
+    (their ``_mix`` instances, which once refused it): one launch each,
+    every output bitwise equal to the plain loop, the rows and carry in
+    float64 and f in float32."""
     bg, (y0, _, _, h0, f0, bounds_g, _), rtol = mixed_inputs(jet_field, dev)
+    y0 = amp_nan(y0)
+    f0 = ray.RayRHS(bg)(y0)
     t0 = torch.zeros_like(h0)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        rk45.integrate_group(ray.RayRHS(bg), None, y0, t0, h0, f0,
-                             bounds_g[0], y0[0], y0[1], 0.2, rtol, 1e-6, 7.2)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        rk45.integrate_group_dense(ray.RayRHS(bg), y0, t0, h0, f0,
-                                   bounds_g[0], rtol, 1e-6, 7.2)
+    bounds = torch.cat([bounds_g[0], bounds_g[1]])
+
+    def plain_rhs(yy, tt=0.0):
+        return ray._rhs_core(bg, yy, tt, False)[0]
+
+    def plain_gv(yy, tt=0.0):
+        dy, _, ug, vg = ray._rhs_core(bg, yy, tt, True)
+        return dy, ug, vg
+
+    before = rk45.EXACT_LAUNCHES
+    k = rk45.integrate_group(ray.RayRHS(bg), None, y0, t0, h0, f0, bounds,
+                             y0[0].clone(), y0[1].clone(), 0.03, rtol, 1e-6,
+                             7.2)
+    assert rk45.EXACT_LAUNCHES == before + 1
+    p = rk45._integrate_group_plain(plain_rhs, plain_gv, y0, t0, h0, f0,
+                                    bounds, y0[0], y0[1], 0.03, rtol, 1e-6,
+                                    7.2)
+    assert k[0].dtype == torch.float64 and k[4].dtype == torch.float32
+    for i in range(7):
+        assert k[i].dtype == p[i].dtype and same(k[i], p[i]), i
+    assert int(k[7]) == p[7]
+    for i in (9, 10, 11, 12):
+        assert torch.equal(k[i], p[i]), i
+    before = rk45.LAUNCHES
+    k = rk45.integrate_group_dense(ray.RayRHS(bg), y0, t0, h0, f0, bounds,
+                                   rtol, 1e-6, 7.2, pin_limit=40, pin_mwn=0.0)
+    assert rk45.LAUNCHES == before + 1
+    p = rk45._integrate_group_dense_plain(plain_rhs, y0, t0, h0, f0, bounds,
+                                          rtol, 1e-6, 7.2, 1_000_000, 40, 0.0)
+    assert k[0].dtype == torch.float64 and k[4].dtype == torch.float32
+    for i in (0, 1, 2, 3, 4):
+        assert k[i].dtype == p[i].dtype and same(k[i], p[i]), i
+    for i in (7, 8, 9):
+        assert torch.equal(k[i], p[i]), i
+    assert int(k[5]) == p[5]
 
 
 @pytest.mark.parametrize("branch", ["rk4", "exact", "exact_batch1", "dense"])
@@ -702,3 +735,39 @@ def test_trace_rays_mixed_launches_once(jet_field, dev, branch):
     assert out.lon.shape == (49, 3, 20, 3) and out.lon.is_cuda
     alive = torch.isfinite(out.ky[-1])
     assert alive.any() and torch.isfinite(out.lat[-1][alive]).all()
+
+
+@pytest.mark.parametrize("state", ["compute", "float64"],
+                         ids=["float32", "mixed"])
+@pytest.mark.parametrize("branch", ["rk4", "exact", "exact_batch1", "dense"])
+def test_chunked_driver_launches_once_per_chunk(jet_field, dev, branch,
+                                                state):
+    """``trace_rays_chunked`` on the card: one launch of the branch's
+    whole-run kernel per chunk and no other integrator launch; with
+    chunk_steps equal to the group, compaction off, rows bitwise equal to
+    ``trace_rays``' (host tensors)."""
+    from rwrt_tpu_torch.utils import checkpoint
+
+    u, v, lat, lon = jet_field
+    bs = pt.prepare(u, v, lat, lon, cal_dtype="float32", device=dev)
+    cfg = pt.RunConfig(
+        zwn=(2.0, 4.0, 6.0), sw_lon=0.0, sw_lat=5.0, dlon=36.0, dlat=8.0,
+        nnx=5, nny=4, tstep=7200.0, ttotal=4 * 86400.0,
+        integrator="rk4" if branch == "rk4" else "rk45",
+        bound_mode="dense" if branch == "dense" else "exact",
+        interval_batch=1 if branch == "exact_batch1" else 8,
+        compact_dead=False, state_dtype=state)
+    want = pt.trace_rays(bs, cfg)
+    before = (tracer.LAUNCHES, tracer.RK4_LAUNCHES, tracer.EXACT_LAUNCHES,
+              rk45.LAUNCHES, rk45.EXACT_LAUNCHES)
+    got = checkpoint.trace_rays_chunked(bs, cfg, chunk_steps=8,
+                                        verbose=False)
+    after = (tracer.LAUNCHES, tracer.RK4_LAUNCHES, tracer.EXACT_LAUNCHES,
+             rk45.LAUNCHES, rk45.EXACT_LAUNCHES)
+    want_launches = {"rk4": (0, 6, 0, 0, 0), "dense": (6, 0, 0, 0, 0)}.get(
+        branch, (0, 0, 6, 0, 0))
+    assert tuple(a - b for a, b in zip(after, before)) == want_launches
+    for name in want._fields:
+        a, b = getattr(want, name), getattr(got, name)
+        assert b.device.type == "cpu" and a.dtype == b.dtype, name
+        assert same(a.cpu(), b), name

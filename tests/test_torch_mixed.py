@@ -441,9 +441,7 @@ def test_float64_fields_make_it_a_no_op(jet_field, branch):
         assert torch.equal(torch.nan_to_num(x), torch.nan_to_num(y))
 
 
-@pytest.mark.parametrize("branch", [
-    "mesh", "fortran", "initial_state", "auto_chunk",
-])
+@pytest.mark.parametrize("branch", ["mesh", "fortran", "initial_state"])
 def test_unported_branches_still_raise_in_mixed(states, branch):
     _, bst, _, _ = states
     cfg = dict(CFG, ttotal=2 * DAY)
@@ -454,16 +452,19 @@ def test_unported_branches_still_raise_in_mixed(states, branch):
         kw = dict(mesh=object())
     elif branch == "initial_state":
         kw = dict(initial_state=np.zeros((5, 54)))
-    else:
-        kw = dict(auto_chunk_bytes=1000)
     with pytest.raises(NotImplementedError, match="item|Slice"):
         pt.trace_rays(bst, pt.RunConfig(**cfg), **kw)
 
 
 def test_launch_keys_and_refusals(states, y64):
     """The kernels take one type or a float64 state over float32 fields
-    (``_mix``, the whole-run kernels only); the single-group kernels refuse
-    a mixed state before anything is built or launched."""
+    (``_mix``: the integrator kernels, whole run and single group, not the
+    RHS and spectral ones), refused before anything is built or launched.
+    The single-group entry points have their mixed instance: each is
+    defined by one macro that the sources instantiate for ``mix`` too, so
+    it takes the arguments ``build.SIGNATURES`` passes."""
+    import re
+
     _, _, _, bgt = states
     y = torch.as_tensor(y64)
     assert kernels.state_key(y, bgt.fields) == (torch.float64, torch.float32)
@@ -473,14 +474,16 @@ def test_launch_keys_and_refusals(states, y64):
     with pytest.raises(ValueError):
         kernels.launch("rwrt_rhs", (torch.float64, torch.float32))
     assert set(build.MIXED) <= set(build.SIGNATURES)
-    _, t, h, f = _entry(bgt, y64)
-    bounds = torch.as_tensor(TRIP_BOUNDS)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        trk._integrate_group_cuda(tray.RayRHS(bgt), None, y, t, h, f, bounds,
-                                  y[0], y[1], CUT_OFF, RTOL, ATOL, MIN_STEP)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        trk._integrate_group_dense_cuda(tray.RayRHS(bgt), y, t, h, f, bounds,
-                                        RTOL, ATOL, MIN_STEP, 100, None, None)
+    for name, src in (("rwrt_exact_group", "exact_run.cu"),
+                      ("rwrt_dense_group", "dense_run.cu")):
+        assert name in build.MIXED, name
+        text = (build.CSRC / src).read_text()
+        macro = re.search(r"#define (RWRT_\w+)\(SUFFIX[^)]*\)[ \\\n]+"
+                          rf"int {name}_##SUFFIX\(", text).group(1)
+        assert re.search(rf"^{macro}\(mix, double, float\)$", text, re.M), (
+            name)
+        assert re.search(rf"^{macro}\(f32, float, float\)$", text, re.M), (
+            name)
     assert kernels.library.cache_info().currsize == 0
 
 

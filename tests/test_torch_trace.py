@@ -132,9 +132,7 @@ def test_rootless_lanes_stay_frozen(states):
     assert out.lon.shape == (25, 3, 20, 3)
 
 
-@pytest.mark.parametrize("branch", [
-    "mesh", "fortran", "initial_state", "auto_chunk",
-])
+@pytest.mark.parametrize("branch", ["mesh", "fortran", "initial_state"])
 def test_unported_branches_raise(states, branch):
     _, bst = states
     cfg = dict(CFG, ttotal=2 * DAY)
@@ -145,8 +143,6 @@ def test_unported_branches_raise(states, branch):
         kw = dict(mesh=object())
     elif branch == "initial_state":
         kw = dict(initial_state=np.zeros((5, 180)))
-    else:
-        kw = dict(auto_chunk_bytes=1000)
     with pytest.raises(NotImplementedError):
         pt.trace_rays(bst, pt.RunConfig(**cfg), **kw)
 
