@@ -23,7 +23,11 @@ the README run at its full 90 days, which the float64 time carry lets
 finish. The chunked driver (``utils.checkpoint.trace_rays_chunked``) runs
 the production seeding, the RK4 default run and the mixed runs again in
 chunks, one launch each, and the 90-day production run through
-``trace_rays``, which reroutes it there.
+``trace_rays``, which reroutes it there. Last, the same paths over a
+time-varying background (the climatology in daily frames: the jet's
+amplitude varying seasonally, its waves drifting east; ``rt.
+prepare_time_varying``) through the kernels' time instances, and
+``trace_rays_ensemble`` over four "reanalysis year" members.
 
 Phases (any failed check raises; nothing is caught but the truncation the
 exact_path phase requires and the chunk budget the chunked phase sets):
@@ -115,6 +119,40 @@ exact_path phase requires and the chunk budget the chunked phase sets):
                launches) and the mixed dense production run (30 days,
                chunks of 60: 6 launches) through the chunked driver, float64
                rows bitwise equal to mixed_exact's and mixed_dense's
+  time_rhs     the RHS kernel's time instance on 100,800 seeded states at
+               per-lane times over the 31 daily frames, between them and
+               past both ends, over the frames, a 4-member stack and a
+               4-member x 31-frame stack, float32 and float64: bitwise
+               against the plain ``_rhs_core``
+  time_main_path  the production run over the 31 daily frames through
+               ``trace_rays`` (counters reset just before and read just
+               after: one dense launch, the time instance); its first
+               N_SUBSET lanes over every group (each entered from the
+               kernel's carry) bitwise against ``_dense_run_plain`` and
+               against the full run's rows; kernel ms and wall beside the
+               static run's
+  time_paths   the same, a lane subset over the first and the last group
+               (the first and last TV_PLAIN_STEPS steps in RK4), for RK4 in
+               ``RunConfig()``'s default run (90 days, 91 frames) in
+               float32, mixed and float64, the README exact run in float32
+               (40 days), mixed and float64 (90 days), and the dense
+               production run in mixed and float64 (30 days)
+  time_chunked the 30-day time-varying production run in 6 chunks (rows
+               bitwise equal to time_main_path's) and the 90-day one
+               through ``trace_rays``' reroute (17 chunks, the wall split)
+  ensemble     ``trace_rays_ensemble``: 4 static members x the production
+               seeding (403,200 rays, dense, pin, one launch of the time
+               instance with the member map), and 2 time-varying members
+               over the README's sources in RK4 and in exact mode; each
+               member's rows bitwise equal to its own ``trace_rays``, a
+               lane subset over every member, first and last group (steps),
+               bitwise against the plain run;
+               kernel ms and peak memory (the exact members in float64:
+               float32's time carry stalls their lanes at the backstop)
+  time_spectral  ``fit_spectral`` of the 31 frames (``fit_spectral_time``),
+               ``lerp_coeffs`` at day 10, the spectral kernel at the
+               time-varying run's day-10 positions against the plain
+               sampler (the spectral phase's float32 bar)
 
 The RK4 and exact kernels' instances are timed in turns (TURNS) on the
 same inputs at eight shapes (RK4 at production seeding and in the default
@@ -143,6 +181,7 @@ when the port's package is not beside this script. Imports no JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -241,6 +280,39 @@ CHUNK_PLAIN_SOURCES = 324
 CHUNK_PLAIN_CHUNKS = 2
 
 
+#: The time-varying background: daily frames of the climatology (TV_DAYS
+#: + 1 for the 30-day runs, LONG_DAYS + 1 for the 90-day ones), the jet's
+#: amplitude varying by TV_SEASON over a TV_PERIOD-day cycle and the wave
+#: patterns (u's wave 3, v's wave 2) drifting east TV_DRIFT degrees a day.
+TV_SEASON = 0.15
+TV_PERIOD = 90.0
+TV_DRIFT = 3.0
+TV_DAYS = 30
+#: Ensemble members, "reanalysis years": each its jet's scale and its
+#: waves' phase (degrees).
+MEMBER_SCALES = (0.85, 0.95, 1.05, 1.15)
+MEMBER_PHASES = (0.0, 30.0, 60.0, 90.0)
+#: The time-varying paths' plain comparisons: lanes (the first ones, or
+#: for an ensemble every R / TV_PLAIN_LANES-th), over the first and the
+#: last group of a dense or exact run (every group of the main path's) and
+#: the first and the last TV_PLAIN_STEPS steps of an RK4 run.
+TV_PLAIN_LANES = 512
+TV_PLAIN_STEPS = 60
+#: Flops a timed sample adds to a static one (csrc/ray_rhs.cuh
+#: lerp_frames): the second frame's row lerped (84), the time blend of the
+#: 12 fields (36) and the frame fraction (3).
+TIME_SAMPLE_FLOPS = 84 + 36 + 3
+
+
+def time_sample_flops(bg):
+    """The flops a sample of ``bg`` adds to a static one: TIME_SAMPLE_FLOPS
+    where the kernel blends two frames (``ray.kernel_background``'s rule:
+    a 4-D stack without member_ids, every 5-D stack), else none (a static
+    stack, an ensemble of static members)."""
+    nd = bg.fields.ndim
+    timed = nd == 5 or (nd == 4 and bg.member_ids is None)
+    return TIME_SAMPLE_FLOPS if timed else 0
+
 def climatology_background(nlon=144, nlat=73):
     """Solid-body-ish jet + stationary wave pattern, climatology-shaped
     (the repo's benchmark background)."""
@@ -254,6 +326,24 @@ def climatology_background(nlon=144, nlat=73):
     v = 4.0 * np.sin(2 * lon)[:, None] * np.cos(lat)[None, :]
     return u, v, lat, lon
 
+
+def climatology_frames(n_frames, scale=1.0, phase=0.0, nlon=144, nlat=73):
+    """``n_frames`` daily (u, v) frames of the climatology, made
+    time-varying (TV_SEASON, TV_PERIOD, TV_DRIFT), a member's jet scaled by
+    ``scale`` and its waves shifted by ``phase`` degrees: (u (T, nlon,
+    nlat), v, lat, lon)."""
+    lat = np.linspace(-np.pi / 2, np.pi / 2, nlat)
+    lon = np.arange(nlon) * 2 * np.pi / nlon
+    jet = (25.0 * np.cos(lat)[None, :] ** 2
+           + 30.0 * np.exp(-(((np.degrees(lat)[None, :] - 35.0) / 12.0) ** 2)))
+    us, vs = [], []
+    for day in range(n_frames):
+        amp = scale * (1.0 + TV_SEASON * np.sin(2 * np.pi * day / TV_PERIOD))
+        x = lon - np.radians(TV_DRIFT * day + phase)
+        us.append(amp * jet + 6.0 * np.cos(3 * x)[:, None]
+                  * np.cos(lat)[None, :] ** 2)
+        vs.append(4.0 * np.sin(2 * x)[:, None] * np.cos(lat)[None, :])
+    return np.stack(us), np.stack(vs), lat, lon
 
 def production_config(rt, **changes):
     """The production run's RunConfig (sources are passed separately),
@@ -843,6 +933,7 @@ def phase_main_path(run):
           f"alive fraction by day {alive}, step attempts {attempts}, peak "
           f"device memory {peak:.1f} MiB above the prepared state; rows "
           f"bitwise equal to the dense_run phase's")
+    run.main_wall = wall
     print(f"launches: trace_rays rhs {launches['rhs']}, dense_run "
           f"{launches['dense_run']}, dense_group {launches['dense_group']}; "
           f"sampler stage after it: spectral {launches['spectral']} at "
@@ -913,11 +1004,16 @@ def phase_spectral(run):
 def rk4_bound(bg, y0, ug0, vg0, out, dtype):
     """Bytes: the entry state and background in, the rows out; flops: the
     steps of the lanes alive after them (a dead lane's arithmetic is not
-    needed); ``dtype`` "mixed" splits them as MIX_RK4_STEP_FLOPS."""
+    needed); ``dtype`` "mixed" splits them as MIX_RK4_STEP_FLOPS. A step's
+    five samples (four evaluations and (ug, vg)) each add
+    ``time_sample_flops(bg)`` in the background's type."""
     live_steps = int(out[0][1:, 0].isfinite().sum())
     flops = ({u: live_steps * n for u, n in MIX_RK4_STEP_FLOPS.items()}
              if dtype == "mixed" else
              {str(dtype)[6:]: live_steps * RK4_STEP_FLOPS})
+    field = str(bg.fields.dtype)[6:]
+    flops[field] = (flops.get(field, 0)
+                    + 5 * live_steps * time_sample_flops(bg))
     return bound(nbytes(bg.fields, y0, ug0, vg0, *out), flops)
 
 
@@ -1255,9 +1351,10 @@ def phase_exact_run(run):
 
 
 def traced(run, cfg, launches_of, n_launches=1, driver=None, stop=(),
-           **kw):
+           bs=None, **kw):
     """One ``trace_rays`` (or ``driver``, a function of the same
-    arguments) on the climatology background, float32, with every launch
+    arguments) on the climatology background (or ``bs``), float32, with
+    every launch
     counter set to 0 just before it and read just after: ``n_launches``
     of ``launches_of`` and none of the other kernels but the RHS. Returns
     (traj, launches, wall s, peak MiB above the prepared state, stats,
@@ -1269,7 +1366,7 @@ def traced(run, cfg, launches_of, n_launches=1, driver=None, stop=(),
     from rwrt_tpu_torch.ops import spectral_sample as spec
     from rwrt_tpu_torch.solvers import rk45
 
-    bs = run.bs(torch.float32)
+    bs = run.bs(torch.float32) if bs is None else bs
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -1870,6 +1967,573 @@ def phase_mixed_exact(run):
     run.mixed_exact = (idx, kern)
 
 
+# ---- Time-varying backgrounds and ensembles (the time instances) ----
+
+
+class captured:
+    """Within the block, ``tracer.<name>`` (a whole-run unit) is a wrapper
+    that records each call's arguments, its result and the device time
+    between CUDA events around it (the one launch and its small
+    allocations); ``calls`` holds (args, kwargs, result, ms)."""
+
+    def __init__(self, run, name):
+        self.run, self.name, self.calls = run, name, []
+
+    def __enter__(self):
+        from rwrt_tpu_torch import tracer
+
+        torch = self.run.torch
+        self.unit = unit = getattr(tracer, self.name)
+        events = self.events = []
+
+        def wrapper(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = unit(*a, **k)
+            end.record()
+            events.append((a, k, out, start, end))
+            return out
+
+        setattr(tracer, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        from rwrt_tpu_torch import tracer
+
+        setattr(tracer, self.name, self.unit)
+        self.run.torch.cuda.synchronize()
+        self.calls = [(a, k, out, s.elapsed_time(e))
+                      for a, k, out, s, e in self.events]
+        return False
+
+
+def lane_pick(args, take):
+    """A whole-run unit's arguments cut to the lanes ``take`` (an index
+    tensor): every tensor whose last dimension is the lanes', and an
+    ensemble background's member map."""
+    bg, r = args[0], args[1].shape[1]
+    if bg.member_ids is not None:
+        bg = bg._replace(member_ids=bg.member_ids.index_select(0, take))
+    return (bg,) + tuple(
+        a.index_select(a.ndim - 1, take).contiguous()
+        if hasattr(a, "shape") and a.ndim and a.shape[-1] == r else a
+        for a in args[1:])
+
+
+def groups_of(args, n):
+    """A grouped unit's arguments cut to its first n groups."""
+    bounds_g = args[6][:n].contiguous()
+    return args[:6] + (bounds_g, bounds_g.numel()) + args[8:]
+
+
+def subset_of(run, r, n):
+    """n lanes of r: the first n, or for an ensemble every r // n-th, so
+    that every member has some."""
+    torch = run.torch
+    step = max(r // n, 1)
+    return torch.arange(0, step * n, step, device=run.dev)[:n]
+
+
+def equal_runs(k, p, what):
+    """Two grouped runs (``tracer.GroupedRun``) equal to the bit."""
+    for name in ("ys", "ugs", "vgs", "lane_att", "trunc"):
+        check(same(getattr(k, name), getattr(p, name)),
+              f"{what}: {name} differs from the plain run")
+    for a, b in zip(k.carry, p.carry):
+        check(same(a, b), f"{what}: carry differs from the plain run")
+
+
+def tv_state(run, n_frames, dtype=None, scale=1.0, phase=0.0):
+    """The time-varying climatology of ``n_frames`` daily frames from day
+    0 on the card (float32 unless ``dtype``)."""
+    fu, fv, lat, lon = climatology_frames(n_frames, scale, phase)
+    return run.rt.prepare_time_varying(
+        fu, fv, lat, lon, bg_t0=0.0, bg_dt=DAY,
+        cal_dtype=dtype or run.torch.float32, device=run.dev)
+
+
+def phase_time_rhs(run):
+    """The RHS kernel's time instance on 100,800 seeded states at per-lane
+    times over every frame, between them and past both ends, over the
+    TV_DAYS-day daily-frame background, a 4-member ensemble and a 4-member
+    ensemble of those frames: bitwise equal to the plain ``_rhs_core``, in
+    float32 and float64."""
+    torch = run.torch
+    from rwrt_tpu_torch import tracer
+    from rwrt_tpu_torch.models import ray
+
+    rng = np.random.default_rng(1)
+    n = 100_800
+    y = np.stack([rng.uniform(-1.0, 7.3, n), rng.uniform(-1.65, 1.65, n),
+                  rng.uniform(0.5, 7.5, n), rng.normal(0.0, 40.0, n),
+                  rng.uniform(0.5, 2.0, n)])
+    for row in (0, 3, 4):
+        y[row, rng.choice(n, 500, replace=False)] = np.nan
+    t = rng.uniform(-2.0 * DAY, (TV_DAYS + 3) * DAY, n)
+    t[:1000] = DAY * (np.arange(1000) % (TV_DAYS + 1))  # on the frames
+    member = torch.as_tensor(rng.integers(0, 4, n), dtype=torch.int32,
+                             device=run.dev)
+    for dtype in (torch.float32, torch.float64):
+        tv = tracer.make_background(tv_state(run, TV_DAYS + 1, dtype), 0.0)
+        years = [tracer.make_background(
+            tv_state(run, TV_DAYS + 1, dtype, sc, ph), 0.0)
+            for sc, ph in zip(MEMBER_SCALES, MEMBER_PHASES)]
+        kinds = {
+            "time": tv,
+            "member": tv._replace(fields=torch.stack(
+                [b.fields[0] for b in years]).contiguous(),
+                member_ids=member),
+            "member_time": tv._replace(fields=torch.stack(
+                [b.fields for b in years]).contiguous(), member_ids=member)}
+        yt = torch.as_tensor(y, dtype=dtype, device=run.dev).contiguous()
+        tt = torch.as_tensor(t, dtype=dtype, device=run.dev)
+        for kind, bg in kinds.items():
+            for gv in (False, True):
+                before = ray.LAUNCHES
+                k = ray.rhs_and_gv(bg, yt, tt) if gv else ray.rhs(bg, yt, tt)
+                check(ray.LAUNCHES == before + 1, "rhs did not launch")
+                p = ray._rhs_core(bg, yt, tt, gv)
+                p = (p[0], p[2], p[3]) if gv else p[:2]
+                for a, b in zip(k, p):
+                    check(same(a, b) if a.is_floating_point()
+                          else torch.equal(a, b),
+                          f"time_rhs {kind} {dtype} gv={gv}: differs from "
+                          "the plain RHS")
+        print(f"time_rhs {str(dtype)[6:]}: R={n}, time, member and "
+              f"member x time backgrounds ({tuple(bg.fields.shape)}), rhs "
+              "and rhs_and_gv bitwise equal to the plain RHS")
+        if dtype == torch.float32:
+            bg = kinds["time"]
+            ms = cuda_ms(lambda: ray.rhs(bg, yt, tt), 20)
+            plain = cuda_ms(lambda: ray._rhs_core(bg, yt, tt, False), 5)
+            b = bound(2 * nbytes(yt) + nbytes(tt) + n + nbytes(bg.fields),
+                      n * (RHS_FLOPS + TIME_SAMPLE_FLOPS), "float32")
+            print(f"time_rhs time at R={n} over {bg.fields.shape[0]} "
+                  f"frames: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+            run.kernels["rhs_time"] = dict(max_abs_err=0.0, ms=ms,
+                                           plain_ms=plain, library_ms=None,
+                                           **b)
+
+
+def grouped_bound(args, out, attempts_flops, rows_flops, row_samples):
+    """A grouped run's bound: its inputs and outputs once; flops: each
+    attempt's ``attempts_flops`` and each kept row's ``rows_flops`` (dicts
+    by unit) plus ``time_sample_flops`` for each of the attempt's six
+    evaluations and, with ``row_samples`` (the dense run's post-pass),
+    each row's (ug, vg) sample, in the background's type."""
+    bg, y0, ug0, vg0, h0, f0, bounds_g = args[:7]
+    rows = int(out.ys[1:, 0].isfinite().sum())
+    attempts = int(out.lane_att.sum())
+    flops = {u: attempts * n for u, n in attempts_flops.items()}
+    for u, n in rows_flops.items():
+        flops[u] = flops.get(u, 0) + rows * n
+    dtype = str(bg.fields.dtype)[6:]
+    flops[dtype] = (flops.get(dtype, 0) + (6 * attempts + rows * row_samples)
+                    * time_sample_flops(bg))
+    return bound(nbytes(bg.fields, y0, ug0, vg0, h0, f0, bounds_g, out.ys,
+                        out.ugs, out.vgs, out.lane_att, out.trunc,
+                        *out.carry), flops), attempts
+
+
+def group_entry(unit, sub, kw, g):
+    """A grouped unit's arguments ``sub`` over its group g alone: as given
+    for g = 0, else entered from the carry of ``unit`` over groups 0..g-1
+    at the carry's times, as the chunked driver enters a chunk. Returns
+    (args, kwargs, the full run's row of the group's row 0)."""
+    if g == 0:
+        return groups_of(sub, 1), kw, 0
+    head = unit(*groups_of(sub, g), **kw)
+    y, t, h, f = head.carry[:4]
+    bounds_g = sub[6]
+    row = g * bounds_g.shape[1]
+    n_bounds = min(sub[7] - row, bounds_g.shape[1])
+    return ((sub[0], y, head.ugs[row], head.vgs[row], h, f,
+             bounds_g[g:g + 1].contiguous(), n_bounds) + sub[8:],
+            dict(kw, t0=t), row)
+
+
+def plain_check(run, unit_name, args, kw, out, n_lanes, groups, what):
+    """The whole-run unit's kernel on n_lanes lanes of its arguments over
+    each of ``groups``, entered as ``group_entry`` enters it, against its
+    plain version there, bitwise, and against the full run's rows of those
+    lanes; returns the plain runs' ms."""
+    torch = run.torch
+    from rwrt_tpu_torch import tracer
+
+    unit = getattr(tracer, unit_name)
+    plain = getattr(tracer, unit_name + "_plain")
+    take = subset_of(run, args[1].shape[1], n_lanes)
+    sub = lane_pick(args, take)
+    ms = 0.0
+    for g in groups:
+        a, k_kw, row = group_entry(unit, sub, kw, g)
+        k = unit(*a, **k_kw)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        p = plain(*a, **k_kw)
+        end.record()
+        torch.cuda.synchronize()
+        ms += start.elapsed_time(end)
+        equal_runs(k, p, f"{what} group {g}")
+        # Row 0 is the entry state: past g = 0 the carry, which dense mode
+        # holds at its last step's end, beyond the full run's row there.
+        rows = slice(row + 1, row + k.ys.shape[0])
+        for name in ("ys", "ugs", "vgs"):
+            full = getattr(out, name)[rows].index_select(-1, take)
+            check(same(getattr(k, name)[1:], full),
+                  f"{what} group {g}: the lane subset's {name} differ from "
+                  "the full run's")
+    return ms
+
+
+def stack_of(bg):
+    """A time or member background's stack in words."""
+    members = bg.member_ids is not None
+    frames = bg.fields.ndim == 5 or not members
+    return " x ".join(
+        ([f"{bg.fields.shape[0]} members"] if members else [])
+        + ([f"{bg.fields.shape[-4]} frames"] if frames else []))
+
+
+def run_record(run, key, what, traj_call, unit_name, of, attempts_flops,
+               rows_flops, n_plain_lanes=TV_PLAIN_LANES, every_group=False):
+    """A time-varying grouped run through its entry point (``traj_call``,
+    returning ``traced``'s tuple) with ``tracer.<unit_name>`` captured:
+    the traced run's one launch of ``of``, its kernel re-timed on the same
+    entry state, a lane subset over the first and the last group (or
+    ``every_group``) bitwise against the plain version, the bound; recorded
+    under ``key``. Returns (traj, args, kw, out, a record of the wall, peak
+    memory, kernel ms, attempts and launches)."""
+    with captured(run, unit_name) as cap:
+        traj, launches, wall, peak, stats, refused = traj_call()
+    check(refused is None, f"{what} was refused: {refused}")
+    check(len(cap.calls) == 1, f"{what}: {len(cap.calls)} unit calls")
+    args, kw, out, first_ms = cap.calls[0]
+    from rwrt_tpu_torch import tracer
+
+    unit = getattr(tracer, unit_name)
+    ms = cuda_ms(lambda: unit(*args, **kw), 2)
+    n_groups = args[6].shape[0]
+    groups = range(n_groups) if every_group else sorted({0, n_groups - 1})
+    plain_ms = plain_check(run, unit_name, args, kw, out, n_plain_lanes,
+                           groups, what)
+    b, attempts = grouped_bound(args, out, attempts_flops, rows_flops,
+                                unit_name == "_dense_run")
+    trips = out.lane_att.sum(dim=0)
+    print(f"{what}: R={args[1].shape[1]} lanes, {out.ys.shape[0] - 1} bounds "
+          f"over {stack_of(args[0])}; wall {wall:.3f} s, "
+          f"peak device memory {peak:.1f} MiB above the prepared state, "
+          f"launches {launches}; kernel {ms:.3f} ms (first call "
+          f"{first_ms:.3f} ms), bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}); step attempts {attempts}, longest lane "
+          f"{int(trips.max())} trips; {n_plain_lanes} lanes x groups "
+          f"{list(groups)} of {n_groups} bitwise equal to the plain run "
+          f"({plain_ms:.1f} ms) and to the full run's rows")
+    run.kernels[key] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                            library_ms=None, **b)
+    run.launches[key] = launches[of]
+    return traj, args, kw, out, dict(wall=wall, peak=peak, ms=ms,
+                                      attempts=attempts, launches=launches)
+
+
+def rk4_record(run, key, what, traj_call):
+    """A time-varying or ensemble RK4 run through its entry point
+    (``traj_call``, returning ``traced``'s tuple) with ``tracer._run_rk4``
+    captured: its one launch, the kernel re-timed on the same entry state,
+    TV_PLAIN_LANES lanes over the run's first and last TV_PLAIN_STEPS steps
+    (the last entered from the full run's row, at its time) bitwise against
+    the plain loop and the full run's rows, the bound; recorded under
+    ``key``. Returns the trajectory."""
+    torch = run.torch
+    from rwrt_tpu_torch import kernels, tracer
+    from rwrt_tpu_torch.solvers import rk4
+
+    with captured(run, "_run_rk4") as cap:
+        traj, launches, wall, peak, _, _ = traj_call()
+    check(len(cap.calls) == 1, f"{what}: {len(cap.calls)} unit calls")
+    args, _, out, _ = cap.calls[0]
+    bg, y0, ug0, vg0, dt, nt, cut_off = args
+    ms = cuda_ms(lambda: tracer._run_rk4(*args), 2)
+    take = subset_of(run, y0.shape[1], TV_PLAIN_LANES)
+    bsub, ysub = lane_pick(args[:2], take)
+    plain_ms = 0.0
+    for s0 in (0, nt - 1 - TV_PLAIN_STEPS):
+        y = ysub if s0 == 0 else out[0][s0].index_select(1, take).contiguous()
+        t_start = s0 * float(dt)
+        _, k = tracer._rk4_chunk(bsub, y, dt, TV_PLAIN_STEPS, cut_off,
+                                 t_start)
+        p = tracer._rk4_buffers(y, TV_PLAIN_STEPS)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        rk4.trace_into(bsub, y, dt, TV_PLAIN_STEPS, cut_off, *p,
+                       t_start=t_start)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms += start.elapsed_time(end)
+        rows = slice(s0 + 1, s0 + 1 + TV_PLAIN_STEPS)
+        for a, b_, c in zip(k, p, out):
+            check(same(a, b_), f"{what}: steps {s0 + 1}.. of the lane subset "
+                  "differ from the plain run")
+            check(same(a, c[rows].index_select(-1, take)),
+                  f"{what}: steps {s0 + 1}.. of the lane subset differ from "
+                  "the full run")
+    key_dt = kernels.state_key(y0, bg.fields)
+    b = rk4_bound(bg, y0, ug0, vg0, out,
+                  "mixed" if key_dt[0] != key_dt[1] else y0.dtype)
+    print(f"{what}: R={y0.shape[1]}, {nt - 1} steps over {stack_of(bg)}; "
+          f"wall {wall:.3f} s, peak device memory {peak:.1f} MiB, launches "
+          f"{launches}; kernel {ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}); {TV_PLAIN_LANES} lanes x the first and last "
+          f"{TV_PLAIN_STEPS} steps bitwise equal to the plain run "
+          f"({plain_ms:.1f} ms) and to the full run; instance "
+          f"{tracer.rk4_instance(y0.shape[1], key_dt, '_time')}")
+    run.kernels[key] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                            library_ms=None, **b)
+    run.launches[key] = launches["rk4_run"]
+    return traj
+
+
+def phase_time_main_path(run):
+    """The production run on the TV_DAYS-day daily-frame background
+    through ``trace_rays`` (counters reset just before it and read just
+    after): one whole-run launch of the dense kernel's time instance; its
+    first N_SUBSET lanes over every group bitwise against
+    ``_dense_run_plain`` on the same entry state; kernel ms and wall beside
+    the static run's."""
+    torch = run.torch
+    bs = tv_state(run, TV_DAYS + 1)
+    run.tv_bs = bs
+    cfg = production_config(run.rt)
+    src = dict(source_lon=run.slon, source_lat=run.slat)
+    rows = {"float32": ROW_FLOPS + CASCADE_FLOPS}
+    attempts = {"float32": ATTEMPT_FLOPS}
+    traj, args, kw, out, rec = run_record(
+        run, "dense_run_time", "time_main_path",
+        lambda: traced(run, cfg, "dense_run", bs=bs, **src), "_dense_run",
+        "dense_run", attempts, rows, N_SUBSET, every_group=True)
+    # The traced run's RHS launches (h0 and f0) are the time instance's.
+    launches = rec["launches"]
+    run.launches["rhs_time"] = launches["rhs"]
+    nt = cfg.nt
+    alive = float(torch.isfinite(traj.ky[-1]).float().mean())
+    static = run.kernels["dense_run"]["ms"]
+    print(f"time_main_path: {3 * N_SOURCES * 7} rays x {N_DAYS} days, kernel "
+          f"{rec['ms']:.3f} ms against the static run's {static:.3f} ms "
+          f"({rec['ms'] / static:.3f} x), wall {rec['wall']:.3f} s against "
+          f"{run.main_wall:.3f} s, step attempts {rec['attempts']} (static "
+          f"{DENSE_ATTEMPTS}), alive fraction at day {N_DAYS} {alive:.4f}, "
+          f"rhs launches {launches['rhs']}")
+    lon10, lat10 = traj.lon[120].reshape(-1), traj.lat[120].reshape(-1)
+    fin = torch.isfinite(lon10) & torch.isfinite(lat10)
+    run.tv_day10 = (lon10[fin].contiguous(), lat10[fin].contiguous())
+    run.tv_dense = (traj, args[0].fields.shape)
+    check(tuple(traj.lon.shape) == (nt, 3, N_SOURCES, 7), "shape")
+
+
+def in_float64(cfg):
+    """``cfg`` over a float64 background."""
+    return dataclasses.replace(cfg, cal_dtype="float64")
+
+
+def phase_time_paths(run):
+    """The other branches over the daily-frame background, each through
+    ``trace_rays`` with one launch of its kernel's time instance: RK4 in
+    ``RunConfig()``'s default run (LONG_DAYS days, LONG_DAYS + 1 frames) in
+    float32, mixed precision and float64; the README exact run in float32
+    (README_DAYS days), mixed precision and float64 (LONG_DAYS days); the
+    dense production run in mixed precision and float64 (N_DAYS days). A
+    lane subset of each, over its first and last group (steps in RK4),
+    bitwise against the plain version; kernel ms and bound."""
+    f64 = run.torch.float64
+    bs90 = tv_state(run, LONG_DAYS + 1)
+    bs90_f64 = tv_state(run, LONG_DAYS + 1, f64)
+    run.tv_bs90 = bs90
+    cfg = dataclasses.replace(default_config(run.rt), ttotal=LONG_DAYS * DAY)
+    for key, c, bs in (("rk4_run_time", cfg, bs90),
+                       ("rk4_run_time_mix", mixed(cfg), bs90),
+                       ("rk4_run_time_f64", in_float64(cfg), bs90_f64)):
+        what = f"time_paths rk4 default {key[13:] or 'f32'}"
+        traj = rk4_record(run, key, what,
+                          lambda: traced(run, c, "rk4_run", bs=bs))
+        if key.endswith(("mix", "f64")):
+            all_float64(traj, f"time {key}")
+
+    exact_f32 = ({"float32": EXACT_ATTEMPT_FLOPS}, {"float32": KILL_FLOPS})
+    exact_f64 = ({"float64": EXACT_ATTEMPT_FLOPS}, {"float64": KILL_FLOPS})
+    exact_mix = (MIX_EXACT_ATTEMPT_FLOPS, {"float64": KILL_FLOPS})
+    for key, c, bs, flops in (
+            ("exact_run_time", readme_config(run.rt), bs90, exact_f32),
+            ("exact_run_time_mix", mixed(readme_config(run.rt, LONG_DAYS)),
+             bs90, exact_mix),
+            ("exact_run_time_f64",
+             in_float64(readme_config(run.rt, LONG_DAYS)), bs90_f64,
+             exact_f64)):
+        traj, *_ = run_record(
+            run, key, f"time_paths readme exact {key[15:] or 'f32'}",
+            lambda: traced(run, c, "exact_run", bs=bs), "_exact_run",
+            "exact_run", *flops)
+        if key.endswith(("mix", "f64")):
+            all_float64(traj, f"time {key}")
+
+    src = dict(source_lon=run.slon, source_lat=run.slat)
+    rows = ROW_FLOPS + CASCADE_FLOPS
+    for key, c, bs, flops in (
+            ("dense_run_time_mix", mixed(production_config(run.rt)),
+             run.tv_bs, (MIX_ATTEMPT_FLOPS, {"float64": rows})),
+            ("dense_run_time_f64", in_float64(production_config(run.rt)),
+             tv_state(run, TV_DAYS + 1, f64),
+             ({"float64": ATTEMPT_FLOPS}, {"float64": rows}))):
+        # The float64 history (4.1 GB) is past trace_rays' reroute
+        # estimate; the card holds it, and the run stays one launch.
+        traj, *_ = run_record(
+            run, key, f"time_paths production dense {key[15:]}",
+            lambda: traced(run, c, "dense_run", bs=bs, auto_chunk_bytes=None,
+                           **src), "_dense_run", "dense_run", *flops)
+        all_float64(traj, f"time {key}")
+        del traj
+
+
+def phase_time_chunked(run):
+    """The chunked driver on the daily-frame background: the N_DAYS-day
+    production run in chunks of CHUNK_STEPS, one launch each, rows bitwise
+    equal to time_main_path's; the LONG_DAYS-day one through
+    ``trace_rays``, which reroutes to the driver, with the wall's split."""
+    from rwrt_tpu_torch.utils import checkpoint
+
+    src = dict(source_lon=run.slon, source_lat=run.slat)
+    cfg = production_config(run.rt)
+    n_chunks = -(-(cfg.nt - 1) // CHUNK_STEPS)
+    traj, launches, wall, peak, stats, _ = traced(
+        run, cfg, "dense_run", n_chunks, checkpoint.trace_rays_chunked,
+        bs=run.tv_bs, chunk_steps=CHUNK_STEPS, verbose=False, **src)
+    ref, _ = run.tv_dense
+    for k in ref._fields:
+        check(same(getattr(traj, k), getattr(ref, k).cpu()),
+              f"time_chunked: {k} differs from the one-launch run")
+    print(f"time_chunked {N_DAYS} days: {n_chunks} chunks of {CHUNK_STEPS}, "
+          f"launches {launches}, wall {wall:.3f} s, kernel "
+          f"{sum(stats['chunk_ms']):.3f} ms in all; rows bitwise equal to "
+          "the one-launch run's")
+    del traj
+    cfg90 = production_config(run.rt, ttotal=LONG_DAYS * DAY)
+    n90 = -(-(cfg90.nt - 1) // DEFAULT_CHUNK_STEPS)
+    traj, launches, wall, peak, stats, refused = traced(
+        run, cfg90, "dense_run", n90, bs=run.tv_bs90, **src)
+    check(refused is None and traj.lon.device.type == "cpu",
+          f"the {LONG_DAYS}-day time-varying trace_rays did not reroute")
+    alive_end = traj.ky[-1].isfinite()
+    for k in traj._fields:
+        check(bool(getattr(traj, k)[-1][alive_end].isfinite().all()),
+              f"time {LONG_DAYS} days: non-finite {k} on a live lane")
+    kernel_s = sum(stats["chunk_ms"]) / 1e3
+    host = stats["seconds"]
+    split = dict(wall=wall, kernel=kernel_s, **host,
+                 other=wall - kernel_s - sum(host.values()))
+    print(f"time_chunked {LONG_DAYS} days through trace_rays (rerouted): "
+          f"{n90} chunks of {DEFAULT_CHUNK_STEPS} over "
+          f"{run.tv_bs90.fields.shape[0]} frames, launches {launches}, "
+          f"peak device memory {peak:.1f} MiB above the prepared state, "
+          f"alive fraction at the end {float(alive_end.float().mean()):.4f}")
+    print(f"time_chunked {LONG_DAYS} days wall split (s): "
+          + json.dumps(split))
+
+
+def members_equal_own_runs(run, members, cfg, ens, of, what, **kw):
+    """Each member's rows of an ensemble run bitwise equal to its own
+    ``trace_rays``, one launch of ``of`` each."""
+    for i, (bs, traj) in enumerate(zip(members, ens)):
+        own, launches, *_ = traced(run, cfg, of, bs=bs, **kw)
+        for k in own._fields:
+            check(same(getattr(own, k), getattr(traj, k)),
+                  f"{what}: member {i}'s {k} differs from its own run")
+
+
+def phase_ensemble(run):
+    """``trace_rays_ensemble`` on the card: four "reanalysis year" members
+    (static climatologies, each its jet scale and wave phase) x the
+    production seeding (403,200 rays), N_DAYS days, dense with pin, float32:
+    one launch of the dense kernel's time instance with the member map,
+    each member's rows bitwise equal to its own ``trace_rays``, a lane
+    subset over every member and the first and last group bitwise against
+    the plain run, kernel ms and peak memory; then two time-varying
+    members (TV_DAYS + 1 frames) over the README's sources, the same way:
+    in RK4 (float32) and in exact mode (float64, where the time carry does
+    not stall)."""
+    torch = run.torch
+    fr = [climatology_frames(1, sc, ph)
+          for sc, ph in zip(MEMBER_SCALES, MEMBER_PHASES)]
+    years = [run.rt.prepare(u[0], v[0], lat, lon, device=run.dev)
+             for u, v, lat, lon in fr]
+    cfg = production_config(run.rt)
+    src = dict(source_lon=run.slon, source_lat=run.slat)
+    driver = run.rt.trace_rays_ensemble
+    ens, args, kw, out, rec = run_record(
+        run, "dense_run_member", "ensemble 4 members dense",
+        lambda: traced(run, cfg, "dense_run", driver=driver, bs=years,
+                       **src), "_dense_run", "dense_run",
+        {"float32": ATTEMPT_FLOPS}, {"float32": ROW_FLOPS + CASCADE_FLOPS})
+    members_equal_own_runs(run, years, cfg, ens, "dense_run",
+                           "ensemble dense", **src)
+    print(f"ensemble: {len(years)} members x {3 * N_SOURCES * 7} rays, "
+          f"{args[1].shape[1]} lanes after compaction; kernel "
+          f"{rec['ms']:.3f} ms, peak device memory {rec['peak']:.1f} MiB "
+          "above the prepared state; every member's rows bitwise equal to "
+          "its own trace_rays")
+    del ens
+
+    tv = [tv_state(run, TV_DAYS + 1, None, sc, ph)
+          for sc, ph in zip(MEMBER_SCALES[:2], MEMBER_PHASES[:2])]
+    cfg = dataclasses.replace(default_config(run.rt), ttotal=TV_DAYS * DAY)
+    ens = rk4_record(run, "rk4_run_member_time", "ensemble rk4",
+                     lambda: traced(run, cfg, "rk4_run", driver=driver,
+                                    bs=tv))
+    members_equal_own_runs(run, tv, cfg, ens, "rk4_run", "ensemble rk4")
+    print(f"ensemble rk4: {len(tv)} time-varying members; every member's "
+          "rows bitwise equal to its own trace_rays")
+
+    # Exact mode in float64: in float32 the time carry stalls lanes at the
+    # backstop (ROADMAP Queue 3), and an ensemble runs in its fields' type.
+    tv = [tv_state(run, TV_DAYS + 1, torch.float64, sc, ph)
+          for sc, ph in zip(MEMBER_SCALES[:2], MEMBER_PHASES[:2])]
+    cfg = readme_config(run.rt, TV_DAYS)
+    ens, *_ = run_record(
+        run, "exact_run_member_time_f64", "ensemble exact float64",
+        lambda: traced(run, cfg, "exact_run", driver=driver, bs=tv),
+        "_exact_run", "exact_run", {"float64": EXACT_ATTEMPT_FLOPS},
+        {"float64": KILL_FLOPS})
+    members_equal_own_runs(run, tv, cfg, ens, "exact_run", "ensemble exact")
+
+
+def phase_time_spectral(run):
+    """The spectral fit of the TV_DAYS + 1 daily frames
+    (``fit_spectral_time``), blended at day 10 (``lerp_coeffs``), through
+    the spectral kernel at the time-varying run's day-10 positions, against
+    the plain sampler to the spectral phase's float32 bar."""
+    torch = run.torch
+    from rwrt_tpu_torch.ops import spectral_sample as spec
+
+    sbg = spec.fit_spectral(run.tv_bs)
+    check(tuple(sbg.coeffs.shape) == (TV_DAYS + 1, 145, 73, 18),
+          f"time fit {tuple(sbg.coeffs.shape)}")
+    day10 = spec.lerp_coeffs(sbg, 10.0)
+    lon, lat = run.tv_day10
+    before = spec.LAUNCHES
+    k = spec.sample_spectral_cuda(day10, lon, lat)
+    check(spec.LAUNCHES == before + 1, "the spectral kernel did not launch")
+    p = spec.sample_spectral(day10, lon, lat)
+    torch.cuda.synchronize()
+    check(same_nan(k, p), "time_spectral: NaN rows differ")
+    e = rel_err(p.T, k.T, dim=1)
+    check(e <= 1e-5, f"time_spectral error {e} > 1e-05")
+    ms = cuda_ms(lambda: spec.sample_spectral_cuda(day10, lon, lat), 20)
+    print(f"time_spectral: {sbg.coeffs.shape[0]} frames fitted, blended at "
+          f"day 10, R={lon.shape[0]} day-10 positions, max err / channel max "
+          f"{e:.3e} (bar 1e-05), wrapper {ms:.4f} ms")
+
 KERNELS = (
     ("rhs", "rwrt_tpu_torch/csrc/rhs.cu", "rwrt_tpu/models/ray.py:163"),
     ("dense_group", "rwrt_tpu_torch/csrc/dense_run.cu",
@@ -1893,6 +2557,32 @@ KERNELS = (
      "rwrt_tpu/solvers/rk45.py:494"),
     ("exact_group_mix", "rwrt_tpu_torch/csrc/exact_run_mix.cu",
      "rwrt_tpu/solvers/rk45.py:302"),
+    ("rhs_time", "rwrt_tpu_torch/csrc/rhs_time.cu",
+     "rwrt_tpu/models/ray.py:163"),
+    ("dense_run_time", "rwrt_tpu_torch/csrc/dense_run_time.cu",
+     "rwrt_tpu/tracer.py:861"),
+    ("rk4_run_time", "rwrt_tpu_torch/csrc/rk4_run_time.cu",
+     "rwrt_tpu/tracer.py:819"),
+    ("rk4_run_time_mix", "rwrt_tpu_torch/csrc/rk4_run_time_mix.cu",
+     "rwrt_tpu/tracer.py:819"),
+    ("rk4_run_time_f64", "rwrt_tpu_torch/csrc/rk4_run_time.cu",
+     "rwrt_tpu/tracer.py:819"),
+    ("exact_run_time", "rwrt_tpu_torch/csrc/exact_run_time.cu",
+     "rwrt_tpu/tracer.py:861"),
+    ("exact_run_time_mix", "rwrt_tpu_torch/csrc/exact_run_time_mix.cu",
+     "rwrt_tpu/tracer.py:861"),
+    ("exact_run_time_f64", "rwrt_tpu_torch/csrc/exact_run_time_f64.cu",
+     "rwrt_tpu/tracer.py:861"),
+    ("dense_run_time_mix", "rwrt_tpu_torch/csrc/dense_run_time_mix.cu",
+     "rwrt_tpu/tracer.py:861"),
+    ("dense_run_time_f64", "rwrt_tpu_torch/csrc/dense_run_time_f64.cu",
+     "rwrt_tpu/tracer.py:861"),
+    ("dense_run_member", "rwrt_tpu_torch/csrc/dense_run_time.cu",
+     "rwrt_tpu/tracer.py:1367"),
+    ("rk4_run_member_time", "rwrt_tpu_torch/csrc/rk4_run_time.cu",
+     "rwrt_tpu/tracer.py:1367"),
+    ("exact_run_member_time_f64", "rwrt_tpu_torch/csrc/exact_run_time_f64.cu",
+     "rwrt_tpu/tracer.py:1367"),
 )
 
 
@@ -1930,7 +2620,9 @@ def main() -> int:
                   phase_exact_group, phase_exact_run, phase_rk4_path,
                   phase_exact_path, phase_chunked, phase_mixed_dense,
                   phase_mixed_drift, phase_mixed_rk4, phase_mixed_exact,
-                  phase_mixed_chunked):
+                  phase_mixed_chunked, phase_time_rhs, phase_time_main_path,
+                  phase_time_paths, phase_time_chunked, phase_ensemble,
+                  phase_time_spectral):
         t0 = time.perf_counter()
         phase(run)
         print(f"phase {phase.__name__[6:]} ok in "

@@ -17,9 +17,11 @@ All runs use chip_smoke.py's climatology background. Parts:
           special-function (MUFU) instructions among them; with
           ``--parent DIR`` (a checkout of another commit, as ``git archive``
           unpacks it) also that checkout's kernels, built there, and for
-          each kernel of both whether its SASS is the same instruction for
-          instruction (a one-type instance ``<T, T, ...>`` is read as the
-          older ``<T, ...>``)
+          each kernel of both its registers and spills there and here and
+          whether its SASS is the same instruction for instruction (a
+          one-type instance ``<T, T, ...>`` is read as the older
+          ``<T, ...>``, and a static instance, whose time flag is false,
+          as the older one without the flag)
   sweep   the first R lanes of the production seeding's entry state, R over
           SWEEP_LANES, float32, float64 and mixed precision (a float64
           state over the float32 background): RK4 over SWEEP_STEPS steps
@@ -58,10 +60,14 @@ TILED_LANES = (4288, 5120, 6144, 7168, 8192)
 
 
 def demangle(names):
-    """Readable kernel names (c++filt where the toolkit's host has it)."""
+    """Readable kernel names (c++filt where the toolkit's host has it). A
+    relocatable unit's kernel carries a ``__nv_static_..._`` prefix before
+    its mangled name, which is dropped."""
     if not names or shutil.which("c++filt") is None:
         return {n: n for n in names}
-    out = subprocess.run(["c++filt"], input="\n".join(names),
+    mangled = [n[n.index("_ZN"):] if n.startswith("__nv_static_")
+               and "_ZN" in n else n for n in names]
+    out = subprocess.run(["c++filt"], input="\n".join(mangled),
                          capture_output=True, text=True).stdout.splitlines()
     short = [o.replace("(anonymous namespace)::", "").removeprefix("void ")
              .split("(")[0] for o in out]
@@ -89,21 +95,55 @@ def sass_of(lib):
     return out
 
 
+#: The position of the time flag among each kernel's template arguments
+#: (csrc/: rhs_kernel<T, kTime>, rk4_kernel<S, F, kTime, I>,
+#: dense_kernel<S, F, kRun, kTime>, exact_kernel<S, F, kRun, kBarrier,
+#: kTime, I>).
+TIME_FLAG = {"rhs_kernel": 1, "rk4_kernel": 2, "dense_kernel": 3,
+             "exact_kernel": 4}
+
+
+def common_name(pretty):
+    """A kernel's name as both trees can have it: a one-type instance
+    <T, T, ...> as the older <T, ...>; a static instance without its time
+    flag, a time instance as ``<kernel>_time<...>`` without it."""
+    m = re.match(r"(\w+_kernel)<(.*)>$", pretty)
+    if m and m.group(1) in TIME_FLAG:
+        args = m.group(2).split(", ")
+        pos = TIME_FLAG[m.group(1)]
+        if len(args) > pos and args[pos] in ("true", "false"):
+            flag = args.pop(pos)
+            pretty = (m.group(1) + ("_time" if flag == "true" else "")
+                      + "<" + ", ".join(args) + ">")
+    return re.sub(r"<(float|double), \1", r"<\1", pretty)
+
+
 def compare_parent(lib, parent):
     """Build the kernels of the checkout ``parent`` there and print, for
-    each kernel of both libraries, whether its SASS is the same."""
-    built = subprocess.run(
+    each kernel of both libraries, its registers and spills in each and
+    whether its SASS is the same."""
+    built = Path(subprocess.run(
         [sys.executable, "-c", "from rwrt_tpu_torch.kernels import build; "
          "print(build.build())"], cwd=parent, capture_output=True,
-        text=True, check=True).stdout.strip().splitlines()[-1]
+        text=True, check=True).stdout.strip().splitlines()[-1])
 
     def by_name(path):
         code = sass_of(path)
         pretty = demangle(list(code))
-        # A one-type instance <T, T, ...> is the older <T, ...>.
-        return {re.sub(r"<(float|double), \1", r"<\1", pretty[n]): c
-                for n, c in code.items()}
+        return {common_name(pretty[n]): c for n, c in code.items()}
 
+    def regs_by_name(path):
+        regs = regs_of(path)
+        pretty = demangle(list(regs))
+        return {common_name(pretty[n]): r for n, r in regs.items()}
+
+    old_regs, new_regs = regs_by_name(built), regs_by_name(lib)
+    for n in sorted(set(old_regs) & set(new_regs)):
+        o, w = old_regs[n], new_regs[n]
+        print(f"registers {n}: parent {o.get('regs', '?')} (spill "
+              f"{o.get('spill', '?')}), this tree {w.get('regs', '?')} (spill "
+              f"{w.get('spill', '?')}), "
+              f"{'unchanged' if o == w else 'CHANGED'}")
     old, new = by_name(built), by_name(lib)
     for n in sorted(set(old) & set(new)):
         same = old[n] == new[n]
@@ -113,10 +153,9 @@ def compare_parent(lib, parent):
           f"the parent {sorted(set(old) - set(new))}")
 
 
-def part_report(run):
-    from rwrt_tpu_torch.kernels import build
-
-    lib = build.build()
+def regs_of(lib):
+    """Each kernel's registers and (spill stores, spill loads) bytes from
+    the build's ``nvcc.log`` beside library ``lib``, by mangled name."""
     regs, name = {}, None
     for line in (lib.parent / "nvcc.log").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -130,6 +169,14 @@ def part_report(run):
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             regs.setdefault(name, {})["regs"] = int(m.group(1))
+    return regs
+
+
+def part_report(run):
+    from rwrt_tpu_torch.kernels import build
+
+    lib = build.build()
+    regs = regs_of(lib)
     sass = {}
     for fn, code in sass_of(lib).items():
         counts = sass[fn] = {"all": len(code)}

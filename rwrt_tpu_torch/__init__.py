@@ -4,22 +4,28 @@ Barotropic Rossby-wave ray tracing with plain PyTorch around hand-written
 CUDA kernels for the RHS, the whole RK4, exact-bound and dense
 Dormand-Prince runs (and single groups of the latter two) and the spectral
 sampler (built from ``csrc/`` at first use on a CUDA device), and the
-chunked checkpoint/resume driver over them (``utils/checkpoint.py``). The JAX
+chunked checkpoint/resume driver over them (``utils/checkpoint.py``), over
+static or time-varying backgrounds (``prepare_time_varying``) and ensembles
+of them (``trace_rays_ensemble``). The JAX
 package ``rwrt_tpu`` is the reference each module is tested against; this
 package never imports it or JAX.
 """
 
 from rwrt_tpu_torch.config import RunConfig
-from rwrt_tpu_torch.models.basic_state import BasicState, prepare
-from rwrt_tpu_torch.tracer import RayTrajectories, source_matrix, trace_rays
+from rwrt_tpu_torch.models.basic_state import (BasicState, prepare,
+                                               prepare_time_varying)
+from rwrt_tpu_torch.tracer import (RayTrajectories, source_matrix, trace_rays,
+                                   trace_rays_ensemble)
 from rwrt_tpu_torch.utils.checkpoint import trace_rays_chunked
 
 __all__ = [
     "RunConfig",
     "BasicState",
     "prepare",
+    "prepare_time_varying",
     "RayTrajectories",
     "source_matrix",
     "trace_rays",
+    "trace_rays_ensemble",
     "trace_rays_chunked",
 ]

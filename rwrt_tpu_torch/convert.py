@@ -44,16 +44,17 @@ def basic_state_from_numpy(d: Mapping, *, device="cuda",
 
 def background_from_numpy(d: Mapping, *, device="cuda",
                           dtype=None) -> Background:
-    """A port ``Background`` from a mapping shaped like the JAX one
-    (static backgrounds: ``member_ids`` must be absent or None)."""
-    if d.get("member_ids") is not None and np.asarray(
-            d["member_ids"]).ndim > 0:
-        raise NotImplementedError("ensemble backgrounds are not ported yet "
-                                  "(ROADMAP Queue 1 item 13)")
+    """A port ``Background`` from a mapping shaped like the JAX one: a
+    static (W, H, C), time-varying (T, W, H, C) or ensemble (M, W, H, C) or
+    (M, T, W, H, C) stack, with the (R,) ``member_ids`` of an ensemble
+    (int32) or without (absent or None)."""
     dtype = as_dtype(np.asarray(d["fields"]).dtype if dtype is None
                      else dtype)
     scalars = {k: as_scalar(np.asarray(d[k], np.float64), dtype)
                for k in ("lon0", "lat0", "dx", "dy", "freq", "bg_t0",
                          "bg_dt") if k in d}
+    member = d.get("member_ids")
+    if member is not None:
+        member = torch.as_tensor(np.asarray(member, np.int32)).to(device)
     return Background(fields=_tensor(d["fields"], device, dtype).contiguous(),
-                      **scalars)
+                      member_ids=member, **scalars)

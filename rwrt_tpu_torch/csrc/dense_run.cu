@@ -1,10 +1,12 @@
 // Dense Dormand-Prince kernels: free-stepping DP 5(4) with dense output,
 // one thread per lane, from one templated body.
 //
-//   dense_kernel<T, false>  one group of output bounds in one launch
+//   dense_kernel<S, F, false, false>
+//                           one group of output bounds in one launch
 //                           (rwrt_dense_group: solvers/rk45.py
 //                           integrate_group_dense on CUDA);
-//   dense_kernel<T, true>   the whole adaptive run in one launch
+//   dense_kernel<S, F, true, kTime>
+//                           the whole adaptive run in one launch
 //                           (rwrt_dense_run: tracer._dense_run on CUDA).
 //                           Each lane walks every group of bounds, applies
 //                           the kill cascade at each bound in bound order,
@@ -77,6 +79,12 @@
 // summed in S, as the JAX package's promotion has it; the post-pass's
 // (ug, vg) are group_velocity_at<S, F> at the S rows.
 //
+// Time: a trial's stages sample at t + c_s h (dp45.cuh trial), its 7th
+// stage at t + h, and a row's (ug, vg) at its bound's time, as the plain
+// versions pass them. Only the time instances (kTime: dense_run_time*.cu,
+// the whole run over a time-varying or ensemble background, ray_rhs.cuh)
+// read the time; the static instances' code is the code without it.
+//
 // Rounding: built with -fmad=false (kernels/build.py), so each expression
 // rounds as the plain version's separate tensor ops do; with FMA
 // contraction the one-ulp differences were amplified by the error
@@ -95,9 +103,9 @@ namespace {
 using rwrt::dp45::nan_max;
 using rwrt::dp45::nan_min;
 
-template <typename S, typename F>
+template <typename S, typename F, bool kTime>
 struct DenseArgs {
-  rwrt::Background<F> bg;
+  rwrt::Background<F, kTime> bg;
   // Carry, (5, R) / (R,): read at entry, written at exit. The whole run
   // enters with t = 0.
   S* y;
@@ -130,9 +138,9 @@ struct DenseArgs {
   S cut_off;
 };
 
-template <typename S, typename F, bool kRun>
+template <typename S, typename F, bool kRun, bool kTime>
 __global__ void __launch_bounds__(128)
-dense_kernel(const DenseArgs<S, F> a) {
+dense_kernel(const DenseArgs<S, F, kTime> a) {
   // The dense-output quartic (solvers/rk45.py DP_P), double literals
   // rounded to S where used. A local constexpr array, so the unrolled loops
   // index it at compile time.
@@ -154,6 +162,7 @@ dense_kernel(const DenseArgs<S, F> a) {
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.R) return;
+  const auto& bg = rwrt::lane_background(a.bg, i);
   const long long RL = a.R;
   const int G = a.G;
   const S nan = rwrt::nan_value<S>();
@@ -259,12 +268,14 @@ dense_kernel(const DenseArgs<S, F> a) {
 #pragma unroll
       for (int v = 0; v < 5; ++v) k[0][v] = fl[v];
       S y_new[5];
-      rwrt::dp45::trial(a.bg, yl, hs, k, y_new);
+      rwrt::dp45::trial(bg, yl, tl, hs, k, y_new);
       bool e;
       F y7[5];
 #pragma unroll
       for (int v = 0; v < 5; ++v) y7[v] = F(y_new[v]);
-      rwrt::ray_rhs(a.bg, y7, k[6], &e);
+      F t7 = F(0);  // the 7th stage's time (time instances only)
+      if constexpr (kTime) t7 = F(t_new);
+      rwrt::ray_rhs(bg, y7, t7, k[6], &e);
       const S error_norm =
           rwrt::dp45::error_norm(k, hs, yl, y_new, a.atol, a.rtol);
 
@@ -367,8 +378,10 @@ dense_kernel(const DenseArgs<S, F> a) {
       S row[5];
 #pragma unroll
       for (int v = 0; v < 5; ++v) row[v] = a.hist[(r * 5 + v) * RL + i];
+      S tb = S(0);  // the row's bound
+      if constexpr (kTime) tb = a.bounds[r - 1];
       S ug, vg;
-      rwrt::group_velocity_at(a.bg, row, &ug, &vg);
+      rwrt::group_velocity_at(bg, row, tb, &ug, &vg);
       a.ugs[r * RL + i] = ug;
       a.vgs[r * RL + i] = vg;
     }
@@ -381,26 +394,25 @@ dense_kernel(const DenseArgs<S, F> a) {
   }
 }
 
-template <typename S, typename F, bool kRun>
-int launch_dense(const DenseArgs<S, F>& a, cudaStream_t stream) {
+template <typename S, typename F, bool kRun, bool kTime>
+int launch_dense(const DenseArgs<S, F, kTime>& a, cudaStream_t stream) {
   if (a.R <= 0 || a.G <= 0 || a.n_groups <= 0) return cudaSuccess;
   const int block = 128;
   const int grid = (a.R + block - 1) / block;
-  dense_kernel<S, F, kRun><<<grid, block, 0, stream>>>(a);
+  dense_kernel<S, F, kRun, kTime><<<grid, block, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename S, typename F>
-DenseArgs<S, F> dense_args(const void* packed, int W, int H, double lon0,
-                           double lat0, double dx, double dy, void* y,
-                           void* t, void* h, void* f, void* lane_att,
-                           void* hist, const void* bounds, int G,
-                           int n_groups, int R, double rtol, double atol,
-                           double min_step, long long max_iters,
-                           long long pin_limit, double pin_mwn) {
-  DenseArgs<S, F> a{};
-  a.bg = rwrt::Background<F>{static_cast<const F*>(packed), W, H, F(lon0),
-                             F(lat0), F(dx), F(dy)};
+template <typename S, typename F, bool kTime>
+DenseArgs<S, F, kTime> dense_args(const rwrt::Background<F, kTime>& bg,
+                                  void* y, void* t, void* h, void* f,
+                                  void* lane_att, void* hist,
+                                  const void* bounds, int G, int n_groups,
+                                  int R, double rtol, double atol,
+                                  double min_step, long long max_iters,
+                                  long long pin_limit, double pin_mwn) {
+  DenseArgs<S, F, kTime> a{};
+  a.bg = bg;
   a.y = static_cast<S*>(y);
   a.t = static_cast<S*>(t);
   a.h = static_cast<S*>(h);
@@ -420,11 +432,34 @@ DenseArgs<S, F> dense_args(const void* packed, int W, int H, double lon0,
   return a;
 }
 
+// The whole run over background bg (static or a time instance's).
+template <typename S, typename F, bool kTime>
+int run_dense(const rwrt::Background<F, kTime>& bg, void* y, void* t,
+              void* h, void* f, const void* ug0, const void* vg0, void* hist,
+              void* ugs, void* vgs, void* lane_att, void* trunc, void* plon,
+              void* plat, const void* bounds, int G, int n_groups, int R,
+              double cut_off, double rtol, double atol, double min_step,
+              long long max_iters, long long pin_limit, double pin_mwn,
+              void* stream) {
+  DenseArgs<S, F, kTime> a = dense_args<S, F, kTime>(
+      bg, y, t, h, f, lane_att, hist, bounds, G, n_groups, R, rtol, atol,
+      min_step, max_iters, pin_limit, pin_mwn);
+  a.ug0 = static_cast<const S*>(ug0);
+  a.vg0 = static_cast<const S*>(vg0);
+  a.ugs = static_cast<S*>(ugs);
+  a.vgs = static_cast<S*>(vgs);
+  a.trunc = static_cast<int*>(trunc);
+  a.plon = static_cast<S*>(plon);
+  a.plat = static_cast<S*>(plat);
+  a.cut_off = S(cut_off);
+  return launch_dense<S, F, true, kTime>(a, static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
 extern "C" {
 
-// The single group, state type S over background type F.
+// The single group, state type S over background type F (static only).
 #define RWRT_DENSE_GROUP(SUFFIX, S, F)                                       \
   int rwrt_dense_group_##SUFFIX(                                             \
       const void* packed, int W, int H, double lon0, double lat0, double dx, \
@@ -432,13 +467,14 @@ extern "C" {
       void* new_step, void* lane_att, void* hist, const void* bounds, int G, \
       int R, double rtol, double atol, double min_step, long long max_iters, \
       long long pin_limit, double pin_mwn, void* stream) {                   \
-    DenseArgs<S, F> a = dense_args<S, F>(                                    \
-        packed, W, H, lon0, lat0, dx, dy, y, t, h, f, lane_att, hist,        \
-        bounds, G, 1, R, rtol, atol, min_step, max_iters, pin_limit,         \
-        pin_mwn);                                                            \
+    DenseArgs<S, F, false> a = dense_args<S, F, false>(                      \
+        rwrt::make_background<F>(packed, W, H, lon0, lat0, dx, dy), y, t, h, \
+        f, lane_att, hist, bounds, G, 1, R, rtol, atol, min_step, max_iters, \
+        pin_limit, pin_mwn);                                                 \
     a.rejected = static_cast<bool*>(rejected);                               \
     a.new_step = static_cast<bool*>(new_step);                               \
-    return launch_dense<S, F, false>(a, static_cast<cudaStream_t>(stream));  \
+    return launch_dense<S, F, false, false>(                                 \
+        a, static_cast<cudaStream_t>(stream));                               \
   }
 
 // The whole run, state type S over background type F.
@@ -451,25 +487,44 @@ extern "C" {
       int n_groups, int R, double cut_off, double rtol, double atol,         \
       double min_step, long long max_iters, long long pin_limit,             \
       double pin_mwn, void* stream) {                                        \
-    DenseArgs<S, F> a = dense_args<S, F>(                                    \
-        packed, W, H, lon0, lat0, dx, dy, y, t, h, f, lane_att, hist,        \
-        bounds, G, n_groups, R, rtol, atol, min_step, max_iters, pin_limit,  \
-        pin_mwn);                                                            \
-    a.ug0 = static_cast<const S*>(ug0);                                      \
-    a.vg0 = static_cast<const S*>(vg0);                                      \
-    a.ugs = static_cast<S*>(ugs);                                            \
-    a.vgs = static_cast<S*>(vgs);                                            \
-    a.trunc = static_cast<int*>(trunc);                                      \
-    a.plon = static_cast<S*>(plon);                                          \
-    a.plat = static_cast<S*>(plat);                                          \
-    a.cut_off = S(cut_off);                                                  \
-    return launch_dense<S, F, true>(a, static_cast<cudaStream_t>(stream));   \
+    return run_dense<S, F>(                                                  \
+        rwrt::make_background<F>(packed, W, H, lon0, lat0, dx, dy), y, t, h, \
+        f, ug0, vg0, hist, ugs, vgs, lane_att, trunc, plon, plat, bounds, G, \
+        n_groups, R, cut_off, rtol, atol, min_step, max_iters, pin_limit,    \
+        pin_mwn, stream);                                                    \
   }
 
-// One precision per translation unit, so that they compile in parallel
-// (dense_run_f64.cu and dense_run_mix.cu include this file for the float64
-// and the mixed-precision entry points).
-#if defined(RWRT_DENSE_F64)
+// Its time instance: the background's time axis and member map after the
+// grid.
+#define RWRT_DENSE_RUN_TIME(SUFFIX, S, F)                                    \
+  int rwrt_dense_run_time_##SUFFIX(                                          \
+      const void* packed, int W, int H, double lon0, double lat0, double dx, \
+      double dy, int nt, int timed, double t0, double tdt,                   \
+      const void* member, void* y, void* t, void* h, void* f,                \
+      const void* ug0, const void* vg0, void* hist, void* ugs, void* vgs,    \
+      void* lane_att, void* trunc, void* plon, void* plat,                   \
+      const void* bounds, int G, int n_groups, int R, double cut_off,        \
+      double rtol, double atol, double min_step, long long max_iters,        \
+      long long pin_limit, double pin_mwn, void* stream) {                   \
+    return run_dense<S, F>(                                                  \
+        rwrt::make_background<F>(packed, W, H, lon0, lat0, dx, dy, nt,       \
+                                 timed, t0, tdt, member),                    \
+        y, t, h, f, ug0, vg0, hist, ugs, vgs, lane_att, trunc, plon, plat,   \
+        bounds, G, n_groups, R, cut_off, rtol, atol, min_step, max_iters,    \
+        pin_limit, pin_mwn, stream);                                         \
+  }
+
+// One precision and one kind of background per translation unit, so that
+// they compile in parallel (dense_run_f64.cu, dense_run_mix.cu and the
+// time instances' dense_run_time.cu, dense_run_time_f64.cu and
+// dense_run_time_mix.cu include this file).
+#if defined(RWRT_DENSE_TIME_F64)
+RWRT_DENSE_RUN_TIME(f64, double, double)
+#elif defined(RWRT_DENSE_TIME_MIX)
+RWRT_DENSE_RUN_TIME(mix, double, float)
+#elif defined(RWRT_DENSE_TIME)
+RWRT_DENSE_RUN_TIME(f32, float, float)
+#elif defined(RWRT_DENSE_F64)
 RWRT_DENSE_GROUP(f64, double, double)
 RWRT_DENSE_RUN(f64, double, double)
 #elif defined(RWRT_DENSE_MIX)
@@ -482,5 +537,6 @@ RWRT_DENSE_RUN(f32, float, float)
 
 #undef RWRT_DENSE_GROUP
 #undef RWRT_DENSE_RUN
+#undef RWRT_DENSE_RUN_TIME
 
 }  // extern "C"

@@ -1,0 +1,5 @@
+// The time instance of the whole-run dense kernel (dense_run.cu) in float32: a
+// time-varying or ensemble background, compiled apart from the other instances
+// so that the build runs them at once and the static code stays as it is.
+#define RWRT_DENSE_TIME
+#include "dense_run.cu"

@@ -2,7 +2,7 @@
 // (dense_run.cu) and the exact kernels (exact_run.cu): the NaN-propagating
 // max/min, the trial step's stages 2-6 and 5th-order proposal, the scaled
 // error norm and the step-size factors. The tableau is solvers/rk45.py's
-// DP_A, DP_B, DP_E; each expression follows the plain PyTorch versions
+// DP_A, DP_B, DP_C, DP_E; each expression follows the plain PyTorch versions
 // there (_dp_trial, _error_norm, _exact_factors), so with -fmad=false the
 // kernels round as they do.
 //
@@ -42,12 +42,16 @@ __device__ __forceinline__ T nan_min(T a, T b) {
   return (isnan(a) || isnan(b)) ? nan_value<T>() : (a < b ? a : b);
 }
 
-// Stages 2-6 of a trial step of size hs from y, given the FSAL stage in
-// k[0]: fills k[1..5] and the 5th-order proposal y_new. I is the
-// evaluation's instance (ray_rhs.cuh).
-template <typename S, typename F, class I = Lane>
-__device__ __forceinline__ void trial(const Background<F>& bg, const S y[5],
-                                      S hs, F k[7][5], S y_new[5]) {
+// Stages 2-6 of a trial step of size hs from (t, y), given the FSAL stage
+// in k[0]: fills k[1..5] and the 5th-order proposal y_new. Stage s samples
+// at t + c_s hs, formed in S and rounded to F for the RHS (in a time
+// instance; a static one forms no time). I is the evaluation's instance
+// (ray_rhs.cuh).
+template <typename S, typename F, class I = Lane, bool kTime = false>
+__device__ __forceinline__ void trial(const Background<F, kTime>& bg,
+                                      const S y[5], S t, S hs, F k[7][5],
+                                      S y_new[5]) {
+  constexpr double kC[6] = {0.0, 1.0 / 5, 3.0 / 10, 4.0 / 5, 8.0 / 9, 1.0};
   constexpr double kA[6][5] = {
       {0.0, 0.0, 0.0, 0.0, 0.0},
       {1.0 / 5, 0.0, 0.0, 0.0, 0.0},
@@ -77,7 +81,9 @@ __device__ __forceinline__ void trial(const Background<F>& bg, const S y[5],
       }
       ys[v] = F(y[v] + hs * S(acc));
     }
-    ray_rhs<F, I>(bg, ys, k[s], &e);
+    F ts = F(0);  // the stage's time (time instances only)
+    if constexpr (kTime) ts = F(t + S(kC[s]) * hs);
+    ray_rhs<F, I>(bg, ys, ts, k[s], &e);
   }
 #pragma unroll
   for (int v = 0; v < 5; ++v) {

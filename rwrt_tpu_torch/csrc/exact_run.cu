@@ -1,12 +1,12 @@
 // Exact-bound Dormand-Prince kernels: every step clamps at every output
 // bound, one thread per lane, from one templated body.
 //
-//   exact_kernel<T, false, false, I>
+//   exact_kernel<S, F, false, false, false, I>
 //                           one group of output bounds in one launch
 //                           (rwrt_exact_group: solvers/rk45.py
 //                           integrate_group on CUDA), with its suspend /
 //                           resume state;
-//   exact_kernel<T, true, kBarrier, I>
+//   exact_kernel<S, F, true, kBarrier, kTime, I>
 //                           the whole exact run in one launch
 //                           (rwrt_exact_run: tracer._exact_run on CUDA).
 //                           Each lane walks every group of bounds with each
@@ -78,6 +78,13 @@
 // its barrier path has them (tracer.py _rk45_chunk). With S == F the two
 // are the same values, and the one-type kernels keep the stage's.
 //
+// Time: a trial's stages sample at t + c_s h (dp45.cuh trial) and its 7th
+// stage at t + h; under kGvAtSave the saved state's (ug, vg) at that time
+// too, as the plain versions pass them. Only the time instances (kTime:
+// exact_run_time*.cu, the whole run over a time-varying or ensemble
+// background, ray_rhs.cuh) read the time; the static instances' code is
+// the code without it.
+//
 // Rounding: built with -fmad=false (kernels/build.py), so each expression
 // rounds as the plain version's separate tensor ops do.
 //
@@ -95,9 +102,9 @@ namespace {
 
 using rwrt::dp45::nan_max;
 
-template <typename S, typename F>
+template <typename S, typename F, bool kTime>
 struct ExactArgs {
-  rwrt::Background<F> bg;
+  rwrt::Background<F, kTime> bg;
   // Carry, (5, R) / (R,): read at entry, written at exit. The whole run
   // enters with t = 0 and takes its last saved position from y.
   S* y;
@@ -132,15 +139,17 @@ struct ExactArgs {
   long long max_iters;
 };
 
-template <typename S, typename F, bool kRun, bool kBarrier, class I>
+template <typename S, typename F, bool kRun, bool kBarrier, bool kTime,
+          class I>
 __global__ void __launch_bounds__(rwrt::kBlock)
-    exact_kernel(const ExactArgs<S, F> a) {
+    exact_kernel(const ExactArgs<S, F, kTime> a) {
   static_assert(kRun || !kBarrier, "barrier semantics are a run's");
   // The barrier path's mixed-precision (ug, vg): sampled at the saved
   // state in S (see the head of this file).
   constexpr bool kGvAtSave = kBarrier && !std::is_same<S, F>::value;
   const int i = (blockIdx.x * blockDim.x + threadIdx.x) / I::kThreads;
   if (i >= a.R) return;
+  const auto& bg = rwrt::lane_background(a.bg, i);
   const bool lead = I::lead();
   const long long RL = a.R;
   const int G = a.G;
@@ -265,7 +274,7 @@ __global__ void __launch_bounds__(rwrt::kBlock)
 #pragma unroll
     for (int v = 0; v < 5; ++v) k[0][v] = fl[v];
     S y_new[5];
-    rwrt::dp45::trial<S, F, I>(a.bg, yl, hs, k, y_new);
+    rwrt::dp45::trial<S, F, I>(bg, yl, tl, hs, k, y_new);
     if (frozen) {
 #pragma unroll
       for (int v = 0; v < 5; ++v) y_new[v] = yl[v];
@@ -277,11 +286,13 @@ __global__ void __launch_bounds__(rwrt::kBlock)
     F y7[5];
 #pragma unroll
     for (int v = 0; v < 5; ++v) y7[v] = F(y_new[v]);
+    F t7 = F(0);  // the 7th stage's time (time instances only)
+    if constexpr (kTime) t7 = F(t_new);
     if constexpr (kGvAtSave) {
-      rwrt::ray_rhs<F, I>(a.bg, y7, k[6], &e);
+      rwrt::ray_rhs<F, I>(bg, y7, t7, k[6], &e);
     } else {
       F ug7, vg7;
-      rwrt::ray_rhs<F, I>(a.bg, y7, k[6], &e, &ug7, &vg7);
+      rwrt::ray_rhs<F, I>(bg, y7, t7, k[6], &e, &ug7, &vg7);
       ug_new = S(ug7);
       vg_new = S(vg7);
     }
@@ -314,7 +325,8 @@ __global__ void __launch_bounds__(rwrt::kBlock)
       }
       if constexpr (kGvAtSave) {
         if (!killed) {
-          rwrt::group_velocity_at<S, F, I>(a.bg, yl, &ug_new, &vg_new);
+          rwrt::group_velocity_at<S, F, I>(bg, yl, t_new, &ug_new,
+                                           &vg_new);
         }
       }
       store(idx, yl, ug_new, vg_new);
@@ -354,40 +366,47 @@ __global__ void __launch_bounds__(rwrt::kBlock)
   }
 }
 
-template <typename S, typename F, bool kRun, bool kBarrier>
-int launch_exact(const ExactArgs<S, F>& a, int inst, cudaStream_t stream) {
+template <typename S, typename F, bool kRun, bool kBarrier, bool kTime>
+int launch_exact(const ExactArgs<S, F, kTime>& a, int inst,
+                 cudaStream_t stream) {
   // A whole run with no group still writes row 0.
   if (a.R <= 0 || a.G <= 0 || (!kRun && a.n_groups <= 0)) return cudaSuccess;
   return rwrt::with_instance(inst, [&](auto tag) {
     using I = decltype(tag);
-    return rwrt::launch_as<I>(exact_kernel<S, F, kRun, kBarrier, I>, a, a.R,
-                              stream);
+    return rwrt::launch_as<I>(exact_kernel<S, F, kRun, kBarrier, kTime, I>,
+                              a, a.R, stream);
   });
 }
 
-// Resident threads of the whole run (run != 0) or the single group.
-template <typename S, typename F>
+// Resident threads of the whole run (run != 0) or the single group; the
+// time instances have the whole run only.
+template <typename S, typename F, bool kTime>
 int exact_resident(int run, int inst, int* out) {
   return rwrt::with_instance(inst, [&](auto tag) {
     using I = decltype(tag);
     if (run) {
-      return rwrt::resident_threads(exact_kernel<S, F, true, false, I>, out);
+      return rwrt::resident_threads(
+          exact_kernel<S, F, true, false, kTime, I>, out);
     }
-    return rwrt::resident_threads(exact_kernel<S, F, false, false, I>, out);
+    if constexpr (kTime) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    } else {
+      return rwrt::resident_threads(
+          exact_kernel<S, F, false, false, false, I>, out);
+    }
   });
 }
 
-template <typename S, typename F>
-ExactArgs<S, F> exact_args(const void* packed, int W, int H, double lon0,
-                           double lat0, double dx, double dy, void* y,
-                           void* t, void* h, void* f, void* plon, void* plat,
-                           void* lane_att, void* hist, const void* bounds,
-                           int G, int n_groups, int R, double cut_off,
-                           double rtol, double atol, double min_step,
-                           long long max_iters) {
-  ExactArgs<S, F> a{};
-  a.bg = rwrt::Background<F>{static_cast<const F*>(packed), W, H, F(lon0),
-                             F(lat0), F(dx), F(dy)};
+template <typename S, typename F, bool kTime>
+ExactArgs<S, F, kTime> exact_args(const rwrt::Background<F, kTime>& bg,
+                                  void* y, void* t, void* h, void* f,
+                                  void* plon, void* plat, void* lane_att,
+                                  void* hist, const void* bounds, int G,
+                                  int n_groups, int R, double cut_off,
+                                  double rtol, double atol, double min_step,
+                                  long long max_iters) {
+  ExactArgs<S, F, kTime> a{};
+  a.bg = bg;
   a.y = static_cast<S*>(y);
   a.t = static_cast<S*>(t);
   a.h = static_cast<S*>(h);
@@ -408,11 +427,33 @@ ExactArgs<S, F> exact_args(const void* packed, int W, int H, double lon0,
   return a;
 }
 
+// The whole run over background bg (static or a time instance's).
+template <typename S, typename F, bool kTime>
+int run_exact(const rwrt::Background<F, kTime>& bg, void* y, void* t,
+              void* h, void* f, void* plon, void* plat, const void* ug0,
+              const void* vg0, void* hist, void* ugs, void* vgs,
+              void* lane_att, void* trunc, const void* bounds, int G,
+              int n_groups, int R, double cut_off, double rtol, double atol,
+              double min_step, long long max_iters, int barrier, int inst,
+              void* stream) {
+  ExactArgs<S, F, kTime> a = exact_args<S, F, kTime>(
+      bg, y, t, h, f, plon, plat, lane_att, hist, bounds, G, n_groups, R,
+      cut_off, rtol, atol, min_step, max_iters);
+  a.ug0 = static_cast<const S*>(ug0);
+  a.vg0 = static_cast<const S*>(vg0);
+  a.ugs = static_cast<S*>(ugs);
+  a.vgs = static_cast<S*>(vgs);
+  a.trunc = static_cast<int*>(trunc);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return barrier ? launch_exact<S, F, true, true, kTime>(a, inst, s)
+                 : launch_exact<S, F, true, false, kTime>(a, inst, s);
+}
+
 }  // namespace
 
 extern "C" {
 
-// The single group, state type S over background type F.
+// The single group, state type S over background type F (static only).
 #define RWRT_EXACT_GROUP(SUFFIX, S, F)                                        \
   int rwrt_exact_group_##SUFFIX(                                              \
       const void* packed, int W, int H, double lon0, double lat0, double dx,  \
@@ -421,15 +462,16 @@ extern "C" {
       void* hist, const void* bounds, int G, int R, int resume,               \
       double cut_off, double rtol, double atol, double min_step,              \
       long long max_iters, int inst, void* stream) {                          \
-    ExactArgs<S, F> a = exact_args<S, F>(                                     \
-        packed, W, H, lon0, lat0, dx, dy, y, t, h, f, plon, plat, lane_att,   \
-        hist, bounds, G, 1, R, cut_off, rtol, atol, min_step, max_iters);     \
+    ExactArgs<S, F, false> a = exact_args<S, F, false>(                       \
+        rwrt::make_background<F>(packed, W, H, lon0, lat0, dx, dy), y, t, h,  \
+        f, plon, plat, lane_att, hist, bounds, G, 1, R, cut_off, rtol, atol,  \
+        min_step, max_iters);                                                 \
     a.rejected = static_cast<bool*>(rejected);                                \
     a.new_step = static_cast<bool*>(new_step);                                \
     a.idx = static_cast<int*>(idx);                                           \
     a.trips = static_cast<int*>(trips);                                       \
     a.resume = resume != 0;                                                   \
-    return launch_exact<S, F, false, false>(                                  \
+    return launch_exact<S, F, false, false, false>(                           \
         a, inst, static_cast<cudaStream_t>(stream));                          \
   }
 
@@ -443,27 +485,50 @@ extern "C" {
       void* lane_att, void* trunc, const void* bounds, int G, int n_groups,   \
       int R, double cut_off, double rtol, double atol, double min_step,       \
       long long max_iters, int barrier, int inst, void* stream) {             \
-    ExactArgs<S, F> a = exact_args<S, F>(                                     \
-        packed, W, H, lon0, lat0, dx, dy, y, t, h, f, plon, plat, lane_att,   \
-        hist, bounds, G, n_groups, R, cut_off, rtol, atol, min_step,          \
-        max_iters);                                                           \
-    a.ug0 = static_cast<const S*>(ug0);                                       \
-    a.vg0 = static_cast<const S*>(vg0);                                       \
-    a.ugs = static_cast<S*>(ugs);                                             \
-    a.vgs = static_cast<S*>(vgs);                                             \
-    a.trunc = static_cast<int*>(trunc);                                       \
-    const auto s = static_cast<cudaStream_t>(stream);                         \
-    return barrier ? launch_exact<S, F, true, true>(a, inst, s)               \
-                   : launch_exact<S, F, true, false>(a, inst, s);             \
+    return run_exact<S, F>(                                                   \
+        rwrt::make_background<F>(packed, W, H, lon0, lat0, dx, dy), y, t, h,  \
+        f, plon, plat, ug0, vg0, hist, ugs, vgs, lane_att, trunc, bounds, G,  \
+        n_groups, R, cut_off, rtol, atol, min_step, max_iters, barrier, inst, \
+        stream);                                                              \
   }                                                                           \
   int rwrt_exact_resident_##SUFFIX(int run, int inst, void* out) {            \
-    return exact_resident<S, F>(run, inst, static_cast<int*>(out));           \
+    return exact_resident<S, F, false>(run, inst, static_cast<int*>(out));    \
   }
 
-// One precision per translation unit, so that they compile in parallel
-// (exact_run_f64.cu and exact_run_mix.cu include this file for the
-// float64 and the mixed-precision entry points).
-#if defined(RWRT_EXACT_F64)
+// Its time instance: the background's time axis and member map after the
+// grid; its resident count (whole run only).
+#define RWRT_EXACT_RUN_TIME(SUFFIX, S, F)                                     \
+  int rwrt_exact_run_time_##SUFFIX(                                           \
+      const void* packed, int W, int H, double lon0, double lat0, double dx,  \
+      double dy, int nt, int timed, double t0, double tdt,                    \
+      const void* member, void* y, void* t, void* h, void* f, void* plon,     \
+      void* plat, const void* ug0, const void* vg0, void* hist, void* ugs,    \
+      void* vgs, void* lane_att, void* trunc, const void* bounds, int G,      \
+      int n_groups, int R, double cut_off, double rtol, double atol,          \
+      double min_step, long long max_iters, int barrier, int inst,            \
+      void* stream) {                                                         \
+    return run_exact<S, F>(                                                   \
+        rwrt::make_background<F>(packed, W, H, lon0, lat0, dx, dy, nt, timed, \
+                                 t0, tdt, member),                            \
+        y, t, h, f, plon, plat, ug0, vg0, hist, ugs, vgs, lane_att, trunc,    \
+        bounds, G, n_groups, R, cut_off, rtol, atol, min_step, max_iters,     \
+        barrier, inst, stream);                                               \
+  }                                                                           \
+  int rwrt_exact_resident_time_##SUFFIX(int run, int inst, void* out) {       \
+    return exact_resident<S, F, true>(run, inst, static_cast<int*>(out));     \
+  }
+
+// One precision and one kind of background per translation unit, so that
+// they compile in parallel (exact_run_f64.cu, exact_run_mix.cu and the time
+// instances' exact_run_time.cu, exact_run_time_f64.cu and
+// exact_run_time_mix.cu include this file).
+#if defined(RWRT_EXACT_TIME_F64)
+RWRT_EXACT_RUN_TIME(f64, double, double)
+#elif defined(RWRT_EXACT_TIME_MIX)
+RWRT_EXACT_RUN_TIME(mix, double, float)
+#elif defined(RWRT_EXACT_TIME)
+RWRT_EXACT_RUN_TIME(f32, float, float)
+#elif defined(RWRT_EXACT_F64)
 RWRT_EXACT_GROUP(f64, double, double)
 RWRT_EXACT_RUN(f64, double, double)
 #elif defined(RWRT_EXACT_MIX)
@@ -476,5 +541,6 @@ RWRT_EXACT_RUN(f32, float, float)
 
 #undef RWRT_EXACT_GROUP
 #undef RWRT_EXACT_RUN
+#undef RWRT_EXACT_RUN_TIME
 
 }  // extern "C"

@@ -56,6 +56,22 @@
 // Each field and each quotient is computed by one thread with the same
 // expression in every instance, so all instances give the same bits.
 //
+// Time-varying and ensemble backgrounds (the TIME instances, a
+// compile-time flag of the background type, Background<F, true>; compiled
+// in the *_time.cu units, so the static instances' code is the one-type
+// code above). The stack is (nt, W, H, 48) frames a member, members at a
+// stride of nt * W * H * 48 values. A lane's member offset is folded into
+// its base pointer once, when the lane starts (lane_background, 64-bit:
+// eight members of 91 daily frames on the 145 x 73 grid are ~1.5 GB). A
+// timed sample reads the lane's cell in the two frames bracketing its time
+// (lerp_frames) and blends the two lerped rows, as interp.py's
+// sample_raw_packed_time does, before the Mercator transform; an untimed
+// one (an ensemble of static members) reads frame 0 alone. Every sampling
+// function takes the lane's time t: the RHS in F (the JAX package rounds
+// a mixed state's time to the background's type at entry, as its state),
+// group_velocity_at in the state's type. The static instances never read
+// it.
+//
 // Mixed precision (a float64 state S over a float32 background F, the JAX
 // package's state_dtype='float64'): the RHS takes its state rounded to F
 // by the caller, as the JAX package casts it at entry, and runs in F
@@ -91,13 +107,68 @@ constexpr int kPacked = 4 * kHot;
 // Threads per block of every integrator kernel.
 constexpr int kBlock = 128;
 
-template <typename T>
+template <typename T, bool kTime = false>
 struct Background {
   const T* packed;  // (W, H, 48): [F(w,h), F(w+1,h), F(w,h+1), F(w+1,h+1)]
   int W;
   int H;
   T lon0, lat0, dx, dy;
 };
+
+// A time-varying or ensemble background (see the head of this file).
+template <typename T>
+struct Background<T, true> {
+  const T* packed;  // member 0's frame 0; a lane's after lane_background
+  int W;
+  int H;
+  T lon0, lat0, dx, dy;
+  int nt;             // frames a member
+  bool timed;         // lerp in time; else frame 0 alone
+  T t0, tdt;          // model time of frame 0, frame spacing
+  const int* member;  // (R,) lane -> member, or null
+  __host__ __device__ long long frame() const {
+    return static_cast<long long>(W) * H * kPacked;
+  }
+};
+
+// The background of an entry point's arguments: static, or with the time
+// instances' (nt, timed, t0, dt, member).
+template <typename T>
+Background<T, false> make_background(const void* packed, int W, int H,
+                                     double lon0, double lat0, double dx,
+                                     double dy) {
+  return Background<T, false>{static_cast<const T*>(packed), W, H, T(lon0),
+                              T(lat0), T(dx), T(dy)};
+}
+
+template <typename T>
+Background<T, true> make_background(const void* packed, int W, int H,
+                                    double lon0, double lat0, double dx,
+                                    double dy, int nt, int timed, double t0,
+                                    double tdt, const void* member) {
+  return Background<T, true>{static_cast<const T*>(packed), W, H, T(lon0),
+                             T(lat0), T(dx), T(dy), nt, timed != 0, T(t0),
+                             T(tdt), static_cast<const int*>(member)};
+}
+
+// Lane i's background: the static one as it is; a time instance's with
+// the lane's member offset folded into its base pointer.
+template <typename T>
+__device__ __forceinline__ const Background<T, false>& lane_background(
+    const Background<T, false>& bg, int) {
+  return bg;
+}
+
+template <typename T>
+__device__ __forceinline__ Background<T, true> lane_background(
+    const Background<T, true>& bg, int i) {
+  Background<T, true> b = bg;
+  if (bg.member != nullptr) {
+    b.packed += static_cast<long long>(__ldg(bg.member + i)) * bg.nt *
+                bg.frame();
+  }
+  return b;
+}
 
 template <typename T>
 __device__ __forceinline__ T nan_value() {
@@ -347,16 +418,39 @@ __device__ __forceinline__ void group_velocity_masks(const bool fn[kHot],
   *vg = (dead || fn[1] || shared) ? nan_value<T>() : gv;
 }
 
+// The time lerp of a timed sample (interp.py sample_raw_packed_time):
+// tfrac = (t - t0) / dt held to [0, nt - 1] (NaN stays NaN), the frames
+// i0 = floor(tfrac) held the same way (NaN goes to 0) and i1 = min(i0 + 1,
+// nt - 1), each row lerped in space with the weights w, then frame(i0) *
+// (1 - w1) + frame(i1) * w1 with w1 = tfrac - i0, in T.
+template <typename T, typename F, class I>
+__device__ __forceinline__ void lerp_frames(const Background<F, true>& bg,
+                                            int cell, const T w[4], T t,
+                                            T raw[kHot]) {
+  T tf = (t - T(bg.t0)) / T(bg.tdt);
+  const T last = T(bg.nt - 1);
+  if (tf < T(0)) tf = T(0);
+  if (tf > last) tf = last;
+  const int i0 = cell_index(tf, bg.nt);
+  const int i1 = i0 + 1 < bg.nt ? i0 + 1 : bg.nt - 1;
+  const T w1 = tf - T(i0);
+  const T w0 = T(1) - w1;
+  T r0[kHot], r1[kHot];
+  I::template lerp_row<T, F>(bg.packed + i0 * bg.frame(), cell, w, r0);
+  I::template lerp_row<T, F>(bg.packed + i1 * bg.frame(), cell, w, r1);
+#pragma unroll
+  for (int c = 0; c < kHot; ++c) raw[c] = r0[c] * w0 + r1[c] * w1;
+}
+
 // Mercator sample of the 12 hot fields at a (sanitized) position of type
-// T over a background of type F (T = F in the RHS; T = S for a saved
-// state's (ug, vg), where the grid scalars and the corners widen to T).
-// f[] receives the M_* fields, fn[] their NaN flags; cos/sin of lat are
-// returned for reuse.
-template <typename T, typename F, class I = Lane>
-__device__ __forceinline__ void sample_mercator(const Background<F>& bg,
-                                                T lon, T lat, T f[kHot],
-                                                bool fn[kHot], T* cos_out,
-                                                T* sin_out) {
+// T, at time t, over a background of type F (T = F in the RHS; T = S for
+// a saved state's (ug, vg), where the grid scalars and the corners widen
+// to T). f[] receives the M_* fields, fn[] their NaN flags; cos/sin of lat
+// are returned for reuse.
+template <typename T, typename F, class I = Lane, bool kTime = false>
+__device__ __forceinline__ void sample_mercator(
+    const Background<F, kTime>& bg, T lon, T lat, T t, T f[kHot],
+    bool fn[kHot], T* cos_out, T* sin_out) {
   const T two_pi = T(2.0 * kPi);
   T ix = floor_mod(lon - T(bg.lon0), two_pi) / T(bg.dx);
   T iy = (lat - T(bg.lat0)) / T(bg.dy);
@@ -373,7 +467,15 @@ __device__ __forceinline__ void sample_mercator(const Background<F>& bg,
   const T w[4] = {(T(1) - sx) * sy, sx * sy, (T(1) - sx) * (T(1) - sy),
                   sx * (T(1) - sy)};
   T raw[kHot];
-  I::template lerp_row<T, F>(bg.packed, x0 * bg.H + y0, w, raw);
+  if constexpr (kTime) {
+    if (bg.timed) {
+      lerp_frames<T, F, I>(bg, x0 * bg.H + y0, w, t, raw);
+    } else {
+      I::template lerp_row<T, F>(bg.packed, x0 * bg.H + y0, w, raw);
+    }
+  } else {
+    I::template lerp_row<T, F>(bg.packed, x0 * bg.H + y0, w, raw);
+  }
   bool in_range = fabs(lat) <= T(0.5 * kPi);
 #pragma unroll
   for (int c = 0; c < kHot; ++c) {
@@ -407,13 +509,14 @@ __device__ __forceinline__ void sample_mercator(const Background<F>& bg,
   *sin_out = sin_phi;
 }
 
-// dy/dt of one lane. Writes dy[5] and the err flag; with kGv also the
-// raw-(kx, ky) group velocity of the evaluated state (rhs_and_gv) to
-// ug_raw, vg_raw.
-template <typename T, class I, bool kGv>
-__device__ __forceinline__ void rhs_core(const Background<T>& bg,
-                                         const T y[5], T dy[5], bool* err_out,
-                                         T* ug_raw, T* vg_raw) {
+// dy/dt of one lane at time t. Writes dy[5] and the err flag; with kGv
+// also the raw-(kx, ky) group velocity of the evaluated state
+// (rhs_and_gv) to ug_raw, vg_raw.
+template <typename T, class I, bool kGv, bool kTime>
+__device__ __forceinline__ void rhs_core(const Background<T, kTime>& bg,
+                                         const T y[5], T t, T dy[5],
+                                         bool* err_out, T* ug_raw,
+                                         T* vg_raw) {
   const T lon = y[0], lat = y[1], kx = y[2], ky = y[3], amp = y[4];
   const bool err =
       (fabs(lat) >= T(0.5 * kPi)) || (fabs(ky) >= T(kMwnCap));
@@ -438,7 +541,7 @@ __device__ __forceinline__ void rhs_core(const Background<T>& bg,
   T f[kHot];
   bool fn[kHot];
   T cos_q, sin_q;
-  sample_mercator<T, T, I>(bg, lon_q, lat_q, f, fn, &cos_q, &sin_q);
+  sample_mercator<T, T, I>(bg, lon_q, lat_q, t, f, fn, &cos_q, &sin_q);
   T fq[kHot];
 #pragma unroll
   for (int c = 0; c < kHot; ++c) fq[c] = fn[c] ? T(0) : f[c];
@@ -496,34 +599,35 @@ __device__ __forceinline__ void rhs_core(const Background<T>& bg,
   }
 }
 
-template <typename T, class I = Lane>
-__device__ __forceinline__ void ray_rhs(const Background<T>& bg, const T y[5],
-                                        T dy[5], bool* err_out) {
-  rhs_core<T, I, false>(bg, y, dy, err_out, nullptr, nullptr);
+template <typename T, class I = Lane, bool kTime = false>
+__device__ __forceinline__ void ray_rhs(const Background<T, kTime>& bg,
+                                        const T y[5], T t, T dy[5],
+                                        bool* err_out) {
+  rhs_core<T, I, false>(bg, y, t, dy, err_out, nullptr, nullptr);
 }
 
-template <typename T, class I = Lane>
-__device__ __forceinline__ void ray_rhs(const Background<T>& bg, const T y[5],
-                                        T dy[5], bool* err_out, T* ug_raw,
+template <typename T, class I = Lane, bool kTime = false>
+__device__ __forceinline__ void ray_rhs(const Background<T, kTime>& bg,
+                                        const T y[5], T t, T dy[5],
+                                        bool* err_out, T* ug_raw,
                                         T* vg_raw) {
-  rhs_core<T, I, true>(bg, y, dy, err_out, ug_raw, vg_raw);
+  rhs_core<T, I, true>(bg, y, t, dy, err_out, ug_raw, vg_raw);
 }
 
 // models/ray.py group_velocity_at (zero_invalid off) at a state y[5] of
-// type T over a background of type F (T = S, a mixed-precision state, is
-// not rounded: see the head of this file): a NaN position samples the
-// sanitized cell (lon = lat = 0) and gets its NaN back.
-template <typename T, typename F, class I = Lane>
-__device__ __forceinline__ void group_velocity_at(const Background<F>& bg,
-                                                  const T y[5], T* ug,
-                                                  T* vg) {
+// type T and time t over a background of type F (T = S, a mixed-precision
+// state, is not rounded: see the head of this file): a NaN position
+// samples the sanitized cell (lon = lat = 0) and gets its NaN back.
+template <typename T, typename F, class I = Lane, bool kTime = false>
+__device__ __forceinline__ void group_velocity_at(
+    const Background<F, kTime>& bg, const T y[5], T t, T* ug, T* vg) {
   const bool posn = isnan(y[0]) || isnan(y[1]);
   const GvTerms<T> g = gv_terms(y[2], y[3]);
   T f[kHot];
   bool fn[kHot];
   T cos_q, sin_q;
-  sample_mercator<T, F, I>(bg, posn ? T(0) : y[0], posn ? T(0) : y[1], f, fn,
-                           &cos_q, &sin_q);
+  sample_mercator<T, F, I>(bg, posn ? T(0) : y[0], posn ? T(0) : y[1], t, f,
+                           fn, &cos_q, &sin_q);
   T num[2], q[2];
   const T den[2] = {g.denom, g.denom};
   group_velocity_nums(fn[6] ? T(0) : f[6], fn[7] ? T(0) : f[7], g.kap,

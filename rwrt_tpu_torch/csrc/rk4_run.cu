@@ -40,25 +40,44 @@
 //
 // Types: the state S (the carry, the stage inputs before their rounding,
 // the update, the kill test, (ug, vg) and the rows) and the background F
-// (the RHS and the stages k). rk4_kernel<T, T, I> is the one-type kernel
-// (float32 and float64 entry points); rk4_kernel<double, float, I> is
-// mixed precision (the _mix entry points, compiled in rk4_run_mix.cu),
+// (the RHS and the stages k). rk4_kernel<T, T, kTime, I> is the one-type
+// kernel (float32 and float64 entry points); rk4_kernel<double, float,
+// kTime, I> is mixed precision (the _mix entry points, compiled in
+// rk4_run_mix.cu),
 // where, as in the JAX package, each stage input y + (0.5 dt) k is a
 // double product and sum rounded to float for the RHS, the sum
 // k1 + 2 k2 + 2 k3 + k4 is float, and the update and (ug, vg) at the new
 // state are double (ray_rhs.cuh group_velocity_at<S, F>).
 //
+// Time: step s of a launch is taken at t = t_start + s * dt in S, its
+// stages at t, t + dt / 2 and t + dt (rounded to F for the RHS), its
+// (ug, vg) at t + dt, as solvers/rk4.py forms them. Only the time
+// instances (kTime: rk4_run_time.cu, rk4_run_time_mix.cu; a time-varying
+// or ensemble background, ray_rhs.cuh) read it; the static instances'
+// code is the code without it.
+//
 // Rounding: built with -fmad=false (kernels/build.py), so each expression
 // rounds as the plain version's separate tensor ops do.
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "ray_rhs.cuh"
 
 namespace {
 
-template <typename S, typename F>
-struct Rk4Args {
-  rwrt::Background<F> bg;
+// The carry's model time: a time instance's argument only (a field more in
+// the static instances' arguments costs their Split instance a register).
+template <typename S, bool kTime>
+struct Rk4Time {};
+template <typename S>
+struct Rk4Time<S, true> {
+  S t_start;
+};
+
+template <typename S, typename F, bool kTime>
+struct Rk4Args : Rk4Time<S, kTime> {
+  rwrt::Background<F, kTime> bg;
   S* y;         // (5, R) carry: read at entry, written at exit
   const S* ug0;  // (R,) or null: row row_offset - 1's (ug, vg)
   const S* vg0;
@@ -72,11 +91,12 @@ struct Rk4Args {
   S cut_off;
 };
 
-template <typename S, typename F, class I>
+template <typename S, typename F, bool kTime, class I>
 __global__ void __launch_bounds__(rwrt::kBlock)
-    rk4_kernel(const Rk4Args<S, F> a) {
+    rk4_kernel(const Rk4Args<S, F, kTime> a) {
   const int i = (blockIdx.x * blockDim.x + threadIdx.x) / I::kThreads;
   if (i >= a.R) return;
+  const auto& bg = rwrt::lane_background(a.bg, i);
   const bool lead = I::lead();
   const long long RL = a.R;
   const S nan = rwrt::nan_value<S>();
@@ -94,20 +114,31 @@ __global__ void __launch_bounds__(rwrt::kBlock)
   if (a.ug0 != nullptr) store(a.row_offset - 1, yl, a.ug0[i], a.vg0[i]);
 
   for (int s = 0; s < a.n_steps; ++s) {
+    // The step's sample times (time instances only; a static sample reads
+    // none): t, t + dt / 2 and t + dt, rounded to F for the RHS.
+    S t = S(0), t_end = S(0);
+    F t_a = F(0), t_b = F(0), t_c = F(0);
+    if constexpr (kTime) {
+      t = a.t_start + S(s) * a.dt;
+      t_end = t + a.dt;
+      t_a = F(t);
+      t_b = F(t + a.half);
+      t_c = F(t_end);
+    }
     F k1[5], k2[5], k3[5], k4[5], ys[5];
     bool m1, m2, m3, m4;
 #pragma unroll
     for (int v = 0; v < 5; ++v) ys[v] = F(yl[v]);
-    rwrt::ray_rhs<F, I>(a.bg, ys, k1, &m1);
+    rwrt::ray_rhs<F, I>(bg, ys, t_a, k1, &m1);
 #pragma unroll
     for (int v = 0; v < 5; ++v) ys[v] = F(yl[v] + a.half * S(k1[v]));
-    rwrt::ray_rhs<F, I>(a.bg, ys, k2, &m2);
+    rwrt::ray_rhs<F, I>(bg, ys, t_b, k2, &m2);
 #pragma unroll
     for (int v = 0; v < 5; ++v) ys[v] = F(yl[v] + a.half * S(k2[v]));
-    rwrt::ray_rhs<F, I>(a.bg, ys, k3, &m3);
+    rwrt::ray_rhs<F, I>(bg, ys, t_b, k3, &m3);
 #pragma unroll
     for (int v = 0; v < 5; ++v) ys[v] = F(yl[v] + a.dt * S(k3[v]));
-    rwrt::ray_rhs<F, I>(a.bg, ys, k4, &m4);
+    rwrt::ray_rhs<F, I>(bg, ys, t_c, k4, &m4);
     // A lane advances only if no stage raised the fail flag.
     const bool valid = !(m1 || m2 || m3 || m4);
     S yn[5];
@@ -122,7 +153,7 @@ __global__ void __launch_bounds__(rwrt::kBlock)
       for (int v = 0; v < 5; ++v) yn[v] = nan;
     }
     S ug, vg;
-    rwrt::group_velocity_at<S, F, I>(a.bg, yn, &ug, &vg);
+    rwrt::group_velocity_at<S, F, I>(bg, yn, t_end, &ug, &vg);
     store(a.row_offset + s, yn, ug, vg);
 #pragma unroll
     for (int v = 0; v < 5; ++v) yl[v] = yn[v];
@@ -133,21 +164,46 @@ __global__ void __launch_bounds__(rwrt::kBlock)
   }
 }
 
-template <typename S, typename F>
-int launch_rk4(const Rk4Args<S, F>& a, int inst, cudaStream_t stream) {
+template <typename S, typename F, bool kTime>
+int launch_rk4(const Rk4Args<S, F, kTime>& a, int inst, cudaStream_t stream) {
   if (a.R <= 0) return cudaSuccess;
   return rwrt::with_instance(inst, [&](auto tag) {
     using I = decltype(tag);
-    return rwrt::launch_as<I>(rk4_kernel<S, F, I>, a, a.R, stream);
+    return rwrt::launch_as<I>(rk4_kernel<S, F, kTime, I>, a, a.R, stream);
   });
 }
 
-template <typename S, typename F>
+template <typename S, typename F, bool kTime>
 int rk4_resident(int inst, int* out) {
   return rwrt::with_instance(inst, [&](auto tag) {
     using I = decltype(tag);
-    return rwrt::resident_threads(rk4_kernel<S, F, I>, out);
+    return rwrt::resident_threads(rk4_kernel<S, F, kTime, I>, out);
   });
+}
+
+template <typename S, typename F, typename B>
+int run_rk4(const B& bg, void* y, const void* ug0, const void* vg0, void* ys,
+            void* ugs, void* vgs, int n_steps, int row_offset, int R,
+            double dt, double half, double sixth, double cut_off,
+            double t_start, int inst, void* stream) {
+  constexpr bool kTime = std::is_same<B, rwrt::Background<F, true>>::value;
+  Rk4Args<S, F, kTime> a{};
+  a.bg = bg;
+  a.y = static_cast<S*>(y);
+  a.ug0 = static_cast<const S*>(ug0);
+  a.vg0 = static_cast<const S*>(vg0);
+  a.ys = static_cast<S*>(ys);
+  a.ugs = static_cast<S*>(ugs);
+  a.vgs = static_cast<S*>(vgs);
+  a.n_steps = n_steps;
+  a.row_offset = row_offset;
+  a.R = R;
+  a.dt = S(dt);
+  a.half = S(half);
+  a.sixth = S(sixth);
+  a.cut_off = S(cut_off);
+  if constexpr (kTime) a.t_start = S(t_start);
+  return launch_rk4<S, F, kTime>(a, inst, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -161,37 +217,51 @@ extern "C" {
       double dy, void* y, const void* ug0, const void* vg0, void* ys,         \
       void* ugs, void* vgs, int n_steps, int row_offset, int R, double dt,    \
       double half, double sixth, double cut_off, int inst, void* stream) {    \
-    Rk4Args<S, F> a{};                                                        \
-    a.bg = rwrt::Background<F>{static_cast<const F*>(packed), W, H, F(lon0),  \
-                               F(lat0), F(dx), F(dy)};                        \
-    a.y = static_cast<S*>(y);                                                 \
-    a.ug0 = static_cast<const S*>(ug0);                                       \
-    a.vg0 = static_cast<const S*>(vg0);                                       \
-    a.ys = static_cast<S*>(ys);                                               \
-    a.ugs = static_cast<S*>(ugs);                                             \
-    a.vgs = static_cast<S*>(vgs);                                             \
-    a.n_steps = n_steps;                                                      \
-    a.row_offset = row_offset;                                                \
-    a.R = R;                                                                  \
-    a.dt = S(dt);                                                             \
-    a.half = S(half);                                                         \
-    a.sixth = S(sixth);                                                       \
-    a.cut_off = S(cut_off);                                                   \
-    return launch_rk4<S, F>(a, inst, static_cast<cudaStream_t>(stream));      \
+    return run_rk4<S, F>(                                                     \
+        rwrt::make_background<F>(packed, W, H, lon0, lat0, dx, dy), y, ug0,   \
+        vg0, ys, ugs, vgs, n_steps, row_offset, R, dt, half, sixth, cut_off,  \
+        0.0, inst, stream);                                                   \
   }                                                                           \
   int rwrt_rk4_resident_##SUFFIX(int inst, void* out) {                       \
-    return rk4_resident<S, F>(inst, static_cast<int*>(out));                  \
+    return rk4_resident<S, F, false>(inst, static_cast<int*>(out));           \
   }
 
-// The one-type entry points here; the mixed ones in their own unit
-// (rk4_run_mix.cu includes this file), so that the two compile in parallel.
-#ifndef RWRT_RK4_MIX
+// The time instances: the background's time axis and member map after the
+// grid, the carry's time after cut_off.
+#define RWRT_RK4_RUN_TIME(SUFFIX, S, F)                                       \
+  int rwrt_rk4_run_time_##SUFFIX(                                             \
+      const void* packed, int W, int H, double lon0, double lat0, double dx,  \
+      double dy, int nt, int timed, double t0, double tdt,                    \
+      const void* member, void* y, const void* ug0, const void* vg0,          \
+      void* ys, void* ugs, void* vgs, int n_steps, int row_offset, int R,     \
+      double dt, double half, double sixth, double cut_off, double t_start,   \
+      int inst, void* stream) {                                               \
+    return run_rk4<S, F>(                                                     \
+        rwrt::make_background<F>(packed, W, H, lon0, lat0, dx, dy, nt, timed, \
+                                 t0, tdt, member),                            \
+        y, ug0, vg0, ys, ugs, vgs, n_steps, row_offset, R, dt, half, sixth,   \
+        cut_off, t_start, inst, stream);                                      \
+  }                                                                           \
+  int rwrt_rk4_resident_time_##SUFFIX(int inst, void* out) {                  \
+    return rk4_resident<S, F, true>(inst, static_cast<int*>(out));            \
+  }
+
+// One group of entry points per unit, so that they compile in parallel:
+// the one-type static ones here; rk4_run_mix.cu, rk4_run_time.cu and
+// rk4_run_time_mix.cu include this file for the others.
+#if defined(RWRT_RK4_TIME_MIX)
+RWRT_RK4_RUN_TIME(mix, double, float)
+#elif defined(RWRT_RK4_TIME)
+RWRT_RK4_RUN_TIME(f32, float, float)
+RWRT_RK4_RUN_TIME(f64, double, double)
+#elif defined(RWRT_RK4_MIX)
+RWRT_RK4(mix, double, float)
+#else
 RWRT_RK4(f32, float, float)
 RWRT_RK4(f64, double, double)
-#else
-RWRT_RK4(mix, double, float)
 #endif
 
 #undef RWRT_RK4
+#undef RWRT_RK4_RUN_TIME
 
 }  // extern "C"

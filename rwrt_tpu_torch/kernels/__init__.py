@@ -81,15 +81,16 @@ def state_key(y: torch.Tensor, fields: torch.Tensor) -> tuple:
 
 
 @functools.cache
-def resident(kernel: str, instance: str, dtype, *args) -> int:
+def resident(kernel: str, instance: str, dtype, *args,
+             variant: str = "") -> int:
     """Threads of ``instance`` of ``rwrt_<kernel>`` (in ``dtype``, a torch
-    dtype or a (state, field) pair) that the current card keeps resident
-    at once, from the CUDA occupancy
-    calculator (``rwrt_<kernel>_resident``, which takes ``args`` first):
-    read once per process."""
+    dtype or a (state, field) pair; ``variant`` "" or "_time", the time
+    instance) that the current card keeps resident at once, from the CUDA
+    occupancy calculator (``rwrt_<kernel>_resident<variant>``, which takes
+    ``args`` first): read once per process."""
     out = torch.zeros(1, dtype=torch.int32)
-    launch(f"rwrt_{kernel}_resident", dtype, *args, instance_id(instance),
-           out)
+    launch(f"rwrt_{kernel}_resident{variant}", dtype, *args,
+           instance_id(instance), out)
     return int(out[0])
 
 

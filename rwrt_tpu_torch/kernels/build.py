@@ -45,7 +45,9 @@ CONTRACTED = ("pow_fmad.cu",)
 #: on an H100 when every unit was relocatable), since calls into the math
 #: library's slow paths then take the standard calling convention.
 RELOCATABLE = ("dense_run_f64.cu", "dense_run_mix.cu", "exact_run_f64.cu",
-               "exact_run_mix.cu", *CONTRACTED)
+               "exact_run_mix.cu", "dense_run_time_f64.cu",
+               "dense_run_time_mix.cu", "exact_run_time_f64.cu",
+               "exact_run_time_mix.cu", *CONTRACTED)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -91,13 +93,40 @@ SIGNATURES = {
     "rwrt_spectral": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
 }
 
+#: The time instances' entry points (``<name>_time``: a time-varying or
+#: ensemble background, ``models.ray.kernel_background``): the static
+#: signature with the background's nt, timed, t0, dt and member map after
+#: the grid (packed, W, H, lon0, lat0, dx, dy); the RHS's takes the lanes'
+#: times (a pointer) after y, the RK4 run the carry's time after cut_off.
+_VAR = (_I, _I, _D, _D, _P)
+
+
+def _time_signature(name: str) -> tuple:
+    sig = SIGNATURES[name]
+    sig = sig[:7] + _VAR + sig[7:]
+    if name == "rwrt_rhs":
+        sig = sig[:13] + (_P,) + sig[13:]
+    if name == "rwrt_rk4_run":
+        sig = sig[:-2] + (_D,) + sig[-2:]
+    return sig
+
+
+for _name in ("rwrt_rhs", "rwrt_rk4_run", "rwrt_exact_run",
+              "rwrt_dense_run"):
+    SIGNATURES[_name + "_time"] = _time_signature(_name)
+# The occupancy counts of the time instances take the static ones' args.
+SIGNATURES["rwrt_rk4_resident_time"] = SIGNATURES["rwrt_rk4_resident"]
+SIGNATURES["rwrt_exact_resident_time"] = SIGNATURES["rwrt_exact_resident"]
+
 
 #: The entry points that also have a mixed-precision instance (``_mix``: a
 #: float64 state over float32 fields): the integrator kernels, whole run
 #: and single group, and their occupancy counts.
 MIXED = ("rwrt_rk4_run", "rwrt_rk4_resident", "rwrt_exact_run",
          "rwrt_exact_group", "rwrt_exact_resident", "rwrt_dense_run",
-         "rwrt_dense_group")
+         "rwrt_dense_group", "rwrt_rk4_run_time", "rwrt_rk4_resident_time",
+         "rwrt_exact_run_time", "rwrt_exact_resident_time",
+         "rwrt_dense_run_time")
 
 
 def unit_flags(name: str) -> list:

@@ -7,8 +7,10 @@ smth9 applied to qxx/qyy/qxy after the third derivatives are taken and qyx
 kept as the unsmoothed qxy, then appends the cyclic wrap column and computes
 beta_M and the stationary wavenumber Ks.
 
-The field tensor layout is ``(nlon_wrap, nlat, 18)``, as in the JAX package.
-``regrid_to_uniform`` and ``prepare_time_varying`` are not ported yet.
+The field tensor layout is ``(nlon_wrap, nlat, 18)``, as in the JAX package;
+``prepare_time_varying`` stacks one such state per frame of a time-varying
+wind, ``(T, nlon_wrap, nlat, 18)``, with the model time of frame 0 and the
+frame spacing. ``regrid_to_uniform`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -41,13 +43,17 @@ class BasicState(NamedTuple):
     """Background state sampled by the ray integrator.
 
     Attributes:
-      fields: (nlon + xcyclic, nlat, 18) stacked derivative fields.
+      fields: (nlon + xcyclic, nlat, 18) stacked derivative fields, or
+        (T, nlon + xcyclic, nlat, 18) for a time-varying state.
       lon: (nlon,) longitudes in radians, ascending from lon[0].
       lat: (nlat,) latitudes in radians, ascending.
-      betam: (nlon, nlat) Mercator beta; undef at pole rows.
+      betam: (nlon, nlat) Mercator beta; undef at pole rows ((T, ...) for
+        a time-varying state, as ks and q).
       ks: (nlon, nlat) stationary wavenumber; undef where invalid.
       q: (nlon, nlat) absolute vorticity.
       xcyclic: whether lon wraps.
+      bg_t0, bg_dt: model time (s) of frame 0 and the frame spacing of a
+        time-varying state.
     """
 
     fields: torch.Tensor
@@ -159,6 +165,34 @@ def _roll_lon_canonical(u, v, lon):
             np.roll(lon, -k))
 
 
+def _grid(u, v, lat, lon, cal_dtype):
+    """The axis checks and the canonical roll of ``prepare``, on (..., nlon,
+    nlat) winds: returns (u, v, lat, lon, dx, dy), lat and lon as tensors
+    of ``cal_dtype`` on u's device, dx and dy as 0-d ones."""
+    nlon, nlat = u.shape[-2:]
+    if nlon < 2 or nlat < 2:
+        raise ValueError("need at least 2 points per axis")
+    dx = 2.0 * pi / nlon
+    dy = pi / (nlat - 1)
+    if lat is not None:
+        _check_uniform_axis(np.asarray(lat), dy, "lat",
+                            "pole-to-pole (nlat-1 equal steps of pi/(nlat-1))")
+    if lon is not None:
+        _check_uniform_axis(np.asarray(lon), dx, "lon",
+                            "global (nlon equal steps of 2*pi/nlon)")
+    if lat is None:
+        lat = -pi * 0.5 + np.arange(nlat) * dy
+    if lon is None:
+        lon = np.arange(nlon) * dx
+    u, v, lon = _roll_lon_canonical(u, v, lon)
+
+    def tensor(x):
+        return torch.as_tensor(np.asarray(x)).to(device=u.device,
+                                                 dtype=cal_dtype)
+
+    return u, v, tensor(lat), tensor(lon), tensor(dx), tensor(dy)
+
+
 def prepare(
     u,
     v,
@@ -188,34 +222,51 @@ def prepare(
     if u.ndim != 2 or u.shape != v.shape:
         raise ValueError(f"u/v must be matching 2-D (nlon, nlat); got "
                          f"{tuple(u.shape)} vs {tuple(v.shape)}")
-    nlon, nlat = u.shape
-    if nlon < 2 or nlat < 2:
-        raise ValueError("need at least 2 points per axis")
-    dx = 2.0 * pi / nlon
-    dy = pi / (nlat - 1)
-    if lat is not None:
-        _check_uniform_axis(np.asarray(lat), dy, "lat",
-                            "pole-to-pole (nlat-1 equal steps of pi/(nlat-1))")
-    if lon is not None:
-        _check_uniform_axis(np.asarray(lon), dx, "lon",
-                            "global (nlon equal steps of 2*pi/nlon)")
-    if lat is None:
-        lat = -pi * 0.5 + np.arange(nlat) * dy
-    if lon is None:
-        lon = np.arange(nlon) * dx
-    u, v, lon = _roll_lon_canonical(u, v, lon)
-    lat = torch.as_tensor(np.asarray(lat)).to(device=u.device,
-                                             dtype=cal_dtype)
-    lon = torch.as_tensor(np.asarray(lon)).to(device=u.device,
-                                             dtype=cal_dtype)
-
-    u = u.to(cal_dtype)
-    v = v.to(cal_dtype)
-    fields, betam, ks, q = _prepare_jit(
-        u, v, lat, torch.tensor(dx, dtype=cal_dtype, device=u.device),
-        torch.tensor(dy, dtype=cal_dtype, device=u.device), xcyclic,
-    )
+    u, v, lat, lon, dx, dy = _grid(u, v, lat, lon, cal_dtype)
+    fields, betam, ks, q = _prepare_jit(u.to(cal_dtype), v.to(cal_dtype),
+                                        lat, dx, dy, xcyclic)
     return BasicState(
         fields=fields, lon=lon, lat=lat, betam=betam, ks=ks, q=q,
         xcyclic=xcyclic,
+    )
+
+
+def prepare_time_varying(
+    u,
+    v,
+    lat=None,
+    lon=None,
+    *,
+    bg_t0: float = 0.0,
+    bg_dt: float,
+    xcyclic: bool = True,
+    read_dtype=torch.float32,
+    cal_dtype=torch.float32,
+    device: torch.device | str = "cuda",
+) -> BasicState:
+    """Build a time-varying BasicState from (T, nlon, nlat) wind frames.
+
+    Each frame runs through ``prepare``'s precompute; fields, betam, ks and
+    q are stacked over the frames. The ray RHS lerps the stack linearly in
+    time at each lane's own time (exact, since every derived field is
+    linear in u, v). ``bg_t0`` and ``bg_dt`` are the model time (seconds)
+    of frame 0 and the frame spacing; before frame 0 and after the last
+    frame the sample holds the end frame. Arguments otherwise as
+    ``prepare``'s.
+    """
+    read_dtype = as_dtype(read_dtype)
+    cal_dtype = as_dtype(cal_dtype)
+    u = torch.as_tensor(np.asarray(u)).to(device=device, dtype=read_dtype)
+    v = torch.as_tensor(np.asarray(v)).to(device=device, dtype=read_dtype)
+    if u.ndim != 3 or u.shape != v.shape:
+        raise ValueError(f"u/v must be matching 3-D (T, nlon, nlat); got "
+                         f"{tuple(u.shape)} vs {tuple(v.shape)}")
+    u, v, lat, lon, dx, dy = _grid(u.to(cal_dtype), v.to(cal_dtype), lat,
+                                   lon, cal_dtype)
+    frames = [_prepare_jit(uu, vv, lat, dx, dy, xcyclic)
+              for uu, vv in zip(u, v)]
+    fields, betam, ks, q = (torch.stack(x) for x in zip(*frames))
+    return BasicState(
+        fields=fields, lon=lon, lat=lat, betam=betam, ks=ks, q=q,
+        xcyclic=xcyclic, bg_t0=float(bg_t0), bg_dt=float(bg_dt),
     )

@@ -9,6 +9,12 @@ launched by ``csrc/rhs.cu``). ``rhs`` and ``rhs_and_gv`` dispatch on the
 state's device: a CPU tensor runs the plain PyTorch version ``_rhs_core``; a
 CUDA tensor launches the kernel (or raises). ``LAUNCHES`` counts kernel
 launches.
+
+Backgrounds may vary in time (a (T, W, H, 48) frame stack, lerped per lane
+at the lane's time) and over ensemble members ((M, W, H, 48) or
+(M, T, W, H, 48) stacks with a lane -> member map): ``sample_bg`` takes
+the JAX package's branches, and the kernels take such a background through
+their time instances (``kernel_background``).
 """
 
 from __future__ import annotations
@@ -39,8 +45,14 @@ class Background(NamedTuple):
     lon0, lat0: grid origin in radians; dx, dy: grid spacing in radians;
         freq: wave frequency (rad/s). Python floats already rounded to the
         fields' dtype, so the plain version and the kernel see one value.
-    bg_t0, bg_dt: time axis of a time-varying background (not ported yet).
-    member_ids: ensemble lane -> member map (not ported yet).
+    bg_t0, bg_dt: model time (s) of frame 0 and the frame spacing of a
+        time-varying stack, rounded to the fields' dtype.
+    member_ids: None, or the (R,) int32 lane -> member map of an ensemble
+        (fields then (M, W, H, 48), or (M, T, W, H, 48) for time-varying
+        members).
+
+    The stacks are told apart as the JAX package tells them: a 4-D stack
+    without member_ids is time-varying; with them, one stack per member.
     """
 
     fields: torch.Tensor
@@ -54,21 +66,94 @@ class Background(NamedTuple):
     member_ids: Optional[torch.Tensor] = None
 
 
-def sample_bg(bg: Background, lon, lat, t=0.0):
-    """Sample the static Mercator background at positions; returns (C, R).
+def _tfrac(bg: Background, t, lon: torch.Tensor) -> torch.Tensor:
+    """The fractional frame index (t - bg_t0) / bg_dt per lane, in lon's
+    dtype: a Python time in the fields' dtype, a tensor one in its dtype
+    promoted with the fields', as the JAX package's promotion has it. The
+    division is ``interp.true_div``'s, so the kernels give the same bits."""
+    fdt = bg.fields.dtype
+    if torch.is_tensor(t):
+        t = t.to(device=lon.device,
+                 dtype=torch.promote_types(t.dtype, fdt))
+    else:
+        t = torch.full((), float(t), dtype=fdt, device=lon.device)
+    tf = interp.true_div(t - bg.bg_t0, bg.bg_dt)
+    return tf.to(lon.dtype).expand(lon.shape)
 
-    Packed (4 * NUM_HOT channels) and unpacked stacks are accepted. The
-    time-varying and ensemble branches of the JAX package are not ported.
+
+def sample_bg(bg: Background, lon, lat, t=0.0):
+    """Sample the (possibly time-varying, possibly ensemble) Mercator
+    background at positions and time t (a scalar or per lane); returns
+    (C, R).
+
+    Packed (4 * NUM_HOT channels) and unpacked static and time-varying
+    stacks are accepted; ensemble stacks are packed. member_ids shorter than
+    the positions (a call over flattened (k * R,) positions) is tiled.
     """
-    if bg.member_ids is not None or bg.fields.ndim != 3:
-        raise NotImplementedError(
-            "time-varying and ensemble backgrounds are not ported yet "
-            "(ROADMAP Queue 1 item 13)")
-    if bg.fields.shape[-1] == 4 * interp.NUM_HOT:
+    packed = bg.fields.shape[-1] == 4 * interp.NUM_HOT
+    if bg.member_ids is not None:
+        member = bg.member_ids.to(lon.device)
+        if member.shape[0] != lon.shape[0]:
+            member = member.repeat(lon.shape[0] // member.shape[0])
+        if bg.fields.ndim == 5:
+            raw = interp.sample_raw_packed_member_time(
+                bg.fields, bg.lon0, bg.lat0, bg.dx, bg.dy, lon, lat, member,
+                _tfrac(bg, t, lon))
+        else:
+            raw = interp.sample_raw_packed_member(
+                bg.fields, bg.lon0, bg.lat0, bg.dx, bg.dy, lon, lat, member)
+        return interp.mercator_transform(raw, lat)
+    if bg.fields.ndim == 4:
+        tfrac = _tfrac(bg, t, lon)
+        if packed:
+            raw = interp.sample_raw_packed_time(
+                bg.fields, bg.lon0, bg.lat0, bg.dx, bg.dy, lon, lat, tfrac)
+            return interp.mercator_transform(raw, lat)
+        return interp.sample_mercator_time(
+            bg.fields, bg.lon0, bg.lat0, bg.dx, bg.dy, lon, lat, tfrac)
+    if packed:
         return interp.sample_mercator_packed(
             bg.fields, bg.lon0, bg.lat0, bg.dx, bg.dy, lon, lat)
     return interp.sample_mercator(
         bg.fields, bg.lon0, bg.lat0, bg.dx, bg.dy, lon, lat)
+
+
+def kernel_background(bg: Background, device, dtype, lanes: int):
+    """The background as a kernel launch takes it: (variant, args).
+
+    A static corner-packed (W, H, 48) stack gives ("", (fields, W, H, lon0,
+    lat0, dx, dy)), the arguments of the static entry points. A
+    time-varying or ensemble stack gives ("_time", the same followed by
+    (nt, timed, t0, dt, member_ids)), the arguments of the entry points of
+    the time instances (``<name>_time``): nt frames a member, whether to
+    lerp in time (every 4-D stack without member_ids and every 5-D stack;
+    a member's static stack is one frame, read without a blend), and the
+    (lanes,) int32 member map or None. Raises unless the stack is on
+    ``device`` in ``dtype``, contiguous and 16-byte aligned.
+    """
+    packed = bg.fields
+    kernels.check_tensor(packed, "fields", device=device, dtype=dtype)
+    kernels.check_aligned(packed, "fields")
+    member = bg.member_ids
+    shape_ok = packed.shape[-1] == 4 * interp.NUM_HOT and (
+        packed.ndim in (3, 4) if member is None else packed.ndim in (4, 5))
+    if not shape_ok:
+        raise ValueError(
+            "the kernels need a corner-packed background "
+            "(tracer.make_background): (W, H, 48), (T, W, H, 48), or with "
+            "member_ids (M, W, H, 48) or (M, T, W, H, 48); got "
+            f"{tuple(packed.shape)}"
+            + (" with member_ids" if member is not None else ""))
+    w, h = packed.shape[-3], packed.shape[-2]
+    args = (packed, w, h, bg.lon0, bg.lat0, bg.dx, bg.dy)
+    if packed.ndim == 3:
+        return "", args
+    if member is not None:
+        kernels.check_tensor(member, "member_ids", device=device,
+                             dtype=torch.int32, shape=(lanes,))
+    timed = packed.ndim == 5 or member is None
+    nt = packed.shape[-4] if timed else 1
+    return "_time", args + (nt, int(timed), bg.bg_t0, bg.bg_dt, member)
 
 
 def fail_mask(y: torch.Tensor) -> torch.Tensor:
@@ -116,35 +201,36 @@ class RayRHS:
 
 def _rhs(bg, y, t, with_raw_gv: bool):
     if y.is_cuda:
-        return _rhs_cuda(bg, y, with_raw_gv)
+        return _rhs_cuda(bg, y, with_raw_gv, t)
     return _rhs_core(bg, y, t, with_raw_gv)
 
 
-def _rhs_cuda(bg: Background, y: torch.Tensor, with_raw_gv: bool):
+def _rhs_cuda(bg: Background, y: torch.Tensor, with_raw_gv: bool, t=0.0):
     """Launch the RHS kernel: one thread per lane. A state wider than the
     background (mixed precision) is cast to the background's dtype first,
-    as ``_rhs_core`` casts it at entry."""
+    and so is the time, as ``_rhs_core`` casts them at entry. A static
+    background takes the static instance, which reads no time; any other
+    takes the time instance with the lanes' times (t a scalar or (R,))."""
     global LAUNCHES
-    packed = bg.fields
-    if bg.member_ids is not None or packed.ndim != 3 or (
-            packed.shape[-1] != 4 * interp.NUM_HOT):
-        raise ValueError("the RHS kernel needs a static corner-packed "
-                         "(W, H, 48) background (tracer.make_background)")
-    y = y.to(packed.dtype)
-    kernels.check_tensor(packed, "fields", device=y.device, dtype=y.dtype)
-    kernels.check_aligned(packed, "fields")
+    y = y.to(bg.fields.dtype)
     kernels.check_tensor(y, "y", device=y.device, dtype=y.dtype)
     if y.ndim != 2 or y.shape[0] != 5:
         raise ValueError(f"y must be (5, R); got {tuple(y.shape)}")
     r = y.shape[1]
+    variant, bg_args = kernel_background(bg, y.device, y.dtype, r)
     dy = torch.empty_like(y)
     err = torch.empty(r, dtype=torch.bool, device=y.device)
     ug = torch.empty(r, dtype=y.dtype, device=y.device) if with_raw_gv else None
     vg = torch.empty(r, dtype=y.dtype, device=y.device) if with_raw_gv else None
-    w, h, _ = packed.shape
-    kernels.launch(
-        "rwrt_rhs", y.dtype, packed, w, h, bg.lon0, bg.lat0, bg.dx, bg.dy,
-        y, r, dy, err, ug, vg, kernels.stream(y.device))
+    extra = ()
+    if variant:
+        if torch.is_tensor(t):
+            t = t.to(device=y.device, dtype=y.dtype).expand(r).contiguous()
+        else:
+            t = torch.full((r,), float(t), dtype=y.dtype, device=y.device)
+        extra = (t,)
+    kernels.launch(f"rwrt_rhs{variant}", y.dtype, *bg_args, y, *extra, r,
+                   dy, err, ug, vg, kernels.stream(y.device))
     LAUNCHES += 1
     return dy, err, ug, vg
 
@@ -158,10 +244,15 @@ def _rhs_core(bg: Background, y: torch.Tensor, t, with_raw_gv: bool):
     applied last. A NaN amp poisons row 4 only.
 
     Mixed precision (a float64 state over a float32 background): the state
-    is rounded to the background's dtype at entry, so the sample and all
-    the algebra run there and dy comes out in it, as in the JAX package.
+    and a tensor time are rounded to the background's dtype at entry, so
+    the sample (its time lerp too) and all the algebra run there and dy
+    comes out in it, as in the JAX package.
     """
-    y = y.to(bg.fields.dtype)
+    cdtype = bg.fields.dtype
+    if y.dtype != cdtype:
+        y = y.to(cdtype)
+        if torch.is_tensor(t):
+            t = t.to(cdtype)
     lon, lat, kx, ky, amp = y[S_LON], y[S_LAT], y[S_KX], y[S_KY], y[S_AMP]
 
     err = fail_mask(y)
@@ -245,8 +336,8 @@ def group_velocity_at(bg: Background, lon, lat, kx, ky, t=0.0, *,
 
     Positions wider than the background (a float64 state over float32
     fields) are not rounded: the cell, the lerp over the background's
-    corners, the Mercator transform and group velocity run in the
-    positions' dtype, as the JAX package's promotion has them."""
+    corners, the time lerp, the Mercator transform and group velocity run
+    in the positions' dtype, as the JAX package's promotion has them."""
     posn = torch.isnan(lon) | torch.isnan(lat)
     lon_q = torch.where(posn, torch.zeros_like(lon), lon)
     lat_q = torch.where(posn, torch.zeros_like(lat), lat)

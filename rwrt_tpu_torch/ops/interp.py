@@ -5,7 +5,11 @@ sampler (``bilinear_gather``, ``sample_raw``, ``sample_mercator``), the
 corner-packed single-gather sampler the RHS uses (``pack_corners``,
 ``_packed_cell``, ``_packed_corner_lerp``, ``sample_raw_packed``,
 ``sample_mercator_packed``) and the Mercator transform with its polar-cap
-guard. The time-varying and ensemble variants are not ported yet.
+guard; and the time-varying and ensemble variants (``sample_raw_time``,
+``sample_mercator_time``, ``sample_raw_packed_time``,
+``sample_raw_packed_member``, ``sample_raw_packed_member_time``), which
+blend two frames linearly in time and fold a per-lane member offset into
+the row index.
 
 Index conversion: the JAX package converts floor(index) to int32 and then
 clips. Here the clip happens in floating point first (NaN goes to cell 0),
@@ -54,6 +58,12 @@ def bilinear_gather(fields: torch.Tensor, x: torch.Tensor,
     against the CLIPPED corner indices, so out-of-range points extrapolate.
     """
     w, h, _ = fields.shape
+    return _bilinear(fields.reshape(w * h, -1), w, h, x, y)
+
+
+def _bilinear(flat, w, h, x, y, base=0):
+    """``bilinear_gather`` over the (W, H) grid whose rows start at row
+    ``base`` (an int, or per lane) of the (rows, C) table ``flat``."""
     x0 = _cell_index(x, w)
     x1 = (x0 + 1).clamp(0, w - 1)
     y0 = _cell_index(y, h)
@@ -62,11 +72,10 @@ def bilinear_gather(fields: torch.Tensor, x: torch.Tensor,
     sx = x - x0.to(x.dtype)
     sy = y - y0.to(y.dtype)
 
-    flat = fields.reshape(w * h, -1)
-    fa = flat.index_select(0, x0 * h + y1)
-    fb = flat.index_select(0, x1 * h + y1)
-    fc = flat.index_select(0, x0 * h + y0)
-    fd = flat.index_select(0, x1 * h + y0)
+    fa = flat.index_select(0, base + x0 * h + y1)
+    fb = flat.index_select(0, base + x1 * h + y1)
+    fc = flat.index_select(0, base + x0 * h + y0)
+    fd = flat.index_select(0, base + x1 * h + y0)
 
     wa = ((1.0 - sx) * sy)[:, None]
     wb = (sx * sy)[:, None]
@@ -199,3 +208,91 @@ def sample_mercator_packed(packed, lon0, lat0, dx, dy, lon, lat):
     """Corner-packed sample + Mercator transform; returns (C, R)."""
     raw = sample_raw_packed(packed, lon0, lat0, dx, dy, lon, lat)
     return mercator_transform(raw, lat)
+
+
+def _frame_weights(tfrac: torch.Tensor, nt: int):
+    """The bracketing frames (i0, i1) and the weight w1 of i1 at the
+    fractional frame index ``tfrac``: tfrac clipped to [0, nt - 1] (NaN
+    stays NaN), i0 its floor clipped the same way (NaN goes to frame 0),
+    i1 = min(i0 + 1, nt - 1), w1 = tfrac - i0."""
+    tf = torch.clamp(tfrac, 0.0, nt - 1.0)
+    i0 = _cell_index(tf, nt)
+    i1 = (i0 + 1).clamp(max=nt - 1)
+    return i0, i1, tf - i0.to(tf.dtype)
+
+
+def _time_blend(frame, i0, i1, w1):
+    """frame(i0) * (1 - w1) + frame(i1) * w1, taken before the Mercator
+    transform."""
+    return frame(i0) * (1.0 - w1)[:, None] + frame(i1) * w1[:, None]
+
+
+def sample_raw_time(bs_fields, lon0, lat0, dx, dy, lon, lat,
+                    tfrac) -> torch.Tensor:
+    """Time-varying variant of ``sample_raw``: bs_fields (T, W, H, C), tfrac
+    (R,) the fractional frame index (held at the ends). Linear in time, as
+    every precomputed field is linear in (u, v). Returns (R, C)."""
+    nt, w, h, _ = bs_fields.shape
+    i0, i1, w1 = _frame_weights(tfrac, nt)
+    ix = true_div(torch.remainder(lon - lon0, 2.0 * pi), dx)
+    iy = true_div(lat - lat0, dy)
+    flat = bs_fields.reshape(nt * w * h, -1)
+
+    def frame(ti):
+        return _bilinear(flat, w, h, ix, iy, ti * (w * h))
+
+    return _nan_outside_band(_time_blend(frame, i0, i1, w1), lat)
+
+
+def sample_mercator_time(bs_fields, lon0, lat0, dx, dy, lon, lat, tfrac):
+    """Time-varying sample + Mercator transform; returns (C, R)."""
+    raw = sample_raw_time(bs_fields, lon0, lat0, dx, dy, lon, lat, tfrac)
+    return mercator_transform(raw, lat)
+
+
+def _packed_frames(flat, cell, frame_rows, i0, i1, w1, sx, sy, c):
+    """Two row gathers, at frames i0 and i1 of the lanes' cells ``cell``
+    (frame_rows rows a frame), blended in time."""
+
+    def frame(ti):
+        return _packed_corner_lerp(flat, ti * frame_rows + cell, sx, sy, c)
+
+    return _time_blend(frame, i0, i1, w1)
+
+
+def sample_raw_packed_time(packed, lon0, lat0, dx, dy, lon, lat, tfrac):
+    """Time-varying corner-packed sample: packed (T, W, H, 4C), one row
+    gather per bracketing frame, blended in time. Returns (R, C)."""
+    nt, w, h, c4 = packed.shape
+    i0, i1, w1 = _frame_weights(tfrac, nt)
+    x0, y0, sx, sy = _packed_cell(w, h, lon0, lat0, dx, dy, lon, lat)
+    vals = _packed_frames(packed.reshape(nt * w * h, c4), x0 * h + y0,
+                          w * h, i0, i1, w1, sx, sy, c4 // 4)
+    return _nan_outside_band(vals, lat)
+
+
+def sample_raw_packed_member(packed, lon0, lat0, dx, dy, lon, lat, member):
+    """Ensemble variant of ``sample_raw_packed``: packed (M, W, H, 4C), one
+    stack per member, member (R,) each lane's member index. The member folds
+    into the row index, so each lane's sample equals its member's own."""
+    m, w, h, c4 = packed.shape
+    x0, y0, sx, sy = _packed_cell(w, h, lon0, lat0, dx, dy, lon, lat)
+    vals = _packed_corner_lerp(packed.reshape(m * w * h, c4),
+                               member.long() * (w * h) + x0 * h + y0, sx, sy,
+                               c4 // 4)
+    return _nan_outside_band(vals, lat)
+
+
+def sample_raw_packed_member_time(packed, lon0, lat0, dx, dy, lon, lat,
+                                  member, tfrac):
+    """Time-varying ensemble variant: packed (M, T, W, H, 4C), one frame
+    sequence per member; member (R,) each lane's member, tfrac (R,) its
+    fractional frame index. Equal per member to
+    ``sample_raw_packed_time``."""
+    m, nt, w, h, c4 = packed.shape
+    i0, i1, w1 = _frame_weights(tfrac, nt)
+    x0, y0, sx, sy = _packed_cell(w, h, lon0, lat0, dx, dy, lon, lat)
+    vals = _packed_frames(packed.reshape(m * nt * w * h, c4),
+                          member.long() * (nt * w * h) + x0 * h + y0, w * h,
+                          i0, i1, w1, sx, sy, c4 // 4)
+    return _nan_outside_band(vals, lat)

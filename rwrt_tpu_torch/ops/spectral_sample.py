@@ -16,9 +16,9 @@ CUDA tensor it repacks the coefficients (``pack_coeffs``) and launches
 ``csrc/spectral.cu``, which builds the basis rows in shared memory and
 contracts them on the tensor cores without materializing (R, Mp) or
 (R, L*C); on a CPU tensor it runs ``sample_spectral``. ``LAUNCHES`` counts
-kernel launches.
-The time-varying fit (``fit_spectral_time``, ``lerp_coeffs``) is not ported
-yet.
+kernel launches. A time-varying stack is fitted frame by frame
+(``fit_spectral_time``), and ``lerp_coeffs`` blends the fit to one time, which
+the same sampler (and kernel) then evaluates.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ import torch
 from rwrt_tpu_torch import kernels
 from rwrt_tpu_torch.constants import pi
 from rwrt_tpu_torch.models.basic_state import as_dtype
-from rwrt_tpu_torch.ops.interp import mercator_transform
+from rwrt_tpu_torch.ops.interp import _cell_index, mercator_transform
 
 #: Number of spectral kernel launches in this process.
 LAUNCHES = 0
@@ -40,7 +40,8 @@ LAUNCHES = 0
 class SpectralBackground(NamedTuple):
     """Spectral coefficients of the background-field stack.
 
-    coeffs: (Mp, L, C) with Mp rows [cos 0, cos 1..cos M, sin 1..sin M].
+    coeffs: (Mp, L, C) with Mp rows [cos 0, cos 1..cos M, sin 1..sin M],
+        or (T, Mp, L, C) for a time-varying fit (``fit_spectral_time``).
     lat0: 0-d tensor, latitude of the first grid row (radians).
     """
 
@@ -66,7 +67,8 @@ def fit_spectral(bs_or_fields, *, m_max=None, l_max=None, lon=None, lat=None,
 
     Args:
       bs_or_fields: a ``BasicState`` (its ``fields`` stack is fitted, the
-        wrap column dropped when ``xcyclic``) or a raw (nlon, nlat, C) array.
+        wrap column dropped when ``xcyclic``; a time-varying one goes to
+        ``fit_spectral_time``) or a raw (nlon, nlat, C) array.
       m_max: zonal truncation, default nlon//2 (exact).
       l_max: number of latitude cosine modes, default nlat (exact).
       lon, lat: grid coordinates in radians for a raw array.
@@ -78,10 +80,6 @@ def fit_spectral(bs_or_fields, *, m_max=None, l_max=None, lon=None, lat=None,
     """
     if hasattr(bs_or_fields, "fields"):
         bs = bs_or_fields
-        if bs.fields.ndim == 4:
-            raise NotImplementedError(
-                "time-varying fits (fit_spectral_time) are not ported yet "
-                "(ROADMAP Queue 1 item 13)")
         fields = bs.fields.detach().cpu().numpy().astype(np.float64)
         if xcyclic is None:
             xcyclic = bool(bs.xcyclic)
@@ -91,6 +89,12 @@ def fit_spectral(bs_or_fields, *, m_max=None, l_max=None, lon=None, lat=None,
             dtype = bs.fields.dtype
         if device is None:
             device = bs.fields.device
+        if fields.ndim == 4:
+            # A time-varying state: each frame is fitted (the wrap column
+            # is per frame).
+            return fit_spectral_time(fields, m_max=m_max, l_max=l_max,
+                                     lon=lon, lat=lat, xcyclic=xcyclic,
+                                     dtype=dtype, device=device)
     else:
         arr = (bs_or_fields.detach().cpu().numpy()
                if torch.is_tensor(bs_or_fields) else np.asarray(bs_or_fields))
@@ -99,8 +103,8 @@ def fit_spectral(bs_or_fields, *, m_max=None, l_max=None, lon=None, lat=None,
             dtype = arr.dtype
         xcyclic = bool(xcyclic) if xcyclic is not None else False
         if fields.ndim == 4:
-            raise ValueError("4-D stacks are time-varying; fit_spectral_time "
-                             "is not ported yet")
+            raise ValueError("4-D stacks are time-varying; use "
+                             "fit_spectral_time (or pass a BasicState)")
     dtype = as_dtype(dtype)
     if fields.ndim == 2:
         fields = fields[..., None]
@@ -146,6 +150,53 @@ def fit_spectral(bs_or_fields, *, m_max=None, l_max=None, lon=None, lat=None,
         coeffs=torch.as_tensor(coeffs).to(device=device, dtype=dtype),
         lat0=torch.tensor(lat0, dtype=dtype, device=device),
     )
+
+
+def fit_spectral_time(frames, *, m_max=None, l_max=None, lon=None, lat=None,
+                      xcyclic=False, dtype=None,
+                      device=None) -> SpectralBackground:
+    """Fit a time-varying stack frame by frame: frames (T, nlon, nlat, C)
+    -> coeffs (T, Mp, L, C). The fit is linear, so blending coefficient
+    frames (``lerp_coeffs``) equals fitting the blended fields. Arguments as
+    ``fit_spectral``'s for a raw array; device defaults to the frames'
+    (the host for a numpy array)."""
+    if torch.is_tensor(frames):
+        if device is None:
+            device = frames.device
+        frames = frames.detach().cpu().numpy()
+    if dtype is None:
+        dtype = np.asarray(frames).dtype
+    frames = np.asarray(frames, dtype=np.float64)
+    if frames.ndim != 4:
+        raise ValueError(f"frames must be (T, nlon, nlat, C); got "
+                         f"{frames.shape}")
+    fitted = [fit_spectral(frame, m_max=m_max, l_max=l_max, lon=lon,
+                           lat=lat, xcyclic=xcyclic, dtype=dtype,
+                           device=device) for frame in frames]
+    return SpectralBackground(
+        coeffs=torch.stack([f.coeffs for f in fitted]),
+        lat0=fitted[0].lat0,
+    )
+
+
+def lerp_coeffs(sbg: SpectralBackground, tfrac) -> SpectralBackground:
+    """The (T, Mp, L, C) fit blended at the fractional frame index
+    ``tfrac`` (rounded to the coefficients' dtype and held to the frame
+    range): (1 - w) * coeffs[t0] + w * coeffs[t0 + 1] with t0 = floor(tfrac)
+    clipped to [0, T - 2] and w = tfrac - t0, as the JAX package has it.
+    Nothing is read back from the card."""
+    coeffs = sbg.coeffs
+    if coeffs.ndim != 4:
+        raise ValueError("lerp_coeffs needs a time-varying fit "
+                         "(fit_spectral_time)")
+    nt = coeffs.shape[0]
+    tf = torch.clamp(torch.as_tensor(tfrac, dtype=torch.float64).to(
+        device=coeffs.device, dtype=coeffs.dtype), 0.0, nt - 1.0)
+    t0 = _cell_index(tf, nt - 1).reshape(1)
+    w = tf - t0[0].to(coeffs.dtype)
+    c = ((1.0 - w) * coeffs.index_select(0, t0)[0]
+         + w * coeffs.index_select(0, t0 + 1)[0])
+    return SpectralBackground(coeffs=c, lat0=sbg.lat0)
 
 
 def _basis_lon(lon: torch.Tensor, m_max: int) -> torch.Tensor:

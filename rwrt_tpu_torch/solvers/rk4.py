@@ -12,6 +12,11 @@ JAX package's:
   from the previous carry reaches cut_off are NaN-killed;
 - (ug, vg) are re-derived at the new state (NaN propagating).
 
+Step ``s`` of a run (or chunk) entered at ``t_start`` is taken at
+t = t_start + s * dt in the state's dtype; its stages sample a
+time-varying background at t, t + dt / 2 and t + dt, and (ug, vg) at
+t + dt.
+
 On the card the whole run is one launch of ``csrc/rk4_run.cu``
 (``tracer._run_rk4``); this module is what that kernel is held against. It
 calls the plain RHS (``models/ray._rhs_core``) on every device.
@@ -36,7 +41,8 @@ def step_factors(dt, dtype: torch.dtype) -> Tuple[float, float, float]:
 
 
 def rk4_step(bg: Background, y: torch.Tensor, dt, t=0.0) -> torch.Tensor:
-    """One RK4 step with per-ray freeze semantics. y: (5, R) -> (5, R).
+    """One RK4 step with per-ray freeze semantics from time t (a 0-d tensor
+    of the state's dtype, or 0.0). y: (5, R) -> (5, R).
 
     In mixed precision (a float64 state over a float32 background) the
     stages k come out in the background's dtype and their sum
@@ -46,35 +52,49 @@ def rk4_step(bg: Background, y: torch.Tensor, dt, t=0.0) -> torch.Tensor:
     a Python scalar times a float32 tensor in float32."""
     dt, half, sixth = step_factors(dt, y.dtype)
 
-    def rhs(yy):
-        dy, err, _, _ = ray_mod._rhs_core(bg, yy, t, False)
+    def rhs(yy, tt):
+        dy, err, _, _ = ray_mod._rhs_core(bg, yy, tt, False)
         return dy, err
 
     def wide(k):
         return k.to(y.dtype)
 
-    k1, m1 = rhs(y)
-    k2, m2 = rhs(y + half * wide(k1))
-    k3, m3 = rhs(y + half * wide(k2))
-    k4, m4 = rhs(y + dt * wide(k3))
+    k1, m1 = rhs(y, t)
+    k2, m2 = rhs(y + half * wide(k1), t + half)
+    k3, m3 = rhs(y + half * wide(k2), t + half)
+    k4, m4 = rhs(y + dt * wide(k3), t + dt)
     valid = ~(m1 | m2 | m3 | m4)
     y_prop = y + sixth * wide(k1 + 2.0 * k2 + 2.0 * k3 + k4)
     return torch.where(valid[None, :], y_prop, y)
 
 
+def step_time(t_start, s: int, dt, dtype: torch.dtype, device):
+    """t_start + s * dt with each operand and the product rounded to the
+    state's ``dtype``, as the JAX scan forms it from its float step index:
+    a 0-d tensor on ``device``."""
+    def scalar(x):
+        return torch.tensor(float(x), dtype=torch.float64).to(
+            device=device, dtype=dtype)
+
+    return scalar(t_start) + scalar(s) * scalar(dt)
+
+
 def trace_into(bg: Background, y: torch.Tensor, dt, n_steps: int, cut_off,
                ys: torch.Tensor, ugs: torch.Tensor, vgs: torch.Tensor,
-               row_offset: int = 0) -> torch.Tensor:
-    """``n_steps`` output steps from carry ``y``, each written at row
-    ``row_offset + step`` of ys (rows, 5, R) and ugs, vgs (rows, R).
-    Returns the carry after the last step."""
+               row_offset: int = 0, t_start=0.0) -> torch.Tensor:
+    """``n_steps`` output steps from carry ``y`` entered at time
+    ``t_start``, each written at row ``row_offset + step`` of ys (rows, 5,
+    R) and ugs, vgs (rows, R). Returns the carry after the last step."""
+    dt = step_factors(dt, y.dtype)[0]
     for s in range(n_steps):
-        y_new = rk4_step(bg, y, dt)
+        t = step_time(t_start, s, dt, y.dtype, y.device)
+        y_new = rk4_step(bg, y, dt, t)
         kill = ray_mod.kill_mask(y_new, y[S_LON], y[S_LAT], cut_off)
         y_new = torch.where(kill[None, :], torch.full_like(y_new, float("nan")),
                             y_new)
         ug, vg = ray_mod.group_velocity_at(
-            bg, y_new[S_LON], y_new[S_LAT], y_new[S_KX], y_new[S_KY])
+            bg, y_new[S_LON], y_new[S_LAT], y_new[S_KX], y_new[S_KY],
+            t + dt)
         ys[row_offset + s], ugs[row_offset + s], vgs[row_offset + s] = (
             y_new, ug, vg)
         y = y_new

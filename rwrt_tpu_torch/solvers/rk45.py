@@ -87,13 +87,16 @@ LAUNCHES = 0
 #: Number of exact-group kernel launches (``integrate_group`` on CUDA).
 EXACT_LAUNCHES = 0
 
-def exact_instance(r: int, dtype, run: bool = True) -> str:
+def exact_instance(r: int, dtype, run: bool = True,
+                   variant: str = "") -> str:
     """The exact kernel's instance for a launch of ``r`` lanes on the card:
     the whole run (``run``, ``tracer._exact_run``) or the single group
     (``integrate_group``). ``dtype`` is a torch dtype or a (state, field)
-    pair (``kernels.launch``)."""
+    pair (``kernels.launch``); ``variant`` "" (a static background) or
+    "_time" (the whole run's time instance, ``ray.kernel_background``)."""
     return kernels.choose_instance(
-        r, kernels.resident("exact", kernels.TEAM, dtype, int(run)))
+        r, kernels.resident("exact", kernels.TEAM, dtype, int(run),
+                            variant=variant))
 
 
 def as_scalar(x, dtype: torch.dtype) -> float:
@@ -414,7 +417,7 @@ def _integrate_group_cuda(rhs_fn, rhs_gv_fn, y, t, h, f, bounds, prev_lon,
                            ("bounds", bounds, (g,))):
         kernels.check_tensor(x, name, device=dev, dtype=dt, shape=shape)
     kernels.check_tensor(f, "f", device=dev, dtype=key[1], shape=(5, r))
-    check_packed(bg, dev, key[1])
+    bg_args = static_background(bg, dev, key[1], r)
     rtol, atol, min_step, cut_off = (as_scalar(x, dt)
                                      for x in (rtol, atol, min_step, cut_off))
 
@@ -437,10 +440,9 @@ def _integrate_group_cuda(rhs_fn, rhs_gv_fn, y, t, h, f, bounds, prev_lon,
                 ("idx", idx, (r,), torch.int32)):
             kernels.check_tensor(x, name, device=dev, dtype=xdt, shape=shape)
     trips = torch.empty(r, dtype=torch.int32, device=dev)
-    w, hh, _ = bg.fields.shape
     kernels.launch(
-        "rwrt_exact_group", key, bg.fields, w, hh, bg.lon0, bg.lat0, bg.dx,
-        bg.dy, y, t, h, f, prev_lon, prev_lat, rejected, new_step, lane_att,
+        "rwrt_exact_group", key, *bg_args, y, t, h, f, prev_lon, prev_lat,
+        rejected, new_step, lane_att,
         idx, trips, hist, bounds, g, r, int(state0 is not None), cut_off,
         rtol, atol, min_step, int(max_iters), kernels.instance_id(
             instance or exact_instance(r, key, run=False)),
@@ -451,15 +453,18 @@ def _integrate_group_cuda(rhs_fn, rhs_gv_fn, y, t, h, f, bounds, prev_lon,
             rejected, new_step, idx)
 
 
-def check_packed(bg, device, dtype) -> None:
-    """Raise unless ``bg`` holds the static corner-packed (W, H, 48) stack
-    the kernels read, on ``device`` in ``dtype``, 16-byte aligned."""
-    packed = bg.fields
-    kernels.check_tensor(packed, "fields", device=device, dtype=dtype)
-    kernels.check_aligned(packed, "fields")
-    if packed.ndim != 3 or packed.shape[-1] != 48 or bg.member_ids is not None:
-        raise ValueError("the kernels need a static corner-packed (W, H, 48) "
-                         "background (tracer.make_background)")
+def static_background(bg, device, dtype, lanes: int) -> tuple:
+    """The background arguments of a single-group kernel launch, which has
+    static instances only: raises NotImplementedError on a time-varying or
+    ensemble background (the plain versions serve those on any device), and
+    as ``ray.kernel_background`` does on a malformed one."""
+    variant, args = ray_mod.kernel_background(bg, device, dtype, lanes)
+    if variant:
+        raise NotImplementedError(
+            "the single-group kernels have no time or member instances on "
+            "the card yet (ROADMAP Queue 1 item 18); trace_rays runs the "
+            "whole-run kernels, and the plain versions serve any device")
+    return args
 
 
 def dense_entry_state(y, bounds):
@@ -624,7 +629,7 @@ def _integrate_group_dense_cuda(
                            ("bounds", bounds, (g,))):
         kernels.check_tensor(x, name, device=dev, dtype=dt, shape=shape)
     kernels.check_tensor(f, "f", device=dev, dtype=key[1], shape=(5, r))
-    check_packed(bg, dev, key[1])
+    bg_args = static_background(bg, dev, key[1], r)
     if g < 1:
         raise ValueError("bounds must be non-empty")
     rtol, atol, min_step, pin_limit, pin_mwn = _scalar_args(
@@ -635,10 +640,9 @@ def _integrate_group_dense_cuda(
     rejected = torch.empty(r, dtype=torch.bool, device=dev)
     new_step = torch.empty(r, dtype=torch.bool, device=dev)
     lane_att = torch.empty(r, dtype=torch.int32, device=dev)
-    w, hh, _ = bg.fields.shape
     kernels.launch(
-        "rwrt_dense_group", key, bg.fields, w, hh, bg.lon0, bg.lat0, bg.dx,
-        bg.dy, y, t, h, f, rejected, new_step, lane_att, hist, bounds, g, r,
+        "rwrt_dense_group", key, *bg_args, y, t, h, f, rejected, new_step,
+        lane_att, hist, bounds, g, r,
         rtol, atol, min_step, int(max_iters), pin_limit, pin_mwn,
         kernels.stream(dev))
     LAUNCHES += 1

@@ -12,6 +12,12 @@ float32; a no-op when it is float64):
 - integrator='rk45', bound_mode='dense', with or without pin_limit
   (``_run_rk45_grouped`` over ``_dense_run``).
 
+Every branch serves a static or a time-varying background
+(``models.basic_state.prepare_time_varying``: each sample lerps the frames
+at the lane's own time). ``trace_rays_ensemble`` runs several members in
+one run, their lanes flattened over one stacked background with a per-lane
+member map.
+
 A run whose history would pass ``auto_chunk_bytes`` on the device goes
 through the chunked driver (``utils/checkpoint.py``), one launch of the
 same kernel per chunk. Every other branch (a mesh, root_order='fortran',
@@ -28,7 +34,9 @@ thread, or a team of 8 threads, per lane, as ``rk4_instance`` and
 ``solvers/rk45.exact_instance`` choose from the lane count. Each kernel
 has a mixed instance (``_mix``, ``kernels.launch``) beside its float32
 and float64 ones, which the wrappers take for a float64 state over a
-float32 background.
+float32 background, and a time instance of each (``_time``), which they
+take for a time-varying or ensemble background
+(``models.ray.kernel_background``).
 
 The ray batch is flattened to R = 3 * nsource * nzwn lanes in C order of
 (root, source, zwn), so results reshape directly to (nt, 3, nsource, nzwn).
@@ -158,9 +166,11 @@ def initialize(
 
 
 def _dense_postpass(bg, hist, y, t, h, f, prev_lon, prev_lat, cut_off,
-                    nan0):
+                    nan0, bounds=None):
     """Kill cascade + per-bound (ug, vg) over one group's dense-emitted
-    history (G, 5, R).
+    history (G, 5, R), each bound's (ug, vg) sampled at its time
+    (``bounds``, (G,); None: at time 0, which a static background does not
+    read).
 
     Exact with respect to per-bound termination: a kill at bound j only
     affects output at bounds >= j, and the killed lane's chunk-end carry is
@@ -183,12 +193,13 @@ def _dense_postpass(bg, hist, y, t, h, f, prev_lon, prev_lat, cut_off,
         rows.append(out)
     hist_k = torch.stack(rows)
 
-    # Per-bound group velocity over all (G * R) saved states in one call:
-    # the static background makes the bound time irrelevant to the sample.
+    # Per-bound group velocity over all (G * R) saved states in one call,
+    # each state at its bound's time (an ensemble's member map is tiled).
     g, _, r = hist_k.shape
     flat = hist_k.permute(1, 0, 2).reshape(5, g * r)
+    times = 0.0 if bounds is None else bounds[:, None].expand(g, r).reshape(-1)
     ugs, vgs = ray_mod.group_velocity_at(
-        bg, flat[S_LON], flat[S_LAT], flat[S_KX], flat[S_KY])
+        bg, flat[S_LON], flat[S_LAT], flat[S_KX], flat[S_KY], times)
 
     y_carry = torch.where((alive | frozen)[None, :], y,
                           torch.full_like(y, float("nan")))
@@ -209,11 +220,12 @@ LAUNCHES = 0
 RK4_LAUNCHES = 0
 EXACT_LAUNCHES = 0
 
-def rk4_instance(r: int, dtype) -> str:
+def rk4_instance(r: int, dtype, variant: str = "") -> str:
     """The RK4 kernel's instance for a launch of ``r`` lanes on the card;
-    ``dtype`` a torch dtype or a (state, field) pair."""
+    ``dtype`` a torch dtype or a (state, field) pair, ``variant`` "" (a
+    static background) or "_time" (``ray.kernel_background``)."""
     return kernels.choose_instance(
-        r, kernels.resident("rk4", kernels.TEAM, dtype))
+        r, kernels.resident("rk4", kernels.TEAM, dtype, variant=variant))
 
 
 class GroupedRun(NamedTuple):
@@ -252,7 +264,8 @@ def _check_run_args(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds,
                     min_groups):
     """Raise unless a whole-run kernel takes these inputs: y0, h0 and the
     bounds in the state's dtype, f0 in the background's, ug0 and vg0 in
-    either. Returns the launch's (state, field) dtype pair."""
+    either. Returns the launch's (state, field) dtype pair and
+    ``ray.kernel_background``'s (variant, background arguments)."""
     dev, dt = y0.device, y0.dtype
     key = kernels.state_key(y0, bg.fields)
     if y0.ndim != 2 or y0.shape[0] != 5:
@@ -274,8 +287,7 @@ def _check_run_args(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds,
         if x.dtype not in key:
             raise ValueError(f"{name} has dtype {x.dtype}, expected one of "
                              f"{sorted(set(map(str, key)))}")
-    rk45_mod.check_packed(bg, dev, key[1])
-    return key
+    return key, ray_mod.kernel_background(bg, dev, key[1], r)
 
 
 def _dense_run(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off, rtol,
@@ -287,7 +299,8 @@ def _dense_run(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off, rtol,
     count, then ``_dense_postpass``).
 
     Args:
-      bg: the static corner-packed background.
+      bg: the corner-packed background (static, time-varying or an
+        ensemble's, ``make_background``).
       y0 (5, R), f0 (5, R) = rhs(y0), h0 (R,): the run's entry state;
         ug0, vg0 (R,): row 0 of the (ug, vg) output.
       bounds_g: (n_groups, G) output times, padded rows repeating the last.
@@ -342,7 +355,7 @@ def _dense_run_plain(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
         # truncated lane's unreached bounds as death.
         trunc += (t2 < bounds[-1]) & ~torch.isnan(y2[0])
         (y, t, h, f, pl, pa), (hist, gu, gv) = _dense_postpass(
-            bg, hist, y2, t2, h2, f2, pl, pa, cut_off, nan0)
+            bg, hist, y2, t2, h2, f2, pl, pa, cut_off, nan0, bounds)
         sl = slice(1 + g * group, 1 + (g + 1) * group)
         ys[sl], ugs[sl], vgs[sl] = hist, gu, gv
         lane_att[g] = la
@@ -358,9 +371,11 @@ def _dense_run_cuda(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
     every group and writes its rows straight into the output. Reads
     nothing back from the card. A float64 state over a float32 background
     takes the mixed instance; ug0 and vg0 are widened to the state's
-    dtype for row 0."""
+    dtype for row 0. A time-varying or ensemble background takes the time
+    instance."""
     global LAUNCHES
-    key = _check_run_args(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, 1)
+    key, (variant, bg_args) = _check_run_args(bg, y0, ug0, vg0, h0, f0,
+                                              bounds_g, n_bounds, 1)
     dev, dt = y0.device, y0.dtype
     rtol, atol, min_step, pin_limit, pin_mwn = rk45_mod._scalar_args(
         dt, rtol, atol, min_step, pin_limit, pin_mwn)
@@ -374,10 +389,9 @@ def _dense_run_cuda(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
     plon = torch.empty_like(h0)
     plat = torch.empty_like(h0)
     ug0, vg0 = ug0.to(dt), vg0.to(dt)
-    w, hh, _ = bg.fields.shape
     kernels.launch(
-        "rwrt_dense_run", key, bg.fields, w, hh, bg.lon0, bg.lat0, bg.dx,
-        bg.dy, y, t, h, f, ug0, vg0, ys, ugs, vgs, lane_att, trunc, plon,
+        f"rwrt_dense_run{variant}", key, *bg_args, y, t, h, f, ug0, vg0, ys,
+        ugs, vgs, lane_att, trunc, plon,
         plat, bounds_g, group, n_groups, r, cut_off, rtol, atol, min_step,
         int(max_iters), pin_limit, pin_mwn, kernels.stream(dev))
     LAUNCHES += 1
@@ -411,7 +425,7 @@ def _rk45_group_chunk(bg, y, t, h, f, prev_lon, prev_lat, bounds, cut_off,
     def rhs_gv_fn(yy, tt=0.0):
         if gv_at_save:
             return (rhs_fn(yy, tt), *ray_mod.group_velocity_at(
-                bg, yy[S_LON], yy[S_LAT], yy[S_KX], yy[S_KY]))
+                bg, yy[S_LON], yy[S_LAT], yy[S_KX], yy[S_KY], tt))
         dy, _, ug, vg = ray_mod._rhs_core(bg, yy, tt, True)
         return dy, ug, vg
 
@@ -477,9 +491,11 @@ def _exact_run_cuda(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
     and writes its rows straight into the output. ``instance`` (a key of
     ``kernels.INSTANCES``) overrides ``rk45.exact_instance``'s choice. Reads
     nothing back from the card. A float64 state over a float32 background
-    takes the mixed instance, as ``_dense_run_cuda``."""
+    takes the mixed instance, and a time-varying or ensemble background
+    the time instance, as ``_dense_run_cuda``."""
     global EXACT_LAUNCHES
-    key = _check_run_args(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, 0)
+    key, (variant, bg_args) = _check_run_args(bg, y0, ug0, vg0, h0, f0,
+                                              bounds_g, n_bounds, 0)
     dev, dt = y0.device, y0.dtype
     cut_off, rtol, atol, min_step = (rk45_mod.as_scalar(x, dt)
                                      for x in (cut_off, rtol, atol, min_step))
@@ -492,13 +508,12 @@ def _exact_run_cuda(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
     plon = torch.empty_like(h0)
     plat = torch.empty_like(h0)
     ug0, vg0 = ug0.to(dt), vg0.to(dt)
-    w, hh, _ = bg.fields.shape
     kernels.launch(
-        "rwrt_exact_run", key, bg.fields, w, hh, bg.lon0, bg.lat0, bg.dx,
-        bg.dy, y, t, h, f, plon, plat, ug0, vg0, ys, ugs, vgs, lane_att,
-        trunc, bounds_g, group, n_groups, r, cut_off, rtol, atol, min_step,
-        int(max_iters), int(barrier), kernels.instance_id(
-            instance or rk45_mod.exact_instance(r, key)),
+        f"rwrt_exact_run{variant}", key, *bg_args, y, t, h, f, plon, plat,
+        ug0, vg0, ys, ugs, vgs, lane_att, trunc, bounds_g, group, n_groups,
+        r, cut_off, rtol, atol, min_step, int(max_iters), int(barrier),
+        kernels.instance_id(
+            instance or rk45_mod.exact_instance(r, key, variant=variant)),
         kernels.stream(dev))
     EXACT_LAUNCHES += 1
     nt = n_bounds + 1
@@ -586,7 +601,7 @@ def _rk45_chunk(bg, y, t, h, t_bounds, cut_off, rtol, atol, min_step,
                         y_new)
         ys[j] = y
         ugs[j], vgs[j] = ray_mod.group_velocity_at(
-            bg, y[S_LON], y[S_LAT], y[S_KX], y[S_KY])
+            bg, y[S_LON], y[S_LAT], y[S_KX], y[S_KY], t_bound)
     return (y, t, h), (ys, ugs, vgs, iters, 6 * iters, lane_att, trunc)
 
 
@@ -654,28 +669,32 @@ def _run_rk4_cuda(bg, y0, ug0, vg0, dt, nt, cut_off, instance=None):
     return ys, ugs, vgs
 
 
-def _rk4_chunk(bg, y, dt, n_steps: int, cut_off):
-    """n_steps RK4 output steps from carry y; returns (y, (ys, ugs, vgs))
-    with n_steps rows each. On a CUDA state one launch of the RK4 kernel;
-    on a CPU state the plain loop. (The JAX signature's t_start is not
-    taken: the static background does not read the time.)"""
+def _rk4_chunk(bg, y, dt, n_steps: int, cut_off, t_start=0.0):
+    """n_steps RK4 output steps from carry y entered at time t_start (the
+    model time of the carry's row); returns (y, (ys, ugs, vgs)) with
+    n_steps rows each. On a CUDA state one launch of the RK4 kernel; on a
+    CPU state the plain loop."""
     ys, ugs, vgs = _rk4_buffers(y, n_steps)
     if y.is_cuda:
-        y = _rk4_launch(bg, y, dt, n_steps, cut_off, ys, ugs, vgs, 0)
+        y = _rk4_launch(bg, y, dt, n_steps, cut_off, ys, ugs, vgs, 0,
+                        t_start=t_start)
     else:
-        y = rk4_mod.trace_into(bg, y, dt, n_steps, cut_off, ys, ugs, vgs)
+        y = rk4_mod.trace_into(bg, y, dt, n_steps, cut_off, ys, ugs, vgs,
+                               t_start=t_start)
     return y, (ys, ugs, vgs)
 
 
 def _rk4_launch(bg, y, dt, n_steps, cut_off, ys, ugs, vgs, row_offset,
-                ug0=None, vg0=None, instance=None):
-    """Launch the RK4 kernel once: n_steps steps from carry y (5, R), step
-    s written at row row_offset + s of ys (rows, 5, R), ugs and vgs
-    (rows, R); with ug0, vg0 (R,) given, row row_offset - 1 receives y and
-    them (widened to the state's dtype). ``instance`` (a key of
-    ``kernels.INSTANCES``) overrides ``rk4_instance``'s choice. A float64
-    state over a float32 background takes the mixed instance. Returns the
-    carry after the last step; reads nothing back from the card."""
+                ug0=None, vg0=None, instance=None, t_start=0.0):
+    """Launch the RK4 kernel once: n_steps steps from carry y (5, R)
+    entered at time t_start, step s (at t_start + s dt) written at row
+    row_offset + s of ys (rows, 5, R), ugs and vgs (rows, R); with ug0,
+    vg0 (R,) given, row row_offset - 1 receives y and them (widened to the
+    state's dtype). ``instance`` (a key of ``kernels.INSTANCES``) overrides
+    ``rk4_instance``'s choice. A float64 state over a float32 background
+    takes the mixed instance, a time-varying or ensemble background the
+    time instance. Returns the carry after the last step; reads nothing
+    back from the card."""
     global RK4_LAUNCHES
     dev, dtype = y.device, y.dtype
     key = kernels.state_key(y, bg.fields)
@@ -696,15 +715,15 @@ def _rk4_launch(bg, y, dt, n_steps, cut_off, ys, ugs, vgs, row_offset,
         checks += [("ug0", ug0, (r,)), ("vg0", vg0, (r,))]
     for name, x, shape in checks:
         kernels.check_tensor(x, name, device=dev, dtype=dtype, shape=shape)
-    rk45_mod.check_packed(bg, dev, key[1])
+    variant, bg_args = ray_mod.kernel_background(bg, dev, key[1], r)
     dt, half, sixth = rk4_mod.step_factors(dt, dtype)
     y = y.clone()  # the carry, updated in place by the kernel
-    w, hh, _ = bg.fields.shape
+    extra = (rk45_mod.as_scalar(t_start, dtype),) if variant else ()
     kernels.launch(
-        "rwrt_rk4_run", key, bg.fields, w, hh, bg.lon0, bg.lat0, bg.dx,
-        bg.dy, y, ug0, vg0, ys, ugs, vgs, n_steps, row_offset, r, dt, half,
-        sixth, rk45_mod.as_scalar(cut_off, dtype),
-        kernels.instance_id(instance or rk4_instance(r, key)),
+        f"rwrt_rk4_run{variant}", key, *bg_args, y, ug0, vg0, ys, ugs, vgs,
+        n_steps, row_offset, r, dt, half, sixth,
+        rk45_mod.as_scalar(cut_off, dtype), *extra,
+        kernels.instance_id(instance or rk4_instance(r, key, variant)),
         kernels.stream(dev))
     RK4_LAUNCHES += 1
     return y
@@ -832,7 +851,21 @@ def trace_rays(
     bg = make_background(bs, config.freq)
     y0, ug0, vg0 = initialize(bg, source_lon, source_lat, zwn,
                               config.root_order)
+    ys, ugs, vgs = _run_lanes(bg, y0, ug0, vg0, config,
+                              config.state_dtype == "float64", stats)
+    out_shape = (config.nt, 3, source_lon.shape[0], len(config.zwn))
+    return _traj_from(ys, ugs, vgs, lambda a: a.reshape(out_shape))
 
+
+def _run_lanes(bg, y0, ug0, vg0, config: RunConfig, wide: bool,
+               stats: Optional[dict]):
+    """Integrate the seeded lanes (y0 (5, R), ug0, vg0 (R,)) over ``bg`` as
+    ``config`` says: rootless lanes compacted away (an ensemble's member
+    map moves with its lanes), the state widened to float64 when ``wide``
+    (mixed precision), the branch's run, the truncation check, and the
+    compacted lanes expanded back. Returns (ys (nt, 5, R), ugs, vgs (nt,
+    R))."""
+    device = y0.device
     n_rays = y0.shape[1]
     y0_full, ug0_full, vg0_full = y0, ug0, vg0
     take = None
@@ -843,16 +876,19 @@ def trace_rays(
             y0 = y0.index_select(1, take).contiguous()
             ug0 = ug0.index_select(0, take)
             vg0 = vg0.index_select(0, take)
+            if bg.member_ids is not None:
+                bg = bg._replace(
+                    member_ids=bg.member_ids.index_select(0, take))
     n_lanes = y0.shape[1]
 
     nt = config.nt
-    if config.state_dtype == "float64":
+    if wide:
         # Mixed precision: the state, the run's scalars and the controller
         # in float64; the RHS rounds the state to the background's dtype
         # at entry (models/ray.py). The cast is exact, and a no-op over a
         # float64 background.
         y0 = y0.to(torch.float64)
-        dtype = y0.dtype
+    dtype = y0.dtype
     dt = rk45_mod.as_scalar(config.tstep, dtype)
     cut_off = rk45_mod.as_scalar(config.cut_off_rad, dtype)
     if config.integrator == "rk4":
@@ -879,38 +915,106 @@ def trace_rays(
             stats["lane_att"] = lane_att
         _check_truncation(trunc)
 
-    if take is not None:
-        # Expand the compacted lanes back into the full layout. Rootless
-        # lanes' histories are integrator-specific, as in the JAX package:
-        # the adaptive solver freezes them at their seed state (finite
-        # lon/lat/kx, NaN ky/amp), while RK4 writes the NaN step proposal
-        # back (all NaN from step 1). (ug, vg) are NaN beyond step 0 either
-        # way. The targets take the history's dtype, which a float64 state
-        # makes wider than the seeds'.
-        if config.integrator == "rk45":
-            ys_f = y0_full[None].to(dtype).expand(
-                (nt,) + tuple(y0_full.shape)).clone()
-        else:
-            ys_f = torch.full((nt,) + tuple(y0_full.shape), float("nan"),
-                              dtype=dtype, device=device)
-            ys_f[0] = y0_full
-        ys_f[..., take] = ys[..., :n_lanes]
-        ugs_f = torch.full((nt, n_rays), float("nan"), dtype=dtype,
-                           device=device)
-        vgs_f = ugs_f.clone()
-        ugs_f[0] = ug0_full
-        vgs_f[0] = vg0_full
-        ugs_f[:, take] = ugs[:, :n_lanes]
-        vgs_f[:, take] = vgs[:, :n_lanes]
-        ys, ugs, vgs = ys_f, ugs_f, vgs_f
+    if take is None:
+        return ys, ugs, vgs
+    # Expand the compacted lanes back into the full layout. Rootless lanes'
+    # histories are integrator-specific, as in the JAX package: the
+    # adaptive solver freezes them at their seed state (finite lon/lat/kx,
+    # NaN ky/amp), while RK4 writes the NaN step proposal back (all NaN from
+    # step 1). (ug, vg) are NaN beyond step 0 either way. The targets take
+    # the history's dtype, which a float64 state makes wider than the
+    # seeds'.
+    if config.integrator == "rk45":
+        ys_f = y0_full[None].to(dtype).expand(
+            (nt,) + tuple(y0_full.shape)).clone()
+    else:
+        ys_f = torch.full((nt,) + tuple(y0_full.shape), float("nan"),
+                          dtype=dtype, device=device)
+        ys_f[0] = y0_full
+    ys_f[..., take] = ys[..., :n_lanes]
+    ugs_f = torch.full((nt, n_rays), float("nan"), dtype=dtype,
+                       device=device)
+    vgs_f = ugs_f.clone()
+    ugs_f[0] = ug0_full
+    vgs_f[0] = vg0_full
+    ugs_f[:, take] = ugs[:, :n_lanes]
+    vgs_f[:, take] = vgs[:, :n_lanes]
+    return ys_f, ugs_f, vgs_f
 
-    nsource = source_lon.shape[0]
-    out_shape = (nt, 3, nsource, len(config.zwn))
 
-    def reshape(a):
-        return a[..., :n_rays].reshape(out_shape)
+def trace_rays_ensemble(bs_members, config: RunConfig, source_lon=None,
+                        source_lat=None, mesh=None,
+                        stats: Optional[dict] = None):
+    """An ensemble sweep: ``trace_rays`` over each background state of
+    ``bs_members`` (e.g. one per reanalysis year), in one run. Returns a
+    list of ``RayTrajectories``, one per member.
 
-    return _traj_from(ys, ugs, vgs, reshape)
+    The members are flattened member-major into the lane axis over one
+    stacked background ((M, W, H, 48), or (M, T, W, H, 48) for time-varying
+    members) with a per-lane member map folded into the row gather
+    (``ray.sample_bg``), rk4 and rk45 alike; on the card that is one launch
+    of the branch's whole-run kernel (its time instance) for all members.
+    A lane's rows never depend on another lane's, so each member's rows are
+    those of its own ``trace_rays``. Rootless lanes are compacted away as
+    in ``trace_rays`` (their member ids move with them).
+
+    All members share the grid shape and dtype; time-varying members also
+    their frame count and time axis (bg_t0, bg_dt), else ValueError. The
+    run is in the fields' dtype: ``config.state_dtype`` is not read, as in
+    the JAX package. ``mesh`` (multi-GPU) is not ported yet. ``stats``:
+    as ``trace_rays``' (the flattened lanes' attempts of an rk45 run).
+    """
+    config.validate()
+    if mesh is not None:
+        raise NotImplementedError(
+            "trace_rays_ensemble does not serve a device mesh (ROADMAP "
+            "Slice 6, multi-GPU) yet")
+    why = _unsupported(config, None, None)
+    if why is not None:
+        raise NotImplementedError(f"trace_rays_ensemble does not serve {why} "
+                                  "yet")
+    if not bs_members:
+        raise ValueError("an ensemble needs at least one member")
+    first = bs_members[0]
+    dtype = first.fields.dtype
+    device = first.fields.device
+    for m in bs_members[1:]:
+        if m.fields.shape != first.fields.shape or m.fields.dtype != dtype:
+            raise ValueError("ensemble members must share the grid shape, "
+                             "frame count and dtype")
+        if first.fields.ndim == 4 and (m.bg_t0 != first.bg_t0
+                                       or m.bg_dt != first.bg_dt):
+            raise ValueError("time-varying ensemble members must share frame "
+                             "count and time metadata (bg_t0, bg_dt)")
+    if source_lon is None:
+        source_lon, source_lat = source_matrix(
+            config.sw_lon, config.sw_lat, config.dlon, config.dlat,
+            config.nnx, config.nny,
+        )
+
+    def to_dev(a):
+        return torch.as_tensor(np.asarray(a)).to(device=device, dtype=dtype)
+
+    source_lon = to_dev(source_lon)
+    source_lat = to_dev(source_lat)
+    zwn = to_dev(config.zwn_array())
+    members = [make_background(m, config.freq) for m in bs_members]
+    inits = [initialize(bg, source_lon, source_lat, zwn, config.root_order)
+             for bg in members]
+    r_single = inits[0][0].shape[1]
+    ens_bg = members[0]._replace(
+        fields=torch.stack([bg.fields for bg in members]).contiguous(),
+        member_ids=torch.arange(
+            len(members), dtype=torch.int32,
+            device=device).repeat_interleave(r_single))
+    ys, ugs, vgs = _run_lanes(
+        ens_bg, *(torch.cat(x, dim=-1) for x in zip(*inits)), config,
+        False, stats)
+    out_shape = (config.nt, 3, source_lon.shape[0], len(config.zwn))
+    return [_traj_from(*(a[..., i * r_single:(i + 1) * r_single]
+                         for a in (ys, ugs, vgs)),
+                       lambda a: a.reshape(out_shape))
+            for i in range(len(members))]
 
 
 def _traj_from(ys, ugs, vgs, reshape):

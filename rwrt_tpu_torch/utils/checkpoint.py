@@ -403,7 +403,7 @@ def trace_rays_chunked(
         """Reorder lanes by current grid cell (stable; NaN lanes last)."""
         nonlocal y, t, h, f, lane_to_ray
         ylon, ylat = y[0].cpu().numpy(), y[1].cpu().numpy()
-        w, hgt = bs.fields.shape[0], bs.lat.shape[0]
+        w, hgt = bs.fields.shape[-3], bs.lat.shape[0]
         ix = np.floor((ylon % (2.0 * np.pi) - float(bs.lon[0])) / bs.dx)
         iy = np.floor((ylat - float(bs.lat[0])) / bs.dy)
         cell = np.clip(ix, 0, w - 1) * hgt + np.clip(iy, 0, hgt - 1)
@@ -435,7 +435,9 @@ def trace_rays_chunked(
         run = None
         split.unit_start()
         if not rk45:
-            y, (ys, ugs, vgs) = _tracer._rk4_chunk(bg, y, dt, n, cut_off)
+            # The carry is row step - 1, at model time (step - 1) * tstep.
+            y, (ys, ugs, vgs) = _tracer._rk4_chunk(
+                bg, y, dt, n, cut_off, t_start=(step - 1) * config.tstep)
         else:
             bounds = torch.arange(step, step + n, dtype=dtype,
                                   device=device) * dt

@@ -771,3 +771,262 @@ def test_chunked_driver_launches_once_per_chunk(jet_field, dev, branch,
         a, b = getattr(want, name), getattr(got, name)
         assert b.device.type == "cpu" and a.dtype == b.dtype, name
         assert same(a.cpu(), b), name
+
+
+# ---- Time-varying and ensemble backgrounds: the time instances ----
+
+DAY = 86400.0
+#: The (state, field) dtypes of the time instances' tests.
+KEYS = {"float32": (torch.float32, torch.float32),
+        "float64": (torch.float64, torch.float64),
+        "mixed": (torch.float64, torch.float32)}
+#: Backgrounds: time-varying; an ensemble of static members; an ensemble
+#: of time-varying members.
+KINDS = ["time", "member", "member_time"]
+
+
+def frames(jet_field, nt=5, scale=1.0):
+    """nt daily-ish wind frames: the jet's amplitude varies and the wave
+    drifts east, frame by frame (a member's ``scale`` multiplies u)."""
+    u, v, lat, lon = jet_field
+    fu = np.stack([scale * (1.0 + 0.15 * np.sin(k)) * u for k in range(nt)])
+    fv = np.stack([np.roll(v, 2 * k, axis=0) for k in range(nt)])
+    return fu, fv, lat, lon
+
+
+def varying_background(jet_field, kind, dtype, dev, lanes_=None):
+    """A ``kind`` background on the card, its frames 0.2 days apart from
+    -0.3 days (so the 1-day runs below cross every frame and pass the
+    last); with ``lanes_``, an ensemble's member map cycles over the
+    members lane by lane."""
+    def state(scale=1.0):
+        fu, fv, lat, lon = frames(jet_field, scale=scale)
+        if kind == "member":
+            return pt.prepare(fu[0], fv[0], lat, lon, cal_dtype=dtype,
+                              device=dev)
+        return pt.prepare_time_varying(fu, fv, lat, lon, bg_t0=-0.3 * DAY,
+                                       bg_dt=0.2 * DAY, cal_dtype=dtype,
+                                       device=dev)
+
+    if kind == "time":
+        return tracer.make_background(state(), 0.0)
+    members = [tracer.make_background(state(s), 0.0) for s in (0.9, 1.1,
+                                                                1.0)]
+    ids = torch.arange(lanes_, device=dev, dtype=torch.int32) % len(members)
+    return members[0]._replace(
+        fields=torch.stack([m.fields for m in members]).contiguous(),
+        member_ids=ids)
+
+
+def varying_inputs(jet_field, kind, key, dev, n=207):
+    """``dense_run_inputs`` over a ``kind`` background (the static jet
+    seeds the lanes), cut to n lanes, with h0 and f0 from the varying
+    background at t = 0."""
+    state, field = KEYS[key]
+    _, bg0 = background(jet_field, field, dev)
+    (y0, ug0, vg0, *_), rtol = dense_run_inputs(bg0, field, dev,
+                                                state=state)
+    y0, ug0, vg0 = lanes((y0, ug0, vg0), n)
+    bg = varying_background(jet_field, kind, field, dev, n)
+    h0 = tracer.initial_step_sizes(bg, y0, rtol, 1e-6)
+    return bg, y0, ug0, vg0, h0, rtol
+
+
+@pytest.mark.parametrize("gv", [False, True])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rhs_time_instance_equals_plain(jet_field, dev, dtype, kind, gv):
+    """The RHS kernel's time instance at per-lane times over every frame,
+    between them and past both ends: bitwise equal to ``_rhs_core``."""
+    y = seeded_states(dtype, dev)
+    bg = varying_background(jet_field, kind, dtype, dev, y.shape[1])
+    rng = np.random.default_rng(3)
+    t = rng.uniform(-1.0 * DAY, 1.5 * DAY, y.shape[1])
+    t[:40] = -0.3 * DAY + 0.2 * DAY * np.arange(40)  # on the frames, past
+    t = torch.as_tensor(t, dtype=dtype, device=dev)
+    before = ray.LAUNCHES
+    if gv:
+        k = ray.rhs_and_gv(bg, y, t)
+        p = ray._rhs_core(bg, y, t, True)
+        p = (p[0], p[2], p[3])
+    else:
+        k = ray.rhs(bg, y, t)
+        p = ray._rhs_core(bg, y, t, False)[:2]
+    assert ray.LAUNCHES == before + 1
+    for a, b in zip(k, p):
+        assert same(a, b) if a.is_floating_point() else torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", LANES)
+@pytest.mark.parametrize("instance", INSTANCES)
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("key", list(KEYS))
+def test_rk4_time_instances_equal_plain(jet_field, dev, key, kind, instance,
+                                        n):
+    """Every instance of the RK4 kernel's time instances against the plain
+    loop, bitwise: the whole run, and a chunk entered at step 10's time."""
+    bg, y0, ug0, vg0, _, _ = varying_inputs(jet_field, kind, key, dev, n)
+    y0 = amp_nan(y0)
+    before = tracer.RK4_LAUNCHES
+    k = tracer._run_rk4_cuda(bg, y0, ug0, vg0, 7200.0, 13, 0.03, instance)
+    assert tracer.RK4_LAUNCHES == before + 1
+    p = tracer._run_rk4_plain(bg, y0, ug0, vg0, 7200.0, 13, 0.03)
+    for a, b in zip(k, p):
+        assert same(a, b)
+    carry = k[0][10].contiguous()
+    outs = tracer._rk4_buffers(carry, 6)
+    y_k = tracer._rk4_launch(bg, carry, 7200.0, 6, 0.03, *outs, 0,
+                             instance=instance, t_start=10 * 7200.0)
+    ref = tracer._rk4_buffers(carry, 6)
+    y_p = rk4.trace_into(bg, carry, 7200.0, 6, 0.03, *ref,
+                         t_start=10 * 7200.0)
+    for a, b in zip(outs + (y_k,), ref + (y_p,)):
+        assert same(a, b)
+
+
+@pytest.mark.parametrize("case", ["default", "barrier"])
+@pytest.mark.parametrize("n", LANES)
+@pytest.mark.parametrize("instance", INSTANCES)
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("key", list(KEYS))
+def test_exact_run_time_instances_equal_plain(jet_field, dev, key, kind,
+                                              instance, n, case):
+    """Every instance of the whole-run exact kernel's time instances,
+    grouped and with the barrier flag, against the plain run, bitwise."""
+    bg, y0, ug0, vg0, h0, rtol = varying_inputs(jet_field, kind, key, dev, n)
+    barrier = case == "barrier"
+    y0 = overflow(y0) if barrier else amp_nan(y0)
+    f0 = ray.RayRHS(bg)(y0)
+    bounds_g = tracer.padded_bounds(7200.0, 13, 1 if barrier else 5,
+                                    y0.dtype, dev)
+    args = (bg, y0, ug0, vg0, h0, f0, bounds_g, 12, 0.2, rtol, 1e-6, 7.2)
+    kw = dict(max_iters=100_000, barrier=True) if barrier else {}
+    k = tracer._exact_run_cuda(*args, instance=instance, **kw)
+    p = tracer._exact_run_plain(*args, **kw)
+    for a, b in zip(k[:3] + k.carry, p[:3] + p.carry):
+        assert a.dtype == b.dtype and same(a, b)
+    assert torch.equal(k.lane_att, p.lane_att)
+    assert torch.equal(k.trunc, p.trunc)
+
+
+@pytest.mark.parametrize("case", ["pin", "nopin", "cutoff"])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("key", list(KEYS))
+def test_dense_run_time_instance_equals_plain(jet_field, dev, key, kind,
+                                              case):
+    """The whole-run dense kernel's time instances: one launch; rows, ug,
+    vg (each at its bound's time), attempts, truncation counts and carry
+    bitwise equal to the plain run."""
+    bg, y0, ug0, vg0, h0, rtol = varying_inputs(jet_field, kind, key, dev)
+    kw = dict(DENSE_RUN_CASES[case])
+    cut_off = kw.pop("cut_off")
+    f0 = ray.RayRHS(bg)(y0)
+    bounds_g = tracer.padded_bounds(7200.0, 13, 5, y0.dtype, dev)
+    args = (bg, y0, ug0, vg0, h0, f0, bounds_g, 12, cut_off, rtol, 1e-6, 7.2)
+    before = tracer.LAUNCHES
+    k = tracer._dense_run(*args, **kw)
+    assert tracer.LAUNCHES == before + 1
+    p = tracer._dense_run_plain(*args, **kw)
+    for a, b in zip(k[:3] + k.carry, p[:3] + p.carry):
+        assert a.dtype == b.dtype and same(a, b)
+    assert torch.equal(k.lane_att, p.lane_att)
+    assert torch.equal(k.trunc, p.trunc)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_single_group_kernels_refuse_time(jet_field, dev, kind):
+    """The single-group kernels have static instances only: a time-varying
+    or ensemble background raises NotImplementedError on the card."""
+    bg, y0, _, _, h0, rtol = varying_inputs(jet_field, kind, "float32", dev)
+    f0 = ray.RayRHS(bg)(y0)
+    t0 = torch.zeros_like(h0)
+    bounds = torch.arange(1, 6, dtype=y0.dtype, device=dev) * 7200.0
+    with pytest.raises(NotImplementedError, match="item 18"):
+        rk45.integrate_group(ray.RayRHS(bg), None, y0, t0, h0, f0, bounds,
+                             y0[0].clone(), y0[1].clone(), 0.03, rtol, 1e-6,
+                             7.2)
+    with pytest.raises(NotImplementedError, match="item 18"):
+        rk45.integrate_group_dense(ray.RayRHS(bg), y0, t0, h0, f0, bounds,
+                                   rtol, 1e-6, 7.2)
+
+
+TIME_CFG = dict(zwn=(2.0, 4.0, 6.0), sw_lon=0.0, sw_lat=5.0, dlon=36.0,
+                dlat=8.0, nnx=5, nny=4, tstep=7200.0, ttotal=2 * DAY)
+
+
+def branch_config(branch, **kw):
+    return pt.RunConfig(
+        integrator="rk4" if branch == "rk4" else "rk45",
+        bound_mode="dense" if branch.startswith("dense") else "exact",
+        interval_batch=1 if branch == "exact_batch1" else 8,
+        pin_limit=500 if branch == "dense_pin" else None, pin_mwn=0.0,
+        **dict(TIME_CFG, **kw))
+
+
+def launch_counts():
+    return (tracer.LAUNCHES, tracer.RK4_LAUNCHES, tracer.EXACT_LAUNCHES,
+            rk45.LAUNCHES, rk45.EXACT_LAUNCHES)
+
+
+def launched(before, branch, n=1):
+    """The launches since ``before`` of a ``branch`` run of n launches."""
+    after = launch_counts()
+    want = [0] * 5
+    want[{"rk4": 1, "dense": 0, "dense_pin": 0}.get(branch, 2)] = n
+    return tuple(a - b for a, b in zip(after, before)) == tuple(want)
+
+
+BRANCHES = ["rk4", "exact", "exact_batch1", "dense", "dense_pin"]
+
+
+@pytest.mark.parametrize("state", ["compute", "float64"],
+                         ids=["float32", "mixed"])
+@pytest.mark.parametrize("branch", BRANCHES)
+def test_trace_rays_time_varying_launches_once(jet_field, dev, branch,
+                                               state):
+    """``trace_rays`` on a time-varying state on the card: one launch of
+    the branch's whole-run kernel; the chunked driver one a chunk, its rows
+    bitwise equal to the one-launch run's (chunks of the group, no
+    compaction)."""
+    from rwrt_tpu_torch.utils import checkpoint
+
+    fu, fv, lat, lon = frames(jet_field)
+    bs = pt.prepare_time_varying(fu, fv, lat, lon, bg_t0=-0.3 * DAY,
+                                 bg_dt=0.2 * DAY, cal_dtype="float32",
+                                 device=dev)
+    cfg = branch_config(branch, state_dtype=state, compact_dead=False)
+    before = launch_counts()
+    want = pt.trace_rays(bs, cfg)
+    assert launched(before, branch)
+    alive = torch.isfinite(want.ky[-1])
+    assert alive.any() and torch.isfinite(want.lat[-1][alive]).all()
+    before = launch_counts()
+    got = checkpoint.trace_rays_chunked(bs, cfg, chunk_steps=8,
+                                        verbose=False, sort_rays=True)
+    assert launched(before, branch, 3)
+    for name in want._fields:
+        assert same(getattr(want, name).cpu(), getattr(got, name)), name
+
+
+@pytest.mark.parametrize("time", [False, True], ids=["static", "varying"])
+@pytest.mark.parametrize("branch", BRANCHES)
+def test_ensemble_members_equal_their_own_runs(jet_field, dev, branch,
+                                               time):
+    """``trace_rays_ensemble`` on the card: one launch for all members, and
+    each member's rows bitwise equal to its own ``trace_rays``."""
+    def member(scale):
+        fu, fv, lat, lon = frames(jet_field, scale=scale)
+        if not time:
+            return pt.prepare(fu[0], fv[0], lat, lon, device=dev)
+        return pt.prepare_time_varying(fu, fv, lat, lon, bg_t0=-0.3 * DAY,
+                                       bg_dt=0.2 * DAY, device=dev)
+
+    members = [member(s) for s in (0.9, 1.1, 1.0)]
+    cfg = branch_config(branch)
+    before = launch_counts()
+    ens = pt.trace_rays_ensemble(members, cfg)
+    assert launched(before, branch)
+    for m, traj in zip(members, ens):
+        own = pt.trace_rays(m, cfg)
+        for name in own._fields:
+            assert same(getattr(own, name), getattr(traj, name)), name
