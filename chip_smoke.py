@@ -27,7 +27,9 @@ chunks, one launch each, and the 90-day production run through
 time-varying background (the climatology in daily frames: the jet's
 amplitude varying seasonally, its waves drifting east; ``rt.
 prepare_time_varying``) through the kernels' time instances, and
-``trace_rays_ensemble`` over four "reanalysis year" members.
+``trace_rays_ensemble`` over four "reanalysis year" members. Then the
+file-driven pipeline: ``python -m rwrt_tpu_torch --config run.json`` in
+process over wind files of the climatology.
 
 Phases (any failed check raises; nothing is caught but the truncation the
 exact_path phase requires and the chunk budget the chunked phase sets):
@@ -153,6 +155,28 @@ exact_path phase requires and the chunk budget the chunked phase sets):
                ``lerp_coeffs`` at day 10, the spectral kernel at the
                time-varying run's day-10 positions against the plain
                sampler (the spectral phase's float32 bar)
+  cli          ``rwrt_tpu_torch.__main__.main`` with --report, every
+               counter reset just before each run and read just after:
+               examples/reference_run.json (6,615 rays, RK4, float64, 90
+               days) with --chunked (17 RK4 launches) and a basic-state
+               file; the production-size run (80 x 60 sources x zwn 1..7 =
+               100,800 rays, dense with pin, float32, 30 days) with
+               --wnmaps (one dense launch); CLI_SHORT_DAYS-day runs over
+               the README's sources: a 3-D wind file of 31 daily frames
+               with a time variable (the time instance), a two-file
+               ensemble (fused: one launch) and the reference run in
+               root_order='fortran'. Each trajectory file bitwise equal,
+               after the writer's rad2deg, to the same config through the
+               library in process; the reports' termination counts equal
+               to ``analyze`` on it; the basic-state and wavenumber-map
+               files with the JAX writers' variables and shapes, bitwise
+               the in-process state and ``compute_wavenumber_maps``, the
+               reference run's basic state within BS_CPU_BAR of a CPU
+               ``prepare`` and the maps within WN_CPU_BAR of the CPU
+               port's on the same state; the
+               fortran seeds' sorted roots against canonical order and
+               their slots against the CPU port's. Prints each run's wall
+               split (its report) and file bytes
 
 The RK4 and exact kernels' instances are timed in turns (TURNS) on the
 same inputs at eight shapes (RK4 at production seeding and in the default
@@ -1362,17 +1386,13 @@ def traced(run, cfg, launches_of, n_launches=1, driver=None, stop=(),
     ended the run, or None; traj is None then)."""
     torch = run.torch
     from rwrt_tpu_torch import tracer
-    from rwrt_tpu_torch.models import ray
-    from rwrt_tpu_torch.ops import spectral_sample as spec
-    from rwrt_tpu_torch.solvers import rk45
 
     bs = run.bs(torch.float32) if bs is None else bs
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     stats = {}
-    ray.LAUNCHES = rk45.LAUNCHES = rk45.EXACT_LAUNCHES = spec.LAUNCHES = 0
-    tracer.LAUNCHES = tracer.RK4_LAUNCHES = tracer.EXACT_LAUNCHES = 0
+    reset_launches()
     t0 = time.perf_counter()
     try:
         traj = (driver or run.rt.trace_rays)(bs, cfg, stats=stats, **kw)
@@ -1381,17 +1401,40 @@ def traced(run, cfg, launches_of, n_launches=1, driver=None, stop=(),
         traj, refused = None, e
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    launches = read_launches(launches_of, n_launches, "trace_rays")
+    return traj, launches, wall, peak, stats, refused
+
+
+def reset_launches():
+    """Set every kernel wrapper's launch counter to 0."""
+    from rwrt_tpu_torch import tracer
+    from rwrt_tpu_torch.models import ray
+    from rwrt_tpu_torch.ops import spectral_sample as spec
+    from rwrt_tpu_torch.solvers import rk45
+
+    ray.LAUNCHES = rk45.LAUNCHES = rk45.EXACT_LAUNCHES = spec.LAUNCHES = 0
+    tracer.LAUNCHES = tracer.RK4_LAUNCHES = tracer.EXACT_LAUNCHES = 0
+
+
+def read_launches(launches_of, n_launches, what):
+    """The counters since ``reset_launches``: fails unless ``launches_of``
+    launched ``n_launches`` times and no other kernel but the RHS ran."""
+    from rwrt_tpu_torch import tracer
+    from rwrt_tpu_torch.models import ray
+    from rwrt_tpu_torch.ops import spectral_sample as spec
+    from rwrt_tpu_torch.solvers import rk45
+
     launches = {"rhs": ray.LAUNCHES, "dense_group": rk45.LAUNCHES,
                 "dense_run": tracer.LAUNCHES, "spectral": spec.LAUNCHES,
                 "rk4_run": tracer.RK4_LAUNCHES,
                 "exact_group": rk45.EXACT_LAUNCHES,
                 "exact_run": tracer.EXACT_LAUNCHES}
-    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
     for k, n in launches.items():
         want = n_launches if k == launches_of else None if k == "rhs" else 0
         check(want is None or n == want,
-              f"trace_rays made {n} {k} launches, not {want}")
-    return traj, launches, wall, peak, stats, refused
+              f"{what} made {n} {k} launches, not {want}")
+    return launches
 
 
 def check_rows(traj, idx, kern, what):
@@ -2534,6 +2577,375 @@ def phase_time_spectral(run):
           f"day 10, R={lon.shape[0]} day-10 positions, max err / channel max "
           f"{e:.3e} (bar 1e-05), wrapper {ms:.4f} ms")
 
+#: The cli phase: the production-size run's source matrix (80 x 60 = 4800
+#: sources x zwn 1..7 = 100,800 rays), the short cases' days, and the
+#: variables the JAX package's writers put in each file.
+CLI_MATRIX = dict(sw_lon=0.0, dlon=4.5, nnx=80, sw_lat=-59.0, dlat=2.0,
+                  nny=60)
+CLI_SHORT_DAYS = 10
+BS_FILE_KEYS = {"u", "v", "ux", "uy", "vx", "vy", "qx", "qy", "qxx", "qxy",
+                "qyx", "qyy", "qxxx", "qxxy", "qxyy", "qyyy", "qyxx", "qyyx",
+                "uxx", "uyy", "vxx", "vyy", "q", "betam", "KS", "lon", "lat"}
+TRAJ_FILE_KEYS = {"zwn", "source_index", "time_index", "rlon", "rlat",
+                  "rzwn", "rmwn", "ramp", "rug", "rvg"}
+WN_FILE_KEYS = {"lon", "lat", "zwn", "mwn", "rootnum", "ug", "vg", "KS"}
+
+
+def save_wind(path, u, v, lat, lon, **extra):
+    """A wind file in the NetCDF convention: (..., lat, lon), degrees."""
+    np.savez(path, u=np.swapaxes(u, -1, -2), v=np.swapaxes(v, -1, -2),
+             lat=np.degrees(lat), lon=np.degrees(lon), **extra)
+    return str(path)
+
+
+def cli_run(run, tmp, name, cfg, flags, launches_of, n_launches):
+    """``python -m rwrt_tpu_torch --config <name>.json --report ...`` in
+    process (``rwrt_tpu_torch.__main__.main``, on the card), every launch
+    counter set to 0 just before it and read just after. ``cfg`` is the
+    JSON (inputuv, bsfile, ncfile and RunConfig keys). Returns (report,
+    launches, wall s)."""
+    import os
+
+    torch = run.torch
+    from rwrt_tpu_torch.__main__ import main as cli
+
+    path = os.path.join(tmp, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    report = os.path.join(tmp, f"{name}_report.json")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    check(cli(["--config", path, "--report", report] + flags) == 0,
+          f"cli {name}: nonzero exit")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(launches_of, n_launches, f"cli {name}")
+    with open(report) as f:
+        rep = json.load(f)
+    check(rep["backend"] == "cuda" and rep["device_name"]
+          == torch.cuda.get_device_name(0), f"cli {name}: report device")
+    return rep, launches, wall
+
+
+def file_equals(path, traj, what):
+    """The trajectory file holds the in-process trajectory, bitwise after
+    the writer's rad2deg, with the JAX writer's variables. Returns the
+    seconds the writer's arrays took (the copy to the host, rad2deg)."""
+    from rwrt_tpu_torch.io import ncio
+
+    got = ncio.load_trajectories(path)
+    check(set(got) == TRAJ_FILE_KEYS, f"{what}: file keys {sorted(got)}")
+    t0 = time.perf_counter()
+    want = ncio.trajectory_arrays(traj)
+    seconds = time.perf_counter() - t0
+    for k, a in want.items():
+        check(same_bits(a, got[k]), f"{what}: {k} differs from the in-process "
+              "run")
+    return seconds
+
+
+def same_bits(a, b):
+    """Equal shapes, dtypes and NaN masks, and bitwise equal elsewhere."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and np.array_equal(np.isnan(a), np.isnan(b))
+            and np.array_equal(np.nan_to_num(a), np.nan_to_num(b)))
+
+
+def on_cpu(bs):
+    """A copy of a card BasicState on the CPU, the same values."""
+    return bs._replace(**{k: getattr(bs, k).cpu() for k in (
+        "fields", "lon", "lat", "betam", "ks", "q")})
+
+
+#: The basic-state file against a CPU ``prepare`` of the same wind file in
+#: float64: of each field's largest magnitude. The third derivatives of q
+#: amplify a one-ulp difference of the card's and the host's sin/cos by
+#: orders of magnitude (the tests' float64 bar, 1e-11, holds two CPU
+#: packages to each other).
+BS_CPU_BAR = 1e-9
+#: The wavenumber maps against the CPU port on the same float32 state: of
+#: each map's largest magnitude where the root counts agree, and the share
+#: of (point, zwn) entries whose root count or NaN mask may differ (a
+#: discriminant at float32 round-off of zero flips the count).
+WN_CPU_BAR, WN_CPU_SHARE = 1e-4, 1e-4
+
+
+def bs_file_equals(path, bs, cpu, what):
+    """The basic-state file: the JAX writer's variables and shapes, each
+    field bitwise the in-process card state's; with ``cpu`` (a float64
+    state prepared on the CPU from the same file), each field within
+    BS_CPU_BAR of it, NaN masks equal. Returns that largest error."""
+    from rwrt_tpu_torch.io import ncio
+
+    want = ncio.basic_state_fields(bs)
+    worst = 0.0
+    with np.load(path) as ds:
+        check(set(ds.files) == BS_FILE_KEYS and ds["u"].shape == (144, 73)
+              and ds["KS"].shape == (144, 73),
+              f"{what}: basic-state file keys or shapes")
+        for k, a in want.items():
+            check(same_bits(a, ds[k]), f"{what}: basic-state {k} differs "
+                  "from the in-process state")
+    if cpu is not None:
+        for k, r in ncio.basic_state_fields(cpu).items():
+            a = want[k]
+            check(np.array_equal(np.isnan(a), np.isnan(r)),
+                  f"{what}: basic-state {k} NaN mask differs from the CPU's")
+            worst = max(worst, float(np.nanmax(np.abs(a - r))
+                                     / max(np.nanmax(np.abs(r)), 1e-300)))
+        check(worst <= BS_CPU_BAR, f"{what}: basic state {worst:.3e} from "
+              f"the CPU's > {BS_CPU_BAR}")
+    return worst
+
+
+def maps_equal(path, bs, zwn, what):
+    """The wavenumber-map file: the JAX writer's variables and shapes,
+    mwn / rootnum / ug / vg bitwise ``compute_wavenumber_maps`` in process
+    on the same card state, KS the state's; and those maps against the CPU
+    port's on a CPU copy of the state, within WN_CPU_BAR and WN_CPU_SHARE.
+    Returns (entries whose count or mask differ, largest error per map)."""
+    from rwrt_tpu_torch.diagnostics import compute_wavenumber_maps
+
+    card = compute_wavenumber_maps(bs, zwn)
+    host = {k: getattr(card, k).cpu().numpy()
+            for k in ("mwn", "rootnum", "ug", "vg")}
+    nz = len(zwn)
+    with np.load(path) as ds:
+        check(set(ds.files) == WN_FILE_KEYS
+              and ds["mwn"].shape == (144, 73, nz, 3)
+              and ds["rootnum"].shape == (144, 73, nz),
+              f"{what}: wavenumber-map file keys or shapes")
+        for k, a in host.items():
+            check(same_bits(a, ds[k]), f"{what}: map {k} differs from "
+                  "compute_wavenumber_maps in process")
+        check(same_bits(bs.ks.cpu().numpy(), ds["KS"]),
+              f"{what}: map KS differs from the state's")
+    ref = compute_wavenumber_maps(on_cpu(bs), zwn)
+    agree = host["rootnum"] == ref.rootnum.numpy()
+    off = int(np.sum(~agree))
+    errs = {}
+    for k in ("mwn", "ug", "vg"):
+        a, r = host[k], getattr(ref, k).numpy()
+        both = agree[..., None] & ~np.isnan(a) & ~np.isnan(r)
+        off += int(np.sum(agree[..., None] & (np.isnan(a) != np.isnan(r))))
+        errs[k] = float(np.max(np.abs(a - r)[both], initial=0.0)
+                        / np.nanmax(np.abs(r)))
+    check(off <= WN_CPU_SHARE * agree.size
+          and max(errs.values()) <= WN_CPU_BAR,
+          f"{what}: maps against the CPU port's: {off} of {agree.size} "
+          f"entries differ in count or mask, errors {errs}")
+    return off, errs
+
+
+def print_cli(name, rep, launches, wall, files):
+    """The run's wall split (its --report), launches and file bytes."""
+    import os
+
+    split = rep["wall_s"]
+    sizes = {k: os.path.getsize(p) for k, p in files.items()}
+    trajs = rep.get("members") or [rep["trajectories"]]
+    print(f"cli {name}: {len(trajs)} x {trajs[0]['n_rays']} rays x "
+          f"{trajs[0]['nt']} rows, wall {wall:.3f} s; report wall split (s) "
+          f"{json.dumps(split)}, io share {split['io'] / split['total']:.4f}"
+          f"; launches {launches}; file bytes {json.dumps(sizes)}; "
+          f"termination {json.dumps([t['termination'] for t in trajs])}")
+
+
+def phase_cli(run):
+    """The file-driven pipeline on the card: ``python -m rwrt_tpu_torch``
+    in process over wind files of the climatology. The reference run
+    (examples/reference_run.json: 6,615 rays, RK4, float64, 90 days) with
+    --chunked; the production-size run (the 80 x 60 source matrix, 100,800
+    rays, dense with pin, float32, 30 days) with --wnmaps and a basic-state
+    file, in one launch; then CLI_SHORT_DAYS-day cases: a 3-D wind file
+    (the time instance), a two-file ensemble (fused, one launch) and the
+    reference run in root_order='fortran'. Each file against the same
+    config through the library in process, bitwise; the basic-state and
+    map files against the in-process state and maps, bitwise, and against
+    the CPU port's; the reports' termination counts against ``analyze``;
+    the launches per run or chunk."""
+    import os
+    import tempfile
+
+    torch = run.torch
+    rt = run.rt
+    from rwrt_tpu_torch import tracer
+    from rwrt_tpu_torch.diagnostics import termination
+    from rwrt_tpu_torch.io import ncio
+
+    with open(REPO / "examples" / "reference_run.json") as f:
+        reference = json.load(f)
+
+    def state(path, cfg):
+        """The library path's state from the same file."""
+        u, v, lat, lon, times = ncio.load_wind(path, cfg.read_dtype,
+                                               with_time=True)
+        kw = dict(read_dtype=cfg.read_dtype, cal_dtype=cfg.cal_dtype,
+                  device=run.dev)
+        if u.ndim == 3:
+            return rt.prepare_time_varying(u, v, lat, lon, bg_t0=times[0],
+                                           bg_dt=times[1] - times[0], **kw)
+        return rt.prepare(u, v, lat, lon, **kw)
+
+    def config(js):
+        return rt.RunConfig(**{k: tuple(x) if isinstance(x, list) else x
+                               for k, x in js.items()
+                               if not k.startswith("_") and k not in (
+                                   "inputuv", "bsfile", "ncfile")})
+
+    def counts_equal(rep, traj, what):
+        """Returns the seconds ``analyze`` took."""
+        t0 = time.perf_counter()
+        want = termination.analyze(traj).counts
+        check(rep == want, f"{what}: report termination {rep} != {want}")
+        return time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        u, v, lat, lon = climatology_background()
+        static = save_wind(os.path.join(tmp, "uv.npz"), u, v, lat, lon)
+        uf, vf, _, _ = climatology_frames(TV_DAYS + 1)
+        frames = save_wind(os.path.join(tmp, "uv_daily.npz"), uf, vf, lat,
+                           lon, time=np.arange(TV_DAYS + 1) * DAY)
+        members = []
+        for i, (sc, ph) in enumerate(zip(MEMBER_SCALES[:2],
+                                         MEMBER_PHASES[:2])):
+            um, vm, _, _ = climatology_frames(1, sc, ph)
+            members.append(save_wind(os.path.join(tmp, f"uv_year{i}.npz"),
+                                     um[0], vm[0], lat, lon))
+
+        # The reference run, chunked: one RK4 launch per chunk.
+        js = dict(reference, inputuv=static,
+                  bsfile=os.path.join(tmp, "bs_out.npz"),
+                  ncfile=os.path.join(tmp, "ray_out.npz"))
+        cfg = config(js)
+        n_chunks = -(-(cfg.nt - 1) // 64)
+        rep, launches, wall = cli_run(run, tmp, "reference", js,
+                                      ["--chunked"], "rk4_run", n_chunks)
+        traj = rt.trace_rays_chunked(state(static, cfg), cfg, verbose=False)
+        file_equals(js["ncfile"], traj, "cli reference")
+        counts_equal(rep["trajectories"]["termination"], traj,
+                     "cli reference")
+        u32, v32, lat32, lon32 = ncio.load_wind(static, cfg.read_dtype)
+        bs_err = bs_file_equals(
+            js["bsfile"], state(static, cfg), rt.prepare(
+                u32, v32, lat32, lon32, read_dtype=cfg.read_dtype,
+                cal_dtype=cfg.cal_dtype, device="cpu"), "cli reference")
+        print_cli("reference", rep, launches, wall,
+                  {"ncfile": js["ncfile"], "bsfile": js["bsfile"]})
+        print(f"  cli reference: basic-state file bitwise the in-process "
+              f"state's; {bs_err:.3e} of each field's max from a CPU "
+              f"prepare (bar {BS_CPU_BAR})")
+        del traj
+
+        # The production-size run: one dense launch, the wavenumber maps.
+        js = dict(CLI_MATRIX, inputuv=static,
+                  bsfile=os.path.join(tmp, "bs_prod.npz"),
+                  ncfile=os.path.join(tmp, "ray_prod.npz"),
+                  zwn=[float(z) for z in range(1, 8)], tstep=2 * HOUR,
+                  ttotal=N_DAYS * DAY, integrator="rk45",
+                  bound_mode="dense", interval_batch=60, rtol=1e-6,
+                  atol=1e-6, min_step_factor=1e-3, cut_off=0.1,
+                  pin_limit=500, pin_mwn=0.0, cal_dtype="float32")
+        wn = os.path.join(tmp, "wn_prod.npz")
+        cfg = config(js)
+        rep, launches, wall = cli_run(run, tmp, "production", js,
+                                      ["--wnmaps", wn], "dense_run", 1)
+        check(rep["trajectories"]["n_rays"] == 100_800,
+              "cli production: not 100,800 rays")
+        bs = state(static, cfg)
+        traj = rt.trace_rays(bs, cfg)
+        arrays_s = file_equals(js["ncfile"], traj, "cli production")
+        analyze_s = counts_equal(rep["trajectories"]["termination"], traj,
+                                 "cli production")
+        bs_file_equals(js["bsfile"], bs, None, "cli production")
+        off, errs = maps_equal(wn, bs, cfg.zwn_array(), "cli production")
+        print_cli("production", rep, launches, wall,
+                  {"ncfile": js["ncfile"], "bsfile": js["bsfile"],
+                   "wnmaps": wn})
+        io = rep["wall_s"]["io"]
+        print(f"  cli production io parts, timed on the in-process run: the "
+              f"writer's arrays (copy to the host, rad2deg) {arrays_s:.3f} "
+              f"s; the rest of io (the files' np.savez_compressed, the "
+              f"maps) {io - arrays_s:.3f} s of {io:.3f}; analyze "
+              f"{analyze_s:.3f} s, outside the report's split")
+        print(f"  cli production: basic-state and map files bitwise the "
+              f"in-process state's and maps; maps against the CPU port's: "
+              f"{off} (point, zwn) entries differ in count or mask, errors "
+              f"of each map's max {json.dumps(errs)} (bar {WN_CPU_BAR})")
+        del traj, bs
+
+        # Short cases over the README's sources.
+        short = dict(zwn=[float(z) for z in range(1, 8)],
+                     ttotal=CLI_SHORT_DAYS * DAY, integrator="rk45",
+                     bound_mode="dense", interval_batch=60,
+                     pin_limit=500, pin_mwn=0.0, cal_dtype="float32")
+        js = dict(short, inputuv=frames,
+                  ncfile=os.path.join(tmp, "ray_daily.npz"))
+        cfg = config(js)
+        rep, launches, wall = cli_run(run, tmp, "daily_frames", js, [],
+                                      "dense_run", 1)
+        check(rep["grid"]["time_varying"], "cli daily_frames: static grid")
+        traj = rt.trace_rays(state(frames, cfg), cfg)
+        file_equals(js["ncfile"], traj, "cli daily_frames")
+        print_cli("daily_frames", rep, launches, wall,
+                  {"ncfile": js["ncfile"]})
+
+        js = dict(short, inputuv=members,
+                  ncfile=os.path.join(tmp, "ray_{member}.npz"))
+        cfg = config(js)
+        rep, launches, wall = cli_run(run, tmp, "ensemble", js, [],
+                                      "dense_run", 1)
+        trajs = rt.trace_rays_ensemble([state(p, cfg) for p in members],
+                                       cfg)
+        for i, (traj, r) in enumerate(zip(trajs, rep["members"])):
+            file_equals(js["ncfile"].format(member=i), traj,
+                        f"cli ensemble member {i}")
+            counts_equal(r["termination"], traj, f"cli ensemble member {i}")
+        print_cli("ensemble", rep, launches, wall,
+                  {"ncfile_0": js["ncfile"].format(member=0)})
+
+        js = dict(reference, inputuv=static, root_order="fortran",
+                  ttotal=CLI_SHORT_DAYS * DAY, bsfile=None,
+                  ncfile=os.path.join(tmp, "ray_fortran.npz"))
+        cfg = config(js)
+        rep, launches, wall = cli_run(run, tmp, "fortran", js, [],
+                                      "rk4_run", 1)
+        bs = state(static, cfg)
+        traj = rt.trace_rays(bs, cfg)
+        file_equals(js["ncfile"], traj, "cli fortran")
+        # The seeds: per (source, zwn) the canonical roots, reordered.
+        bg = tracer.make_background(bs, cfg.freq)
+        src = [torch.as_tensor(x, dtype=torch.float64, device=run.dev)
+               for x in (*tracer.source_matrix(
+                   cfg.sw_lon, cfg.sw_lat, cfg.dlon, cfg.dlat, cfg.nnx,
+                   cfg.nny), cfg.zwn_array())]
+        fortran = traj.ky[0].cpu().numpy()
+        canon = tracer.initialize(bg, *src)[0][3].cpu().numpy().reshape(
+            fortran.shape)
+        a, b = (np.sort(np.where(np.isnan(x), np.inf, x), axis=0)
+                for x in (fortran, canon))
+        fin = np.isfinite(b)
+        check(np.array_equal(np.isfinite(a), fin)
+              and np.all(np.abs(a[fin] - b[fin])
+                         <= 1e-6 * np.maximum(1.0, np.abs(b[fin]))),
+              "cli fortran: sorted roots differ from the canonical ones")
+        moved = int(np.sum(np.any(np.nan_to_num(fortran)
+                                  != np.nan_to_num(canon), axis=0)))
+        cpu = tracer.initialize(
+            tracer.make_background(on_cpu(bs), cfg.freq),
+            *(x.cpu() for x in src), "fortran")[0][3].numpy()
+        check(np.array_equal(np.isnan(cpu), np.isnan(fortran.reshape(-1)))
+              and np.allclose(cpu, fortran.reshape(-1), rtol=1e-9,
+                              atol=1e-12, equal_nan=True),
+              "cli fortran: the slot layout differs from the CPU port's")
+        print_cli("fortran", rep, launches, wall, {"ncfile": js["ncfile"]})
+        print(f"  cli fortran: {moved} of {fin.shape[1] * fin.shape[2]} "
+              "(source, zwn) seeds in another slot order than canonical; "
+              "sorted roots within 1e-6 of canonical; slots as the CPU "
+              "port's")
+
+
 KERNELS = (
     ("rhs", "rwrt_tpu_torch/csrc/rhs.cu", "rwrt_tpu/models/ray.py:163"),
     ("dense_group", "rwrt_tpu_torch/csrc/dense_run.cu",
@@ -2622,7 +3034,7 @@ def main() -> int:
                   phase_mixed_drift, phase_mixed_rk4, phase_mixed_exact,
                   phase_mixed_chunked, phase_time_rhs, phase_time_main_path,
                   phase_time_paths, phase_time_chunked, phase_ensemble,
-                  phase_time_spectral):
+                  phase_time_spectral, phase_cli):
         t0 = time.perf_counter()
         phase(run)
         print(f"phase {phase.__name__[6:]} ok in "

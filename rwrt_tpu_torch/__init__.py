@@ -6,14 +6,21 @@ Dormand-Prince runs (and single groups of the latter two) and the spectral
 sampler (built from ``csrc/`` at first use on a CUDA device), and the
 chunked checkpoint/resume driver over them (``utils/checkpoint.py``), over
 static or time-varying backgrounds (``prepare_time_varying``) and ensembles
-of them (``trace_rays_ensemble``). The JAX
-package ``rwrt_tpu`` is the reference each module is tested against; this
-package never imports it or JAX.
+of them (``trace_rays_ensemble``), in canonical or the reference's
+('fortran') root order, from computed or given (``initial_state``) seeds.
+Above them the file-driven pipeline: wind ingest with regrid and SHSF,
+the basic-state, trajectory and wavenumber-map files (``io/ncio.py``), the
+run driver (``main.run``) and the CLI, ``python -m rwrt_tpu_torch --config
+run.json``. The JAX package ``rwrt_tpu`` is the reference each module is
+tested against; this package never imports it or JAX.
 """
+
+__version__ = "0.1.0"
 
 from rwrt_tpu_torch.config import RunConfig
 from rwrt_tpu_torch.models.basic_state import (BasicState, prepare,
-                                               prepare_time_varying)
+                                               prepare_time_varying,
+                                               regrid_to_uniform)
 from rwrt_tpu_torch.tracer import (RayTrajectories, source_matrix, trace_rays,
                                    trace_rays_ensemble)
 from rwrt_tpu_torch.utils.checkpoint import trace_rays_chunked
@@ -23,6 +30,7 @@ __all__ = [
     "BasicState",
     "prepare",
     "prepare_time_varying",
+    "regrid_to_uniform",
     "RayTrajectories",
     "source_matrix",
     "trace_rays",

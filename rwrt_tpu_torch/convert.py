@@ -1,6 +1,8 @@
-"""Carry state across from the JAX package as numpy.
+"""Carry state across between numpy and the port's tensors.
 
-The JAX package's ``BasicState`` and ``Background`` are NamedTuples of
+``host`` brings a tensor (any device) back as numpy, the one way the
+writers, the accounting and the host root solver read device data. The JAX
+package's ``BasicState`` and ``Background`` are NamedTuples of
 arrays; ``{k: np.asarray(v) for k, v in state._asdict().items()}`` turns
 one into a mapping of numpy arrays and scalars, and these functions build
 the port's counterpart from it. That lets a test hold the port's tracer
@@ -17,6 +19,15 @@ import torch
 from rwrt_tpu_torch.models.basic_state import BasicState, as_dtype
 from rwrt_tpu_torch.models.ray import Background
 from rwrt_tpu_torch.solvers.rk45 import as_scalar
+
+
+def host(x, dtype=None) -> np.ndarray:
+    """A tensor (any device) or array as numpy, without a copy where it
+    can: CPU tensors (memmap-backed ones included) share their memory; a
+    CUDA tensor is copied to the host. ``dtype`` converts on the host."""
+    if torch.is_tensor(x):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype)
 
 
 def _tensor(a, device, dtype):

@@ -16,6 +16,8 @@ from typing import Dict, NamedTuple
 
 import numpy as np
 
+from rwrt_tpu_torch.convert import host
+
 
 class TerminationReport(NamedTuple):
     """death_step: (3, nsource, nzwn) int; -1 = never born (no root),
@@ -24,17 +26,6 @@ class TerminationReport(NamedTuple):
     death_step: np.ndarray
     alive_frac: np.ndarray   # (nt,) fraction of born rays alive per step
     counts: Dict[str, int]
-
-
-def _host(x):
-    """A trajectory array as numpy without a copy where it can: CPU tensors
-    (memmap-backed ones included) share their memory; a CUDA tensor is
-    copied to the host."""
-    if isinstance(x, np.ndarray):
-        return x
-    if hasattr(x, "detach"):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
 
 
 def death_steps(traj, block: int = 64):
@@ -48,7 +39,7 @@ def death_steps(traj, block: int = 64):
     trajectories (``trace_rays_chunked(stream_dir=...)``) never materialize
     a full-history temporary.
     """
-    amp = _host(traj.amp)
+    amp = host(traj.amp)
     nt = amp.shape[0]
     shape = amp.shape[1:]
     born = np.isfinite(np.asarray(amp[0]))
@@ -68,7 +59,7 @@ def death_steps(traj, block: int = 64):
 
 def analyze(traj) -> TerminationReport:
     """Host-side accounting; coarse causes."""
-    lat = _host(traj.lat)
+    lat = host(traj.lat)
     nt = lat.shape[0]
     death_step, born, alive_counts = death_steps(traj)
 

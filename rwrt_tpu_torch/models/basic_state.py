@@ -10,7 +10,9 @@ beta_M and the stationary wavenumber Ks.
 The field tensor layout is ``(nlon_wrap, nlat, 18)``, as in the JAX package;
 ``prepare_time_varying`` stacks one such state per frame of a time-varying
 wind, ``(T, nlon_wrap, nlat, 18)``, with the model time of frame 0 and the
-frame spacing. ``regrid_to_uniform`` is not ported yet.
+frame spacing. ``regrid_to_uniform`` is the host-side bilinear regrid
+onto that uniform grid for the inputs ``prepare`` refuses (numpy, as in the
+JAX package).
 """
 
 from __future__ import annotations
@@ -102,10 +104,69 @@ def _check_uniform_axis(coord: np.ndarray, step: float, name: str,
         raise ValueError(
             f"{name} axis is not the uniform {expect} grid the compute "
             f"pipeline assumes: spacing deviates from {step:.6e} rad by up "
-            f"to {dev:.3e} rad (tolerance {tol:.1e}). Regrid it first "
-            "(rwrt_tpu.models.basic_state.regrid_to_uniform; not ported "
-            "yet)."
+            f"to {dev:.3e} rad (tolerance {tol:.1e}). "
+            "Regrid first: basic_state.regrid_to_uniform(u, v, lat, lon)."
         )
+
+
+def regrid_to_uniform(u, v, lat, lon, nlat=None, nlon=None):
+    """Bilinearly regrid winds from any monotonic grid onto the uniform grid.
+
+    Host-side, one-time preprocessing in numpy for inputs that ``prepare``
+    refuses (Gaussian reanalysis grids, regional subsets, ...). The interval
+    lookup is a searchsorted on the actual monotonic axes, and the longitude
+    axis is cyclic.
+
+    Args:
+      u, v: (nlon_in, nlat_in) winds on the source grid.
+      lat, lon: source coordinates in radians, ascending.
+      nlat, nlon: target resolution; defaults to the source counts (nlat
+        forced odd so the equator is a grid row, matching pole-to-pole
+        spacing pi/(nlat-1)).
+
+    Returns:
+      (u_out, v_out, lat_out, lon_out) on the uniform global grid.
+    """
+    u = np.asarray(u)
+    v = np.asarray(v)
+    lat = np.asarray(lat, np.float64)
+    lon = np.asarray(lon, np.float64)
+    if nlat is None:
+        nlat = lat.shape[0] if lat.shape[0] % 2 == 1 else lat.shape[0] + 1
+    if nlon is None:
+        nlon = lon.shape[0]
+    lat_out = -0.5 * pi + np.arange(nlat) * (pi / (nlat - 1))
+    lon_out = np.arange(nlon) * (2.0 * pi / nlon)
+
+    # Cyclic extension in lon so targets beyond the last source column
+    # interpolate across the wrap.
+    lon_ext = np.concatenate([lon, lon[:1] + 2.0 * pi])
+
+    def interp_axis(coord, targets):
+        """Interval index + fractional weight, clamped at the ends."""
+        i0 = np.clip(np.searchsorted(coord, targets, side="right") - 1,
+                     0, coord.shape[0] - 2)
+        wgt = (targets - coord[i0]) / (coord[i0 + 1] - coord[i0])
+        return i0, np.clip(wgt, 0.0, 1.0)
+
+    # Map each target into the source's own cyclic window [lon[0],
+    # lon[0]+2*pi), so a -180..180 source interpolates across its seam.
+    jx, wx = interp_axis(lon_ext, lon[0] + (lon_out - lon[0]) % (2.0 * pi))
+    jy, wy = interp_axis(lat, np.clip(lat_out, lat[0], lat[-1]))
+    jx1 = jx + 1
+
+    def regrid(f):
+        f_ext = np.concatenate([f, f[:1]], axis=0)
+        c00 = f_ext[jx[:, None], jy[None, :]]
+        c10 = f_ext[jx1[:, None], jy[None, :]]
+        c01 = f_ext[jx[:, None], jy[None, :] + 1]
+        c11 = f_ext[jx1[:, None], jy[None, :] + 1]
+        wxg = wx[:, None]
+        wyg = wy[None, :]
+        return ((1 - wxg) * (1 - wyg) * c00 + wxg * (1 - wyg) * c10
+                + (1 - wxg) * wyg * c01 + wxg * wyg * c11)
+
+    return regrid(u), regrid(v), lat_out, lon_out
 
 
 def _prepare_jit(u, v, lat, dx, dy, xcyclic: bool):

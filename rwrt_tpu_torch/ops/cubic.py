@@ -10,7 +10,8 @@ and ps = freq/zwn*R:
 Semantics kept: window-aware degree demotion, Cardano / trigonometric
 roots with two guarded Newton polishes, |Im| < delt counts a pair as real,
 |m| >= 100 and zwn == 0 give no root, canonical slot order (non-negative
-roots first, each group by ascending |m|, NaN last).
+roots first, each group by ascending |m|, NaN last). ``fortran_slot_order``
+is the reference's slot shuffle for root_order='fortran'.
 
 The JAX package's custom JVP (implicit-function tangents) is not ported yet;
 it belongs to the autodiff slice.
@@ -206,3 +207,52 @@ def solve_dispersion_cubic(fu, fv, fqx, fqy, freq,
     roots = _roots_from_coeffs(c3, c2, c1, c0, nonzero_k)
     count = torch.sum(torch.logical_not(torch.isnan(roots)), dim=-1)
     return roots, count
+
+
+def fortran_slot_order(mwn: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """The Fortran-heritage slot shuffle (the reference's
+    change_roots_order) applied to a (..., 3) root array with its per-point
+    root count: the conditional swap sequences for 3, 2 and 1 roots, then
+    the final slot reversal, as elementwise ``torch.where`` swaps.
+
+    The reference applies it to whatever order its eigenvalue backend
+    emitted, so slot parity with the reference needs np.roots' order
+    (``ops.cubic_host.initial_roots_reference_order``).
+    """
+    m0, m1, m2 = mwn[..., 0], mwn[..., 1], mwn[..., 2]
+
+    def swap(a, b, cond):
+        return torch.where(cond, b, a), torch.where(cond, a, b)
+
+    # Three roots.
+    is3 = count == 3
+    c = is3 & (m2 >= 0.0) & (m2 < m1)
+    m1, m2 = swap(m1, m2, c)
+    c = is3 & (m0 < 0.0)
+    m0, m1 = swap(m0, m1, c)
+    c = is3 & (((m1 < 0.0) & (m2 < 0.0) & (m1 < m2))
+               | ((m1 > 0.0) & (m2 < 0.0)))
+    m1, m2 = swap(m1, m2, c)
+
+    # Two roots: only the loop's first iteration executes (both branches
+    # break); swap slots 0 and 1 unless m0 is a finite positive root.
+    is2 = count == 2
+    c = is2 & ~(torch.isfinite(m0) & (m0 > 0.0))
+    m0, m1 = swap(m0, m1, c)
+
+    # One root: the literal i = 0, 1, 2 sweep.
+    is1 = count == 1
+    for i in range(3):
+        mi = (m0, m1, m2)[i]
+        c_pos = is1 & torch.isfinite(mi) & (mi >= 0.0) & (i != 0)
+        c_neg = is1 & torch.isfinite(mi) & (mi <= 0.0) & (i != 2) & ~c_pos
+        if i == 0:
+            m0, m1 = swap(m0, m1, c_neg)
+        elif i == 1:
+            m1, m0 = swap(m1, m0, c_pos)
+            # c_neg with i=1 swaps slot 1 with itself: no-op.
+        else:
+            m2, m0 = swap(m2, m0, c_pos)
+
+    # Final reversal. The |m| >= 100 NaN filter is the caller's.
+    return torch.stack([m2, m1, m0], dim=-1)

@@ -1,7 +1,9 @@
 """Ray-tracing orchestration: seeding, initialization, integration, results.
 
 Port of ``rwrt_tpu/tracer.py``. ``trace_rays`` serves three branches, each
-with root_order='canonical' on one device, in state_dtype 'compute' and
+on one device, with root_order 'canonical' or 'fortran' (the reference's
+slot layout, from np.roots on the host at initialization), from the
+computed seeds or a given ``initial_state``, in state_dtype 'compute' and
 in 'float64' (mixed precision: a float64 state, stage accumulation and
 controller over float32 sampling and RHS algebra when cal_dtype is
 float32; a no-op when it is float64):
@@ -20,8 +22,8 @@ member map.
 
 A run whose history would pass ``auto_chunk_bytes`` on the device goes
 through the chunked driver (``utils/checkpoint.py``), one launch of the
-same kernel per chunk. Every other branch (a mesh, root_order='fortran',
-initial_state) raises NotImplementedError naming its ROADMAP item.
+same kernel per chunk. A device mesh raises NotImplementedError naming its
+ROADMAP slice.
 
 Each branch's run is one of the port's hand-written kernels: on a CUDA
 state one launch runs the whole of it; on a CPU state its plain version
@@ -124,13 +126,16 @@ def initialize(
     per (source, zwn) come from the dispersion cubic; amp = 1 where the root
     exists else NaN; initial (ug, vg) use the zero-invalid semantics.
 
+    root_order: 'canonical' (sorted; see ops/cubic.py) or 'fortran': the
+    reference's exact slot layout, from np.roots and the slot shuffle on
+    the host (``ops.cubic_host.initial_roots_reference_order``), on the
+    background sampled in its own dtype and widened to float64. The layout
+    depends on LAPACK's eigenvalue order, which the device solver cannot
+    reproduce. One host read and a host solve, once per run.
+
     Returns y0 (5, R), ug0 (R,), vg0 (R,).
     """
-    if root_order == "fortran":
-        raise NotImplementedError(
-            "root_order='fortran' is not ported yet (ROADMAP Queue 1 "
-            "item 15)")
-    if root_order != "canonical":
+    if root_order not in ("canonical", "fortran"):
         raise ValueError(f"unknown root_order {root_order!r}")
     nsource = source_lon.shape[0]
     nzwn = zwn.shape[0]
@@ -139,10 +144,18 @@ def initialize(
     fmu, fmv = f[interp.M_U], f[interp.M_V]
     fmqx, fmqy = f[interp.M_QX], f[interp.M_QY]
 
-    roots, _ = solve_dispersion_cubic(
-        fmu[:, None], fmv[:, None], fmqx[:, None], fmqy[:, None],
-        bg.freq, zwn[None, :],
-    )  # (nsource, nzwn, 3)
+    if root_order == "fortran":
+        from rwrt_tpu_torch.ops.cubic_host import (
+            initial_roots_reference_order)
+
+        roots = torch.as_tensor(initial_roots_reference_order(
+            fmu, fmv, fmqx, fmqy, float(bg.freq), zwn)).to(
+                device=bg.fields.device, dtype=bg.fields.dtype)
+    else:
+        roots, _ = solve_dispersion_cubic(
+            fmu[:, None], fmv[:, None], fmqx[:, None], fmqy[:, None],
+            bg.freq, zwn[None, :],
+        )  # (nsource, nzwn, 3)
     mwn = roots.permute(2, 0, 1)  # (3, nsource, nzwn)
 
     shape = (3, nsource, nzwn)
@@ -766,15 +779,35 @@ def compact_lane_indices(born: np.ndarray):
     return idx
 
 
-def _unsupported(config: RunConfig, mesh, initial_state):
-    """The branches of the JAX trace_rays this port does not serve yet."""
+def refuse_mesh(mesh, what: str) -> None:
+    """A device mesh is the one branch of the JAX drivers this port does
+    not serve yet."""
     if mesh is not None:
-        return "a device mesh (ROADMAP Slice 6, multi-GPU)"
-    if config.root_order != "canonical":
-        return "root_order='fortran' (ROADMAP Queue 1 item 15)"
-    if initial_state is not None:
-        return "initial_state (ROADMAP Slice 3, drivers and I/O)"
-    return None
+        raise NotImplementedError(
+            f"{what} does not serve a device mesh (ROADMAP Slice 6, "
+            "multi-GPU) yet")
+
+
+def seed_state(bg, source_lon, source_lat, zwn, config: RunConfig,
+               initial_state=None):
+    """The run's seeds (y0 (5, R), ug0, vg0 (R,)): ``initialize`` in the
+    config's root order, or ``initial_state`` (a (5, R) array or tensor,
+    R = 3 * nsource * nzwn in (root, source, zwn) C order) in the
+    background's dtype with (ug0, vg0) from ``ray.group_velocity_at`` at
+    it (zero-invalid), the reference's initial-condition injection hook."""
+    y0, ug0, vg0 = initialize(bg, source_lon, source_lat, zwn,
+                              config.root_order)
+    if initial_state is None:
+        return y0, ug0, vg0
+    y0 = torch.as_tensor(initial_state).to(device=bg.fields.device,
+                                           dtype=bg.fields.dtype)
+    want = (5, 3 * source_lon.shape[0] * zwn.shape[0])
+    if tuple(y0.shape) != want:
+        raise ValueError(f"initial_state shape {tuple(y0.shape)} mismatch; "
+                         f"expected {want}")
+    ug0, vg0 = ray_mod.group_velocity_at(
+        bg, y0[S_LON], y0[S_LAT], y0[S_KX], y0[S_KY], zero_invalid=True)
+    return y0.contiguous(), ug0, vg0
 
 
 def trace_rays(
@@ -801,7 +834,9 @@ def trace_rays(
       config: run configuration.
       source_lon/source_lat: optional explicit source arrays in RADIANS;
         default: the config's regular source matrix.
-      mesh, initial_state: not ported yet; must be None.
+      mesh: not ported yet; must be None.
+      initial_state: optional (5, R) state overriding the computed seeds
+        (``seed_state``); rootless compaction then runs on it as usual.
       auto_chunk_bytes: the run holds its whole (nt, 7, R) history on the
         device; past this estimate of it (2 * nt * R * 7 * itemsize of the
         background's dtype) the run goes through the chunked driver
@@ -819,9 +854,7 @@ def trace_rays(
         run fills it as ``trace_rays_chunked`` does.
     """
     config.validate()
-    why = _unsupported(config, mesh, initial_state)
-    if why is not None:
-        raise NotImplementedError(f"trace_rays does not serve {why} yet")
+    refuse_mesh(mesh, "trace_rays")
     dtype = bs.fields.dtype
     device = bs.fields.device
     if auto_chunk_bytes is not None:
@@ -834,7 +867,8 @@ def trace_rays(
 
             return checkpoint.trace_rays_chunked(
                 bs, config, verbose=False, source_lon=source_lon,
-                source_lat=source_lat, stats=stats)
+                source_lat=source_lat, initial_state=initial_state,
+                stats=stats)
     if source_lon is None:
         source_lon, source_lat = source_matrix(
             config.sw_lon, config.sw_lat, config.dlon, config.dlat,
@@ -849,8 +883,8 @@ def trace_rays(
     zwn = to_dev(config.zwn_array())
 
     bg = make_background(bs, config.freq)
-    y0, ug0, vg0 = initialize(bg, source_lon, source_lat, zwn,
-                              config.root_order)
+    y0, ug0, vg0 = seed_state(bg, source_lon, source_lat, zwn, config,
+                              initial_state)
     ys, ugs, vgs = _run_lanes(bg, y0, ug0, vg0, config,
                               config.state_dtype == "float64", stats)
     out_shape = (config.nt, 3, source_lon.shape[0], len(config.zwn))
@@ -965,14 +999,7 @@ def trace_rays_ensemble(bs_members, config: RunConfig, source_lon=None,
     as ``trace_rays``' (the flattened lanes' attempts of an rk45 run).
     """
     config.validate()
-    if mesh is not None:
-        raise NotImplementedError(
-            "trace_rays_ensemble does not serve a device mesh (ROADMAP "
-            "Slice 6, multi-GPU) yet")
-    why = _unsupported(config, None, None)
-    if why is not None:
-        raise NotImplementedError(f"trace_rays_ensemble does not serve {why} "
-                                  "yet")
+    refuse_mesh(mesh, "trace_rays_ensemble")
     if not bs_members:
         raise ValueError("an ensemble needs at least one member")
     first = bs_members[0]

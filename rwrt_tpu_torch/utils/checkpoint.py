@@ -196,7 +196,10 @@ def trace_rays_chunked(
     compact_min_width: floor of the dead-lane-compaction width ladder (see
     RunConfig.compact_dead).
 
-    mesh, initial_state: not ported yet; must be None.
+    mesh: not ported yet; must be None.
+
+    initial_state: optional (5, R) state overriding the computed seeds, as
+    for ``trace_rays`` (``tracer.seed_state``).
 
     stats: optional dict. An rk45 run appends each chunk's (groups, lanes)
     int32 step attempts to the list "lane_att" (on the run's device, the
@@ -209,10 +212,7 @@ def trace_rays_chunked(
     then holds the run up to that chunk.
     """
     config.validate()
-    why = _tracer._unsupported(config, mesh, initial_state)
-    if why is not None:
-        raise NotImplementedError(
-            f"trace_rays_chunked does not serve {why} yet")
+    _tracer.refuse_mesh(mesh, "trace_rays_chunked")
     if chunk_steps < 1:
         raise ValueError("chunk_steps must be >= 1")
     dtype = bs.fields.dtype
@@ -232,8 +232,8 @@ def trace_rays_chunked(
     zwn = to_dev(config.zwn_array())
 
     bg = _tracer.make_background(bs, config.freq)
-    y0, ug0, vg0 = _tracer.initialize(bg, source_lon, source_lat, zwn,
-                                      config.root_order)
+    y0, ug0, vg0 = _tracer.seed_state(bg, source_lon, source_lat, zwn,
+                                      config, initial_state)
     nt = config.nt
     n_rays = y0.shape[1]
     # The seeds on the host: row 0 of the history and the rootless fill.

@@ -1,15 +1,19 @@
-"""Observability: the run banner and the chunked driver's progress bar.
+"""Observability: the run banner, the chunked driver's progress bar and the
+device profile.
 
-Port of ``rwrt_tpu/utils/observability.py``'s ``run_banner`` and
+Port of ``rwrt_tpu/utils/observability.py``: ``run_banner`` and
 ``Progress`` (the reference's configuration banner and text progress bar),
-host-side and unchanged. The device profile (``profile``) is not ported
-yet: in this port it is ``torch.profiler`` (ROADMAP Slice 3); the step
-attempts come from the integrators themselves (``stats["lane_att"]``).
+host-side and unchanged, and ``profile``, which is ``torch.profiler`` here
+where the JAX package has ``jax.profiler``; the step attempts come from the
+integrators themselves (``stats["lane_att"]``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import sys
+import tempfile
 import time
 
 from rwrt_tpu_torch.config import RunConfig
@@ -60,3 +64,24 @@ class Progress:
         self.file.flush()
         if current >= self.total:
             self.file.write("\n")
+
+
+@contextlib.contextmanager
+def profile(logdir=None):
+    """Profile the block with ``torch.profiler`` (host activity, and the
+    card's where one is present) and write it as a Chrome trace,
+    ``<logdir>/trace.json`` (view in chrome://tracing or Perfetto).
+    ``logdir`` defaults to ``rwrt_tpu_torch_profile`` under the temporary
+    directory. Yields the profiler, whose ``key_averages()`` give the time
+    by operator and kernel."""
+    import torch
+
+    logdir = logdir or os.path.join(tempfile.gettempdir(),
+                                    "rwrt_tpu_torch_profile")
+    os.makedirs(logdir, exist_ok=True)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

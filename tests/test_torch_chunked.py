@@ -347,13 +347,12 @@ def test_trace_rays_reroutes_past_auto_chunk_bytes(states, state):
     assert_bitwise(want, got)
 
 
-@pytest.mark.parametrize("branch", ["mesh", "fortran", "initial_state"])
+@pytest.mark.parametrize("branch", ["mesh"])
 def test_unported_branches_raise(states, branch):
+    """A device mesh is the one branch still to port (root_order='fortran'
+    and initial_state: tests/test_torch_fortran_roots.py and
+    tests/test_torch_io_main.py)."""
     _, bst, _ = states
-    kw = {"mesh": dict(mesh=object()),
-          "initial_state": dict(initial_state=np.zeros((5, 180)))}.get(
-              branch, {})
-    changes = dict(root_order="fortran") if branch == "fortran" else {}
-    with pytest.raises(NotImplementedError, match="item|Slice"):
-        ck.trace_rays_chunked(bst, cfg_of(pt, "dense", **changes),
-                              verbose=False, **kw)
+    with pytest.raises(NotImplementedError, match="Slice 6"):
+        ck.trace_rays_chunked(bst, cfg_of(pt, "dense"), verbose=False,
+                              mesh=object())

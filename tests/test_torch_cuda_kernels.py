@@ -1030,3 +1030,17 @@ def test_ensemble_members_equal_their_own_runs(jet_field, dev, branch,
         own = pt.trace_rays(m, cfg)
         for name in own._fields:
             assert same(getattr(own, name), getattr(traj, name)), name
+
+
+def test_shsf_filters_arrays_on_the_card(jet_field, dev):
+    """SHSF of an array runs on the card unless asked otherwise, and agrees
+    with the CPU's filter to 1e-12 of the field's max |value| (float64; the
+    card's FFT and batched product sum in another order)."""
+    from rwrt_tpu_torch.diagnostics import spectral
+
+    u, _, lat, _ = jet_field
+    got = spectral.shsf(u, lat, 8)
+    assert got.device.type == "cuda" and got.dtype == torch.float64
+    ref = spectral.shsf(u, lat, 8, device="cpu")
+    err = (got.cpu() - ref).abs().max() / ref.abs().max()
+    assert err <= 1e-12, err

@@ -111,6 +111,3 @@ def test_ensemble_refuses_mismatched_members(members):
         pt.trace_rays_ensemble([tm[0], members["static"][1][0]], cfg)
     with pytest.raises(NotImplementedError, match="Slice 6"):
         pt.trace_rays_ensemble(tm, cfg, mesh=object())
-    with pytest.raises(NotImplementedError):
-        pt.trace_rays_ensemble(tm, pt.RunConfig(**dict(
-            CFG, root_order="fortran")))

@@ -441,19 +441,13 @@ def test_float64_fields_make_it_a_no_op(jet_field, branch):
         assert torch.equal(torch.nan_to_num(x), torch.nan_to_num(y))
 
 
-@pytest.mark.parametrize("branch", ["mesh", "fortran", "initial_state"])
+@pytest.mark.parametrize("branch", ["mesh"])
 def test_unported_branches_still_raise_in_mixed(states, branch):
+    """A device mesh is the one branch still to port."""
     _, bst, _, _ = states
     cfg = dict(CFG, ttotal=2 * DAY)
-    kw = {}
-    if branch == "fortran":
-        cfg.update(root_order="fortran")
-    elif branch == "mesh":
-        kw = dict(mesh=object())
-    elif branch == "initial_state":
-        kw = dict(initial_state=np.zeros((5, 54)))
-    with pytest.raises(NotImplementedError, match="item|Slice"):
-        pt.trace_rays(bst, pt.RunConfig(**cfg), **kw)
+    with pytest.raises(NotImplementedError, match="Slice 6"):
+        pt.trace_rays(bst, pt.RunConfig(**cfg), mesh=object())
 
 
 def test_launch_keys_and_refusals(states, y64):

@@ -132,19 +132,15 @@ def test_rootless_lanes_stay_frozen(states):
     assert out.lon.shape == (25, 3, 20, 3)
 
 
-@pytest.mark.parametrize("branch", ["mesh", "fortran", "initial_state"])
+@pytest.mark.parametrize("branch", ["mesh"])
 def test_unported_branches_raise(states, branch):
+    """A device mesh is the one branch still to port (root_order='fortran'
+    and initial_state: tests/test_torch_fortran_roots.py and
+    tests/test_torch_io_main.py)."""
     _, bst = states
     cfg = dict(CFG, ttotal=2 * DAY)
-    kw = {}
-    if branch == "fortran":
-        cfg.update(root_order="fortran")
-    elif branch == "mesh":
-        kw = dict(mesh=object())
-    elif branch == "initial_state":
-        kw = dict(initial_state=np.zeros((5, 180)))
-    with pytest.raises(NotImplementedError):
-        pt.trace_rays(bst, pt.RunConfig(**cfg), **kw)
+    with pytest.raises(NotImplementedError, match="Slice 6"):
+        pt.trace_rays(bst, pt.RunConfig(**cfg), mesh=object())
 
 
 def test_max_iters_truncation_raises():
