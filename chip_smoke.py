@@ -29,7 +29,10 @@ amplitude varying seasonally, its waves drifting east; ``rt.
 prepare_time_varying``) through the kernels' time instances, and
 ``trace_rays_ensemble`` over four "reanalysis year" members. Then the
 file-driven pipeline: ``python -m rwrt_tpu_torch --config run.json`` in
-process over wind files of the climatology.
+process over wind files of the climatology; over its production-size
+trajectories the Li-Yang wave-ray flux (the flux kernel, and its file
+driver on the trajectory file), exact death causes (``--report-exact``),
+and last the single-group kernels' time instances.
 
 Phases (any failed check raises; nothing is caught but the truncation the
 exact_path phase requires and the chunk budget the chunked phase sets):
@@ -176,7 +179,34 @@ exact_path phase requires and the chunk budget the chunked phase sets):
                port's on the same state; the
                fortran seeds' sorted roots against canonical order and
                their slots against the CPU port's. Prints each run's wall
-               split (its report) and file bytes
+               split (its report) and file bytes; keeps the files and the
+               production-size run for the phases below
+  flux         the flux kernel (``csrc/flux.cu``) on the production-size
+               run's trajectories (100,800 rays x 361 rows) with the
+               North Pacific box and |m| < 100: the region pass bitwise
+               against its plain version, the binning kernel against
+               ``_accumulate_plain`` (count and carry bitwise, the other
+               maps within FLUX_BAR: the atomics' order varies), kernel,
+               wrapper, plain and ``index_add_`` times and the bounds
+               (the bytes this run's data needs);
+               ``wave_ray_flux_chunked`` over a host copy against one-shot
+  wrf_cli      ``python -m rwrt_tpu_torch.diagnostics.wrf_cli`` in process
+               on the cli phase's production-size trajectory file, counters
+               reset just before and read just after (one binning launch,
+               one region pass), its wall split into load, bin, region
+               statistics and write; the file's maps against
+               ``wave_ray_flux`` in process
+  classify     ``--report-exact`` on the reference and production-size
+               runs (no output files): the report's exact causes equal to
+               ``termination.cause_labels`` in process, through the RHS
+               kernel (its counter moving); labels per lane against the
+               plain RHS's on the card (an RK45 re-run cut at
+               CLASSIFY_PLAIN_ITERS trips in both), and the report's own
+               labels against them on the lanes it finished within the cut
+  group_time   the single-group kernels' time instances (``integrate_group``
+               and ``integrate_group_dense`` over daily frames and over two
+               members, float32, float64 and mixed, one launch each),
+               bitwise against the plain loops
 
 The RK4 and exact kernels' instances are timed in turns (TURNS) on the
 same inputs at eight shapes (RK4 at production seeding and in the default
@@ -210,6 +240,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1409,18 +1440,22 @@ def traced(run, cfg, launches_of, n_launches=1, driver=None, stop=(),
 def reset_launches():
     """Set every kernel wrapper's launch counter to 0."""
     from rwrt_tpu_torch import tracer
+    from rwrt_tpu_torch.diagnostics import flux
     from rwrt_tpu_torch.models import ray
     from rwrt_tpu_torch.ops import spectral_sample as spec
     from rwrt_tpu_torch.solvers import rk45
 
     ray.LAUNCHES = rk45.LAUNCHES = rk45.EXACT_LAUNCHES = spec.LAUNCHES = 0
     tracer.LAUNCHES = tracer.RK4_LAUNCHES = tracer.EXACT_LAUNCHES = 0
+    flux.LAUNCHES = flux.REGION_LAUNCHES = 0
 
 
 def read_launches(launches_of, n_launches, what):
     """The counters since ``reset_launches``: fails unless ``launches_of``
-    launched ``n_launches`` times and no other kernel but the RHS ran."""
+    launched ``n_launches`` times (or, a dict, each of its kernels its
+    count) and no other kernel but the RHS ran."""
     from rwrt_tpu_torch import tracer
+    from rwrt_tpu_torch.diagnostics import flux
     from rwrt_tpu_torch.models import ray
     from rwrt_tpu_torch.ops import spectral_sample as spec
     from rwrt_tpu_torch.solvers import rk45
@@ -1429,9 +1464,12 @@ def read_launches(launches_of, n_launches, what):
                 "dense_run": tracer.LAUNCHES, "spectral": spec.LAUNCHES,
                 "rk4_run": tracer.RK4_LAUNCHES,
                 "exact_group": rk45.EXACT_LAUNCHES,
-                "exact_run": tracer.EXACT_LAUNCHES}
+                "exact_run": tracer.EXACT_LAUNCHES,
+                "flux": flux.LAUNCHES, "flux_region": flux.REGION_LAUNCHES}
+    wants = (launches_of if isinstance(launches_of, dict)
+             else {launches_of: n_launches})
     for k, n in launches.items():
-        want = n_launches if k == launches_of else None if k == "rhs" else 0
+        want = wants.get(k, None if k == "rhs" else 0)
         check(want is None or n == want,
               f"{what} made {n} {k} launches, not {want}")
     return launches
@@ -2738,6 +2776,29 @@ def maps_equal(path, bs, zwn, what):
     return off, errs
 
 
+def wind_state(run, path, cfg):
+    """The library path's state from a wind file, as the CLI builds it, on
+    the card."""
+    from rwrt_tpu_torch.io import ncio
+
+    u, v, lat, lon, times = ncio.load_wind(path, cfg.read_dtype,
+                                           with_time=True)
+    kw = dict(read_dtype=cfg.read_dtype, cal_dtype=cfg.cal_dtype,
+              device=run.dev)
+    if u.ndim == 3:
+        return run.rt.prepare_time_varying(u, v, lat, lon, bg_t0=times[0],
+                                           bg_dt=times[1] - times[0], **kw)
+    return run.rt.prepare(u, v, lat, lon, **kw)
+
+
+def json_config(rt, js):
+    """The RunConfig of a CLI JSON config."""
+    return rt.RunConfig(**{k: tuple(x) if isinstance(x, list) else x
+                           for k, x in js.items()
+                           if not k.startswith("_") and k not in (
+                               "inputuv", "bsfile", "ncfile")})
+
+
 def print_cli(name, rep, launches, wall, files):
     """The run's wall split (its --report), launches and file bytes."""
     import os
@@ -2764,9 +2825,10 @@ def phase_cli(run):
     config through the library in process, bitwise; the basic-state and
     map files against the in-process state and maps, bitwise, and against
     the CPU port's; the reports' termination counts against ``analyze``;
-    the launches per run or chunk."""
+    the launches per run or chunk. The files stay in ``run.tmp`` and the
+    production-size run in ``run.prod`` for the phases after it."""
+    import contextlib
     import os
-    import tempfile
 
     torch = run.torch
     rt = run.rt
@@ -2778,21 +2840,10 @@ def phase_cli(run):
         reference = json.load(f)
 
     def state(path, cfg):
-        """The library path's state from the same file."""
-        u, v, lat, lon, times = ncio.load_wind(path, cfg.read_dtype,
-                                               with_time=True)
-        kw = dict(read_dtype=cfg.read_dtype, cal_dtype=cfg.cal_dtype,
-                  device=run.dev)
-        if u.ndim == 3:
-            return rt.prepare_time_varying(u, v, lat, lon, bg_t0=times[0],
-                                           bg_dt=times[1] - times[0], **kw)
-        return rt.prepare(u, v, lat, lon, **kw)
+        return wind_state(run, path, cfg)
 
     def config(js):
-        return rt.RunConfig(**{k: tuple(x) if isinstance(x, list) else x
-                               for k, x in js.items()
-                               if not k.startswith("_") and k not in (
-                                   "inputuv", "bsfile", "ncfile")})
+        return json_config(rt, js)
 
     def counts_equal(rep, traj, what):
         """Returns the seconds ``analyze`` took."""
@@ -2801,7 +2852,7 @@ def phase_cli(run):
         check(rep == want, f"{what}: report termination {rep} != {want}")
         return time.perf_counter() - t0
 
-    with tempfile.TemporaryDirectory() as tmp:
+    with contextlib.nullcontext(run.tmp) as tmp:
         u, v, lat, lon = climatology_background()
         static = save_wind(os.path.join(tmp, "uv.npz"), u, v, lat, lon)
         uf, vf, _, _ = climatology_frames(TV_DAYS + 1)
@@ -2873,6 +2924,8 @@ def phase_cli(run):
               f"in-process state's and maps; maps against the CPU port's: "
               f"{off} (point, zwn) entries differ in count or mask, errors "
               f"of each map's max {json.dumps(errs)} (bar {WN_CPU_BAR})")
+        run.prod = dict(traj=traj, bs=bs, cfg=cfg, ncfile=js["ncfile"],
+                        wind=static, js=js)
         del traj, bs
 
         # Short cases over the README's sources.
@@ -2946,6 +2999,498 @@ def phase_cli(run):
               "port's")
 
 
+#: The flux phases: the Fun2 target box (the North Pacific), Fun1's
+#: abnormal-wavenumber cap, the chunked path's time block; flops counted
+#: from csrc/flux.cu: a point the binning kernel reads (the unwrap, 8) and
+#: one it bins (the bins 6, the amp_cg weights 2, four adds), and a point
+#: of the region pass (3).
+FLUX_BOX = ((150.0, 240.0), (20.0, 60.0))
+FLUX_MWN_MAX = 100.0
+FLUX_BLOCK = 64
+UNWRAP_FLOPS = 8
+BIN_FLOPS = 6 + 2 + 4
+REGION_FLOPS = 3
+#: The flux kernel's maps against the plain version's, float32, as a
+#: fraction of each map's largest magnitude: the atomics add a cell's
+#: points in an order that changes from run to run (count, a sum of ones,
+#: is bitwise).
+FLUX_BAR = 1e-4
+#: The chunked maps' count against the one-shot's, as a share of the
+#: binned points: each block's unwrap restarts its running sum from the
+#: carry, so float32 rounding may move a point that sits on a cell edge.
+#: On the production-size trajectories 6 of the 7,825,596 binned points
+#: move at 64-row blocks (7.7e-7); the bar leaves that reading room.
+CHUNK_COUNT_SHARE = 2e-6
+
+
+def flux_kw():
+    return dict(lon_range=FLUX_BOX[0], lat_range=FLUX_BOX[1],
+                mwn_max=FLUX_MWN_MAX)
+
+
+def maps_err(got, want):
+    """(max |got - want| over the four maps, the largest of it over each
+    map's max |want|); count must be bitwise."""
+    abs_err = rel = 0.0
+    for a, b in zip(got, want):
+        a = a.to(b.dtype)
+        d = float(abs(a - b).nan_to_num(nan=0.0).max())
+        abs_err = max(abs_err, d)
+        rel = max(rel, d / max(float(b.abs().nan_to_num(nan=0.0).max()),
+                               1e-300))
+    return abs_err, rel
+
+
+def phase_flux(run):
+    """The flux kernel on the cli phase's production-size trajectories
+    (100,800 rays x 361 rows, float32, in process on the card) with the
+    Fun2 box and the mwn cap: the region pass bitwise against its plain
+    version; the binning kernel against ``_accumulate_plain`` (count
+    bitwise, the other maps within FLUX_BAR); kernel, wrapper
+    (``wave_ray_flux``: region pass, binning, centers), plain and
+    ``index_add_`` times and the bounds; ``wave_ray_flux_chunked`` over a
+    host copy in FLUX_BLOCK-row blocks and in one block against the
+    one-shot maps."""
+    torch = run.torch
+    from rwrt_tpu_torch.diagnostics import flux
+    from rwrt_tpu_torch.tracer import RayTrajectories
+
+    traj = run.prod["traj"]
+    kw = flux_kw()
+    names = ("lon", "lat", "amp", "ug", "vg", "ky")
+    rows = [flux._rows(getattr(traj, k)) for k in names]
+    nt, r = rows[0].shape
+    zero = torch.zeros(r, dtype=torch.bool, device=run.dev)
+    keep = flux._region_cuda(*rows[:3], zero, *FLUX_BOX)
+    keep_p = flux._region_plain(*rows[:3], zero, *FLUX_BOX)
+    torch.cuda.synchronize()
+    check(torch.equal(keep, keep_p), "flux region pass differs from plain")
+    th = flux.Thresholds(mwn_max=FLUX_MWN_MAX)
+    args = (*rows, keep, None, 360, 90, th, "amp_cg")
+    kern, carry = flux._accumulate_cuda(*args)
+    plain, pcarry = flux._accumulate_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(kern[3], plain[3]), "flux count differs from plain")
+    check(all(same(a, b) for a, b in zip(carry, pcarry)),
+          "flux carry differs from plain")
+    abs_err, rel = maps_err(kern, plain)
+    check(rel <= FLUX_BAR, f"flux maps {rel:.3e} of their max from plain "
+          f"> {FLUX_BAR}")
+    wrf = flux.wave_ray_flux(traj, **kw)
+    check(torch.equal(wrf.count, kern[3]), "wave_ray_flux count differs "
+          "from the kernel's")
+
+    ms = cuda_ms(lambda: flux._accumulate_cuda(*args), 10)
+    wrapper_ms = cuda_ms(lambda: flux.wave_ray_flux(traj, **kw), 10)
+    plain_ms = cuda_ms(lambda: flux._accumulate_plain(*args), 2)
+    region_ms = cuda_ms(lambda: flux._region_cuda(*rows[:3], zero,
+                                                  *FLUX_BOX), 10)
+    region_plain_ms = cuda_ms(lambda: flux._region_plain(
+        *rows[:3], zero, *FLUX_BOX), 3)
+    # The library yardstick: one index_add_ of the four maps' values over
+    # the binned points' precomputed flat indices (the scatter only).
+    lon_u = flux._unwrap_lon(rows[0])
+    valid = flux._valid(*rows, th) & keep[None]
+    inv_dlon, inv_dlat = flux._bin_scales(360, 90, rows[0].dtype)
+    flat = (flux._bin_index((flux.true_div(lon_u, flux.deg2rad) + 360.0)
+                            * inv_dlon, 360) * 90
+            + flux._bin_index((flux.true_div(rows[1], flux.deg2rad) + 90.0)
+                              * inv_dlat, 90))[valid]
+    amp, ug, vg = rows[2], rows[3], rows[4]
+    vals = torch.stack([(amp * ug)[valid], (amp * vg)[valid],
+                        amp.abs()[valid], torch.ones_like(amp)[valid]], 1)
+    maps = torch.zeros((360 * 90, 4), dtype=amp.dtype, device=run.dev)
+    maps.index_add_(0, flat, vals)
+    check(torch.equal(maps[:, 3].reshape(360, 90), kern[3]),
+          "index_add_ yardstick bins differ from the kernel's")
+    library_ms = cuda_ms(lambda: maps.index_add_(0, flat, vals), 10)
+
+    # Bounds: what this run's data needs. The binning kernel reads every
+    # ray's keep byte, lon, lat and amp at each point of a kept ray, ug, vg
+    # and ky at those that pass the finite test, and writes the maps and
+    # the carry once; a dropped ray reads nothing more. The region pass
+    # reads every ray's keep byte and lon, lat and amp at the rows up to the
+    # first one in the box (every row of a ray that never enters), and
+    # writes the keep byte of a ray that enters.
+    kept = int(keep.sum())
+    fin = int((torch.isfinite(rows[0]) & torch.isfinite(rows[1])
+               & torch.isfinite(rows[2]) & keep[None]).sum())
+    binned = int(valid.sum())
+    in_box = flux._in_box_arrays(*rows[:3], *FLUX_BOX)
+    last = torch.where(in_box.any(0), in_box.to(torch.int8).argmax(0),
+                       nt - 1)
+    region_rows = int((last + 1).sum())
+    del in_box, last
+    esz = rows[0].element_size()
+    b = bound((3 * nt * kept + 3 * fin) * esz + 4 * 360 * 90 * esz
+              + 2 * r * esz + r, nt * kept * UNWRAP_FLOPS
+              + binned * BIN_FLOPS, "float32")
+    rb = bound(3 * region_rows * esz + r + kept,
+               region_rows * REGION_FLOPS, "float32")
+    every = 5 * nt * r * esz
+    print(f"flux: {r} rays x {nt} rows = {nt * r} points, {kept} rays "
+          f"enter the box {FLUX_BOX}, {binned} points binned; binning "
+          f"kernel {ms:.4f} ms, wrapper (region pass + binning) "
+          f"{wrapper_ms:.4f} ms, plain {plain_ms:.3f} ms, index_add_ of the "
+          f"four maps {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}; every point's five fields: {every / 1e6:.1f} "
+          f"MB, {every / HBM_BYTES_PER_S * 1e3:.4f} ms); count bitwise, "
+          f"other maps {rel:.3e} of their max from plain (bar {FLUX_BAR}), "
+          f"carry bitwise")
+    print(f"flux region pass: {region_rows} of the {nt * r} points read "
+          f"(each ray's rows up to its first in the box); kernel "
+          f"{region_ms:.4f} ms, plain {region_plain_ms:.3f} ms, bound "
+          f"{rb['bound_ms']:.4f} ms ({rb['bound_by']}), bitwise")
+    run.kernels["flux"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                               library_ms=library_ms, **b)
+    run.kernels["flux_region"] = dict(max_abs_err=0.0, ms=region_ms,
+                                      plain_ms=region_plain_ms,
+                                      library_ms=None, **rb)
+    del lon_u, valid, flat, vals, maps
+
+    # The chunked path over a host copy: one block copied at a time.
+    host = RayTrajectories(*(x.cpu() for x in traj))
+    for tb in (FLUX_BLOCK, nt):
+        (ch, wall) = wall_s(lambda: flux.wave_ray_flux_chunked(
+            host, time_block=tb, device=run.dev, **kw))
+        one = [x.to(torch.float64) for x in wrf[2:]]
+        moved = float((ch.count - one[3]).abs().sum()) / 2
+        share = moved / max(float(one[3].sum()), 1.0)
+        err = maps_err(ch[2:], one)[1]
+        print(f"flux chunked, time_block {tb}: {-(-nt // tb)} blocks, wall "
+              f"{wall:.3f} s (host copy to the card included); {moved:.0f} "
+              f"points in another cell than one-shot ({share:.2e} of the "
+              f"binned, bar {CHUNK_COUNT_SHARE}), maps {err:.3e} of their "
+              "max")
+        check(share <= CHUNK_COUNT_SHARE and err <= FLUX_BAR,
+              f"flux chunked {tb}: {share} of the points moved, maps "
+              f"{err:.3e} of their max from one-shot")
+        if tb >= nt:
+            check(moved == 0, "flux chunked in one block differs from "
+                  "one-shot")
+    del host
+
+
+def phase_wrf_cli(run):
+    """``python -m rwrt_tpu_torch.diagnostics.wrf_cli`` in process on the
+    cli phase's production-size trajectory file (no new trace), with the
+    Fun2 box and the mwn cap: every counter reset just before it and read
+    just after (one binning launch, one region pass, no other kernel), its
+    wall split into load, bin, region statistics and write (the module's
+    functions timed where they run); the file's maps against
+    ``wave_ray_flux`` in process on the file's trajectories (count
+    bitwise, the other maps within FLUX_BAR), its n_passing and first
+    entries against the region mask."""
+    import os
+
+    torch = run.torch
+    from rwrt_tpu_torch.diagnostics import flux, wrf_cli
+    from rwrt_tpu_torch.io import ncio
+
+    path = run.prod["ncfile"]
+    out = os.path.join(run.tmp, "wrf_prod.npz")
+    split = {}
+
+    def timed(name, fn):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **k)
+            torch.cuda.synchronize()
+            split[name] = split.get(name, 0.0) + time.perf_counter() - t0
+            return res
+        return wrapped
+
+    saved = (wrf_cli.load_ray_output, wrf_cli.write_flux,
+             flux.wave_ray_flux, flux.region_statistics)
+    wrf_cli.load_ray_output = timed("load", saved[0])
+    wrf_cli.write_flux = timed("write", saved[1])
+    flux.wave_ray_flux = timed("bin", saved[2])
+    flux.region_statistics = timed("region_statistics", saved[3])
+    argv = ["--traj", path, "--out", out, "--lon-range",
+            *map(str, FLUX_BOX[0]), "--lat-range", *map(str, FLUX_BOX[1]),
+            "--mwn-max", str(FLUX_MWN_MAX)]
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        check(wrf_cli.main(argv) == 0, "wrf_cli: nonzero exit")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches({"flux": 1, "flux_region": 1}, None,
+                                 "wrf_cli")
+    finally:
+        (wrf_cli.load_ray_output, wrf_cli.write_flux, flux.wave_ray_flux,
+         flux.region_statistics) = saved
+    run.launches["flux"] = launches["flux"]
+    run.launches["flux_region"] = launches["flux_region"]
+
+    tr = wrf_cli.trajectories_from_files(
+        [ncio.trajectory_arrays(run.prod["traj"])], run.dev)
+    ref = flux.wave_ray_flux(tr, **flux_kw())
+    mask = flux.region_mask(tr, *FLUX_BOX).cpu().numpy()
+    with np.load(out) as ds:
+        got = {k: ds[k] for k in ds.files}
+    check(np.array_equal(got["count"], ref.count.cpu().numpy()),
+          "wrf_cli: the file's count differs from wave_ray_flux in process")
+    err = maps_err([torch.as_tensor(got[k], device=run.dev)
+                    for k in ("flux_u", "flux_v", "amp_sum")], ref[2:5])[1]
+    check(err <= FLUX_BAR, f"wrf_cli: maps {err:.3e} of their max from "
+          "wave_ray_flux in process")
+    check(int(got["n_passing"]) == int(mask.sum())
+          and np.array_equal(got["first_entry_step"] >= 0, mask),
+          "wrf_cli: the region aggregates disagree with the region mask")
+    print(f"wrf_cli: {path.rsplit('/', 1)[-1]} "
+          f"({os.path.getsize(path) / 2 ** 20:.1f} MiB), wall {wall:.3f} s, "
+          f"split (s) {json.dumps({k: round(v, 4) for k, v in split.items()})}"
+          f", rest {wall - sum(split.values()):.3f} s; launches flux "
+          f"{launches['flux']} flux_region {launches['flux_region']}; "
+          f"n_passing {int(got['n_passing'])}; the file's count bitwise and "
+          f"maps {err:.3e} of their max from wave_ray_flux in process")
+    del tr, ref
+
+
+#: The classify phase's plain comparison of an RK45 re-run: both versions
+#: cut at this many trips. The report's re-run takes the JAX package's
+#: 10,000, and float32 lanes of the production-size run stall there: the
+#: plain RHS, ~2 ms a call on the card, would take minutes over them. The
+#: report's labels are held to the plain ones on the lanes that finish
+#: within the cut; the trips of the others are printed.
+CLASSIFY_PLAIN_ITERS = 500
+
+
+def phase_classify(run):
+    """``--report-exact`` through the CLI in process (no output files) on
+    the reference run and on the production-size run, every counter reset
+    just before and read just after (the run's one whole-run launch, RHS
+    launches for the re-run): the report's causes exact, every ray in one
+    bucket, and equal to the counts of the labels ``classify`` gave inside
+    the run (``termination.cause_labels``, kept and timed; its rays the
+    dead rays of the same config's trajectory in process; its RHS
+    launches counted); then, on that trajectory, the labels through the
+    RHS kernel against the plain RHS's on the card, per lane (an RK45
+    re-run cut at CLASSIFY_PLAIN_ITERS trips in both), both timed, and the
+    report's labels against the plain ones on every lane that the report's
+    re-run finished within the cut."""
+    rt = run.rt
+    from rwrt_tpu_torch.convert import host
+    from rwrt_tpu_torch.diagnostics import termination
+    from rwrt_tpu_torch.models import ray
+    from rwrt_tpu_torch.solvers import rk45
+
+    with open(REPO / "examples" / "reference_run.json") as f:
+        reference = json.load(f)
+    cases = (("reference", dict(reference, inputuv=run.prod["wind"]),
+              "rk4_run", None),
+             ("production", dict(run.prod["js"]), "dense_run", run.prod))
+    dead = 0
+    labels_of = termination.cause_labels
+    interval = rk45.integrate_interval
+    for name, js, unit, prod in cases:
+        js.update(bsfile=None, ncfile=None)
+        # The CLI's own re-run, its labels, its time and each lane's trips
+        # kept.
+        seen, trips = [], []
+
+        def kept(*a, **k):
+            before = ray.LAUNCHES
+            res, secs = wall_s(lambda: labels_of(*a, **k))
+            seen.append((res, secs, ray.LAUNCHES - before))
+            return res
+
+        def counted(*a, **k):
+            res = interval(*a, **k)
+            trips.append(host(res[5]))
+            return res
+
+        termination.cause_labels = kept
+        rk45.integrate_interval = counted
+        try:
+            rep, launches, wall = cli_run(run, run.tmp, f"{name}_exact", js,
+                                          ["--report-exact"], unit, 1)
+        finally:
+            termination.cause_labels = labels_of
+            rk45.integrate_interval = interval
+        summary = rep["trajectories"]
+        check(summary["termination_causes"] == "exact"
+              and sum(summary["termination"].values())
+              == summary["n_rays"], f"classify {name}: report")
+        cfg = json_config(rt, js)
+        if prod is None:
+            bs = wind_state(run, js["inputuv"], cfg)
+            traj = rt.trace_rays(bs, cfg)
+        else:
+            bs, traj = prod["bs"], prod["traj"]
+        base = termination.analyze(traj)
+        (labels, k_s, rhs_launches), = seen or [(np.zeros(0, np.int8),
+                                                  0.0, 0)]
+        check(rhs_launches > 0 or labels.size == 0,
+              f"classify {name}: no RHS kernel launch")
+        check(labels.size == int(((base.death_step >= 1) & (
+            base.death_step < cfg.nt)).sum()), f"classify {name}: the "
+            "re-run's rays are not the in-process trajectory's dead rays")
+        want = {"no_root": base.counts["no_root"],
+                "survived": base.counts["survived"],
+                **{c: int((labels == i).sum())
+                   for i, c in enumerate(termination.CAUSES)}}
+        check(summary["termination"] == want, f"classify {name}: report "
+              f"{summary['termination']} != its labels' counts {want}")
+        dead += labels.size
+        cut = {} if cfg.integrator == "rk4" else dict(
+            max_iters=CLASSIFY_PLAIN_ITERS)
+        kern, kc_s = wall_s(lambda: termination.cause_labels(
+            traj, bs, cfg, base.death_step, **cut))
+        plain, p_s = wall_s(lambda: termination.cause_labels(
+            traj, bs, cfg, base.death_step,
+            rhs=lambda bg, y, t: ray._rhs_core(bg, y, t, False)[:2], **cut))
+        check(np.array_equal(kern, plain), f"classify {name}: labels "
+              "through the RHS kernel differ from the plain RHS's")
+        # A lane's re-run is its own: one that the report's re-run finished
+        # within the cut ends the same in the cut one.
+        lane_trips = (trips[0] if trips
+                      else np.zeros(labels.size, np.int64))
+        short = lane_trips <= CLASSIFY_PLAIN_ITERS
+        check(lane_trips.size == labels.size
+              and np.array_equal(labels[short], plain[short]),
+              f"classify {name}: the report's labels differ from the plain "
+              "RHS's on lanes finished within the cut")
+        order = np.argsort(lane_trips[~short], kind="stable")
+        past = [(int(t), termination.CAUSES[i]) for t, i in zip(
+            lane_trips[~short][order], labels[~short][order])]
+        print(f"classify {name}: {summary['n_rays']} rays, {labels.size} "
+              f"dead re-run ({cfg.integrator}); report "
+              f"{json.dumps(summary['termination'])}, cli wall {wall:.3f} s "
+              f"(split {json.dumps(rep['wall_s'])}); labels through the RHS "
+              f"kernel {k_s:.3f} s ({rhs_launches} RHS launches); "
+              f"{'' if not cut else f'cut at {CLASSIFY_PLAIN_ITERS} trips: '}"
+              f"kernel {kc_s:.3f} s, plain RHS {p_s:.3f} s, equal per lane; "
+              f"the report's labels equal the plain ones on the "
+              f"{int(short.sum())} lanes it finished within "
+              f"{CLASSIFY_PLAIN_ITERS} trips; {len(past)} lanes past it "
+              f"(trips, label): {past[:40]}")
+    check(dead > 0, "classify: no dead ray re-run in either run")
+
+
+#: The group_time phase: lanes of the production seeding's entry state and
+#: bounds of its one group, entered at day 0.5.
+GROUP_TIME_LANES = 2048
+GROUP_TIME_BOUNDS = 16
+
+
+def phase_group_time(run):
+    """ROADMAP item 18: the single-group kernels' time instances. Over the
+    TV_DAYS + 1 daily frames and over two static "reanalysis year" members
+    (a member map), float32, float64 and mixed: the first GROUP_TIME_LANES
+    lanes of the production seeding's entry state, one GROUP_TIME_BOUNDS-
+    bound group entered at day 0.5, through ``integrate_group_dense`` (pin
+    (500, 0)) and ``integrate_group`` (exact), every counter reset just
+    before each and read just after (one launch), every output bitwise
+    equal to the plain loop on the card; the float32 time-varying cases
+    timed against the plain loop."""
+    torch = run.torch
+    from rwrt_tpu_torch import tracer
+    from rwrt_tpu_torch.models import ray
+    from rwrt_tpu_torch.solvers import rk45
+
+    f32, f64 = torch.float32, torch.float64
+    n = GROUP_TIME_LANES
+    for key, (sdt, fdt) in (("float32", (f32, f32)), ("float64", (f64, f64)),
+                            ("mixed", (f64, f32))):
+        _, y0, _, _, _ = run.entry(fdt, state=sdt)
+        y0 = y0[:, :n].contiguous()
+        tv = tracer.make_background(
+            run.tv_bs if fdt == f32 else tv_state(run, TV_DAYS + 1, fdt), 0.0)
+        years = [tracer.make_background(run.rt.prepare(
+            u[0], v[0], lat, lon, cal_dtype=fdt, device=run.dev), 0.0)
+            for u, v, lat, lon in (climatology_frames(1, sc, ph) for sc, ph
+                                   in zip(MEMBER_SCALES[:2],
+                                          MEMBER_PHASES[:2]))]
+        members = years[0]._replace(
+            fields=torch.stack([m.fields for m in years]).contiguous(),
+            member_ids=torch.arange(n, dtype=torch.int32,
+                                    device=run.dev) % 2)
+        rtol = rk45.validate_tol(1e-6, sdt)
+        atol = rk45.as_scalar(1e-6, sdt)
+        min_step = rk45.as_scalar(1e-3 * 2 * HOUR, sdt)
+        cut_off = rk45.as_scalar(0.1, sdt)
+        for kind, bg in (("time", tv), ("member", members)):
+            h0 = tracer.initial_step_sizes(bg, y0, rtol, atol)
+            t0 = torch.full_like(h0, 0.5 * DAY)
+            f0 = ray.RayRHS(bg)(y0, t0)
+            bounds = (torch.arange(1, GROUP_TIME_BOUNDS + 1, dtype=sdt,
+                                   device=run.dev) * (2 * HOUR) + 0.5 * DAY)
+
+            def plain_rhs(yy, tt=0.0, bg=bg):
+                return ray._rhs_core(bg, yy, tt, False)[0]
+
+            def plain_gv(yy, tt=0.0, bg=bg):
+                dy, _, ug, vg = ray._rhs_core(bg, yy, tt, True)
+                return dy, ug, vg
+
+            pin = dict(pin_limit=500, pin_mwn=0.0)
+            dense_args = (y0, t0, h0, f0, bounds, rtol, atol, min_step)
+            exact_args = (y0, t0, h0, f0, bounds, y0[0].clone(),
+                          y0[1].clone(), cut_off, rtol, atol, min_step)
+            units = {
+                "dense_group": (
+                    lambda bg=bg: rk45.integrate_group_dense(
+                        ray.RayRHS(bg), *dense_args, **pin),
+                    lambda: rk45._integrate_group_dense_plain(
+                        plain_rhs, *dense_args, MAX_ITERS, **pin),
+                    (0, 1, 2, 3, 4), (7, 8, 9), 5),
+                "exact_group": (
+                    lambda bg=bg: rk45.integrate_group(
+                        ray.RayRHS(bg), None, *exact_args),
+                    lambda: rk45._integrate_group_plain(
+                        plain_rhs, plain_gv, *exact_args),
+                    range(7), (9, 10, 11, 12), 7),
+            }
+            for unit, (kernel, plain, floats, ints, iters) in units.items():
+                torch.cuda.synchronize()
+                reset_launches()
+                kern = kernel()
+                launches = read_launches(unit, 1, f"{unit} {kind} {key}")
+                (pl, p_s) = wall_s(plain)
+                tag = f"group_time {unit} {kind} {key}"
+                for i in floats:
+                    check(kern[i].dtype == pl[i].dtype
+                          and same(kern[i], pl[i]),
+                          f"{tag}: output {i} differs from the plain loop")
+                for i in ints:
+                    check(torch.equal(kern[i], pl[i]),
+                          f"{tag}: output {i} differs from the plain loop")
+                check(int(kern[iters]) == pl[iters], f"{tag}: iters")
+                if key != "float32" or kind != "time":
+                    continue
+                ms = cuda_ms(kernel, 5)
+                attempts = int(kern[7 if unit == "dense_group" else 9].sum())
+                tsf = 6 * attempts * time_sample_flops(bg)
+                if unit == "dense_group":
+                    rows = int(kern[0][:, 0].isfinite().sum())
+                    flops = attempts * ATTEMPT_FLOPS + rows * ROW_FLOPS + tsf
+                    out = (kern[0], *kern[1:5], kern[7], kern[8], kern[9])
+                else:
+                    rows = int(kern[0][:, 5].isfinite().sum())
+                    flops = (attempts * EXACT_ATTEMPT_FLOPS
+                             + rows * KILL_FLOPS + tsf)
+                    out = kern[:7] + kern[9:]
+                b = bound(nbytes(bg.fields, y0, t0, h0, f0, bounds, *out),
+                          flops, "float32")
+                print(f"{tag}: R={n}, {GROUP_TIME_BOUNDS} bounds, bitwise "
+                      f"equal to the plain loop; step attempts {attempts}; "
+                      f"kernel {ms:.3f} ms (CUDA events), plain "
+                      f"{p_s * 1e3:.1f} ms, bound {b['bound_ms']:.4f} ms "
+                      f"({b['bound_by']})")
+                name = f"{unit}_time"
+                run.kernels[name] = dict(max_abs_err=0.0, ms=ms,
+                                         plain_ms=p_s * 1e3, library_ms=None,
+                                         **b)
+                run.launches[name] = launches[unit]
+    print(f"group_time: both single-group kernels' time instances bitwise "
+          f"equal to the plain loops over daily frames and two members, in "
+          f"float32, float64 and mixed ({n} lanes)")
+
+
 KERNELS = (
     ("rhs", "rwrt_tpu_torch/csrc/rhs.cu", "rwrt_tpu/models/ray.py:163"),
     ("dense_group", "rwrt_tpu_torch/csrc/dense_run.cu",
@@ -2995,6 +3540,14 @@ KERNELS = (
      "rwrt_tpu/tracer.py:1367"),
     ("exact_run_member_time_f64", "rwrt_tpu_torch/csrc/exact_run_time_f64.cu",
      "rwrt_tpu/tracer.py:1367"),
+    ("flux", "rwrt_tpu_torch/csrc/flux.cu",
+     "rwrt_tpu/diagnostics/flux.py:279"),
+    ("flux_region", "rwrt_tpu_torch/csrc/flux.cu",
+     "rwrt_tpu/diagnostics/flux.py:104"),
+    ("dense_group_time", "rwrt_tpu_torch/csrc/dense_run_time.cu",
+     "rwrt_tpu/solvers/rk45.py:494"),
+    ("exact_group_time", "rwrt_tpu_torch/csrc/exact_run_time.cu",
+     "rwrt_tpu/solvers/rk45.py:302"),
 )
 
 
@@ -3027,6 +3580,8 @@ def main() -> int:
     print(f"build {time.perf_counter() - t0:.1f} s")
 
     run = Run(torch, rt)
+    tmp = tempfile.TemporaryDirectory()
+    run.tmp = tmp.name
     for phase in (phase_rhs, phase_dense_group, phase_dense_run,
                   phase_main_path, phase_spectral, phase_rk4,
                   phase_exact_group, phase_exact_run, phase_rk4_path,
@@ -3034,11 +3589,13 @@ def main() -> int:
                   phase_mixed_drift, phase_mixed_rk4, phase_mixed_exact,
                   phase_mixed_chunked, phase_time_rhs, phase_time_main_path,
                   phase_time_paths, phase_time_chunked, phase_ensemble,
-                  phase_time_spectral, phase_cli):
+                  phase_time_spectral, phase_cli, phase_flux, phase_wrf_cli,
+                  phase_classify, phase_group_time):
         t0 = time.perf_counter()
         phase(run)
         print(f"phase {phase.__name__[6:]} ok in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+    tmp.cleanup()
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,

@@ -34,7 +34,8 @@ def main(argv=None):
                          "per-ray termination accounting)")
     ap.add_argument("--report-exact", action="store_true",
                     help="exact death causes in the report "
-                         "(termination.classify; not ported yet: raises)")
+                         "(termination.classify re-runs each killing "
+                         "interval in one batch)")
     ap.add_argument("--wnmaps", default=None, metavar="PATH",
                     help="also compute and write the grid-wide wavenumber "
                          "diagnostics (stationary/non-stationary m-roots, "

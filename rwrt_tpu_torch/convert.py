@@ -2,11 +2,13 @@
 
 ``host`` brings a tensor (any device) back as numpy, the one way the
 writers, the accounting and the host root solver read device data. The JAX
-package's ``BasicState`` and ``Background`` are NamedTuples of
-arrays; ``{k: np.asarray(v) for k, v in state._asdict().items()}`` turns
-one into a mapping of numpy arrays and scalars, and these functions build
-the port's counterpart from it. That lets a test hold the port's tracer
-against the JAX package on the very same background.
+package's ``BasicState``, ``Background`` and ``RayTrajectories`` are
+NamedTuples of arrays; ``{k: np.asarray(v) for k, v in
+state._asdict().items()}`` turns one into a mapping of numpy arrays and
+scalars, and these functions build the port's counterpart from it. That
+lets a test hold the port's tracer and diagnostics against the JAX package
+on the very same inputs; ``flux_to_numpy`` brings the port's flux maps
+back.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from rwrt_tpu_torch.models.basic_state import BasicState, as_dtype
 from rwrt_tpu_torch.models.ray import Background
 from rwrt_tpu_torch.solvers.rk45 import as_scalar
+from rwrt_tpu_torch.tracer import RayTrajectories
 
 
 def host(x, dtype=None) -> np.ndarray:
@@ -69,3 +72,19 @@ def background_from_numpy(d: Mapping, *, device="cuda",
         member = torch.as_tensor(np.asarray(member, np.int32)).to(device)
     return Background(fields=_tensor(d["fields"], device, dtype).contiguous(),
                       member_ids=member, **scalars)
+
+
+def trajectories_from_numpy(d: Mapping, *, device="cuda",
+                            dtype=None) -> RayTrajectories:
+    """A port ``RayTrajectories`` from a mapping shaped like the JAX one
+    (lon, lat, kx, ky, amp, ug, vg, each (nt, 3, nsource, nzwn)); ``dtype``
+    defaults to that of ``lon``."""
+    dtype = as_dtype(np.asarray(d["lon"]).dtype if dtype is None else dtype)
+    return RayTrajectories(**{k: _tensor(d[k], device, dtype)
+                              for k in RayTrajectories._fields})
+
+
+def flux_to_numpy(wrf) -> dict:
+    """The fields of a ``WaveRayFlux`` (or any NamedTuple of tensors) as
+    numpy arrays, by name."""
+    return {k: host(v) for k, v in wrf._asdict().items()}

@@ -1,7 +1,7 @@
 // Dense Dormand-Prince kernels: free-stepping DP 5(4) with dense output,
 // one thread per lane, from one templated body.
 //
-//   dense_kernel<S, F, false, false>
+//   dense_kernel<S, F, false, kTime>
 //                           one group of output bounds in one launch
 //                           (rwrt_dense_group: solvers/rk45.py
 //                           integrate_group_dense on CUDA);
@@ -82,8 +82,9 @@
 // Time: a trial's stages sample at t + c_s h (dp45.cuh trial), its 7th
 // stage at t + h, and a row's (ug, vg) at its bound's time, as the plain
 // versions pass them. Only the time instances (kTime: dense_run_time*.cu,
-// the whole run over a time-varying or ensemble background, ray_rhs.cuh)
-// read the time; the static instances' code is the code without it.
+// the whole run and the single group over a time-varying or ensemble
+// background, ray_rhs.cuh) read the time; the static instances' code is
+// the code without it.
 //
 // Rounding: built with -fmad=false (kernels/build.py), so each expression
 // rounds as the plain version's separate tensor ops do; with FMA
@@ -455,11 +456,28 @@ int run_dense(const rwrt::Background<F, kTime>& bg, void* y, void* t,
   return launch_dense<S, F, true, kTime>(a, static_cast<cudaStream_t>(stream));
 }
 
+// The single group over background bg (static or a time instance's).
+template <typename S, typename F, bool kTime>
+int group_dense(const rwrt::Background<F, kTime>& bg, void* y, void* t,
+                void* h, void* f, void* rejected, void* new_step,
+                void* lane_att, void* hist, const void* bounds, int G, int R,
+                double rtol, double atol, double min_step,
+                long long max_iters, long long pin_limit, double pin_mwn,
+                void* stream) {
+  DenseArgs<S, F, kTime> a = dense_args<S, F, kTime>(
+      bg, y, t, h, f, lane_att, hist, bounds, G, 1, R, rtol, atol, min_step,
+      max_iters, pin_limit, pin_mwn);
+  a.rejected = static_cast<bool*>(rejected);
+  a.new_step = static_cast<bool*>(new_step);
+  return launch_dense<S, F, false, kTime>(a,
+                                          static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
 extern "C" {
 
-// The single group, state type S over background type F (static only).
+// The single group, state type S over background type F.
 #define RWRT_DENSE_GROUP(SUFFIX, S, F)                                       \
   int rwrt_dense_group_##SUFFIX(                                             \
       const void* packed, int W, int H, double lon0, double lat0, double dx, \
@@ -467,14 +485,28 @@ extern "C" {
       void* new_step, void* lane_att, void* hist, const void* bounds, int G, \
       int R, double rtol, double atol, double min_step, long long max_iters, \
       long long pin_limit, double pin_mwn, void* stream) {                   \
-    DenseArgs<S, F, false> a = dense_args<S, F, false>(                      \
+    return group_dense<S, F>(                                                \
         rwrt::make_background<F>(packed, W, H, lon0, lat0, dx, dy), y, t, h, \
-        f, lane_att, hist, bounds, G, 1, R, rtol, atol, min_step, max_iters, \
-        pin_limit, pin_mwn);                                                 \
-    a.rejected = static_cast<bool*>(rejected);                               \
-    a.new_step = static_cast<bool*>(new_step);                               \
-    return launch_dense<S, F, false, false>(                                 \
-        a, static_cast<cudaStream_t>(stream));                               \
+        f, rejected, new_step, lane_att, hist, bounds, G, R, rtol, atol,     \
+        min_step, max_iters, pin_limit, pin_mwn, stream);                    \
+  }
+
+// Its time instance: the background's time axis and member map after the
+// grid.
+#define RWRT_DENSE_GROUP_TIME(SUFFIX, S, F)                                  \
+  int rwrt_dense_group_time_##SUFFIX(                                        \
+      const void* packed, int W, int H, double lon0, double lat0, double dx, \
+      double dy, int nt, int timed, double t0, double tdt,                   \
+      const void* member, void* y, void* t, void* h, void* f,                \
+      void* rejected, void* new_step, void* lane_att, void* hist,            \
+      const void* bounds, int G, int R, double rtol, double atol,            \
+      double min_step, long long max_iters, long long pin_limit,             \
+      double pin_mwn, void* stream) {                                        \
+    return group_dense<S, F>(                                                \
+        rwrt::make_background<F>(packed, W, H, lon0, lat0, dx, dy, nt,       \
+                                 timed, t0, tdt, member),                    \
+        y, t, h, f, rejected, new_step, lane_att, hist, bounds, G, R, rtol,  \
+        atol, min_step, max_iters, pin_limit, pin_mwn, stream);              \
   }
 
 // The whole run, state type S over background type F.
@@ -519,10 +551,13 @@ extern "C" {
 // time instances' dense_run_time.cu, dense_run_time_f64.cu and
 // dense_run_time_mix.cu include this file).
 #if defined(RWRT_DENSE_TIME_F64)
+RWRT_DENSE_GROUP_TIME(f64, double, double)
 RWRT_DENSE_RUN_TIME(f64, double, double)
 #elif defined(RWRT_DENSE_TIME_MIX)
+RWRT_DENSE_GROUP_TIME(mix, double, float)
 RWRT_DENSE_RUN_TIME(mix, double, float)
 #elif defined(RWRT_DENSE_TIME)
+RWRT_DENSE_GROUP_TIME(f32, float, float)
 RWRT_DENSE_RUN_TIME(f32, float, float)
 #elif defined(RWRT_DENSE_F64)
 RWRT_DENSE_GROUP(f64, double, double)
@@ -536,6 +571,7 @@ RWRT_DENSE_RUN(f32, float, float)
 #endif
 
 #undef RWRT_DENSE_GROUP
+#undef RWRT_DENSE_GROUP_TIME
 #undef RWRT_DENSE_RUN
 #undef RWRT_DENSE_RUN_TIME
 

@@ -1,5 +1,6 @@
-// The time instance of the whole-run dense kernel (dense_run.cu) in float32: a
-// time-varying or ensemble background, compiled apart from the other instances
-// so that the build runs them at once and the static code stays as it is.
+// The time instances of the dense kernels (dense_run.cu: the whole run and the
+// single group) in float32: a time-varying or ensemble background, compiled
+// apart from the other instances so that the build runs them at once and the
+// static code stays as it is.
 #define RWRT_DENSE_TIME
 #include "dense_run.cu"

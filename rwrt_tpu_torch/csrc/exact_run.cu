@@ -1,7 +1,7 @@
 // Exact-bound Dormand-Prince kernels: every step clamps at every output
 // bound, one thread per lane, from one templated body.
 //
-//   exact_kernel<S, F, false, false, false, I>
+//   exact_kernel<S, F, false, false, kTime, I>
 //                           one group of output bounds in one launch
 //                           (rwrt_exact_group: solvers/rk45.py
 //                           integrate_group on CUDA), with its suspend /
@@ -81,9 +81,9 @@
 // Time: a trial's stages sample at t + c_s h (dp45.cuh trial) and its 7th
 // stage at t + h; under kGvAtSave the saved state's (ug, vg) at that time
 // too, as the plain versions pass them. Only the time instances (kTime:
-// exact_run_time*.cu, the whole run over a time-varying or ensemble
-// background, ray_rhs.cuh) read the time; the static instances' code is
-// the code without it.
+// exact_run_time*.cu, the whole run and the single group over a
+// time-varying or ensemble background, ray_rhs.cuh) read the time; the
+// static instances' code is the code without it.
 //
 // Rounding: built with -fmad=false (kernels/build.py), so each expression
 // rounds as the plain version's separate tensor ops do.
@@ -378,8 +378,7 @@ int launch_exact(const ExactArgs<S, F, kTime>& a, int inst,
   });
 }
 
-// Resident threads of the whole run (run != 0) or the single group; the
-// time instances have the whole run only.
+// Resident threads of the whole run (run != 0) or the single group.
 template <typename S, typename F, bool kTime>
 int exact_resident(int run, int inst, int* out) {
   return rwrt::with_instance(inst, [&](auto tag) {
@@ -388,12 +387,8 @@ int exact_resident(int run, int inst, int* out) {
       return rwrt::resident_threads(
           exact_kernel<S, F, true, false, kTime, I>, out);
     }
-    if constexpr (kTime) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    } else {
-      return rwrt::resident_threads(
-          exact_kernel<S, F, false, false, false, I>, out);
-    }
+    return rwrt::resident_threads(
+        exact_kernel<S, F, false, false, kTime, I>, out);
   });
 }
 
@@ -449,11 +444,31 @@ int run_exact(const rwrt::Background<F, kTime>& bg, void* y, void* t,
                  : launch_exact<S, F, true, false, kTime>(a, inst, s);
 }
 
+// The single group over background bg (static or a time instance's).
+template <typename S, typename F, bool kTime>
+int group_exact(const rwrt::Background<F, kTime>& bg, void* y, void* t,
+                void* h, void* f, void* plon, void* plat, void* rejected,
+                void* new_step, void* lane_att, void* idx, void* trips,
+                void* hist, const void* bounds, int G, int R, int resume,
+                double cut_off, double rtol, double atol, double min_step,
+                long long max_iters, int inst, void* stream) {
+  ExactArgs<S, F, kTime> a = exact_args<S, F, kTime>(
+      bg, y, t, h, f, plon, plat, lane_att, hist, bounds, G, 1, R, cut_off,
+      rtol, atol, min_step, max_iters);
+  a.rejected = static_cast<bool*>(rejected);
+  a.new_step = static_cast<bool*>(new_step);
+  a.idx = static_cast<int*>(idx);
+  a.trips = static_cast<int*>(trips);
+  a.resume = resume != 0;
+  return launch_exact<S, F, false, false, kTime>(
+      a, inst, static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
 extern "C" {
 
-// The single group, state type S over background type F (static only).
+// The single group, state type S over background type F.
 #define RWRT_EXACT_GROUP(SUFFIX, S, F)                                        \
   int rwrt_exact_group_##SUFFIX(                                              \
       const void* packed, int W, int H, double lon0, double lat0, double dx,  \
@@ -462,17 +477,30 @@ extern "C" {
       void* hist, const void* bounds, int G, int R, int resume,               \
       double cut_off, double rtol, double atol, double min_step,              \
       long long max_iters, int inst, void* stream) {                          \
-    ExactArgs<S, F, false> a = exact_args<S, F, false>(                       \
+    return group_exact<S, F>(                                                 \
         rwrt::make_background<F>(packed, W, H, lon0, lat0, dx, dy), y, t, h,  \
-        f, plon, plat, lane_att, hist, bounds, G, 1, R, cut_off, rtol, atol,  \
-        min_step, max_iters);                                                 \
-    a.rejected = static_cast<bool*>(rejected);                                \
-    a.new_step = static_cast<bool*>(new_step);                                \
-    a.idx = static_cast<int*>(idx);                                           \
-    a.trips = static_cast<int*>(trips);                                       \
-    a.resume = resume != 0;                                                   \
-    return launch_exact<S, F, false, false, false>(                           \
-        a, inst, static_cast<cudaStream_t>(stream));                          \
+        f, plon, plat, rejected, new_step, lane_att, idx, trips, hist,        \
+        bounds, G, R, resume, cut_off, rtol, atol, min_step, max_iters, inst, \
+        stream);                                                              \
+  }
+
+// Its time instance: the background's time axis and member map after the
+// grid.
+#define RWRT_EXACT_GROUP_TIME(SUFFIX, S, F)                                   \
+  int rwrt_exact_group_time_##SUFFIX(                                         \
+      const void* packed, int W, int H, double lon0, double lat0, double dx,  \
+      double dy, int nt, int timed, double t0, double tdt,                    \
+      const void* member, void* y, void* t, void* h, void* f, void* plon,     \
+      void* plat, void* rejected, void* new_step, void* lane_att, void* idx,  \
+      void* trips, void* hist, const void* bounds, int G, int R, int resume,  \
+      double cut_off, double rtol, double atol, double min_step,              \
+      long long max_iters, int inst, void* stream) {                          \
+    return group_exact<S, F>(                                                 \
+        rwrt::make_background<F>(packed, W, H, lon0, lat0, dx, dy, nt, timed, \
+                                 t0, tdt, member),                            \
+        y, t, h, f, plon, plat, rejected, new_step, lane_att, idx, trips,     \
+        hist, bounds, G, R, resume, cut_off, rtol, atol, min_step, max_iters, \
+        inst, stream);                                                        \
   }
 
 // The whole run, state type S over background type F, and the resident
@@ -496,7 +524,7 @@ extern "C" {
   }
 
 // Its time instance: the background's time axis and member map after the
-// grid; its resident count (whole run only).
+// grid; its resident counts.
 #define RWRT_EXACT_RUN_TIME(SUFFIX, S, F)                                     \
   int rwrt_exact_run_time_##SUFFIX(                                           \
       const void* packed, int W, int H, double lon0, double lat0, double dx,  \
@@ -523,10 +551,13 @@ extern "C" {
 // instances' exact_run_time.cu, exact_run_time_f64.cu and
 // exact_run_time_mix.cu include this file).
 #if defined(RWRT_EXACT_TIME_F64)
+RWRT_EXACT_GROUP_TIME(f64, double, double)
 RWRT_EXACT_RUN_TIME(f64, double, double)
 #elif defined(RWRT_EXACT_TIME_MIX)
+RWRT_EXACT_GROUP_TIME(mix, double, float)
 RWRT_EXACT_RUN_TIME(mix, double, float)
 #elif defined(RWRT_EXACT_TIME)
+RWRT_EXACT_GROUP_TIME(f32, float, float)
 RWRT_EXACT_RUN_TIME(f32, float, float)
 #elif defined(RWRT_EXACT_F64)
 RWRT_EXACT_GROUP(f64, double, double)
@@ -540,6 +571,7 @@ RWRT_EXACT_RUN(f32, float, float)
 #endif
 
 #undef RWRT_EXACT_GROUP
+#undef RWRT_EXACT_GROUP_TIME
 #undef RWRT_EXACT_RUN
 #undef RWRT_EXACT_RUN_TIME
 

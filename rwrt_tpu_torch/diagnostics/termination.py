@@ -1,13 +1,17 @@
 """Per-ray termination accounting (port of
-``rwrt_tpu/diagnostics/termination.py``: ``TerminationReport``,
-``death_steps`` and ``analyze``, plain numpy over the host trajectories).
+``rwrt_tpu/diagnostics/termination.py``).
 
 The reference kills rays by per-ray masks (latitude out of range, runaway
 |m|, excessive haversine displacement) and NaN-fills them, recording
 nothing about when or why a ray died. ``analyze`` reconstructs the death
-step and survival per output step from the trajectory arrays, with a
-coarse cause (the last live latitude near a pole). ``classify``, the exact
-cause from re-running each killing interval, is not ported yet.
+step and survival per output step from the trajectory arrays (plain numpy
+over the host trajectories), with a coarse cause (the last live latitude
+near a pole). ``classify`` gives the exact cause: it re-runs each dead
+ray's killing interval in one batch on the basic state's device and
+applies the kill masks to the recovered candidate state. On the card every
+RHS evaluation of that re-run is a launch of the RHS kernel (``ray.rhs``:
+``csrc/rhs.cu``, or ``rhs_time.cu`` at each lane's own time over a
+time-varying background).
 """
 
 from __future__ import annotations
@@ -15,8 +19,12 @@ from __future__ import annotations
 from typing import Dict, NamedTuple
 
 import numpy as np
+import torch
 
 from rwrt_tpu_torch.convert import host
+
+#: The exact causes, by the label ``cause_labels`` gives a dead ray.
+CAUSES = ("polar", "jump", "runaway", "other")
 
 
 class TerminationReport(NamedTuple):
@@ -87,9 +95,116 @@ def analyze(traj) -> TerminationReport:
     )
 
 
-def classify(traj, bs, config, max_rays: int = 1_000_000):
-    """Exact per-ray death causes by re-running the killing interval: not
-    ported yet."""
-    raise NotImplementedError(
-        "termination.classify is not ported yet (ROADMAP Slice 4, "
-        "diagnostics); analyze gives the coarse causes")
+def _gather(a, index, device, dtype) -> torch.Tensor:
+    """a[index] (one element per dead ray) on ``device`` in ``dtype``: a
+    tensor is gathered on its own device, numpy (memmaps) on the host."""
+    if torch.is_tensor(a):
+        a = a[tuple(torch.as_tensor(i, device=a.device) for i in index)]
+    else:
+        a = torch.from_numpy(np.asarray(a)[index])
+    return a.to(device=device, dtype=dtype)
+
+
+def cause_labels(traj, bs, config, death_step, rhs=None,
+                 max_iters: int = 10_000) -> np.ndarray:
+    """The exact cause (an index into ``CAUSES``) of each ray that died
+    after its seed step, in ``np.argwhere`` order of ``death_step``
+    (``analyze``'s).
+
+    One batched re-run on ``bs``'s device: each dead ray's last saved state
+    advanced over its killing interval, at its own time (t0 = (d - 1) *
+    tstep, bound d * tstep per lane), with the configured integrator (RK4
+    one step; RK45 from a fresh Hairer initial step through
+    ``integrate_interval`` to the lane's bound, ``max_iters`` trips at
+    most, the JAX package's 10,000 by default), then the kill masks on the
+    candidate state:
+
+      polar    -- |lat| >= pi/2 (and the candidate is not NaN)
+      jump     -- haversine displacement >= cut_off
+      runaway  -- NaN candidate lon or ky (the RHS's |m| >= 100 or
+                  mid-stage latitude mask)
+      other    -- death not reproduced by the re-run
+
+    ``rhs`` (bg, y, t) -> (dy, err) evaluates the RHS: by default
+    ``ray.rhs``, the RHS kernel on a CUDA state; a plain one (``lambda bg,
+    y, t: ray._rhs_core(bg, y, t, False)[:2]``) runs the plain version.
+    """
+    from rwrt_tpu_torch import tracer as tracer_mod
+    from rwrt_tpu_torch.constants import pi
+    from rwrt_tpu_torch.models import ray as ray_mod
+    from rwrt_tpu_torch.solvers import rk4 as rk4_mod
+    from rwrt_tpu_torch.solvers import rk45 as rk45_mod
+
+    rhs = ray_mod.rhs if rhs is None else rhs
+    nt = traj.lon.shape[0]
+    died = (death_step >= 1) & (death_step < nt)
+    idx = np.argwhere(died)
+    d = death_step[died]
+    if idx.shape[0] == 0:
+        return np.zeros(0, np.int8)
+    dtype = bs.fields.dtype
+    dev = bs.fields.device
+    index = (d - 1, idx[:, 0], idx[:, 1], idx[:, 2])
+    y = torch.stack([_gather(getattr(traj, k), index, dev, dtype)
+                     for k in ("lon", "lat", "kx", "ky", "amp")])
+
+    def per_lane(x):
+        return torch.as_tensor(x, dtype=torch.float64).to(device=dev,
+                                                          dtype=dtype)
+
+    t0 = per_lane((d - 1) * config.tstep)
+    bound = per_lane(d * config.tstep)
+    bg = tracer_mod.make_background(bs, config.freq)
+    cut_off = rk45_mod.as_scalar(config.cut_off_rad, dtype)
+    if config.integrator == "rk4":
+        y_new = rk4_mod.rk4_step(bg, y, config.tstep, t0, rhs=rhs)
+    else:
+        def rhs_fn(yy, tt=0.0):
+            return rhs(bg, yy, tt)[0]
+
+        rtol = rk45_mod.validate_tol(config.rtol, dtype)
+        atol = rk45_mod.as_scalar(config.atol, dtype)
+        min_step = rk45_mod.as_scalar(
+            min(config.min_step_factor * config.tstep,
+                config.tstep * 1e-3), dtype)
+        h0 = rk45_mod.select_initial_step(rhs_fn, y, rhs_fn(y, t0), rtol,
+                                          atol, t0)
+        y_new = rk45_mod.integrate_interval(
+            rhs_fn, y, t0, h0, bound, rtol, atol, min_step,
+            max_iters=max_iters)[0]
+    nan_cand = torch.isnan(y_new[0]) | torch.isnan(y_new[3])
+    lat_kill = torch.abs(y_new[1]) >= 0.5 * pi
+    ddis = ray_mod.haversine(y_new[0], y_new[1], y[0], y[1])
+    jump_kill = ddis >= cut_off
+    nan_cand, lat_kill, jump_kill = (host(x) for x in (nan_cand, lat_kill,
+                                                       jump_kill))
+    polar = lat_kill & ~nan_cand
+    jump = jump_kill & ~nan_cand & ~polar
+    labels = np.full(nan_cand.shape, CAUSES.index("other"), np.int8)
+    labels[polar] = CAUSES.index("polar")
+    labels[jump] = CAUSES.index("jump")
+    labels[nan_cand] = CAUSES.index("runaway")
+    return labels
+
+
+def classify(traj, bs, config,
+             max_rays: int = 1_000_000) -> TerminationReport:
+    """Exact per-ray death causes by re-running the killing interval
+    (``cause_labels``), counted under ``CAUSES`` beside ``analyze``'s
+    no_root and survived."""
+    base = analyze(traj)
+    death_step = base.death_step
+    nt = traj.lon.shape[0]
+    n_dead = int(((death_step >= 1) & (death_step < nt)).sum())
+    counts = dict(base.counts)
+    counts.pop("polar", None)
+    counts.pop("unclassified", None)
+    counts.update({c: 0 for c in CAUSES})
+    if n_dead == 0:
+        return TerminationReport(death_step, base.alive_frac, counts)
+    if n_dead > max_rays:
+        raise ValueError(f"{n_dead} dead rays exceeds max_rays")
+    labels = cause_labels(traj, bs, config, death_step)
+    for i, c in enumerate(CAUSES):
+        counts[c] = int((labels == i).sum())
+    return TerminationReport(death_step, base.alive_frac, counts)

@@ -91,6 +91,17 @@ SIGNATURES = {
     "rwrt_exact_resident": (_I, _I, _P),
     # lon, lat, tht, packed, R, Mp, L, C, Kp, Lp, bf16, out, stream
     "rwrt_spectral": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    # lon, lat, amp, ug, vg, ky, their row strides, nt, R, keep, u_prev,
+    # base_prev, carry_in, fu, fv, asum, cnt, nlon_bins, nlat_bins,
+    # inv_dlon, inv_dlat, amp_min, amp_max, speed_min, speed_max, mwn_max,
+    # checks, weight, stream
+    "rwrt_flux": (_P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _I, _I, _P,
+                  _P, _P, _I, _P, _P, _P, _P, _I, _I, _D, _D, _D, _D, _D, _D,
+                  _D, _I, _I, _P),
+    # lon, lat, amp, their row strides, nt, R, mode, lo0, lo1, la0, la1,
+    # keep, stream
+    "rwrt_flux_region": (_P, _P, _P, _L, _L, _L, _I, _I, _I, _D, _D, _D, _D,
+                         _P, _P),
 }
 
 #: The time instances' entry points (``<name>_time``: a time-varying or
@@ -112,7 +123,7 @@ def _time_signature(name: str) -> tuple:
 
 
 for _name in ("rwrt_rhs", "rwrt_rk4_run", "rwrt_exact_run",
-              "rwrt_dense_run"):
+              "rwrt_dense_run", "rwrt_exact_group", "rwrt_dense_group"):
     SIGNATURES[_name + "_time"] = _time_signature(_name)
 # The occupancy counts of the time instances take the static ones' args.
 SIGNATURES["rwrt_rk4_resident_time"] = SIGNATURES["rwrt_rk4_resident"]
@@ -126,7 +137,8 @@ MIXED = ("rwrt_rk4_run", "rwrt_rk4_resident", "rwrt_exact_run",
          "rwrt_exact_group", "rwrt_exact_resident", "rwrt_dense_run",
          "rwrt_dense_group", "rwrt_rk4_run_time", "rwrt_rk4_resident_time",
          "rwrt_exact_run_time", "rwrt_exact_resident_time",
-         "rwrt_dense_run_time")
+         "rwrt_dense_run_time", "rwrt_exact_group_time",
+         "rwrt_dense_group_time")
 
 
 def unit_flags(name: str) -> list:

@@ -5,13 +5,13 @@ state (optionally regridded and SHSF-smoothed at ingest), write the
 basic-state diagnostics file, seed the source matrix, trace the rays
 (``trace_rays``, ``trace_rays_chunked`` or, for a list of wind files,
 ``trace_rays_ensemble``), and write the trajectory file, the optional
-wavenumber maps and the optional JSON run report. The run goes to the card
-unless ``device="cpu"``; without a card a CUDA run is an error, never a
-silent run on the host.
+wavenumber maps and the optional JSON run report (with exact death causes,
+``termination.classify``, where asked). The run goes to the card unless
+``device="cpu"``; without a card a CUDA run is an error, never a silent run
+on the host.
 
 Not ported yet, and refused before anything is loaded: a device mesh
-(ROADMAP Slice 6) and exact death causes in the report
-(``termination.classify``, ROADMAP Slice 4).
+(ROADMAP Slice 6).
 """
 
 from __future__ import annotations
@@ -141,19 +141,25 @@ def _report_skeleton(config: RunConfig, paths: RunPaths,
     }
 
 
-def _traj_summary(traj: RayTrajectories) -> dict:
-    """Termination accounting + shape summary of one trajectory set (the
-    host-side heuristic causes of ``termination.analyze``)."""
-    from rwrt_tpu_torch.diagnostics.termination import analyze
+def _traj_summary(traj: RayTrajectories, config: RunConfig,
+                  bs=None) -> dict:
+    """Termination accounting + shape summary of one trajectory set.
 
-    rep = analyze(traj)
+    With a basic state, death causes are exact (``termination.classify``
+    re-runs each killing interval in one batch on the state's device);
+    otherwise they are the coarse host-side heuristic
+    (``termination.analyze``).
+    """
+    from rwrt_tpu_torch.diagnostics.termination import analyze, classify
+
+    rep = classify(traj, bs, config) if bs is not None else analyze(traj)
     shape = list(traj.lon.shape)
     return {
         "nt": shape[0],
         "shape": shape,
         "n_rays": int(np.prod(shape[1:])),
         "termination": rep.counts,
-        "termination_causes": "heuristic",
+        "termination_causes": "exact" if bs is not None else "heuristic",
         "final_alive_frac": float(rep.alive_frac[-1]),
     }
 
@@ -204,8 +210,11 @@ def run(config: RunConfig, paths: RunPaths, *, mesh=None, verbose: bool = True,
     report_path: write a machine-readable JSON run report there (config
     echo, torch/CUDA versions and the device, phase wall-clock split
     prepare / trace / io / total, termination accounting).
-    mesh, report_exact_causes: not ported yet (ROADMAP Slice 6 and Slice
-    4); refused before anything is loaded.
+    report_exact_causes: death causes in the report come from
+    ``termination.classify`` (one batched re-run of every killing interval,
+    after the wall split ends) instead of the host heuristic.
+    mesh: not ported yet (ROADMAP Slice 6); refused before anything is
+    loaded.
 
     With a list-valued paths.inputuv the run is an ensemble sweep: one
     member per file, per-member output files, and the return value is the
@@ -213,16 +222,12 @@ def run(config: RunConfig, paths: RunPaths, *, mesh=None, verbose: bool = True,
     """
     config.validate()
     refuse_mesh(mesh, "run")
-    if report_exact_causes:
-        raise NotImplementedError(
-            "exact death causes (termination.classify) are not ported yet "
-            "(ROADMAP Slice 4, diagnostics); the report gives the heuristic "
-            "causes of termination.analyze")
     device = _run_device(device)
     if isinstance(paths.inputuv, (list, tuple)):
         return _run_ensemble(config, paths, verbose=verbose,
                              chunked=chunked, checkpoint_path=checkpoint_path,
                              wnmaps_path=wnmaps_path, report_path=report_path,
+                             report_exact_causes=report_exact_causes,
                              device=device)
     report = _report_skeleton(config, paths, device) if report_path else None
     t_start = time.perf_counter()
@@ -250,7 +255,8 @@ def run(config: RunConfig, paths: RunPaths, *, mesh=None, verbose: bool = True,
             print(f"wrote wavenumber maps to {wnmaps_path}")
     if report is not None:
         t_end = _clock(device)
-        report["trajectories"] = _traj_summary(traj)
+        report["trajectories"] = _traj_summary(
+            traj, config, bs if report_exact_causes else None)
         _finish_report(
             report, report_path, verbose,
             grid={"nlon": int(bs.nlon), "nlat": int(bs.nlat),
@@ -264,7 +270,8 @@ def run(config: RunConfig, paths: RunPaths, *, mesh=None, verbose: bool = True,
 
 
 def _run_ensemble(config: RunConfig, paths: RunPaths, *, verbose, chunked,
-                  checkpoint_path, wnmaps_path, report_path, device):
+                  checkpoint_path, wnmaps_path, report_path,
+                  report_exact_causes, device):
     """Ensemble sweep over a list of input wind files.
 
     The fused path runs all members in one ``trace_rays_ensemble`` (one
@@ -324,7 +331,8 @@ def _run_ensemble(config: RunConfig, paths: RunPaths, *, verbose, chunked,
                 verbose=verbose)
             trajs.append(traj)
             if report is not None:
-                member_reports.append(_traj_summary(traj))
+                member_reports.append(_traj_summary(
+                    traj, config, m if report_exact_causes else None))
         t_trace = _clock(device)
         t_prepare = t_start + prepare_s  # prepare time interleaves the loop
     else:
@@ -336,7 +344,9 @@ def _run_ensemble(config: RunConfig, paths: RunPaths, *, verbose, chunked,
         trajs = trace_rays_ensemble(members, config)
         t_trace = _clock(device)
         if report is not None:
-            member_reports = [_traj_summary(t) for t in trajs]
+            member_reports = [
+                _traj_summary(t, config, m if report_exact_causes else None)
+                for t, m in zip(trajs, members)]
     for i, traj in enumerate(trajs):
         ncfile = _member_path(paths.ncfile, i)
         if ncfile:

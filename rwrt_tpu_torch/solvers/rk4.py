@@ -19,7 +19,9 @@ t + dt.
 
 On the card the whole run is one launch of ``csrc/rk4_run.cu``
 (``tracer._run_rk4``); this module is what that kernel is held against. It
-calls the plain RHS (``models/ray._rhs_core``) on every device.
+calls the plain RHS (``models/ray._rhs_core``) on every device; a caller
+of ``rk4_step`` may pass the dispatching ``ray.rhs`` instead
+(``diagnostics/termination.classify``).
 """
 
 from __future__ import annotations
@@ -40,9 +42,15 @@ def step_factors(dt, dtype: torch.dtype) -> Tuple[float, float, float]:
     return float(d), float(0.5 * d), float(d / torch.tensor(6.0, dtype=dtype))
 
 
-def rk4_step(bg: Background, y: torch.Tensor, dt, t=0.0) -> torch.Tensor:
-    """One RK4 step with per-ray freeze semantics from time t (a 0-d tensor
-    of the state's dtype, or 0.0). y: (5, R) -> (5, R).
+def rk4_step(bg: Background, y: torch.Tensor, dt, t=0.0,
+             rhs=None) -> torch.Tensor:
+    """One RK4 step with per-ray freeze semantics from time t (a 0-d or
+    (R,) tensor of the state's dtype, or 0.0). y: (5, R) -> (5, R).
+
+    ``rhs`` (bg, y, t) -> (dy, err) evaluates the stages: by default the
+    plain ``ray._rhs_core`` on every device (what the RK4 kernel is held
+    against); ``ray.rhs`` launches the RHS kernel on a CUDA state, whose
+    values are the plain version's to the bit.
 
     In mixed precision (a float64 state over a float32 background) the
     stages k come out in the background's dtype and their sum
@@ -51,18 +59,18 @@ def rk4_step(bg: Background, y: torch.Tensor, dt, t=0.0) -> torch.Tensor:
     the state's dtype, so the stages are widened first. PyTorch would keep
     a Python scalar times a float32 tensor in float32."""
     dt, half, sixth = step_factors(dt, y.dtype)
-
-    def rhs(yy, tt):
-        dy, err, _, _ = ray_mod._rhs_core(bg, yy, tt, False)
-        return dy, err
+    if rhs is None:
+        def rhs(bg, yy, tt):
+            dy, err, _, _ = ray_mod._rhs_core(bg, yy, tt, False)
+            return dy, err
 
     def wide(k):
         return k.to(y.dtype)
 
-    k1, m1 = rhs(y, t)
-    k2, m2 = rhs(y + half * wide(k1), t + half)
-    k3, m3 = rhs(y + half * wide(k2), t + half)
-    k4, m4 = rhs(y + dt * wide(k3), t + dt)
+    k1, m1 = rhs(bg, y, t)
+    k2, m2 = rhs(bg, y + half * wide(k1), t + half)
+    k3, m3 = rhs(bg, y + half * wide(k2), t + half)
+    k4, m4 = rhs(bg, y + dt * wide(k3), t + dt)
     valid = ~(m1 | m2 | m3 | m4)
     y_prop = y + sixth * wide(k1 + 2.0 * k2 + 2.0 * k3 + k4)
     return torch.where(valid[None, :], y_prop, y)

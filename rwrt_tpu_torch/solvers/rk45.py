@@ -27,8 +27,11 @@ float32, and every expression here promotes as JAX's does: a stage sum
 the error estimate, the norm, the controller and the dense interpolant's
 weights run in float64. The scalars (rtol, atol, min_step, cut_off,
 pin_mwn) are rounded to the state's dtype. The plain versions serve it
-on every device; on the card only the whole-run kernels do
-(``tracer``), and the single-group entry points raise.
+on every device, and on the card the kernels' mixed instances.
+
+Over a time-varying or ensemble background (``ray.kernel_background``'s
+"_time" variant) both single-group kernels launch their time instances,
+as the whole runs do.
 """
 
 from __future__ import annotations
@@ -93,7 +96,7 @@ def exact_instance(r: int, dtype, run: bool = True,
     the whole run (``run``, ``tracer._exact_run``) or the single group
     (``integrate_group``). ``dtype`` is a torch dtype or a (state, field)
     pair (``kernels.launch``); ``variant`` "" (a static background) or
-    "_time" (the whole run's time instance, ``ray.kernel_background``)."""
+    "_time" (the time instance, ``ray.kernel_background``)."""
     return kernels.choose_instance(
         r, kernels.resident("exact", kernels.TEAM, dtype, int(run),
                             variant=variant))
@@ -417,7 +420,7 @@ def _integrate_group_cuda(rhs_fn, rhs_gv_fn, y, t, h, f, bounds, prev_lon,
                            ("bounds", bounds, (g,))):
         kernels.check_tensor(x, name, device=dev, dtype=dt, shape=shape)
     kernels.check_tensor(f, "f", device=dev, dtype=key[1], shape=(5, r))
-    bg_args = static_background(bg, dev, key[1], r)
+    variant, bg_args = ray_mod.kernel_background(bg, dev, key[1], r)
     rtol, atol, min_step, cut_off = (as_scalar(x, dt)
                                      for x in (rtol, atol, min_step, cut_off))
 
@@ -441,30 +444,16 @@ def _integrate_group_cuda(rhs_fn, rhs_gv_fn, y, t, h, f, bounds, prev_lon,
             kernels.check_tensor(x, name, device=dev, dtype=xdt, shape=shape)
     trips = torch.empty(r, dtype=torch.int32, device=dev)
     kernels.launch(
-        "rwrt_exact_group", key, *bg_args, y, t, h, f, prev_lon, prev_lat,
-        rejected, new_step, lane_att,
+        f"rwrt_exact_group{variant}", key, *bg_args, y, t, h, f, prev_lon,
+        prev_lat, rejected, new_step, lane_att,
         idx, trips, hist, bounds, g, r, int(state0 is not None), cut_off,
         rtol, atol, min_step, int(max_iters), kernels.instance_id(
-            instance or exact_instance(r, key, run=False)),
+            instance or exact_instance(r, key, run=False, variant=variant)),
         kernels.stream(dev))
     EXACT_LAUNCHES += 1
     iters = trips.max() if r else 0
     return (hist, y, t, h, f, prev_lon, prev_lat, iters, 6 * iters, lane_att,
             rejected, new_step, idx)
-
-
-def static_background(bg, device, dtype, lanes: int) -> tuple:
-    """The background arguments of a single-group kernel launch, which has
-    static instances only: raises NotImplementedError on a time-varying or
-    ensemble background (the plain versions serve those on any device), and
-    as ``ray.kernel_background`` does on a malformed one."""
-    variant, args = ray_mod.kernel_background(bg, device, dtype, lanes)
-    if variant:
-        raise NotImplementedError(
-            "the single-group kernels have no time or member instances on "
-            "the card yet (ROADMAP Queue 1 item 18); trace_rays runs the "
-            "whole-run kernels, and the plain versions serve any device")
-    return args
 
 
 def dense_entry_state(y, bounds):
@@ -629,7 +618,7 @@ def _integrate_group_dense_cuda(
                            ("bounds", bounds, (g,))):
         kernels.check_tensor(x, name, device=dev, dtype=dt, shape=shape)
     kernels.check_tensor(f, "f", device=dev, dtype=key[1], shape=(5, r))
-    bg_args = static_background(bg, dev, key[1], r)
+    variant, bg_args = ray_mod.kernel_background(bg, dev, key[1], r)
     if g < 1:
         raise ValueError("bounds must be non-empty")
     rtol, atol, min_step, pin_limit, pin_mwn = _scalar_args(
@@ -641,8 +630,8 @@ def _integrate_group_dense_cuda(
     new_step = torch.empty(r, dtype=torch.bool, device=dev)
     lane_att = torch.empty(r, dtype=torch.int32, device=dev)
     kernels.launch(
-        "rwrt_dense_group", key, *bg_args, y, t, h, f, rejected, new_step,
-        lane_att, hist, bounds, g, r,
+        f"rwrt_dense_group{variant}", key, *bg_args, y, t, h, f, rejected,
+        new_step, lane_att, hist, bounds, g, r,
         rtol, atol, min_step, int(max_iters), pin_limit, pin_mwn,
         kernels.stream(dev))
     LAUNCHES += 1

@@ -17,7 +17,13 @@ spectral kernel sums its
 contraction on the tensor cores in another order than the matmul, so it is
 held to 1e-12 (float64, and bf16 operands over float64) and 1e-5
 (float32 by 3xTF32, and bf16 operands over float32) of each channel's max
-|value|, and to bitwise equality between two of its own launches.
+|value|, and to bitwise equality between two of its own launches. The
+single-group kernels' time instances (over time-varying backgrounds and
+ensembles, in float32, float64 and mixed) are bitwise too. The flux
+kernel's count map, region mask and unwrap carry are bitwise; its other
+maps are sums whose atomics add in an order that changes from run to run,
+held to FLUX_BARS. ``termination.classify``'s re-run on the card goes
+through the RHS kernel and labels every lane as the plain RHS does.
 """
 
 import numpy as np
@@ -933,21 +939,104 @@ def test_dense_run_time_instance_equals_plain(jet_field, dev, key, kind,
     assert torch.equal(k.trunc, p.trunc)
 
 
+def group_time_inputs(jet_field, kind, key, dev):
+    """A single group's entry over a ``kind`` background: the 207 lanes
+    (NaN-amp lanes among them) entered at t = 3 h with their RHS there, and
+    10 bounds 2 h apart after it, so every stage samples between frames."""
+    bg, y0, _, _, h0, rtol = varying_inputs(jet_field, kind, key, dev)
+    y0 = amp_nan(y0)
+    t0 = torch.full_like(h0, 3 * 3600.0)
+    f0 = ray.RayRHS(bg)(y0, t0)
+    bounds = (torch.arange(1, 11, dtype=y0.dtype, device=dev) * 7200.0
+              + 3 * 3600.0)
+    return bg, y0, t0, h0, f0, bounds, rtol
+
+
+@pytest.mark.parametrize("pin", [None, (40, 0.0)])
 @pytest.mark.parametrize("kind", KINDS)
-def test_single_group_kernels_refuse_time(jet_field, dev, kind):
-    """The single-group kernels have static instances only: a time-varying
-    or ensemble background raises NotImplementedError on the card."""
-    bg, y0, _, _, h0, rtol = varying_inputs(jet_field, kind, "float32", dev)
-    f0 = ray.RayRHS(bg)(y0)
-    t0 = torch.zeros_like(h0)
-    bounds = torch.arange(1, 6, dtype=y0.dtype, device=dev) * 7200.0
-    with pytest.raises(NotImplementedError, match="item 18"):
-        rk45.integrate_group(ray.RayRHS(bg), None, y0, t0, h0, f0, bounds,
-                             y0[0].clone(), y0[1].clone(), 0.03, rtol, 1e-6,
-                             7.2)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        rk45.integrate_group_dense(ray.RayRHS(bg), y0, t0, h0, f0, bounds,
-                                   rtol, 1e-6, 7.2)
+@pytest.mark.parametrize("key", list(KEYS))
+def test_dense_group_time_instance_equals_plain(jet_field, dev, key, kind,
+                                                pin):
+    """The single-group dense kernel's time instance (float32, float64,
+    mixed) over a time-varying background and ensembles: one launch, every
+    output bitwise equal to the plain loop."""
+    bg, y0, t0, h0, f0, bounds, rtol = group_time_inputs(jet_field, kind,
+                                                         key, dev)
+    pin_kw = {} if pin is None else dict(pin_limit=pin[0], pin_mwn=pin[1])
+    before = rk45.LAUNCHES
+    k = rk45.integrate_group_dense(ray.RayRHS(bg), y0, t0, h0, f0, bounds,
+                                   rtol, 1e-6, 7.2, **pin_kw)
+    assert rk45.LAUNCHES == before + 1
+    plain_rhs = lambda yy, tt=0.0: ray._rhs_core(bg, yy, tt, False)[0]  # noqa: E731
+    p = rk45._integrate_group_dense_plain(
+        plain_rhs, y0, t0, h0, f0, bounds, rtol, 1e-6, 7.2, 1_000_000,
+        **pin_kw)
+    for i in (0, 1, 2, 3, 4):
+        assert k[i].dtype == p[i].dtype and same(k[i], p[i]), i
+    for i in (7, 8, 9):
+        assert torch.equal(k[i], p[i]), i
+    assert int(k[5]) == p[5]
+
+
+@pytest.mark.parametrize("resume", [False, True])
+@pytest.mark.parametrize("instance", INSTANCES)
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("key", list(KEYS))
+def test_exact_group_time_instances_equal_plain(jet_field, dev, key, kind,
+                                                instance, resume):
+    """Every instance of the single-group exact kernel's time instance
+    (float32, float64, mixed) over a time-varying background and
+    ensembles, NaN-amp lanes included; with resume, both versions stop
+    after 7 trips and resume from their own state: bitwise equal."""
+    bg, y0, t0, h0, f0, bounds, rtol = group_time_inputs(jet_field, kind,
+                                                         key, dev)
+    carry = (y0, t0, h0, f0, y0[0].clone(), y0[1].clone())
+
+    def plain_rhs(yy, tt=0.0):
+        return ray._rhs_core(bg, yy, tt, False)[0]
+
+    def plain_gv(yy, tt=0.0):
+        dy, _, ug, vg = ray._rhs_core(bg, yy, tt, True)
+        return dy, ug, vg
+
+    def run(kernel, carry, max_iters, state0=None):
+        if kernel:
+            return rk45._integrate_group_cuda(
+                ray.RayRHS(bg), None, *carry[:4], bounds, *carry[4:], 0.03,
+                rtol, 1e-6, 7.2, max_iters, state0, instance=instance)
+        return rk45._integrate_group_plain(
+            plain_rhs, plain_gv, *carry[:4], bounds, *carry[4:], 0.03, rtol,
+            1e-6, 7.2, max_iters, state0)
+
+    before = rk45.EXACT_LAUNCHES
+    k = run(True, carry, 7 if resume else 1_000_000)
+    assert rk45.EXACT_LAUNCHES == before + 1
+    p = run(False, carry, 7 if resume else 1_000_000)
+    if resume:
+        tails = [[x[i] for i in (0, 10, 11, 9, 12)] for x in (k, p)]
+        k = run(True, k[1:7], 1_000_000, tails[0])
+        p = run(False, p[1:7], 1_000_000, tails[1])
+    for i in range(7):
+        assert k[i].dtype == p[i].dtype and same(k[i], p[i]), i
+    assert int(k[7]) == p[7]
+    for i in (9, 10, 11, 12):
+        assert torch.equal(k[i], p[i]), i
+
+
+def test_group_time_instances_launch_through_the_entry_points(jet_field,
+                                                              dev):
+    """``integrate_group`` and ``integrate_group_dense`` take a
+    time-varying background on the card through their time instances
+    (one launch each, no plain fall-back)."""
+    bg, y0, t0, h0, f0, bounds, rtol = group_time_inputs(
+        jet_field, "time", "float32", dev)
+    before = (rk45.LAUNCHES, rk45.EXACT_LAUNCHES)
+    rk45.integrate_group(ray.RayRHS(bg), None, y0, t0, h0, f0, bounds,
+                         y0[0].clone(), y0[1].clone(), 0.03, rtol, 1e-6, 7.2)
+    rk45.integrate_group_dense(ray.RayRHS(bg), y0, t0, h0, f0, bounds, rtol,
+                               1e-6, 7.2)
+    assert (rk45.LAUNCHES, rk45.EXACT_LAUNCHES) == (before[0] + 1,
+                                                    before[1] + 1)
 
 
 TIME_CFG = dict(zwn=(2.0, 4.0, 6.0), sw_lon=0.0, sw_lat=5.0, dlon=36.0,
@@ -1044,3 +1133,175 @@ def test_shsf_filters_arrays_on_the_card(jet_field, dev):
     ref = spectral.shsf(u, lat, 8, device="cpu")
     err = (got.cpu() - ref).abs().max() / ref.abs().max()
     assert err <= 1e-12, err
+
+
+@pytest.mark.parametrize("kind", ["static", "time"])
+@pytest.mark.parametrize("integrator", ["rk4", "rk45"])
+def test_classify_evaluates_through_the_rhs_kernel(jet_field, dev,
+                                                   integrator, kind):
+    """``termination.classify``'s re-run on the card: every RHS evaluation
+    a launch of the RHS kernel (its time instance over daily frames), no
+    other kernel; per-lane labels equal to the plain RHS's run on the
+    card."""
+    from rwrt_tpu_torch.diagnostics import flux, termination
+
+    cfg = pt.RunConfig(zwn=(1.0, 3.0, 5.0), sw_lon=0.0, sw_lat=-60.0,
+                       dlon=30.0, dlat=10.0, nnx=12, nny=13, tstep=7200.0,
+                       ttotal=4 * DAY, integrator=integrator, cut_off=0.02,
+                       cal_dtype="float64")
+    if kind == "time":
+        fu, fv, lat, lon = frames(jet_field)
+        bs = pt.prepare_time_varying(fu, fv, lat, lon, bg_t0=0.0,
+                                     bg_dt=DAY, cal_dtype="float64",
+                                     device=dev)
+    else:
+        bs, _ = background(jet_field, torch.float64, dev)
+    traj = pt.trace_rays(bs, cfg)
+    death = termination.analyze(traj).death_step
+    assert int(((death >= 1) & (death < cfg.nt)).sum()) > 0
+    counts = (ray.LAUNCHES, rk45.LAUNCHES, rk45.EXACT_LAUNCHES,
+              tracer.LAUNCHES, tracer.RK4_LAUNCHES, tracer.EXACT_LAUNCHES,
+              flux.LAUNCHES)
+    k = termination.cause_labels(traj, bs, cfg, death)
+    after = (ray.LAUNCHES, rk45.LAUNCHES, rk45.EXACT_LAUNCHES,
+             tracer.LAUNCHES, tracer.RK4_LAUNCHES, tracer.EXACT_LAUNCHES,
+             flux.LAUNCHES)
+    assert after[0] > counts[0] and after[1:] == counts[1:]
+    p = termination.cause_labels(
+        traj, bs, cfg, death,
+        rhs=lambda bg, y, t: ray._rhs_core(bg, y, t, False)[:2])
+    np.testing.assert_array_equal(k, p)
+
+
+def flux_trajectories(dtype, dev, nt=40, shape=(3, 50, 7), seed=5):
+    """Trajectories for the flux kernel, laid out as ``trace_rays`` leaves
+    them (views of an (nt, 5, R) row stack): random walks, rays circling
+    past the three longitude circles, dead tails, rootless lanes, a NaN
+    row 0 and zero group velocity."""
+    from rwrt_tpu_torch.tracer import RayTrajectories
+
+    rng = np.random.default_rng(seed)
+    r = int(np.prod(shape))
+    step = rng.normal(0, 0.15, (1, r)) + rng.normal(0, 0.05, (nt, r))
+    step[:, :40] = 0.6
+    step[:, 40:80] = -0.5
+    lon = np.cumsum(step, 0) + rng.uniform(0, 2 * np.pi, (1, r))
+    lat = np.clip(np.cumsum(rng.normal(0, 0.05, (nt, r)), 0)
+                  + rng.uniform(-1, 1, (1, r)), -1.5, 1.5)
+    rows = np.stack([lon, lat, rng.uniform(1, 7, (nt, r)),
+                     rng.normal(0, 80, (nt, r)), rng.normal(0, 2, (nt, r))],
+                    1)
+    ug, vg = rng.normal(0, 30, (nt, r)), rng.normal(0, 20, (nt, r))
+    ug[:, 100:120] = vg[:, 100:120] = 0.0
+    rows[nt * 2 // 3:, :, 200:260] = np.nan
+    ug[nt * 2 // 3:, 200:260] = vg[nt * 2 // 3:, 200:260] = np.nan
+    rows[:, 4, 300:350] = np.nan
+    rows[0, 0, 400:420] = np.nan
+    ys = torch.as_tensor(rows, dtype=dtype, device=dev)
+    full = (nt, *shape)
+    return RayTrajectories(*(ys[:, i].reshape(full) for i in range(5)),
+                           torch.as_tensor(ug, dtype=dtype,
+                                           device=dev).reshape(full),
+                           torch.as_tensor(vg, dtype=dtype,
+                                           device=dev).reshape(full))
+
+
+#: The flux kernel's sums against the plain version's: the atomics add a
+#: cell's points in an order that changes from run to run, so the maps
+#: other than count are held to these fractions of each map's largest
+#: magnitude (count, a sum of ones, and the carry are bitwise).
+FLUX_BARS = {torch.float32: 1e-4, torch.float64: 1e-12}
+FLUX_CASES = {
+    "amp_cg": dict(),
+    "count_fun1": dict(weight="count", speed_min=10.0, speed_max=40.0,
+                       mwn_max=60.0),
+    "cg_amp": dict(weight="cg", amp_min=0.5, amp_max=3.0),
+    "dateline": dict(lon_range=(170.0, -160.0), lat_range=(-30.0, 40.0)),
+    "circle": dict(weight="count", lon_range=(-180.0, 180.0),
+                   lat_range=(20.0, 60.0)),
+}
+
+
+@pytest.mark.parametrize("case", list(FLUX_CASES))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flux_kernel_equals_plain(dev, dtype, case):
+    """``wave_ray_flux`` on the card: one binning launch (and one region
+    pass with a box); the region mask and count map bitwise, the other maps
+    within FLUX_BARS of the plain version; then a second block chained
+    through the carry: the carry bitwise."""
+    from rwrt_tpu_torch.diagnostics import flux
+
+    traj = flux_trajectories(dtype, dev)
+    kw = dict(FLUX_CASES[case], nlon_bins=72, nlat_bins=30)
+    before = (flux.LAUNCHES, flux.REGION_LAUNCHES)
+    k = flux.wave_ray_flux(traj, **kw)
+    region = "lon_range" in kw
+    assert (flux.LAUNCHES, flux.REGION_LAUNCHES) == (before[0] + 1,
+                                                     before[1] + region)
+    rows = [flux._rows(getattr(traj, n))
+            for n in ("lon", "lat", "amp", "ug", "vg", "ky")]
+    keep = None
+    if region:
+        zero = torch.zeros(rows[0].shape[1], dtype=torch.bool, device=dev)
+        keep = flux._region_plain(*rows[:3], zero, kw["lon_range"],
+                                  kw["lat_range"])
+        assert torch.equal(flux.region_mask(traj, kw["lon_range"],
+                                            kw["lat_range"]).reshape(-1),
+                           keep)
+    th = flux.Thresholds(**{a: kw[a] for a in flux.Thresholds._fields
+                            if a in kw})
+    weight = kw.get("weight", "amp_cg")
+    p, _ = flux._accumulate_plain(*rows, keep, None, 72, 30, th, weight)
+    for a, b in zip((k.flux_u, k.flux_v, k.amp_sum, k.count), p):
+        assert a.dtype == dtype and same_nan(a, b)
+        scale = float(torch.nan_to_num(b.abs(), nan=0.0).max())
+        err = float(torch.nan_to_num((a - b).abs(), nan=0.0).max())
+        assert err <= FLUX_BARS[dtype] * max(scale, 1e-300)
+    assert torch.equal(k.count, p[3])
+    carry = None
+    for t0, t1 in ((0, 13), (13, 40)):
+        block = [x[t0:t1] for x in rows]
+        km, kc = flux._accumulate_cuda(*block, keep, carry, 72, 30, th,
+                                       weight)
+        pm, pc = flux._accumulate_plain(*block, keep, carry, 72, 30, th,
+                                        weight)
+        assert torch.equal(km[3], pm[3])
+        for a, b in zip(kc, pc):
+            assert same(a, b)
+        carry = kc
+
+
+def same_nan(a, b):
+    return torch.equal(torch.isnan(a), torch.isnan(b))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flux_chunked_on_the_card(dev, dtype):
+    """``wave_ray_flux_chunked`` over a host history, one block copied to
+    the card at a time: float64 maps, one binning launch per block and one
+    region pass per block; the count equal to the one-shot count and the
+    other maps within FLUX_BARS of the one-shot maps. Each block's unwrap
+    restarts its running sum from the carry, so in float32 a point on a
+    cell edge could move; on these trajectories none does (the plain
+    versions, which bin as the kernel does, move none of the 29,548 binned
+    points at time_block 1, 7 or 13 on the CPU)."""
+    from rwrt_tpu_torch.diagnostics import flux
+
+    traj = flux_trajectories(dtype, dev)
+    host = type(traj)(*(x.cpu() for x in traj))
+    kw = dict(nlon_bins=72, nlat_bins=30, lon_range=(100.0, 300.0),
+              lat_range=(-40.0, 40.0))
+    one = flux.wave_ray_flux(traj, **kw)
+    for tb in (7, 40):
+        before = (flux.LAUNCHES, flux.REGION_LAUNCHES)
+        got = flux.wave_ray_flux_chunked(host, time_block=tb, **kw)
+        n = -(-40 // tb)
+        assert (flux.LAUNCHES, flux.REGION_LAUNCHES) == (before[0] + n,
+                                                         before[1] + n)
+        assert got.count.dtype == torch.float64 and got.count.is_cuda
+        assert torch.equal(got.count, one.count.double())
+        for a, b in zip(got[2:5], one[2:5]):
+            b = b.double()
+            scale = float(torch.nan_to_num(b.abs(), nan=0.0).max())
+            err = float(torch.nan_to_num((a - b).abs(), nan=0.0).max())
+            assert err <= FLUX_BARS[dtype] * max(scale, 1e-300)

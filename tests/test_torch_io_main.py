@@ -485,12 +485,11 @@ def test_wnmaps_time_varying_through_cli_surface(tmp_path, jet_field):
     assert_close(load(wn["j"]), got)
 
 
-@pytest.mark.parametrize("flag,slice_", [("--mesh", "Slice 6"),
-                                          ("--report-exact", "Slice 4")])
+@pytest.mark.parametrize("flag,slice_", [("--mesh", "Slice 6")])
 def test_cli_unported_branch_raises_before_load(tmp_path, flag, slice_):
-    """--mesh and --report-exact raise NotImplementedError naming their
-    ROADMAP slice before anything is loaded: the input file does not
-    exist, and no output appears."""
+    """--mesh raises NotImplementedError naming its ROADMAP slice before
+    anything is loaded: the input file does not exist, and no output
+    appears. (--report-exact is ported: tests/test_torch_classify.py.)"""
     cfg = {"inputuv": str(tmp_path / "absent.npz"), "zwn": [3.0],
            "ncfile": str(tmp_path / "rays.npz")}
     p = write_config(tmp_path, cfg)
