@@ -32,7 +32,10 @@ file-driven pipeline: ``python -m rwrt_tpu_torch --config run.json`` in
 process over wind files of the climatology; over its production-size
 trajectories the Li-Yang wave-ray flux (the flux kernel, and its file
 driver on the trajectory file), exact death causes (``--report-exact``),
-and last the single-group kernels' time instances.
+and the single-group kernels' time instances. Last, the gather probe
+(``python -m rwrt_tpu_torch.probes.gather_probe``), the path of the last
+TPU kernel, and gradients on the card through the plain, differentiable
+route: ``optimize_seeds`` at 8,400 rays over 30 days.
 
 Phases (any failed check raises; nothing is caught but the truncation the
 exact_path phase requires and the chunk budget the chunked phase sets):
@@ -207,6 +210,23 @@ exact_path phase requires and the chunk budget the chunked phase sets):
                and ``integrate_group_dense`` over daily frames and over two
                members, float32, float64 and mixed, one launch each),
                bitwise against the plain loops
+  gather       the gather probe's entry point (the JAX probe's shapes:
+               131,072 int32 indices into a (145 * 73, width) float32
+               table, a 30-link chain, widths 48, 128, 384), counters reset
+               just before and read just after (its every link launched
+               the kernel); at each width the kernel bitwise equal to
+               ``index_select``; kernel alone, wrapper, plain,
+               ``table[idx]`` and ``index_select`` times against the bound
+  autodiff     float64 on the climatology, no kernel launched (counters
+               reset at the start, read at the end): d(final lat)/d(wind
+               scale) through prepare -> initialize -> 24 RK4 steps and
+               d/d(seed lat) against central differences; the targeting
+               gradient at 8,400 rays x 360 steps finite, and equal to
+               central differences at four seeds over its first 5 days
+               (over 30 days printed, not gated); ``optimize_seeds`` there
+               for AD_STEPS Adam steps, its objective falling, wall and
+               peak memory; ``trace_rays`` over a gradient-carrying state
+               raises at the kernel guard
 
 The RK4 and exact kernels' instances are timed in turns (TURNS) on the
 same inputs at eight shapes (RK4 at production seeding and in the default
@@ -225,7 +245,8 @@ over the peak outside the tensor cores (67 TFLOP/s float32, 34 float64;
 a mixed instance's float32 and float64 flops each over its own peak, the
 two times added);
 for the spectral kernel's float32 case, which runs 3xTF32 on the tensor
-cores, three times the product's flops over the TF32 peak (495 TFLOP/s).
+cores, three times the product's flops over the TF32 peak (495 TFLOP/s);
+the gather does no arithmetic: its bytes alone.
 
 Prints the card (``nvidia-smi`` name and power limit), per-phase numbers,
 one ``{"kernels": [...]}`` JSON line and, last, the ``{"ok": true, ...}``
@@ -1445,9 +1466,11 @@ def reset_launches():
     from rwrt_tpu_torch.ops import spectral_sample as spec
     from rwrt_tpu_torch.solvers import rk45
 
+    from rwrt_tpu_torch.probes import gather_probe
+
     ray.LAUNCHES = rk45.LAUNCHES = rk45.EXACT_LAUNCHES = spec.LAUNCHES = 0
     tracer.LAUNCHES = tracer.RK4_LAUNCHES = tracer.EXACT_LAUNCHES = 0
-    flux.LAUNCHES = flux.REGION_LAUNCHES = 0
+    flux.LAUNCHES = flux.REGION_LAUNCHES = gather_probe.LAUNCHES = 0
 
 
 def read_launches(launches_of, n_launches, what):
@@ -1458,6 +1481,7 @@ def read_launches(launches_of, n_launches, what):
     from rwrt_tpu_torch.diagnostics import flux
     from rwrt_tpu_torch.models import ray
     from rwrt_tpu_torch.ops import spectral_sample as spec
+    from rwrt_tpu_torch.probes import gather_probe
     from rwrt_tpu_torch.solvers import rk45
 
     launches = {"rhs": ray.LAUNCHES, "dense_group": rk45.LAUNCHES,
@@ -1465,7 +1489,8 @@ def read_launches(launches_of, n_launches, what):
                 "rk4_run": tracer.RK4_LAUNCHES,
                 "exact_group": rk45.EXACT_LAUNCHES,
                 "exact_run": tracer.EXACT_LAUNCHES,
-                "flux": flux.LAUNCHES, "flux_region": flux.REGION_LAUNCHES}
+                "flux": flux.LAUNCHES, "flux_region": flux.REGION_LAUNCHES,
+                "gather": gather_probe.LAUNCHES}
     wants = (launches_of if isinstance(launches_of, dict)
              else {launches_of: n_launches})
     for k, n in launches.items():
@@ -3491,6 +3516,272 @@ def phase_group_time(run):
           f"float32, float64 and mixed ({n} lanes)")
 
 
+#: The gather phase: trials of GATHER_REPS launches each, the median
+#: trial's mean taken.
+GATHER_REPS = 20
+GATHER_TRIALS = 5
+
+
+def median_ms(fn, reps=GATHER_REPS, trials=GATHER_TRIALS):
+    """The median over ``trials`` of ``cuda_ms(fn, reps)``."""
+    return float(np.median([cuda_ms(fn, reps) for _ in range(trials)]))
+
+
+def phase_gather(run):
+    """The last TPU kernel's path, the gather probe
+    (``python -m rwrt_tpu_torch.probes.gather_probe``, the JAX probe's
+    shapes: R = 131,072 int32 indices into a (145 * 73, width) float32
+    table, seed 0): its entry point ``probe`` with every counter at 0 just
+    before and read just after (the kernel launched in every link of every
+    timed chain), printing ms and ns per row of each gather in the 30-link
+    chain at widths 48, 128 and 384. Then at each width: the kernel through
+    ``gather_rows`` bitwise equal to ``gather_rows_plain``
+    (``index_select``); the kernel alone (a preallocated output), the
+    wrapper, the plain version, ``table[idx]`` and ``index_select`` on the
+    int32 indices, each the median of GATHER_TRIALS means of GATHER_REPS
+    launches (CUDA events); the bound: the output written, the indices and
+    the table read once, over the memory rate."""
+    torch = run.torch
+    from rwrt_tpu_torch import kernels
+    from rwrt_tpu_torch.probes import gather_probe as gp
+
+    torch.cuda.synchronize()
+    reset_launches()
+    chains = gp.probe(run.dev)
+    torch.cuda.synchronize()
+    # Each chain timing: one warm-up and five timed chains of N links.
+    launches = read_launches("gather", len(gp.WIDTHS) * 6 * gp.N,
+                             "the gather probe")
+    run.launches["gather"] = launches["gather"]
+
+    idx, tables = gp.inputs(run.dev)
+    r = idx.shape[0]
+    for width in gp.WIDTHS:
+        table = tables[width]
+        k = gp.gather_rows(table, idx)
+        p = gp.gather_rows_plain(table, idx)
+        torch.cuda.synchronize()
+        check(torch.equal(k, p),
+              f"gather width {width}: the kernel differs from index_select")
+        out = torch.empty_like(k)
+        stream = kernels.stream(run.dev)
+        alone = median_ms(lambda: kernels.launch(
+            "rwrt_gather", table.dtype, table, width, idx, r, out, stream))
+        wrapper = median_ms(lambda: gp.gather_rows(table, idx))
+        plain = median_ms(lambda: gp.gather_rows_plain(table, idx))
+        index = median_ms(lambda: table[idx])
+        select = median_ms(lambda: table.index_select(0, idx))
+        b = bound(nbytes(k, idx, table), 0, "float32")
+        ns = {n: chains[(n, width)] * 1e6 / r for n in gp.GATHERS}
+        print(f"gather width {width}: R={r}, bitwise equal to index_select; "
+              f"kernel alone {alone:.4f} ms, wrapper {wrapper:.4f} ms, "
+              f"plain (index_select of int64 indices) {plain:.4f} ms, "
+              f"table[idx] {index:.4f} ms, index_select {select:.4f} ms, "
+              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}); chain of "
+              f"{gp.N}: " + ", ".join(f"{n} {v:.2f} ns/row"
+                                      for n, v in ns.items()))
+        if width == 48:
+            run.kernels["gather"] = dict(max_abs_err=0.0, ms=alone,
+                                         plain_ms=plain, library_ms=select,
+                                         **b)
+
+
+#: The autodiff phase: the central differences' step and bars (as
+#: tests/test_autodiff.py), the targeting run (a 20 x 20 lattice of seeds,
+#: 10-60 N, every 18 degrees of longitude, x zwn 1..7: 8,400 rays, 30 days
+#: at 2 h, Adam), its target (120 W, 45 N) and the seeds whose coordinates
+#: its gradient is held to central differences at: seeds off the 2.5-degree
+#: grid's lines (the bilinear sample is piecewise linear, so on a grid line
+#: the gradient is one side's slope and a central difference the mean of
+#: both: the lattice's longitudes 0, 90, 180, 270 and latitudes 10, 60 lie
+#: on lines). The central differences gate the gradient over the first
+#: AD_FD_DAYS days of the run; over AD_DAYS days a step of AD_EPS strays
+#: from the gradient (rays killed or frozen on one side of the stencil and
+#: not the other, and 30 days of the rays' sensitivity), so there they are
+#: printed beside it and not gated.
+AD_EPS = 1e-6
+AD_BARS = {"wind": 1e-6, "seed": 1e-5, "targeting": 1e-5}
+AD_LATTICE = 20
+AD_DAYS = 30
+#: Adam steps: 3, cut from the 10 a user's run would take to keep the
+#: script well inside its time limit (15.7-22.9 s a step on an H100, the
+#: host's Python dispatch setting the pace).
+AD_STEPS = 3
+AD_LR = 0.02
+AD_TAU = 0.05
+AD_TARGET = (240.0, 45.0)
+AD_CHECK_SEEDS = (21, 133, 266, 378)
+AD_FD_DAYS = 5
+
+
+def phase_autodiff(run):
+    """Gradients on the card through the plain, differentiable route (no
+    kernel: every counter set to 0 at the start and read at the end), on
+    the climatology in float64: d(final lat)/d(wind scale) through
+    ``prepare`` -> ``make_background`` -> ``initialize`` -> 24 RK4 steps
+    and d/d(seed lat), against central differences (AD_EPS, AD_BARS);
+    ``optimize_seeds`` at the size a user runs it (AD_LATTICE^2 seeds x zwn
+    1..7, AD_DAYS days, AD_STEPS Adam steps): its gradient before the
+    first step finite and, at AD_CHECK_SEEDS' coordinates over the first
+    AD_FD_DAYS days, equal to central differences (over AD_DAYS days
+    printed beside them), its objective falling, its wall per step, peak
+    device memory and the miss before and after. Last, ``trace_rays`` over
+    a state with a graph raises at the kernel guard."""
+    torch = run.torch
+    from rwrt_tpu_torch import tracer
+    from rwrt_tpu_torch.diagnostics import targeting
+    from rwrt_tpu_torch.solvers import rk4
+
+    f64, dev = torch.float64, run.dev
+    u, v = (torch.as_tensor(x, dtype=f64, device=dev)
+            for x in (run.u, run.v))
+
+    def t64(x):
+        return torch.as_tensor(x, dtype=f64, device=dev)
+
+    def final_lat(amp, slat):
+        bs = run.rt.prepare(amp * u, v, run.lat, run.lon, read_dtype=f64,
+                            cal_dtype=f64, device=dev)
+        bg = tracer.make_background(bs, 0.0)
+        y0, _, _ = tracer.initialize(bg, t64([0.3]), slat.reshape(1),
+                                     t64([4.0]))
+        ys, _, _ = rk4.trace(bg, y0, 2 * HOUR, 25, 0.2)
+        return ys[-1, 1, 0]
+
+    torch.cuda.synchronize()
+    reset_launches()
+    for name, at in (("wind", 0), ("seed", 1)):
+        x = [t64(1.0), t64(0.25)]
+        x[at] = x[at].clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(final_lat(*x), x[at])
+        with torch.no_grad():
+            hi, lo = [t64(1.0), t64(0.25)], [t64(1.0), t64(0.25)]
+            hi[at] = hi[at] + AD_EPS
+            lo[at] = lo[at] - AD_EPS
+            fd = float(final_lat(*hi) - final_lat(*lo)) / (2 * AD_EPS)
+        g = float(g)
+        err = abs(g - fd) / max(1.0, abs(fd))
+        print(f"autodiff d(final lat)/d({name}) over 24 RK4 steps on the "
+              f"card: {g:.12e}, central difference {fd:.12e}, error "
+              f"{err:.3e} (bar {AD_BARS[name]:g})")
+        check(math.isfinite(g) and err <= AD_BARS[name],
+              f"autodiff d/d({name}) {g} against {fd}")
+
+    # The targeting run.
+    bs = run.rt.prepare(run.u, run.v, run.lat, run.lon, read_dtype=f64,
+                        cal_dtype=f64, device=dev)
+    bg = tracer.make_background(bs, 0.0)
+    lon_g, lat_g = np.meshgrid(np.radians(np.arange(AD_LATTICE) * 18.0),
+                               np.radians(np.linspace(10.0, 60.0,
+                                                      AD_LATTICE)))
+    slon0, slat0 = lon_g.ravel(), lat_g.ravel()
+    ns = slon0.shape[0]
+    zwn = tuple(float(z) for z in range(1, 8))
+    target = tuple(np.radians(AD_TARGET))
+    nt = int(round(AD_DAYS * DAY / (2 * HOUR))) + 1
+    kw = dict(nt=nt, dt=2 * HOUR, cut_off=0.2)
+
+    def miss(lon, lat, tau=AD_TAU):
+        return targeting.miss_distance(bg, lon, lat, zwn, *target, tau=tau,
+                                       **kw)
+
+    sl = t64(slon0).requires_grad_(True)
+    sb = t64(slat0).requires_grad_(True)
+
+    def against_fd(days, gate, grads=None):
+        """The gradient of the mean miss over ``days`` days (or ``grads``,
+        that gradient already taken), and its seeds' central differences
+        (each seed's miss depends on its own coordinates alone, so one pair
+        of runs with every seed moved gives them all); with ``gate``, fails
+        unless AD_CHECK_SEEDS' agree."""
+        kd = dict(kw, nt=int(round(days * DAY / (2 * HOUR))) + 1)
+
+        def m(lon, lat):
+            return targeting.miss_distance(bg, lon, lat, zwn, *target,
+                                           tau=AD_TAU, **kd)
+
+        if grads is None:
+            grads = torch.autograd.grad(m(sl, sb).mean(), (sl, sb))
+        check(all(bool(torch.isfinite(gr).all()) for gr in grads),
+              f"the targeting gradient over {days} days is not finite")
+        sel = list(AD_CHECK_SEEDS)
+        for name, at in (("lon", 0), ("lat", 1)):
+            with torch.no_grad():
+                ends = []
+                for sign in (1.0, -1.0):
+                    xs = [sl.detach(), sb.detach()]
+                    xs[at] = xs[at] + sign * AD_EPS
+                    ends.append(m(*xs))
+            fd = (ends[0] - ends[1]) / (2 * AD_EPS)
+            g = grads[at] * ns  # the objective is the mean over seeds
+            err = torch.abs(g - fd) / torch.clamp(torch.abs(fd), min=1.0)
+            agree = int((err <= AD_BARS["targeting"]).sum())
+            print(f"autodiff targeting over {days} days, d(miss)/d({name}) "
+                  f"at seeds {sel}: {g[sel].tolist()}, central differences "
+                  f"{fd[sel].tolist()}, max error {float(err[sel].max()):.3e}"
+                  f" (bar {AD_BARS['targeting']:g}, "
+                  f"{'gated' if gate else 'not gated'}); {agree} of {ns} "
+                  "seeds within the bar")
+            check(not gate or float(err[sel].max()) <= AD_BARS["targeting"],
+                  f"autodiff targeting d/d({name}) over {days} days differs "
+                  "from central differences")
+
+    def gradient():
+        return torch.autograd.grad(miss(sl, sb).mean(), (sl, sb))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    grads, grad_s = wall_s(gradient)
+    grad_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    with torch.no_grad():
+        miss0 = miss(sl, sb, None)
+    against_fd(AD_FD_DAYS, True)
+    against_fd(AD_DAYS, False, grads)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    res, opt_s = wall_s(lambda: targeting.optimize_seeds(
+        bs, slon0, slat0, zwn, *target, steps=AD_STEPS,
+        learning_rate=AD_LR, tau=AD_TAU, **kw))
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    hist = res.history
+    check(np.isfinite(hist).all() and hist[-1] < hist[0],
+          f"optimize_seeds' objective did not fall: {hist.tolist()}")
+    deg = 180.0 / math.pi
+    print(f"autodiff optimize_seeds: {ns} seeds x {len(zwn)} zwn x 3 roots "
+          f"= {3 * ns * len(zwn)} rays, {nt - 1} RK4 steps, {AD_STEPS} Adam "
+          f"steps: objective {hist[0]:.6f} -> {hist[-1]:.6f} rad; hard-min "
+          f"miss mean {float(miss0.mean()) * deg:.3f} -> "
+          f"{float(res.miss.mean()) * deg:.3f} deg, median "
+          f"{float(miss0.median()) * deg:.3f} -> "
+          f"{float(res.miss.median()) * deg:.3f} deg; one gradient "
+          f"(forward and reverse) {grad_s:.2f} s, peak {grad_peak:.2f} GiB "
+          f"above the state; optimize_seeds {opt_s:.2f} s "
+          f"({opt_s / AD_STEPS:.2f} s per Adam step, its final forward "
+          f"passes included), peak {peak:.2f} GiB")
+    read_launches({"rhs": 0}, 0, "the autodiff phase")
+
+    # The guard: a state whose fields carry a graph, into the kernels.
+    ut = u.clone().requires_grad_(True)
+    bs_g = run.rt.prepare(ut, run.v, run.lat, run.lon, read_dtype=f64,
+                          cal_dtype=f64, device=dev)
+    for cfg in (run.rt.RunConfig(nnx=3, nny=3, ttotal=4 * 2 * HOUR,
+                                 cal_dtype="float64"),
+                run.rt.RunConfig(nnx=3, nny=3, ttotal=4 * 2 * HOUR,
+                                 integrator="rk45", cal_dtype="float64")):
+        try:
+            run.rt.trace_rays(bs_g, cfg)
+            refused = None
+        except RuntimeError as e:
+            refused = e
+        check(refused is not None and "differentiable route" in str(refused),
+              f"trace_rays ({cfg.integrator}) took a gradient-carrying "
+              f"state: {refused!r}")
+    print("autodiff: trace_rays over a gradient-carrying state raises at "
+          "the kernel guard (rk4 and rk45)")
+
+
 KERNELS = (
     ("rhs", "rwrt_tpu_torch/csrc/rhs.cu", "rwrt_tpu/models/ray.py:163"),
     ("dense_group", "rwrt_tpu_torch/csrc/dense_run.cu",
@@ -3548,6 +3839,8 @@ KERNELS = (
      "rwrt_tpu/solvers/rk45.py:494"),
     ("exact_group_time", "rwrt_tpu_torch/csrc/exact_run_time.cu",
      "rwrt_tpu/solvers/rk45.py:302"),
+    ("gather", "rwrt_tpu_torch/csrc/gather.cu",
+     "benchmarks/pallas_gather_probe.py:77"),
 )
 
 
@@ -3590,7 +3883,8 @@ def main() -> int:
                   phase_mixed_chunked, phase_time_rhs, phase_time_main_path,
                   phase_time_paths, phase_time_chunked, phase_ensemble,
                   phase_time_spectral, phase_cli, phase_flux, phase_wrf_cli,
-                  phase_classify, phase_group_time):
+                  phase_classify, phase_group_time, phase_gather,
+                  phase_autodiff):
         t0 = time.perf_counter()
         phase(run)
         print(f"phase {phase.__name__[6:]} ok in "

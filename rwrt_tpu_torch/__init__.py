@@ -23,6 +23,7 @@ module is tested against; this package never imports it or JAX.
 __version__ = "0.1.0"
 
 from rwrt_tpu_torch.config import RunConfig
+from rwrt_tpu_torch.diagnostics.targeting import optimize_seeds
 from rwrt_tpu_torch.models.basic_state import (BasicState, prepare,
                                                prepare_time_varying,
                                                regrid_to_uniform)
@@ -41,4 +42,5 @@ __all__ = [
     "trace_rays",
     "trace_rays_ensemble",
     "trace_rays_chunked",
+    "optimize_seeds",
 ]

@@ -126,9 +126,20 @@ def stream(device) -> int:
 def launch(name: str, dtype, *args) -> None:
     """Call ``<name>_f32``, ``<name>_f64`` or, for a (float64 state,
     float32 field) ``dtype`` pair, ``<name>_mix``; tensors pass as pointers
-    and None as NULL. Raises if the launch returned a CUDA error."""
+    and None as NULL. Raises if the launch returned a CUDA error.
+
+    A kernel's outputs carry no autograd graph, so a launch refuses a
+    tensor argument that requires grad while grad mode is on (before the
+    library is loaded), rather than detach it silently."""
     from rwrt_tpu_torch.kernels import build
 
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(a) and a.requires_grad for a in args):
+        raise RuntimeError(
+            f"{name}: a hand-written kernel cannot carry gradients, and an "
+            "input requires grad. Take the plain, differentiable route "
+            "(solvers.rk4.trace over models.ray._rhs_core, on any device, "
+            "or the CPU), or detach the input / run under torch.no_grad()")
     suffix = _SUFFIX.get(dtype_key(dtype))
     if suffix is None or (suffix == "_mix" and name not in build.MIXED):
         raise ValueError(f"{name} has no instance for dtype {dtype}")

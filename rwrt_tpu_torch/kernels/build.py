@@ -102,6 +102,8 @@ SIGNATURES = {
     # keep, stream
     "rwrt_flux_region": (_P, _P, _P, _L, _L, _L, _I, _I, _I, _D, _D, _D, _D,
                          _P, _P),
+    # table, width, idx, R, out, stream
+    "rwrt_gather": (_P, _I, _P, _I, _P, _P),
 }
 
 #: The time instances' entry points (``<name>_time``: a time-varying or

@@ -169,6 +169,15 @@ def regrid_to_uniform(u, v, lat, lon, nlat=None, nlon=None):
     return regrid(u), regrid(v), lat_out, lon_out
 
 
+def _wind(x, device, dtype) -> torch.Tensor:
+    """A wind argument on ``device`` in ``dtype``: a tensor as it is, its
+    autograd graph kept (a gradient may flow back to it), anything else
+    through numpy."""
+    if not torch.is_tensor(x):
+        x = torch.as_tensor(np.asarray(x))
+    return x.to(device=device, dtype=dtype)
+
+
 def _prepare_jit(u, v, lat, dx, dy, xcyclic: bool):
     """The derivative pipeline (a plain function here; the name follows the
     JAX package's jitted counterpart)."""
@@ -269,7 +278,8 @@ def prepare(
 
     Args:
       u, v: (nlon, nlat) zonal/meridional wind, cast through ``read_dtype``
-        and then to ``cal_dtype``.
+        and then to ``cal_dtype``. A tensor keeps its autograd graph, so
+        the state is differentiable in the wind.
       lat, lon: coordinates in RADIANS, ascending; None = the regular global
         grid (lat from -pi/2 to pi/2, lon from 0).
       xcyclic: append the cyclic wrap column.
@@ -278,8 +288,8 @@ def prepare(
     """
     read_dtype = as_dtype(read_dtype)
     cal_dtype = as_dtype(cal_dtype)
-    u = torch.as_tensor(np.asarray(u)).to(device=device, dtype=read_dtype)
-    v = torch.as_tensor(np.asarray(v)).to(device=device, dtype=read_dtype)
+    u = _wind(u, device, read_dtype)
+    v = _wind(v, device, read_dtype)
     if u.ndim != 2 or u.shape != v.shape:
         raise ValueError(f"u/v must be matching 2-D (nlon, nlat); got "
                          f"{tuple(u.shape)} vs {tuple(v.shape)}")
@@ -317,8 +327,8 @@ def prepare_time_varying(
     """
     read_dtype = as_dtype(read_dtype)
     cal_dtype = as_dtype(cal_dtype)
-    u = torch.as_tensor(np.asarray(u)).to(device=device, dtype=read_dtype)
-    v = torch.as_tensor(np.asarray(v)).to(device=device, dtype=read_dtype)
+    u = _wind(u, device, read_dtype)
+    v = _wind(v, device, read_dtype)
     if u.ndim != 3 or u.shape != v.shape:
         raise ValueError(f"u/v must be matching 3-D (T, nlon, nlat); got "
                          f"{tuple(u.shape)} vs {tuple(v.shape)}")

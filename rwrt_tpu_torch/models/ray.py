@@ -24,7 +24,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from rwrt_tpu_torch import kernels
-from rwrt_tpu_torch.constants import mwn_cap, pi, rearth
+from rwrt_tpu_torch.constants import mwn_cap, pi, polar_cos_cap, rearth
 from rwrt_tpu_torch.ops import groupvel as groupvel_mod
 from rwrt_tpu_torch.ops import interp
 from rwrt_tpu_torch.ops.groupvel import group_velocity
@@ -116,6 +116,23 @@ def sample_bg(bg: Background, lon, lat, t=0.0):
             bg.fields, bg.lon0, bg.lat0, bg.dx, bg.dy, lon, lat)
     return interp.sample_mercator(
         bg.fields, bg.lon0, bg.lat0, bg.dx, bg.dy, lon, lat)
+
+
+def _sample_sanitized(bg: Background, lon, lat, t, dead):
+    """``sample_bg`` at (lon, lat), computed from finite positions only:
+    lanes ``dead`` (a NaN position) sample cell (0, 0), and lanes outside
+    the latitude band (|lat| > pi/2) sample at lat 0 and then take what
+    their own sample holds, NaN, or 0 where |cos lat| <= polar_cos_cap
+    (``interp.mercator_transform`` zeroes the cap). Equal to sampling at
+    the sanitized positions; in reverse mode no zero cotangent of such a
+    lane meets the NaN of an out-of-band sample."""
+    zero = torch.zeros_like(lat)
+    oob = (torch.abs(lat) > 0.5 * pi) & ~dead
+    f = sample_bg(bg, torch.where(dead, zero, lon),
+                  torch.where(dead | oob, zero, lat), t)
+    cap = torch.abs(torch.cos(lat)) <= polar_cos_cap
+    fill = torch.where(cap, zero, torch.full_like(lat, float("nan")))
+    return torch.where(oob, fill, f)
 
 
 def kernel_background(bg: Background, device, dtype, lanes: int):
@@ -241,7 +258,10 @@ def _rhs_core(bg: Background, y: torch.Tensor, t, with_raw_gv: bool):
     Every NaN the semantics call for is applied as a FINAL where over values
     computed from NaN-free substitutes: dead lanes sample cell (0, 0), bad
     lanes compute with kx = 1, ky = 0, and the per-row NaN sets r0n..r4n are
-    applied last. A NaN amp poisons row 4 only.
+    applied last. A NaN amp poisons row 4 only. A lane with kx == 0 is bad
+    too (its IEEE rows are all NaN: kap = ky / 0), and a lane outside the
+    latitude band samples at a finite position (``_sample_sanitized``): so
+    in reverse mode a zero cotangent never meets a NaN or an inf.
 
     Mixed precision (a float64 state over a float32 background): the state
     and a tensor time are rounded to the background's dtype at entry, so
@@ -260,16 +280,15 @@ def _rhs_core(bg: Background, y: torch.Tensor, t, with_raw_gv: bool):
     dead = (torch.isnan(lon) | torch.isnan(lat) | torch.isnan(kx)
             | torch.isnan(ky))
     ampn = torch.isnan(amp)
-    bad = err | dead
+    bad = err | dead | (kx == 0.0)
     zero = torch.zeros_like(lon)
     one = torch.ones_like(lon)
-    lon_q = torch.where(dead, zero, lon)
     lat_q = torch.where(dead, zero, lat)
     kx_q = torch.where(bad, one, kx)
     ky_q = torch.where(bad, zero, ky)
     amp_q = torch.where(ampn, zero, amp)
 
-    f = sample_bg(bg, lon_q, lat_q, t)
+    f = _sample_sanitized(bg, lon, lat, t, dead)
     fn = torch.isnan(f)
     f_q = torch.where(fn, torch.zeros_like(f), f)
     fmu, fmv = f_q[interp.M_U], f_q[interp.M_V]
@@ -339,9 +358,7 @@ def group_velocity_at(bg: Background, lon, lat, kx, ky, t=0.0, *,
     corners, the time lerp, the Mercator transform and group velocity run
     in the positions' dtype, as the JAX package's promotion has them."""
     posn = torch.isnan(lon) | torch.isnan(lat)
-    lon_q = torch.where(posn, torch.zeros_like(lon), lon)
-    lat_q = torch.where(posn, torch.zeros_like(lat), lat)
-    f = sample_bg(bg, lon_q, lat_q, t)
+    f = _sample_sanitized(bg, lon, lat, t, posn)
     ug, vg = group_velocity(
         f[interp.M_U], f[interp.M_V], f[interp.M_QX], f[interp.M_QY],
         kx, ky, zero_invalid=zero_invalid,

@@ -13,8 +13,9 @@ roots with two guarded Newton polishes, |Im| < delt counts a pair as real,
 roots first, each group by ascending |m|, NaN last). ``fortran_slot_order``
 is the reference's slot shuffle for root_order='fortran'.
 
-The JAX package's custom JVP (implicit-function tangents) is not ported yet;
-it belongs to the autodiff slice.
+The roots are differentiable in the coefficients by the implicit function
+theorem, as the JAX package's custom JVP has them (``_Roots``): the closed
+form's branch selects would otherwise carry 0 * NaN into the cotangents.
 """
 
 from __future__ import annotations
@@ -74,7 +75,7 @@ def _solve_cubic_depressed(p, q):
     return torch.stack([r0, r1, r2]), pair_real
 
 
-def _roots_from_coeffs(c3, c2, c1, c0, nonzero_k) -> torch.Tensor:
+def _roots_closed_form(c3, c2, c1, c0, nonzero_k) -> torch.Tensor:
     """Sorted NaN-padded real roots (..., 3) of c3 m^3 + c2 m^2 + c1 m + c0."""
     dtype = c3.dtype
 
@@ -181,6 +182,44 @@ def _roots_from_coeffs(c3, c2, c1, c0, nonzero_k) -> torch.Tensor:
     return torch.take_along_dim(roots, order, dim=-1)
 
 
+class _Roots(torch.autograd.Function):
+    """``_roots_closed_form`` with implicit-function-theorem gradients.
+
+    P(m; c) = 0 gives dm = -(sum_k dc_k m^k) / P'(m), so the cotangent g of
+    a root gives grad c_k = -sum over the slots of g m^k / P'(m). As in the
+    JAX package's tangent rule: absent (NaN) roots are taken as 0 before any
+    product and get exactly zero gradient, and P'(m) = 0 or NaN (a double
+    root) divides by 1, so a zero cotangent never meets a NaN or an inf.
+    """
+
+    @staticmethod
+    def forward(ctx, c3, c2, c1, c0, nonzero_k):
+        m = _roots_closed_form(c3, c2, c1, c0, nonzero_k)
+        ctx.save_for_backward(c3, c2, c1, m)
+        return m
+
+    @staticmethod
+    def backward(ctx, g):
+        c3, c2, c1, m = ctx.saved_tensors
+        absent = torch.isnan(m)
+        m_s = torch.where(absent, torch.zeros_like(m), m)
+        den = (3.0 * c3[..., None] * m_s + 2.0 * c2[..., None]) * m_s \
+            + c1[..., None]
+        den = torch.where(torch.isnan(den) | (den == 0.0),
+                          torch.ones_like(den), den)
+        w = torch.where(absent, torch.zeros_like(m), -g / den)
+        w1 = w * m_s
+        w2 = w1 * m_s
+        w3 = w2 * m_s
+        return w3.sum(-1), w2.sum(-1), w1.sum(-1), w.sum(-1), None
+
+
+def _roots_from_coeffs(c3, c2, c1, c0, nonzero_k) -> torch.Tensor:
+    """Sorted NaN-padded real roots (..., 3) of c3 m^3 + c2 m^2 + c1 m + c0,
+    differentiable in the coefficients (``_Roots``)."""
+    return _Roots.apply(c3, c2, c1, c0, nonzero_k)
+
+
 def solve_dispersion_cubic(fu, fv, fqx, fqy, freq,
                            zwn) -> Tuple[torch.Tensor, torch.Tensor]:
     """Meridional-wavenumber roots at each point.
@@ -191,7 +230,8 @@ def solve_dispersion_cubic(fu, fv, fqx, fqy, freq,
       zwn: dimensionless zonal wavenumber k*R (broadcastable).
 
     Returns:
-      roots: (..., 3) real roots, NaN-padded, canonical order.
+      roots: (..., 3) real roots, NaN-padded, canonical order;
+        differentiable in every argument (``_Roots``).
       count: (...) number of valid roots.
     """
     fu, fv, fqx, fqy, zwn = torch.broadcast_tensors(fu, fv, fqx, fqy, zwn)

@@ -108,7 +108,12 @@ def stationary_wavenumber(betam, u, lat) -> torch.Tensor:
     coslat = torch.cos(lat)[None, :]
     valid = (betam > 0.0) & (u > 0.0)
     safe_u = torch.where(u == 0.0, torch.ones_like(u), u)
-    arg = torch.where(valid, betam * coslat / safe_u, torch.zeros_like(u))
+    # Double wheres: the invalid lanes' betam (undef at the pole rows) and
+    # sqrt argument are finite substitutes, so their zero cotangent stays
+    # zero in reverse mode (0 * NaN, 0 / sqrt(0)).
+    one = torch.ones_like(u)
+    safe_bm = torch.where(valid, betam, one)
+    arg = torch.where(valid, safe_bm * coslat / safe_u, one)
     ks = torch.where(valid, torch.sqrt(arg) * rearth,
                      torch.full_like(arg, undef))
     edge = torch.full_like(ks[:, 0:1], undef)

@@ -26,14 +26,16 @@ def group_velocity_core(fu, fv, fqx, fqy, zwn, mwn):
 
     Evaluates the formula on NaN-free substitutes and returns the masks of
     where the IEEE result would be NaN: ug is NaN iff any of (fu, fqx, fqy,
-    zwn, mwn) is NaN, vg likewise with fv. Returns (ug, vg, ug_nan, vg_nan);
-    entries under the masks are finite garbage.
+    zwn, mwn) is NaN or zwn == 0 (0 * inf in the denominator), vg likewise
+    with fv. Returns (ug, vg, ug_nan, vg_nan); entries under the masks are
+    finite garbage, so a zero cotangent there stays zero in reverse mode.
     """
     n_u, fu_s = _zero_nan(fu, 0.0)
     n_v, fv_s = _zero_nan(fv, 0.0)
     n_x, fqx_s = _zero_nan(fqx, 0.0)
     n_y, fqy_s = _zero_nan(fqy, 0.0)
-    n_k, zwn_s = _zero_nan(zwn, 1.0)
+    n_k = torch.isnan(zwn) | (zwn == 0.0)
+    zwn_s = torch.where(n_k, torch.ones_like(zwn), zwn)
     n_m, mwn_s = _zero_nan(mwn, 0.0)
 
     kap = mwn_s / zwn_s

@@ -1,15 +1,16 @@
 """Bilinear sampling of the background-field stack at ray positions.
 
-Port of the static samplers of ``rwrt_tpu/ops/interp.py``: the 4-gather
-sampler (``bilinear_gather``, ``sample_raw``, ``sample_mercator``), the
+Port of ``rwrt_tpu/ops/interp.py``: the 4-gather sampler
+(``bilinear_gather``, ``sample_raw``, ``sample_mercator``), the
 corner-packed single-gather sampler the RHS uses (``pack_corners``,
 ``_packed_cell``, ``_packed_corner_lerp``, ``sample_raw_packed``,
 ``sample_mercator_packed``) and the Mercator transform with its polar-cap
-guard; and the time-varying and ensemble variants (``sample_raw_time``,
+guard; the time-varying and ensemble variants (``sample_raw_time``,
 ``sample_mercator_time``, ``sample_raw_packed_time``,
 ``sample_raw_packed_member``, ``sample_raw_packed_member_time``), which
 blend two frames linearly in time and fold a per-lane member offset into
-the row index.
+the row index; and the samplers for gappy fields on any monotonic grid,
+off the hot path (``bilinear_gather_masked``, ``linint2_point``).
 
 Index conversion: the JAX package converts floor(index) to int32 and then
 clips. Here the clip happens in floating point first (NaN goes to cell 0),
@@ -82,6 +83,111 @@ def _bilinear(flat, w, h, x, y, base=0):
     wc = ((1.0 - sx) * (1.0 - sy))[:, None]
     wd = (sx * (1.0 - sy))[:, None]
     return fa * wa + fb * wb + fc * wc + fd * wd
+
+
+def bilinear_gather_masked(fields: torch.Tensor, x: torch.Tensor,
+                           y: torch.Tensor, *,
+                           fallback_mean: bool = False) -> torch.Tensor:
+    """Bilinear gather with missing-value (NaN) corners: a result with any
+    missing corner is missing, unless ``fallback_mean`` (the reference's
+    nopt=-1), which takes the plain mean of the valid corners (NaN when
+    none is). fields: (W, H, C); x, y: (R,) fractional indices. Returns
+    (R, C)."""
+    w, h, _ = fields.shape
+    x0 = _cell_index(x, w)
+    x1 = (x0 + 1).clamp(0, w - 1)
+    y0 = _cell_index(y, h)
+    y1 = (y0 + 1).clamp(0, h - 1)
+    sx = (x - x0.to(x.dtype))[:, None]
+    sy = (y - y0.to(y.dtype))[:, None]
+
+    flat = fields.reshape(w * h, -1)
+    corners = [flat.index_select(0, x0 * h + y1),
+               flat.index_select(0, x1 * h + y1),
+               flat.index_select(0, x0 * h + y0),
+               flat.index_select(0, x1 * h + y0)]
+    weights = [(1.0 - sx) * sy, sx * sy, (1.0 - sx) * (1.0 - sy),
+               sx * (1.0 - sy)]
+    interp_val = sum(c * wgt for c, wgt in zip(corners, weights))
+    any_missing = sum(torch.isnan(c).int() for c in corners) > 0
+    nan = torch.full_like(interp_val, float("nan"))
+    if not fallback_mean:
+        return torch.where(any_missing, nan, interp_val)
+    valid = [~torch.isnan(c) for c in corners]
+    n_valid = sum(v.to(interp_val.dtype) for v in valid)
+    zero = torch.zeros_like(interp_val)
+    mean_val = sum(torch.where(v, c, zero) for c, v in zip(corners, valid)) / (
+        torch.clamp(n_valid, min=1.0))
+    mean_val = torch.where(n_valid == 0, nan, mean_val)
+    return torch.where(any_missing, mean_val, interp_val)
+
+
+def linint2_point(xi, yi, fi, xo, yo, *, xcyclic: bool = True,
+                  fo_missing: float = float("nan"),
+                  nopt: int = 1) -> torch.Tensor:
+    """Bilinear point interpolation on monotonic (possibly non-uniform)
+    axes, the reference's scalar linint2_point vectorized:
+
+    - x-cyclic: the period (xi[-1] - xi[0]) + (xi[1] - xi[0]) and one
+      extension column on each side;
+    - the interval by searchsorted - 1 (left side, as ``jnp.searchsorted``),
+      clamped;
+    - points out of range (y always; x when not cyclic) give fo_missing;
+    - missing corners are found by EQUALITY with fo_missing, so a NaN
+      sentinel never marks one and propagates through the arithmetic;
+      nopt == -1 takes the plain mean of the corners that are not missing;
+    - the two-step lerp (f11 + t (f21 - f11), then in y) keeps the
+      reference's rounding.
+
+    xi: (nx,), yi: (ny,) ascending; fi: (nx, ny); xo, yo: (R,) query
+    points (tensors, or anything ``torch.as_tensor`` takes). Returns (R,).
+    """
+    xi, yi, fi, xo, yo = (torch.as_tensor(a) for a in (xi, yi, fi, xo, yo))
+    if xcyclic:
+        dx0 = xi[1] - xi[0]
+        period = (xi[-1] - xi[0]) + dx0
+        xo = torch.remainder(xo - xi[0], period) + xi[0]
+        xi_use = torch.cat([xi[:1] - dx0, xi, xi[-1:] + dx0])
+        fi_use = torch.cat([fi[-1:], fi, fi[:1]], dim=0)
+    else:
+        xi_use = xi
+        fi_use = fi
+
+    x_oob = (xo < xi_use[0]) | (xo > xi_use[-1])
+    y_oob = (yo < yi[0]) | (yo > yi[-1])
+
+    nx = torch.clamp(torch.searchsorted(xi_use, xo) - 1, 0,
+                     xi_use.shape[0] - 2)
+    ny = torch.clamp(torch.searchsorted(yi, yo) - 1, 0, yi.shape[0] - 2)
+
+    f11 = fi_use[nx, ny]
+    f21 = fi_use[nx + 1, ny]
+    f12 = fi_use[nx, ny + 1]
+    f22 = fi_use[nx + 1, ny + 1]
+
+    t = (xo - xi_use[nx]) / (xi_use[nx + 1] - xi_use[nx])
+    u = (yo - yi[ny]) / (yi[ny + 1] - yi[ny])
+    f_low = f11 + t * (f21 - f11)
+    f_high = f12 + t * (f22 - f12)
+    fo = f_low + u * (f_high - f_low)
+
+    corners = (f11, f21, f12, f22)
+    any_missing = (corners[0] == fo_missing)
+    for c in corners[1:]:
+        any_missing = any_missing | (c == fo_missing)
+    missing = torch.full_like(fo, fo_missing)
+    if nopt == -1:
+        valid = [c != fo_missing for c in corners]
+        n_valid = sum(v.to(fo.dtype) for v in valid)
+        zero = torch.zeros_like(fo)
+        mean_val = sum(torch.where(v, c, zero) for c, v in zip(corners,
+                                                                valid))
+        mean_val = torch.where(
+            n_valid > 0, mean_val / torch.clamp(n_valid, min=1.0), missing)
+        fo = torch.where(any_missing, mean_val, fo)
+    else:
+        fo = torch.where(any_missing, missing, fo)
+    return torch.where(x_oob | y_oob, missing, fo)
 
 
 def _nan_outside_band(vals: torch.Tensor, lat: torch.Tensor) -> torch.Tensor:

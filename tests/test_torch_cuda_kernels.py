@@ -23,7 +23,11 @@ ensembles, in float32, float64 and mixed) are bitwise too. The flux
 kernel's count map, region mask and unwrap carry are bitwise; its other
 maps are sums whose atomics add in an order that changes from run to run,
 held to FLUX_BARS. ``termination.classify``'s re-run on the card goes
-through the RHS kernel and labels every lane as the plain RHS does.
+through the RHS kernel and labels every lane as the plain RHS does. The
+gather kernel is a copy: bitwise. Gradients take the plain route on the
+card (the roots' implicit-function backward equal to the CPU's, a
+gradient through prepare -> RK4 equal to the CPU's to 1e-9), and every
+kernel launch refuses a gradient-carrying input.
 """
 
 import numpy as np
@@ -1305,3 +1309,110 @@ def test_flux_chunked_on_the_card(dev, dtype):
             scale = float(torch.nan_to_num(b.abs(), nan=0.0).max())
             err = float(torch.nan_to_num((a - b).abs(), nan=0.0).max())
             assert err <= FLUX_BARS[dtype] * max(scale, 1e-300)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(131072, 48), (131072, 128),
+                                   (131072, 384), (1001, 48)],
+                         ids=["w48", "w128", "w384", "ragged"])
+def test_gather_kernel_equals_plain(dev, dtype, shape):
+    """``gather_rows`` on the card (one launch) bitwise equal to
+    ``index_select``, at the probe's widths and on a ragged row count."""
+    from rwrt_tpu_torch.probes import gather_probe as gp
+
+    r, width = shape
+    rng = np.random.default_rng(3)
+    table = torch.as_tensor(rng.normal(size=(gp.WH, width)), dtype=dtype,
+                            device=dev)
+    idx = torch.as_tensor(rng.integers(0, gp.WH, r).astype(np.int32),
+                          device=dev)
+    before = gp.LAUNCHES
+    got = gp.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert gp.LAUNCHES == before + 1
+    assert torch.equal(got, gp.gather_rows_plain(table, idx))
+
+
+def test_gather_kernel_refuses_what_it_cannot_take(dev):
+    from rwrt_tpu_torch.probes import gather_probe as gp
+
+    idx = torch.zeros(8, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        gp.gather_rows(torch.zeros((10, 6), device=dev), idx)
+    with pytest.raises(ValueError, match="dtype"):
+        gp.gather_rows(torch.zeros((10, 8), device=dev), idx.long())
+
+
+def test_root_backward_on_the_card_equals_the_cpu(dev):
+    """The roots' implicit-function gradient (``cubic._Roots``) on the card
+    against the CPU's on the same coefficients: the same elementwise
+    arithmetic, to 1e-12 of each coefficient's largest gradient."""
+    from rwrt_tpu_torch.ops import cubic
+
+    rng = np.random.default_rng(7)
+    n = 4096
+    fu = rng.normal(15.0, 12.0, n)
+    fv = np.where(rng.random(n) < 0.25, 0.0, rng.normal(0.0, 4.0, n))
+    fqx, fqy = rng.normal(0.0, 1.0, n), rng.normal(2.0, 1.0, n)
+    g = rng.normal(size=(n, 3))
+    grads = []
+    for device in ("cpu", dev):
+        args = [torch.tensor(a, dtype=torch.float64, device=device,
+                             requires_grad=True) for a in (fu, fv, fqx, fqy)]
+        zwn = torch.full((n,), 4.0, dtype=torch.float64, device=device)
+        m, _ = cubic.solve_dispersion_cubic(*args, 0.0, zwn)
+        gt = torch.where(torch.isnan(m), torch.zeros_like(m),
+                         torch.as_tensor(g, device=device))
+        grads.append([x.cpu() for x in torch.autograd.grad(m, args, gt)])
+    for a, b in zip(*grads):
+        assert torch.isfinite(b).all()
+        assert float((a - b).abs().max()) <= 1e-12 * float(a.abs().max())
+
+
+def test_gradient_through_prepare_and_rk4_on_the_card(jet_field, dev):
+    """d(final lat)/d(wind amplitude) through prepare -> initialize ->
+    24 RK4 steps (``solvers/rk4.trace``: plain ops, no kernel launch) on
+    the card equals the CPU's to 1e-9 relative."""
+    from rwrt_tpu_torch.diagnostics import flux
+    from rwrt_tpu_torch.probes import gather_probe
+
+    u, v, lat, lon = jet_field
+    grads = []
+    counters = (ray, "LAUNCHES"), (tracer, "RK4_LAUNCHES"), (
+        tracer, "LAUNCHES"), (tracer, "EXACT_LAUNCHES"), (
+        flux, "LAUNCHES"), (spec, "LAUNCHES"), (gather_probe, "LAUNCHES")
+    before = [getattr(m, n) for m, n in counters]
+    for device in ("cpu", dev):
+        amp = torch.tensor(1.0, dtype=torch.float64, device=device,
+                           requires_grad=True)
+        bs = pt.prepare(amp * torch.as_tensor(u, device=device),
+                        torch.as_tensor(v), lat, lon, read_dtype="float64",
+                        cal_dtype="float64", device=device)
+        bg = tracer.make_background(bs, 0.0)
+        y0, _, _ = tracer.initialize(*(
+            [bg] + [torch.tensor(x, dtype=torch.float64, device=device)
+                    for x in ([0.3], [0.25], [4.0])]))
+        ys, _, _ = rk4.trace(bg, y0, 7200.0, 25, 0.2)
+        (g,) = torch.autograd.grad(ys[-1, 1, 0], amp)
+        grads.append(float(g))
+    assert [getattr(m, n) for m, n in counters] == before
+    assert np.isfinite(grads[1])
+    assert abs(grads[1] - grads[0]) <= 1e-9 * abs(grads[0])
+
+
+def test_trace_rays_refuses_a_gradient_carrying_state(jet_field, dev):
+    """A state prepared from a wind that requires grad reaches the kernel
+    guard at ``trace_rays``' first launch and raises; it does not
+    return."""
+    u, v, lat, lon = jet_field
+    ut = torch.as_tensor(u, device=dev).requires_grad_(True)
+    bs = pt.prepare(ut, v, lat, lon, cal_dtype="float64", device=dev)
+    cfg = pt.RunConfig(nnx=3, nny=3, ttotal=4 * 7200.0,
+                       cal_dtype="float64")
+    for c in (cfg, pt.RunConfig(nnx=3, nny=3, ttotal=4 * 7200.0,
+                                integrator="rk45", cal_dtype="float64")):
+        with pytest.raises(RuntimeError, match="differentiable route"):
+            pt.trace_rays(bs, c)
+    with torch.no_grad():
+        traj = pt.trace_rays(bs, cfg)
+    assert not traj.lat.requires_grad

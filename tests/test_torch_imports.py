@@ -62,7 +62,8 @@ def test_port_modules_found():
                  "ops/cubic_host.py", "native/__init__.py",
                  "native/build.py", "main.py", "__main__.py",
                  "diagnostics/flux.py", "diagnostics/wrf_cli.py",
-                 "solvers/ode.py"):
+                 "solvers/ode.py", "diagnostics/targeting.py",
+                 "probes/gather_probe.py"):
         assert want in names, want
 
 

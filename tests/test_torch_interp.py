@@ -106,3 +106,75 @@ def test_packed_sampler_equals_unpacked(case):
                                   torch.as_tensor(lat))
     assert torch.equal(torch.isnan(a), torch.isnan(b))
     assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+def bitwise(ref, out, name):
+    """Equal to the bit, NaN where NaN (the two packages evaluate the same
+    IEEE expressions, elementwise, with no reduction between them)."""
+    a, b = np.asarray(ref), out.detach().cpu().numpy()
+    assert a.shape == b.shape, name
+    np.testing.assert_array_equal(np.isnan(a), np.isnan(b), err_msg=name)
+    np.testing.assert_array_equal(np.nan_to_num(a), np.nan_to_num(b),
+                                  err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def nonuniform():
+    """Non-uniform ascending axes, a field with a finite sentinel and with
+    NaN corners sprinkled in, and query points inside, outside in x and y,
+    and on nodes."""
+    rng = np.random.default_rng(7)
+    nx, ny = 13, 9
+    xi = np.cumsum(rng.uniform(0.5, 1.5, nx))
+    yi = np.cumsum(rng.uniform(0.5, 1.5, ny))
+    fi = rng.normal(size=(nx, ny))
+    gaps = rng.random((nx, ny)) < 0.15
+    xo = np.concatenate([rng.uniform(xi[0] - 3.0, xi[-1] + 3.0, 200),
+                         xi[[0, 4, -1]]])
+    yo = np.concatenate([rng.uniform(yi[0] - 2.0, yi[-1] + 2.0, 200),
+                         yi[[1, 5, -1]]])
+    return xi, yi, fi, gaps, xo, yo
+
+
+@pytest.mark.parametrize("sentinel", [-999.0, np.nan], ids=["finite", "nan"])
+@pytest.mark.parametrize("nopt", [1, -1])
+@pytest.mark.parametrize("xcyclic", [True, False])
+def test_linint2_point_matches_jax(nonuniform, xcyclic, nopt, sentinel):
+    """Cyclic and non-cyclic, nopt +-1, out-of-range points, a finite
+    sentinel (equality marks the missing corners) and the NaN sentinel
+    (equality never fires; NaN propagates): bitwise equal to the JAX
+    package (its own golden test needs the reference checkout)."""
+    xi, yi, fi, gaps, xo, yo = nonuniform
+    fi = np.where(gaps, sentinel, fi)
+    kw = dict(xcyclic=xcyclic, fo_missing=sentinel, nopt=nopt)
+    ref = jinterp.linint2_point(jnp.asarray(xi), jnp.asarray(yi),
+                                jnp.asarray(fi), jnp.asarray(xo),
+                                jnp.asarray(yo), **kw)
+    out = tinterp.linint2_point(xi, yi, fi, xo, yo, **kw)
+    bitwise(ref, out, f"linint2_point {kw}")
+    assert np.isfinite(out.numpy()).any()
+    if not np.isnan(sentinel):
+        assert (out.numpy() == sentinel).any()
+
+
+@pytest.mark.parametrize("fallback_mean", [False, True])
+def test_bilinear_gather_masked_matches_jax(case, fallback_mean):
+    """NaN corners: the result is NaN, or with fallback_mean the mean of
+    the valid corners (NaN where none is); bitwise equal to JAX."""
+    fields = case[0].copy()
+    rng = np.random.default_rng(8)
+    fields[rng.random(fields.shape[:2]) < 0.2] = np.nan
+    fields[3:5, 3:5] = np.nan  # a cell with all four corners missing
+    x = np.concatenate([rng.uniform(-2.0, fields.shape[0] + 2.0, 300),
+                        [3.5]])
+    y = np.concatenate([rng.uniform(-2.0, fields.shape[1] + 2.0, 300),
+                        [3.5]])
+    ref = jinterp.bilinear_gather_masked(
+        jnp.asarray(fields), jnp.asarray(x), jnp.asarray(y),
+        fallback_mean=fallback_mean)
+    out = tinterp.bilinear_gather_masked(
+        torch.as_tensor(fields), torch.as_tensor(x), torch.as_tensor(y),
+        fallback_mean=fallback_mean)
+    bitwise(ref, out, f"bilinear_gather_masked {fallback_mean}")
+    assert np.isnan(out.numpy()[-1]).all()
+    assert np.isfinite(out.numpy()).any()
