@@ -49,12 +49,19 @@ exact_path phase requires and the chunk budget the chunked phase sets):
                over all 360 bounds, bitwise: float32 on the production
                run's own entry state (the 60,784 compacted lanes), and the
                first 4,096 of those lanes in float32 (against the full
-               run's rows) and in float64 (against the plain run)
+               run's rows) and in float64 (against the plain run); each
+               run's warp occupancy (lanes in launch order, and as the
+               repacking kernel's grid runs them) and the kernel
+               instance's registers and spills
+  dense_lone_lane  the production run's longest lane alone (R = 1):
+               bitwise the full run's lane, its time the chain floor (no
+               schedule of one-thread lanes can beat it), us per trip
   main_path    the run above through ``trace_rays``, launch counters reset
                just before it and read just after (one whole-run launch,
                no single-group launch), step attempts from its ``stats``,
                peak device memory, rows bitwise equal to the dense_run
-               phase's; then a sampler stage (the spectral kernel at the
+               phase's, the warp occupancy before and after the repacking;
+               then a sampler stage (the spectral kernel at the
                day-10 positions) with its own counter, since ``trace_rays``
                never calls the sampler
   spectral     spectral kernel vs ``sample_spectral`` at the day-10
@@ -228,6 +235,14 @@ exact_path phase requires and the chunk budget the chunked phase sets):
                peak memory; ``trace_rays`` over a gradient-carrying state
                raises at the kernel guard
 
+Each whole-run dense launch a phase makes (dense_run, main_path,
+mixed_dense, time_main_path, time_paths, ensemble; chunked per chunk)
+prints its warp occupancy in launch order and under the repacking
+kernel's schedule (``profile_main_path.warp_occupancy``,
+``repacked_occupancy``), the kernel's registers and spills
+(``nvcc.log``) and, but in chunks, its chain floor (the longest lane
+alone).
+
 The RK4 and exact kernels' instances are timed in turns (TURNS) on the
 same inputs at eight shapes (RK4 at production seeding and in the default
 run, the first exact group at production seeding, the README exact run,
@@ -259,6 +274,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -872,6 +888,89 @@ def lane_subset(args, n):
                  and a.shape[-1] == r else a for a in args)
 
 
+def dense_registers(key, variant):
+    """Registers and spill bytes (stores, loads) of the whole-run dense
+    kernel's instance for the (state, field) dtypes ``key`` and background
+    ``variant``, from the build's ``nvcc.log`` (``-Xptxas -v``)."""
+    import torch
+    from rwrt_tpu_torch.kernels import build
+
+    code = {torch.float32: "f", torch.float64: "d"}
+    tag = (f"dense_kernelI{code[key[0]]}{code[key[1]]}Lb1E"
+           f"Lb{int(variant == '_time')}E")
+    log = (build.BUILD_ROOT / build.source_hash() / "nvcc.log").read_text()
+    name, regs, spill = None, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None or tag not in name:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            regs = int(m.group(1))
+    check(regs is not None, f"no register report for {tag} in nvcc.log")
+    return regs, spill
+
+
+def dense_report(run, what, args, kw, out, floor=True):
+    """Print a whole-run dense launch's warp occupancy (lanes in launch
+    order, one thread to a lane's end; and under the repacking kernel's
+    schedule at its grid), the instance's registers and spills, and, with
+    ``floor``, its chain floor: its longest lane alone (R = 1), bitwise
+    the full run's lane. Returns {occupancy, repacked_occupancy, registers,
+    chain_floor_ms}."""
+    torch = run.torch
+    from rwrt_tpu_torch import kernels, tracer
+    from rwrt_tpu_torch.models import ray
+
+    from profile_main_path import repacked_occupancy, warp_occupancy
+
+    bg, y0 = args[0], args[1]
+    key = kernels.state_key(y0, bg.fields)
+    variant = ray.kernel_background(bg, y0.device, key[1], y0.shape[1])[0]
+    blocks, block = tracer.dense_grid(key, variant)
+    every, trigger = tracer.DENSE_SCHEDULE[key]
+    before = warp_occupancy(out.lane_att)
+    after, issued = repacked_occupancy(out.lane_att, block, blocks, every,
+                                       trigger)
+    regs, spill = dense_registers(key, variant)
+    rec = dict(occupancy=before, repacked_occupancy=after, registers=regs,
+               spill=spill)
+    msg = (f"  {what}: warp occupancy {before:.4f} in launch order, "
+           f"{after:.4f} repacked ({blocks} blocks x {block} threads, a "
+           f"repack after {every} iterations or {trigger} lanes left; "
+           f"busiest block "
+           f"{int(issued.max())} warp-iterations, mean "
+           f"{float(issued.mean()):.1f}); kernel dense_kernel"
+           f"{variant or '_static'} "
+           f"{'mixed' if key[0] != key[1] else str(key[0])[6:]} {regs} "
+           f"registers, spill stores/loads {spill} bytes")
+    if floor:
+        trips = out.lane_att.sum(dim=0)
+        lane = int(trips.argmax())
+        take = torch.tensor([lane], device=y0.device)
+        one = lane_pick(args, take)
+        alone = tracer._dense_run(*one, **kw)
+        for n in ("ys", "ugs", "vgs", "lane_att", "trunc"):
+            check(same(getattr(alone, n),
+                       getattr(out, n).index_select(-1, take)),
+                  f"{what}: the longest lane alone differs from the full "
+                  f"run's ({n})")
+        ms = cuda_ms(lambda: tracer._dense_run(*one, **kw), 3)
+        rec["chain_floor_ms"] = ms
+        msg += (f"; chain floor {ms:.3f} ms (lane {lane} alone, "
+                f"{int(trips[lane])} trips, {ms * 1e3 / int(trips[lane]):.3f}"
+                " us per trip)")
+    print(msg)
+    return rec
+
+
 def phase_dense_run(run):
     torch = run.torch
     from rwrt_tpu_torch import tracer
@@ -913,6 +1012,8 @@ def phase_dense_run(run):
               f"{kern.lane_att.amax(dim=1).tolist()}, longest lane "
               f"{int(trips.max())} trips in all, truncated lane-groups "
               f"{int(kern.trunc.sum())}")
+        rec = dense_report(run, f"dense_run {name}", args, kw, kern,
+                           floor=False)
         if dtype == torch.float32:
             err = max(float(torch.nan_to_num(torch.abs(k - p), nan=0.0).max())
                       for k, p in ((kern.ys, plain.ys), (kern.ugs, plain.ugs),
@@ -921,6 +1022,7 @@ def phase_dense_run(run):
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
                 **b)
             run.dense_run = (idx, kern)
+            run.dense_args = (args, kw, rec)
             # The first N_SUBSET lanes alone give the full run's rows.
             part = tracer._dense_run(*lane_subset(args, N_SUBSET), **kw)
             for n in ("ys", "ugs", "vgs", "lane_att", "trunc"):
@@ -930,6 +1032,20 @@ def phase_dense_run(run):
                       "from the full run's")
             print(f"  the first {N_SUBSET} lanes alone: bitwise equal to "
                   "the full run's")
+
+
+def phase_dense_lone_lane(run):
+    """The production run's longest lane alone (R = 1) through the
+    whole-run kernel: bitwise the full run's lane; its time is the chain
+    floor of the dense_run phase's launch, recorded beside its bound."""
+    args, kw, rec = run.dense_args
+    _, kern = run.dense_run
+    rec.update(dense_report(run, "dense_lone_lane float32", args, kw, kern))
+    k = run.kernels["dense_run"]
+    k["chain_floor_ms"] = rec["chain_floor_ms"]
+    print(f"dense_lone_lane: chain floor {k['chain_floor_ms']:.3f} ms, "
+          f"kernel {k['ms']:.3f} ms ({k['ms'] / k['chain_floor_ms']:.2f} x "
+          f"the floor), bound {k['bound_ms']:.4f} ms ({k['bound_by']})")
 
 
 def phase_main_path(run):
@@ -1010,6 +1126,21 @@ def phase_main_path(run):
           f"device memory {peak:.1f} MiB above the prepared state; rows "
           f"bitwise equal to the dense_run phase's")
     run.main_wall = wall
+    from profile_main_path import warp_occupancy
+
+    args, kw, rec = run.dense_args
+    check(torch.equal(stats["lane_att"], kern.lane_att),
+          "main_path: trace_rays' attempts differ from the dense_run phase's")
+    key = (torch.float32, torch.float32)
+    blocks, block = tracer.dense_grid(key)
+    every, trigger = tracer.DENSE_SCHEDULE[key]
+    print(f"main_path: one launch of the repacking kernel ({blocks} blocks "
+          f"x {block} threads, a repack after {every} iterations or "
+          f"{trigger} lanes left); warp occupancy before the repacking "
+          f"(launch order) "
+          f"{warp_occupancy(stats['lane_att']):.4f}, after "
+          f"{rec['repacked_occupancy']:.4f}; chain floor "
+          f"{rec['chain_floor_ms']:.3f} ms")
     print(f"launches: trace_rays rhs {launches['rhs']}, dense_run "
           f"{launches['dense_run']}, dense_group {launches['dense_group']}; "
           f"sampler stage after it: spectral {launches['spectral']} at "
@@ -1655,6 +1786,16 @@ def phase_chunked(run):
           f"lanes per chunk {widths}, peak device memory {peak:.1f} MiB "
           f"above the prepared state; step attempts {attempts}; rows "
           "bitwise equal to main_path's")
+    from profile_main_path import repacked_occupancy, warp_occupancy
+
+    key = (torch.float32, torch.float32)
+    blocks, block = tracer.dense_grid(key)
+    every, trigger = tracer.DENSE_SCHEDULE[key]
+    print("  chunked warp occupancy per chunk, launch order / repacked: "
+          + ", ".join(
+              f"{warp_occupancy(a):.4f} / "
+              f"{repacked_occupancy(a, block, blocks, every, trigger)[0]:.4f}"
+              for a in stats["lane_att"]))
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "ck.npz")
@@ -1857,8 +1998,10 @@ def phase_mixed_dense(run):
     err = max(float(torch.nan_to_num(torch.abs(k - p), nan=0.0).max())
               for k, p in ((part.ys, plain.ys), (part.ugs, plain.ugs),
                            (part.vgs, plain.vgs)))
+    rec = dense_report(run, "mixed dense_run", args, kw, kern)
     run.kernels["dense_run_mix"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        chain_floor_ms=rec["chain_floor_ms"], **b)
     run.launches["dense_run_mix"] = launches["dense_run"]
     run.launches["dense_group_mix"] = launches["dense_group"]
     run.mixed_dense = (idx, kern)
@@ -2340,6 +2483,9 @@ def run_record(run, key, what, traj_call, unit_name, of, attempts_flops,
           f"({plain_ms:.1f} ms) and to the full run's rows")
     run.kernels[key] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                             library_ms=None, **b)
+    if unit_name == "_dense_run":
+        rec = dense_report(run, what, args, kw, out)
+        run.kernels[key]["chain_floor_ms"] = rec["chain_floor_ms"]
     run.launches[key] = launches[of]
     return traj, args, kw, out, dict(wall=wall, peak=peak, ms=ms,
                                       attempts=attempts, launches=launches)
@@ -3876,15 +4022,15 @@ def main() -> int:
     tmp = tempfile.TemporaryDirectory()
     run.tmp = tmp.name
     for phase in (phase_rhs, phase_dense_group, phase_dense_run,
-                  phase_main_path, phase_spectral, phase_rk4,
-                  phase_exact_group, phase_exact_run, phase_rk4_path,
-                  phase_exact_path, phase_chunked, phase_mixed_dense,
-                  phase_mixed_drift, phase_mixed_rk4, phase_mixed_exact,
-                  phase_mixed_chunked, phase_time_rhs, phase_time_main_path,
-                  phase_time_paths, phase_time_chunked, phase_ensemble,
-                  phase_time_spectral, phase_cli, phase_flux, phase_wrf_cli,
-                  phase_classify, phase_group_time, phase_gather,
-                  phase_autodiff):
+                  phase_dense_lone_lane, phase_main_path, phase_spectral,
+                  phase_rk4, phase_exact_group, phase_exact_run,
+                  phase_rk4_path, phase_exact_path, phase_chunked,
+                  phase_mixed_dense, phase_mixed_drift, phase_mixed_rk4,
+                  phase_mixed_exact, phase_mixed_chunked, phase_time_rhs,
+                  phase_time_main_path, phase_time_paths, phase_time_chunked,
+                  phase_ensemble, phase_time_spectral, phase_cli, phase_flux,
+                  phase_wrf_cli, phase_classify, phase_group_time,
+                  phase_gather, phase_autodiff):
         t0 = time.perf_counter()
         phase(run)
         print(f"phase {phase.__name__[6:]} ok in "

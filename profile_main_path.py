@@ -5,6 +5,8 @@
                                  [--state-dtype compute|float64]
                                  [--warmup 1] [--runs 5]
                                  [--out DIR (profile_out)]
+                                 [--tree DIR]
+                                 [--kernels [--schedules 8:0,64:32]]
 
 Runs chip_smoke.py's production seeding (100,800 rays, 30 days, float32)
 through ``rwrt_tpu_torch.trace_rays`` with one of three integrators:
@@ -25,23 +27,108 @@ trips and step attempts and the longest lane's trips over all groups (from
 and the profiler's top operators; the full operator table goes to
 ``DIR/profile_main_path_<path>.txt`` (``_<path>_float64.txt`` in mixed
 precision). The profiler inflates the host side, so the
-profiled run's span is longer than an untraced run's wall. Imports no JAX.
+profiled run's span is longer than an untraced run's wall.
+
+``--kernels`` times the whole-run dense kernel alone instead (CUDA events,
+the median of ``--runs`` means of 3 launches) at the shapes of its paths:
+the production run in float32, mixed and float64 (its first
+``chip_smoke.N_SUBSET`` lanes, and all), over the 31 daily frames (in
+float32, mixed and float64), the 4-member ensemble, and the 6- and
+17-chunk runs (the chunked driver's kernel time per run); beside each its
+warp occupancy in launch order (``warp_occupancy``) and as the repacking
+kernel's grid would run it (``repacked_occupancy``); for the production
+run its chain floor (its longest lane alone, R = 1), its lanes sorted by
+their trips (the occupancy no schedule can pass, difficulty being unknown
+before the run) and its 1 % of lanes with the most trips alone.
+``--schedules`` times every shape but the chunked runs under each repack
+schedule listed (EVERY:TRIGGER, the kernel's ``_repack`` and
+``_trigger``; a trigger of 0 ends no window early). ``--tree DIR``
+imports ``rwrt_tpu_torch`` from the checkout DIR (another commit,
+unpacked there) to time two trees in turns. Imports no JAX.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import statistics
 import subprocess
 import sys
 from pathlib import Path
+
+import numpy as np
 
 import chip_smoke as cs
 
 #: The whole-run kernel of each path, by the name the profiler shows.
 KERNEL = {"dense": "dense_kernel", "rk4": "rk4_kernel",
           "exact": "exact_kernel", "readme": "exact_kernel"}
+
+
+def lane_iterations(lane_att):
+    """Each lane's loop iterations in the whole-run dense kernel, from a
+    run's (n_groups, R) step attempts: its trips over all groups, plus
+    one iteration to open each group and one to close the last."""
+    att = np.asarray(lane_att.cpu() if hasattr(lane_att, "cpu")
+                     else lane_att, dtype=np.int64)
+    return att.sum(axis=0) + att.shape[0] + 1
+
+
+def warp_occupancy(lane_att, warp=32):
+    """The share of the issued lane-slots that carry a live lane when one
+    thread runs each lane to its end, lanes in launch order: lane
+    iterations / (warp x the sum over warps of the warp's most), a ragged
+    last warp counted at its full width."""
+    it = lane_iterations(lane_att)
+    slots = np.zeros(-(-it.size // warp) * warp, dtype=np.int64)
+    slots[:it.size] = it
+    return float(it.sum() / (warp * slots.reshape(-1, warp).max(axis=1).sum()))
+
+
+def repacked_occupancy(lane_att, block, blocks, every, trigger=None,
+                       warp=32):
+    """The same share under the repacking kernel's schedule
+    (csrc/dense_run.cu): ``blocks`` blocks of ``block`` threads (at most
+    one a lane) deal the lanes, each block runs windows of ``every``
+    iterations of each live lane, each ended early at the iteration in
+    which its ``trigger``-th lane leaves, then moves its live lanes to its
+    lowest threads in order and refills its free threads from the queue,
+    block by block. Returns (occupancy, issued warp-iterations of each
+    block). The block's warps are taken to keep in step within a window,
+    and with a queue the blocks to finish their windows together, which
+    the card does not promise."""
+    it = lane_iterations(lane_att)
+    r = it.size
+    blocks = min(blocks, r)
+    deal = r <= blocks * block
+    rem = np.zeros((blocks, block), dtype=np.int64)
+    for b in range(blocks):
+        lo, hi = ((b * r // blocks, (b + 1) * r // blocks) if deal
+                  else (b * block, (b + 1) * block))
+        rem[b, :hi - lo] = it[lo:hi]
+    nxt = r if deal else blocks * block
+    issued = np.zeros(blocks, dtype=np.int64)
+    while True:
+        window = np.full(blocks, every, dtype=np.int64)
+        if trigger is not None and trigger <= block:
+            left = np.partition(np.where(rem > 0, rem, np.iinfo(np.int64).max),
+                                trigger - 1, axis=1)[:, trigger - 1]
+            window = np.minimum(window, left)
+        ran = np.minimum(rem, window[:, None])
+        issued += ran.reshape(blocks, -1, warp).max(axis=2).sum(axis=1)
+        rem -= ran
+        live = rem > 0
+        rem = np.take_along_axis(rem, np.argsort(~live, axis=1,
+                                                 kind="stable"), axis=1)
+        n_live = live.sum(axis=1)
+        for b in range(blocks):
+            take = min(block - n_live[b], r - nxt)
+            if take > 0:
+                rem[b, n_live[b]:n_live[b] + take] = it[nxt:nxt + take]
+                nxt += take
+        if not rem.any():
+            return float(it.sum() / (warp * issued.sum())), issued
 
 
 def config(rt, path):
@@ -63,6 +150,9 @@ def main() -> int:
     ap.add_argument("--warmup", type=int, default=1)
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--out", type=Path, default=Path("profile_out"))
+    ap.add_argument("--tree", type=Path, default=None)
+    ap.add_argument("--kernels", action="store_true")
+    ap.add_argument("--schedules", default="")
     args = ap.parse_args()
 
     import torch
@@ -70,7 +160,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_main_path: no CUDA device", file=sys.stderr)
         return 1
+    if args.tree is not None:
+        sys.path.insert(0, str(args.tree.resolve()))
     import rwrt_tpu_torch as rt
+
+    if args.kernels:
+        return dense_kernels(torch, rt, args)
     from rwrt_tpu_torch.tracer import MaxItersTruncation
 
     print(subprocess.run(
@@ -135,6 +230,145 @@ def main() -> int:
     (args.out / f"profile_main_path_{tag}.txt").write_text(table)
     print("\n".join(prof.key_averages().table(
         sort_by=key, row_limit=12).splitlines()[:16]))
+    return 0
+
+
+def dense_call(args, kw, **private):
+    """``tracer._dense_run_cuda`` on a unit call's (args, kwargs), as
+    ``tracer._dense_run`` passes them, with ``private`` arguments."""
+    from rwrt_tpu_torch import tracer
+
+    full = dict(max_iters=1_000_000, pin_limit=None, pin_mwn=None, t0=None)
+    full.update(zip(("max_iters", "pin_limit", "pin_mwn", "t0"), args[12:]))
+    full.update(kw)
+    return tracer._dense_run_cuda(*args[:12], **full, **private)
+
+
+def median_ms(fn, runs):
+    return statistics.median(cs.cuda_ms(fn, 3) for _ in range(runs))
+
+
+def dense_shapes(torch, rt, run):
+    """The whole-run dense kernel's entry (args, kwargs) at each shape."""
+    shapes = {}
+    _, a, kw, _ = run.run_inputs(torch.float32)
+    shapes["production float32"] = (a, kw)
+    _, a, kw, _ = run.run_inputs(torch.float32, state=torch.float64)
+    shapes["production mixed"] = (a, kw)
+    _, a, kw, _ = run.run_inputs(torch.float64)
+    shapes["production float64, first N_SUBSET lanes"] = (
+        cs.lane_subset(a, cs.N_SUBSET), kw)
+    shapes["production float64"] = (a, kw)
+    cfg = cs.production_config(rt)
+    src = dict(source_lon=run.slon, source_lat=run.slat)
+    for name, bs, c in (
+            ("time, 31 frames", cs.tv_state(run, cs.TV_DAYS + 1), cfg),
+            ("time mixed, 31 frames", cs.tv_state(run, cs.TV_DAYS + 1),
+             cs.mixed(cfg)),
+            ("time float64, 31 frames",
+             cs.tv_state(run, cs.TV_DAYS + 1, torch.float64),
+             cs.in_float64(cfg))):
+        with cs.captured(run, "_dense_run") as cap:
+            # One launch: the card holds the float64 history that passes
+            # trace_rays' reroute estimate.
+            rt.trace_rays(bs, c, auto_chunk_bytes=None, **src)
+        shapes[name] = cap.calls[0][:2]
+    years = [rt.prepare(u[0], v[0], lat, lon, device=run.dev)
+             for u, v, lat, lon in (cs.climatology_frames(1, sc, ph) for sc, ph
+                                    in zip(cs.MEMBER_SCALES,
+                                           cs.MEMBER_PHASES))]
+    with cs.captured(run, "_dense_run") as cap:
+        rt.trace_rays_ensemble(years, cfg, **src)
+    shapes["ensemble, 4 members"] = cap.calls[0][:2]
+    return shapes
+
+
+def dense_kernels(torch, rt, args):
+    """``--kernels``: see the head of this file."""
+    from rwrt_tpu_torch import tracer
+    from rwrt_tpu_torch.utils import checkpoint
+
+    run = cs.Run(torch, rt)
+    grid = getattr(tracer, "dense_grid", None)
+    print(f"tree {rt.__file__}; repacking kernel: {grid is not None}")
+    rows = []
+    for name, (a, kw) in dense_shapes(torch, rt, run).items():
+        out = tracer._dense_run(*a, **kw)
+        ms = median_ms(lambda: tracer._dense_run(*a, **kw), args.runs)
+        rec = dict(shape=name, lanes=a[1].shape[1], ms=ms,
+                   attempts=int(out.lane_att.sum()),
+                   longest=int(out.lane_att.sum(dim=0).max()),
+                   occupancy=warp_occupancy(out.lane_att))
+        if grid is not None:
+            from rwrt_tpu_torch import kernels
+            from rwrt_tpu_torch.models import ray
+
+            key = kernels.state_key(a[1], a[0].fields)
+            variant = ray.kernel_background(a[0], a[1].device, key[1],
+                                            a[1].shape[1])[0]
+            blocks, block = grid(key, variant)
+            occ, issued = repacked_occupancy(
+                out.lane_att, block, blocks, *tracer.DENSE_SCHEDULE[key])
+            rec.update(grid=[blocks, block], repacked_occupancy=occ,
+                       busiest_block=int(issued.max()),
+                       mean_block=float(issued.mean()))
+            for sched in [x for x in args.schedules.split(",") if x]:
+                every, trigger = (int(v) for v in sched.split(":"))
+                rec[f"ms_{every}_{trigger}"] = median_ms(
+                    lambda: dense_call(a, kw, _repack=every,
+                                       _trigger=trigger or 1 << 30),
+                    args.runs)
+                rec[f"occupancy_{every}_{trigger}"] = repacked_occupancy(
+                    out.lane_att, block, blocks, every, trigger or None)[0]
+        if name in ("production float32", "production mixed"):
+            trips = out.lane_att.sum(dim=0)
+            for tag, take in (
+                    ("sorted", torch.argsort(trips, descending=True)),
+                    ("top1pc", torch.argsort(trips, descending=True)[
+                        :max(trips.numel() // 100, 1)])):
+                sub = cs.lane_pick(a, take)
+                rec[f"{tag}_ms"] = median_ms(
+                    lambda: tracer._dense_run(*sub, **kw), args.runs)
+                rec[f"{tag}_occupancy"] = warp_occupancy(
+                    out.lane_att.index_select(1, take))
+        if name == "production float32":
+            lane = int(out.lane_att.sum(dim=0).argmax())
+            r = a[1].shape[1]
+            one = tuple(x[..., lane:lane + 1].contiguous()
+                        if hasattr(x, "shape") and x.ndim
+                        and x.shape[-1] == r else x for x in a)
+            alone = tracer._dense_run(*one, **kw)
+            trips = int(alone.lane_att.sum())
+            lone_ms = median_ms(lambda: tracer._dense_run(*one, **kw),
+                                args.runs)
+            rec.update(lone_lane=lane, lone_trips=trips, lone_ms=lone_ms,
+                       us_per_trip=lone_ms * 1e3 / trips,
+                       chain_floor_ms=lone_ms * rec["longest"] / trips)
+        print(json.dumps(rec), flush=True)
+        rows.append(rec)
+        del out
+    cfg = cs.production_config(rt)
+    src = dict(source_lon=run.slon, source_lat=run.slat, verbose=False)
+    bs = run.bs(torch.float32)
+    for name, days, steps in (("6 chunks", cs.N_DAYS, cs.CHUNK_STEPS),
+                              ("17 chunks", cs.LONG_DAYS,
+                               cs.DEFAULT_CHUNK_STEPS)):
+        c = dataclasses.replace(cfg, ttotal=days * cs.DAY)
+        sums = []
+        for _ in range(max(args.runs // 2, 1)):
+            stats = {}
+            checkpoint.trace_rays_chunked(bs, c, chunk_steps=steps,
+                                          stats=stats, **src)
+            sums.append(sum(stats["chunk_ms"]))
+        rec = dict(shape=name, ms=statistics.median(sums),
+                   chunk_ms=[round(x, 3) for x in stats["chunk_ms"]])
+        print(json.dumps(rec), flush=True)
+        rows.append(rec)
+    args.out.mkdir(parents=True, exist_ok=True)
+    tag = "change" if grid is not None else "parent"
+    with open(args.out / f"dense_kernels_{tag}.jsonl", "a") as fh:
+        for rec in rows:
+            fh.write(json.dumps(rec) + "\n")
     return 0
 
 

@@ -1,17 +1,19 @@
 // Dense Dormand-Prince kernels: free-stepping DP 5(4) with dense output,
-// one thread per lane, from one templated body.
+// from one set of lane functions (lane_start, lane_iterate, lane_finish).
 //
 //   dense_kernel<S, F, false, kTime>
-//                           one group of output bounds in one launch
-//                           (rwrt_dense_group: solvers/rk45.py
-//                           integrate_group_dense on CUDA);
+//                           one group of output bounds in one launch, one
+//                           thread per lane (rwrt_dense_group:
+//                           solvers/rk45.py integrate_group_dense on CUDA);
 //   dense_kernel<S, F, true, kTime>
 //                           the whole adaptive run in one launch
-//                           (rwrt_dense_run: tracer._dense_run on CUDA).
+//                           (rwrt_dense_run: tracer._dense_run on CUDA),
+//                           live lanes repacked into full warps inside it.
 //                           Each lane walks every group of bounds, applies
 //                           the kill cascade at each bound in bound order,
-//                           samples (ug, vg) there and writes its rows
-//                           straight into the run's (nt, 5, R) output.
+//                           writes its rows straight into the run's
+//                           (nt, 5, R) output, and has (ug, vg) sampled
+//                           there once it is done.
 //
 // Replaces (rwrt_tpu, fused by XLA there, no Pallas original):
 //   tracer.py:861-936 _run_rk45_grouped, dense branch (the group loop, the
@@ -33,46 +35,89 @@
 // norm and controller; a kept row ~126 for the quartic interpolant and
 // ~156 for the kill test and the (ug, vg) sample. The production run's
 // 6.89 M attempts and 21.6 M rows make ~16 GFLOP, 0.24 ms at the 67 TFLOP/s
-// float32 peak. The real floor is latency: each lane is a serial chain of
-// trips, each six dependent RHS evaluations (a dependent 48-value gather
-// from the L2-resident background, IEEE division, sqrt, sin and cos) and a
-// pow, so the launch lasts at least the longest lane's trips over all
-// groups (910 in the production run) times the latency of one trip.
+// float32 peak. Neither is near; three other limits are:
+//   - The chain floor. A lane is a serial chain of trips, each six
+//     dependent RHS evaluations (a dependent 48-value gather from the
+//     L2-resident background, IEEE division, sqrt, sin and cos) and a pow,
+//     so the launch lasts at least the longest lane's trips over all groups
+//     (910 in the production run) times a lone lane's trip (~6.6 us on an
+//     H100, profile_main_path.py): ~6 ms.
+//   - Warp occupancy. A warp issues every instruction for its 32 threads
+//     until its slowest lane leaves the loop, so the issue slots a launch
+//     spends are counted in warp-trips: each warp's slowest lane's trips.
+//     Lanes come in the order of the rootless-lane compaction (source and
+//     wavenumber), not of difficulty: on the production seeding the mean
+//     lane makes ~113 trips and the longest 910, and with one thread a lane
+//     in launch order 24 % of the issued lane-slots carry a live lane
+//     (profile_main_path.warp_occupancy). Where a trip's arithmetic is what
+//     the SMs run out of (float64 and mixed precision: the FP64 pipes), the
+//     idle slots are the launch's time.
+//   - The rows' stores. Each row writes five 4- or 8-byte values, each into
+//     a sector of the (nt, 5, R) output that seven other lanes fill at
+//     other times, so the sectors reach memory partly written; and the
+//     post-pass reads them back the same way. In float32 this, not the
+//     issue slots, holds the launch above its chain floor: the production
+//     lanes sorted by their trips (warp occupancy 0.998) run no faster than
+//     in launch order, while its 1 % of lanes with the most trips alone run
+//     within 10 % of the chain floor.
 //
-// Design: the batch-wide XLA loop becomes a per-lane loop, so a finished
-// lane costs nothing but its warp slot and no launch is spent per trip or
-// per group. Pin-kill retires a lane that reaches pin_limit attempts in a
-// group, so no lane is the straggler of two groups: one launch pays the
-// longest lane's total (910 trips) instead of the sum of each group's
-// longest lane (2,642). One loop runs the trips and the group changes, so
-// the lanes of a warp that are stepping run each trip together, whichever
-// group each is in; a loop per group holds every lane at each group's end
-// until the warp's slowest lane there is done. The stages stay in
-// registers; emission walks a pointer over
-// the (non-decreasing) bounds. The kill cascade runs at emission, in bound
+// Design: the batch-wide XLA loop becomes a per-lane loop, so no launch is
+// spent per trip or per group. Pin-kill retires a lane that reaches
+// pin_limit attempts in a group, so no lane is the straggler of two
+// groups: one launch pays the longest lane's total (910 trips) instead of
+// the sum of each group's longest lane (2,642). One loop runs the trips
+// and the group changes (lane_iterate), so the lanes of a warp that are
+// stepping run each trip together, whichever group each is in.
+//
+// The whole run repacks live lanes into full warps inside the launch, the
+// card's form of the JAX package's peel and bucket schedulers (a vector of
+// lanes there pays its slowest lane as a warp does here; both make no
+// difference to a lane's bits). A persistent grid of the blocks the card
+// keeps resident (dense_resident), each as wide as one SM's registers allow
+// (RunBlock: 512 threads in float32, 384 in its time instance, 256 with a
+// float64 state), deals each block an even share of the lanes; lanes
+// beyond the resident threads wait in a queue (a global counter the
+// wrapper zeroes). The block then alternates:
+//   - a window: each live lane runs up to `every` iterations of its loop,
+//     or until `trigger` lanes have left the block in the window;
+//   - a repack (two barriers): the block counts its live lanes
+//     (__ballot_sync, __popc), moves each one's carry through shared memory
+//     (Slots) into the slot of its rank, so the live lanes take the block's
+//     lowest threads in order and emptied warps issue nothing, and fills the
+//     freed slots from the queue;
+//   - the (ug, vg) post-pass of the lanes that left in the window, one
+//     (lane, row) a thread over the whole block, group_velocity_at at each
+//     row's bound (the expression of the plain post-pass).
+// The wrapper picks `every` and `trigger` by precision (tracer.py
+// DENSE_SCHEDULE): a repack's barriers hold every warp of the block to its
+// slowest, which float32 pays for more than it gains from full warps, so it
+// repacks rarely; float64 repacks as each lane leaves. A lane's arithmetic
+// is the one-thread-a-lane loop's in its order; only the thread that runs
+// it changes between windows, and where its carry sits meanwhile. Rows,
+// (ug, vg), lane_att, trunc and the carry are addressed by the lane's
+// index. The single group (integrate_group_dense) keeps one thread a lane
+// in blocks of 128, from the same lane functions.
+//
+// The stages stay in registers; emission walks a pointer over the
+// (non-decreasing) bounds. The kill cascade runs at emission, in bound
 // order, on the lane's own last alive position; the bounds a lane never
 // reached are cascaded as death at the group's end, exactly as the plain
 // post-pass reads the NaN-prefilled history. A killed lane keeps
 // integrating to the group's end, so attempts and the truncation count
-// equal the plain version's; its carry is NaNed after the group.
-//
-// Keep work out of the emission branch: it is divergent (each lane emits
-// its own bounds, about three per trip), so what runs there is paid once
-// per set of emitting lanes; the kill test's haversine and the (ug, vg)
-// sample there cost the first design about half of its launch. So (ug, vg)
-// is sampled after the lane's last group, the whole warp together, from
-// the rows it wrote; the haversine runs only where a cheap bound cannot
-// rule the kill out (ray_rhs.cuh kill_mask); and the background row comes
-// in 16-byte loads.
+// equal the plain version's; its carry is NaNed after the group. Work stays
+// out of the emission branch, which is divergent (each lane emits its own
+// bounds, about three per trip): the haversine runs only where a cheap
+// bound cannot rule the kill out (ray_rhs.cuh kill_mask), and the
+// background row comes in 16-byte loads.
 //
 // The Dormand-Prince stages, error norm and step factors are dp45.cuh's,
 // shared with the exact kernels (exact_run.cu).
 //
 // Types: the state S (y, t, h, the controller, the emitted rows, the kill
 // cascade, (ug, vg)) and the background F (the RHS, the stages k, the FSAL
-// carry f): dense_kernel<T, T, kRun> is the one-type kernel;
-// dense_kernel<double, float, true> the mixed-precision whole run and
-// dense_kernel<double, float, false> its single group (the _mix entry
+// carry f): dense_kernel<T, T, kRun, kTime> is the one-type kernel;
+// dense_kernel<double, float, true, kTime> the mixed-precision whole run and
+// dense_kernel<double, float, false, kTime> its single group (the _mix entry
 // points, compiled in dense_run_mix.cu). The Dormand-Prince casts are
 // dp45.cuh's; the dense
 // interpolant runs in S, its weights b_i(theta) times the widened stages,
@@ -128,7 +173,10 @@ struct DenseArgs {
   S pin_mwn;
   // Whole run only: row 0 of (ug, vg); the (n_groups * G + 1, R) (ug, vg)
   // rows; the truncation count per lane; the cascade's last alive position
-  // at exit; the haversine kill threshold.
+  // at exit; the haversine kill threshold; the lane queue's counter (one
+  // int, zero at launch); the most loop iterations between two repacks,
+  // and the lanes that, once they have left the block, end a window
+  // early.
   const S* ug0;
   const S* vg0;
   S* ugs;
@@ -137,11 +185,90 @@ struct DenseArgs {
   S* plon;
   S* plat;
   S cut_off;
+  int* queue;
+  int every;
+  int trigger;
 };
 
-template <typename S, typename F, bool kRun, bool kTime>
-__global__ void __launch_bounds__(128)
-dense_kernel(const DenseArgs<S, F, kTime> a) {
+// Threads per block of the whole run: the widest block whose registers fit
+// one SM (65,536), so that a block repacks its lanes over as many warps as
+// one SM holds, with few or no spills (nvcc.log). The single group keeps
+// blocks of 128.
+template <typename S, bool kTime>
+struct RunBlock {
+  // float32: at most 128 registers; its time instance, which carries the
+  // time axis and the second frame's row, at most 168.
+  static constexpr int kThreads = kTime ? 384 : 512;
+};
+template <bool kTime>
+struct RunBlock<double, kTime> {
+  static constexpr int kThreads = 256;  // float64 and mixed: at most 255
+};
+
+template <typename S, bool kRun, bool kTime>
+struct Block {
+  static constexpr int kThreads = kRun ? RunBlock<S, kTime>::kThreads : 128;
+};
+
+// One lane's carry between loop iterations: the state and FSAL stage, the
+// controller, the current group g (-1 before the first) with its bounds,
+// final time, first output row, entry freeze, next bound to emit and
+// attempts; the kill cascade's last alive emitted position and whether
+// the lane is alive in g; its truncation count.
+template <typename S, typename F>
+struct DenseLane {
+  S y[5];
+  F f[5];
+  S t, h, t_end, plon, plat;
+  const S* bounds;
+  long long row0;
+  int i, g, nb, att, trunc;
+  bool rej, ns, frozen, alive;
+};
+
+// Lane i enters from the carry (and, in the whole run, writes its row 0).
+template <bool kRun, typename S, typename F, bool kTime>
+__device__ __forceinline__ void lane_start(const DenseArgs<S, F, kTime>& a,
+                                           int i, DenseLane<S, F>& L) {
+  const long long RL = a.R;
+  L.i = i;
+#pragma unroll
+  for (int v = 0; v < 5; ++v) {
+    L.y[v] = a.y[v * RL + i];
+    L.f[v] = a.f[v * RL + i];
+  }
+  L.t = a.t[i];
+  L.h = a.h[i];
+  L.rej = false;
+  L.ns = true;
+  L.plon = L.y[0];
+  L.plat = L.y[1];
+  L.alive = true;
+  L.trunc = 0;
+  if constexpr (kRun) {
+#pragma unroll
+    for (int v = 0; v < 5; ++v) a.hist[v * RL + i] = L.y[v];
+    a.ugs[i] = a.ug0[i];
+    a.vgs[i] = a.vg0[i];
+  }
+  L.g = -1;
+  L.bounds = a.bounds;
+  L.t_end = L.t;  // no trip before the first group opens
+  L.row0 = 0;
+  L.frozen = false;
+  L.nb = 0;
+  L.att = 0;
+}
+
+// One iteration of lane L's loop: a trip of its group, or the change from
+// one group to the next. Returns true when the lane has closed its last
+// group. The lanes of a warp that are stepping run each trip together,
+// whichever group each is in (a loop per group would hold them at each
+// group's end).
+template <bool kRun, typename S, typename F, bool kTime, typename BG>
+__device__ __forceinline__ bool lane_iterate(const DenseArgs<S, F, kTime>& a,
+                                             const BG& bg,
+                                             DenseLane<S, F>& L) {
   // The dense-output quartic (solvers/rk45.py DP_P), double literals
   // rounded to S where used. A local constexpr array, so the unrolled loops
   // index it at compile time.
@@ -161,247 +288,442 @@ dense_kernel(const DenseArgs<S, F, kTime> a) {
        69997945.0 / 29380423},
   };
 
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.R) return;
-  const auto& bg = rwrt::lane_background(a.bg, i);
   const long long RL = a.R;
   const int G = a.G;
+  const int i = L.i;
   const S nan = rwrt::nan_value<S>();
-
-  S yl[5];
-  F fl[5];
-#pragma unroll
-  for (int v = 0; v < 5; ++v) {
-    yl[v] = a.y[v * RL + i];
-    fl[v] = a.f[v * RL + i];
-  }
-  S tl = a.t[i];
-  S hl = a.h[i];
-  bool rej = false;
-  bool ns = true;
-
-  // Kill-cascade state of the whole run: the lane's last alive emitted
-  // position, and whether it is alive in the current group.
-  S plon = yl[0];
-  S plat = yl[1];
-  bool alive = true;
-  int trunc = 0;
-  if constexpr (kRun) {
-#pragma unroll
-    for (int v = 0; v < 5; ++v) a.hist[v * RL + i] = yl[v];
-    a.ugs[i] = a.ug0[i];
-    a.vgs[i] = a.vg0[i];
-  }
-
-  // The current group g (-1 before the first): its bounds, final time,
-  // first output row, entry freeze, next bound to emit, and attempts.
-  int g = -1;
-  const S* bounds = a.bounds;
-  S t_end = tl;  // no trip before the first group opens
-  long long row0 = 0;
-  bool frozen = false;
-  int nb = 0;
-  int att = 0;
   auto store = [&](int b, const S row[5]) {
 #pragma unroll
-    for (int v = 0; v < 5; ++v) a.hist[((row0 + b) * 5 + v) * RL + i] = row[v];
+    for (int v = 0; v < 5; ++v) {
+      a.hist[((L.row0 + b) * 5 + v) * RL + i] = row[v];
+    }
   };
   // A NaN row: an unreached bound, or one the cascade killed.
   auto store_dead = [&](int b) {
     const S row[5] = {nan, nan, nan, nan, nan};
     store(b, row);
-    if constexpr (kRun) alive = false;
+    if constexpr (kRun) L.alive = false;
   };
-  const S floor_thr = a.min_step * S(1.0 + 1e-6);
 
-  // ONE loop over the trips and the group changes, so the lanes of a warp
-  // that are stepping run each trip together, whichever group each is in
-  // (a loop per group holds them at each group's end).
-  for (;;) {
-    if (!(tl < t_end) || static_cast<long long>(att) >= a.max_iters) {
-      if (g >= 0) {
-        // Close group g. Bounds the lane never reached stay NaN: death,
-        // in bound order.
-        if (!frozen) {
-          for (int b = nb; b < G; ++b) store_dead(b);
-        }
-        if constexpr (kRun) {
-          // Counted at integration end, before the carry's NaN: a lane
-          // the backstop stopped short while alive.
-          if (tl < t_end && !isnan(yl[0])) ++trunc;
-          if (!alive && !frozen) {
-#pragma unroll
-            for (int v = 0; v < 5; ++v) yl[v] = nan;
-          }
-        }
-        a.lane_att[g * RL + i] = att;
+  if (!(L.t < L.t_end) || static_cast<long long>(L.att) >= a.max_iters) {
+    if (L.g >= 0) {
+      // Close group g. Bounds the lane never reached stay NaN: death, in
+      // bound order.
+      if (!L.frozen) {
+        for (int b = L.nb; b < G; ++b) store_dead(b);
       }
-      if (++g == a.n_groups) break;
-      // Open group g.
-      bounds = a.bounds + static_cast<long long>(g) * G;
-      t_end = __ldg(bounds + G - 1);
-      row0 = kRun ? 1 + static_cast<long long>(g) * G : 0;
-      // Entry state: any NaN component (isnan(mean(y))) freezes the lane
-      // at its entry state for every bound, outside the cascade.
-      frozen = isnan((yl[0] + yl[1] + yl[2] + yl[3] + yl[4]) / S(5));
-      alive = !frozen;
-      if (frozen) {
-        for (int b = 0; b < G; ++b) store(b, yl);
-        tl = t_end;
-      }
-      rej = false;
-      ns = true;
-      att = 0;
-      // First bound strictly after t (bounds are non-decreasing); a live
-      // lane never emits the bounds before it.
-      nb = 0;
-      while (nb < G && !(__ldg(bounds + nb) > tl)) ++nb;
-      if (!frozen) {
-        for (int b = 0; b < nb; ++b) store_dead(b);
-      }
-    } else {
-      // One trip of group g.
-      const S heff = ns ? nan_max(hl, a.min_step) : hl;
-      const S t_new = nan_min(tl + heff, t_end);
-      const S hs = t_new - tl;
-
-      F k[7][5];
+      if constexpr (kRun) {
+        // Counted at integration end, before the carry's NaN: a lane the
+        // backstop stopped short while alive.
+        if (L.t < L.t_end && !isnan(L.y[0])) ++L.trunc;
+        if (!L.alive && !L.frozen) {
 #pragma unroll
-      for (int v = 0; v < 5; ++v) k[0][v] = fl[v];
-      S y_new[5];
-      rwrt::dp45::trial(bg, yl, tl, hs, k, y_new);
-      bool e;
-      F y7[5];
-#pragma unroll
-      for (int v = 0; v < 5; ++v) y7[v] = F(y_new[v]);
-      F t7 = F(0);  // the 7th stage's time (time instances only)
-      if constexpr (kTime) t7 = F(t_new);
-      rwrt::ray_rhs(bg, y7, t7, k[6], &e);
-      const S error_norm =
-          rwrt::dp45::error_norm(k, hs, yl, y_new, a.atol, a.rtol);
-
-      const bool nan_err = isnan(error_norm);
-      const bool dead_now = isnan(yl[0]);
-      const bool at_floor = hs <= a.min_step;
-      const bool accept =
-          nan_err ? (dead_now || at_floor) : (error_norm < S(1));
-      S fac_acc, fac_rej;
-      rwrt::dp45::step_factors(error_norm, rej, &fac_acc, &fac_rej);
-      if (nan_err) fac_acc = S(1);
-      if (nan_err) fac_rej = S(rwrt::dp45::kMinFactor);
-      const S h_next = accept ? hs * fac_acc : hs * fac_rej;
-
-      if (accept) {
-        // Dense emission: every bound in (t, t_new] from the quartic
-        // interpolant of this step's stages.
-        const S hden = (hs == S(0)) ? S(1) : hs;
-        while (nb < G) {
-          const S bnd = __ldg(bounds + nb);
-          if (!(bnd <= t_new)) break;
-          const S th = (bnd - tl) / hden;
-          S bp[7];
-#pragma unroll
-          for (int q = 0; q < 7; ++q) {
-            bp[q] = th * (S(kP[q][0]) +
-                          th * (S(kP[q][1]) +
-                                th * (S(kP[q][2]) + th * S(kP[q][3]))));
-          }
-          S row[5];
-#pragma unroll
-          for (int v = 0; v < 5; ++v) {
-            S acc = bp[0] * S(k[0][v]);
-#pragma unroll
-            for (int q = 1; q < 7; ++q) acc = acc + bp[q] * S(k[q][v]);
-            row[v] = yl[v] + hs * acc;
-          }
-          if constexpr (kRun) {
-            // Kill cascade at this bound.
-            if (!alive || isnan(row[0]) ||
-                rwrt::kill_mask(row, plon, plat, a.cut_off)) {
-              store_dead(nb);
-            } else {
-              store(nb, row);
-              plon = row[0];
-              plat = row[1];
-            }
-          } else {
-            store(nb, row);
-          }
-          ++nb;
+          for (int v = 0; v < 5; ++v) L.y[v] = nan;
         }
       }
-
-      S y_out[5];
-#pragma unroll
-      for (int v = 0; v < 5; ++v) y_out[v] = accept ? y_new[v] : yl[v];
-      S t_out = accept ? t_new : tl;
-
-      // Straggler pin-kill: accepted steps and rejections at the step floor.
-      att += 1;
-      const bool floor_rej = !accept && (hs <= floor_thr);
-      // The pin row is ky (state row 3), as in the plain version.
-      const bool retire = (accept || floor_rej) &&
-                          (static_cast<long long>(att) >= a.pin_limit) &&
-                          (fabs(y_out[3]) >= a.pin_mwn);
-      if (retire) {
-#pragma unroll
-        for (int v = 0; v < 5; ++v) y_out[v] = nan;
-      }
-      // Lanes whose state went NaN finish at once.
-      if (isnan(y_out[0])) t_out = t_end;
-
-      if (accept) {
-#pragma unroll
-        for (int v = 0; v < 5; ++v) fl[v] = k[6][v];
-      }
-#pragma unroll
-      for (int v = 0; v < 5; ++v) yl[v] = y_out[v];
-      tl = t_out;
-      hl = h_next;
-      rej = !accept;
-      ns = accept;
+      a.lane_att[L.g * RL + i] = L.att;
     }
+    if (++L.g == a.n_groups) return true;
+    // Open group g.
+    L.bounds = a.bounds + static_cast<long long>(L.g) * G;
+    L.t_end = __ldg(L.bounds + G - 1);
+    L.row0 = kRun ? 1 + static_cast<long long>(L.g) * G : 0;
+    // Entry state: any NaN component (isnan(mean(y))) freezes the lane at
+    // its entry state for every bound, outside the cascade.
+    L.frozen =
+        isnan((L.y[0] + L.y[1] + L.y[2] + L.y[3] + L.y[4]) / S(5));
+    L.alive = !L.frozen;
+    if (L.frozen) {
+      for (int b = 0; b < G; ++b) store(b, L.y);
+      L.t = L.t_end;
+    }
+    L.rej = false;
+    L.ns = true;
+    L.att = 0;
+    // First bound strictly after t (bounds are non-decreasing); a live
+    // lane never emits the bounds before it.
+    L.nb = 0;
+    while (L.nb < G && !(__ldg(L.bounds + L.nb) > L.t)) ++L.nb;
+    if (!L.frozen) {
+      for (int b = 0; b < L.nb; ++b) store_dead(b);
+    }
+    return false;
   }
 
+  // One trip of group g.
+  const S heff = L.ns ? nan_max(L.h, a.min_step) : L.h;
+  const S t_new = nan_min(L.t + heff, L.t_end);
+  const S hs = t_new - L.t;
+
+  F k[7][5];
 #pragma unroll
-  for (int v = 0; v < 5; ++v) {
-    a.y[v * RL + i] = yl[v];
-    a.f[v * RL + i] = fl[v];
-  }
-  a.t[i] = tl;
-  a.h[i] = hl;
-  if constexpr (kRun) {
-    // (ug, vg) at every row, after the lane's last group: the warp's lanes
-    // have all left the loop, so they sample together, each its own rows
-    // (neighbouring lanes, neighbouring addresses).
-    const long long rows = static_cast<long long>(a.n_groups) * G;
-    for (long long r = 1; r <= rows; ++r) {
+  for (int v = 0; v < 5; ++v) k[0][v] = L.f[v];
+  S y_new[5];
+  rwrt::dp45::trial(bg, L.y, L.t, hs, k, y_new);
+  bool e;
+  F y7[5];
+#pragma unroll
+  for (int v = 0; v < 5; ++v) y7[v] = F(y_new[v]);
+  F t7 = F(0);  // the 7th stage's time (time instances only)
+  if constexpr (kTime) t7 = F(t_new);
+  rwrt::ray_rhs(bg, y7, t7, k[6], &e);
+  const S error_norm =
+      rwrt::dp45::error_norm(k, hs, L.y, y_new, a.atol, a.rtol);
+
+  const bool nan_err = isnan(error_norm);
+  const bool dead_now = isnan(L.y[0]);
+  const bool at_floor = hs <= a.min_step;
+  const bool accept = nan_err ? (dead_now || at_floor) : (error_norm < S(1));
+  S fac_acc, fac_rej;
+  rwrt::dp45::step_factors(error_norm, L.rej, &fac_acc, &fac_rej);
+  if (nan_err) fac_acc = S(1);
+  if (nan_err) fac_rej = S(rwrt::dp45::kMinFactor);
+  const S h_next = accept ? hs * fac_acc : hs * fac_rej;
+
+  if (accept) {
+    // Dense emission: every bound in (t, t_new] from the quartic
+    // interpolant of this step's stages.
+    const S hden = (hs == S(0)) ? S(1) : hs;
+    while (L.nb < G) {
+      const S bnd = __ldg(L.bounds + L.nb);
+      if (!(bnd <= t_new)) break;
+      const S th = (bnd - L.t) / hden;
+      S bp[7];
+#pragma unroll
+      for (int q = 0; q < 7; ++q) {
+        bp[q] = th * (S(kP[q][0]) +
+                      th * (S(kP[q][1]) +
+                            th * (S(kP[q][2]) + th * S(kP[q][3]))));
+      }
       S row[5];
 #pragma unroll
-      for (int v = 0; v < 5; ++v) row[v] = a.hist[(r * 5 + v) * RL + i];
-      S tb = S(0);  // the row's bound
-      if constexpr (kTime) tb = a.bounds[r - 1];
-      S ug, vg;
-      rwrt::group_velocity_at(bg, row, tb, &ug, &vg);
-      a.ugs[r * RL + i] = ug;
-      a.vgs[r * RL + i] = vg;
+      for (int v = 0; v < 5; ++v) {
+        S acc = bp[0] * S(k[0][v]);
+#pragma unroll
+        for (int q = 1; q < 7; ++q) acc = acc + bp[q] * S(k[q][v]);
+        row[v] = L.y[v] + hs * acc;
+      }
+      if constexpr (kRun) {
+        // Kill cascade at this bound.
+        if (!L.alive || isnan(row[0]) ||
+            rwrt::kill_mask(row, L.plon, L.plat, a.cut_off)) {
+          store_dead(L.nb);
+        } else {
+          store(L.nb, row);
+          L.plon = row[0];
+          L.plat = row[1];
+        }
+      } else {
+        store(L.nb, row);
+      }
+      ++L.nb;
     }
-    a.trunc[i] = trunc;
-    a.plon[i] = plon;
-    a.plat[i] = plat;
+  }
+
+  S y_out[5];
+#pragma unroll
+  for (int v = 0; v < 5; ++v) y_out[v] = accept ? y_new[v] : L.y[v];
+  S t_out = accept ? t_new : L.t;
+
+  // Straggler pin-kill: accepted steps and rejections at the step floor.
+  L.att += 1;
+  const bool floor_rej = !accept && (hs <= a.min_step * S(1.0 + 1e-6));
+  // The pin row is ky (state row 3), as in the plain version.
+  const bool retire = (accept || floor_rej) &&
+                      (static_cast<long long>(L.att) >= a.pin_limit) &&
+                      (fabs(y_out[3]) >= a.pin_mwn);
+  if (retire) {
+#pragma unroll
+    for (int v = 0; v < 5; ++v) y_out[v] = nan;
+  }
+  // Lanes whose state went NaN finish at once.
+  if (isnan(y_out[0])) t_out = L.t_end;
+
+  if (accept) {
+#pragma unroll
+    for (int v = 0; v < 5; ++v) L.f[v] = k[6][v];
+  }
+#pragma unroll
+  for (int v = 0; v < 5; ++v) L.y[v] = y_out[v];
+  L.t = t_out;
+  L.h = h_next;
+  L.rej = !accept;
+  L.ns = accept;
+  return false;
+}
+
+// Lane L leaves: its carry, and the whole run's truncation count and last
+// alive position or the single group's controller flags.
+template <bool kRun, typename S, typename F, bool kTime>
+__device__ __forceinline__ void lane_finish(const DenseArgs<S, F, kTime>& a,
+                                            const DenseLane<S, F>& L) {
+  const long long RL = a.R;
+  const int i = L.i;
+#pragma unroll
+  for (int v = 0; v < 5; ++v) {
+    a.y[v * RL + i] = L.y[v];
+    a.f[v * RL + i] = L.f[v];
+  }
+  a.t[i] = L.t;
+  a.h[i] = L.h;
+  if constexpr (kRun) {
+    a.trunc[i] = L.trunc;
+    a.plon[i] = L.plon;
+    a.plat[i] = L.plat;
   } else {
-    a.rejected[i] = rej;
-    a.new_step[i] = ns;
+    a.rejected[i] = L.rej;
+    a.new_step[i] = L.ns;
   }
 }
 
+// (ug, vg) of lane i's output row r (r >= 1), at the row's bound.
+template <typename S, typename F, bool kTime>
+__device__ __forceinline__ void sample_row(const DenseArgs<S, F, kTime>& a,
+                                           int i, long long r) {
+  const long long RL = a.R;
+  const auto& bg = rwrt::lane_background(a.bg, i);
+  S row[5];
+#pragma unroll
+  for (int v = 0; v < 5; ++v) row[v] = a.hist[(r * 5 + v) * RL + i];
+  S tb = S(0);  // the row's bound
+  if constexpr (kTime) tb = a.bounds[r - 1];
+  S ug, vg;
+  rwrt::group_velocity_at(bg, row, tb, &ug, &vg);
+  a.ugs[r * RL + i] = ug;
+  a.vgs[r * RL + i] = vg;
+}
+
+// The carries of a block's lanes between two windows, one slot a thread,
+// in shared memory (structure of arrays: neighbouring slots, neighbouring
+// banks). A lane's bounds, final time and first row follow from g.
+template <typename S, typename F, int B>
+struct Slots {
+  S y[5][B];
+  S t[B], h[B], plon[B], plat[B];
+  F f[5][B];
+  int i[B], g[B], nb[B], att[B], trunc[B], flags[B];
+};
+
+template <typename S, typename F, int B>
+__device__ __forceinline__ void slot_save(Slots<S, F, B>& s, int k,
+                                          const DenseLane<S, F>& L) {
+#pragma unroll
+  for (int v = 0; v < 5; ++v) {
+    s.y[v][k] = L.y[v];
+    s.f[v][k] = L.f[v];
+  }
+  s.t[k] = L.t;
+  s.h[k] = L.h;
+  s.plon[k] = L.plon;
+  s.plat[k] = L.plat;
+  s.i[k] = L.i;
+  s.g[k] = L.g;
+  s.nb[k] = L.nb;
+  s.att[k] = L.att;
+  s.trunc[k] = L.trunc;
+  s.flags[k] = int(L.rej) | int(L.ns) << 1 | int(L.frozen) << 2 |
+               int(L.alive) << 3;
+}
+
+template <typename S, typename F, bool kTime, int B>
+__device__ __forceinline__ void slot_load(const Slots<S, F, B>& s, int k,
+                                          const DenseArgs<S, F, kTime>& a,
+                                          DenseLane<S, F>& L) {
+#pragma unroll
+  for (int v = 0; v < 5; ++v) {
+    L.y[v] = s.y[v][k];
+    L.f[v] = s.f[v][k];
+  }
+  L.t = s.t[k];
+  L.h = s.h[k];
+  L.plon = s.plon[k];
+  L.plat = s.plat[k];
+  L.i = s.i[k];
+  L.g = s.g[k];
+  L.nb = s.nb[k];
+  L.att = s.att[k];
+  L.trunc = s.trunc[k];
+  const int fl = s.flags[k];
+  L.rej = fl & 1;
+  L.ns = fl & 2;
+  L.frozen = fl & 4;
+  L.alive = fl & 8;
+  const long long g = L.g < 0 ? 0 : L.g;
+  L.bounds = a.bounds + g * a.G;
+  L.t_end = L.g < 0 ? L.t : __ldg(L.bounds + a.G - 1);
+  L.row0 = 1 + g * a.G;
+}
+
+// The whole run on a persistent grid (see the head of this file): each
+// block deals itself its share of the lanes, then repeats a window of
+// `every` loop iterations of each live lane and a repack, until it has no
+// lane left and the queue is empty.
+template <typename S, typename F, bool kTime>
+__device__ __forceinline__ void run_lanes(const DenseArgs<S, F, kTime>& a) {
+  constexpr int B = RunBlock<S, kTime>::kThreads;
+  constexpr int kWarps = B / 32;
+  __shared__ Slots<S, F, B> slots;
+  // The lanes that left in a window, by the window's parity: the repack
+  // after window w samples list w & 1 while window w + 1 fills the
+  // other.
+  __shared__ int done[2][B];
+  __shared__ int n_done[2];
+  __shared__ int warp_live[kWarps];
+  __shared__ int grab_base, grab_take;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const unsigned below = (1u << (tid & 31)) - 1u;
+  const long long rows = static_cast<long long>(a.n_groups) * a.G;
+  // The lanes dealt at the start: an even share of R for every block
+  // where the grid holds them all, else B a block, the rest queued.
+  const long long nblk = gridDim.x;
+  const bool deal = a.R <= nblk * B;
+  const long long queued0 = deal ? a.R : nblk * B;
+  bool drained = deal;  // block-uniform: the queue is empty
+  bool first = true;
+  int parity = 0;  // the current window's done list
+  if (tid < 2) n_done[tid] = 0;
+
+  DenseLane<S, F> L;
+  bool have = false;
+  for (;;) {
+    // Repack. Count the live lanes, warp by warp.
+    const unsigned live = __ballot_sync(0xffffffffu, have);
+    if ((tid & 31) == 0) warp_live[warp] = __popc(live);
+    __syncthreads();  // the window is over: carries, rows and lists final
+    int n_live = 0, rank = __popc(live & below);
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = warp_live[w];
+      n_live += c;
+      if (w < warp) rank += c;
+    }
+    const int prev = parity;
+    parity ^= 1;
+    const int nd = n_done[prev];
+    // Every live lane's carry into the slot of its rank: the live lanes
+    // take the block's lowest threads, in order, and whole warps go idle.
+    if (have) slot_save(slots, rank, L);
+    if (tid == 0) {
+      // Refill the free slots: the block's share first, then the queue.
+      int base = 0, take = 0;
+      if (first) {
+        const long long b = blockIdx.x;
+        const long long lo = deal ? b * a.R / nblk : b * B;
+        const long long hi = deal ? (b + 1) * a.R / nblk : (b + 1) * B;
+        base = static_cast<int>(lo);
+        take = static_cast<int>(hi - lo);
+      } else if (!drained && n_live < B) {
+        const long long b = queued0 + atomicAdd(a.queue, B - n_live);
+        if (b < a.R) {
+          base = static_cast<int>(b);
+          take = static_cast<int>(a.R - b < B - n_live ? a.R - b
+                                                        : B - n_live);
+        }
+      }
+      grab_base = base;
+      grab_take = take;
+      n_done[parity] = 0;
+    }
+    __syncthreads();  // slots, grab and the next list's count set
+    const int base = grab_base, take = grab_take;
+    if (!first && take < B - n_live) drained = true;
+    first = false;
+    const long long items = nd * rows;
+    for (long long w = tid; w < items; w += B) {
+      sample_row(a, done[prev][static_cast<int>(w % nd)], 1 + w / nd);
+    }
+    if (n_live + take == 0) break;
+    have = tid < n_live + take;
+    if (tid < n_live) {
+      slot_load(slots, tid, a, L);
+    } else if (have) {
+      lane_start<true>(a, base + tid - n_live, L);
+    }
+    // The window: up to `every` iterations of each live lane, ended early
+    // once `trigger` lanes have left the block in it.
+    if (have) {
+      const auto& bg = rwrt::lane_background(a.bg, L.i);
+      const volatile int* left = &n_done[parity];
+      for (int k = 0; k < a.every; ++k) {
+        if (lane_iterate<true>(a, bg, L)) {
+          lane_finish<true>(a, L);
+          done[parity][atomicAdd(&n_done[parity], 1)] = L.i;
+          have = false;
+          break;
+        }
+        if (*left >= a.trigger) break;
+      }
+    }
+  }
+}
+
+// The single group: one thread per lane, from entry to exit.
+template <typename S, typename F, bool kTime>
+__device__ __forceinline__ void group_lane(const DenseArgs<S, F, kTime>& a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.R) return;
+  const auto& bg = rwrt::lane_background(a.bg, i);
+  DenseLane<S, F> L;
+  lane_start<false>(a, i, L);
+  while (!lane_iterate<false>(a, bg, L)) {
+  }
+  lane_finish<false>(a, L);
+}
+
 template <typename S, typename F, bool kRun, bool kTime>
-int launch_dense(const DenseArgs<S, F, kTime>& a, cudaStream_t stream) {
+__global__ void __launch_bounds__(Block<S, kRun, kTime>::kThreads, 1)
+dense_kernel(const DenseArgs<S, F, kTime> a) {
+  if constexpr (kRun) {
+    run_lanes(a);
+  } else {
+    group_lane(a);
+  }
+}
+
+// The whole run over `blocks` blocks (at most R): the persistent grid of
+// the blocks the card keeps resident (dense_resident), or fewer or more
+// when a caller asks. The lane queue's counter must be zero.
+template <typename S, typename F, bool kTime>
+int launch_run(const DenseArgs<S, F, kTime>& a, int blocks,
+               cudaStream_t stream) {
   if (a.R <= 0 || a.G <= 0 || a.n_groups <= 0) return cudaSuccess;
-  const int block = 128;
-  const int grid = (a.R + block - 1) / block;
-  dense_kernel<S, F, kRun, kTime><<<grid, block, 0, stream>>>(a);
+  if (blocks <= 0 || a.every <= 0 || a.trigger <= 0 || a.queue == nullptr) {
+    return cudaErrorInvalidValue;
+  }
+  const int grid = blocks < a.R ? blocks : a.R;
+  dense_kernel<S, F, true, kTime>
+      <<<grid, RunBlock<S, kTime>::kThreads, 0, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename S, typename F, bool kTime>
+int launch_group(const DenseArgs<S, F, kTime>& a, cudaStream_t stream) {
+  if (a.R <= 0 || a.G <= 0 || a.n_groups <= 0) return cudaSuccess;
+  const int block = Block<S, false, kTime>::kThreads;
+  const int grid = (a.R + block - 1) / block;
+  dense_kernel<S, F, false, kTime><<<grid, block, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The whole run's persistent grid on the current card: out[0] the blocks
+// it keeps resident at once (blocks per SM x SMs), out[1] the threads a
+// block.
+template <typename S, typename F, bool kTime>
+int dense_resident(int* out) {
+  int dev = 0, sms = 0, blocks = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, dense_kernel<S, F, true, kTime>, RunBlock<S, kTime>::kThreads, 0);
+  }
+  out[0] = blocks * sms;
+  out[1] = RunBlock<S, kTime>::kThreads;
+  return e;
 }
 
 template <typename S, typename F, bool kTime>
@@ -441,6 +763,7 @@ int run_dense(const rwrt::Background<F, kTime>& bg, void* y, void* t,
               void* plat, const void* bounds, int G, int n_groups, int R,
               double cut_off, double rtol, double atol, double min_step,
               long long max_iters, long long pin_limit, double pin_mwn,
+              int blocks, void* queue, int every, int trigger,
               void* stream) {
   DenseArgs<S, F, kTime> a = dense_args<S, F, kTime>(
       bg, y, t, h, f, lane_att, hist, bounds, G, n_groups, R, rtol, atol,
@@ -453,7 +776,11 @@ int run_dense(const rwrt::Background<F, kTime>& bg, void* y, void* t,
   a.plon = static_cast<S*>(plon);
   a.plat = static_cast<S*>(plat);
   a.cut_off = S(cut_off);
-  return launch_dense<S, F, true, kTime>(a, static_cast<cudaStream_t>(stream));
+  a.queue = static_cast<int*>(queue);
+  a.every = every;
+  a.trigger = trigger;
+  return launch_run<S, F, kTime>(a, blocks,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 // The single group over background bg (static or a time instance's).
@@ -469,8 +796,7 @@ int group_dense(const rwrt::Background<F, kTime>& bg, void* y, void* t,
       max_iters, pin_limit, pin_mwn);
   a.rejected = static_cast<bool*>(rejected);
   a.new_step = static_cast<bool*>(new_step);
-  return launch_dense<S, F, false, kTime>(a,
-                                          static_cast<cudaStream_t>(stream));
+  return launch_group<S, F, kTime>(a, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -509,7 +835,10 @@ extern "C" {
         atol, min_step, max_iters, pin_limit, pin_mwn, stream);              \
   }
 
-// The whole run, state type S over background type F.
+// The whole run, state type S over background type F (on `blocks` blocks,
+// with the lane queue's counter `queue`, a repack at most every `every`
+// loop iterations and once `trigger` lanes have left), and its persistent
+// grid.
 #define RWRT_DENSE_RUN(SUFFIX, S, F)                                         \
   int rwrt_dense_run_##SUFFIX(                                               \
       const void* packed, int W, int H, double lon0, double lat0, double dx, \
@@ -518,16 +847,20 @@ extern "C" {
       void* trunc, void* plon, void* plat, const void* bounds, int G,        \
       int n_groups, int R, double cut_off, double rtol, double atol,         \
       double min_step, long long max_iters, long long pin_limit,             \
-      double pin_mwn, void* stream) {                                        \
+      double pin_mwn, int blocks, void* queue, int every, int trigger,       \
+      void* stream) {                                                        \
     return run_dense<S, F>(                                                  \
         rwrt::make_background<F>(packed, W, H, lon0, lat0, dx, dy), y, t, h, \
         f, ug0, vg0, hist, ugs, vgs, lane_att, trunc, plon, plat, bounds, G, \
         n_groups, R, cut_off, rtol, atol, min_step, max_iters, pin_limit,    \
-        pin_mwn, stream);                                                    \
+        pin_mwn, blocks, queue, every, trigger, stream);                     \
+  }                                                                          \
+  int rwrt_dense_resident_##SUFFIX(void* out) {                              \
+    return dense_resident<S, F, false>(static_cast<int*>(out));              \
   }
 
 // Its time instance: the background's time axis and member map after the
-// grid.
+// grid; its persistent grid.
 #define RWRT_DENSE_RUN_TIME(SUFFIX, S, F)                                    \
   int rwrt_dense_run_time_##SUFFIX(                                          \
       const void* packed, int W, int H, double lon0, double lat0, double dx, \
@@ -537,13 +870,17 @@ extern "C" {
       void* lane_att, void* trunc, void* plon, void* plat,                   \
       const void* bounds, int G, int n_groups, int R, double cut_off,        \
       double rtol, double atol, double min_step, long long max_iters,        \
-      long long pin_limit, double pin_mwn, void* stream) {                   \
+      long long pin_limit, double pin_mwn, int blocks, void* queue,          \
+      int every, int trigger, void* stream) {                                \
     return run_dense<S, F>(                                                  \
         rwrt::make_background<F>(packed, W, H, lon0, lat0, dx, dy, nt,       \
                                  timed, t0, tdt, member),                    \
         y, t, h, f, ug0, vg0, hist, ugs, vgs, lane_att, trunc, plon, plat,   \
         bounds, G, n_groups, R, cut_off, rtol, atol, min_step, max_iters,    \
-        pin_limit, pin_mwn, stream);                                         \
+        pin_limit, pin_mwn, blocks, queue, every, trigger, stream);          \
+  }                                                                          \
+  int rwrt_dense_resident_time_##SUFFIX(void* out) {                         \
+    return dense_resident<S, F, true>(static_cast<int*>(out));               \
   }
 
 // One precision and one kind of background per translation unit, so that

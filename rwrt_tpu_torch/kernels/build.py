@@ -65,10 +65,14 @@ SIGNATURES = {
                          _P, _P, _P, _I, _I, _D, _D, _D, _L, _L, _D, _P),
     # packed, W, H, lon0, lat0, dx, dy, y, t, h, f, ug0, vg0, hist, ugs,
     # vgs, lane_att, trunc, plon, plat, bounds, G, n_groups, R, cut_off,
-    # rtol, atol, min_step, max_iters, pin_limit, pin_mwn, stream
+    # rtol, atol, min_step, max_iters, pin_limit, pin_mwn, blocks, queue,
+    # every, trigger, stream
     "rwrt_dense_run": (_P, _I, _I, _D, _D, _D, _D, _P, _P, _P, _P, _P, _P,
                        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _D,
-                       _D, _D, _L, _L, _D, _P),
+                       _D, _D, _L, _L, _D, _I, _P, _I, _I, _P),
+    # out (int32 on the host): resident blocks of the whole run, threads a
+    # block
+    "rwrt_dense_resident": (_P,),
     # packed, W, H, lon0, lat0, dx, dy, y, ug0, vg0, ys, ugs, vgs, n_steps,
     # row_offset, R, dt, half, sixth, cut_off, instance, stream
     "rwrt_rk4_run": (_P, _I, _I, _D, _D, _D, _D, _P, _P, _P, _P, _P, _P, _I,
@@ -130,6 +134,7 @@ for _name in ("rwrt_rhs", "rwrt_rk4_run", "rwrt_exact_run",
 # The occupancy counts of the time instances take the static ones' args.
 SIGNATURES["rwrt_rk4_resident_time"] = SIGNATURES["rwrt_rk4_resident"]
 SIGNATURES["rwrt_exact_resident_time"] = SIGNATURES["rwrt_exact_resident"]
+SIGNATURES["rwrt_dense_resident_time"] = SIGNATURES["rwrt_dense_resident"]
 
 
 #: The entry points that also have a mixed-precision instance (``_mix``: a
@@ -140,7 +145,8 @@ MIXED = ("rwrt_rk4_run", "rwrt_rk4_resident", "rwrt_exact_run",
          "rwrt_dense_group", "rwrt_rk4_run_time", "rwrt_rk4_resident_time",
          "rwrt_exact_run_time", "rwrt_exact_resident_time",
          "rwrt_dense_run_time", "rwrt_exact_group_time",
-         "rwrt_dense_group_time")
+         "rwrt_dense_group_time", "rwrt_dense_resident",
+         "rwrt_dense_resident_time")
 
 
 def unit_flags(name: str) -> list:

@@ -31,8 +31,10 @@ runs. ``_run_rk4``: ``csrc/rk4_run.cu``, plain ``solvers/rk4.trace``
 (``RK4_LAUNCHES``); ``_exact_run``: ``csrc/exact_run.cu``, plain
 ``_exact_run_plain`` (``EXACT_LAUNCHES``); ``_dense_run``:
 ``csrc/dense_run.cu``, plain ``_dense_run_plain`` (``LAUNCHES``). The
-dense kernel runs one thread per lane; the RK4 and exact kernels one
-thread, or a team of 8 threads, per lane, as ``rk4_instance`` and
+dense kernel runs one thread per lane and repacks the live lanes into
+full warps inside the launch (``DENSE_SCHEDULE``, ``dense_grid``); the
+RK4 and exact kernels one thread, or a team of 8 threads, per lane, as
+``rk4_instance`` and
 ``solvers/rk45.exact_instance`` choose from the lane count. Each kernel
 has a mixed instance (``_mix``, ``kernels.launch``) beside its float32
 and float64 ones, which the wrappers take for a float64 state over a
@@ -46,6 +48,7 @@ The ray batch is flattened to R = 3 * nsource * nzwn lanes in C order of
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -233,6 +236,33 @@ LAUNCHES = 0
 RK4_LAUNCHES = 0
 EXACT_LAUNCHES = 0
 
+#: The whole-run dense kernel's repack schedule (every, trigger) by the
+#: launch's (state, field) dtypes: each block repacks its live lanes after
+#: at most ``every`` loop iterations (trips or group changes) of each, and
+#: as soon as ``trigger`` lanes have left it since the last repack (None:
+#: never sooner). Measured on an NVIDIA H100 (PERF.md section 6): a
+#: float32 trip issues cheaply, so a repack's barriers cost more than the
+#: warps it frees, while float64 arithmetic is what a warp's idle lanes
+#: waste.
+DENSE_SCHEDULE = {
+    (torch.float32, torch.float32): (128, None),
+    (torch.float64, torch.float32): (1000, 32),
+    (torch.float64, torch.float64): (1000, 1),
+}
+
+
+@functools.cache
+def dense_grid(key, variant: str = "") -> tuple:
+    """(blocks, threads a block) of the whole-run dense kernel's
+    persistent grid on the current card: the blocks it keeps resident at
+    once, from the CUDA occupancy calculator (``rwrt_dense_resident``);
+    ``key`` the (state, field) dtype pair, ``variant`` "" or "_time".
+    Read once per process."""
+    out = torch.zeros(2, dtype=torch.int32)
+    kernels.launch(f"rwrt_dense_resident{variant}", key, out)
+    return int(out[0]), int(out[1])
+
+
 def rk4_instance(r: int, dtype, variant: str = "") -> str:
     """The RK4 kernel's instance for a launch of ``r`` lanes on the card;
     ``dtype`` a torch dtype or a (state, field) pair, ``variant`` "" (a
@@ -325,8 +355,9 @@ def _dense_run(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off, rtol,
         carry of an earlier one is one chunk of the chunked driver
         (``utils/checkpoint.py``).
 
-    On a CUDA state one launch of ``csrc/dense_run.cu`` does it all, one
-    thread per lane through every group; on a CPU state the plain version
+    On a CUDA state one launch of ``csrc/dense_run.cu`` does it all, each
+    lane one thread's loop through every group, live lanes repacked into
+    full warps as others finish; on a CPU state the plain version
     ``_dense_run_plain`` runs.
     """
     run = _dense_run_cuda if y0.is_cuda else _dense_run_plain
@@ -379,16 +410,34 @@ def _dense_run_plain(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
 
 def _dense_run_cuda(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
                     rtol, atol, min_step, max_iters, pin_limit,
-                    pin_mwn, t0=None) -> GroupedRun:
-    """Launch the whole-run dense kernel once: one thread per lane walks
-    every group and writes its rows straight into the output. Reads
-    nothing back from the card. A float64 state over a float32 background
-    takes the mixed instance; ug0 and vg0 are widened to the state's
-    dtype for row 0. A time-varying or ensemble background takes the time
-    instance."""
+                    pin_mwn, t0=None, *, _blocks=None, _repack=None,
+                    _trigger=None) -> GroupedRun:
+    """Launch the whole-run dense kernel once: each lane walks every group
+    and writes its rows straight into the output; the blocks of a
+    persistent grid (``dense_grid``) repack their live lanes on the
+    schedule ``DENSE_SCHEDULE`` gives the dtypes, and take queued lanes
+    into the freed threads. Reads nothing back from the card. A float64
+    state over a float32 background takes the mixed instance; ug0 and vg0
+    are widened to the state's dtype for row 0. A time-varying or ensemble
+    background takes the time instance.
+
+    ``_blocks`` (a grid of that many blocks, so that lanes outnumber the
+    resident threads and the queue refills), ``_repack`` and ``_trigger``
+    (another repack schedule) are for the card tests and the measurement
+    scripts; none changes a bit of the output."""
     global LAUNCHES
     key, (variant, bg_args) = _check_run_args(bg, y0, ug0, vg0, h0, f0,
                                               bounds_g, n_bounds, 1)
+    blocks = dense_grid(key, variant)[0] if _blocks is None else _blocks
+    every, trigger = DENSE_SCHEDULE[key]
+    every = every if _repack is None else _repack
+    if _trigger is not None:
+        trigger = _trigger
+    elif trigger is None:
+        trigger = 1 << 30  # no window ends early
+    if min(int(blocks), int(every), int(trigger)) < 1:
+        raise ValueError(f"_blocks ({blocks}), _repack ({every}) and "
+                         f"_trigger ({trigger}) must be at least 1")
     dev, dt = y0.device, y0.dtype
     rtol, atol, min_step, pin_limit, pin_mwn = rk45_mod._scalar_args(
         dt, rtol, atol, min_step, pin_limit, pin_mwn)
@@ -401,12 +450,15 @@ def _dense_run_cuda(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
     t = _entry_time(t0, h0).clone()
     plon = torch.empty_like(h0)
     plat = torch.empty_like(h0)
+    # The lane queue's counter, scratch for the kernel.
+    queue = torch.zeros(1, dtype=torch.int32, device=dev)
     ug0, vg0 = ug0.to(dt), vg0.to(dt)
     kernels.launch(
         f"rwrt_dense_run{variant}", key, *bg_args, y, t, h, f, ug0, vg0, ys,
         ugs, vgs, lane_att, trunc, plon,
         plat, bounds_g, group, n_groups, r, cut_off, rtol, atol, min_step,
-        int(max_iters), pin_limit, pin_mwn, kernels.stream(dev))
+        int(max_iters), pin_limit, pin_mwn, int(blocks), queue, int(every),
+        int(trigger), kernels.stream(dev))
     LAUNCHES += 1
     nt = n_bounds + 1
     return GroupedRun(ys[:nt], ugs[:nt], vgs[:nt], lane_att, trunc,

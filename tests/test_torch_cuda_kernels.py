@@ -1416,3 +1416,181 @@ def test_trace_rays_refuses_a_gradient_carrying_state(jet_field, dev):
     with torch.no_grad():
         traj = pt.trace_rays(bs, cfg)
     assert not traj.lat.requires_grad
+
+
+# The whole-run dense kernel repacks live lanes into full warps inside the
+# launch (csrc/dense_run.cu): blocks of a persistent grid, a lane queue
+# where lanes outnumber the resident threads, the (ug, vg) post-pass over
+# the block. Which thread runs a lane, and when, must change no bit.
+
+#: Lane counts that cut the warp and block edges (blocks of 512 threads in
+#: float32, 384 in its time instance, 256 with a float64 state).
+REPACK_LANES = [1, 31, 33, 207, 383, 385, 511, 513, 4097]
+#: The cases of the repacking tests: kills inside groups (cut_off 0.03)
+#: under pin (500, 0); no pin, so stragglers run to the group's end; pin
+#: at 8 attempts, so many lanes retire early among lanes that go on; a
+#: max_iters backstop of 3 trips, so lanes are truncated.
+REPACK_CASES = {
+    "cutoff": dict(cut_off=0.03, pin_limit=500, pin_mwn=0.0),
+    "nopin": dict(cut_off=0.2),
+    "pin8": dict(cut_off=0.2, pin_limit=8, pin_mwn=0.0),
+    "maxiters": dict(cut_off=0.2, pin_limit=500, pin_mwn=0.0, max_iters=3),
+}
+REPACK_KINDS = ["static"] + KINDS
+_REPACK_RUNS = {}
+
+
+def repack_inputs(jet_field, kind, key, dev):
+    """The entry state of a 48 x 36 source grid from 70 S plus the three
+    polar sources of ``dense_run_inputs``, zwn 2, 4, 6 (5,193 lanes, about
+    a third rootless, so frozen at their seed state), in a fixed shuffled
+    order with the 27 polar lanes at the odd positions 1..53, so that every
+    prefix mixes polar, frozen and born lanes; over a static background or
+    a ``kind`` one (member maps cycling lane by lane). Returns (args of
+    ``_dense_run`` without the case's scalars, rtol)."""
+    state, field = KEYS[key]
+    _, bg0 = background(jet_field, field, dev)
+    slon, slat = tracer.source_matrix(0.0, -70.0, 7.5, 4.0, 48, 36)
+    slon = np.concatenate([slon, np.radians([10.0, 100.0, 200.0])])
+    slat = np.concatenate([slat, np.radians([86.0, 88.5, -87.0])])
+    y0, ug0, vg0 = tracer.initialize(
+        bg0, torch.as_tensor(slon, dtype=field, device=dev),
+        torch.as_tensor(slat, dtype=field, device=dev),
+        torch.tensor([2.0, 4.0, 6.0], dtype=field, device=dev))
+    n_src, r = slon.size, y0.shape[1]
+    src = (np.arange(r) // 3) % n_src
+    polar = np.flatnonzero(src >= n_src - 3)
+    rest = np.random.default_rng(5).permutation(
+        np.setdiff1d(np.arange(r), polar))
+    order = list(rest)
+    for j, p in enumerate(polar):
+        order.insert(1 + 2 * j, p)
+    take = torch.as_tensor(np.array(order), device=dev)
+    y0, ug0, vg0 = (x.index_select(-1, take).contiguous()
+                    for x in (y0.to(state), ug0, vg0))
+    bg = bg0 if kind == "static" else varying_background(
+        jet_field, kind, field, dev, r)
+    rtol = rk45.validate_tol(1e-6, state)
+    h0 = tracer.initial_step_sizes(bg, y0, rtol, 1e-6)
+    f0 = ray.RayRHS(bg)(y0)
+    bounds_g = tracer.padded_bounds(7200.0, 13, 5, state, dev)
+    return (bg, y0, ug0, vg0, h0, f0, bounds_g, 12), rtol
+
+
+def first_lanes(args, n):
+    """``_dense_run``'s arguments cut to their first n lanes (and an
+    ensemble's member map with them)."""
+    bg, r = args[0], args[1].shape[1]
+    if bg.member_ids is not None:
+        bg = bg._replace(member_ids=bg.member_ids[:n].contiguous())
+    return (bg,) + tuple(
+        x[..., :n].contiguous() if torch.is_tensor(x) and x.ndim
+        and x.shape[-1] == r else x for x in args[1:])
+
+
+def repack_case(jet_field, dev, key, kind, case):
+    """(the case's full-width arguments, its keyword arguments, the plain
+    run on every lane), made once per (key, kind, case): lanes are
+    independent, so the plain run's first n lanes are the plain run of
+    the first n lanes."""
+    tag = (key, kind, case)
+    if tag not in _REPACK_RUNS:
+        (bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds), rtol = (
+            repack_inputs(jet_field, kind, key, dev))
+        kw = dict(REPACK_CASES[case])
+        args = (bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds,
+                kw.pop("cut_off"), rtol, 1e-6, 7.2)
+        _REPACK_RUNS[tag] = (args, kw, tracer._dense_run_plain(*args, **kw))
+    return _REPACK_RUNS[tag]
+
+
+def equal_to_plain(k, p, n):
+    """A kernel run over the first n lanes against the plain run of every
+    lane: rows, ug, vg, attempts, truncation counts and carry, bitwise."""
+    for a, b in zip(k[:3] + k.carry, p[:3] + p.carry):
+        assert a.dtype == b.dtype and same(a, b[..., :n])
+    assert torch.equal(k.lane_att, p.lane_att[:, :n])
+    assert torch.equal(k.trunc, p.trunc[:n])
+
+
+def dense_cuda(args, kw, **private):
+    """``tracer._dense_run_cuda`` with ``_dense_run``'s defaults."""
+    full = dict(max_iters=1_000_000, pin_limit=None, pin_mwn=None)
+    full.update(kw)
+    return tracer._dense_run_cuda(*args, full["max_iters"],
+                                  full["pin_limit"], full["pin_mwn"],
+                                  **private)
+
+
+@pytest.mark.parametrize("n", REPACK_LANES)
+@pytest.mark.parametrize("kind", REPACK_KINDS)
+@pytest.mark.parametrize("key", list(KEYS))
+def test_dense_run_repacking_lane_counts(jet_field, dev, key, kind, n):
+    """The repacking kernel over the first n lanes (frozen, polar, killed
+    and pinned lanes among them), one launch on the default grid, against
+    the plain run bitwise."""
+    args, kw, p = repack_case(jet_field, dev, key, kind, "cutoff")
+    before = tracer.LAUNCHES
+    k = tracer._dense_run(*first_lanes(args, n), **kw)
+    assert tracer.LAUNCHES == before + 1
+    equal_to_plain(k, p, n)
+    if n == 4097:
+        assert (torch.isnan(k.ys[-1, 0]) & ~torch.isnan(k.ys[0, 3])).any()
+        assert torch.isnan(k.ys[0, 3]).any()
+
+
+@pytest.mark.parametrize("n", [513, 4097])
+@pytest.mark.parametrize("case", ["nopin", "pin8", "maxiters"])
+@pytest.mark.parametrize("kind", REPACK_KINDS)
+@pytest.mark.parametrize("key", list(KEYS))
+def test_dense_run_repacking_stragglers(jet_field, dev, key, kind, case, n):
+    """Stragglers among easy lanes: no pin, an early pin that retires many
+    lanes while others go on, and the max_iters backstop truncating lanes;
+    bitwise against the plain run."""
+    args, kw, p = repack_case(jet_field, dev, key, kind, case)
+    k = tracer._dense_run(*first_lanes(args, n), **kw)
+    equal_to_plain(k, p, n)
+    if case == "maxiters":
+        assert int(k.trunc.sum()) > 0
+
+
+#: Repack schedules (most iterations a window, lanes whose leaving ends
+#: it; None: no early end): every iteration, every 3, windows ended by the
+#: first lane to leave or by a warp's worth, windows longer than any lane.
+SCHEDULES = [(1, None), (3, None), (8, 1), (64, 7), (1000, 32), (1000, None)]
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES)
+@pytest.mark.parametrize("blocks", [1, 3])
+@pytest.mark.parametrize("kind", REPACK_KINDS)
+@pytest.mark.parametrize("key", list(KEYS))
+def test_dense_run_repacking_queue_refills(jet_field, dev, key, kind, blocks,
+                                           schedule):
+    """More lanes than resident threads: a grid of 1 or 3 blocks over
+    4,097 lanes takes the rest from the queue as lanes leave, under each
+    repack schedule; bitwise against the plain run."""
+    args, kw, p = repack_case(jet_field, dev, key, kind, "cutoff")
+    sub = first_lanes(args, 4097)
+    every, trigger = schedule
+    before = tracer.LAUNCHES
+    k = dense_cuda(sub, kw, _blocks=blocks, _repack=every,
+                   _trigger=trigger or 1 << 30)
+    assert tracer.LAUNCHES == before + 1
+    equal_to_plain(k, p, 4097)
+
+
+def test_dense_run_grid_and_private_arguments(jet_field, dev):
+    """The default grid is the resident blocks of the instance, at least
+    one a SM, 512 threads in float32 (384 in its time instance) and 256
+    with a float64 state; the private arguments refuse values below 1."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for key, threads in ((KEYS["float32"], (512, 384)),
+                         (KEYS["float64"], (256, 256)),
+                         (KEYS["mixed"], (256, 256))):
+        for variant, want in zip(("", "_time"), threads):
+            blocks, block = tracer.dense_grid(key, variant)
+            assert block == want and blocks >= n_sm
+    args, kw, _ = repack_case(jet_field, dev, "float32", "static", "cutoff")
+    for bad in (dict(_blocks=0), dict(_repack=0), dict(_trigger=0)):
+        with pytest.raises(ValueError):
+            dense_cuda(first_lanes(args, 33), kw, **bad)
