@@ -196,10 +196,12 @@ exact_path phase requires and the chunk budget the chunked phase sets):
                North Pacific box and |m| < 100: the region pass bitwise
                against its plain version, the binning kernel against
                ``_accumulate_plain`` (count and carry bitwise, the other
-               maps within FLUX_BAR: the atomics' order varies), kernel,
-               wrapper, plain and ``index_add_`` times and the bounds
-               (the bytes this run's data needs);
-               ``wave_ray_flux_chunked`` over a host copy against one-shot
+               maps within FLUX_BAR: the atomics' order varies); kernel
+               (and each of its launches under torch.profiler), wrapper,
+               plain and ``index_add_`` times and the bounds (the bytes
+               this run's data needs, and the kept rays' reads at 32-byte
+               sectors); ``wave_ray_flux_chunked`` over a host copy
+               against one-shot
   wrf_cli      ``python -m rwrt_tpu_torch.diagnostics.wrf_cli`` in process
                on the cli phase's production-size trajectory file, counters
                reset just before and read just after (one binning launch,
@@ -207,12 +209,19 @@ exact_path phase requires and the chunk budget the chunked phase sets):
                statistics and write; the file's maps against
                ``wave_ray_flux`` in process
   classify     ``--report-exact`` on the reference and production-size
-               runs (no output files): the report's exact causes equal to
-               ``termination.cause_labels`` in process, through the RHS
-               kernel (its counter moving); labels per lane against the
-               plain RHS's on the card (an RK45 re-run cut at
+               runs (no output files), counters reset just before and read
+               just after: the report's exact causes equal to
+               ``termination.cause_labels`` in process (RK4: four RHS
+               launches; RK45: at most 3 RHS launches and one launch of the
+               interval kernel, ``rk45.integrate_interval_rays``); labels,
+               candidate states and trips per lane against the plain RHS's
+               on the card, bitwise (an RK45 re-run cut at
                CLASSIFY_PLAIN_ITERS trips in both), and the report's own
-               labels against them on the lanes it finished within the cut
+               against them on the lanes it finished within the cut; the
+               interval kernel timed at the report's entry and on its
+               longest lane alone (the chain floor), and at the cut beside
+               the plain loop alone on the same entry and cut (bitwise):
+               the kernels line's ms and plain_ms
   group_time   the single-group kernels' time instances (``integrate_group``
                and ``integrate_group_dense`` over daily frames and over two
                members, float32, float64 and mixed, one launch each),
@@ -1600,6 +1609,7 @@ def reset_launches():
     from rwrt_tpu_torch.probes import gather_probe
 
     ray.LAUNCHES = rk45.LAUNCHES = rk45.EXACT_LAUNCHES = spec.LAUNCHES = 0
+    rk45.INTERVAL_LAUNCHES = 0
     tracer.LAUNCHES = tracer.RK4_LAUNCHES = tracer.EXACT_LAUNCHES = 0
     flux.LAUNCHES = flux.REGION_LAUNCHES = gather_probe.LAUNCHES = 0
 
@@ -1621,7 +1631,8 @@ def read_launches(launches_of, n_launches, what):
                 "exact_group": rk45.EXACT_LAUNCHES,
                 "exact_run": tracer.EXACT_LAUNCHES,
                 "flux": flux.LAUNCHES, "flux_region": flux.REGION_LAUNCHES,
-                "gather": gather_probe.LAUNCHES}
+                "gather": gather_probe.LAUNCHES,
+                "interval": rk45.INTERVAL_LAUNCHES}
     wants = (launches_of if isinstance(launches_of, dict)
              else {launches_of: n_launches})
     for k, n in launches.items():
@@ -2962,6 +2973,22 @@ def wind_state(run, path, cfg):
     return run.rt.prepare(u, v, lat, lon, **kw)
 
 
+def cli_production_js(inputuv, tmp):
+    """The production-size run's CLI JSON config (100,800 rays over the
+    CLI_MATRIX sources, dense RK45, float32), its output files in
+    ``tmp``."""
+    import os
+
+    return dict(CLI_MATRIX, inputuv=inputuv,
+                bsfile=os.path.join(tmp, "bs_prod.npz"),
+                ncfile=os.path.join(tmp, "ray_prod.npz"),
+                zwn=[float(z) for z in range(1, 8)], tstep=2 * HOUR,
+                ttotal=N_DAYS * DAY, integrator="rk45", bound_mode="dense",
+                interval_batch=60, rtol=1e-6, atol=1e-6,
+                min_step_factor=1e-3, cut_off=0.1, pin_limit=500,
+                pin_mwn=0.0, cal_dtype="float32")
+
+
 def json_config(rt, js):
     """The RunConfig of a CLI JSON config."""
     return rt.RunConfig(**{k: tuple(x) if isinstance(x, list) else x
@@ -3061,14 +3088,7 @@ def phase_cli(run):
         del traj
 
         # The production-size run: one dense launch, the wavenumber maps.
-        js = dict(CLI_MATRIX, inputuv=static,
-                  bsfile=os.path.join(tmp, "bs_prod.npz"),
-                  ncfile=os.path.join(tmp, "ray_prod.npz"),
-                  zwn=[float(z) for z in range(1, 8)], tstep=2 * HOUR,
-                  ttotal=N_DAYS * DAY, integrator="rk45",
-                  bound_mode="dense", interval_batch=60, rtol=1e-6,
-                  atol=1e-6, min_step_factor=1e-3, cut_off=0.1,
-                  pin_limit=500, pin_mwn=0.0, cal_dtype="float32")
+        js = cli_production_js(static, tmp)
         wn = os.path.join(tmp, "wn_prod.npz")
         cfg = config(js)
         rep, launches, wall = cli_run(run, tmp, "production", js,
@@ -3192,6 +3212,32 @@ FLUX_BAR = 1e-4
 #: On the production-size trajectories 6 of the 7,825,596 binned points
 #: move at 64-row blocks (7.7e-7); the bar leaves that reading room.
 CHUNK_COUNT_SHARE = 2e-6
+#: The binning's launches, by kernel name, timed apart under
+#: torch.profiler.
+FLUX_PARTS = ("compact_kernel", "unwrap_kernel", "points_kernel",
+              "maps_kernel")
+
+
+def launch_parts(fn, names, reps=5):
+    """Device microseconds a call of ``fn`` spends in each kernel whose
+    name holds one of ``names`` (torch.profiler over ``reps`` calls); {}
+    where the profiler sees no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    parts = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0) or getattr(
+            e, "cuda_time_total", 0)
+        for n in names:
+            if n in e.key and us:
+                parts[n] = round(us / reps, 2)
+    return parts
 
 
 def flux_kw():
@@ -3252,6 +3298,7 @@ def phase_flux(run):
           "from the kernel's")
 
     ms = cuda_ms(lambda: flux._accumulate_cuda(*args), 10)
+    parts = launch_parts(lambda: flux._accumulate_cuda(*args), FLUX_PARTS)
     wrapper_ms = cuda_ms(lambda: flux.wave_ray_flux(traj, **kw), 10)
     plain_ms = cuda_ms(lambda: flux._accumulate_plain(*args), 2)
     region_ms = cuda_ms(lambda: flux._region_cuda(*rows[:3], zero,
@@ -3296,9 +3343,19 @@ def phase_flux(run):
     b = bound((3 * nt * kept + 3 * fin) * esz + 4 * 360 * 90 * esz
               + 2 * r * esz + r, nt * kept * UNWRAP_FLOPS
               + binned * BIN_FLOPS, "float32")
+    # The same reads at the memory's 32-byte sectors: a kept ray's value
+    # brings its sector, shared with the rays beside it in the row.
+    sectors = int(torch.unique(torch.nonzero(keep)[:, 0]
+                               // (32 // esz)).numel())
+    sector_bytes = 6 * nt * sectors * 32
     rb = bound(3 * region_rows * esz + r + kept,
                region_rows * REGION_FLOPS, "float32")
     every = 5 * nt * r * esz
+    print(f"flux: the binning's launches (torch.profiler, device us): "
+          + json.dumps(parts) + f"; the kept rays' six fields read at "
+          f"32-byte sectors ({sectors} sectors a row): "
+          f"{sector_bytes / 1e6:.1f} MB, "
+          f"{sector_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
     print(f"flux: {r} rays x {nt} rows = {nt * r} points, {kept} rays "
           f"enter the box {FLUX_BOX}, {binned} points binned; binning "
           f"kernel {ms:.4f} ms, wrapper (region pass + binning) "
@@ -3421,29 +3478,48 @@ def phase_wrf_cli(run):
     del tr, ref
 
 
-#: The classify phase's plain comparison of an RK45 re-run: both versions
-#: cut at this many trips. The report's re-run takes the JAX package's
-#: 10,000, and float32 lanes of the production-size run stall there: the
-#: plain RHS, ~2 ms a call on the card, would take minutes over them. The
-#: report's labels are held to the plain ones on the lanes that finish
-#: within the cut; the trips of the others are printed.
+#: The classify phase's plain comparison of the RK45 re-run: the interval
+#: kernel and the plain loop over ``ray._rhs_core`` both cut at this many
+#: trips a lane, on every dead lane. The report's re-run takes the JAX
+#: package's 10,000, and float32 lanes of the production-size run stall
+#: there: the plain loop, ~20 ms a trip on the card, would take minutes
+#: over them. A lane's re-run is its own (the per-lane cap,
+#: tests/test_torch_interval.py), so the report's re-run equals the cut one
+#: on every lane that finishes within the cut.
 CLASSIFY_PLAIN_ITERS = 500
+#: The interval kernel's timed launches (CUDA events).
+INTERVAL_REPS = 3
+
+
+def plain_rhs(bg, y, t):
+    """The plain RHS in ``cause_labels``' form (the plain re-run)."""
+    from rwrt_tpu_torch.models import ray
+
+    return ray._rhs_core(bg, y, t, False)[:2]
 
 
 def phase_classify(run):
     """``--report-exact`` through the CLI in process (no output files) on
-    the reference run and on the production-size run, every counter reset
-    just before and read just after (the run's one whole-run launch, RHS
-    launches for the re-run): the report's causes exact, every ray in one
-    bucket, and equal to the counts of the labels ``classify`` gave inside
-    the run (``termination.cause_labels``, kept and timed; its rays the
-    dead rays of the same config's trajectory in process; its RHS
-    launches counted); then, on that trajectory, the labels through the
-    RHS kernel against the plain RHS's on the card, per lane (an RK45
-    re-run cut at CLASSIFY_PLAIN_ITERS trips in both), both timed, and the
-    report's labels against the plain ones on every lane that the report's
-    re-run finished within the cut."""
+    the reference run (RK4) and on the production-size run (dense RK45),
+    every counter reset just before and read just after (the run's one
+    whole-run launch; RK45: one interval-kernel launch for the re-run after
+    at most 3 RHS launches; RK4: 4 RHS launches): the report's causes
+    exact, every ray in one bucket, and equal to the counts of the labels
+    ``classify`` gave inside the run (``termination.cause_labels``, kept
+    and timed with its ``stats``: the re-run's entry, state and each lane's
+    trips); its rays the dead rays of the same config's trajectory in
+    process. Then, on that trajectory, the labels and candidate states
+    through the kernels against the plain RHS's run on the card, bitwise on
+    every lane (the RK45 re-run cut at CLASSIFY_PLAIN_ITERS trips in both),
+    and the report's own labels and states against them on every lane the
+    report's re-run finished within the cut. The interval kernel timed at
+    the report's entry and cap and on its longest lane alone (the chain
+    floor); and at the cut beside the plain loop alone on the same entry
+    and cut (``rk45._integrate_interval_plain``, bitwise), and its bound
+    for that work."""
+    torch = run.torch
     rt = run.rt
+    from rwrt_tpu_torch import kernels, tracer
     from rwrt_tpu_torch.convert import host
     from rwrt_tpu_torch.diagnostics import termination
     from rwrt_tpu_torch.models import ray
@@ -3456,90 +3532,176 @@ def phase_classify(run):
              ("production", dict(run.prod["js"]), "dense_run", run.prod))
     dead = 0
     labels_of = termination.cause_labels
-    interval = rk45.integrate_interval
     for name, js, unit, prod in cases:
         js.update(bsfile=None, ncfile=None)
-        # The CLI's own re-run, its labels, its time and each lane's trips
-        # kept.
-        seen, trips = [], []
+        cfg = json_config(rt, js)
+        adaptive = cfg.integrator != "rk4"
+        # The CLI's own re-run: its labels, seconds, launches and stats.
+        seen = []
 
         def kept(*a, **k):
-            before = ray.LAUNCHES
-            res, secs = wall_s(lambda: labels_of(*a, **k))
-            seen.append((res, secs, ray.LAUNCHES - before))
-            return res
-
-        def counted(*a, **k):
-            res = interval(*a, **k)
-            trips.append(host(res[5]))
+            before = (ray.LAUNCHES, rk45.INTERVAL_LAUNCHES)
+            st = {}
+            res, secs = wall_s(lambda: labels_of(*a, stats=st, **k))
+            seen.append((res, secs, ray.LAUNCHES - before[0],
+                         rk45.INTERVAL_LAUNCHES - before[1], st))
             return res
 
         termination.cause_labels = kept
-        rk45.integrate_interval = counted
         try:
-            rep, launches, wall = cli_run(run, run.tmp, f"{name}_exact", js,
-                                          ["--report-exact"], unit, 1)
+            rep, launches, wall = cli_run(
+                run, run.tmp, f"{name}_exact", js, ["--report-exact"],
+                {unit: 1, "interval": int(adaptive)}, None)
         finally:
             termination.cause_labels = labels_of
-            rk45.integrate_interval = interval
         summary = rep["trajectories"]
         check(summary["termination_causes"] == "exact"
               and sum(summary["termination"].values())
               == summary["n_rays"], f"classify {name}: report")
-        cfg = json_config(rt, js)
         if prod is None:
             bs = wind_state(run, js["inputuv"], cfg)
             traj = rt.trace_rays(bs, cfg)
         else:
             bs, traj = prod["bs"], prod["traj"]
         base = termination.analyze(traj)
-        (labels, k_s, rhs_launches), = seen or [(np.zeros(0, np.int8),
-                                                  0.0, 0)]
-        check(rhs_launches > 0 or labels.size == 0,
-              f"classify {name}: no RHS kernel launch")
-        check(labels.size == int(((base.death_step >= 1) & (
+        check(len(seen) == 1, f"classify {name}: {len(seen)} re-runs")
+        (labels, k_s, rhs_launches, iv_launches, st), = seen
+        n = labels.size
+        check(n == int(((base.death_step >= 1) & (
             base.death_step < cfg.nt)).sum()), f"classify {name}: the "
             "re-run's rays are not the in-process trajectory's dead rays")
+        check(n > 0, f"classify {name}: no dead ray")
+        check((iv_launches, rhs_launches) == (0, 4) if not adaptive
+              else iv_launches == 1 and 0 < rhs_launches <= 3,
+              f"classify {name}: {rhs_launches} RHS and {iv_launches} "
+              "interval launches in the re-run")
         want = {"no_root": base.counts["no_root"],
                 "survived": base.counts["survived"],
                 **{c: int((labels == i).sum())
                    for i, c in enumerate(termination.CAUSES)}}
         check(summary["termination"] == want, f"classify {name}: report "
               f"{summary['termination']} != its labels' counts {want}")
-        dead += labels.size
-        cut = {} if cfg.integrator == "rk4" else dict(
-            max_iters=CLASSIFY_PLAIN_ITERS)
+        dead += n
+        cut = dict(max_iters=CLASSIFY_PLAIN_ITERS) if adaptive else {}
+        ks, ps = {}, {}
         kern, kc_s = wall_s(lambda: termination.cause_labels(
-            traj, bs, cfg, base.death_step, **cut))
+            traj, bs, cfg, base.death_step, stats=ks, **cut))
         plain, p_s = wall_s(lambda: termination.cause_labels(
-            traj, bs, cfg, base.death_step,
-            rhs=lambda bg, y, t: ray._rhs_core(bg, y, t, False)[:2], **cut))
-        check(np.array_equal(kern, plain), f"classify {name}: labels "
-              "through the RHS kernel differ from the plain RHS's")
-        # A lane's re-run is its own: one that the report's re-run finished
-        # within the cut ends the same in the cut one.
-        lane_trips = (trips[0] if trips
-                      else np.zeros(labels.size, np.int64))
-        short = lane_trips <= CLASSIFY_PLAIN_ITERS
-        check(lane_trips.size == labels.size
-              and np.array_equal(labels[short], plain[short]),
-              f"classify {name}: the report's labels differ from the plain "
-              "RHS's on lanes finished within the cut")
-        order = np.argsort(lane_trips[~short], kind="stable")
+            traj, bs, cfg, base.death_step, rhs=plain_rhs, stats=ps, **cut))
+        check(np.array_equal(kern, plain) and same(ks["state"], ps["state"]),
+              f"classify {name}: labels or states through the kernels "
+              "differ from the plain RHS's")
+        head = (f"classify {name}: {summary['n_rays']} rays, {n} dead "
+                f"re-run ({cfg.integrator}); report "
+                f"{json.dumps(summary['termination'])}; --report-exact wall "
+                f"{wall:.3f} s (split {json.dumps(rep['wall_s'])}); the "
+                f"report's re-run {k_s:.4f} s ({rhs_launches} RHS launches, "
+                f"{iv_launches} interval launch)")
+        if not adaptive:
+            check(np.array_equal(labels, plain) and same(
+                st["state"], ps["state"]), f"classify {name}: the report's "
+                "labels differ from the plain RHS's")
+            print(f"{head}; kernels {kc_s:.3f} s, plain RHS {p_s:.3f} s, "
+                  "labels and states bitwise per lane, the report's too")
+            continue
+        check(torch.equal(ks["lane_att"], ps["lane_att"]),
+              f"classify {name}: trips differ from the plain loop's")
+        trips = host(st["lane_att"]).astype(np.int64)
+        short = trips <= CLASSIFY_PLAIN_ITERS
+        sel = torch.as_tensor(np.flatnonzero(short), device=run.dev)
+        check(np.array_equal(labels[short], plain[short])
+              and same(st["state"][:, sel], ps["state"][:, sel]),
+              f"classify {name}: the report's labels or states differ from "
+              "the plain ones on lanes finished within the cut")
+
+        # The interval kernel at the report's entry.
+        y, t0, h0, bound = st["entry"]
+        dt = y.dtype
+        bg = tracer.make_background(bs, cfg.freq)
+        tol = (rk45.validate_tol(cfg.rtol, dt), rk45.as_scalar(cfg.atol, dt),
+               rk45.as_scalar(min(cfg.min_step_factor * cfg.tstep,
+                                  cfg.tstep * 1e-3), dt))
+        inst = rk45.interval_instance(n, dt)
+
+        def interval(lanes=None, cap=10_000):
+            e = [x if lanes is None else x[..., lanes].contiguous()
+                 for x in (y, t0, h0, bound)]
+            return rk45._integrate_interval_cuda(bg, *e, *tol,
+                                                 max_iters=cap,
+                                                 instance=inst)
+
+        full = interval()
+        check(same(full[0], st["state"]) and torch.equal(full[5],
+                                                         st["lane_att"]),
+              f"classify {name}: the interval kernel differs from the "
+              "report's re-run")
+        lane = int(np.argmax(trips))
+        lone = interval([lane])
+        check(same(lone[0][:, 0], full[0][:, lane])
+              and int(lone[5][0]) == trips[lane],
+              f"classify {name}: the longest lane alone differs")
+        report_ms = cuda_ms(interval, INTERVAL_REPS)
+        by_inst = {}
+        for other in kernels.INSTANCES:
+            got = rk45._integrate_interval_cuda(
+                bg, y, t0, h0, bound, *tol, max_iters=10_000,
+                instance=other)
+            check(same(got[0], full[0]) and torch.equal(got[5], full[5]),
+                  f"classify {name}: instance {other} differs")
+            by_inst[other] = cuda_ms(lambda: rk45._integrate_interval_cuda(
+                bg, y, t0, h0, bound, *tol, max_iters=10_000,
+                instance=other), INTERVAL_REPS)
+        floor_ms = cuda_ms(lambda: interval([lane]), INTERVAL_REPS)
+        # The kernel beside the plain loop alone on the same work: the
+        # report's entry, each lane cut at CLASSIFY_PLAIN_ITERS trips.
+        cut_out = interval(cap=CLASSIFY_PLAIN_ITERS)
+        loop, loop_s = wall_s(lambda: rk45._integrate_interval_plain(
+            bg, y, t0, h0, bound, *tol, max_iters=CLASSIFY_PLAIN_ITERS))
+        check(all(same(a, b) for a, b in zip(cut_out[:3], loop[:3]))
+              and torch.equal(cut_out[5], loop[5]),
+              f"classify {name}: the interval kernel at the cut differs "
+              "from the plain loop")
+        ms = cuda_ms(lambda: interval(cap=CLASSIFY_PLAIN_ITERS),
+                     INTERVAL_REPS)
+        cut_trips = int(np.minimum(trips, CLASSIFY_PLAIN_ITERS).sum())
+        live = int(torch.isfinite(y.mean(0)).sum())
+        esz = y.element_size()
+        b = bound_of_interval(n, live, cut_trips, esz, nbytes(bg.fields),
+                              str(dt).split(".")[-1])
+        run.kernels["interval"] = dict(
+            max_abs_err=0.0, ms=ms, plain_ms=loop_s * 1e3,
+            report_cap_ms=report_ms, chain_floor_ms=floor_ms,
+            ms_by_instance=by_inst, library_ms=None, **b)
+        run.launches["interval"] = launches["interval"]
+        order = np.argsort(trips[~short], kind="stable")
         past = [(int(t), termination.CAUSES[i]) for t, i in zip(
-            lane_trips[~short][order], labels[~short][order])]
-        print(f"classify {name}: {summary['n_rays']} rays, {labels.size} "
-              f"dead re-run ({cfg.integrator}); report "
-              f"{json.dumps(summary['termination'])}, cli wall {wall:.3f} s "
-              f"(split {json.dumps(rep['wall_s'])}); labels through the RHS "
-              f"kernel {k_s:.3f} s ({rhs_launches} RHS launches); "
-              f"{'' if not cut else f'cut at {CLASSIFY_PLAIN_ITERS} trips: '}"
-              f"kernel {kc_s:.3f} s, plain RHS {p_s:.3f} s, equal per lane; "
-              f"the report's labels equal the plain ones on the "
-              f"{int(short.sum())} lanes it finished within "
-              f"{CLASSIFY_PLAIN_ITERS} trips; {len(past)} lanes past it "
+            trips[~short][order], labels[~short][order])]
+        print(f"{head}; cut at {CLASSIFY_PLAIN_ITERS} trips: kernels "
+              f"{kc_s:.3f} s, plain RHS {p_s:.3f} s, labels, states and "
+              f"trips bitwise on all {n} lanes; the report's labels and "
+              f"states equal the plain ones on the {int(short.sum())} lanes "
+              f"it finished within the cut; {len(past)} lanes past it "
               f"(trips, label): {past[:40]}")
+        print(f"interval kernel ({inst}, {n} lanes, {int(trips.sum())} "
+              f"trips, the longest {int(trips[lane])}): {report_ms:.3f} ms "
+              f"at the report's cap; chain floor (lane {lane} alone) "
+              f"{floor_ms:.3f} ms, "
+              f"{floor_ms * 1e3 / max(int(trips[lane]), 1):.3f} us a trip; "
+              "every instance bitwise, at the report's cap "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in by_inst.items()))
+        print(f"interval kernel cut at {CLASSIFY_PLAIN_ITERS} trips a lane "
+              f"({cut_trips} trips): {ms:.3f} ms, the plain loop alone on "
+              f"the same entry and cut {loop_s * 1e3:.1f} ms, bitwise; "
+              f"bound {b['bound_ms']:.5f} ms ({b['bound_by']})")
     check(dead > 0, "classify: no dead ray re-run in either run")
+
+
+def bound_of_interval(n, live, trips, esz, bg_bytes, unit):
+    """The interval kernel's bound: y, t0, h and the bound in, y, t, h and
+    the trips out, the background once; each live lane's entry evaluation
+    and each trip's six evaluations and controller (ATTEMPT_FLOPS)."""
+    return bound((8 + 7) * n * esz + 4 * n + bg_bytes,
+                 live * RHS_FLOPS + trips * ATTEMPT_FLOPS, unit)
 
 
 #: The group_time phase: lanes of the production seeding's entry state and
@@ -3979,6 +4141,8 @@ KERNELS = (
      "rwrt_tpu/tracer.py:1367"),
     ("flux", "rwrt_tpu_torch/csrc/flux.cu",
      "rwrt_tpu/diagnostics/flux.py:279"),
+    ("interval", "rwrt_tpu_torch/csrc/interval.cu",
+     "rwrt_tpu/solvers/rk45.py:130"),
     ("flux_region", "rwrt_tpu_torch/csrc/flux.cu",
      "rwrt_tpu/diagnostics/flux.py:104"),
     ("dense_group_time", "rwrt_tpu_torch/csrc/dense_run_time.cu",

@@ -7,6 +7,7 @@
                                  [--out DIR (profile_out)]
                                  [--tree DIR]
                                  [--kernels [--schedules 8:0,64:32]]
+                                 [--flux]
 
 Runs chip_smoke.py's production seeding (100,800 rays, 30 days, float32)
 through ``rwrt_tpu_torch.trace_rays`` with one of three integrators:
@@ -42,9 +43,18 @@ their trips (the occupancy no schedule can pass, difficulty being unknown
 before the run) and its 1 % of lanes with the most trips alone.
 ``--schedules`` times every shape but the chunked runs under each repack
 schedule listed (EVERY:TRIGGER, the kernel's ``_repack`` and
-``_trigger``; a trigger of 0 ends no window early). ``--tree DIR``
-imports ``rwrt_tpu_torch`` from the checkout DIR (another commit,
-unpacked there) to time two trees in turns. Imports no JAX.
+``_trigger``; a trigger of 0 ends no window early).
+
+``--flux`` times the flux binning alone instead (``flux._accumulate_cuda``,
+CUDA events, the median of ``--runs`` means of 3 calls) on chip_smoke's
+production-size trajectory (its cli phase's run: 100,800 rays x 361 rows)
+with chip_smoke's Fun2 box and mwn cap, and prints the kept rays, the
+binned points and the count map's checksum, so that two trees can be seen
+to bin the same points.
+
+``--tree DIR`` imports ``rwrt_tpu_torch`` from the checkout DIR (another
+commit, unpacked there) to time two trees in turns, one process each
+(for example parent, change, change, parent). Imports no JAX.
 """
 
 from __future__ import annotations
@@ -153,6 +163,7 @@ def main() -> int:
     ap.add_argument("--tree", type=Path, default=None)
     ap.add_argument("--kernels", action="store_true")
     ap.add_argument("--schedules", default="")
+    ap.add_argument("--flux", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -166,6 +177,8 @@ def main() -> int:
 
     if args.kernels:
         return dense_kernels(torch, rt, args)
+    if args.flux:
+        return flux_binning(torch, rt, args)
     from rwrt_tpu_torch.tracer import MaxItersTruncation
 
     print(subprocess.run(
@@ -369,6 +382,45 @@ def dense_kernels(torch, rt, args):
     with open(args.out / f"dense_kernels_{tag}.jsonl", "a") as fh:
         for rec in rows:
             fh.write(json.dumps(rec) + "\n")
+    return 0
+
+
+
+def flux_binning(torch, rt, args):
+    """``--flux``: see the head of this file."""
+    import os
+    import tempfile
+
+    from rwrt_tpu_torch.diagnostics import flux
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    run = cs.Run(torch, rt)
+    with tempfile.TemporaryDirectory() as tmp:
+        u, v, lat, lon = cs.climatology_background()
+        js = cs.cli_production_js(
+            cs.save_wind(os.path.join(tmp, "uv.npz"), u, v, lat, lon), tmp)
+        cfg = cs.json_config(rt, js)
+        bs = cs.wind_state(run, js["inputuv"], cfg)
+    traj = rt.trace_rays(bs, cfg)
+    rows = [flux._rows(getattr(traj, k))
+            for k in ("lon", "lat", "amp", "ug", "vg", "ky")]
+    zero = torch.zeros(rows[0].shape[1], dtype=torch.bool, device=run.dev)
+    keep = flux._region_cuda(*rows[:3], zero, *cs.FLUX_BOX)
+    call = (*rows, keep, None, 360, 90,
+            flux.Thresholds(mwn_max=cs.FLUX_MWN_MAX), "amp_cg")
+    maps, _ = flux._accumulate_cuda(*call)
+    ms = median_ms(lambda: flux._accumulate_cuda(*call), args.runs)
+    count = maps[3].to(torch.float64)
+    rec = dict(tree=str(Path(rt.__file__).parent.parent), ms=ms,
+               rays=rows[0].shape[1], rows=rows[0].shape[0],
+               kept=int(keep.sum()), binned=int(count.sum()),
+               count_checksum=float((count * torch.arange(
+                   count.numel(), device=count.device,
+                   dtype=torch.float64).reshape(count.shape)).sum()))
+    print(json.dumps(rec))
     return 0
 
 

@@ -1,10 +1,12 @@
 // The Li-Yang wave-ray flux binning: the Fun1 thresholds, the continuous
 // longitude and the scatter of every valid trajectory point into the four
-// flux maps in one pass, one thread per ray; and the Fun2 region pass ("the
-// ray ever enters the target box"), one thread per ray.
+// flux maps; and the Fun2 region pass ("the ray ever enters the target
+// box"), one thread per ray.
 //
-//   flux_kernel<F>      rwrt_flux: the binning of diagnostics/flux.py
-//                       wave_ray_flux and wave_ray_flux_chunked on CUDA;
+//   compact_kernel<F>,  rwrt_flux: the binning of diagnostics/flux.py
+//   unwrap_kernel<F>,   wave_ray_flux and wave_ray_flux_chunked on CUDA,
+//   points_kernel<F>,   four launches (three in float64; see Design);
+//   maps_kernel
 //   region_kernel<F>    rwrt_flux_region: region_mask, and the chunked
 //                       path's first pass, on CUDA.
 //
@@ -28,30 +30,58 @@
 // pass reads a ray's rows up to the first one in the box (or a ray already
 // kept by an earlier block not at all). Operations: ~40 a point, 1.5
 // GFLOP at most, 0.02 ms at the 67 TFLOP/s float32 peak. So it is bound by
-// bytes; what holds it above that bound are the four atomicAdds a valid
-// point makes:
-// neighbouring rays of one source sit in the same cell at a step, so the
-// adds of a warp land on few addresses and serialise in the L2.
+// bytes. What held the first port (one thread a ray walking its rows, four
+// atomicAdds a valid point) at 26x that bound:
+// warps of one thread a ray carried the few rays the region pass kept
+// (21,935 of 100,800 at the production size); each thread walked its 361
+// rows one after another, several dependent loads a row, ~166 threads an
+// SM; and every valid point made four global atomicAdds, neighbouring rays
+// of one source adding into one cell at a step, serialised in the L2.
 //
-// Design: a thread walks its ray's rows t = 0 .. nt - 1 with the unwrap's
-// accumulator and the last wrapped row in registers; at each t the warp
-// reads 32 neighbouring rays' values, one coalesced load a field. A ray the
-// region pass dropped returns at once (keep is final before the first
-// block is binned, so its carry is never read: it is written NaN). A point
-// that fails the thresholds costs its loads only; a valid one computes
-// (ix, iy) and its weights and adds
-// into the global maps with native atomics (float32 and float64 on sm_90).
+// Design. The only sequential carry is the unwrap's running sum, which
+// must stay in jnp.cumsum's order (row by row from 0), or the bins move.
+// So it is the only part done in order, and everything else runs in
+// parallel over (row, kept ray) points:
+//   compact_kernel  the kept rays' list: each block of 256 rays packs its
+//                   kept rays in order and takes their slots with one
+//                   atomicAdd; a dropped ray's carry is NaN.
+//   unwrap_kernel   32 kept rays a block of 8 warps, 64 rows at a time in
+//                   shared memory: the wrapped rows and their increments
+//                   over all 8 warps, the running sum by one warp (one
+//                   add a row, the increments read from shared memory),
+//                   the longitude bins over all 8 warps, written to an
+//                   (nt, R) int32 scratch by slot (-1 where lon is not
+//                   finite), coalesced; the carry.
+//   points_kernel   tiles of 256 slots at kSpan rows, a persistent grid.
+//                   A thread issues its rows' loads at once (the bin, lat,
+//                   amp, ug, vg, ky), applies Fun1's thresholds, bins the latitude
+//                   and weighs each point; consecutive points in one cell
+//                   are summed in registers; then the lanes of the warp
+//                   that add into one cell find each other
+//                   (__match_any_sync) and one of them adds their sums: in
+//                   float32 one 16-byte vector atomicAdd (sm_90) into the
+//                   four sums interleaved by cell, in float64 four adds.
+//   maps_kernel     float32: the interleaved sums into the four maps.
 // The maps are not privatised in shared memory: four float32 360 x 90 maps
-// are 518 KB, more than the 227 KB a block has.
+// are 518 KB, more than the 227 KB a block has. What holds the design
+// above its bound (PERF.md section 6): the kept rays lie scattered among
+// the dropped ones, so their rows are read at the memory's 32-byte
+// sectors, about 3x the bytes of their values at the production size;
+// then the adds. Neither the point pass's occupancy nor its reductions'
+// shuffles move it.
 //
 // Exactness against the plain version: the bin of every point and its
 // validity are computed by the same expressions (-fmad=false; IEEE division
 // by the dtype's rounded deg2rad, as JAX's eager division; the cell width's
 // reciprocal in the dtype as a factor, as XLA folds the jitted division by
 // a constant; fmod-based remainders as torch.remainder and jnp.remainder
-// take them), so the count map is equal to the bit; the other maps are sums
-// whose order the atomics leave to the hardware.
+// take them), and the running sum keeps its order, so the count map and the
+// carry are equal to the bit (a cell's count, a sum of whole numbers below
+// 2^24, is exact in any order); the other maps are sums whose order the
+// atomics, the list and the warp's groups leave to the hardware.
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -105,96 +135,313 @@ struct FluxArgs {
   F amp_min, amp_max, speed_min, speed_max, mwn_max;
   int checks;  // 1: speed_min, 2: speed_max, 4: mwn_max
   int weight;  // 0: count, 1: cg, 2: amp_cg
+  // Scratch: the kept rays by slot (R,), their count (zeroed by the entry
+  // point), each point's longitude bin by row and slot (nt, R), and in
+  // float32 the interleaved sums (zeroed by the entry point).
+  int* rays;
+  int* n_kept;
+  int* ixs;
+  float* acc;  // float32: the maps' sums interleaved, (cells, 4)
 };
 
+// Fun1's amplitude test and the finite lat and amp of a point.
 template <typename F>
-__global__ void __launch_bounds__(256) flux_kernel(const FluxArgs<F> a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.R) return;
+__device__ __forceinline__ bool live_point(const FluxArgs<F>& a, F lat,
+                                           F amp) {
+  const F aabs = fabs(amp);
+  return isfinite(lat) && isfinite(amp) && aabs >= a.amp_min &&
+         aabs <= a.amp_max;
+}
+
+// Fun1's speed and wavenumber tests of a live point.
+template <typename F>
+__device__ __forceinline__ bool passes(const FluxArgs<F>& a, F ug, F vg,
+                                       F ky) {
+  if (a.checks & 3) {
+    const F speed = sqrt(ug * ug + vg * vg);
+    if ((a.checks & 1) && !(speed >= a.speed_min)) return false;
+    if ((a.checks & 2) && !(speed <= a.speed_max)) return false;
+  }
+  return !(a.checks & 4) || fabs(ky) < a.mwn_max;
+}
+
+// The point's weights (wu, wv) by a.weight.
+template <typename F>
+__device__ __forceinline__ void weights(const FluxArgs<F>& a, F amp, F ug,
+                                        F vg, F* wu, F* wv) {
+  if (a.weight == 0) {
+    const F speed = sqrt(ug * ug + vg * vg);
+    const F safe = speed > F(0) ? speed : F(1);
+    *wu = ug / safe;
+    *wv = vg / safe;
+  } else if (a.weight == 1) {
+    *wu = ug;
+    *wv = vg;
+  } else {
+    *wu = amp * ug;
+    *wv = amp * vg;
+  }
+}
+
+constexpr int kFluxBlock = 256;
+constexpr unsigned kFull = 0xffffffffu;
+// The unwrap pass: kept rays a block takes (a warp's width) and rows staged
+// in shared memory at a time.
+constexpr int kTile = 32;
+constexpr int kChunk = 64;
+// The rows a thread of the point pass takes (its loads are issued ahead,
+// all at once); its consecutive points in one cell are summed before the
+// warp's adds.
+constexpr int kSpan = 4;
+
+// The kept rays' list: each block of kFluxBlock rays packs its kept rays,
+// in order, into slots it takes with one atomicAdd; a dropped ray's carry
+// is NaN (keep is final before the first block is binned).
+template <typename F>
+__global__ void __launch_bounds__(kFluxBlock) compact_kernel(
+    const FluxArgs<F> a) {
+  __shared__ int warp_off[kFluxBlock / 32];
+  __shared__ int block_base;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int i = blockIdx.x * kFluxBlock + threadIdx.x;
+  const bool in = i < a.R;
+  const bool kept = in && (a.keep == nullptr || a.keep[i]);
+  if (in && !kept) {
+    a.u_prev[i] = F(NAN);
+    a.base_prev[i] = F(NAN);
+  }
+  const unsigned ballot = __ballot_sync(kFull, kept);
+  if (lane == 0) warp_off[warp] = __popc(ballot);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+    for (int w = 0; w < kFluxBlock / 32; ++w) {
+      const int n = warp_off[w];
+      warp_off[w] = total;
+      total += n;
+    }
+    block_base = total ? atomicAdd(a.n_kept, total) : 0;
+  }
+  __syncthreads();
+  if (kept) {
+    a.rays[block_base + warp_off[warp] +
+           __popc(ballot & ((1u << lane) - 1u))] = i;
+  }
+}
+
+// The unwrap of kTile kept rays (lane l of every warp: slot
+// blockIdx.x * kTile + l), kChunk rows at a time: the wrapped rows and their
+// increments in parallel over the block's 8 warps, the running sum in
+// jnp.cumsum's order by warp 0 alone (one add a row, from shared memory),
+// then the longitude bins in parallel, -1 where lon is not finite. The
+// carry: the last row's unclipped unwrap and wrapped row.
+template <typename F>
+__global__ void __launch_bounds__(kFluxBlock) unwrap_kernel(
+    const FluxArgs<F> a) {
+  __shared__ F s_base[kChunk][kTile];  // the wrapped rows
+  __shared__ F s_u[kChunk][kTile];     // increments, then the unwrap
+  __shared__ F s_prev[kTile];          // the wrapped row before the chunk
+  const int K = *a.n_kept;
+  if (blockIdx.x * kTile >= K) return;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  constexpr int kWarps = kFluxBlock / 32;
+  const int slot = blockIdx.x * kTile + lane;
+  const bool in = slot < K;
+  const int r = in ? a.rays[slot] : 0;
   const F two_pi = F(2.0 * kPi);
-  const F pi = F(kPi);
-  const F lo = F(-2.0 * kPi);
-  const F hi = F(4.0 * kPi);
-  const F deg = F(kDeg2Rad);
-  const F nan = F(NAN);
-  if (a.keep != nullptr && !a.keep[i]) {
-    a.u_prev[i] = nan;
-    a.base_prev[i] = nan;
-    return;
+  const long long RL = a.R;
+  // Warp 0's running sum: unwrapped[t] = start + c[t], c the sum of the
+  // increments from 0; with no carry row 0 is start.
+  F start = F(0), c = F(0), u = F(0), base_prev = F(0);
+  bool first = !a.carry_in;
+  if (warp == 0) {
+    if (a.carry_in && in) {
+      start = a.u_prev[r];
+      base_prev = a.base_prev[r];
+    }
+    s_prev[lane] = base_prev;
   }
-
-  // unwrapped[t] = start + c[t], c the running sum of the wrapped
-  // increments from 0 (jnp.cumsum's order); with no carry row 0 is start.
-  F start = F(0), base_prev = F(0), c = F(0), u = F(0);
-  if (a.carry_in) {
-    start = a.u_prev[i];
-    base_prev = a.base_prev[i];
+  __syncthreads();
+  for (int t0 = 0; t0 < a.nt; t0 += kChunk) {
+    const int rows = min(kChunk, a.nt - t0);
+#pragma unroll
+    for (int q = 0; q < kChunk / kWarps; ++q) {
+      const int j = warp + q * kWarps;
+      if (j < rows) {
+        const F lon = in ? a.lon[(t0 + j) * a.s_lon + r] : F(0);
+        s_base[j][lane] = floor_rem(lon, two_pi);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kChunk / kWarps; ++q) {
+      const int j = warp + q * kWarps;
+      if (j < rows) {
+        F d = s_base[j][lane] - (j ? s_base[j - 1][lane] : s_prev[lane]);
+        d = floor_rem(d + F(kPi), two_pi) - F(kPi);
+        if (isnan(d)) d = F(0);
+        s_u[j][lane] = d;
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {
+#pragma unroll 8
+      for (int j = 0; j < rows; ++j) {
+        if (first) {
+          start = s_base[j][lane];
+          u = start;
+          first = false;
+        } else {
+          c = c + s_u[j][lane];
+          u = start + c;
+        }
+        s_u[j][lane] = u;
+      }
+      base_prev = s_base[rows - 1][lane];
+      s_prev[lane] = base_prev;
+    }
+    __syncthreads();
+    // The unwrapped longitude as saved (the row is finite here), clipped
+    // to the three circles (NaN kept), then binned.
+#pragma unroll
+    for (int q = 0; q < kChunk / kWarps; ++q) {
+      const int j = warp + q * kWarps;
+      if (j < rows && in) {
+        int ix = -1;
+        if (!isnan(s_base[j][lane])) {
+          F uo = s_u[j][lane];
+          if (uo < F(-2.0 * kPi)) uo = F(-2.0 * kPi);
+          if (uo > F(4.0 * kPi)) uo = F(4.0 * kPi);
+          ix = bin_index((uo / F(kDeg2Rad) + F(360)) * a.inv_dlon,
+                         a.nlon_bins);
+        }
+        a.ixs[(t0 + j) * RL + slot] = ix;
+      }
+    }
+    __syncthreads();
   }
-  for (int t = 0; t < a.nt; ++t) {
-    const long long tl = t;
-    const F lon = a.lon[tl * a.s_lon + i];
-    const F base = floor_rem(lon, two_pi);
-    if (t == 0 && !a.carry_in) {
-      start = base;
-      u = start;
-    } else {
-      F d = base - base_prev;
-      d = floor_rem(d + pi, two_pi) - pi;
-      if (isnan(d)) d = F(0);
-      c = c + d;
-      u = start + c;
-    }
-    base_prev = base;
-
-    // Fun1's thresholds.
-    const F lat = a.lat[tl * a.s_lat + i];
-    const F amp = a.amp[tl * a.s_amp + i];
-    const F aabs = fabs(amp);
-    if (!(isfinite(lon) && isfinite(lat) && isfinite(amp) &&
-          aabs >= a.amp_min && aabs <= a.amp_max)) {
-      continue;
-    }
-    const F ug = a.ug[tl * a.s_ug + i];
-    const F vg = a.vg[tl * a.s_vg + i];
-    if (a.checks & 3) {
-      const F speed = sqrt(ug * ug + vg * vg);
-      if ((a.checks & 1) && !(speed >= a.speed_min)) continue;
-      if ((a.checks & 2) && !(speed <= a.speed_max)) continue;
-    }
-    if ((a.checks & 4) && !(fabs(a.ky[tl * a.s_ky + i]) < a.mwn_max)) {
-      continue;
-    }
-
-    // The unwrapped longitude as saved: NaN where the wrapped row is, then
-    // clipped to the three circles (NaN kept).
-    F uo = isnan(base) ? nan : u;
-    if (uo < lo) uo = lo;
-    if (uo > hi) uo = hi;
-    const int ix =
-        bin_index((uo / deg + F(360)) * a.inv_dlon, a.nlon_bins);
-    const int iy = bin_index((lat / deg + F(90)) * a.inv_dlat, a.nlat_bins);
-    const long long cell = static_cast<long long>(ix) * a.nlat_bins + iy;
-
-    F wu, wv;
-    if (a.weight == 0) {
-      const F speed = sqrt(ug * ug + vg * vg);
-      const F safe = speed > F(0) ? speed : F(1);
-      wu = ug / safe;
-      wv = vg / safe;
-    } else if (a.weight == 1) {
-      wu = ug;
-      wv = vg;
-    } else {
-      wu = amp * ug;
-      wv = amp * vg;
-    }
-    atomicAdd(a.fu + cell, wu);
-    atomicAdd(a.fv + cell, wv);
-    atomicAdd(a.asum + cell, aabs);
-    atomicAdd(a.cnt + cell, F(1));
+  if (warp == 0 && in) {
+    a.u_prev[r] = u;
+    a.base_prev[r] = base_prev;
   }
-  a.u_prev[i] = u;
-  a.base_prev[i] = base_prev;
+}
+
+// Adds the lanes' entries (has: the lane holds one) into the maps: the
+// lanes with one cell sum their entries (in lane order) and the lowest of
+// them adds the sums, in float32 with one 16-byte vector atomicAdd into
+// the interleaved (cell, 4) scratch (sm_90), in float64 with four. Every
+// lane of the warp calls it.
+template <typename F>
+__device__ __forceinline__ void warp_add(const FluxArgs<F>& a, bool has,
+                                         int cell, F wu, F wv, F aabs,
+                                         int n) {
+  const unsigned live = __ballot_sync(kFull, has);
+  if (!has) return;
+  const unsigned grp = __match_any_sync(live, cell);
+  F s0 = F(0), s1 = F(0), s2 = F(0);
+  int sn = 0;
+  for (unsigned m = grp; m; m &= m - 1u) {
+    const int src = __ffs(m) - 1;
+    s0 = s0 + __shfl_sync(grp, wu, src);
+    s1 = s1 + __shfl_sync(grp, wv, src);
+    s2 = s2 + __shfl_sync(grp, aabs, src);
+    sn += __shfl_sync(grp, n, src);
+  }
+  if ((threadIdx.x & 31) != __ffs(grp) - 1) return;
+  if constexpr (std::is_same<F, float>::value) {
+    atomicAdd(reinterpret_cast<float4*>(a.acc) + cell,
+              make_float4(s0, s1, s2, float(sn)));
+  } else {
+    atomicAdd(a.fu + cell, s0);
+    atomicAdd(a.fv + cell, s1);
+    atomicAdd(a.asum + cell, s2);
+    atomicAdd(a.cnt + cell, F(sn));
+  }
+}
+
+// Every (row, kept ray) point (see the head of this file): tiles of
+// kFluxBlock slots over kSpan rows, a persistent grid. A thread issues
+// every load of its rows at once, then bins them in order.
+template <typename F>
+__global__ void __launch_bounds__(kFluxBlock) points_kernel(
+    const FluxArgs<F> a) {
+  const int K = *a.n_kept;
+  const int ktiles = (K + kFluxBlock - 1) / kFluxBlock;
+  const int spans = (a.nt + kSpan - 1) / kSpan;
+  const long long tiles = static_cast<long long>(ktiles) * spans;
+  const long long RL = a.R;
+  const bool mwn = a.checks & 4;
+  for (long long w = blockIdx.x; w < tiles; w += gridDim.x) {
+    const int tb = static_cast<int>(w / ktiles);
+    const int k = static_cast<int>(w % ktiles) * kFluxBlock + threadIdx.x;
+    const bool in = k < K;
+    const int r = in ? a.rays[k] : 0;
+    const int t0 = tb * kSpan;
+    const int rows = min(kSpan, a.nt - t0);
+    int ix[kSpan];
+    F lat[kSpan], amp[kSpan], ug[kSpan], vg[kSpan], ky[kSpan];
+#pragma unroll
+    for (int j = 0; j < kSpan; ++j) {
+      const long long t = t0 + j;
+      const bool at = in && j < rows;
+      ix[j] = at ? a.ixs[t * RL + k] : -1;
+      lat[j] = at ? a.lat[t * a.s_lat + r] : F(0);
+      amp[j] = at ? a.amp[t * a.s_amp + r] : F(0);
+      ug[j] = at ? a.ug[t * a.s_ug + r] : F(0);
+      vg[j] = at ? a.vg[t * a.s_vg + r] : F(0);
+      ky[j] = at && mwn ? a.ky[t * a.s_ky + r] : F(0);
+    }
+    // The run of consecutive points in one cell, summed in registers.
+    bool has = false;
+    int rcell = 0, rn = 0;
+    F ru = F(0), rv = F(0), ra = F(0);
+#pragma unroll
+    for (int j = 0; j < kSpan; ++j) {
+      bool ok = ix[j] >= 0 && live_point(a, lat[j], amp[j]) &&
+                passes(a, ug[j], vg[j], ky[j]);
+      int cell = 0;
+      F wu = F(0), wv = F(0), aabs = F(0);
+      if (ok) {
+        const int iy = bin_index(
+            (lat[j] / F(kDeg2Rad) + F(90)) * a.inv_dlat, a.nlat_bins);
+        cell = ix[j] * a.nlat_bins + iy;
+        aabs = fabs(amp[j]);
+        weights(a, amp[j], ug[j], vg[j], &wu, &wv);
+      }
+      const bool flush = ok && has && cell != rcell;
+      warp_add(a, flush, rcell, ru, rv, ra, rn);
+      if (ok) {
+        if (has && cell == rcell) {
+          ru = ru + wu;
+          rv = rv + wv;
+          ra = ra + aabs;
+          ++rn;
+        } else {
+          has = true;
+          rcell = cell;
+          ru = wu;
+          rv = wv;
+          ra = aabs;
+          rn = 1;
+        }
+      }
+    }
+    warp_add(a, has, rcell, ru, rv, ra, rn);
+  }
+}
+
+// float32: the interleaved (cell, 4) sums into the four maps.
+__global__ void __launch_bounds__(kFluxBlock) maps_kernel(
+    const FluxArgs<float> a) {
+  const int cell = blockIdx.x * kFluxBlock + threadIdx.x;
+  if (cell >= a.nlon_bins * a.nlat_bins) return;
+  const float4 s = reinterpret_cast<const float4*>(a.acc)[cell];
+  a.fu[cell] = s.x;
+  a.fv[cell] = s.y;
+  a.asum[cell] = s.z;
+  a.cnt[cell] = s.w;
 }
 
 template <typename F>
@@ -238,11 +485,41 @@ __global__ void __launch_bounds__(256) region_kernel(const RegionArgs<F> a) {
   }
 }
 
+// points_kernel's persistent grid: the blocks the card keeps resident.
+template <typename F>
+int points_grid() {
+  static int grid = 0;
+  if (grid == 0) {
+    int dev = 0, sms = 0, blocks = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, points_kernel<F>,
+                                                  kFluxBlock, 0);
+    grid = sms * blocks > 0 ? sms * blocks : 1;
+  }
+  return grid;
+}
+
 template <typename F>
 int launch_flux(const FluxArgs<F>& a, cudaStream_t stream) {
   if (a.R <= 0) return cudaSuccess;
-  const int block = 256;
-  flux_kernel<F><<<(a.R + block - 1) / block, block, 0, stream>>>(a);
+  constexpr bool kF32 = std::is_same<F, float>::value;
+  const int cells = a.nlon_bins * a.nlat_bins;
+  cudaError_t e = cudaMemsetAsync(a.n_kept, 0, sizeof(int), stream);
+  if (e == cudaSuccess && kF32) {
+    e = cudaMemsetAsync(a.acc, 0, sizeof(float4) * cells, stream);
+  }
+  if (e != cudaSuccess) return e;
+  compact_kernel<F><<<(a.R + kFluxBlock - 1) / kFluxBlock, kFluxBlock, 0,
+                      stream>>>(a);
+  unwrap_kernel<F><<<(a.R + kTile - 1) / kTile, kFluxBlock, 0, stream>>>(a);
+  if (a.nt > 0) {
+    points_kernel<F><<<points_grid<F>(), kFluxBlock, 0, stream>>>(a);
+  }
+  if constexpr (kF32) {
+    maps_kernel<<<(cells + kFluxBlock - 1) / kFluxBlock, kFluxBlock, 0,
+                  stream>>>(a);
+  }
   return cudaGetLastError();
 }
 
@@ -267,7 +544,8 @@ extern "C" {
       int carry_in, void* fu, void* fv, void* asum, void* cnt,               \
       int nlon_bins, int nlat_bins, double inv_dlon, double inv_dlat,        \
       double amp_min, double amp_max, double speed_min, double speed_max,    \
-      double mwn_max, int checks, int weight, void* stream) {                \
+      double mwn_max, int checks, int weight, void* rays, void* n_kept,      \
+      void* ixs, void* acc, void* stream) {                                  \
     FluxArgs<F> a{};                                                         \
     a.lon = static_cast<const F*>(lon);                                      \
     a.lat = static_cast<const F*>(lat);                                      \
@@ -302,6 +580,10 @@ extern "C" {
     a.mwn_max = F(mwn_max);                                                  \
     a.checks = checks;                                                       \
     a.weight = weight;                                                       \
+    a.rays = static_cast<int*>(rays);                                        \
+    a.n_kept = static_cast<int*>(n_kept);                                    \
+    a.ixs = static_cast<int*>(ixs);                                          \
+    a.acc = static_cast<float*>(acc);                                        \
     return launch_flux<F>(a, static_cast<cudaStream_t>(stream));             \
   }
 

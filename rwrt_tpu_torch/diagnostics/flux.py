@@ -11,12 +11,15 @@ longitude circles). ``weight`` selects the cell integrand: ``'count'``
 signed amplitude times the group velocity).
 
 The binning is a hand-written kernel (``csrc/flux.cu``): on a CUDA
-trajectory ``wave_ray_flux`` launches it once (twice with a target region:
-the region pass first), and it does the thresholds, the unwrap and the
-four scatter-adds in one pass over the rows, one thread per ray. On a CPU
-trajectory the plain PyTorch versions run (``_accumulate_plain``,
-``_region_plain``). ``LAUNCHES`` and ``REGION_LAUNCHES`` count the two
-kernels' launches. ``wave_ray_flux_chunked`` walks a host-resident (or
+trajectory ``wave_ray_flux`` calls it once (after the region pass where a
+target region is given): the kept rays' list, an unwrap pass whose only
+sequential part is the running sum, in its order, then a point pass over
+every (row, kept ray) point in parallel, the thresholds, the bins and the
+scatter-adds, the adds of a warp's points in one cell summed first.
+On a CPU trajectory the plain PyTorch versions run (``_accumulate_plain``,
+``_region_plain``). ``LAUNCHES`` and ``REGION_LAUNCHES`` count the
+binning's and the region pass's calls (the binning's launches count as
+one). ``wave_ray_flux_chunked`` walks a host-resident (or
 memmap) history in time blocks, copies each block to the device and
 chains the unwrap's carry through the kernel. ``region_statistics`` is
 host numpy, as in the JAX package.
@@ -426,9 +429,11 @@ def _accumulate_plain(lon, lat, amp, ug, vg, ky, keep, carry, nlon_bins,
 
 def _accumulate_cuda(lon, lat, amp, ug, vg, ky, keep, carry, nlon_bins,
                      nlat_bins, th: Thresholds, weight: str):
-    """Launch the binning kernel over (nt, R) rows (each row contiguous,
-    any row stride): one thread per ray. Same arguments and returns as
-    ``_accumulate_plain``."""
+    """Launch the binning over (nt, R) rows (each row contiguous, any row
+    stride): the kept rays' list, the unwrap pass (32 kept rays a block,
+    the running sum in order), the point pass over every (row, kept ray)
+    point, and in float32 the maps from their interleaved sums. Same
+    arguments and returns as ``_accumulate_plain``."""
     global LAUNCHES
     fields = {"lon": lon, "lat": lat, "amp": amp, "ug": ug, "vg": vg}
     checks = (int(th.speed_min is not None)
@@ -458,6 +463,13 @@ def _accumulate_cuda(lon, lat, amp, ug, vg, ky, keep, carry, nlon_bins,
             kernels.check_tensor(x, name, device=dev, dtype=dt, shape=(r,))
     maps = torch.zeros((4, nlon_bins, nlat_bins), dtype=dt, device=dev)
     ky_rows = rows.get("ky")
+    # The kernel's scratch: the kept rays' list and its length, each
+    # point's longitude bin, and in float32 the maps' interleaved sums.
+    rays = torch.empty(r, dtype=torch.int32, device=dev)
+    n_kept = torch.empty(1, dtype=torch.int32, device=dev)
+    ixs = torch.empty((nt, r), dtype=torch.int32, device=dev)
+    acc = (torch.empty((nlon_bins * nlat_bins, 4), dtype=torch.float32,
+                       device=dev) if dt == torch.float32 else None)
     kernels.launch(
         "rwrt_flux", dt, *(rows[k] for k in ("lon", "lat", "amp", "ug",
                                             "vg")), ky_rows,
@@ -467,7 +479,7 @@ def _accumulate_cuda(lon, lat, amp, ug, vg, ky, keep, carry, nlon_bins,
         *_bin_scales(nlon_bins, nlat_bins, dt), th.amp_min, th.amp_max,
         *(0.0 if x is None else x for x in (th.speed_min, th.speed_max,
                                             th.mwn_max)),
-        checks, WEIGHTS[weight], kernels.stream(dev))
+        checks, WEIGHTS[weight], rays, n_kept, ixs, acc, kernels.stream(dev))
     LAUNCHES += 1
     return tuple(maps), (u_prev, base_prev)
 

@@ -8,10 +8,13 @@ step and survival per output step from the trajectory arrays (plain numpy
 over the host trajectories), with a coarse cause (the last live latitude
 near a pole). ``classify`` gives the exact cause: it re-runs each dead
 ray's killing interval in one batch on the basic state's device and
-applies the kill masks to the recovered candidate state. On the card every
-RHS evaluation of that re-run is a launch of the RHS kernel (``ray.rhs``:
-``csrc/rhs.cu``, or ``rhs_time.cu`` at each lane's own time over a
-time-varying background).
+applies the kill masks to the recovered candidate state. On the card the
+RK45 re-run is one launch of the interval kernel
+(``rk45.integrate_interval_rays``: ``csrc/interval.cu``, each lane's loop
+to its own bound in registers), after the initial step's RHS launches
+(``ray.rhs``: ``csrc/rhs.cu``, or ``rhs_time.cu`` at each lane's own time
+over a time-varying background); the RK4 re-run's one step is four RHS
+launches.
 """
 
 from __future__ import annotations
@@ -106,7 +109,7 @@ def _gather(a, index, device, dtype) -> torch.Tensor:
 
 
 def cause_labels(traj, bs, config, death_step, rhs=None,
-                 max_iters: int = 10_000) -> np.ndarray:
+                 max_iters: int = 10_000, stats=None) -> np.ndarray:
     """The exact cause (an index into ``CAUSES``) of each ray that died
     after its seed step, in ``np.argwhere`` order of ``death_step``
     (``analyze``'s).
@@ -126,8 +129,15 @@ def cause_labels(traj, bs, config, death_step, rhs=None,
       other    -- death not reproduced by the re-run
 
     ``rhs`` (bg, y, t) -> (dy, err) evaluates the RHS: by default
-    ``ray.rhs``, the RHS kernel on a CUDA state; a plain one (``lambda bg,
-    y, t: ray._rhs_core(bg, y, t, False)[:2]``) runs the plain version.
+    ``ray.rhs``, the RHS kernel on a CUDA state, and the RK45 re-run
+    through ``rk45.integrate_interval_rays`` (one launch of the interval
+    kernel on a CUDA state, the plain loop on a CPU one); a plain callable
+    (``lambda bg, y, t: ray._rhs_core(bg, y, t, False)[:2]``) runs the
+    plain version, through ``rk45.integrate_interval`` in RK45. ``stats``
+    (a dict, or None) receives the re-run's candidate state (``"state"``,
+    (5, n) on ``bs``'s device) and, in RK45, its entry (``"entry"``: y,
+    t0, h0 and the bounds) and each lane's trips (``"lane_att"``, (n,)
+    int32).
     """
     from rwrt_tpu_torch import tracer as tracer_mod
     from rwrt_tpu_torch.constants import pi
@@ -135,13 +145,15 @@ def cause_labels(traj, bs, config, death_step, rhs=None,
     from rwrt_tpu_torch.solvers import rk4 as rk4_mod
     from rwrt_tpu_torch.solvers import rk45 as rk45_mod
 
-    rhs = ray_mod.rhs if rhs is None else rhs
+    plain = rhs is not None
+    rhs = rhs if plain else ray_mod.rhs
     nt = traj.lon.shape[0]
     died = (death_step >= 1) & (death_step < nt)
     idx = np.argwhere(died)
     d = death_step[died]
     if idx.shape[0] == 0:
         return np.zeros(0, np.int8)
+    stats = {} if stats is None else stats
     dtype = bs.fields.dtype
     dev = bs.fields.device
     index = (d - 1, idx[:, 0], idx[:, 1], idx[:, 2])
@@ -169,9 +181,18 @@ def cause_labels(traj, bs, config, death_step, rhs=None,
                 config.tstep * 1e-3), dtype)
         h0 = rk45_mod.select_initial_step(rhs_fn, y, rhs_fn(y, t0), rtol,
                                           atol, t0)
-        y_new = rk45_mod.integrate_interval(
-            rhs_fn, y, t0, h0, bound, rtol, atol, min_step,
-            max_iters=max_iters)[0]
+        if plain:
+            out = rk45_mod.integrate_interval(
+                rhs_fn, y, t0, h0, bound, rtol, atol, min_step,
+                max_iters=max_iters)
+        else:
+            out = rk45_mod.integrate_interval_rays(
+                bg, y, t0, h0, bound, rtol, atol, min_step,
+                max_iters=max_iters)
+        y_new = out[0]
+        stats["entry"] = (y, t0, h0, bound)
+        stats["lane_att"] = out[5]
+    stats["state"] = y_new
     nan_cand = torch.isnan(y_new[0]) | torch.isnan(y_new[3])
     lat_kill = torch.abs(y_new[1]) >= 0.5 * pi
     ddis = ray_mod.haversine(y_new[0], y_new[1], y[0], y[1])

@@ -47,7 +47,7 @@ CONTRACTED = ("pow_fmad.cu",)
 RELOCATABLE = ("dense_run_f64.cu", "dense_run_mix.cu", "exact_run_f64.cu",
                "exact_run_mix.cu", "dense_run_time_f64.cu",
                "dense_run_time_mix.cu", "exact_run_time_f64.cu",
-               "exact_run_time_mix.cu", *CONTRACTED)
+               "exact_run_time_mix.cu", "interval_f64.cu", *CONTRACTED)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -93,15 +93,21 @@ SIGNATURES = {
                        _L, _I, _I, _P),
     # run (1: the whole-run kernel, 0: the single group), instance, out
     "rwrt_exact_resident": (_I, _I, _P),
+    # packed, W, H, lon0, lat0, dx, dy, y, t, h, t_bound, trips, R, rtol,
+    # atol, min_step, max_iters, instance, stream
+    "rwrt_interval": (_P, _I, _I, _D, _D, _D, _D, _P, _P, _P, _P, _P, _I, _D,
+                      _D, _D, _L, _I, _P),
+    # instance, out (int32 on the host): threads the card keeps resident
+    "rwrt_interval_resident": (_I, _P),
     # lon, lat, tht, packed, R, Mp, L, C, Kp, Lp, bf16, out, stream
     "rwrt_spectral": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # lon, lat, amp, ug, vg, ky, their row strides, nt, R, keep, u_prev,
     # base_prev, carry_in, fu, fv, asum, cnt, nlon_bins, nlat_bins,
     # inv_dlon, inv_dlat, amp_min, amp_max, speed_min, speed_max, mwn_max,
-    # checks, weight, stream
+    # checks, weight, rays, n_kept, ixs, acc, stream
     "rwrt_flux": (_P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _I, _I, _P,
                   _P, _P, _I, _P, _P, _P, _P, _I, _I, _D, _D, _D, _D, _D, _D,
-                  _D, _I, _I, _P),
+                  _D, _I, _I, _P, _P, _P, _P, _P),
     # lon, lat, amp, their row strides, nt, R, mode, lo0, lo1, la0, la1,
     # keep, stream
     "rwrt_flux_region": (_P, _P, _P, _L, _L, _L, _I, _I, _I, _D, _D, _D, _D,
@@ -129,12 +135,15 @@ def _time_signature(name: str) -> tuple:
 
 
 for _name in ("rwrt_rhs", "rwrt_rk4_run", "rwrt_exact_run",
-              "rwrt_dense_run", "rwrt_exact_group", "rwrt_dense_group"):
+              "rwrt_dense_run", "rwrt_exact_group", "rwrt_dense_group",
+              "rwrt_interval"):
     SIGNATURES[_name + "_time"] = _time_signature(_name)
 # The occupancy counts of the time instances take the static ones' args.
 SIGNATURES["rwrt_rk4_resident_time"] = SIGNATURES["rwrt_rk4_resident"]
 SIGNATURES["rwrt_exact_resident_time"] = SIGNATURES["rwrt_exact_resident"]
 SIGNATURES["rwrt_dense_resident_time"] = SIGNATURES["rwrt_dense_resident"]
+SIGNATURES["rwrt_interval_resident_time"] = SIGNATURES[
+    "rwrt_interval_resident"]
 
 
 #: The entry points that also have a mixed-precision instance (``_mix``: a

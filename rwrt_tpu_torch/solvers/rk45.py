@@ -17,7 +17,11 @@ state each runs its plain PyTorch loop (``_integrate_group_dense_plain``,
 ``_integrate_group_plain``), the JAX ``while_loop`` written out.
 ``LAUNCHES`` and ``EXACT_LAUNCHES`` count their launches. ``trace_rays``
 calls neither: the whole-run instances (``tracer._dense_run``,
-``tracer._exact_run``) run every group in one launch.
+``tracer._exact_run``) run every group in one launch. A third,
+``integrate_interval_rays`` (``csrc/interval.cu``, counted by
+``INTERVAL_LAUNCHES``), runs ``integrate_interval`` over the ray RHS with
+a bound per lane in one launch: the re-run of
+``termination.cause_labels``.
 
 Mixed precision (a float64 state over a float32 background, the JAX
 package's ``state_dtype='float64'``): the RHS rounds the state to the
@@ -89,6 +93,9 @@ PIN_OFF = 2 ** 30
 LAUNCHES = 0
 #: Number of exact-group kernel launches (``integrate_group`` on CUDA).
 EXACT_LAUNCHES = 0
+#: Number of interval kernel launches (``integrate_interval_rays`` on
+#: CUDA).
+INTERVAL_LAUNCHES = 0
 
 def exact_instance(r: int, dtype, run: bool = True,
                    variant: str = "") -> str:
@@ -231,6 +238,77 @@ def integrate_interval(rhs_fn, y, t, h, t_bound, rtol, atol, min_step,
         done = done | (upd & (t >= tb))
         lane_att = lane_att + act.to(torch.int32)
         iters += 1
+    return y, t, h, iters, 6 * iters, lane_att
+
+
+def interval_instance(r: int, dtype, variant: str = "") -> str:
+    """The interval kernel's instance for a launch of ``r`` lanes, chosen
+    as ``exact_instance`` chooses the exact kernels'."""
+    return kernels.choose_instance(
+        r, kernels.resident("interval", kernels.TEAM, dtype,
+                            variant=variant))
+
+
+def integrate_interval_rays(bg, y, t, h, t_bound, rtol, atol, min_step,
+                            max_iters: int = 100_000):
+    """``integrate_interval`` over the ray RHS of background ``bg``, each
+    lane from its own t to its own bound (``t_bound`` a scalar or (R,)).
+
+    On a CUDA state one launch of the interval kernel
+    (``csrc/interval.cu``): each lane's loop in registers, capped at
+    ``max_iters`` of its own trips, which is the plain loop's batch-wide
+    cap (a lane is active on every trip until it is done). On a CPU state
+    the plain loop (``_integrate_interval_plain``). Returns
+    ``integrate_interval``'s (y, t, h, iters, nfev, lane_att); on CUDA
+    iters is a device scalar, the most trips of a lane.
+    """
+    run = (_integrate_interval_cuda if y.is_cuda
+           else _integrate_interval_plain)
+    return run(bg, y, t, h, t_bound, rtol, atol, min_step, max_iters)
+
+
+def _integrate_interval_plain(bg, y, t, h, t_bound, rtol, atol, min_step,
+                              max_iters: int = 100_000):
+    """The plain version, on any device: ``integrate_interval`` over the
+    plain RHS ``ray._rhs_core``."""
+    def rhs_fn(yy, tt=0.0):
+        return ray_mod._rhs_core(bg, yy, tt, False)[0]
+
+    return integrate_interval(rhs_fn, y, t, h, t_bound, rtol, atol, min_step,
+                              max_iters=max_iters)
+
+
+def _integrate_interval_cuda(bg, y, t, h, t_bound, rtol, atol, min_step,
+                             max_iters: int = 100_000, instance=None):
+    """Launch the interval kernel: every lane's whole interval in one
+    launch, one thread (or a team of threads) per lane as
+    ``interval_instance`` chooses, or as ``instance`` says. The state
+    takes the background's dtype (the kernel has no mixed instance)."""
+    global INTERVAL_LAUNCHES
+    key = kernels.state_key(y, bg.fields)
+    if key[0] != key[1]:
+        raise ValueError("the interval kernel takes a state of the "
+                         f"background's dtype, not {y.dtype} over "
+                         f"{bg.fields.dtype}")
+    dev, dt = y.device, y.dtype
+    if y.ndim != 2 or y.shape[0] != 5:
+        raise ValueError(f"y must be (5, R); got {tuple(y.shape)}")
+    r = y.shape[1]
+    for name, x, shape in (("y", y, (5, r)), ("t", t, (r,)),
+                           ("h", h, (r,))):
+        kernels.check_tensor(x, name, device=dev, dtype=dt, shape=shape)
+    tb = torch.as_tensor(t_bound, dtype=dt, device=dev).expand(r).contiguous()
+    variant, bg_args = ray_mod.kernel_background(bg, dev, dt, r)
+    rtol, atol, min_step = (as_scalar(x, dt) for x in (rtol, atol, min_step))
+    y, t, h = (x.clone() for x in (y, t, h))  # updated in place
+    lane_att = torch.empty(r, dtype=torch.int32, device=dev)
+    kernels.launch(
+        f"rwrt_interval{variant}", dt, *bg_args, y, t, h, tb, lane_att, r,
+        rtol, atol, min_step, int(max_iters), kernels.instance_id(
+            instance or interval_instance(r, dt, variant)),
+        kernels.stream(dev))
+    INTERVAL_LAUNCHES += 1
+    iters = lane_att.max() if r else 0
     return y, t, h, iters, 6 * iters, lane_att
 
 

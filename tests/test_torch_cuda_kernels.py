@@ -20,10 +20,14 @@ held to 1e-12 (float64, and bf16 operands over float64) and 1e-5
 |value|, and to bitwise equality between two of its own launches. The
 single-group kernels' time instances (over time-varying backgrounds and
 ensembles, in float32, float64 and mixed) are bitwise too. The flux
-kernel's count map, region mask and unwrap carry are bitwise; its other
-maps are sums whose atomics add in an order that changes from run to run,
-held to FLUX_BARS. ``termination.classify``'s re-run on the card goes
-through the RHS kernel and labels every lane as the plain RHS does. The
+kernel's count map, region mask and unwrap carry are bitwise (over time
+blocks chained through the carry); its other maps are sums whose
+atomics add in an order that changes from run to run, held to FLUX_BARS.
+The interval kernel (``rk45.integrate_interval_rays``: each lane's RK45
+loop to its own bound in one launch) is bitwise the plain loop in every
+instance, static and time-varying, at caps that bind and that do not;
+``termination.classify``'s re-run on the card goes through it (RK45) or
+the RHS kernel (RK4) and labels every lane as the plain RHS does. The
 gather kernel is a copy: bitwise. Gradients take the plain route on the
 card (the roots' implicit-function backward equal to the CPU's, a
 gradient through prepare -> RK4 equal to the CPU's to 1e-9), and every
@@ -1143,10 +1147,11 @@ def test_shsf_filters_arrays_on_the_card(jet_field, dev):
 @pytest.mark.parametrize("integrator", ["rk4", "rk45"])
 def test_classify_evaluates_through_the_rhs_kernel(jet_field, dev,
                                                    integrator, kind):
-    """``termination.classify``'s re-run on the card: every RHS evaluation
-    a launch of the RHS kernel (its time instance over daily frames), no
-    other kernel; per-lane labels equal to the plain RHS's run on the
-    card."""
+    """``termination.classify``'s re-run on the card: RK4's one step four
+    launches of the RHS kernel (its time instance over daily frames);
+    RK45's two RHS launches for the initial step, then one launch of the
+    interval kernel for the whole re-run; no other kernel; per-lane labels
+    and candidate states equal to the plain RHS's run on the card."""
     from rwrt_tpu_torch.diagnostics import flux, termination
 
     cfg = pt.RunConfig(zwn=(1.0, 3.0, 5.0), sw_lon=0.0, sw_lat=-60.0,
@@ -1163,18 +1168,110 @@ def test_classify_evaluates_through_the_rhs_kernel(jet_field, dev,
     traj = pt.trace_rays(bs, cfg)
     death = termination.analyze(traj).death_step
     assert int(((death >= 1) & (death < cfg.nt)).sum()) > 0
-    counts = (ray.LAUNCHES, rk45.LAUNCHES, rk45.EXACT_LAUNCHES,
-              tracer.LAUNCHES, tracer.RK4_LAUNCHES, tracer.EXACT_LAUNCHES,
-              flux.LAUNCHES)
-    k = termination.cause_labels(traj, bs, cfg, death)
-    after = (ray.LAUNCHES, rk45.LAUNCHES, rk45.EXACT_LAUNCHES,
-             tracer.LAUNCHES, tracer.RK4_LAUNCHES, tracer.EXACT_LAUNCHES,
-             flux.LAUNCHES)
-    assert after[0] > counts[0] and after[1:] == counts[1:]
+    def counts():
+        return (ray.LAUNCHES, rk45.INTERVAL_LAUNCHES, rk45.LAUNCHES,
+                rk45.EXACT_LAUNCHES, tracer.LAUNCHES, tracer.RK4_LAUNCHES,
+                tracer.EXACT_LAUNCHES, flux.LAUNCHES)
+
+    before = counts()
+    ks, ps = {}, {}
+    k = termination.cause_labels(traj, bs, cfg, death, stats=ks)
+    after = counts()
+    moved = tuple(a - b for a, b in zip(after, before))
+    assert moved == ((4, 0) if integrator == "rk4" else (2, 1)) + (0,) * 6
     p = termination.cause_labels(
         traj, bs, cfg, death,
-        rhs=lambda bg, y, t: ray._rhs_core(bg, y, t, False)[:2])
+        rhs=lambda bg, y, t: ray._rhs_core(bg, y, t, False)[:2], stats=ps)
     np.testing.assert_array_equal(k, p)
+    assert same(ks["state"], ps["state"])
+    if integrator == "rk45":
+        assert torch.equal(ks["lane_att"], ps["lane_att"])
+
+
+def interval_inputs(jet_field, kind, dtype, dev):
+    """Lanes for the interval kernel: the 36 x 17 source matrix x zwn 1..7
+    (4,284 lanes, the rootless ones NaN at entry) over the static jet or
+    its frames (``varying_background``), each from its own time in the
+    first half day to a bound 1 to 6 output steps later, one lane at its
+    bound, one past it, one with a NaN lon; h0 from the plain initial
+    step. Returns (bg, y, t0, h0, bound)."""
+    _, bg0 = background(jet_field, dtype, dev)
+    slon, slat = tracer.source_matrix(0.0, -40.0, 10.0, 5.0, 36, 17)
+    y, _, _ = tracer.initialize(
+        bg0, torch.as_tensor(slon, dtype=dtype, device=dev),
+        torch.as_tensor(slat, dtype=dtype, device=dev),
+        torch.arange(1, 8, dtype=dtype, device=dev))
+    y = y.contiguous()
+    r = y.shape[1]
+    bg = (bg0 if kind == "static"
+          else varying_background(jet_field, kind, dtype, dev))
+    rng = np.random.default_rng(23)
+    t0 = rng.uniform(0.0, 0.5 * DAY, r)
+    bound = t0 + rng.integers(1, 7, r) * 7200.0
+    live = np.flatnonzero(torch.isfinite(y.mean(0)).cpu().numpy())
+    bound[live[0]] = t0[live[0]]
+    bound[live[1]] = t0[live[1]] - 7200.0
+    y[0, int(live[2])] = float("nan")
+    t0, bound = (torch.as_tensor(x, dtype=dtype, device=dev)
+                 for x in (t0, bound))
+
+    def rhs(yy, tt=0.0):
+        return ray._rhs_core(bg, yy, tt, False)[0]
+
+    rtol = rk45.validate_tol(1e-6, dtype)
+    h0 = rk45.select_initial_step(rhs, y, rhs(y, t0), rtol, 1e-6, t0)
+    return bg, y, t0, h0, bound
+
+
+@pytest.mark.parametrize("cap", [3, 500])
+@pytest.mark.parametrize("instance", INSTANCES)
+@pytest.mark.parametrize("kind", ["static", "time"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_interval_kernel_equals_plain(jet_field, dev, dtype, kind, instance,
+                                      cap):
+    """The interval kernel (``integrate_interval_rays`` on CUDA: one
+    launch) against the plain loop over ``ray._rhs_core``, bitwise: y, t, h
+    and each lane's trips, with NaN-entry lanes, lanes at and past their
+    bounds, a cap that binds (3) and one that does not (500)."""
+    bg, y, t0, h0, bound = interval_inputs(jet_field, kind, dtype, dev)
+    rtol = rk45.validate_tol(1e-6, dtype)
+    before = (rk45.INTERVAL_LAUNCHES, ray.LAUNCHES)
+    k = rk45._integrate_interval_cuda(bg, y, t0, h0, bound, rtol, 1e-6, 7.2,
+                                      max_iters=cap, instance=instance)
+    assert (rk45.INTERVAL_LAUNCHES, ray.LAUNCHES) == (before[0] + 1,
+                                                      before[1])
+    p = rk45._integrate_interval_plain(bg, y, t0, h0, bound, rtol, 1e-6,
+                                       7.2, max_iters=cap)
+    for i in (0, 1, 2):
+        assert same(k[i], p[i]), i
+    assert torch.equal(k[5], p[5]) and int(k[3]) == p[3]
+    att = k[5].cpu().numpy()
+    if cap == 3:
+        assert (att == 3).any() and (att < 3).any()
+    elif dtype == torch.float64:
+        assert att.max() < cap
+    assert (att == 0).sum() >= 3   # NaN-entry and at-bound lanes
+
+
+def test_interval_entry_chooses_and_refuses(jet_field, dev):
+    """``integrate_interval_rays`` on CUDA takes the launcher's instance
+    and equals the plain loop; it refuses a mixed-precision state and a
+    non-contiguous one."""
+    bg, y, t0, h0, bound = interval_inputs(jet_field, "static",
+                                           torch.float32, dev)
+    k = rk45.integrate_interval_rays(bg, y, t0, h0, bound, 1e-5, 1e-6, 7.2,
+                                     max_iters=50)
+    p = rk45._integrate_interval_plain(bg, y, t0, h0, bound, 1e-5, 1e-6, 7.2,
+                                       max_iters=50)
+    for i in (0, 1, 2):
+        assert same(k[i], p[i]), i
+    with pytest.raises(ValueError):
+        rk45.integrate_interval_rays(bg, y.double(), t0.double(),
+                                     h0.double(), bound.double(), 1e-5, 1e-6,
+                                     7.2)
+    with pytest.raises(ValueError):
+        rk45.integrate_interval_rays(bg, y.t().contiguous().t(), t0, h0,
+                                     bound, 1e-5, 1e-6, 7.2)
 
 
 def flux_trajectories(dtype, dev, nt=40, shape=(3, 50, 7), seed=5):
@@ -1223,6 +1320,10 @@ FLUX_CASES = {
     "dateline": dict(lon_range=(170.0, -160.0), lat_range=(-30.0, 40.0)),
     "circle": dict(weight="count", lon_range=(-180.0, 180.0),
                    lat_range=(20.0, 60.0)),
+    "amp_cg_box_mwn": dict(lon_range=(100.0, 300.0), lat_range=(-40.0, 40.0),
+                           mwn_max=60.0),
+    "cg_box_speed": dict(weight="cg", speed_min=15.0,
+                         lon_range=(0.0, 200.0), lat_range=(-60.0, 10.0)),
 }
 
 
@@ -1273,6 +1374,53 @@ def test_flux_kernel_equals_plain(dev, dtype, case):
         for a, b in zip(kc, pc):
             assert same(a, b)
         carry = kc
+
+
+def maps_within_bars(got, want, dtype):
+    """Count bitwise, the other maps within FLUX_BARS of each map's max."""
+    assert torch.equal(got[3], want[3])
+    for a, b in zip(got[:3], want[:3]):
+        assert a.dtype == b.dtype and same_nan(a, b)
+        scale = float(torch.nan_to_num(b.abs(), nan=0.0).max())
+        err = float(torch.nan_to_num((a - b).abs(), nan=0.0).max())
+        assert err <= FLUX_BARS[dtype] * max(scale, 1e-300)
+
+
+@pytest.mark.parametrize("block", [1, 7, 40])
+@pytest.mark.parametrize("case", list(FLUX_CASES))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flux_blocks_equal_plain(dev, dtype, case, block):
+    """The binning kernel chained through its carry over time blocks of 1,
+    7 and all 40 rows, each block against ``_accumulate_plain`` on the
+    same carry: the maps within FLUX_BARS (count bitwise), the carry
+    bitwise (NaN for the rays the region pass dropped)."""
+    from rwrt_tpu_torch.diagnostics import flux
+
+    traj = flux_trajectories(dtype, dev)
+    kw = FLUX_CASES[case]
+    rows = [flux._rows(getattr(traj, n))
+            for n in ("lon", "lat", "amp", "ug", "vg", "ky")]
+    keep = None
+    if "lon_range" in kw:
+        zero = torch.zeros(rows[0].shape[1], dtype=torch.bool, device=dev)
+        keep = flux._region_plain(*rows[:3], zero, kw["lon_range"],
+                                  kw["lat_range"])
+        assert 0 < int(keep.sum()) < keep.numel()
+    th = flux.Thresholds(**{a: kw[a] for a in flux.Thresholds._fields
+                            if a in kw})
+    weight = kw.get("weight", "amp_cg")
+    carry = pcarry = None
+    for t0 in range(0, 40, block):
+        part = [x[t0:t0 + block] for x in rows]
+        before = flux.LAUNCHES
+        km, carry = flux._accumulate_cuda(*part, keep, carry, 72, 30, th,
+                                          weight)
+        assert flux.LAUNCHES == before + 1
+        pm, pcarry = flux._accumulate_plain(*part, keep, pcarry, 72, 30, th,
+                                            weight)
+        maps_within_bars(km, pm, dtype)
+        for a, b in zip(carry, pcarry):
+            assert same(a, b)
 
 
 def same_nan(a, b):
