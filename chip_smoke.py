@@ -40,7 +40,8 @@ route: ``optimize_seeds`` at 8,400 rays over 30 days.
 Phases (any failed check raises; nothing is caught but the truncation the
 exact_path phase requires and the chunk budget the chunked phase sets):
   rhs          ``ray.rhs`` and ``ray.rhs_and_gv`` (the kernel) vs the
-               plain ``ray._rhs_core`` on 100,800 seeded states
+               plain ``ray._rhs_core`` on 100,800 seeded states; the
+               wrapper's time beside the kernel alone (torch.profiler)
   dense_group  one 60-bound group on the 100,800-ray seed batch, the
                single-group kernel (``integrate_group_dense``) vs the plain
                loop, float64 and float32; its mixed instance bitwise
@@ -57,13 +58,21 @@ exact_path phase requires and the chunk budget the chunked phase sets):
                bitwise the full run's lane, its time the chain floor (no
                schedule of one-thread lanes can beat it), us per trip
   main_path    the run above through ``trace_rays``, launch counters reset
-               just before it and read just after (one whole-run launch,
-               no single-group launch), step attempts from its ``stats``,
+               just before it and read just after (one entry-stage launch
+               and no RHS launch for the set-up, one whole-run launch, no
+               single-group launch), step attempts from its ``stats``,
                peak device memory, rows bitwise equal to the dense_run
                phase's, the warp occupancy before and after the repacking;
                then a sampler stage (the spectral kernel at the
                day-10 positions) with its own counter, since ``trace_rays``
                never calls the sampler
+  entry        the entry stage (``tracer.entry_stage``: f0 and the initial
+               step in one launch of ``csrc/entry.cu``) on the production
+               run's entry state at t = 0 and at per-lane times, float32,
+               and in mixed precision and float64 on that seeding, bitwise
+               against its plain route; wrapper timed, and at t = 0 in
+               float32 the kernel alone and the plain route too, against
+               its bound (the background rows its samples read)
   spectral     spectral kernel vs ``sample_spectral`` at the day-10
                positions, float64, float64 with bf16 operands, float32 and
                float32 with bf16 operands; kernel-alone, wrapper (with the
@@ -146,6 +155,9 @@ exact_path phase requires and the chunk budget the chunked phase sets):
                kernel's carry) bitwise against ``_dense_run_plain`` and
                against the full run's rows; kernel ms and wall beside the
                static run's
+  time_entry   the entry stage's time instance on that run's entry state
+               (t = 0, then per-lane times over and past the frames, in
+               float32 and mixed), bitwise against the plain route, timed
   time_paths   the same, a lane subset over the first and the last group
                (the first and last TV_PLAIN_STEPS steps in RK4), for RK4 in
                ``RunConfig()``'s default run (90 days, 91 frames) in
@@ -194,7 +206,9 @@ exact_path phase requires and the chunk budget the chunked phase sets):
   flux         the flux kernel (``csrc/flux.cu``) on the production-size
                run's trajectories (100,800 rays x 361 rows) with the
                North Pacific box and |m| < 100: the region pass bitwise
-               against its plain version, the binning kernel against
+               against its plain version (also with a keep carried from
+               the first FLUX_BLOCK rows), timed with the kernel alone
+               (CUDA events) and the rows its tiles read; the binning kernel against
                ``_accumulate_plain`` (count and carry bitwise, the other
                maps within FLUX_BAR: the atomics' order varies); kernel
                (and each of its launches under torch.profiler), wrapper,
@@ -208,12 +222,15 @@ exact_path phase requires and the chunk budget the chunked phase sets):
                one region pass), its wall split into load, bin, region
                statistics and write; the file's maps against
                ``wave_ray_flux`` in process
-  classify     ``--report-exact`` on the reference and production-size
-               runs (no output files), counters reset just before and read
+  classify     ``--report-exact`` on the reference run, the reference run
+               over the cli phase's daily frames and the production-size
+               run (no output files), counters reset just before and read
                just after: the report's exact causes equal to
                ``termination.cause_labels`` in process (RK4: four RHS
-               launches; RK45: at most 3 RHS launches and one launch of the
-               interval kernel, ``rk45.integrate_interval_rays``); labels,
+               launches, the time instance's over the frames: the RHS
+               kernels' path; RK45: one entry-stage launch, no RHS launch,
+               and one launch of the interval kernel,
+               ``rk45.integrate_interval_rays``); labels,
                candidate states and trips per lane against the plain RHS's
                on the card, bitwise (an RK45 re-run cut at
                CLASSIFY_PLAIN_ITERS trips in both), and the report's own
@@ -407,12 +424,12 @@ TIME_SAMPLE_FLOPS = 84 + 36 + 3
 
 def time_sample_flops(bg):
     """The flops a sample of ``bg`` adds to a static one: TIME_SAMPLE_FLOPS
-    where the kernel blends two frames (``ray.kernel_background``'s rule:
-    a 4-D stack without member_ids, every 5-D stack), else none (a static
-    stack, an ensemble of static members)."""
-    nd = bg.fields.ndim
-    timed = nd == 5 or (nd == 4 and bg.member_ids is None)
-    return TIME_SAMPLE_FLOPS if timed else 0
+    where the kernel blends two frames (``ray.timed``: a 4-D stack without
+    member_ids, every 5-D stack), else none (a static stack, an ensemble
+    of static members)."""
+    from rwrt_tpu_torch.models import ray
+
+    return TIME_SAMPLE_FLOPS if ray.timed(bg) else 0
 
 def climatology_background(nlon=144, nlat=73):
     """Solid-body-ish jet + stationary wave pattern, climatology-shaped
@@ -524,6 +541,51 @@ def bound(nbytes, flops, unit=None):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def cell_of(x, n):
+    """``ray_rhs.cuh``'s ``cell_index``: floor(x) held to [0, n - 1], NaN
+    to 0, as int64."""
+    import torch
+
+    return torch.nan_to_num(torch.floor(x), nan=0.0).clamp(0, n - 1).long()
+
+
+def sampled_bytes(bg, samples):
+    """The bytes of ``bg``'s stack that RHS evaluations at ``samples``
+    ((lon, lat, t) a lane each, t a float or per lane) read: each distinct
+    row of 48 values they take once. A sample reads its lane's cell
+    (``sample_mercator``, a NaN position at cell (0, 0) and a latitude
+    past a pole at 0, as ``ray._sample_sanitized`` has it) in its member's
+    stack, in the two frames bracketing its time where the stack is timed
+    (``lerp_frames``), else in frame 0."""
+    import torch
+    from rwrt_tpu_torch.models import ray
+
+    f = bg.fields
+    w, h = f.shape[-3], f.shape[-2]
+    member = bg.member_ids
+    timed = ray.timed(bg)
+    nt = f.shape[-4] if timed else 1
+    keys = []
+    for lon, lat, t in samples:
+        lon, lat = lon.to(f.dtype), lat.to(f.dtype)
+        dead = torch.isnan(lon) | torch.isnan(lat)
+        lat = torch.where(dead | (torch.abs(lat) > 0.5 * math.pi), 0.0, lat)
+        lon = torch.where(dead, 0.0, lon)
+        cell = (cell_of(torch.remainder(lon - bg.lon0, 2 * math.pi) / bg.dx,
+                        w) * h + cell_of((lat - bg.lat0) / bg.dy, h))
+        m = (torch.zeros_like(cell) if member is None
+             else member.long().expand(cell.shape))
+        frames = [torch.zeros_like(cell)]
+        if timed:
+            tf = torch.as_tensor(t, dtype=torch.float64, device=cell.device)
+            tf = ((tf - bg.bg_t0) / bg.bg_dt).clamp(0, nt - 1)
+            i0 = cell_of(tf, nt).expand(cell.shape)
+            frames = [i0, torch.clamp(i0 + 1, max=nt - 1)]
+        keys += [(m * nt + i) * (w * h) + cell for i in frames]
+    rows = int(torch.unique(torch.cat(keys)).numel())
+    return rows * f.shape[-1] * f.element_size()
 
 
 def same(a, b):
@@ -645,13 +707,13 @@ class Run:
         """``trace_rays``' entry state for an adaptive run ``cfg`` (default:
         the production run) from the production seeding or ``matrix``'s
         source matrix, as it hands it to ``_dense_run`` or ``_exact_run``:
-        the compacted lanes, their (ug0, vg0), h0, f0, the padded bounds and
-        the run's scalars. Returns (bg, args, kw, idx) with idx the
+        the compacted lanes, their (ug0, vg0), h0 and f0 (its entry
+        stage, ``tracer.entry_stage``), the padded bounds and the run's
+        scalars. Returns (bg, args, kw, idx) with idx the
         compacted lanes' indices in the seed batch, kw the pin-kill of a
         dense run. ``state`` as for ``entry``: the run's scalars, h0 and
         the bounds then take the state's dtype, f0 the background's."""
         from rwrt_tpu_torch import tracer
-        from rwrt_tpu_torch.models import ray
         from rwrt_tpu_torch.solvers import rk45
 
         cfg = production_config(self.rt) if cfg is None else cfg
@@ -661,8 +723,7 @@ class Run:
         atol = rk45.as_scalar(cfg.atol, sdt)
         min_step = rk45.as_scalar(min(cfg.min_step_factor * cfg.tstep,
                                       cfg.tstep * 1e-3), sdt)
-        h0 = tracer.initial_step_sizes(bg, y0, rtol, atol)
-        f0 = ray.RayRHS(bg)(y0)
+        h0, f0 = tracer.entry_stage(bg, y0, 0.0, rtol, atol)
         bounds_g = tracer.padded_bounds(
             rk45.as_scalar(cfg.tstep, sdt), cfg.nt,
             min(cfg.interval_batch, cfg.nt - 1), sdt, self.dev)
@@ -717,16 +778,26 @@ def phase_rhs(run):
             check(e <= bar, f"rhs {tag} error {e} > {bar}")
         if dtype == torch.float32:
             ms = cuda_ms(lambda: ray.rhs(bg, yt), 50)
+            alone = launch_parts(lambda: ray.rhs(bg, yt), ("rhs_kernel",),
+                                 reps=50).get("rhs_kernel")
             plain = cuda_ms(lambda: ray._rhs_core(bg, yt, 0.0, False), 20)
-            # y in, dy and err out, the background once.
-            b = bound(2 * nbytes(yt) + n + nbytes(bg.fields), n * RHS_FLOPS,
-                      "float32")
-            print(f"rhs time at R={n}: kernel {ms:.4f} ms, plain {plain:.4f} "
-                  f"ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+            # y in, dy and err out, the background rows the lanes sample.
+            b = bound(2 * nbytes(yt) + n
+                      + sampled_bytes(bg, ((yt[0], yt[1], 0.0),)),
+                      n * RHS_FLOPS, "float32")
+            kernel_ms = None if alone is None else alone / 1e3
+            print(f"rhs time at R={n}: wrapper (ray.rhs: its outputs' "
+                  f"allocation, the ctypes call, the launch) {ms:.4f} ms, "
+                  f"the kernel alone (torch.profiler) "
+                  + ("not seen" if kernel_ms is None
+                     else f"{kernel_ms:.4f} ms")
+                  + f", plain {plain:.4f} ms, bound {b['bound_ms']:.4f} ms "
+                  f"({b['bound_by']})")
             run.kernels["rhs"] = dict(
                 max_abs_err=float(torch.nan_to_num(
                     torch.abs(k[0] - p[0]), nan=0.0).max()),
-                ms=ms, plain_ms=plain, library_ms=None, **b)
+                ms=ms, kernel_ms=kernel_ms, plain_ms=plain, library_ms=None,
+                **b)
 
 
 def _group_pos_diff_deg(a, b):
@@ -795,7 +866,7 @@ def phase_dense_group(run):
         else:
             check(med_deg <= 0.01, f"float32 median {med_deg} deg > 0.01")
             ms = cuda_ms(run_kernel, 5)
-            plain_ms = cuda_ms(run_plain, 1)
+            plain_ms = p_s * 1e3  # the checked run's wall: host-bound
             # State and bounds in; rows, carry, flags and attempts out.
             frozen = torch.isnan(y0.mean(dim=0))
             rows = int((torch.isfinite(kern[0][:, 0]) & ~frozen).sum())
@@ -803,9 +874,9 @@ def phase_dense_group(run):
                              *kern[1:5], kern[7], kern[8], kern[9]),
                       int(kern[7].sum()) * ATTEMPT_FLOPS + rows * ROW_FLOPS,
                       "float32")
-            print(f"  float32 device time (CUDA events): kernel {ms:.3f} ms, "
-                  f"plain {plain_ms:.1f} ms, bound {b['bound_ms']:.4f} ms "
-                  f"({b['bound_by']})")
+            print(f"  float32 time: kernel {ms:.3f} ms (CUDA events), "
+                  f"plain {plain_ms:.1f} ms (wall), bound "
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
             run.kernels["dense_group"] = dict(
                 max_abs_err=float(dpos.max()), ms=ms, plain_ms=plain_ms,
                 library_ms=None, **b)
@@ -1074,13 +1145,15 @@ def phase_main_path(run):
     stats = {}
     ray.LAUNCHES = rk45.LAUNCHES = tracer.LAUNCHES = spec.LAUNCHES = 0
     rk45.EXACT_LAUNCHES = tracer.RK4_LAUNCHES = tracer.EXACT_LAUNCHES = 0
+    tracer.ENTRY_LAUNCHES = 0
     t0 = time.perf_counter()
     traj = run.rt.trace_rays(bs, cfg, source_lon=run.slon,
                              source_lat=run.slat, stats=stats)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"rhs": ray.LAUNCHES, "dense_group": rk45.LAUNCHES,
-                "dense_run": tracer.LAUNCHES, "spectral": spec.LAUNCHES}
+                "dense_run": tracer.LAUNCHES, "spectral": spec.LAUNCHES,
+                "entry": tracer.ENTRY_LAUNCHES}
     peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
     attempts = int(stats["lane_att"].sum())
     check(launches["spectral"] == 0, "trace_rays launched the spectral kernel")
@@ -1088,6 +1161,9 @@ def phase_main_path(run):
           f"trace_rays made {launches['dense_run']} whole-run launches, not 1")
     check(launches["dense_group"] == 0,
           "trace_rays launched the single-group kernel")
+    check(launches["entry"] == 1 and launches["rhs"] == 0,
+          f"trace_rays' set-up made {launches['entry']} entry-stage and "
+          f"{launches['rhs']} RHS launches, not 1 and 0")
     check(rk45.EXACT_LAUNCHES == tracer.RK4_LAUNCHES
           == tracer.EXACT_LAUNCHES == 0,
           "the dense trace_rays launched an RK4 or exact kernel")
@@ -1115,7 +1191,7 @@ def phase_main_path(run):
         check(bool(torch.isfinite(getattr(traj, k)[-1][alive_end]).all()),
               f"non-finite {k} on a lane alive at day 30")
     check(bool(torch.isfinite(samples).all()), "non-finite spectral sample")
-    for k in ("rhs", "dense_run", "spectral"):
+    for k in ("entry", "dense_run", "spectral"):
         check(launches[k] > 0, f"{k} kernel was not launched")
     # The dense_run phase ran the kernel on this run's entry state.
     idx, kern = run.dense_run
@@ -1150,12 +1226,128 @@ def phase_main_path(run):
           f"{warp_occupancy(stats['lane_att']):.4f}, after "
           f"{rec['repacked_occupancy']:.4f}; chain floor "
           f"{rec['chain_floor_ms']:.3f} ms")
-    print(f"launches: trace_rays rhs {launches['rhs']}, dense_run "
-          f"{launches['dense_run']}, dense_group {launches['dense_group']}; "
+    print(f"launches: trace_rays entry {launches['entry']}, rhs "
+          f"{launches['rhs']}, dense_run {launches['dense_run']}, "
+          f"dense_group {launches['dense_group']}; "
           f"sampler stage after it: spectral {launches['spectral']} at "
           f"{pos[0].shape[0]} day-10 points")
     run.launches = launches
     run.day10 = pos
+
+
+#: Flops of the entry stage a lane beyond its two RHS evaluations, counted
+#: from csrc/entry.cu: the scale (10), the three norms' quotients and
+#: squares (40), h0 (4), y1 (10), f1 - f0 (5), d2 (1), fmax, h1 and its
+#: pow (4), the both-small rule (3), min(100 h0, h1) (2).
+ENTRY_FLOPS = 2 * RHS_FLOPS + 79
+#: Timed launches of the entry stage (CUDA events).
+ENTRY_REPS = 50
+
+
+def entry_record(run, name, bg, y0, t0, samples_flops=0, timed=False):
+    """The entry stage on one entry state: ``tracer.entry_stage`` (one
+    launch) bitwise against its plain route on the card, at ``t0`` (a
+    float or per-lane times); its wrapper timed, and with ``timed`` (the
+    kernels line's records) the kernel alone (torch.profiler) and the
+    plain route too; its bound: y0 (and per-lane t0, the member map) in,
+    f0 and h0 out, and the background rows its two evaluations sample
+    (``sampled_bytes``); two RHS evaluations and the step arithmetic a
+    lane (each sample's time blend, ``samples_flops``, twice)."""
+    torch = run.torch
+    from rwrt_tpu_torch import tracer
+    from rwrt_tpu_torch.models import ray
+    from rwrt_tpu_torch.solvers import rk45
+
+    sdt = y0.dtype
+    rtol, atol = rk45.validate_tol(1e-6, sdt), rk45.as_scalar(1e-6, sdt)
+    before = (tracer.ENTRY_LAUNCHES, ray.LAUNCHES)
+    h, f = tracer.entry_stage(bg, y0, t0, rtol, atol)
+    check((tracer.ENTRY_LAUNCHES, ray.LAUNCHES) == (before[0] + 1,
+                                                    before[1]),
+          f"{name}: entry_stage did not make one launch and no RHS launch")
+    ph, pf = tracer._entry_stage_plain(bg, y0, t0, rtol, atol)
+    torch.cuda.synchronize()
+    check(h.dtype == sdt and f.dtype == bg.fields.dtype,
+          f"{name}: dtypes {h.dtype}, {f.dtype}")
+    check(same(h, ph) and same(f, pf),
+          f"{name}: h0 or f0 differs from the plain route")
+    check(bool(torch.isfinite(h).any()), f"{name}: no finite h0")
+    err = max(float(torch.nan_to_num(torch.abs(a.double() - b.double()),
+                                     nan=0.0).max()) for a, b in ((h, ph),
+                                                                  (f, pf)))
+    r = y0.shape[1]
+
+    def kernel():
+        return tracer.entry_stage(bg, y0, t0, rtol, atol)
+
+    ms = cuda_ms(kernel, ENTRY_REPS)
+    alone_us = plain_ms = None
+    if timed:
+        alone_us = launch_parts(kernel, ("entry_kernel",),
+                                reps=ENTRY_REPS).get("entry_kernel")
+        plain_ms = cuda_ms(lambda: tracer._entry_stage_plain(
+            bg, y0, t0, rtol, atol), 10)
+    # The second evaluation's position and time, as the kernel forms them.
+    y1 = y0 + h * f.to(sdt)
+    read = sampled_bytes(bg, ((y0[0], y0[1], t0), (y1[0], y1[1], t0 + h)))
+    small = nbytes(y0, h, f) + (nbytes(t0) if torch.is_tensor(t0) else 0) + (
+        0 if bg.member_ids is None else nbytes(bg.member_ids))
+    b = bound(small + read, r * (ENTRY_FLOPS + 2 * samples_flops),
+              str(bg.fields.dtype).split(".")[-1])
+    kernel_ms = None if alone_us is None else alone_us / 1e3
+    print(f"{name}: {r} lanes, h0 and f0 bitwise the plain route's; "
+          f"wrapper {ms:.4f} ms"
+          + ("" if not timed else
+             ", the kernel alone (torch.profiler) "
+             + ("not seen" if kernel_ms is None else f"{kernel_ms:.4f} ms")
+             + f", plain {plain_ms:.4f} ms")
+          + f"; bound {b['bound_ms']:.5f} ms ({b['bound_by']}; "
+          f"{read / 1e6:.3f} MB of background rows sampled of "
+          f"{nbytes(bg.fields) / 1e6:.3f} MB, {small / 1e6:.3f} MB of "
+          "state in and out)")
+    return dict(max_abs_err=err, ms=ms, kernel_ms=kernel_ms,
+                plain_ms=plain_ms, library_ms=None, **b)
+
+
+def phase_entry(run):
+    """The adaptive runs' entry stage (``tracer.entry_stage``, one launch
+    of ``csrc/entry.cu``) on the production run's entry state (the 60,784
+    compacted lanes, float32) at t = 0, as main_path ran it, and at
+    per-lane times; in float64 and mixed precision on the same seeding;
+    each bitwise against the plain route on the card. The float32 record
+    is the kernels line's ``entry``."""
+    torch = run.torch
+    rng = np.random.default_rng(5)
+    for name, dtype, state in (("float32", torch.float32, None),
+                               ("mixed", torch.float32, torch.float64),
+                               ("float64", torch.float64, None)):
+        bg, y0, _, _, _ = run.entry(dtype, state=state)
+        rec = entry_record(run, f"entry {name}", bg, y0, 0.0,
+                           timed=name == "float32")
+        if name == "float32":
+            run.kernels["entry"] = rec
+            t = torch.as_tensor(rng.uniform(0.0, N_DAYS * DAY, y0.shape[1]),
+                                dtype=y0.dtype, device=run.dev)
+            entry_record(run, "entry float32, per-lane times", bg, y0, t)
+
+
+def phase_time_entry(run):
+    """The entry stage's time instance on the time_main_path run's entry
+    state (the lanes it compacted over the TV_DAYS-day daily frames) at
+    t = 0, as that run took it, and at per-lane times over the frames and
+    past both ends; in mixed precision on the same frames; bitwise against
+    the plain route on the card. The first record is the kernels line's
+    ``entry_time``."""
+    torch = run.torch
+    bg, y0 = run.tv_entry
+    tsf = time_sample_flops(bg)
+    run.kernels["entry_time"] = entry_record(run, "time_entry float32", bg,
+                                             y0, 0.0, tsf, timed=True)
+    rng = np.random.default_rng(6)
+    t = rng.uniform(-2.0 * DAY, (TV_DAYS + 3) * DAY, y0.shape[1])
+    for name, y in (("float32", y0), ("mixed", y0.double())):
+        entry_record(run, f"time_entry {name}, per-lane times", bg, y,
+                     torch.as_tensor(t, dtype=y.dtype, device=run.dev), tsf)
 
 
 def phase_spectral(run):
@@ -1572,7 +1764,9 @@ def traced(run, cfg, launches_of, n_launches=1, driver=None, stop=(),
     arguments) on the climatology background (or ``bs``), float32, with
     every launch
     counter set to 0 just before it and read just after: ``n_launches``
-    of ``launches_of`` and none of the other kernels but the RHS. Returns
+    of ``launches_of`` and none of the other kernels but, as
+    ``read_launches`` has it, the RHS or an adaptive run's entry stage.
+    Returns
     (traj, launches, wall s, peak MiB above the prepared state, stats,
     the MaxItersTruncation, or exception of a type in ``stop``, that
     ended the run, or None; traj is None then)."""
@@ -1609,7 +1803,7 @@ def reset_launches():
     from rwrt_tpu_torch.probes import gather_probe
 
     ray.LAUNCHES = rk45.LAUNCHES = rk45.EXACT_LAUNCHES = spec.LAUNCHES = 0
-    rk45.INTERVAL_LAUNCHES = 0
+    rk45.INTERVAL_LAUNCHES = tracer.ENTRY_LAUNCHES = 0
     tracer.LAUNCHES = tracer.RK4_LAUNCHES = tracer.EXACT_LAUNCHES = 0
     flux.LAUNCHES = flux.REGION_LAUNCHES = gather_probe.LAUNCHES = 0
 
@@ -1617,7 +1811,10 @@ def reset_launches():
 def read_launches(launches_of, n_launches, what):
     """The counters since ``reset_launches``: fails unless ``launches_of``
     launched ``n_launches`` times (or, a dict, each of its kernels its
-    count) and no other kernel but the RHS ran."""
+    count) and no other kernel ran but the RHS, any number of times, and
+    the entry stage, never: where an adaptive run's kernel (dense_run or
+    exact_run) is named, its entry stage once (unless named) and the RHS
+    never."""
     from rwrt_tpu_torch import tracer
     from rwrt_tpu_torch.diagnostics import flux
     from rwrt_tpu_torch.models import ray
@@ -1632,11 +1829,14 @@ def read_launches(launches_of, n_launches, what):
                 "exact_run": tracer.EXACT_LAUNCHES,
                 "flux": flux.LAUNCHES, "flux_region": flux.REGION_LAUNCHES,
                 "gather": gather_probe.LAUNCHES,
-                "interval": rk45.INTERVAL_LAUNCHES}
+                "interval": rk45.INTERVAL_LAUNCHES,
+                "entry": tracer.ENTRY_LAUNCHES}
     wants = (launches_of if isinstance(launches_of, dict)
              else {launches_of: n_launches})
+    adaptive = "dense_run" in wants or "exact_run" in wants
+    defaults = {"rhs": 0 if adaptive else None, "entry": int(adaptive)}
     for k, n in launches.items():
-        want = wants.get(k, None if k == "rhs" else 0)
+        want = wants.get(k, defaults.get(k, 0))
         check(want is None or n == want,
               f"{what} made {n} {k} launches, not {want}")
     return launches
@@ -2367,7 +2567,8 @@ def phase_time_rhs(run):
             bg = kinds["time"]
             ms = cuda_ms(lambda: ray.rhs(bg, yt, tt), 20)
             plain = cuda_ms(lambda: ray._rhs_core(bg, yt, tt, False), 5)
-            b = bound(2 * nbytes(yt) + nbytes(tt) + n + nbytes(bg.fields),
+            b = bound(2 * nbytes(yt) + nbytes(tt) + n
+                      + sampled_bytes(bg, ((yt[0], yt[1], tt),)),
                       n * (RHS_FLOPS + TIME_SAMPLE_FLOPS), "float32")
             print(f"time_rhs time at R={n} over {bg.fields.shape[0]} "
                   f"frames: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
@@ -2578,9 +2779,10 @@ def phase_time_main_path(run):
         run, "dense_run_time", "time_main_path",
         lambda: traced(run, cfg, "dense_run", bs=bs, **src), "_dense_run",
         "dense_run", attempts, rows, N_SUBSET, every_group=True)
-    # The traced run's RHS launches (h0 and f0) are the time instance's.
+    # The traced run's entry stage (h0 and f0) is the time instance's.
     launches = rec["launches"]
-    run.launches["rhs_time"] = launches["rhs"]
+    run.launches["entry_time"] = launches["entry"]
+    run.tv_entry = (args[0], args[1])
     nt = cfg.nt
     alive = float(torch.isfinite(traj.ky[-1]).float().mean())
     static = run.kernels["dense_run"]["ms"]
@@ -2589,7 +2791,8 @@ def phase_time_main_path(run):
           f"({rec['ms'] / static:.3f} x), wall {rec['wall']:.3f} s against "
           f"{run.main_wall:.3f} s, step attempts {rec['attempts']} (static "
           f"{DENSE_ATTEMPTS}), alive fraction at day {N_DAYS} {alive:.4f}, "
-          f"rhs launches {launches['rhs']}")
+          f"entry launches {launches['entry']}, rhs launches "
+          f"{launches['rhs']}")
     lon10, lat10 = traj.lon[120].reshape(-1), traj.lat[120].reshape(-1)
     fin = torch.isfinite(lon10) & torch.isfinite(lat10)
     run.tv_day10 = (lon10[fin].contiguous(), lat10[fin].contiguous())
@@ -3218,10 +3421,14 @@ FLUX_PARTS = ("compact_kernel", "unwrap_kernel", "points_kernel",
               "maps_kernel")
 
 
-def launch_parts(fn, names, reps=5):
-    """Device microseconds a call of ``fn`` spends in each kernel whose
-    name holds one of ``names`` (torch.profiler over ``reps`` calls); {}
-    where the profiler sees no device time."""
+def launch_parts(fn, names, reps=50):
+    """Device microseconds a launch of each kernel whose name holds one of
+    ``names`` takes: the mean over the launches torch.profiler recorded in
+    ``reps`` calls of ``fn``; {} where it recorded none. The mean is over
+    the launches recorded, not the calls: on the H100 machine the profiler
+    (torch 2.11) drops some of a session's records, none early in a
+    process and a dozen or more once it has run for minutes, so a short
+    session may record none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3235,8 +3442,8 @@ def launch_parts(fn, names, reps=5):
         us = getattr(e, "device_time_total", 0) or getattr(
             e, "cuda_time_total", 0)
         for n in names:
-            if n in e.key and us:
-                parts[n] = round(us / reps, 2)
+            if n in e.key and us and e.count:
+                parts[n] = round(us / e.count, 2)
     return parts
 
 
@@ -3256,6 +3463,42 @@ def maps_err(got, want):
         rel = max(rel, d / max(float(b.abs().nan_to_num(nan=0.0).max()),
                                1e-300))
     return abs_err, rel
+
+
+def region_alone_ms(run, rows, want, reps):
+    """The region kernel alone: ``reps`` launches of ``rwrt_flux_region``
+    over the (nt, R) rows (lon, lat, amp) as ``flux._region_cuda`` makes
+    them, each into a zeroed keep of its own (a launch ORs into its keep:
+    one reused would hold the last launch's hits and skip their rays),
+    between CUDA events, without the wrapper's copy of keep and its
+    checks. Each keep must come out equal to ``want``. Returns ms a
+    launch."""
+    torch = run.torch
+    from rwrt_tpu_torch import kernels
+    from rwrt_tpu_torch.diagnostics import flux
+
+    lon, lat, amp = rows
+    nt, r = lon.shape
+    box = flux._box(*FLUX_BOX, lon.dtype)
+    keeps = [torch.zeros(r, dtype=torch.bool, device=run.dev)
+             for _ in range(reps + 1)]
+
+    def launch(keep):
+        kernels.launch("rwrt_flux_region", lon.dtype, lon, lat, amp,
+                       lon.stride(0), lat.stride(0), amp.stride(0), nt, r,
+                       *box, keep, kernels.stream(lon.device))
+
+    launch(keeps[-1])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for keep in keeps[:reps]:
+        launch(keep)
+    end.record()
+    torch.cuda.synchronize()
+    check(all(torch.equal(k, want) for k in keeps),
+          "flux region kernel alone: a keep differs from the wrapper's")
+    return start.elapsed_time(end) / reps
 
 
 def phase_flux(run):
@@ -3282,6 +3525,18 @@ def phase_flux(run):
     keep_p = flux._region_plain(*rows[:3], zero, *FLUX_BOX)
     torch.cuda.synchronize()
     check(torch.equal(keep, keep_p), "flux region pass differs from plain")
+    # A keep carried in, as the chunked path's blocks carry it: the kept
+    # rays of the first FLUX_BLOCK rows into the rest.
+    first = flux._region_cuda(*(x[:FLUX_BLOCK] for x in rows[:3]), zero,
+                              *FLUX_BOX)
+    rest = flux._region_cuda(*(x[FLUX_BLOCK:] for x in rows[:3]), first,
+                             *FLUX_BOX)
+    check(torch.equal(first, flux._region_plain(
+        *(x[:FLUX_BLOCK] for x in rows[:3]), zero, *FLUX_BOX))
+        and torch.equal(rest, flux._region_plain(
+            *(x[FLUX_BLOCK:] for x in rows[:3]), first, *FLUX_BOX))
+        and torch.equal(rest, keep),
+        "flux region pass with a carried keep differs from plain")
     th = flux.Thresholds(mwn_max=FLUX_MWN_MAX)
     args = (*rows, keep, None, 360, 90, th, "amp_cg")
     kern, carry = flux._accumulate_cuda(*args)
@@ -3299,6 +3554,7 @@ def phase_flux(run):
 
     ms = cuda_ms(lambda: flux._accumulate_cuda(*args), 10)
     parts = launch_parts(lambda: flux._accumulate_cuda(*args), FLUX_PARTS)
+    region_kernel_ms = region_alone_ms(run, rows[:3], keep, 10)
     wrapper_ms = cuda_ms(lambda: flux.wave_ray_flux(traj, **kw), 10)
     plain_ms = cuda_ms(lambda: flux._accumulate_plain(*args), 2)
     region_ms = cuda_ms(lambda: flux._region_cuda(*rows[:3], zero,
@@ -3338,6 +3594,9 @@ def phase_flux(run):
     last = torch.where(in_box.any(0), in_box.to(torch.int8).argmax(0),
                        nt - 1)
     region_rows = int((last + 1).sum())
+    # What the kernel reads: a ray's rows to the end of the 64-row tile of
+    # its first point in the box.
+    tile_rows = int(torch.clamp((last // 64 + 1) * 64, max=nt).sum())
     del in_box, last
     esz = rows[0].element_size()
     b = bound((3 * nt * kept + 3 * fin) * esz + 4 * 360 * 90 * esz
@@ -3365,13 +3624,18 @@ def phase_flux(run):
           f"MB, {every / HBM_BYTES_PER_S * 1e3:.4f} ms); count bitwise, "
           f"other maps {rel:.3e} of their max from plain (bar {FLUX_BAR}), "
           f"carry bitwise")
-    print(f"flux region pass: {region_rows} of the {nt * r} points read "
-          f"(each ray's rows up to its first in the box); kernel "
-          f"{region_ms:.4f} ms, plain {region_plain_ms:.3f} ms, bound "
-          f"{rb['bound_ms']:.4f} ms ({rb['bound_by']}), bitwise")
+    print(f"flux region pass: {region_rows} of the {nt * r} points needed "
+          f"(each ray's rows up to its first in the box), {tile_rows} read "
+          f"(to the end of that row's 64-row tile); wrapper "
+          f"{region_ms:.4f} ms, the kernel alone (CUDA events) "
+          f"{region_kernel_ms:.4f} ms, plain {region_plain_ms:.3f} ms, bound "
+          f"{rb['bound_ms']:.4f} ms ({rb['bound_by']}; the tiles' reads "
+          f"{3 * tile_rows * esz / HBM_BYTES_PER_S * 1e3:.4f} ms), bitwise, "
+          f"and with a keep carried from the first {FLUX_BLOCK} rows")
     run.kernels["flux"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                                library_ms=library_ms, **b)
     run.kernels["flux_region"] = dict(max_abs_err=0.0, ms=region_ms,
+                                      kernel_ms=region_kernel_ms,
                                       plain_ms=region_plain_ms,
                                       library_ms=None, **rb)
     del lon_u, valid, flat, vals, maps
@@ -3500,10 +3764,12 @@ def plain_rhs(bg, y, t):
 
 def phase_classify(run):
     """``--report-exact`` through the CLI in process (no output files) on
-    the reference run (RK4) and on the production-size run (dense RK45),
+    the reference run (RK4), on it over the cli phase's daily frames (the
+    RHS's time instance) and on the production-size run (dense RK45),
     every counter reset just before and read just after (the run's one
-    whole-run launch; RK45: one interval-kernel launch for the re-run after
-    at most 3 RHS launches; RK4: 4 RHS launches): the report's causes
+    whole-run launch; RK45: one entry-stage launch for the run and one for
+    the re-run, no RHS launch, one interval-kernel launch; RK4: 4 RHS
+    launches, the kernels line's rhs and rhs_time): the report's causes
     exact, every ray in one bucket, and equal to the counts of the labels
     ``classify`` gave inside the run (``termination.cause_labels``, kept
     and timed with its ``stats``: the re-run's entry, state and each lane's
@@ -3529,6 +3795,8 @@ def phase_classify(run):
         reference = json.load(f)
     cases = (("reference", dict(reference, inputuv=run.prod["wind"]),
               "rk4_run", None),
+             ("daily_frames", dict(reference, inputuv=str(
+                 Path(run.tmp) / "uv_daily.npz")), "rk4_run", None),
              ("production", dict(run.prod["js"]), "dense_run", run.prod))
     dead = 0
     labels_of = termination.cause_labels
@@ -3540,18 +3808,22 @@ def phase_classify(run):
         seen = []
 
         def kept(*a, **k):
-            before = (ray.LAUNCHES, rk45.INTERVAL_LAUNCHES)
+            before = (ray.LAUNCHES, rk45.INTERVAL_LAUNCHES,
+                      tracer.ENTRY_LAUNCHES)
             st = {}
             res, secs = wall_s(lambda: labels_of(*a, stats=st, **k))
             seen.append((res, secs, ray.LAUNCHES - before[0],
-                         rk45.INTERVAL_LAUNCHES - before[1], st))
+                         rk45.INTERVAL_LAUNCHES - before[1],
+                         tracer.ENTRY_LAUNCHES - before[2], st))
             return res
 
         termination.cause_labels = kept
         try:
+            # An adaptive run's entry stage, and its re-run's.
             rep, launches, wall = cli_run(
                 run, run.tmp, f"{name}_exact", js, ["--report-exact"],
-                {unit: 1, "interval": int(adaptive)}, None)
+                {unit: 1, "interval": int(adaptive),
+                 "entry": 2 * int(adaptive)}, None)
         finally:
             termination.cause_labels = labels_of
         summary = rep["trajectories"]
@@ -3565,16 +3837,21 @@ def phase_classify(run):
             bs, traj = prod["bs"], prod["traj"]
         base = termination.analyze(traj)
         check(len(seen) == 1, f"classify {name}: {len(seen)} re-runs")
-        (labels, k_s, rhs_launches, iv_launches, st), = seen
+        (labels, k_s, rhs_launches, iv_launches, entry_launches, st), = seen
         n = labels.size
         check(n == int(((base.death_step >= 1) & (
             base.death_step < cfg.nt)).sum()), f"classify {name}: the "
             "re-run's rays are not the in-process trajectory's dead rays")
         check(n > 0, f"classify {name}: no dead ray")
-        check((iv_launches, rhs_launches) == (0, 4) if not adaptive
-              else iv_launches == 1 and 0 < rhs_launches <= 3,
-              f"classify {name}: {rhs_launches} RHS and {iv_launches} "
-              "interval launches in the re-run")
+        check((iv_launches, rhs_launches, entry_launches)
+              == ((0, 4, 0) if not adaptive else (1, 0, 1)),
+              f"classify {name}: {rhs_launches} RHS, {entry_launches} entry "
+              f"and {iv_launches} interval launches in the re-run")
+        if not adaptive:
+            # The RHS kernel's path: the RK4 re-run's four stages (the
+            # time instance's over the daily frames).
+            run.launches["rhs" if name == "reference"
+                         else "rhs_time"] = launches["rhs"]
         want = {"no_root": base.counts["no_root"],
                 "survived": base.counts["survived"],
                 **{c: int((labels == i).sum())
@@ -3596,7 +3873,8 @@ def phase_classify(run):
                 f"{json.dumps(summary['termination'])}; --report-exact wall "
                 f"{wall:.3f} s (split {json.dumps(rep['wall_s'])}); the "
                 f"report's re-run {k_s:.4f} s ({rhs_launches} RHS launches, "
-                f"{iv_launches} interval launch)")
+                f"{entry_launches} entry launch, {iv_launches} interval "
+                "launch)")
         if not adaptive:
             check(np.array_equal(labels, plain) and same(
                 st["state"], ps["state"]), f"classify {name}: the report's "
@@ -4151,6 +4429,9 @@ KERNELS = (
      "rwrt_tpu/solvers/rk45.py:302"),
     ("gather", "rwrt_tpu_torch/csrc/gather.cu",
      "benchmarks/pallas_gather_probe.py:77"),
+    ("entry", "rwrt_tpu_torch/csrc/entry.cu", "rwrt_tpu/tracer.py:809"),
+    ("entry_time", "rwrt_tpu_torch/csrc/entry_time.cu",
+     "rwrt_tpu/tracer.py:809"),
 )
 
 
@@ -4186,12 +4467,14 @@ def main() -> int:
     tmp = tempfile.TemporaryDirectory()
     run.tmp = tmp.name
     for phase in (phase_rhs, phase_dense_group, phase_dense_run,
-                  phase_dense_lone_lane, phase_main_path, phase_spectral,
+                  phase_dense_lone_lane, phase_main_path, phase_entry,
+                  phase_spectral,
                   phase_rk4, phase_exact_group, phase_exact_run,
                   phase_rk4_path, phase_exact_path, phase_chunked,
                   phase_mixed_dense, phase_mixed_drift, phase_mixed_rk4,
                   phase_mixed_exact, phase_mixed_chunked, phase_time_rhs,
-                  phase_time_main_path, phase_time_paths, phase_time_chunked,
+                  phase_time_main_path, phase_time_entry, phase_time_paths,
+                  phase_time_chunked,
                   phase_ensemble, phase_time_spectral, phase_cli, phase_flux,
                   phase_wrf_cli, phase_classify, phase_group_time,
                   phase_gather, phase_autodiff):

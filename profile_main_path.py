@@ -21,7 +21,10 @@ One warm-up run (``--warmup 0`` skips it), then ``--runs`` timed runs (host
 wall to a device synchronize), then one run under ``torch.profiler``. Prints the card (``nvidia-smi`` name and power limit),
 each wall, the peak device memory, the device span, kernel-busy time and
 kernel count of the profiled run (so the device's idle share), the
-whole-run kernel's device time, for the adaptive paths each group's most
+whole-run kernel's device time, the set-up before it on the device (the
+span from the first device event to the whole-run kernel's start, its
+events, and the entry-stage and RHS launches among them), the sha256 of
+the last run's rows (so that two trees' runs can be seen to be equal), for the adaptive paths each group's most
 trips and step attempts and the longest lane's trips over all groups (from
 ``trace_rays``' ``stats``), whether the run hit the max_iters backstop
 (``MaxItersTruncation``: then the run is refused and reported as such),
@@ -46,7 +49,8 @@ schedule listed (EVERY:TRIGGER, the kernel's ``_repack`` and
 ``_trigger``; a trigger of 0 ends no window early).
 
 ``--flux`` times the flux binning alone instead (``flux._accumulate_cuda``,
-CUDA events, the median of ``--runs`` means of 3 calls) on chip_smoke's
+and the region pass before it, ``flux._region_cuda``; CUDA events, the
+median of ``--runs`` means of 3 calls each) on chip_smoke's
 production-size trajectory (its cli phase's run: 100,800 rays x 361 rows)
 with chip_smoke's Fun2 box and mwn cap, and prints the kept rays, the
 binned points and the count map's checksum, so that two trees can be seen
@@ -61,6 +65,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import statistics
 import subprocess
@@ -193,12 +198,14 @@ def main() -> int:
 
     stats = {}
     truncated = []
+    last = []
 
     def trace():
         sources = ({} if args.path == "readme"
                    else dict(source_lon=run.slon, source_lat=run.slat))
+        last.clear()
         try:
-            rt.trace_rays(bs, cfg, stats=stats, **sources)
+            last.append(rt.trace_rays(bs, cfg, stats=stats, **sources))
         except MaxItersTruncation as e:
             truncated.append(str(e))
 
@@ -222,18 +229,39 @@ def main() -> int:
               f"{int(lane_att.sum(dim=0).max())} trips over all groups")
     print(f"runs refused by MaxItersTruncation: {len(truncated)}"
           + (f" ({truncated[0]})" if truncated else ""))
+    if last:
+        # The rows' bytes, so that two trees' runs can be seen to be equal.
+        digest = hashlib.sha256()
+        for a in last[0]:
+            digest.update(a.cpu().numpy().tobytes())
+        print(f"rows sha256 (lon, lat, kx, ky, amp, ug, vg): "
+              f"{digest.hexdigest()}")
 
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     span = (max(e.time_range.end for e in dev)
             - min(e.time_range.start for e in dev))
     busy = sum(e.time_range.elapsed_us() for e in dev)
-    whole = [e.time_range.elapsed_us() for e in dev
-             if KERNEL[args.path] in e.name]
+    whole = [e for e in dev if KERNEL[args.path] in e.name]
     print(f"profiled run: device span {span:.1f} us, kernel-busy "
           f"{busy:.1f} us, idle share {1 - busy / span:.4f}, "
           f"{len(dev)} device events; {KERNEL[args.path]} launches "
-          f"{len(whole)}, {sum(whole):.1f} us")
+          f"{len(whole)}, "
+          f"{sum(e.time_range.elapsed_us() for e in whole):.1f} us")
+    if whole:
+        # The set-up: the device's work before the whole-run kernel.
+        first = min(e.time_range.start for e in dev)
+        start = min(e.time_range.start for e in whole)
+        before = [e for e in dev if e.time_range.start < start]
+        def launches(kernel):
+            return sum(kernel in e.name for e in before)
+
+        print(f"profiled run: set-up span (first device event to the "
+              f"whole-run kernel's start) {start - first:.1f} us, "
+              f"{len(before)} device events in it, kernel-busy "
+              f"{sum(e.time_range.elapsed_us() for e in before):.1f} us; "
+              f"entry-stage launches {launches('entry_kernel')}, RHS "
+              f"launches {launches('rhs_kernel')}")
     key = ("self_device_time_total" if hasattr(
         prof.key_averages()[0], "self_device_time_total")
         else "self_cuda_time_total")
@@ -413,8 +441,11 @@ def flux_binning(torch, rt, args):
             flux.Thresholds(mwn_max=cs.FLUX_MWN_MAX), "amp_cg")
     maps, _ = flux._accumulate_cuda(*call)
     ms = median_ms(lambda: flux._accumulate_cuda(*call), args.runs)
+    region_ms = median_ms(lambda: flux._region_cuda(*rows[:3], zero,
+                                                    *cs.FLUX_BOX), args.runs)
     count = maps[3].to(torch.float64)
     rec = dict(tree=str(Path(rt.__file__).parent.parent), ms=ms,
+               region_ms=region_ms,
                rays=rows[0].shape[1], rows=rows[0].shape[0],
                kept=int(keep.sum()), binned=int(count.sum()),
                count_checksum=float((count * torch.arange(

@@ -1,9 +1,10 @@
 """rwrt_tpu_torch: the PyTorch/CUDA port of rwrt_tpu.
 
 Barotropic Rossby-wave ray tracing with plain PyTorch around hand-written
-CUDA kernels for the RHS, the whole RK4, exact-bound and dense
-Dormand-Prince runs (and single groups of the latter two), the spectral
-sampler and the flux binning (built from ``csrc/`` at first use on a CUDA device), and the
+CUDA kernels for the RHS, the adaptive runs' entry stage (f0 and the
+initial step), the whole RK4, exact-bound and dense Dormand-Prince runs
+(and single groups of the latter two), the spectral sampler and the flux
+binning (built from ``csrc/`` at first use on a CUDA device), and the
 chunked checkpoint/resume driver over them (``utils/checkpoint.py``), over
 static or time-varying backgrounds (``prepare_time_varying``) and ensembles
 of them (``trace_rays_ensemble``), in canonical or the reference's

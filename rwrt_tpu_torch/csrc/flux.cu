@@ -1,7 +1,7 @@
 // The Li-Yang wave-ray flux binning: the Fun1 thresholds, the continuous
 // longitude and the scatter of every valid trajectory point into the four
 // flux maps; and the Fun2 region pass ("the ray ever enters the target
-// box"), one thread per ray.
+// box"), 32 rays a block in tiles of rows.
 //
 //   compact_kernel<F>,  rwrt_flux: the binning of diagnostics/flux.py
 //   unwrap_kernel<F>,   wave_ray_flux and wave_ray_flux_chunked on CUDA,
@@ -62,6 +62,17 @@
 //                   float32 one 16-byte vector atomicAdd (sm_90) into the
 //                   four sums interleaved by cell, in float64 four adds.
 //   maps_kernel     float32: the interleaved sums into the four maps.
+//   region_kernel   the region pass, apart (rwrt_flux_region): 32 rays a
+//                   block of 8 warps, so a warp reads a row's rays as one
+//                   line, their rows 64 at a time, 8 rows a thread whose
+//                   loads are all issued before any is tested; the hits
+//                   OR-ed per ray in shared memory after each tile, and a
+//                   ray with a hit, or already kept, reads no further
+//                   tile. Its first port gave each ray one thread walking
+//                   its rows in order with an exit after each row, so a
+//                   row's loads waited for the test of the row before: a
+//                   chain of 361 memory latencies (0.36 ms at the
+//                   production size, 3.3x its bound; PERF.md section 6).
 // The maps are not privatised in shared memory: four float32 360 x 90 maps
 // are 518 KB, more than the 227 KB a block has. What holds the design
 // above its bound (PERF.md section 6): the kept rays lie scattered among
@@ -458,31 +469,72 @@ struct RegionArgs {
   bool* keep;  // (R,): OR-ed with "a live point of the rows is in the box"
 };
 
-// A ray already kept (by an earlier block of the chunked path) reads
-// nothing more; another reads its rows up to the first live one in the box.
+// The region pass's tiles: a block takes kRegionRays rays, so that one
+// warp reads a row's rays as one 128-byte line (float32), and walks their
+// rows kRegionTile at a time, kRegionSpan rows a thread, each warp its own
+// rows of the tile.
+constexpr int kRegionRays = 32;
+constexpr int kRegionWarps = 8;
+constexpr int kRegionSpan = 8;
+constexpr int kRegionTile = kRegionWarps * kRegionSpan;
 
+// A live point in the box: _in_box_arrays' expressions in its order.
 template <typename F>
-__global__ void __launch_bounds__(256) region_kernel(const RegionArgs<F> a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.R || a.keep[i]) return;
+__device__ __forceinline__ bool in_box(const RegionArgs<F>& a, F lon, F lat,
+                                       F amp) {
   const F deg = F(kDeg2Rad);
-  for (int t = 0; t < a.nt; ++t) {
-    const long long tl = t;
-    const F lon = a.lon[tl * a.s_lon + i];
-    const F lat = a.lat[tl * a.s_lat + i];
-    const F amp = a.amp[tl * a.s_amp + i];
-    const F lon_deg = floor_rem(lon / deg, F(360));
-    const F lat_deg = lat / deg;
-    const bool in_lon =
-        a.mode == 0 ? true
-        : a.mode == 1 ? (lon_deg >= a.lo0 && lon_deg <= a.lo1)
-                      : (lon_deg >= a.lo0 || lon_deg <= a.lo1);
-    if (in_lon && lat_deg >= a.la0 && lat_deg <= a.la1 && isfinite(lon) &&
-        isfinite(lat) && isfinite(amp)) {
-      a.keep[i] = true;
-      return;
+  const F lon_deg = floor_rem(lon / deg, F(360));
+  const F lat_deg = lat / deg;
+  const bool in_lon =
+      a.mode == 0 ? true
+      : a.mode == 1 ? (lon_deg >= a.lo0 && lon_deg <= a.lo1)
+                    : (lon_deg >= a.lo0 || lon_deg <= a.lo1);
+  return in_lon && lat_deg >= a.la0 && lat_deg <= a.la1 && isfinite(lon) &&
+         isfinite(lat) && isfinite(amp);
+}
+
+// One block per kRegionRays rays. A ray already kept (by an earlier block
+// of the chunked path) reads nothing; another reads its rows a tile at a
+// time: each thread issues the loads of its kRegionSpan rows before it
+// tests any, the tile's hits are OR-ed per ray in shared memory, and a ray
+// with a hit reads no further tile. The block leaves once every one of
+// its rays is decided, so a kept ray reads at most the rest of the tile
+// of its first live point in the box.
+template <typename F>
+__global__ void __launch_bounds__(kRegionRays * kRegionWarps)
+    region_kernel(const RegionArgs<F> a) {
+  __shared__ int hit[kRegionRays];
+  const int lane = threadIdx.x % kRegionRays;
+  const int warp = threadIdx.x / kRegionRays;
+  const int i = blockIdx.x * kRegionRays + lane;
+  if (warp == 0) hit[lane] = (i >= a.R || a.keep[i]) ? 1 : 0;
+  __syncthreads();
+  bool done = hit[lane] != 0;
+  for (int tile = 0; tile < a.nt && !__syncthreads_and(done);
+       tile += kRegionTile) {
+    if (!done) {
+      const int t0 = tile + warp * kRegionSpan;
+      F lon[kRegionSpan], lat[kRegionSpan], amp[kRegionSpan];
+#pragma unroll
+      for (int j = 0; j < kRegionSpan; ++j) {
+        if (t0 + j < a.nt) {
+          const long long t = t0 + j;
+          lon[j] = __ldg(a.lon + t * a.s_lon + i);
+          lat[j] = __ldg(a.lat + t * a.s_lat + i);
+          amp[j] = __ldg(a.amp + t * a.s_amp + i);
+        }
+      }
+      bool any = false;
+#pragma unroll
+      for (int j = 0; j < kRegionSpan; ++j) {
+        if (t0 + j < a.nt && in_box(a, lon[j], lat[j], amp[j])) any = true;
+      }
+      if (any) hit[lane] = 1;
     }
+    __syncthreads();
+    done = hit[lane] != 0;
   }
+  if (warp == 0 && i < a.R && hit[lane]) a.keep[i] = true;
 }
 
 // points_kernel's persistent grid: the blocks the card keeps resident.
@@ -526,8 +578,8 @@ int launch_flux(const FluxArgs<F>& a, cudaStream_t stream) {
 template <typename F>
 int launch_region(const RegionArgs<F>& a, cudaStream_t stream) {
   if (a.R <= 0 || a.nt <= 0) return cudaSuccess;
-  const int block = 256;
-  region_kernel<F><<<(a.R + block - 1) / block, block, 0, stream>>>(a);
+  region_kernel<F><<<(a.R + kRegionRays - 1) / kRegionRays,
+                     kRegionRays * kRegionWarps, 0, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -4,8 +4,9 @@
 // interp._packed_cell, _packed_corner_lerp, mercator_transform and
 // groupvel.group_velocity_core fused in (XLA fused these on the TPU; there
 // is no Pallas original). Plain PyTorch version: rwrt_tpu_torch/models/ray.py
-// _rhs_core. Used for the initial FSAL stage f0 and by select_initial_step;
-// the dense kernels (dense_run.cu) call the same __device__ function inline.
+// _rhs_core. Launched by ray.rhs and ray.rhs_and_gv (the RK4 re-run of
+// --report-exact); every integrator kernel and the adaptive runs' entry
+// stage (entry.cu) call the same __device__ function inline.
 //
 // What bounds it on an H100: per lane 40 B of state in, 41-57 B out and one
 // 192 B (float32) row gathered from the ~2 MB packed background, which stays

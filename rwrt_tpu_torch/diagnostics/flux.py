@@ -185,8 +185,10 @@ def _region_plain(lon, lat, amp, keep, lon_range, lat_range):
 
 
 def _region_cuda(lon, lat, amp, keep, lon_range, lat_range):
-    """Launch the region pass: one thread per ray over the (nt, R) rows,
-    OR-ing into a copy of ``keep``."""
+    """Launch the region pass over the (nt, R) rows, OR-ing into a copy
+    of ``keep``: 32 rays a block, their rows in tiles of 64, each ray's
+    reads ending with the tile of its first live point in the box (none
+    for a ray ``keep`` already holds)."""
     global REGION_LAUNCHES
     lon, lat, amp = (_rows(x) for x in (lon, lat, amp))
     nt, r = lon.shape

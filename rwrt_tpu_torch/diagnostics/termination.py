@@ -11,10 +11,11 @@ ray's killing interval in one batch on the basic state's device and
 applies the kill masks to the recovered candidate state. On the card the
 RK45 re-run is one launch of the interval kernel
 (``rk45.integrate_interval_rays``: ``csrc/interval.cu``, each lane's loop
-to its own bound in registers), after the initial step's RHS launches
-(``ray.rhs``: ``csrc/rhs.cu``, or ``rhs_time.cu`` at each lane's own time
-over a time-varying background); the RK4 re-run's one step is four RHS
-launches.
+to its own bound in registers), after one launch of the entry-stage
+kernel for the initial step (``tracer.entry_stage``: ``csrc/entry.cu``,
+at each lane's own time over a time-varying background); the RK4
+re-run's one step is four RHS launches (``ray.rhs``: ``csrc/rhs.cu``, or
+``rhs_time.cu``).
 """
 
 from __future__ import annotations
@@ -129,9 +130,11 @@ def cause_labels(traj, bs, config, death_step, rhs=None,
       other    -- death not reproduced by the re-run
 
     ``rhs`` (bg, y, t) -> (dy, err) evaluates the RHS: by default
-    ``ray.rhs``, the RHS kernel on a CUDA state, and the RK45 re-run
-    through ``rk45.integrate_interval_rays`` (one launch of the interval
-    kernel on a CUDA state, the plain loop on a CPU one); a plain callable
+    ``ray.rhs``, the RHS kernel on a CUDA state, and the RK45 re-run's
+    initial step through ``tracer.entry_stage`` and its loop through
+    ``rk45.integrate_interval_rays`` (one launch of the entry kernel and
+    one of the interval kernel on a CUDA state, the plain versions on a
+    CPU one); a plain callable
     (``lambda bg, y, t: ray._rhs_core(bg, y, t, False)[:2]``) runs the
     plain version, through ``rk45.integrate_interval`` in RK45. ``stats``
     (a dict, or None) receives the re-run's candidate state (``"state"``,
@@ -179,13 +182,14 @@ def cause_labels(traj, bs, config, death_step, rhs=None,
         min_step = rk45_mod.as_scalar(
             min(config.min_step_factor * config.tstep,
                 config.tstep * 1e-3), dtype)
-        h0 = rk45_mod.select_initial_step(rhs_fn, y, rhs_fn(y, t0), rtol,
-                                          atol, t0)
         if plain:
+            h0 = rk45_mod.select_initial_step(rhs_fn, y, rhs_fn(y, t0), rtol,
+                                              atol, t0)
             out = rk45_mod.integrate_interval(
                 rhs_fn, y, t0, h0, bound, rtol, atol, min_step,
                 max_iters=max_iters)
         else:
+            h0 = tracer_mod.entry_stage(bg, y, t0, rtol, atol)[0]
             out = rk45_mod.integrate_interval_rays(
                 bg, y, t0, h0, bound, rtol, atol, min_step,
                 max_iters=max_iters)

@@ -47,7 +47,8 @@ CONTRACTED = ("pow_fmad.cu",)
 RELOCATABLE = ("dense_run_f64.cu", "dense_run_mix.cu", "exact_run_f64.cu",
                "exact_run_mix.cu", "dense_run_time_f64.cu",
                "dense_run_time_mix.cu", "exact_run_time_f64.cu",
-               "exact_run_time_mix.cu", "interval_f64.cu", *CONTRACTED)
+               "exact_run_time_mix.cu", "interval_f64.cu", "entry_f64.cu",
+               "entry_time_f64.cu", *CONTRACTED)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,6 +59,8 @@ _D = ctypes.c_double
 SIGNATURES = {
     # packed, W, H, lon0, lat0, dx, dy, y, R, dy_out, err, ug, vg, stream
     "rwrt_rhs": (_P, _I, _I, _D, _D, _D, _D, _P, _I, _P, _P, _P, _P, _P),
+    # packed, W, H, lon0, lat0, dx, dy, y, R, rtol, atol, f0, h, stream
+    "rwrt_entry": (_P, _I, _I, _D, _D, _D, _D, _P, _I, _D, _D, _P, _P, _P),
     # packed, W, H, lon0, lat0, dx, dy, y, t, h, f, rejected, new_step,
     # lane_att, hist, bounds, G, R, rtol, atol, min_step, max_iters,
     # pin_limit, pin_mwn, stream
@@ -119,22 +122,23 @@ SIGNATURES = {
 #: The time instances' entry points (``<name>_time``: a time-varying or
 #: ensemble background, ``models.ray.kernel_background``): the static
 #: signature with the background's nt, timed, t0, dt and member map after
-#: the grid (packed, W, H, lon0, lat0, dx, dy); the RHS's takes the lanes'
-#: times (a pointer) after y, the RK4 run the carry's time after cut_off.
+#: the grid (packed, W, H, lon0, lat0, dx, dy); the RHS's and the entry
+#: stage's take the lanes' times (a pointer) after y, the RK4 run the
+#: carry's time after cut_off.
 _VAR = (_I, _I, _D, _D, _P)
 
 
 def _time_signature(name: str) -> tuple:
     sig = SIGNATURES[name]
     sig = sig[:7] + _VAR + sig[7:]
-    if name == "rwrt_rhs":
+    if name in ("rwrt_rhs", "rwrt_entry"):
         sig = sig[:13] + (_P,) + sig[13:]
     if name == "rwrt_rk4_run":
         sig = sig[:-2] + (_D,) + sig[-2:]
     return sig
 
 
-for _name in ("rwrt_rhs", "rwrt_rk4_run", "rwrt_exact_run",
+for _name in ("rwrt_rhs", "rwrt_entry", "rwrt_rk4_run", "rwrt_exact_run",
               "rwrt_dense_run", "rwrt_exact_group", "rwrt_dense_group",
               "rwrt_interval"):
     SIGNATURES[_name + "_time"] = _time_signature(_name)
@@ -148,8 +152,9 @@ SIGNATURES["rwrt_interval_resident_time"] = SIGNATURES[
 
 #: The entry points that also have a mixed-precision instance (``_mix``: a
 #: float64 state over float32 fields): the integrator kernels, whole run
-#: and single group, and their occupancy counts.
-MIXED = ("rwrt_rk4_run", "rwrt_rk4_resident", "rwrt_exact_run",
+#: and single group, their occupancy counts, and the entry stage.
+MIXED = ("rwrt_entry", "rwrt_entry_time", "rwrt_rk4_run",
+         "rwrt_rk4_resident", "rwrt_exact_run",
          "rwrt_exact_group", "rwrt_exact_resident", "rwrt_dense_run",
          "rwrt_dense_group", "rwrt_rk4_run_time", "rwrt_rk4_resident_time",
          "rwrt_exact_run_time", "rwrt_exact_resident_time",

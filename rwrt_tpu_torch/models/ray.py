@@ -135,6 +135,12 @@ def _sample_sanitized(bg: Background, lon, lat, t, dead):
     return torch.where(oob, fill, f)
 
 
+def timed(bg: Background) -> bool:
+    """Whether a sample of ``bg`` depends on time: a 4-D stack without
+    member_ids, a 5-D one with them (``kernel_background``'s rule)."""
+    return bg.fields.ndim == (4 if bg.member_ids is None else 5)
+
+
 def kernel_background(bg: Background, device, dtype, lanes: int):
     """The background as a kernel launch takes it: (variant, args).
 
@@ -168,9 +174,9 @@ def kernel_background(bg: Background, device, dtype, lanes: int):
     if member is not None:
         kernels.check_tensor(member, "member_ids", device=device,
                              dtype=torch.int32, shape=(lanes,))
-    timed = packed.ndim == 5 or member is None
-    nt = packed.shape[-4] if timed else 1
-    return "_time", args + (nt, int(timed), bg.bg_t0, bg.bg_dt, member)
+    lerp = timed(bg)
+    nt = packed.shape[-4] if lerp else 1
+    return "_time", args + (nt, int(lerp), bg.bg_t0, bg.bg_dt, member)
 
 
 def fail_mask(y: torch.Tensor) -> torch.Tensor:

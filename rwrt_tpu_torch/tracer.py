@@ -40,7 +40,9 @@ has a mixed instance (``_mix``, ``kernels.launch``) beside its float32
 and float64 ones, which the wrappers take for a float64 state over a
 float32 background, and a time instance of each (``_time``), which they
 take for a time-varying or ensemble background
-(``models.ray.kernel_background``).
+(``models.ray.kernel_background``). Before an adaptive run's one launch,
+its entry stage (f0 and Hairer's initial step) is one launch of
+``csrc/entry.cu`` (``entry_stage``, ``ENTRY_LAUNCHES``).
 
 The ray batch is flattened to R = 3 * nsource * nzwn lanes in C order of
 (root, source, zwn), so results reshape directly to (nt, 3, nsource, nzwn).
@@ -223,10 +225,66 @@ def _dense_postpass(bg, hist, y, t, h, f, prev_lon, prev_lat, cut_off,
         hist_k, ugs.reshape(g, r), vgs.reshape(g, r))
 
 
+#: Entry-stage kernel launches (``csrc/entry.cu``) in this process.
+ENTRY_LAUNCHES = 0
+
+
+def entry_stage(bg, y0, t0, rtol, atol):
+    """The adaptive runs' entry stage at time ``t0`` (a Python float or a
+    per-lane tensor of the state's dtype): (h0 (R,), f0 (5, R)), the
+    initial step (``rk45.select_initial_step``) and the FSAL stage
+    rhs(y0, t0), f0 in the background's dtype. On a CUDA state one launch
+    of ``csrc/entry.cu``; on a CPU state the plain composition
+    (``_entry_stage_plain``)."""
+    run = _entry_stage_cuda if y0.is_cuda else _entry_stage_plain
+    return run(bg, y0, t0, rtol, atol)
+
+
+def _entry_stage_plain(bg, y0, t0, rtol, atol):
+    """The plain version (any device): f0 = rhs(y0, t0) and
+    ``select_initial_step`` over the plain RHS ``ray._rhs_core``."""
+
+    def rhs_fn(yy, tt=0.0):
+        return ray_mod._rhs_core(bg, yy, tt, False)[0]
+
+    f0 = rhs_fn(y0, t0)
+    return rk45_mod.select_initial_step(rhs_fn, y0, f0, rtol, atol, t0), f0
+
+
+def _entry_stage_cuda(bg, y0, t0, rtol, atol):
+    """Launch the entry-stage kernel: one thread per lane computes f0 and
+    the initial step in registers. A static background takes the static
+    instance, which forms no time; any other the time instance, with the
+    lanes' times."""
+    global ENTRY_LAUNCHES
+    key = kernels.state_key(y0, bg.fields)
+    if y0.ndim != 2 or y0.shape[0] != 5:
+        raise ValueError(f"y0 must be (5, R); got {tuple(y0.shape)}")
+    y0 = y0.contiguous()
+    dev, sdt = y0.device, y0.dtype
+    r = y0.shape[1]
+    variant, bg_args = ray_mod.kernel_background(bg, dev, key[1], r)
+    extra = ()
+    if variant:
+        if torch.is_tensor(t0):
+            t0 = (t0.expand(r) if t0.ndim == 0 else t0).contiguous()
+            kernels.check_tensor(t0, "t0", device=dev, dtype=sdt,
+                                 shape=(r,))
+        else:
+            t0 = torch.full((r,), float(t0), dtype=sdt, device=dev)
+        extra = (t0,)
+    f0 = torch.empty((5, r), dtype=key[1], device=dev)
+    h0 = torch.empty(r, dtype=sdt, device=dev)
+    kernels.launch(f"rwrt_entry{variant}", key, *bg_args, y0, *extra, r,
+                   float(rtol), float(atol), f0, h0, kernels.stream(dev))
+    ENTRY_LAUNCHES += 1
+    return h0, f0
+
+
 def initial_step_sizes(bg, y0, rtol, atol):
-    """Per-ray initial h for the adaptive solver."""
-    rhs_fn = ray_mod.RayRHS(bg)
-    return rk45_mod.select_initial_step(rhs_fn, y0, rhs_fn(y0), rtol, atol)
+    """Per-ray initial h for the adaptive solver (the entry stage's h0 at
+    t = 0)."""
+    return entry_stage(bg, y0, 0.0, rtol, atol)[0]
 
 
 #: Whole-run kernel launches in this process: the dense run
@@ -620,8 +678,7 @@ def _run_rk45_grouped(bg, y0, ug0, vg0, dt, nt, cut_off, rtol, atol,
     mode iters leaves out the bound-per-trip walk of NaN-amp lanes, which
     the JAX package's trip count includes.
     """
-    h0 = initial_step_sizes(bg, y0, rtol, atol)
-    f0 = ray_mod.RayRHS(bg)(y0, torch.zeros_like(y0[0]))
+    h0, f0 = entry_stage(bg, y0, 0.0, rtol, atol)
     bounds_g = padded_bounds(dt, nt, group, y0.dtype, y0.device)
     args = (bg, y0, ug0, vg0, h0, f0, bounds_g, nt - 1, cut_off, rtol, atol,
             min_step, max_iters)
@@ -689,13 +746,13 @@ def _run_rk45(bg, y0, ug0, vg0, dt, nt, cut_off, rtol, atol, min_step,
     Returns (ys, ugs, vgs, iters, nfev, trunc, lane_att) as
     ``_run_rk45_grouped`` does, with one group per output interval.
     """
-    h0 = initial_step_sizes(bg, y0, rtol, atol)
     if y0.is_cuda:
-        f0 = ray_mod.RayRHS(bg)(y0)
+        h0, f0 = entry_stage(bg, y0, 0.0, rtol, atol)
         bounds_g = padded_bounds(dt, nt, 1, y0.dtype, y0.device)
         return _run_outputs(_exact_run_cuda(
             bg, y0, ug0, vg0, h0, f0, bounds_g, nt - 1, cut_off, rtol, atol,
             min_step, max_iters, barrier=True))
+    h0 = initial_step_sizes(bg, y0, rtol, atol)
     t_bounds = torch.arange(1, nt, dtype=y0.dtype, device=y0.device) * dt
     _, (ys, ugs, vgs, iters, nfev, lane_att, trunc) = _rk45_chunk(
         bg, y0, torch.zeros_like(y0[0]), h0, t_bounds, cut_off, rtol, atol,

@@ -389,15 +389,23 @@ def trace_rays_chunked(
         hist[k][: hist_l[k].shape[0]] = hist_l[k]
 
     rk45 = config.integrator == "rk45"
-    if rk45 and h is None:
-        h = _tracer.initial_step_sizes(bg, y, rtol, atol)
+    f = None
+    if rk45:
+        # The entry stage (one launch of the entry kernel on the card) at
+        # the start and on resume: the FSAL carry f = rhs(y) at each ray's
+        # own time, then carried from chunk to chunk, and the initial step
+        # where the checkpoint holds none. A fresh run enters at t = 0, the
+        # initial step's time. A resume without a saved h takes it at
+        # t = 0, as the JAX driver does: the same launch's h where samples
+        # do not depend on time, a second launch at t = 0 where they do.
+        # The kill test's last position needs no carry: each unit starts
+        # it at its entry state, the last saved one.
+        h_entry, f = _tracer.entry_stage(bg, y, t, rtol, atol)
+        if h is None:
+            h = (_tracer.initial_step_sizes(bg, y, rtol, atol)
+                 if resuming and ray_mod.timed(bg) else h_entry)
     elif h is None:
         h = torch.zeros(n_lanes, dtype=dtype, device=device)
-    # The FSAL carry: f = rhs(y) at each ray's own time, computed here (the
-    # RHS kernel on the card) at the start and on resume, then carried from
-    # chunk to chunk. The kill test's last position needs no carry: each
-    # unit starts it at its entry state, the last saved one.
-    f = ray_mod.RayRHS(bg)(y, t) if rk45 else None
 
     def resort():
         """Reorder lanes by current grid cell (stable; NaN lanes last)."""

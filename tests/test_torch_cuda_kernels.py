@@ -28,7 +28,10 @@ loop to its own bound in one launch) is bitwise the plain loop in every
 instance, static and time-varying, at caps that bind and that do not;
 ``termination.classify``'s re-run on the card goes through it (RK45) or
 the RHS kernel (RK4) and labels every lane as the plain RHS does. The
-gather kernel is a copy: bitwise. Gradients take the plain route on the
+entry-stage kernel (``tracer.entry_stage``: f0 and the initial step in
+one launch) is bitwise its plain route in every instance, and every
+adaptive path makes one entry launch and no RHS launch. The gather
+kernel is a copy: bitwise. Gradients take the plain route on the
 card (the roots' implicit-function backward equal to the CPU's, a
 gradient through prepare -> RK4 equal to the CPU's to 1e-9), and every
 kernel launch refuses a gradient-carrying input.
@@ -544,10 +547,12 @@ def test_trace_rays_on_cuda_goes_through_the_kernels(jet_field, dev):
                        bound_mode="dense", interval_batch=16, pin_limit=500,
                        pin_mwn=0.0)
     r0, d0, t0 = ray.LAUNCHES, rk45.LAUNCHES, tracer.LAUNCHES
+    e0 = tracer.ENTRY_LAUNCHES
     out = pt.trace_rays(bs, cfg)
-    # The RHS kernel for the set-up, one whole-run dense launch, and no
-    # single-group launch.
-    assert ray.LAUNCHES > r0 and tracer.LAUNCHES == t0 + 1
+    # One entry-stage launch for the set-up (f0 and h0), no RHS launch,
+    # one whole-run dense launch, and no single-group launch.
+    assert tracer.ENTRY_LAUNCHES == e0 + 1 and ray.LAUNCHES == r0
+    assert tracer.LAUNCHES == t0 + 1
     assert rk45.LAUNCHES == d0
     assert out.lon.shape == (49, 3, 20, 3) and out.lon.is_cuda
     alive = torch.isfinite(out.ky[-1])
@@ -557,7 +562,8 @@ def test_trace_rays_on_cuda_goes_through_the_kernels(jet_field, dev):
 @pytest.mark.parametrize("branch", ["rk4", "exact", "exact_batch1"])
 def test_trace_rays_other_branches_launch_once(jet_field, dev, branch):
     """rk4 and exact mode on the card: one launch of the branch's kernel,
-    no dense launch, finite rows on the lanes alive at the end."""
+    no dense launch, finite rows on the lanes alive at the end; exact mode
+    one entry-stage launch before it and no RHS launch."""
     u, v, lat, lon = jet_field
     bs = pt.prepare(u, v, lat, lon, cal_dtype="float32", device=dev)
     cfg = pt.RunConfig(
@@ -565,11 +571,13 @@ def test_trace_rays_other_branches_launch_once(jet_field, dev, branch):
         nnx=5, nny=4, tstep=7200.0, ttotal=4 * 86400.0,
         integrator="rk4" if branch == "rk4" else "rk45",
         interval_batch=1 if branch == "exact_batch1" else 16)
-    before = (tracer.LAUNCHES, tracer.RK4_LAUNCHES, tracer.EXACT_LAUNCHES)
+    before = (tracer.LAUNCHES, tracer.RK4_LAUNCHES, tracer.EXACT_LAUNCHES,
+              tracer.ENTRY_LAUNCHES, ray.LAUNCHES)
     stats = {}
     out = pt.trace_rays(bs, cfg, stats=stats)
-    after = (tracer.LAUNCHES, tracer.RK4_LAUNCHES, tracer.EXACT_LAUNCHES)
-    want = (0, 1, 0) if branch == "rk4" else (0, 0, 1)
+    after = (tracer.LAUNCHES, tracer.RK4_LAUNCHES, tracer.EXACT_LAUNCHES,
+             tracer.ENTRY_LAUNCHES, ray.LAUNCHES)
+    want = (0, 1, 0, 0, 0) if branch == "rk4" else (0, 0, 1, 1, 0)
     assert tuple(a - b for a, b in zip(after, before)) == want
     assert ("lane_att" in stats) == (branch != "rk4")
     assert out.lon.shape == (49, 3, 20, 3) and out.lon.is_cuda
@@ -725,8 +733,9 @@ def test_single_group_kernels_refuse_mixed(jet_field, dev):
 @pytest.mark.parametrize("branch", ["rk4", "exact", "exact_batch1", "dense"])
 def test_trace_rays_mixed_launches_once(jet_field, dev, branch):
     """state_dtype='float64' over a float32 background on the card: one
-    launch of the branch's kernel, all seven outputs float64, finite rows
-    on the lanes alive at the end."""
+    launch of the branch's kernel (the adaptive ones after one launch of
+    the entry stage's mixed instance, no RHS launch), all seven outputs
+    float64, finite rows on the lanes alive at the end."""
     u, v, lat, lon = jet_field
     bs = pt.prepare(u, v, lat, lon, cal_dtype="float32", device=dev)
     cfg = pt.RunConfig(
@@ -737,12 +746,14 @@ def test_trace_rays_mixed_launches_once(jet_field, dev, branch):
         interval_batch=1 if branch == "exact_batch1" else 16,
         state_dtype="float64")
     before = (tracer.LAUNCHES, tracer.RK4_LAUNCHES, tracer.EXACT_LAUNCHES,
-              rk45.LAUNCHES, rk45.EXACT_LAUNCHES)
+              rk45.LAUNCHES, rk45.EXACT_LAUNCHES, tracer.ENTRY_LAUNCHES,
+              ray.LAUNCHES)
     out = pt.trace_rays(bs, cfg)
     after = (tracer.LAUNCHES, tracer.RK4_LAUNCHES, tracer.EXACT_LAUNCHES,
-             rk45.LAUNCHES, rk45.EXACT_LAUNCHES)
-    want = {"rk4": (0, 1, 0, 0, 0), "dense": (1, 0, 0, 0, 0)}.get(
-        branch, (0, 0, 1, 0, 0))
+             rk45.LAUNCHES, rk45.EXACT_LAUNCHES, tracer.ENTRY_LAUNCHES,
+             ray.LAUNCHES)
+    want = {"rk4": (0, 1, 0, 0, 0, 0, 0), "dense": (1, 0, 0, 0, 0, 1, 0)}.get(
+        branch, (0, 0, 1, 0, 0, 1, 0))
     assert tuple(a - b for a, b in zip(after, before)) == want
     for name in out._fields:
         assert getattr(out, name).dtype == torch.float64, name
@@ -757,7 +768,8 @@ def test_trace_rays_mixed_launches_once(jet_field, dev, branch):
 def test_chunked_driver_launches_once_per_chunk(jet_field, dev, branch,
                                                 state):
     """``trace_rays_chunked`` on the card: one launch of the branch's
-    whole-run kernel per chunk and no other integrator launch; with
+    whole-run kernel per chunk and no other integrator launch (the
+    adaptive ones one entry-stage launch at the start, no RHS launch); with
     chunk_steps equal to the group, compaction off, rows bitwise equal to
     ``trace_rays``' (host tensors)."""
     from rwrt_tpu_torch.utils import checkpoint
@@ -773,13 +785,16 @@ def test_chunked_driver_launches_once_per_chunk(jet_field, dev, branch,
         compact_dead=False, state_dtype=state)
     want = pt.trace_rays(bs, cfg)
     before = (tracer.LAUNCHES, tracer.RK4_LAUNCHES, tracer.EXACT_LAUNCHES,
-              rk45.LAUNCHES, rk45.EXACT_LAUNCHES)
+              rk45.LAUNCHES, rk45.EXACT_LAUNCHES, tracer.ENTRY_LAUNCHES,
+              ray.LAUNCHES)
     got = checkpoint.trace_rays_chunked(bs, cfg, chunk_steps=8,
                                         verbose=False)
     after = (tracer.LAUNCHES, tracer.RK4_LAUNCHES, tracer.EXACT_LAUNCHES,
-             rk45.LAUNCHES, rk45.EXACT_LAUNCHES)
-    want_launches = {"rk4": (0, 6, 0, 0, 0), "dense": (6, 0, 0, 0, 0)}.get(
-        branch, (0, 0, 6, 0, 0))
+             rk45.LAUNCHES, rk45.EXACT_LAUNCHES, tracer.ENTRY_LAUNCHES,
+             ray.LAUNCHES)
+    want_launches = {"rk4": (0, 6, 0, 0, 0, 0, 0),
+                     "dense": (6, 0, 0, 0, 0, 1, 0)}.get(
+        branch, (0, 0, 6, 0, 0, 1, 0))
     assert tuple(a - b for a, b in zip(after, before)) == want_launches
     for name in want._fields:
         a, b = getattr(want, name), getattr(got, name)
@@ -1149,9 +1164,10 @@ def test_classify_evaluates_through_the_rhs_kernel(jet_field, dev,
                                                    integrator, kind):
     """``termination.classify``'s re-run on the card: RK4's one step four
     launches of the RHS kernel (its time instance over daily frames);
-    RK45's two RHS launches for the initial step, then one launch of the
-    interval kernel for the whole re-run; no other kernel; per-lane labels
-    and candidate states equal to the plain RHS's run on the card."""
+    RK45's one entry-stage launch for the initial step and no RHS launch,
+    then one launch of the interval kernel for the whole re-run; no other
+    kernel; per-lane labels and candidate states equal to the plain RHS's
+    run on the card."""
     from rwrt_tpu_torch.diagnostics import flux, termination
 
     cfg = pt.RunConfig(zwn=(1.0, 3.0, 5.0), sw_lon=0.0, sw_lat=-60.0,
@@ -1169,16 +1185,17 @@ def test_classify_evaluates_through_the_rhs_kernel(jet_field, dev,
     death = termination.analyze(traj).death_step
     assert int(((death >= 1) & (death < cfg.nt)).sum()) > 0
     def counts():
-        return (ray.LAUNCHES, rk45.INTERVAL_LAUNCHES, rk45.LAUNCHES,
-                rk45.EXACT_LAUNCHES, tracer.LAUNCHES, tracer.RK4_LAUNCHES,
-                tracer.EXACT_LAUNCHES, flux.LAUNCHES)
+        return (ray.LAUNCHES, rk45.INTERVAL_LAUNCHES, tracer.ENTRY_LAUNCHES,
+                rk45.LAUNCHES, rk45.EXACT_LAUNCHES, tracer.LAUNCHES,
+                tracer.RK4_LAUNCHES, tracer.EXACT_LAUNCHES, flux.LAUNCHES)
 
     before = counts()
     ks, ps = {}, {}
     k = termination.cause_labels(traj, bs, cfg, death, stats=ks)
     after = counts()
     moved = tuple(a - b for a, b in zip(after, before))
-    assert moved == ((4, 0) if integrator == "rk4" else (2, 1)) + (0,) * 6
+    assert moved == ((4, 0, 0) if integrator == "rk4" else (0, 1, 1)) + (
+        0,) * 6
     p = termination.cause_labels(
         traj, bs, cfg, death,
         rhs=lambda bg, y, t: ray._rhs_core(bg, y, t, False)[:2], stats=ps)
@@ -1742,3 +1759,246 @@ def test_dense_run_grid_and_private_arguments(jet_field, dev):
     for bad in (dict(_blocks=0), dict(_repack=0), dict(_trigger=0)):
         with pytest.raises(ValueError):
             dense_cuda(first_lanes(args, 33), kw, **bad)
+
+
+# ---- The adaptive runs' entry stage (csrc/entry.cu) ----
+
+ENTRY_KINDS = ["static", "time", "member", "member_time"]
+
+
+def entry_case(jet_field, dev, key, kind, states):
+    """(bg, y0, t0) for the entry kernel: the 207-lane entry state of
+    ``dense_run_inputs`` (72 rootless lanes: NaN ky and amp), or 5,000
+    seeded states (|lat| past pi/2, the polar cap, |ky| >= 100, NaN lon,
+    ky and amp), in the state's dtype; per-lane times over and past the
+    frames of the time backgrounds."""
+    state, field = KEYS[key]
+    if states == "entry":
+        _, bg0 = background(jet_field, field, dev)
+        (y0, *_), _ = dense_run_inputs(bg0, field, dev, state=state)
+    else:
+        y0 = seeded_states(state, dev)
+    r = y0.shape[1]
+    bg = (background(jet_field, field, dev)[1] if kind == "static"
+          else varying_background(jet_field, kind, field, dev, r))
+    rng = np.random.default_rng(17)
+    t0 = torch.as_tensor(rng.uniform(-0.5 * DAY, 1.5 * DAY, r), dtype=state,
+                         device=dev)
+    return bg, y0, t0
+
+
+@pytest.mark.parametrize("states", ["entry", "seeded"])
+@pytest.mark.parametrize("kind", ENTRY_KINDS)
+@pytest.mark.parametrize("key", list(KEYS))
+def test_entry_kernel_equals_plain(jet_field, dev, key, kind, states):
+    """``tracer.entry_stage`` on the card (one launch of the entry kernel,
+    no RHS launch) against its plain route on the card, bitwise: h0 and f0
+    in float32, float64 and mixed, static and time instances (daily
+    frames, members, time-varying members), at t0 = 0 and at per-lane
+    times."""
+    bg, y0, t0 = entry_case(jet_field, dev, key, kind, states)
+    rtol = rk45.validate_tol(1e-6, y0.dtype)
+    for t in (0.0, t0):
+        before = (tracer.ENTRY_LAUNCHES, ray.LAUNCHES)
+        h, f = tracer.entry_stage(bg, y0, t, rtol, 1e-6)
+        assert (tracer.ENTRY_LAUNCHES, ray.LAUNCHES) == (before[0] + 1,
+                                                         before[1])
+        ph, pf = tracer._entry_stage_plain(bg, y0, t, rtol, 1e-6)
+        assert h.dtype == y0.dtype and f.dtype == bg.fields.dtype
+        assert same(h, ph) and same(f, pf)
+        assert bool(torch.isfinite(h).any())
+
+
+def test_entry_stage_refuses_bad_inputs(jet_field, dev):
+    """The entry kernel's wrapper: a (4, R) state, a float32 state over
+    float64 fields, a per-lane time of another dtype or length, a member
+    map of another length, and a gradient-carrying state all raise."""
+    _, bg = background(jet_field, torch.float32, dev)
+    y = seeded_states(torch.float32, dev, n=64)
+    with pytest.raises(ValueError):
+        tracer.entry_stage(bg, y[:4], 0.0, 1e-5, 1e-6)
+    _, bg64 = background(jet_field, torch.float64, dev)
+    with pytest.raises(ValueError):
+        tracer.entry_stage(bg64, y, 0.0, 1e-5, 1e-6)
+    tv = varying_background(jet_field, "time", torch.float32, dev)
+    for t in (torch.zeros(64, dtype=torch.float64, device=dev),
+              torch.zeros(63, device=dev)):
+        with pytest.raises(ValueError):
+            tracer.entry_stage(tv, y, t, 1e-5, 1e-6)
+    members = varying_background(jet_field, "member", torch.float32, dev, 63)
+    with pytest.raises(ValueError):
+        tracer.entry_stage(members, y, 0.0, 1e-5, 1e-6)
+    with pytest.raises(RuntimeError):
+        tracer.entry_stage(bg, y.clone().requires_grad_(), 0.0, 1e-5, 1e-6)
+    # A non-contiguous state is taken as its contiguous copy.
+    k = tracer.entry_stage(bg, y.t().contiguous().t(), 0.0, 1e-5, 1e-6)
+    p = tracer._entry_stage_plain(bg, y, 0.0, 1e-5, 1e-6)
+    assert same(k[0], p[0]) and same(k[1], p[1])
+
+
+@pytest.mark.parametrize("kind", ["static", "time"])
+def test_chunked_resume_makes_one_entry_launch(jet_field, dev, kind,
+                                               tmp_path):
+    """The chunked driver's start and its resume from a checkpoint each
+    make one entry-stage launch and no RHS launch; the resumed rows are
+    the uninterrupted run's, bitwise."""
+    from rwrt_tpu_torch.utils import checkpoint
+
+    if kind == "time":
+        fu, fv, lat, lon = frames(jet_field)
+        bs = pt.prepare_time_varying(fu, fv, lat, lon, bg_t0=-0.3 * DAY,
+                                     bg_dt=0.2 * DAY, cal_dtype="float32",
+                                     device=dev)
+    else:
+        bs, _ = background(jet_field, torch.float32, dev)
+    cfg = pt.RunConfig(zwn=(2.0, 4.0, 6.0), sw_lon=0.0, sw_lat=5.0,
+                       dlon=36.0, dlat=8.0, nnx=5, nny=4, tstep=7200.0,
+                       ttotal=2 * DAY, integrator="rk45", bound_mode="dense",
+                       interval_batch=8, compact_dead=False)
+    want = checkpoint.trace_rays_chunked(bs, cfg, chunk_steps=8,
+                                         verbose=False)
+    path = str(tmp_path / "ck.npz")
+    counts = []
+    for _ in range(2):
+        before = (tracer.ENTRY_LAUNCHES, ray.LAUNCHES)
+        try:
+            got = checkpoint.trace_rays_chunked(
+                bs, cfg, chunk_steps=8, checkpoint_path=path, max_chunks=2,
+                verbose=False)
+        except checkpoint.ChunkBudgetReached:
+            got = None
+        counts.append((tracer.ENTRY_LAUNCHES - before[0],
+                       ray.LAUNCHES - before[1]))
+    assert counts == [(1, 0), (1, 0)]
+    for name in want._fields:
+        assert same(getattr(want, name), getattr(got, name)), name
+
+
+@pytest.mark.parametrize("kind", ["static", "time"])
+def test_chunked_resume_without_saved_h(jet_field, dev, kind, tmp_path):
+    """A resume from a checkpoint that holds no step size takes h at
+    t = 0: one entry-stage launch over a static background (the launch at
+    the lanes' times gives that h), two over a time-varying one (the
+    second at t = 0); no RHS launch. The rows the checkpoint holds are the
+    uninterrupted run's, bitwise, and every ray alive there runs on."""
+    from rwrt_tpu_torch.utils import checkpoint
+
+    if kind == "time":
+        fu, fv, lat, lon = frames(jet_field)
+        bs = pt.prepare_time_varying(fu, fv, lat, lon, bg_t0=-0.3 * DAY,
+                                     bg_dt=0.2 * DAY, cal_dtype="float32",
+                                     device=dev)
+    else:
+        bs, _ = background(jet_field, torch.float32, dev)
+    cfg = pt.RunConfig(zwn=(2.0, 4.0, 6.0), sw_lon=0.0, sw_lat=5.0,
+                       dlon=36.0, dlat=8.0, nnx=5, nny=4, tstep=7200.0,
+                       ttotal=2 * DAY, integrator="rk45", bound_mode="dense",
+                       interval_batch=8, compact_dead=False)
+    want = checkpoint.trace_rays_chunked(bs, cfg, chunk_steps=8,
+                                         verbose=False)
+    path = str(tmp_path / "ck.npz")
+    with pytest.raises(checkpoint.ChunkBudgetReached):
+        checkpoint.trace_rays_chunked(bs, cfg, chunk_steps=8,
+                                      checkpoint_path=path, max_chunks=2,
+                                      verbose=False)
+    with np.load(path) as ds:
+        saved = dict(ds)
+    step = int(saved["step"])
+    saved["h"] = np.array(0.0)  # a checkpoint without a step size
+    np.savez_compressed(path, **saved)
+    before = (tracer.ENTRY_LAUNCHES, ray.LAUNCHES)
+    got = checkpoint.trace_rays_chunked(bs, cfg, chunk_steps=8,
+                                        checkpoint_path=path, max_chunks=2,
+                                        verbose=False)
+    assert (tracer.ENTRY_LAUNCHES - before[0], ray.LAUNCHES - before[1]) \
+        == ((2 if kind == "time" else 1), 0)
+    for name in want._fields:
+        assert same(getattr(want, name)[:step], getattr(got, name)[:step]), \
+            name
+    alive = (torch.isfinite(want.lon[step - 1])
+             & torch.isfinite(want.ky[step - 1]))
+    assert bool(torch.isfinite(got.lon[-1][alive]).any())
+
+
+# ---- The flux region pass in row tiles (csrc/flux.cu region_kernel) ----
+
+REGION_BOXES = {"circle": ((-180.0, 180.0), (20.0, 60.0)),
+                "plain": ((150.0, 240.0), (20.0, 60.0)),
+                "dateline": ((170.0, -160.0), (-30.0, 40.0))}
+
+
+def region_case(nt, r, box, dtype, dev, seed=9):
+    """(nt, r) lon, lat, amp rows laid out as ``trace_rays`` leaves them
+    (views of an (nt, 5, r) stack: a row stride of 5 r), random walks, and
+    rays placed by hand: ray 0's only live in-box point is its last row,
+    ray 1's only in-box row has a NaN amp, ray 2 enters at row 0 only, the
+    rays from r - 40 on enter at their last row only, one ray is dead from
+    row 1; and a ``keep`` holding every 7th ray, as an earlier block of
+    the chunked path leaves it."""
+    rng = np.random.default_rng(seed)
+    lon = np.cumsum(rng.normal(0, 0.1, (nt, r)), 0) + rng.uniform(
+        0, 2 * np.pi, (1, r))
+    lat = np.clip(np.cumsum(rng.normal(0, 0.05, (nt, r)), 0)
+                  + rng.uniform(-1.2, 1.2, (1, r)), -1.5, 1.5)
+    amp = rng.normal(0, 2, (nt, r))
+    (lo0, _), (la0, la1) = box
+    inside = np.radians([lo0 + 1.0, 0.5 * (la0 + la1)])
+    outside = np.radians([lo0 - 5.0, la1 + 10.0])
+    tail = list(range(max(r - 40, 4), r))
+    hand = list(range(min(r, 4))) + tail
+    lon[:, hand], lat[:, hand] = outside
+    for ray, row in ((0, -1), (1, nt // 2), (2, 0)):
+        if ray < r:
+            lon[row, ray], lat[row, ray] = inside
+    if r > 1:
+        amp[nt // 2, 1] = np.nan
+    if r > 3:
+        lon[1:, 3] = lat[1:, 3] = amp[1:, 3] = np.nan
+    lon[-1, tail], lat[-1, tail] = inside
+    stack = np.zeros((nt, 5, r))
+    stack[:, 0], stack[:, 1], stack[:, 4] = lon, lat, amp
+    ys = torch.as_tensor(stack, dtype=dtype, device=dev)
+    keep = torch.zeros(r, dtype=torch.bool, device=dev)
+    keep[::7] = True
+    return ys[:, 0], ys[:, 1], ys[:, 4], keep
+
+
+@pytest.mark.parametrize("r", [1, 45, 1000])
+@pytest.mark.parametrize("nt", [1, 65, 361])
+@pytest.mark.parametrize("mode", list(REGION_BOXES))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_region_kernel_equals_plain(dev, dtype, mode, nt, r):
+    """The region kernel (one launch) against ``_region_plain``, bitwise,
+    with and without a carried ``keep``, over rows with a row stride of
+    5 R, at 1, 65 (a tile and a row) and 361 rows, and at ray counts that
+    are not a multiple of the 32 rays a block; the input ``keep`` is not
+    written."""
+    from rwrt_tpu_torch.diagnostics import flux
+
+    box = REGION_BOXES[mode]
+    lon, lat, amp, carried = region_case(nt, r, box, dtype, dev)
+    assert lon.stride(0) == 5 * r
+    for keep in (torch.zeros_like(carried), carried):
+        held = keep.clone()
+        before = flux.REGION_LAUNCHES
+        k = flux._region_cuda(lon, lat, amp, keep, *box)
+        assert flux.REGION_LAUNCHES == before + 1
+        assert torch.equal(keep, held)
+        p = flux._region_plain(lon, lat, amp, keep, *box)
+        assert torch.equal(k, p)
+    if nt > 1 and r > 40:
+        assert bool(p[0]) and not bool(p[1]) and bool(p[r - 1])
+
+
+def test_region_wrapper_refuses_bad_inputs(dev):
+    """``_region_cuda`` refuses rows of another shape, dtype or device
+    than lon's, and a keep of another shape or dtype."""
+    from rwrt_tpu_torch.diagnostics import flux
+
+    box = REGION_BOXES["plain"]
+    lon, lat, amp, keep = region_case(5, 64, box, torch.float32, dev)
+    for bad in ((lon, lat[:, :63], amp, keep), (lon, lat.double(), amp, keep),
+                (lon, lat, amp.cpu(), keep), (lon, lat, amp, keep[:63]),
+                (lon, lat, amp, keep.int())):
+        with pytest.raises(ValueError):
+            flux._region_cuda(*bad, *box)
