@@ -27,8 +27,10 @@ chunks, one launch each, and the 90-day production run through
 time-varying background (the climatology in daily frames: the jet's
 amplitude varying seasonally, its waves drifting east; ``rt.
 prepare_time_varying``) through the kernels' time instances, and
-``trace_rays_ensemble`` over four "reanalysis year" members. Then the
-file-driven pipeline: ``python -m rwrt_tpu_torch --config run.json`` in
+``trace_rays_ensemble`` over four "reanalysis year" members. Then those
+runs again over a device mesh whose three entries name the one card
+(``rwrt_tpu_torch.parallel.sharding``), one launch per shard, bitwise.
+Then the file-driven pipeline: ``python -m rwrt_tpu_torch --config run.json`` in
 process over wind files of the climatology; over its production-size
 trajectories the Li-Yang wave-ray flux (the flux kernel, and its file
 driver on the trajectory file), exact death causes (``--report-exact``),
@@ -176,6 +178,20 @@ exact_path phase requires and the chunk budget the chunked phase sets):
                bitwise against the plain run;
                kernel ms and peak memory (the exact members in float64:
                float32's time carry stalls their lanes at the backstop)
+  mesh         the device mesh: ``Mesh((cuda:0,) * MESH_SHARDS)``, every
+               counter reset just before each run and read just after (one
+               whole-run launch per shard, an adaptive run's entry stage
+               once per shard): the dense production run (rows, (ug, vg)
+               and attempts bitwise main_path's; its wall beside the
+               meshless run's in turns), in mixed precision (mixed_dense's),
+               the RK4 default run (rk4_path's), the README exact run
+               (exact_path's), the 4-member ensemble (ensemble's); the
+               production run in 6 chunks cut by a budget with a
+               checkpoint, refused on resume under a mesh of 4, resumed
+               (main_path's rows); the wavenumber maps bitwise the
+               meshless maps; a CLI_SHORT_DAYS-day CLI run with --wnmaps
+               with and without --mesh (a mesh of the card count): files
+               bitwise, the report's "mesh" {"rays": 1}
   time_spectral  ``fit_spectral`` of the 31 frames (``fit_spectral_time``),
                ``lerp_coeffs`` at day 10, the spectral kernel at the
                time-varying run's day-10 positions against the plain
@@ -1233,6 +1249,7 @@ def phase_main_path(run):
           f"{pos[0].shape[0]} day-10 points")
     run.launches = launches
     run.day10 = pos
+    run.main_traj, run.main_att = traj, stats["lane_att"]
 
 
 #: Flops of the entry stage a lane beyond its two RHS evaluations, counted
@@ -2949,6 +2966,7 @@ def phase_ensemble(run):
           f"{rec['ms']:.3f} ms, peak device memory {rec['peak']:.1f} MiB "
           "above the prepared state; every member's rows bitwise equal to "
           "its own trace_rays")
+    run.ensemble = (years, ens, out.lane_att)
     del ens
 
     tv = [tv_state(run, TV_DAYS + 1, None, sc, ph)
@@ -2972,6 +2990,224 @@ def phase_ensemble(run):
         "_exact_run", "exact_run", {"float64": EXACT_ATTEMPT_FLOPS},
         {"float64": KILL_FLOPS})
     members_equal_own_runs(run, tv, cfg, ens, "exact_run", "ensemble exact")
+
+
+#: The mesh phase's shards: entries that all name the one card, the port's
+#: form of the JAX package's virtual devices. 60,784 production lanes, 4,288
+#: default-run lanes and 243,016 ensemble lanes each pad by 2.
+MESH_SHARDS = 3
+#: The order in which the dense production run is timed without and with
+#: the mesh.
+MESH_TURNS = ("meshless", "mesh", "mesh", "meshless") * 2
+
+
+def mesh_launches(of, chunks=1):
+    """The launches of a run over the MESH_SHARDS-entry mesh: one launch of
+    ``of`` per shard (per chunk) and, for an adaptive run, one entry-stage
+    launch per shard."""
+    want = {of: MESH_SHARDS * chunks}
+    if of in ("dense_run", "exact_run"):
+        want["entry"] = MESH_SHARDS
+    return want
+
+
+def phase_mesh(run):
+    """The device mesh (``parallel.sharding``) on the card: every run over
+    ``Mesh((cuda:0,) * MESH_SHARDS)``, counters reset just before each and
+    read just after (one whole-run launch per shard, an adaptive run's
+    entry stage once per shard, nothing else), its rows bitwise the rows
+    the earlier phases hold of the same run without a mesh: the dense
+    production run (rows, (ug, vg) and attempts main_path's; its wall and
+    the meshless run's in turns, the split's host cost on one card) and its
+    mixed precision (mixed_dense's), the RK4 default run (rk4_path's), the
+    README exact run (exact_path's), the 4-member ensemble (ensemble's);
+    the production run in chunks of CHUNK_STEPS cut by a two-chunk budget
+    with a checkpoint, refused on resume under a mesh of MESH_SHARDS + 1,
+    resumed under its own (main_path's rows); the wavenumber maps
+    (bitwise the meshless maps); and a CLI_SHORT_DAYS-day CLI run with
+    --wnmaps, with and without --mesh (a mesh of the card count): its
+    files bitwise, its report's "mesh" {"rays": 1}."""
+    import os
+
+    torch = run.torch
+    rt = run.rt
+    from rwrt_tpu_torch.diagnostics import compute_wavenumber_maps
+    from rwrt_tpu_torch.parallel.sharding import Mesh
+    from rwrt_tpu_torch.utils import checkpoint
+
+    mesh = Mesh((run.dev,) * MESH_SHARDS)
+    src = dict(source_lon=run.slon, source_lat=run.slat)
+    cfg = production_config(rt)
+    bs = run.bs(torch.float32)
+
+    # The dense production run, meshless and meshed in turns.
+    walls = []
+    for name in MESH_TURNS:
+        kw = dict(src, mesh=mesh) if name == "mesh" else src
+        of = mesh_launches("dense_run") if name == "mesh" else "dense_run"
+        traj, launches, wall, peak, stats, refused = traced(
+            run, cfg, of, bs=bs, **kw)
+        check(refused is None, f"mesh production ({name}) was refused")
+        for k in traj._fields:
+            check(same(getattr(traj, k), getattr(run.main_traj, k)),
+                  f"mesh production ({name}): {k} differs from main_path's")
+        check(torch.equal(stats["lane_att"], run.main_att),
+              f"mesh production ({name}): attempts differ from main_path's")
+        walls.append((name, wall, peak, launches))
+        if name == "mesh":
+            shard_iters = stats["shard_iters"]
+    del traj
+    median = {n: float(np.median([w for m, w, _, _ in walls if m == n]))
+              for n in ("meshless", "mesh")}
+    print(f"mesh production: {3 * N_SOURCES * 7} rays, 60,784 lanes over "
+          f"{MESH_SHARDS} shards of one card; walls in turns (s) "
+          + json.dumps([(n, round(w, 6)) for n, w, _, _ in walls])
+          + f", median meshless {median['meshless']:.6f}, mesh "
+          f"{median['mesh']:.6f}; peak device memory above the prepared "
+          "state (MiB) "
+          + json.dumps([(n, round(p, 1)) for n, _, p, _ in walls])
+          + f"; launches {walls[1][3]}; per-shard attempts in all "
+          f"{shard_iters.sum(dim=1).tolist()}; rows, (ug, vg) and "
+          "attempts bitwise main_path's")
+    # The whole-run kernel on the run's entry state, whole and per shard
+    # (CUDA events): the shards' launches run one after another here.
+    from rwrt_tpu_torch import tracer
+    from rwrt_tpu_torch.parallel import sharding
+
+    bg, args, kw, _ = run.run_inputs(torch.float32)
+    whole_ms = cuda_ms(lambda: tracer._dense_run(*args, **kw), 3)
+    parts = [sharding.shard_rays(sharding.pad_rays(x, MESH_SHARDS)[0], mesh)
+             for x in args[1:6]]
+    shard_ms = [cuda_ms(lambda i=i: tracer._dense_run(
+        bg, *(p[i] for p in parts), *args[6:], **kw), 3)
+        for i in range(MESH_SHARDS)]
+    split_ms = cuda_ms(lambda: tracer._run_sharded(
+        mesh, bg, args[1:6],
+        lambda b, *lanes: tracer._dense_run(b, *lanes, *args[6:], **kw)), 3)
+    print(f"mesh production kernel (CUDA events): whole batch "
+          f"{whole_ms:.3f} ms; shards "
+          f"{[round(x, 3) for x in shard_ms]} ms, sum {sum(shard_ms):.3f}; "
+          f"the split run (pad, split, 3 launches) {split_ms:.3f} ms")
+    del parts
+
+    traj, launches, wall, _, stats, _ = traced(
+        run, mixed(cfg), mesh_launches("dense_run"), bs=bs, mesh=mesh, **src)
+    idx, kern = run.mixed_dense
+    all_float64(traj, "mesh mixed dense")
+    check_rows(traj, idx, kern, "mesh mixed dense")
+    check(torch.equal(stats["lane_att"], kern.lane_att),
+          "mesh mixed dense: attempts differ from mixed_dense's")
+    print(f"mesh mixed dense: wall {wall:.3f} s, launches {launches}; rows "
+          "and attempts bitwise mixed_dense's")
+    del traj
+
+    traj, launches, wall, _, _, _ = traced(
+        run, default_config(rt), mesh_launches("rk4_run"), bs=bs, mesh=mesh)
+    check_rows(traj, *run.rk4["default"], "mesh rk4 default")
+    print(f"mesh rk4 default: 6,615 rays, 4,288 lanes, wall {wall:.3f} s, "
+          f"launches {launches}; rows bitwise rk4_path's")
+
+    traj, launches, wall, _, stats, refused = traced(
+        run, readme_config(rt), mesh_launches("exact_run"), bs=bs,
+        mesh=mesh)
+    check(refused is None, f"mesh README run was refused: {refused}")
+    idx, kern = run.exact_run
+    check_rows(traj, idx, kern, "mesh exact")
+    check(torch.equal(stats["lane_att"], kern.lane_att),
+          "mesh exact: attempts differ from exact_path's")
+    print(f"mesh exact: the README run to {README_DAYS} days, wall "
+          f"{wall:.3f} s, launches {launches}; rows and attempts bitwise "
+          "exact_path's")
+    del traj
+
+    years, ens, ens_att = run.ensemble
+    got, launches, wall, _, stats, refused = traced(
+        run, cfg, mesh_launches("dense_run"), driver=rt.trace_rays_ensemble,
+        bs=years, mesh=mesh, **src)
+    check(refused is None, f"mesh ensemble was refused: {refused}")
+    for i, (a, b) in enumerate(zip(ens, got)):
+        for k in a._fields:
+            check(same(getattr(a, k), getattr(b, k)),
+                  f"mesh ensemble: member {i}'s {k} differs from ensemble's")
+    check(torch.equal(stats["lane_att"], ens_att),
+          "mesh ensemble: attempts differ from ensemble's")
+    print(f"mesh ensemble: {len(years)} members, 243,016 lanes, wall "
+          f"{wall:.3f} s, launches {launches}; every member's rows and the "
+          "attempts bitwise ensemble's")
+    del got, ens
+    run.ensemble = None
+
+    driver = checkpoint.trace_rays_chunked
+    n_chunks = -(-(cfg.nt - 1) // CHUNK_STEPS)
+    kw = dict(src, chunk_steps=CHUNK_STEPS, verbose=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = dict(checkpoint_path=os.path.join(tmp, "ck.npz"),
+                     stream_dir=os.path.join(tmp, "s"))
+        _, first, wall1, _, _, stopped = traced(
+            run, cfg, mesh_launches("dense_run", 2), driver=driver,
+            stop=(checkpoint.ChunkBudgetReached,), bs=bs, mesh=mesh,
+            max_chunks=2, **paths, **kw)
+        check(isinstance(stopped, checkpoint.ChunkBudgetReached),
+              f"mesh chunked: the budgeted run ended with {stopped!r}")
+        _, _, _, _, _, bad = traced(
+            run, cfg, {"dense_run": 0, "entry": 0}, driver=driver,
+            stop=(ValueError,), bs=bs,
+            mesh=Mesh((run.dev,) * (MESH_SHARDS + 1)), **paths, **kw)
+        check(isinstance(bad, ValueError) and "mesh" in str(bad),
+              f"mesh chunked: a resume under {MESH_SHARDS + 1} shards was "
+              f"not refused ({bad!r})")
+        resumed, rest, wall2, _, _, refused = traced(
+            run, cfg, mesh_launches("dense_run", n_chunks - 2),
+            driver=driver, bs=bs, mesh=mesh, **paths, **kw)
+        check(refused is None, f"mesh chunked resume was refused: {refused}")
+        for k in resumed._fields:
+            check(same(getattr(resumed, k).to(run.dev),
+                       getattr(run.main_traj, k)),
+                  f"mesh chunked: resumed {k} differs from main_path's")
+        del resumed
+    print(f"mesh chunked: {n_chunks} chunks of {CHUNK_STEPS}, a 2-chunk "
+          f"budget ({wall1:.3f} s, launches {first}), refused under "
+          f"{MESH_SHARDS + 1} shards ({bad}), resumed ({wall2:.3f} s, "
+          f"launches {rest}); rows bitwise main_path's")
+    run.main_traj = run.main_att = None
+
+    zwn = cfg.zwn_array()
+    want = compute_wavenumber_maps(bs, zwn)
+    got = compute_wavenumber_maps(bs, zwn, mesh=mesh)
+    for k in want._fields:
+        check(same(getattr(want, k).double(), getattr(got, k).double()),
+              f"mesh wavenumber maps: {k} differs from the meshless maps")
+
+    tmp = run.tmp
+    u, v, lat, lon = climatology_background()
+    wind = save_wind(os.path.join(tmp, "uv_mesh.npz"), u, v, lat, lon)
+    short = dict(zwn=[float(z) for z in range(1, 8)], inputuv=wind,
+                 ttotal=CLI_SHORT_DAYS * DAY, integrator="rk45",
+                 bound_mode="dense", interval_batch=60, pin_limit=500,
+                 pin_mwn=0.0, cal_dtype="float32")
+    files = {}
+    for name, flags in (("plain", []), ("mesh", ["--mesh"])):
+        files[name] = {k: os.path.join(tmp, f"mesh_{name}_{k}.npz")
+                       for k in ("rays", "wn")}
+        rep, launches, wall = cli_run(
+            run, tmp, f"mesh_{name}", dict(short, ncfile=files[name]["rays"]),
+            flags + ["--wnmaps", files[name]["wn"]], "dense_run", 1)
+        want_mesh = None if name == "plain" else {
+            "rays": torch.cuda.device_count()}
+        check(rep["mesh"] == want_mesh,
+              f"cli {name}: report mesh {rep['mesh']}, not {want_mesh}")
+        print_cli(f"mesh_{name}", rep, launches, wall, files[name])
+    for k in ("rays", "wn"):
+        with np.load(files["plain"][k]) as a, np.load(files["mesh"][k]) as b:
+            check(sorted(a.files) == sorted(b.files)
+                  and all(same_bits(a[x], b[x]) for x in a.files),
+                  f"cli --mesh: the {k} file differs from the meshless "
+                  "run's")
+    print("mesh wavenumber maps: bitwise the meshless maps over "
+          f"{MESH_SHARDS} shards; cli --mesh over "
+          f"{torch.cuda.device_count()} card(s): report mesh "
+          f"{rep['mesh']}, trajectory and map files bitwise the meshless "
+          "run's")
 
 
 def phase_time_spectral(run):
@@ -4475,7 +4711,8 @@ def main() -> int:
                   phase_mixed_exact, phase_mixed_chunked, phase_time_rhs,
                   phase_time_main_path, phase_time_entry, phase_time_paths,
                   phase_time_chunked,
-                  phase_ensemble, phase_time_spectral, phase_cli, phase_flux,
+                  phase_ensemble, phase_mesh, phase_time_spectral, phase_cli,
+                  phase_flux,
                   phase_wrf_cli, phase_classify, phase_group_time,
                   phase_gather, phase_autodiff):
         t0 = time.perf_counter()

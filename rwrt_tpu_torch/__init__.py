@@ -8,7 +8,8 @@ binning (built from ``csrc/`` at first use on a CUDA device), and the
 chunked checkpoint/resume driver over them (``utils/checkpoint.py``), over
 static or time-varying backgrounds (``prepare_time_varying``) and ensembles
 of them (``trace_rays_ensemble``), in canonical or the reference's
-('fortran') root order, from computed or given (``initial_state``) seeds.
+('fortran') root order, from computed or given (``initial_state``) seeds,
+on one device or split over a mesh of them (``parallel.sharding``).
 Above them the file-driven pipeline: wind ingest with regrid and SHSF,
 the basic-state, trajectory and wavenumber-map files (``io/ncio.py``), the
 run driver (``main.run``) and the CLI, ``python -m rwrt_tpu_torch --config

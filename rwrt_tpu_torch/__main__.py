@@ -3,7 +3,9 @@
 The JSON config maps 1:1 onto RunConfig fields plus the three file paths
 (inputuv / bsfile / ncfile), as for ``python -m rwrt_tpu``; keys starting
 with "_" are comments. The run goes to the card; ``--device cpu`` runs it
-on the host.
+on the host; ``--mesh`` splits the rays over a mesh of the run's devices
+(RunConfig.mesh_devices of them; default every card, or one entry of the
+CPU).
 """
 
 import argparse
@@ -22,8 +24,8 @@ def main(argv=None):
     )
     ap.add_argument("--config", required=True, help="JSON config file")
     ap.add_argument("--mesh", action="store_true",
-                    help="shard rays over all local devices (not ported "
-                         "yet: raises)")
+                    help="shard rays over a mesh of the run's devices "
+                         "(mesh_devices of them; default: every card)")
     ap.add_argument("--chunked", action="store_true",
                     help="chunked driver with progress reporting")
     ap.add_argument("--checkpoint", default=None,

@@ -22,6 +22,7 @@ from rwrt_tpu_torch.models.basic_state import BasicState
 from rwrt_tpu_torch.ops import interp
 from rwrt_tpu_torch.ops.cubic import solve_dispersion_cubic
 from rwrt_tpu_torch.ops.groupvel import group_velocity
+from rwrt_tpu_torch.parallel import sharding
 from rwrt_tpu_torch.solvers.rk45 import as_scalar
 
 
@@ -63,20 +64,23 @@ def compute_wavenumber_maps(bs: BasicState, zwn, freq: float = 0.0, *,
     """Solve the dispersion relation at EVERY grid point x zonal wavenumber,
     on the state's device.
 
+    mesh: optional ``parallel.sharding.Mesh`` of the state's device type:
+    the flattened grid-point axis padded with NaN points to a multiple of
+    the mesh size and split over its entries, the field stack copied to
+    every device, the products gathered on the state's device. A point's
+    solve reads no other point, so the maps are those of the solve without
+    a mesh.
+
     A time-varying BasicState (4-D field stack) maps frame by frame: every
-    product gains a leading time axis of length T. ``mesh`` (sharding the
-    point axis over devices) is not ported yet and must be None.
+    product gains a leading time axis of length T.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "compute_wavenumber_maps does not serve a device mesh (ROADMAP "
-            "Slice 6, multi-GPU) yet")
+    mesh = sharding.check_mesh(mesh, bs.fields.device)
     if bs.fields.ndim == 4:
         frames = [
             compute_wavenumber_maps(
                 bs._replace(fields=bs.fields[ti], betam=bs.betam[ti],
                             ks=bs.ks[ti], q=bs.q[ti]),
-                zwn, freq)
+                zwn, freq, mesh=mesh)
             for ti in range(bs.fields.shape[0])
         ]
         return WavenumberMaps(*(torch.stack(x) for x in zip(*frames)))
@@ -89,8 +93,24 @@ def compute_wavenumber_maps(bs: BasicState, zwn, freq: float = 0.0, *,
                     for x in (bs.lon[0], bs.lat[0], bs.dx, bs.dy))
     zwn_d = torch.as_tensor(np.asarray(zwn, np.float64)).to(
         device=dev, dtype=dtype).reshape(-1)
-    roots, count, ug, vg = _compute_points(
-        bs.fields, *scalars, lon_pts, lat_pts, zwn_d, as_scalar(freq, dtype))
+    freq_d = as_scalar(freq, dtype)
+    if mesh is None:
+        roots, count, ug, vg = _compute_points(
+            bs.fields, *scalars, lon_pts, lat_pts, zwn_d, freq_d)
+    else:
+        npts = lon_pts.shape[0]
+        lons, lats = (
+            sharding.shard_rays(sharding.pad_rays(x, mesh.size)[0], mesh)
+            for x in (lon_pts, lat_pts))
+        reps = sharding.replicate((bs.fields, zwn_d), mesh)
+        outs = []
+        for d, lo, la, (fields, z) in zip(mesh.devices, lons, lats, reps):
+            with sharding.device_guard(d):
+                outs.append(_compute_points(fields, *scalars, lo, la, z,
+                                            freq_d))
+        roots, count, ug, vg = (
+            torch.cat([o[k].to(dev) for o in outs])[:npts]
+            for k in range(4))
     shape4 = (nlon, nlat, zwn_d.shape[0], 3)
     return WavenumberMaps(
         mwn=roots.reshape(shape4),

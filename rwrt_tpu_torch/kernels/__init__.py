@@ -80,14 +80,21 @@ def state_key(y: torch.Tensor, fields: torch.Tensor) -> tuple:
     return key
 
 
-@functools.cache
 def resident(kernel: str, instance: str, dtype, *args,
              variant: str = "") -> int:
     """Threads of ``instance`` of ``rwrt_<kernel>`` (in ``dtype``, a torch
     dtype or a (state, field) pair; ``variant`` "" or "_time", the time
     instance) that the current card keeps resident at once, from the CUDA
     occupancy calculator (``rwrt_<kernel>_resident<variant>``, which takes
-    ``args`` first): read once per process."""
+    ``args`` first): read once per process and card."""
+    return _resident(torch.cuda.current_device(), kernel, instance,
+                     dtype_key(dtype), *args, variant=variant)
+
+
+@functools.cache
+def _resident(card: int, kernel: str, instance: str, dtype, *args,
+              variant: str = "") -> int:
+    """``resident`` on card index ``card``, the current one."""
     out = torch.zeros(1, dtype=torch.int32)
     launch(f"rwrt_{kernel}_resident{variant}", dtype, *args,
            instance_id(instance), out)

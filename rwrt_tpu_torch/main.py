@@ -8,10 +8,8 @@ basic-state diagnostics file, seed the source matrix, trace the rays
 wavenumber maps and the optional JSON run report (with exact death causes,
 ``termination.classify``, where asked). The run goes to the card unless
 ``device="cpu"``; without a card a CUDA run is an error, never a silent run
-on the host.
-
-Not ported yet, and refused before anything is loaded: a device mesh
-(ROADMAP Slice 6).
+on the host. ``mesh`` (the CLI's ``--mesh``) splits the rays over a mesh
+of devices (``parallel.sharding``).
 """
 
 from __future__ import annotations
@@ -31,7 +29,8 @@ from rwrt_tpu_torch.convert import host
 from rwrt_tpu_torch.io import ncio
 from rwrt_tpu_torch.models.basic_state import (prepare, prepare_time_varying,
                                                regrid_to_uniform)
-from rwrt_tpu_torch.tracer import RayTrajectories, refuse_mesh, trace_rays
+from rwrt_tpu_torch.parallel import sharding
+from rwrt_tpu_torch.tracer import RayTrajectories, trace_rays
 from rwrt_tpu_torch.utils.checkpoint import trace_rays_chunked
 from rwrt_tpu_torch.utils.observability import run_banner
 
@@ -120,7 +119,7 @@ def _member_path(template: Optional[str], i: int) -> Optional[str]:
 
 
 def _report_skeleton(config: RunConfig, paths: RunPaths,
-                     device: torch.device) -> dict:
+                     device: torch.device, mesh) -> dict:
     """Common header of the machine-readable run report."""
     import rwrt_tpu_torch
 
@@ -134,7 +133,7 @@ def _report_skeleton(config: RunConfig, paths: RunPaths,
         "device_name": (torch.cuda.get_device_name(device) if cuda
                         else platform.processor() or platform.machine()),
         "n_devices": torch.cuda.device_count() if cuda else 1,
-        "mesh": None,
+        "mesh": None if mesh is None else mesh.shape,
         "started_utc": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
         "config": dataclasses.asdict(config),
         "paths": dataclasses.asdict(paths),
@@ -213,23 +212,28 @@ def run(config: RunConfig, paths: RunPaths, *, mesh=None, verbose: bool = True,
     report_exact_causes: death causes in the report come from
     ``termination.classify`` (one batched re-run of every killing interval,
     after the wall split ends) instead of the host heuristic.
-    mesh: not ported yet (ROADMAP Slice 6); refused before anything is
-    loaded.
+    mesh: a ``parallel.sharding.Mesh`` of ``device``'s type, or True to
+    build one over config.mesh_devices devices of that type (None: every
+    card; one entry of the CPU), before anything is loaded; the report's
+    "mesh" is then {"rays": shards}.
 
     With a list-valued paths.inputuv the run is an ensemble sweep: one
     member per file, per-member output files, and the return value is the
     list of per-member trajectories.
     """
     config.validate()
-    refuse_mesh(mesh, "run")
     device = _run_device(device)
+    if mesh is True:
+        mesh = sharding.make_mesh(config.mesh_devices, device.type)
+    mesh = sharding.check_mesh(mesh, device)
     if isinstance(paths.inputuv, (list, tuple)):
-        return _run_ensemble(config, paths, verbose=verbose,
+        return _run_ensemble(config, paths, mesh=mesh, verbose=verbose,
                              chunked=chunked, checkpoint_path=checkpoint_path,
                              wnmaps_path=wnmaps_path, report_path=report_path,
                              report_exact_causes=report_exact_causes,
                              device=device)
-    report = _report_skeleton(config, paths, device) if report_path else None
+    report = (_report_skeleton(config, paths, device, mesh) if report_path
+              else None)
     t_start = time.perf_counter()
     bs = _load_and_prepare(paths.inputuv, config, device)
     t_prepare = _clock(device)
@@ -239,9 +243,9 @@ def run(config: RunConfig, paths: RunPaths, *, mesh=None, verbose: bool = True,
         run_banner(config, bs.nlon, bs.nlat)
     if chunked or checkpoint_path:
         traj = trace_rays_chunked(bs, config, checkpoint_path=checkpoint_path,
-                                  verbose=verbose)
+                                  verbose=verbose, mesh=mesh)
     else:
-        traj = trace_rays(bs, config)
+        traj = trace_rays(bs, config, mesh=mesh)
     t_trace = _clock(device)
     if paths.ncfile:
         ncio.write_trajectories(traj, paths.ncfile, config.zwn_array())
@@ -249,7 +253,7 @@ def run(config: RunConfig, paths: RunPaths, *, mesh=None, verbose: bool = True,
         from rwrt_tpu_torch.diagnostics import compute_wavenumber_maps
 
         zwn = config.zwn_array()
-        maps = compute_wavenumber_maps(bs, zwn, freq=config.freq)
+        maps = compute_wavenumber_maps(bs, zwn, freq=config.freq, mesh=mesh)
         ncio.write_wavenumber_maps(maps, bs, zwn, wnmaps_path)
         if verbose:
             print(f"wrote wavenumber maps to {wnmaps_path}")
@@ -269,8 +273,8 @@ def run(config: RunConfig, paths: RunPaths, *, mesh=None, verbose: bool = True,
     return traj
 
 
-def _run_ensemble(config: RunConfig, paths: RunPaths, *, verbose, chunked,
-                  checkpoint_path, wnmaps_path, report_path,
+def _run_ensemble(config: RunConfig, paths: RunPaths, *, mesh, verbose,
+                  chunked, checkpoint_path, wnmaps_path, report_path,
                   report_exact_causes, device):
     """Ensemble sweep over a list of input wind files.
 
@@ -286,7 +290,8 @@ def _run_ensemble(config: RunConfig, paths: RunPaths, *, verbose, chunked,
         )
     from rwrt_tpu_torch.tracer import trace_rays_ensemble
 
-    report = _report_skeleton(config, paths, device) if report_path else None
+    report = (_report_skeleton(config, paths, device, mesh) if report_path
+              else None)
     n_members = len(paths.inputuv)
     grid0 = None  # (nlon, nlat, fields_ndim) of member 0
 
@@ -328,7 +333,7 @@ def _run_ensemble(config: RunConfig, paths: RunPaths, *, verbose, chunked,
                 print(f"member {i}/{n_members} (chunked)")
             traj = trace_rays_chunked(
                 m, config, checkpoint_path=_member_path(checkpoint_path, i),
-                verbose=verbose)
+                verbose=verbose, mesh=mesh)
             trajs.append(traj)
             if report is not None:
                 member_reports.append(_traj_summary(
@@ -341,7 +346,7 @@ def _run_ensemble(config: RunConfig, paths: RunPaths, *, verbose, chunked,
         t_prepare = _clock(device)
         for i, m in enumerate(members):
             _check_member(m, i)
-        trajs = trace_rays_ensemble(members, config)
+        trajs = trace_rays_ensemble(members, config, mesh=mesh)
         t_trace = _clock(device)
         if report is not None:
             member_reports = [

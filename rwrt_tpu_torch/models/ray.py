@@ -382,7 +382,8 @@ def haversine(lon_a, lat_a, lon_b, lat_b) -> torch.Tensor:
         torch.sin(dlat / 2.0) ** 2
         + torch.cos(lat_b) * torch.cos(lat_a) * torch.sin(dlon / 2.0) ** 2
     )
-    return torch.abs(2.0 * torch.atan2(torch.sqrt(a), torch.sqrt(1.0 - a)))
+    return torch.abs(2.0 * interp.lane_op(torch.atan2, torch.sqrt(a),
+                                          torch.sqrt(1.0 - a)))
 
 
 def kill_mask(y_new: torch.Tensor, lon_prev, lat_prev,

@@ -26,10 +26,11 @@ from typing import Tuple
 import torch
 
 from rwrt_tpu_torch.constants import delt, mwn_cap, rearth
+from rwrt_tpu_torch.ops.interp import lane_op
 
 
 def _cbrt(x):
-    return torch.sign(x) * torch.abs(x) ** (1.0 / 3.0)
+    return torch.sign(x) * lane_op(torch.pow, torch.abs(x), 1.0 / 3.0)
 
 
 def _where(cond, a, b):

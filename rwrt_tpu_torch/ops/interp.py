@@ -45,6 +45,43 @@ def true_div(x: torch.Tensor, s) -> torch.Tensor:
     return x / torch.full((), s, dtype=x.dtype, device=x.device)
 
 
+#: Elements the CPU's elementwise kernels take per trip of their vector
+#: loop, at most (two vectors of an AVX-512 float32 register are 32), and
+#: the most elements an op may hold and still run on one thread (PyTorch
+#: splits an elementwise op over threads from 32,768 elements).
+CPU_TRIP = 64
+CPU_SERIAL = 16384
+
+
+def lane_op(fn, *xs) -> torch.Tensor:
+    """``fn(*xs)`` (pow or atan2: tensors of one shape, and Python scalars)
+    so that no element's bits depend on where it lies in the batch.
+
+    On the CPU, PyTorch's elementwise kernels run a vector loop (SLEEF)
+    over whole trips and scalar libm over the tail, and the two round pow
+    and atan2 differently, so a lane's bits would depend on the batch's
+    width modulo the trip (and past 32,768 elements on the thread split).
+    Here the operands run in slices of at most CPU_SERIAL elements, each
+    padded with ones to whole trips. On CUDA each element is one thread's
+    and ``fn(*xs)`` runs as it is. So a lane's rows do not depend on the
+    lanes beside it: a lane subset, a mesh's shard or a compacted batch
+    gives the bits the whole batch gives."""
+    x0 = next(x for x in xs if torch.is_tensor(x))
+    if x0.device.type != "cpu":
+        return fn(*xs)
+    flat = [x.reshape(-1) if torch.is_tensor(x) else x for x in xs]
+    n = x0.numel()
+    parts = []
+    for s in range(0, max(n, 1), CPU_SERIAL):
+        m = min(CPU_SERIAL, n - s)
+        pad = (-m) % CPU_TRIP
+        args = [torch.cat([x[s:s + m], x.new_ones(pad)])
+                if torch.is_tensor(x) else x for x in flat]
+        parts.append(fn(*args)[:m])
+    out = parts[0] if len(parts) == 1 else torch.cat(parts)
+    return out.reshape(x0.shape)
+
+
 def _cell_index(x: torch.Tensor, n: int) -> torch.Tensor:
     """floor(x) clipped to [0, n-1] as int64; NaN maps to 0."""
     xf = torch.floor(x).clamp(0, n - 1)

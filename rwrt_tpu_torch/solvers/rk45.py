@@ -47,7 +47,7 @@ import torch
 from rwrt_tpu_torch import kernels
 from rwrt_tpu_torch.models import ray as ray_mod
 from rwrt_tpu_torch.models.ray import RayRHS
-from rwrt_tpu_torch.ops.interp import true_div
+from rwrt_tpu_torch.ops.interp import lane_op, true_div
 
 # Dormand-Prince 5(4) tableau.
 DP_C = (0.0, 1 / 5, 3 / 10, 4 / 5, 8 / 9, 1.0)
@@ -145,7 +145,7 @@ def select_initial_step(rhs_fn, y0, f0, rtol, atol, t0=0.0):
     d2 = _norm((f1 - f0) / scale) / h0
 
     dm = torch.fmax(d1, d2)
-    h1 = (0.01 / dm) ** (1.0 / 5.0)
+    h1 = lane_op(torch.pow, 0.01 / dm, 1.0 / 5.0)
     both_small = torch.logical_not(d1 > 1e-15) & torch.logical_not(d2 > 1e-15)
     h1 = torch.where(both_small, torch.clamp(h0 * 1e-3, min=1e-6), h1)
     return torch.minimum(100.0 * h0, h1)
@@ -180,7 +180,8 @@ def _exact_error_norm(k, hstep, y, y_new, rtol, atol):
 
 def _exact_factors(error_norm, rejected):
     """(fac_acc, fac_rej) of the exact integrators' step controller."""
-    raw = SAFETY * error_norm ** ERROR_EXPONENT  # error 0 -> inf
+    raw = SAFETY * lane_op(torch.pow, error_norm,
+                           ERROR_EXPONENT)  # error 0 -> inf
     fac_acc = torch.clamp(raw, max=MAX_FACTOR)
     fac_acc = torch.where(rejected, torch.clamp(fac_acc, max=1.0), fac_acc)
     return fac_acc, torch.clamp(raw, min=MIN_FACTOR)
@@ -627,7 +628,7 @@ def _integrate_group_dense_plain(
         dead_now = torch.isnan(y[0])
         at_floor = hstep <= min_step
         accept = torch.where(nan_err, dead_now | at_floor, error_norm < 1.0)
-        raw = SAFETY * error_norm ** ERROR_EXPONENT
+        raw = SAFETY * lane_op(torch.pow, error_norm, ERROR_EXPONENT)
         fac_acc = torch.clamp(raw, max=MAX_FACTOR)
         fac_acc = torch.where(rejected, torch.clamp(fac_acc, max=1.0),
                               fac_acc)

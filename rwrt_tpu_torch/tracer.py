@@ -1,12 +1,12 @@
 """Ray-tracing orchestration: seeding, initialization, integration, results.
 
-Port of ``rwrt_tpu/tracer.py``. ``trace_rays`` serves three branches, each
-on one device, with root_order 'canonical' or 'fortran' (the reference's
-slot layout, from np.roots on the host at initialization), from the
-computed seeds or a given ``initial_state``, in state_dtype 'compute' and
-in 'float64' (mixed precision: a float64 state, stage accumulation and
-controller over float32 sampling and RHS algebra when cal_dtype is
-float32; a no-op when it is float64):
+Port of ``rwrt_tpu/tracer.py``. ``trace_rays`` serves three branches, on
+one device or a mesh of them, with root_order 'canonical' or 'fortran'
+(the reference's slot layout, from np.roots on the host at
+initialization), from the computed seeds or a given ``initial_state``, in
+state_dtype 'compute' and in 'float64' (mixed precision: a float64 state,
+stage accumulation and controller over float32 sampling and RHS algebra
+when cal_dtype is float32; a no-op when it is float64):
 
 - integrator='rk4' (``_run_rk4``), the library default;
 - integrator='rk45', bound_mode='exact' (``_run_rk45_grouped`` over
@@ -22,8 +22,10 @@ member map.
 
 A run whose history would pass ``auto_chunk_bytes`` on the device goes
 through the chunked driver (``utils/checkpoint.py``), one launch of the
-same kernel per chunk. A device mesh raises NotImplementedError naming its
-ROADMAP slice.
+same kernel per chunk. Over a device mesh (``parallel/sharding.py``) the
+lanes split into one shard per mesh entry and each shard is the same run
+over its lanes (``_run_sharded``): one launch per shard, rows bitwise those
+of the run without a mesh.
 
 Each branch's run is one of the port's hand-written kernels: on a CUDA
 state one launch runs the whole of it; on a CPU state its plain version
@@ -66,6 +68,7 @@ from rwrt_tpu_torch.models.ray import (Background, S_AMP, S_KX, S_KY, S_LAT,
 from rwrt_tpu_torch.ops import interp
 from rwrt_tpu_torch.ops.cubic import solve_dispersion_cubic
 from rwrt_tpu_torch.ops.groupvel import group_velocity
+from rwrt_tpu_torch.parallel import sharding
 from rwrt_tpu_torch.solvers import rk4 as rk4_mod
 from rwrt_tpu_torch.solvers import rk45 as rk45_mod
 
@@ -309,13 +312,18 @@ DENSE_SCHEDULE = {
 }
 
 
-@functools.cache
 def dense_grid(key, variant: str = "") -> tuple:
     """(blocks, threads a block) of the whole-run dense kernel's
     persistent grid on the current card: the blocks it keeps resident at
     once, from the CUDA occupancy calculator (``rwrt_dense_resident``);
     ``key`` the (state, field) dtype pair, ``variant`` "" or "_time".
-    Read once per process."""
+    Read once per process and card."""
+    return _dense_grid(torch.cuda.current_device(), tuple(key), variant)
+
+
+@functools.cache
+def _dense_grid(card: int, key, variant: str) -> tuple:
+    """``dense_grid`` on card index ``card``, the current one."""
     out = torch.zeros(2, dtype=torch.int32)
     kernels.launch(f"rwrt_dense_resident{variant}", key, out)
     return int(out[0]), int(out[1])
@@ -657,11 +665,11 @@ def padded_bounds(dt, nt, group, dtype, device):
 def _run_outputs(run: GroupedRun):
     """(ys, ugs, vgs, iters, nfev, trunc, lane_att) of a grouped run: iters
     (n_groups,) the most step attempts of a lane in each group, nfev =
-    6 * iters, trunc the lane-groups the backstop cut short summed (the
-    run's one host read)."""
+    6 * iters, trunc the lane-groups the backstop cut short summed, a
+    0-dim tensor on the run's device (read by ``_check_truncation``)."""
     iters = run.lane_att.amax(dim=1)
-    return (run.ys, run.ugs, run.vgs, iters, 6 * iters,
-            int(run.trunc.sum()), run.lane_att)
+    return (run.ys, run.ugs, run.vgs, iters, 6 * iters, run.trunc.sum(),
+            run.lane_att)
 
 
 def _run_rk45_grouped(bg, y0, ug0, vg0, dt, nt, cut_off, rtol, atol,
@@ -758,8 +766,7 @@ def _run_rk45(bg, y0, ug0, vg0, dt, nt, cut_off, rtol, atol, min_step,
         bg, y0, torch.zeros_like(y0[0]), h0, t_bounds, cut_off, rtol, atol,
         min_step, max_iters)
     return (torch.cat([y0[None], ys]), torch.cat([ug0[None], ugs]),
-            torch.cat([vg0[None], vgs]), iters, nfev, int(trunc.sum()),
-            lane_att)
+            torch.cat([vg0[None], vgs]), iters, nfev, trunc.sum(), lane_att)
 
 
 def _run_rk4(bg, y0, ug0, vg0, dt, nt, cut_off):
@@ -859,7 +866,9 @@ class MaxItersTruncation(RuntimeError):
 
 
 def _check_truncation(trunc):
-    n = int(np.asarray(trunc).sum())
+    """Raise ``MaxItersTruncation`` where ``trunc`` (a count, or a tensor
+    of counts on any device: one host read) sums to more than 0."""
+    n = int(torch.as_tensor(trunc).sum())
     if n:
         raise MaxItersTruncation(
             f"adaptive integration hit the max_iters backstop with {n} "
@@ -888,13 +897,52 @@ def compact_lane_indices(born: np.ndarray):
     return idx
 
 
-def refuse_mesh(mesh, what: str) -> None:
-    """A device mesh is the one branch of the JAX drivers this port does
-    not serve yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what} does not serve a device mesh (ROADMAP Slice 6, "
-            "multi-GPU) yet")
+def _run_sharded(mesh, bg, lanes, call):
+    """``call(bg, *lanes)`` once per shard of ``mesh``: the per-lane
+    tensors ``lanes`` (ray axis last) and an ensemble's member map padded
+    to a multiple of the mesh size (NaN lanes, member 0) and split into
+    contiguous shards, the background copied once to each distinct device
+    (``parallel.sharding``). Each call runs inside its device's guard, so
+    its launches go to that card and its current stream; shards that share
+    a device run one after another, shards on distinct devices overlap.
+    The calls make no host read, so every shard's launches are issued
+    before the caller's first. Returns (the calls' outputs in mesh order,
+    the real lane count R)."""
+    r = lanes[0].shape[-1]
+    ids = bg.member_ids
+    if ids is not None:
+        lanes = tuple(lanes) + (ids,)
+    parts = [sharding.shard_rays(sharding.pad_rays(x, mesh.size)[0], mesh)
+             for x in lanes]
+    bgs = sharding.replicate(bg._replace(member_ids=None), mesh)
+    outs = []
+    for i, d in enumerate(mesh.devices):
+        shard = [p[i] for p in parts]
+        b = bgs[i]
+        if ids is not None:
+            b = b._replace(member_ids=shard.pop())
+        with sharding.device_guard(d):
+            outs.append(call(b, *shard))
+    return outs, r
+
+
+def _gather_lanes(parts, r, device):
+    """The shards' tensors ``parts`` gathered along the ray axis on
+    ``device``, the pad lanes dropped."""
+    out = sharding.gather_rays(parts, device)
+    return out if out.shape[-1] == r else out[..., :r]
+
+
+def gather_tree(outs, r, device):
+    """The shards' outputs of a unit whose every tensor is per lane (a
+    ``GroupedRun``, or ``_rk4_chunk``'s (y, (ys, ugs, vgs))), gathered
+    along the ray axis on ``device`` with the pad lanes dropped."""
+    first = outs[0]
+    if torch.is_tensor(first):
+        return _gather_lanes(outs, r, device)
+    vals = [gather_tree([o[k] for o in outs], r, device)
+            for k in range(len(first))]
+    return type(first)(*vals) if hasattr(first, "_fields") else tuple(vals)
 
 
 def seed_state(bg, source_lon, source_lat, zwn, config: RunConfig,
@@ -943,7 +991,12 @@ def trace_rays(
       config: run configuration.
       source_lon/source_lat: optional explicit source arrays in RADIANS;
         default: the config's regular source matrix.
-      mesh: not ported yet; must be None.
+      mesh: optional ``parallel.sharding.Mesh`` of the state's device type:
+        the (compacted) lanes split into one shard per mesh entry, each
+        shard the branch's run over its lanes (one launch on the card),
+        the background copied to every device; rows, (ug, vg), truncation
+        and ``stats`` bitwise those of the run without it, and on the
+        state's device.
       initial_state: optional (5, R) state overriding the computed seeds
         (``seed_state``); rootless compaction then runs on it as usual.
       auto_chunk_bytes: the run holds its whole (nt, 7, R) history on the
@@ -958,14 +1011,17 @@ def trace_rays(
         "lane_att" there: the (n_groups, R') int32 step attempts per group
         of bounds (one group per output interval when interval_batch is 1
         or nt <= 2) of the R' integrated (compacted) lanes, on the run's
-        device, also when the run then raises ``MaxItersTruncation``. An
-        rk4 run takes no adaptive steps and puts nothing there. A rerouted
-        run fills it as ``trace_rays_chunked`` does.
+        device, also when the run then raises ``MaxItersTruncation``.
+        Under a mesh also "shard_iters": (n_shards, n_groups), the most
+        attempts of a lane of each shard in each group (the JAX package's
+        per-shard loop counts). An rk4 run takes no adaptive steps and
+        puts nothing there. A rerouted run fills it as
+        ``trace_rays_chunked`` does.
     """
     config.validate()
-    refuse_mesh(mesh, "trace_rays")
     dtype = bs.fields.dtype
     device = bs.fields.device
+    mesh = sharding.check_mesh(mesh, device)
     if auto_chunk_bytes is not None:
         n_lanes = 3 * (config.nsource if source_lon is None
                        else np.asarray(source_lon).shape[0]) * config.nzwn
@@ -976,8 +1032,8 @@ def trace_rays(
 
             return checkpoint.trace_rays_chunked(
                 bs, config, verbose=False, source_lon=source_lon,
-                source_lat=source_lat, initial_state=initial_state,
-                stats=stats)
+                source_lat=source_lat, mesh=mesh,
+                initial_state=initial_state, stats=stats)
     if source_lon is None:
         source_lon, source_lat = source_matrix(
             config.sw_lon, config.sw_lat, config.dlon, config.dlat,
@@ -995,19 +1051,20 @@ def trace_rays(
     y0, ug0, vg0 = seed_state(bg, source_lon, source_lat, zwn, config,
                               initial_state)
     ys, ugs, vgs = _run_lanes(bg, y0, ug0, vg0, config,
-                              config.state_dtype == "float64", stats)
+                              config.state_dtype == "float64", stats, mesh)
     out_shape = (config.nt, 3, source_lon.shape[0], len(config.zwn))
     return _traj_from(ys, ugs, vgs, lambda a: a.reshape(out_shape))
 
 
 def _run_lanes(bg, y0, ug0, vg0, config: RunConfig, wide: bool,
-               stats: Optional[dict]):
+               stats: Optional[dict], mesh=None):
     """Integrate the seeded lanes (y0 (5, R), ug0, vg0 (R,)) over ``bg`` as
     ``config`` says: rootless lanes compacted away (an ensemble's member
     map moves with its lanes), the state widened to float64 when ``wide``
-    (mixed precision), the branch's run, the truncation check, and the
-    compacted lanes expanded back. Returns (ys (nt, 5, R), ugs, vgs (nt,
-    R))."""
+    (mixed precision), the branch's run (over a ``mesh``, one per shard
+    of the compacted lanes, ``_run_sharded``), the truncation check, and
+    the compacted lanes expanded back. Returns (ys (nt, 5, R), ugs, vgs
+    (nt, R))."""
     device = y0.device
     n_rays = y0.shape[1]
     y0_full, ug0_full, vg0_full = y0, ug0, vg0
@@ -1034,8 +1091,29 @@ def _run_lanes(bg, y0, ug0, vg0, config: RunConfig, wide: bool,
     dtype = y0.dtype
     dt = rk45_mod.as_scalar(config.tstep, dtype)
     cut_off = rk45_mod.as_scalar(config.cut_off_rad, dtype)
+
+    def run(runner, *args, **kw):
+        """``runner`` over the lanes, or over each shard of them: its
+        per-lane outputs (rows, and an adaptive run's lane_att) gathered;
+        an adaptive run's trunc and iters per shard, iters (n_shards,
+        n_groups) the most attempts of a shard's real lane in each
+        group."""
+        if mesh is None:
+            return runner(bg, y0, ug0, vg0, *args, **kw)
+        outs, r = _run_sharded(mesh, bg, (y0, ug0, vg0),
+                               lambda *a: runner(*a, *args, **kw))
+        rows = gather_tree([o[:3] for o in outs], r, device)
+        if len(outs[0]) == 3:
+            return rows
+        lane_att = _gather_lanes([o[6] for o in outs], r, device)
+        w = outs[0][6].shape[1]
+        iters = torch.nn.functional.pad(lane_att, (0, mesh.size * w - r))
+        iters = iters.reshape(-1, mesh.size, w).amax(dim=2).T
+        return (*rows, iters, 6 * iters,
+                torch.stack([o[5].to(device) for o in outs]), lane_att)
+
     if config.integrator == "rk4":
-        ys, ugs, vgs = _run_rk4(bg, y0, ug0, vg0, dt, nt, cut_off)
+        ys, ugs, vgs = run(_run_rk4, dt, nt, cut_off)
     else:
         min_step = min(config.min_step_factor * config.tstep,
                        config.tstep * 1e-3)
@@ -1043,19 +1121,20 @@ def _run_lanes(bg, y0, ug0, vg0, config: RunConfig, wide: bool,
         atol = rk45_mod.as_scalar(config.atol, dtype)
         min_step = rk45_mod.as_scalar(min_step, dtype)
         if config.interval_batch > 1 and nt > 2:
-            out = _run_rk45_grouped(
-                bg, y0, ug0, vg0, dt, nt, cut_off, rtol, atol, min_step,
+            out = run(
+                _run_rk45_grouped, dt, nt, cut_off, rtol, atol, min_step,
                 group=min(config.interval_batch, nt - 1),
                 dense=config.bound_mode == "dense",
                 pin_limit=config.pin_limit,
                 pin_mwn=None if config.pin_limit is None else config.pin_mwn,
             )
         else:
-            out = _run_rk45(bg, y0, ug0, vg0, dt, nt, cut_off, rtol, atol,
-                            min_step)
-        ys, ugs, vgs, _, _, trunc, lane_att = out
+            out = run(_run_rk45, dt, nt, cut_off, rtol, atol, min_step)
+        ys, ugs, vgs, iters, _, trunc, lane_att = out
         if stats is not None:
             stats["lane_att"] = lane_att
+            if mesh is not None:
+                stats["shard_iters"] = iters
         _check_truncation(trunc)
 
     if take is None:
@@ -1104,16 +1183,18 @@ def trace_rays_ensemble(bs_members, config: RunConfig, source_lon=None,
     All members share the grid shape and dtype; time-varying members also
     their frame count and time axis (bg_t0, bg_dt), else ValueError. The
     run is in the fields' dtype: ``config.state_dtype`` is not read, as in
-    the JAX package. ``mesh`` (multi-GPU) is not ported yet. ``stats``:
-    as ``trace_rays``' (the flattened lanes' attempts of an rk45 run).
+    the JAX package. ``mesh``: as ``trace_rays``' (the flattened lanes
+    split, each shard's member map with them; pad lanes take member 0).
+    ``stats``: as ``trace_rays``' (the flattened lanes' attempts of an
+    rk45 run).
     """
     config.validate()
-    refuse_mesh(mesh, "trace_rays_ensemble")
     if not bs_members:
         raise ValueError("an ensemble needs at least one member")
     first = bs_members[0]
     dtype = first.fields.dtype
     device = first.fields.device
+    mesh = sharding.check_mesh(mesh, device)
     for m in bs_members[1:]:
         if m.fields.shape != first.fields.shape or m.fields.dtype != dtype:
             raise ValueError("ensemble members must share the grid shape, "
@@ -1145,7 +1226,7 @@ def trace_rays_ensemble(bs_members, config: RunConfig, source_lon=None,
             device=device).repeat_interleave(r_single))
     ys, ugs, vgs = _run_lanes(
         ens_bg, *(torch.cat(x, dim=-1) for x in zip(*inits)), config,
-        False, stats)
+        False, stats, mesh)
     out_shape = (config.nt, 3, source_lon.shape[0], len(config.zwn))
     return [_traj_from(*(a[..., i * r_single:(i + 1) * r_single]
                          for a in (ys, ugs, vgs)),

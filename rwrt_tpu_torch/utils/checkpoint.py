@@ -19,6 +19,13 @@ which is the unit here: on the card one thread carries a lane through the
 launch, so the launch pays for its longest lane, not for trips times
 width, and there is nothing for a scheduler to win.
 
+Over a device mesh (``parallel/sharding.py``) the lanes are padded once
+with NaN lanes to a multiple of the mesh size (their history slots lie
+past the rays' and are dropped) and every unit, the entry stage's too,
+runs once per shard (``tracer._run_sharded``): one launch per shard per
+chunk. The carry is gathered after each chunk, where the host reorders
+and compacts it, and split again for the next.
+
 The checkpoint is the JAX driver's npz (``step, y, t, h, lanes, n_rays,
 hist_*``): a checkpoint written by either package resumes in the other.
 """
@@ -36,6 +43,7 @@ from rwrt_tpu_torch import tracer as _tracer
 from rwrt_tpu_torch.config import RunConfig
 from rwrt_tpu_torch.models import ray as ray_mod
 from rwrt_tpu_torch.models.basic_state import BasicState
+from rwrt_tpu_torch.parallel import sharding
 from rwrt_tpu_torch.solvers import rk45 as rk45_mod
 from rwrt_tpu_torch.tracer import RayTrajectories
 from rwrt_tpu_torch.utils.observability import Progress, run_banner
@@ -196,7 +204,10 @@ def trace_rays_chunked(
     compact_min_width: floor of the dead-lane-compaction width ladder (see
     RunConfig.compact_dead).
 
-    mesh: not ported yet; must be None.
+    mesh: optional ``parallel.sharding.Mesh`` of the state's device type:
+    each chunk one launch per shard, rows bitwise those of the run without
+    it; mid-run compaction keeps a multiple of the mesh size. A checkpoint
+    written under a mesh resumes under a mesh of the same size only.
 
     initial_state: optional (5, R) state overriding the computed seeds, as
     for ``trace_rays`` (``tracer.seed_state``).
@@ -212,11 +223,11 @@ def trace_rays_chunked(
     then holds the run up to that chunk.
     """
     config.validate()
-    _tracer.refuse_mesh(mesh, "trace_rays_chunked")
     if chunk_steps < 1:
         raise ValueError("chunk_steps must be >= 1")
     dtype = bs.fields.dtype
     device = bs.fields.device
+    mesh = sharding.check_mesh(mesh, device)
     split = _Split(stats, device.type == "cuda")
     if source_lon is None:
         source_lon, source_lat = _tracer.source_matrix(
@@ -245,8 +256,15 @@ def trace_rays_chunked(
         if idx is not None:
             lane_to_ray = idx
             y0 = _take_lanes(y0, idx)
+    compacted = y0.shape[1] != n_rays
+    if mesh is not None:
+        # The NaN pad lanes' history slots lie past the rays' (the columns
+        # the result leaves out).
+        y0, _ = sharding.pad_rays(y0, mesh.size)
+        lane_to_ray = np.concatenate([
+            lane_to_ray,
+            n_rays + np.arange(y0.shape[1] - lane_to_ray.shape[0])])
     n_lanes = y0.shape[1]
-    compacted = n_lanes != n_rays
     if config.state_dtype == "float64":
         # Mixed precision, as trace_rays: the state and the controller in
         # float64 over the background's dtype.
@@ -263,7 +281,7 @@ def trace_rays_chunked(
     if verbose:
         run_banner(config, bs.nlon, bs.nlat)
 
-    hist_w = n_rays
+    hist_w = max(n_rays, int(lane_to_ray.max()) + 1 if n_lanes else n_rays)
     hist_dtype = torch.empty((), dtype=dtype).numpy().dtype
 
     # Load and VALIDATE any checkpoint before touching the stream files: a
@@ -318,6 +336,11 @@ def trace_rays_chunked(
                     "checkpoint was written under a mesh's padding; resume "
                     "with the same mesh configuration"
                 )
+            if mesh is not None and lanes_np.shape[0] % mesh.size:
+                raise ValueError(
+                    f"checkpoint lane count {lanes_np.shape[0]} does not "
+                    f"divide over {mesh.size} mesh devices; resume with "
+                    "the mesh it was written under")
             lane_to_ray = lanes_np
             n_lanes = lanes_np.shape[0]
             y = to_state(y_np, "y")
@@ -388,6 +411,14 @@ def trace_rays_chunked(
     for k in hist_l:
         hist[k][: hist_l[k].shape[0]] = hist_l[k]
 
+    def on_shards(call, *lanes):
+        """``call(bg, *lanes)``, or over a mesh one call per shard of the
+        per-lane tensors ``lanes``, gathered (every output is per lane)."""
+        if mesh is None:
+            return call(bg, *lanes)
+        outs, r = _tracer._run_sharded(mesh, bg, lanes, call)
+        return _tracer.gather_tree(outs, r, device)
+
     rk45 = config.integrator == "rk45"
     f = None
     if rk45:
@@ -400,9 +431,12 @@ def trace_rays_chunked(
         # do not depend on time, a second launch at t = 0 where they do.
         # The kill test's last position needs no carry: each unit starts
         # it at its entry state, the last saved one.
-        h_entry, f = _tracer.entry_stage(bg, y, t, rtol, atol)
+        h_entry, f = on_shards(
+            lambda b, yy, tt: _tracer.entry_stage(b, yy, tt, rtol, atol),
+            y, t)
         if h is None:
-            h = (_tracer.initial_step_sizes(bg, y, rtol, atol)
+            h = (on_shards(lambda b, yy: _tracer.initial_step_sizes(
+                b, yy, rtol, atol), y)
                  if resuming and ray_mod.timed(bg) else h_entry)
     elif h is None:
         h = torch.zeros(n_lanes, dtype=dtype, device=device)
@@ -444,29 +478,33 @@ def trace_rays_chunked(
         split.unit_start()
         if not rk45:
             # The carry is row step - 1, at model time (step - 1) * tstep.
-            y, (ys, ugs, vgs) = _tracer._rk4_chunk(
-                bg, y, dt, n, cut_off, t_start=(step - 1) * config.tstep)
+            y, (ys, ugs, vgs) = on_shards(
+                lambda b, yy: _tracer._rk4_chunk(
+                    b, yy, dt, n, cut_off,
+                    t_start=(step - 1) * config.tstep), y)
         else:
             bounds = torch.arange(step, step + n, dtype=dtype,
                                   device=device) * dt
-            # Row 0 of the unit's output is its entry state and these;
-            # the driver keeps rows 1..n.
-            row0 = torch.zeros_like(t)
-            if config.interval_batch > 1:
-                args = (bg, y, row0, row0, h, f, bounds[None], n, cut_off,
+            pin = (config.pin_limit,
+                   None if config.pin_limit is None else config.pin_mwn)
+
+            def unit(b, yy, row0, hh, ff, tt):
+                """The chunk's unit over lanes entered at times tt; row 0
+                of its output is their entry state and row0, the driver
+                keeps rows 1..n."""
+                bb = bounds.to(yy.device)
+                if config.interval_batch == 1:
+                    return _tracer._exact_run(
+                        b, yy, row0, row0, hh, ff, bb[:, None], n, cut_off,
+                        rtol, atol, min_step, BARRIER_MAX_ITERS,
+                        barrier=True, t0=tt)
+                args = (b, yy, row0, row0, hh, ff, bb[None], n, cut_off,
                         rtol, atol, min_step, MAX_ITERS)
                 if config.bound_mode == "dense":
-                    run = _tracer._dense_run(
-                        *args, config.pin_limit,
-                        None if config.pin_limit is None else config.pin_mwn,
-                        t0=t)
-                else:
-                    run = _tracer._exact_run(*args, t0=t)
-            else:
-                run = _tracer._exact_run(
-                    bg, y, row0, row0, h, f, bounds[:, None], n, cut_off,
-                    rtol, atol, min_step, BARRIER_MAX_ITERS, barrier=True,
-                    t0=t)
+                    return _tracer._dense_run(*args, *pin, t0=tt)
+                return _tracer._exact_run(*args, t0=tt)
+
+            run = on_shards(unit, y, torch.zeros_like(t), h, f, t)
             y, t, h, f = run.carry[:4]
             ys, ugs, vgs = run.ys[1:], run.ugs[1:], run.vgs[1:]
         split.unit_end()
@@ -555,6 +593,8 @@ def trace_rays_chunked(
             n_alive = int(alive.sum())
             target = max(1 << (max(n_alive, 1) - 1).bit_length(),
                          compact_min_width)
+            if mesh is not None:
+                target = -(-target // mesh.size) * mesh.size
             if target < n_lanes:
                 keep = np.flatnonzero(alive)
                 filler = np.flatnonzero(~alive)[: target - n_alive]

@@ -349,10 +349,10 @@ def test_trace_rays_reroutes_past_auto_chunk_bytes(states, state):
 
 @pytest.mark.parametrize("branch", ["mesh"])
 def test_unported_branches_raise(states, branch):
-    """A device mesh is the one branch still to port (root_order='fortran'
-    and initial_state: tests/test_torch_fortran_roots.py and
-    tests/test_torch_io_main.py)."""
+    """Every branch is ported; a ``mesh`` that is not a
+    ``parallel.sharding.Mesh`` raises TypeError before the run (the
+    mesh's chunked runs: tests/test_torch_parallel.py)."""
     _, bst, _ = states
-    with pytest.raises(NotImplementedError, match="Slice 6"):
+    with pytest.raises(TypeError, match="Mesh"):
         ck.trace_rays_chunked(bst, cfg_of(pt, "dense"), verbose=False,
                               mesh=object())

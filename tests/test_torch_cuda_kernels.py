@@ -2002,3 +2002,176 @@ def test_region_wrapper_refuses_bad_inputs(dev):
                 (lon, lat, amp, keep.int())):
         with pytest.raises(ValueError):
             flux._region_cuda(*bad, *box)
+
+
+# ---- The device mesh: one launch per shard, bitwise the meshless run ----
+
+MESH_BRANCHES = {
+    "rk4": dict(integrator="rk4"),
+    "exact": dict(integrator="rk45", interval_batch=16),
+    "exact_batch1": dict(integrator="rk45", interval_batch=1),
+    "dense_pin": dict(integrator="rk45", bound_mode="dense",
+                      interval_batch=16, pin_limit=500, pin_mwn=0.0),
+}
+MESH_CFG = dict(zwn=(2.0, 4.0, 6.0), sw_lon=0.0, sw_lat=5.0, dlon=36.0,
+                dlat=8.0, nnx=5, nny=4, tstep=7200.0, ttotal=4 * DAY)
+
+
+def card_mesh(dev, n=3):
+    """A mesh of ``n`` entries that all name ``dev``: the 128 compacted
+    lanes of MESH_CFG split 43 + 43 + 43 (one NaN pad lane)."""
+    from rwrt_tpu_torch.parallel.sharding import Mesh
+
+    return Mesh((dev,) * n)
+
+
+def run_counts():
+    return {"dense_run": tracer.LAUNCHES, "rk4_run": tracer.RK4_LAUNCHES,
+            "exact_run": tracer.EXACT_LAUNCHES, "entry": tracer.ENTRY_LAUNCHES,
+            "rhs": ray.LAUNCHES, "dense_group": rk45.LAUNCHES,
+            "exact_group": rk45.EXACT_LAUNCHES}
+
+
+def counted(fn):
+    """fn()'s result and the launches it made, by kernel."""
+    before = run_counts()
+    out = fn()
+    after = run_counts()
+    return out, {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def traj_same(a, b):
+    return all(getattr(a, k).dtype == getattr(b, k).dtype
+               and getattr(a, k).device == getattr(b, k).device
+               and same(getattr(a, k), getattr(b, k)) for k in a._fields)
+
+
+def mesh_launches(branch, n):
+    """The launches of a run over an n-shard mesh: one whole-run launch per
+    shard, and an adaptive run's entry stage once per shard."""
+    if branch == "rk4":
+        return {"rk4_run": n}
+    return {"dense_run" if branch == "dense_pin" else "exact_run": n,
+            "entry": n}
+
+
+@pytest.mark.parametrize("state", ["float32", "float64", "mixed"])
+@pytest.mark.parametrize("branch", list(MESH_BRANCHES))
+def test_mesh_run_bitwise_one_launch_per_shard(jet_field, dev, branch,
+                                               state):
+    """``trace_rays`` over a 3-entry mesh of one card: one launch per shard
+    (the shards take the instance their lane count picks), rows, (ug, vg),
+    attempts and truncation bitwise the run's without the mesh, on the
+    state's device; the per-shard attempts are each shard's."""
+    u, v, lat, lon = jet_field
+    cal = "float64" if state == "float64" else "float32"
+    bs = pt.prepare(u, v, lat, lon, cal_dtype=cal, device=dev)
+    cfg = pt.RunConfig(**MESH_CFG, **MESH_BRANCHES[branch], cal_dtype=cal,
+                       state_dtype="float64" if state == "mixed"
+                       else "compute")
+    s0, s3 = {}, {}
+    want = pt.trace_rays(bs, cfg, stats=s0)
+    got, launches = counted(lambda: pt.trace_rays(
+        bs, cfg, mesh=card_mesh(dev), stats=s3))
+    assert launches == mesh_launches(branch, 3)
+    assert traj_same(want, got) and got.lon.is_cuda
+    if branch != "rk4":
+        assert torch.equal(s0["lane_att"], s3["lane_att"])
+        att = torch.nn.functional.pad(s0["lane_att"], (0, 1))
+        per_shard = att.reshape(att.shape[0], 3, -1).amax(dim=2).T
+        assert torch.equal(s3["shard_iters"], per_shard)
+
+
+@pytest.mark.parametrize("kind", ["time", "member"])
+def test_mesh_time_and_ensemble_bitwise(jet_field, dev, kind):
+    """A time-varying background, and an ensemble of two members (the
+    member map split with the lanes, pad lanes member 0), over a 3-entry
+    mesh in dense mode with pin: one launch per shard of the time
+    instance, bitwise the meshless run."""
+    u, v, lat, lon = jet_field
+    cfg = pt.RunConfig(**MESH_CFG, **MESH_BRANCHES["dense_pin"])
+    if kind == "time":
+        fu, fv, _, _ = frames(jet_field)
+        bs = pt.prepare_time_varying(fu, fv, lat, lon, bg_t0=-0.3 * DAY,
+                                     bg_dt=DAY, device=dev)
+        want = pt.trace_rays(bs, cfg)
+        got, launches = counted(lambda: pt.trace_rays(
+            bs, cfg, mesh=card_mesh(dev)))
+        pairs = [(want, got)]
+    else:
+        members = [pt.prepare(s * u, v, lat, lon, device=dev)
+                   for s in (0.9, 1.1)]
+        want = pt.trace_rays_ensemble(members, cfg)
+        got, launches = counted(lambda: pt.trace_rays_ensemble(
+            members, cfg, mesh=card_mesh(dev)))
+        pairs = list(zip(want, got))
+    assert launches == {"dense_run": 3, "entry": 3}
+    assert all(traj_same(a, b) for a, b in pairs)
+
+
+@pytest.mark.parametrize("state", ["compute", "float64"],
+                         ids=["float32", "mixed"])
+def test_mesh_chunked_resume_bitwise(jet_field, dev, tmp_path, state):
+    """The chunked driver over a 3-entry mesh: one dense launch per shard
+    per chunk, bitwise the meshless chunked run; cut by a chunk budget with
+    a checkpoint and resumed under the same mesh, bitwise; resumed under a
+    4-entry mesh, refused."""
+    from rwrt_tpu_torch.utils import checkpoint
+
+    u, v, lat, lon = jet_field
+    bs = pt.prepare(u, v, lat, lon, cal_dtype="float32", device=dev)
+    cfg = pt.RunConfig(**MESH_CFG, **MESH_BRANCHES["dense_pin"],
+                       state_dtype=state)
+    kw = dict(chunk_steps=16, verbose=False, compact_min_width=8)
+    want = checkpoint.trace_rays_chunked(bs, cfg, **kw)
+    got, launches = counted(lambda: checkpoint.trace_rays_chunked(
+        bs, cfg, mesh=card_mesh(dev), **kw))
+    assert launches == {"dense_run": 9, "entry": 3}
+    assert traj_same(want, got)
+    path = str(tmp_path / "ck.npz")
+    with pytest.raises(checkpoint.ChunkBudgetReached):
+        checkpoint.trace_rays_chunked(bs, cfg, mesh=card_mesh(dev),
+                                      checkpoint_path=path, max_chunks=1,
+                                      **kw)
+    with pytest.raises(ValueError, match="mesh"):
+        checkpoint.trace_rays_chunked(bs, cfg, mesh=card_mesh(dev, 4),
+                                      checkpoint_path=path, **kw)
+    assert traj_same(want, checkpoint.trace_rays_chunked(
+        bs, cfg, mesh=card_mesh(dev), checkpoint_path=path, **kw))
+
+
+def test_mesh_wavenumber_maps_bitwise(jet_field, dev):
+    """The wavenumber maps over a 3-entry mesh: bitwise the meshless maps
+    (72 x 37 = 2,664 points: 888 a shard)."""
+    from rwrt_tpu_torch.diagnostics import wavenumber
+
+    u, v, lat, lon = jet_field
+    bs = pt.prepare(u, v, lat, lon, device=dev)
+    want = wavenumber.compute_wavenumber_maps(bs, (2.0, 4.0))
+    got = wavenumber.compute_wavenumber_maps(bs, (2.0, 4.0),
+                                             mesh=card_mesh(dev))
+    assert all(same(getattr(want, k), getattr(got, k)) for k in want._fields)
+
+
+def test_mesh_over_two_cards(jet_field, dev):
+    """A mesh over two real cards: each shard's launches go to its own card
+    (the occupancy counts read per card), the rows gathered on the state's
+    card bitwise the meshless run's, for dense and RK4 runs."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from rwrt_tpu_torch.parallel import sharding
+
+    u, v, lat, lon = jet_field
+    bs = pt.prepare(u, v, lat, lon, cal_dtype="float32", device=dev)
+    mesh = sharding.make_mesh(2)
+    assert mesh.devices == (torch.device("cuda", 0), torch.device("cuda", 1))
+    for branch in ("dense_pin", "rk4"):
+        cfg = pt.RunConfig(**MESH_CFG, **MESH_BRANCHES[branch])
+        want = pt.trace_rays(bs, cfg)
+        got, launches = counted(lambda: pt.trace_rays(bs, cfg, mesh=mesh))
+        assert launches == mesh_launches(branch, 2)
+        assert traj_same(want, got) and got.lon.device == dev
+    key = (torch.float32, torch.float32)
+    for i in range(2):
+        with torch.cuda.device(i):
+            assert tracer.dense_grid(key) == tracer._dense_grid(i, key, "")

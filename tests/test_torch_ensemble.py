@@ -109,5 +109,5 @@ def test_ensemble_refuses_mismatched_members(members):
             fields=tm[1].fields[:2])], cfg)
     with pytest.raises(ValueError):
         pt.trace_rays_ensemble([tm[0], members["static"][1][0]], cfg)
-    with pytest.raises(NotImplementedError, match="Slice 6"):
+    with pytest.raises(TypeError, match="Mesh"):
         pt.trace_rays_ensemble(tm, cfg, mesh=object())

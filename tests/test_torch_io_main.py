@@ -485,18 +485,41 @@ def test_wnmaps_time_varying_through_cli_surface(tmp_path, jet_field):
     assert_close(load(wn["j"]), got)
 
 
-@pytest.mark.parametrize("flag,slice_", [("--mesh", "Slice 6")])
-def test_cli_unported_branch_raises_before_load(tmp_path, flag, slice_):
-    """--mesh raises NotImplementedError naming its ROADMAP slice before
-    anything is loaded: the input file does not exist, and no output
-    appears. (--report-exact is ported: tests/test_torch_classify.py.)"""
-    cfg = {"inputuv": str(tmp_path / "absent.npz"), "zwn": [3.0],
-           "ncfile": str(tmp_path / "rays.npz")}
-    p = write_config(tmp_path, cfg)
-    extra = ["--report", str(tmp_path / "r.json")] if flag != "--mesh" else []
-    with pytest.raises(NotImplementedError, match=slice_):
-        port_cli(["--config", p, flag, "--device", "cpu"] + extra)
-    assert sorted(os.listdir(tmp_path)) == ["run.json"]
+# The case keeps the id it had while the flag was refused.
+@pytest.mark.parametrize("flag,devices", [("--mesh", 3)],
+                         ids=["--mesh-Slice 6"])
+def test_cli_unported_branch_raises_before_load(tmp_path, jet_field, flag,
+                                                devices):
+    """Every flag is ported: --mesh splits the rays over a mesh of
+    ``mesh_devices`` CPU entries (one without it), its files bitwise the
+    run's without the flag, the report's "mesh" {"rays": n} (JAX's
+    report's form of its mesh's shape)."""
+    u, v, lat, lon = jet_field
+    inp = save_wind(tmp_path / "wind.npz", u, v, lat, lon)
+    cfg = dict({k: list(x) if isinstance(x, tuple) else x
+                for k, x in RK45.items()}, inputuv=inp, nnx=3)
+    runs = {}
+    for name, extra, conf in (
+            ("plain", [], {}), ("one", [flag], {}),
+            ("mesh", [flag], {"mesh_devices": devices})):
+        files = {k: str(tmp_path / f"{name}_{k}.npz") for k in ("rays", "wn")}
+        path = write_config(tmp_path, dict(cfg, ncfile=files["rays"], **conf),
+                            f"{name}.json")
+        rep = str(tmp_path / f"{name}_report.json")
+        assert port_cli(["--config", path, "--device", "cpu", "--report",
+                         rep, "--wnmaps", files["wn"]] + extra) == 0
+        with open(rep) as f:
+            runs[name] = json.load(f)["mesh"], files
+    assert runs["plain"][0] is None
+    assert runs["one"][0] == {"rays": 1}
+    assert runs["mesh"][0] == {"rays": devices}
+    for name in ("one", "mesh"):
+        for k, path in runs[name][1].items():
+            ref, got = load(runs["plain"][1][k]), load(path)
+            assert sorted(ref) == sorted(got)
+            for key in ref:
+                np.testing.assert_array_equal(ref[key], got[key],
+                                              err_msg=f"{name} {k} {key}")
 
 
 def test_cuda_run_without_a_card_is_an_error(tmp_path, jet_field):

@@ -443,10 +443,12 @@ def test_float64_fields_make_it_a_no_op(jet_field, branch):
 
 @pytest.mark.parametrize("branch", ["mesh"])
 def test_unported_branches_still_raise_in_mixed(states, branch):
-    """A device mesh is the one branch still to port."""
+    """In mixed precision too, a ``mesh`` that is not a
+    ``parallel.sharding.Mesh`` raises TypeError (the mesh's mixed runs:
+    tests/test_torch_parallel.py)."""
     _, bst, _, _ = states
     cfg = dict(CFG, ttotal=2 * DAY)
-    with pytest.raises(NotImplementedError, match="Slice 6"):
+    with pytest.raises(TypeError, match="Mesh"):
         pt.trace_rays(bst, pt.RunConfig(**cfg), mesh=object())
 
 

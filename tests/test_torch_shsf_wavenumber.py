@@ -132,6 +132,8 @@ def test_turning_critical_masks_matches_jax(states):
 
 
 def test_wavenumber_maps_refuse_a_mesh(states):
+    """A ``mesh`` that is not a ``parallel.sharding.Mesh`` raises TypeError
+    (the maps under a mesh: tests/test_torch_parallel.py)."""
     _, bsp = states["static"]
-    with pytest.raises(NotImplementedError, match="Slice 6"):
+    with pytest.raises(TypeError, match="Mesh"):
         pwn.compute_wavenumber_maps(bsp, ZWN, mesh=object())

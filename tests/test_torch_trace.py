@@ -24,6 +24,7 @@ import rwrt_tpu_torch as pt
 from rwrt_tpu import tracer as jtracer
 from rwrt_tpu_torch import convert
 from rwrt_tpu_torch import tracer as ttracer
+from rwrt_tpu_torch.parallel.sharding import Mesh
 
 DAY = 86400.0
 CFG = dict(
@@ -134,13 +135,16 @@ def test_rootless_lanes_stay_frozen(states):
 
 @pytest.mark.parametrize("branch", ["mesh"])
 def test_unported_branches_raise(states, branch):
-    """A device mesh is the one branch still to port (root_order='fortran'
-    and initial_state: tests/test_torch_fortran_roots.py and
-    tests/test_torch_io_main.py)."""
+    """Every branch is ported; a ``mesh`` that is not a
+    ``parallel.sharding.Mesh`` raises TypeError, and a mesh of CUDA
+    entries never runs a CPU state (the mesh's runs:
+    tests/test_torch_parallel.py)."""
     _, bst = states
-    cfg = dict(CFG, ttotal=2 * DAY)
-    with pytest.raises(NotImplementedError, match="Slice 6"):
-        pt.trace_rays(bst, pt.RunConfig(**cfg), mesh=object())
+    cfg = pt.RunConfig(**dict(CFG, ttotal=2 * DAY))
+    with pytest.raises(TypeError, match="Mesh"):
+        pt.trace_rays(bst, cfg, mesh=object())
+    with pytest.raises(ValueError, match="cuda"):
+        pt.trace_rays(bst, cfg, mesh=Mesh((torch.device("cuda", 0),) * 2))
 
 
 def test_max_iters_truncation_raises():
