@@ -37,10 +37,19 @@ driver on the trajectory file), exact death causes (``--report-exact``),
 and the single-group kernels' time instances. Last, the gather probe
 (``python -m rwrt_tpu_torch.probes.gather_probe``), the path of the last
 TPU kernel, and gradients on the card through the plain, differentiable
-route: ``optimize_seeds`` at 8,400 rays over 30 days.
+route: ``optimize_seeds`` at 8,400 rays over 30 days. Last, four of the
+port's five examples, each in its own process on the card.
 
 Phases (any failed check raises; nothing is caught but the truncation the
 exact_path phase requires and the chunk budget the chunked phase sets):
+  plain_ahead  the plain stage: the plain runs that dense_run, rk4,
+               exact_run, mixed_dense, mixed_rk4 and mixed_exact hold their
+               kernels to, on the inputs those phases build, PLAIN_WORKERS
+               at a time in worker processes (``python chip_smoke.py
+               --plain``: host-bound loops, side by side) while no kernel
+               is timed; each phase takes its run's result when its inputs
+               are the stage's, bitwise (else runs it itself) and prints
+               the plain ms its worker measured
   rhs          ``ray.rhs`` and ``ray.rhs_and_gv`` (the kernel) vs the
                plain ``ray._rhs_core`` on 100,800 seeded states; the
                wrapper's time beside the kernel alone (torch.profiler)
@@ -76,11 +85,20 @@ exact_path phase requires and the chunk budget the chunked phase sets):
                float32 the kernel alone and the plain route too, against
                its bound (the background rows its samples read)
   spectral     spectral kernel vs ``sample_spectral`` at the day-10
-               positions, float64, float64 with bf16 operands, float32 and
-               float32 with bf16 operands; kernel-alone, wrapper (with the
-               coefficient repack) and plain times, achieved TFLOP/s, and
-               the library call ``torch.matmul`` of the (R, Mp) basis by the
-               (Mp, L * C) coefficients
+               positions and three NaN / out-of-range rows, in every operand
+               case (SPECTRAL_CASES: float64 and float32 coefficients, with
+               no rounding and with bf16, float16, float32 over float64 and
+               the four float8 operand dtypes), to 1e-12 (float64) / 1e-5
+               (float32) of each channel's max over the values finite in
+               both, non-finite positions equal, two launches bitwise;
+               kernel-alone, wrapper (with the coefficient repack) and plain
+               times, achieved TFLOP/s, the bound (the MMA's tensor-core
+               peak), the library call ``torch.matmul`` of the rounded
+               (R, Mp) basis by the rounded (Mp, L * C) coefficients, and
+               per channel the coefficients each cast made 0, inf or NaN;
+               then the kernel's operand rounding (``round_on_card``)
+               bitwise ``round_operands`` on 2^24 values in [-1, 1] from
+               float32 and from float64 into each operand dtype
   rk4          the RK4 kernel (``tracer._run_rk4``) vs the plain
                ``_run_rk4_plain`` over all 360 steps of the production
                seeding's entry state (60,784 lanes), float32, and its first
@@ -276,6 +294,17 @@ exact_path phase requires and the chunk budget the chunked phase sets):
                for AD_STEPS Adam steps, its objective falling, wall and
                peak memory; ``trace_rays`` over a gradient-carrying state
                raises at the kernel guard
+  examples     the port's examples (``examples/torch_*.py``) in their own
+               processes with ``--device cuda``, started together, each
+               one's end printed:
+               the great-circle demo at full size (all 75 rays alive at day
+               30, as in the JAX package's demo) and the plot script on its
+               file (where matplotlib is installed), the flux demo
+               (termination counts summing to the 1,890 ray slots), the
+               adjoint demo (gradients against its central
+               differences within AD_BARS); not the targeting demo (over
+               60 s at ``RWRT_SMOKE=1``; the autodiff phase runs
+               ``optimize_seeds`` at a user's size)
 
 Each whole-run dense launch a phase makes (dense_run, main_path,
 mixed_dense, time_main_path, time_paths, ensemble; chunked per chunk)
@@ -301,8 +330,14 @@ counted from the sources for this run's data (step attempts, rows kept)
 over the peak outside the tensor cores (67 TFLOP/s float32, 34 float64;
 a mixed instance's float32 and float64 flops each over its own peak, the
 two times added);
-for the spectral kernel's float32 case, which runs 3xTF32 on the tensor
-cores, three times the product's flops over the TF32 peak (495 TFLOP/s);
+for the spectral kernel, the product's flops over the card's tensor-core
+peak for the case's operand type (``spectral_bound``), whatever MMA the
+kernel runs: the float64 DMMA peak (67 TFLOP/s) for every case over
+float64 coefficients (its sums are float64); over float32 coefficients,
+three times over the TF32 peak (495) with no rounding (3xTF32, the
+card's float32-exact product), the fp16 and bf16 peak (989) for float16,
+bfloat16 and the two fnuz float8 types (no hardware format), the fp8
+peak (1,979) for float8_e4m3fn and float8_e5m2;
 the gather does no arithmetic: its bytes alone.
 
 Prints the card (``nvidia-smi`` name and power limit), per-phase numbers,
@@ -314,8 +349,10 @@ when the port's package is not beside this script. Imports no JAX.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -335,9 +372,11 @@ N_DAYS = 30
 N_SUBSET = 4096
 
 #: H100 SXM data sheet: HBM bandwidth, the peaks outside the tensor cores
-#: and the dense TF32 tensor-core peak.
+#: and the dense tensor-core peaks (TF32, fp16 and bf16, fp8, float64
+#: DMMA).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "tf32": 495e12}
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "tf32": 495e12,
+              "fp16": 989e12, "fp8": 1979e12, "fp64_tc": 67e12}
 #: Flops counted from the sources (an add, multiply, divide, sqrt or
 #: transcendental each): one ray_rhs evaluation (csrc/ray_rhs.cuh: 119 for
 #: the sample, of which 84 blend the 12 fields; 19 group velocity; 44
@@ -674,6 +713,9 @@ class Run:
         self.kernels = {}
         self.turns = {}
         self.choices = {}
+        #: The plain stage's runs not yet taken: key -> (the call, the
+        #: file of its result and ms).
+        self.ahead = {}
 
     def bs(self, dtype):
         return self.rt.prepare(self.u, self.v, self.lat, self.lon,
@@ -748,6 +790,242 @@ class Run:
         kw = ({} if cfg.pin_limit is None
               else dict(pin_limit=cfg.pin_limit, pin_mwn=cfg.pin_mwn))
         return bg, args, kw, idx
+
+
+#: The plain stage. A plain run is a host-bound Python loop (the host's
+#: dispatch sets its pace; the card is mostly idle), so the slowest ones
+#: run PLAIN_WORKERS at a time in worker processes (``python chip_smoke.py
+#: --plain``) while this process waits: a phase then takes its plain
+#: run's result (``plain_call``) and holds its kernel to it as before.
+#: Nothing is timed beside the workers: on an H100 four of them each ran a
+#: plain dense group in 1.2-1.4x its time alone (2.8-3.2x the work in the
+#: wall time of one), and the dense kernel timed beside three ran 3.0-3.6x
+#: slower (``plain_stage_probe.py``).
+#: A plain run's ms in the kernels line is the one its worker measured.
+PLAIN_WORKERS = 4
+PLAIN_TIMEOUT = 900
+#: Seconds each plain run of the stage took alone on an H100's host (in
+#: this script's runs before the stage), for sharing the runs out among
+#: the workers.
+PLAIN_SECONDS = {
+    "dense_run float32": 98, "dense_run float64": 70,
+    "exact_run float32": 93, "exact_run float64": 31,
+    "rk4 production float32": 10, "rk4 production float64": 9,
+    "rk4 default float32": 26, "mixed rk4 production": 9,
+    "mixed rk4 default": 31, "mixed dense_run": 25, "mixed exact_run": 41}
+
+
+def timed_plain(fn, args, kw):
+    """fn(*args, **kw) and its ms between CUDA events around it."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(*args, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def same_tree(a, b):
+    """Two argument trees (tuples, named tuples, lists, dicts, tensors,
+    scalars, None) equal: tensors of one dtype, shape and device, bitwise
+    (NaN where NaN)."""
+    import torch
+
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+                and a.dtype == b.dtype and a.shape == b.shape
+                and a.device == b.device
+                and (same(a, b) if a.is_floating_point()
+                     else bool(torch.equal(a, b))))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(same_tree(a[k], b[k]) for k in a))
+    if isinstance(a, (tuple, list)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(same_tree(x, y) for x, y in zip(a, b)))
+    return a == b or (a != a and b != b)
+
+
+def plain_stage(run, jobs):
+    """Runs ``jobs`` ((key, seconds expected, the name of a ``tracer``
+    function, args, kwargs)) in min(PLAIN_WORKERS, len(jobs)) worker
+    processes, shared out longest first, while this process waits; raises
+    unless every worker exits 0. Each result waits in a file of the run's
+    temporary directory, under its key in ``run.ahead``, for
+    ``plain_call``. Returns the wall seconds."""
+    torch = run.torch
+
+    folder = Path(run.tmp) / "plain"
+    folder.mkdir(exist_ok=True)
+    first = len(list(folder.glob("*.in.pt")))
+    loads = [[0.0, []] for _ in range(min(PLAIN_WORKERS, len(jobs)))]
+    for i, (key, est, fn, args, kw) in sorted(
+            enumerate(jobs, first), key=lambda job: -job[1][1]):
+        torch.save((fn, args, kw), folder / f"{i}.in.pt")
+        load = min(loads, key=lambda w: w[0])
+        load[0] += est
+        load[1].append(str(i))
+        run.ahead[key] = ((fn, args, kw), folder / f"{i}.out.pt")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--plain",
+         str(folder), *stems], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for _, stems in loads]
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=PLAIN_TIMEOUT)
+            check(proc.returncode == 0, f"a plain worker exited "
+                  f"{proc.returncode}:\n{out}\n{err}")
+    finally:
+        for proc in procs:       # after a failure: stop the others
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return time.perf_counter() - t0
+
+
+def plain_worker(folder, stems):
+    """A plain stage's worker: for each stem, the call in ``<stem>.in.pt``
+    timed (``timed_plain``), its result and ms saved to ``<stem>.out.pt``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    from rwrt_tpu_torch import tracer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for stem in stems:
+        fn, args, kw = torch.load(folder / f"{stem}.in.pt",
+                                  map_location="cuda:0", weights_only=False)
+        torch.save(timed_plain(getattr(tracer, fn), args, kw),
+                   folder / f"{stem}.out.pt")
+    return 0
+
+
+def plain_call(run, key, fn, *args, **kw):
+    """``tracer.<fn>(*args, **kw)`` and its ms: the plain stage's result
+    under ``key`` where the stage ran this call on these inputs (bitwise),
+    else run here, timed the same way (``timed_plain``)."""
+    torch = run.torch
+    from rwrt_tpu_torch import tracer
+
+    ahead = run.ahead.pop(key, None)
+    if ahead is not None:
+        call, path = ahead
+        if same_tree(call, (fn, args, kw)):
+            out = torch.load(path, map_location=run.dev, weights_only=False)
+            path.unlink()
+            return out
+        print(f"plain {key}: not the plain stage's inputs; run here")
+    return timed_plain(getattr(tracer, fn), args, kw)
+
+
+def dense_run_args(run, dtype):
+    """phase_dense_run's unit arguments: the production run's entry state,
+    float64 on its first N_SUBSET lanes. Returns (args, kw, idx)."""
+    _, args, kw, idx = run.run_inputs(dtype)
+    if dtype == run.torch.float64:
+        args = lane_subset(args, N_SUBSET)
+    return args, kw, idx
+
+
+def exact_run_args(run, dtype):
+    """phase_exact_run's unit arguments: the README run's entry state,
+    float64 on its first EXACT_SUBSET lanes over EXACT_DAYS days. Returns
+    (args, idx, cfg)."""
+    cfg = readme_config(run.rt)
+    _, args, _, idx = run.run_inputs(dtype, cfg, cfg)
+    if dtype == run.torch.float64:
+        n_bounds = int(EXACT_DAYS * DAY / cfg.tstep)
+        args = lane_subset(args, EXACT_SUBSET)
+        groups = args[6][:n_bounds // args[6].shape[1]]
+        args = args[:6] + (groups, n_bounds) + args[8:]
+    return args, idx, cfg
+
+
+def rk4_args(run, name, dtype, state=None):
+    """An RK4 unit's arguments (bg, y0, ug0, vg0, dt, nt, cut_off) on the
+    entry state of the production seeding (``name`` "production", 30 days;
+    float64 on its first N_SUBSET lanes) or of the default run, ``state``
+    as for ``Run.entry``. Returns (args, idx, cfg)."""
+    from rwrt_tpu_torch.solvers import rk45
+
+    production = name == "production"
+    cfg = (rk4_production_config if production else default_config)(run.rt)
+    bg, y0, ug0, vg0, idx = run.entry(dtype, None if production else cfg,
+                                      state)
+    if dtype == run.torch.float64:
+        y0, ug0, vg0 = (x[..., :N_SUBSET].contiguous()
+                        for x in (y0, ug0, vg0))
+    sdt = state or dtype
+    return (bg, y0, ug0, vg0, rk45.as_scalar(cfg.tstep, sdt), cfg.nt,
+            rk45.as_scalar(cfg.cut_off_rad, sdt)), idx, cfg
+
+
+def mixed_dense_args(run):
+    """phase_mixed_dense's unit arguments (the production run's entry
+    state, float64 over the float32 background) and their plain cut: the
+    first N_SUBSET lanes over the first MIXED_PLAIN_GROUPS groups. Returns
+    (args, kw, idx, cut)."""
+    torch = run.torch
+    _, args, kw, idx = run.run_inputs(torch.float32, state=torch.float64)
+    sub = lane_subset(args, N_SUBSET)
+    groups = sub[6][:MIXED_PLAIN_GROUPS]
+    return args, kw, idx, sub[:6] + (groups, groups.numel()) + sub[8:]
+
+
+def mixed_exact_args(run):
+    """phase_mixed_exact's unit arguments (the README run over
+    MIXED_README_DAYS days, float64 over the float32 background) and their
+    plain cut: the first EXACT_SUBSET lanes over EXACT_DAYS days. Returns
+    (args, idx, cfg, cut)."""
+    torch = run.torch
+    cfg = readme_config(run.rt, MIXED_README_DAYS)
+    _, args, _, idx = run.run_inputs(torch.float32, cfg, cfg,
+                                     state=torch.float64)
+    n_bounds = int(EXACT_DAYS * DAY / cfg.tstep)
+    sub = lane_subset(args, EXACT_SUBSET)
+    sub = sub[:6] + (sub[6][:n_bounds // sub[6].shape[1]], n_bounds) + sub[8:]
+    return args, idx, cfg, sub
+
+
+def phase_plain_ahead(run):
+    """The plain stage for the whole-run phases: the plain runs of
+    dense_run, rk4, exact_run, mixed_dense, mixed_rk4 and mixed_exact on
+    the inputs those phases build (the same functions), in worker
+    processes, before any phase times a kernel."""
+    torch = run.torch
+    f32, f64 = torch.float32, torch.float64
+    jobs = []
+    for dtype in (f32, f64):
+        name = str(dtype)[6:]
+        args, kw, _ = dense_run_args(run, dtype)
+        jobs.append((f"dense_run {name}", "_dense_run_plain", args, kw))
+        args, _, _ = exact_run_args(run, dtype)
+        jobs.append((f"exact_run {name}", "_exact_run_plain", args, {}))
+        jobs.append((f"rk4 production {name}", "_run_rk4_plain",
+                     rk4_args(run, "production", dtype)[0], {}))
+    jobs.append(("rk4 default float32", "_run_rk4_plain",
+                 rk4_args(run, "default", f32)[0], {}))
+    for name in ("production", "default"):
+        jobs.append((f"mixed rk4 {name}", "_run_rk4_plain",
+                     rk4_args(run, name, f32, f64)[0], {}))
+    args, kw, _, cut = mixed_dense_args(run)
+    jobs.append(("mixed dense_run", "_dense_run_plain", cut, kw))
+    jobs.append(("mixed exact_run", "_exact_run_plain",
+                 mixed_exact_args(run)[3], {}))
+    wall = plain_stage(run, [(key, PLAIN_SECONDS[key], fn, args, kw)
+                             for key, fn, args, kw in jobs])
+    print(f"plain stage: {len(jobs)} plain runs in "
+          f"{min(PLAIN_WORKERS, len(jobs))} worker processes, {wall:.1f} s "
+          f"(each one's ms where its phase prints it)")
 
 
 def phase_rhs(run):
@@ -1080,22 +1358,15 @@ def phase_dense_run(run):
 
     for dtype in (torch.float32, torch.float64):
         name = str(dtype)[6:]
-        _, args, kw, idx = run.run_inputs(dtype)
-        if dtype == torch.float64:
-            # The first N_SUBSET lanes: lanes are independent.
-            args = lane_subset(args, N_SUBSET)
+        # float64: the first N_SUBSET lanes (lanes are independent).
+        args, kw, idx = dense_run_args(run, dtype)
         r = args[1].shape[1]
         before = tracer.LAUNCHES
         kern = tracer._dense_run(*args, **kw)
         check(tracer.LAUNCHES == before + 1, "dense_run did not launch once")
         ms = cuda_ms(lambda: tracer._dense_run(*args, **kw), 5)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        plain = tracer._dense_run_plain(*args, **kw)
-        end.record()
-        torch.cuda.synchronize()
-        plain_ms = start.elapsed_time(end)
+        plain, plain_ms = plain_call(run, f"dense_run {name}",
+                                     "_dense_run_plain", *args, **kw)
         equal(kern, plain, f"{name}, {r} lanes")
         b = dense_run_bound(args, kern, dtype)
         trips = kern.lane_att.sum(dim=0)
@@ -1367,6 +1638,87 @@ def phase_time_entry(run):
                      torch.as_tensor(t, dtype=y.dtype, device=run.dev), tsf)
 
 
+#: The spectral phase's operand cases: (coefficient dtype, matmul_dtype)
+#: by name, each over the production fit; float32 operands over float32
+#: coefficients and float64 ones over either take the None route (no
+#: rounding) and are held to it bitwise.
+SPECTRAL_F8 = ("float8_e4m3fn", "float8_e5m2", "float8_e4m3fnuz",
+               "float8_e5m2fnuz")
+SPECTRAL_CASES = (
+    ("float64", None), ("float64", "bfloat16"), ("float64", "float16"),
+    ("float64", "float32"), *(("float64", f) for f in SPECTRAL_F8),
+    ("float32", None), ("float32", "bfloat16"), ("float32", "float16"),
+    *(("float32", f) for f in SPECTRAL_F8))
+#: Values in the sweep of the kernel's operand rounding (2^24 a dtype).
+ROUND_SWEEP = 1 << 24
+
+
+def spectral_err(k, p):
+    """The kernel ``k`` against the plain ``p`` ((R, C)): raises unless
+    their non-finite positions (NaN, +inf, -inf) are equal; returns the
+    largest |k - p| over each channel's max |p|, over the finite values."""
+    import torch
+
+    check(torch.equal(torch.isnan(k), torch.isnan(p)),
+          "spectral NaN positions differ")
+    check(torch.equal(torch.isinf(k), torch.isinf(p))
+          and torch.equal(k[torch.isinf(k)], p[torch.isinf(p)]),
+          "spectral inf positions differ")
+    fin = torch.isfinite(p)
+    scale = torch.where(fin, p.abs(), 0.0).amax(dim=0, keepdim=True)
+    d = torch.where(fin, (k - p).abs(), 0.0)
+    return float(torch.where(d == 0, 0.0, d / scale).max())
+
+
+def spectral_bound(args, flop, dtype, mm):
+    """The bound of one spectral case: its bytes, and its flops over the
+    card's tensor-core peak for its operand type, not the MMA the kernel
+    runs: DMMA for every case over float64 coefficients (float64 sums);
+    over float32 ones 3xTF32 (three TF32 products) with no rounding, fp8
+    for float8_e4m3fn and float8_e5m2, fp16 / bf16 for float16, bfloat16
+    and the fnuz float8 types (no hardware format)."""
+    if dtype == "float64":
+        return bound(nbytes(*args), flop, "fp64_tc")
+    if mm is None:
+        return bound(nbytes(*args), 3 * flop, "tf32")
+    return bound(nbytes(*args), flop, "fp8" if mm in (
+        "float8_e4m3fn", "float8_e5m2") else "fp16")
+
+
+def cast_counts(torch, spec, coeffs, mm):
+    """Per channel, the coefficients the cast to ``mm`` turned to 0, to
+    +-inf and to NaN."""
+    r = spec.round_operands(coeffs, mm).reshape(-1, coeffs.shape[-1])
+    c = coeffs.reshape(r.shape)
+    return {"zero": ((r == 0) & (c != 0)).sum(0).tolist(),
+            "inf": torch.isinf(r).sum(0).tolist(),
+            "nan": torch.isnan(r).sum(0).tolist()}
+
+
+def round_sweep(torch, dev, dtype):
+    """ROUND_SWEEP values in [-1, 1] (``dtype``): uniform; log-uniform
+    magnitudes down past every operand format's subnormals; ties of every
+    format (odd multiples of 2^-k, 1 <= k <= 40) and their neighbours one
+    ulp to each side; signed zeros."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    n = ROUND_SWEEP // 8
+    f64 = torch.float64
+    u = torch.rand(n, device=dev, dtype=f64, generator=g) * 2 - 1
+    sign = torch.where(u < 0, -1.0, 1.0)
+    mag = sign * torch.exp2(-40 * torch.rand(n, device=dev, dtype=f64,
+                                             generator=g))
+    k = torch.randint(1, 41, (n,), device=dev, generator=g).to(f64)
+    odd = 2 * torch.floor(torch.rand(n, device=dev, dtype=f64, generator=g)
+                          * torch.exp2(k - 1)) + 1
+    ties = (sign * odd * torch.exp2(-k)).to(dtype)
+    up = torch.nextafter(ties, torch.full_like(ties, 2.0))
+    down = torch.nextafter(ties, torch.full_like(ties, -2.0))
+    x = torch.cat([u.to(dtype), mag.to(dtype), ties, -ties, up, down,
+                   -up, -down])
+    x[:2] = torch.tensor([0.0, -0.0], dtype=dtype, device=dev)
+    return x
+
+
 def phase_spectral(run):
     torch = run.torch
     from rwrt_tpu_torch.ops import spectral_sample as spec
@@ -1374,56 +1726,104 @@ def phase_spectral(run):
     lon, lat = run.day10
     extra_lon = torch.tensor([0.3, float("nan"), 1.0], device=run.dev)
     extra_lat = torch.tensor([2.0, 0.1, -1.7], device=run.dev)
-    for dtype, bar, mm in ((torch.float64, 1e-12, None),
-                           (torch.float64, 1e-12, torch.bfloat16),
-                           (torch.float32, 1e-5, None),
-                           (torch.float32, 1e-5, torch.bfloat16)):
-        sbg = spec.fit_spectral(run.bs(dtype))
+    run.kernels["spectral"] = dict(cases=[])
+    fits = {}
+    for name, mm_name in SPECTRAL_CASES:
+        dtype = getattr(torch, name)
+        mm = None if mm_name is None else getattr(torch, mm_name)
+        bar = 1e-12 if name == "float64" else 1e-5
+        if name not in fits:
+            fits[name] = spec.fit_spectral(run.bs(dtype))
+        sbg = fits[name]
         check(tuple(sbg.coeffs.shape) == (145, 73, 18),
               f"coefficients {tuple(sbg.coeffs.shape)}")
         lo = torch.cat([lon.to(dtype), extra_lon.to(dtype)])
         la = torch.cat([lat.to(dtype), extra_lat.to(dtype)])
+        tag = name + ("" if mm is None else "_" + mm_name)
+        before = spec.LAUNCHES
         k = spec.sample_spectral_cuda(sbg, lo, la, matmul_dtype=mm)
         p = spec.sample_spectral(sbg, lo, la, matmul_dtype=mm)
         k2 = spec.sample_spectral_cuda(sbg, lo, la, matmul_dtype=mm)
         torch.cuda.synchronize()
-        tag = str(dtype)[6:] + ("_bf16" if mm is not None else "")
-        check(same_nan(k, p), f"spectral NaN rows differ ({tag})")
+        check(spec.LAUNCHES == before + 2,
+              f"spectral {tag}: the kernel did not launch")
         check(bool(torch.isnan(k[-3:]).all()), "spectral NaN rows missing")
-        check(torch.equal(torch.nan_to_num(k), torch.nan_to_num(k2)),
-              f"spectral {tag}: two launches differ")
-        e = rel_err(p.T, k.T, dim=1)
+        check(same(k, k2), f"spectral {tag}: two launches differ")
+        e = spectral_err(k, p)
+        if mm is None:
+            # The operand dtypes at least as wide as the coefficients:
+            # the same launch, bitwise.
+            for wide in {dtype, torch.float64}:
+                check(same(k, spec.sample_spectral_cuda(
+                    sbg, lo, la, matmul_dtype=wide)),
+                    f"spectral {tag}: matmul_dtype={wide} is not None's")
         # The kernel alone, on operands the wrapper would prepare.
-        bf16 = mm is not None
-        packed = spec.pack_coeffs(sbg.coeffs, bf16)
+        packed = spec.pack_coeffs(sbg.coeffs, mm)
         tht = (la - sbg.lat0).contiguous()
         out = torch.empty_like(k)
         kern = cuda_ms(lambda: spec.launch_kernel(
-            packed, lo, la, tht, sbg.coeffs.shape, bf16, out), 20)
+            packed, lo, la, tht, sbg.coeffs.shape, mm, out), 20)
+        check(same(out, k), f"spectral {tag}: the kernel alone differs")
         ms = cuda_ms(lambda: spec.sample_spectral_cuda(
             sbg, lo, la, matmul_dtype=mm), 20)
         plain = cuda_ms(lambda: spec.sample_spectral(
             sbg, lo, la, matmul_dtype=mm), 5)
+        # The library call: the product alone, on the rounded basis and
+        # coefficients in the operand dtype (bf16 for float8, which
+        # torch.matmul does not take).
+        mp, nl, nc = sbg.coeffs.shape
+        lib = (dtype if mm is None else torch.bfloat16
+               if mm_name.startswith("float8") else mm)
+        basis = spec.round_operands(
+            spec._basis_lon(lo, (mp - 1) // 2), mm).to(lib)
+        dflat = spec.round_operands(sbg.coeffs, mm).reshape(
+            mp, nl * nc).to(lib)
+        library = cuda_ms(lambda: torch.matmul(basis, dflat), 20)
         flop = 2.0 * lo.shape[0] * math.prod(sbg.coeffs.shape)
+        b = spectral_bound((lo, la, sbg.coeffs, k), flop, name, mm_name)
+        bad = int((~torch.isfinite(k)).sum())
         print(f"spectral {tag}: R={lo.shape[0]}, max err / channel max "
-              f"{e:.3e} (bar {bar:g}), kernel alone {kern:.4f} ms "
-              f"({flop / kern * 1e-9:.1f} TFLOP/s), wrapper {ms:.4f} ms, "
-              f"plain {plain:.4f} ms")
+              f"{e:.3e} (bar {bar:g}), non-finite {bad} of {k.numel()} "
+              f"(the plain version's positions), kernel alone {kern:.4f} "
+              f"ms ({flop / kern * 1e-9:.1f} TFLOP/s), "
+              f"wrapper {ms:.4f} ms, plain {plain:.4f} ms, library "
+              f"torch.matmul (R, Mp) @ (Mp, L*C) in {str(lib)[6:]} "
+              f"{library:.4f} ms; bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']})")
+        if mm is not None:
+            print(f"  per channel, coefficients the cast made 0 / inf / "
+                  f"NaN: {cast_counts(torch, spec, sbg.coeffs, mm)}")
         check(e <= bar, f"spectral {tag} error {e} > {bar}")
+        record = dict(max_abs_err=float(torch.where(
+            torch.isfinite(p), (k - p).abs(), 0.0).max()),
+            ms=ms, kernel_ms=kern, plain_ms=plain, library_ms=library,
+            **b)
+        run.kernels["spectral"]["cases"].append(
+            dict(coefficients=name, matmul_dtype=mm_name, **record))
         if tag == "float32":
-            # The library call: the product alone, on the prepared basis.
-            mp, nl, nc = sbg.coeffs.shape
-            basis = spec._basis_lon(lo, (mp - 1) // 2)
-            dflat = sbg.coeffs.reshape(mp, nl * nc)
-            library = cuda_ms(lambda: torch.matmul(basis, dflat), 20)
-            # 3xTF32: three TF32 tensor-core products per useful one.
-            b = bound(nbytes(lo, la, sbg.coeffs, k), 3 * flop, "tf32")
-            print(f"  library torch.matmul (R, Mp) @ (Mp, L*C): {library:.4f}"
-                  f" ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
-            run.kernels["spectral"] = dict(
-                max_abs_err=float(torch.nan_to_num(
-                    torch.abs(k - p), nan=0.0).max()),
-                ms=ms, plain_ms=plain, library_ms=library, **b)
+            # The main path's case (float32, no rounding): the kernels
+            # line's own numbers.
+            run.kernels["spectral"].update(record)
+    # The kernel's operand rounding (the device function its prologue
+    # rounds the basis with), bitwise the plain round_operands.
+    swept = 0
+    for dtype in (torch.float32, torch.float64):
+        x = round_sweep(torch, run.dev, dtype)
+        for mm in spec.OPERAND_DTYPES:
+            got = spec.round_on_card(x, mm)
+            want = spec.round_operands(x, mm)
+            ints = torch.int32 if dtype == torch.float32 else torch.int64
+            nan = torch.isnan(want)
+            check(torch.equal(torch.isnan(got), nan) and torch.equal(
+                torch.where(nan, 0, got).view(ints),
+                torch.where(nan, 0, want).view(ints)),
+                f"the kernel's rounding of {dtype} to {mm} differs from "
+                "round_operands")
+            swept += x.numel()
+    print(f"spectral: the kernel's operand rounding bitwise round_operands "
+          f"on {x.numel():,} values in [-1, 1] a source dtype (float32, "
+          f"float64) x {len(spec.OPERAND_DTYPES)} operand dtypes "
+          f"({swept:,} in all)")
 
 
 def rk4_bound(bg, y0, ug0, vg0, out, dtype):
@@ -1449,30 +1849,18 @@ def phase_rk4(run):
     default run's entry state (~4,000 lanes, 1,080 steps)."""
     torch = run.torch
     from rwrt_tpu_torch import kernels, tracer
-    from rwrt_tpu_torch.solvers import rk45
 
     run.rk4 = {}
-    for name, cfg in (("production", rk4_production_config(run.rt)),
-                      ("default", default_config(run.rt))):
+    for name in ("production", "default"):
         for dtype in ((torch.float32, torch.float64) if name == "production"
                       else (torch.float32,)):
-            bg, y0, ug0, vg0, idx = run.entry(
-                dtype, None if name == "production" else cfg)
-            if dtype == torch.float64:
-                y0, ug0, vg0 = (x[..., :N_SUBSET].contiguous()
-                                for x in (y0, ug0, vg0))
-            args = (bg, y0, ug0, vg0, rk45.as_scalar(cfg.tstep, dtype),
-                    cfg.nt, rk45.as_scalar(cfg.cut_off_rad, dtype))
+            args, idx, cfg = rk4_args(run, name, dtype)
+            bg, y0, ug0, vg0 = args[:4]
             before = tracer.RK4_LAUNCHES
             kern = tracer._run_rk4(*args)
             check(tracer.RK4_LAUNCHES == before + 1, "rk4 did not launch once")
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            plain = tracer._run_rk4_plain(*args)
-            end.record()
-            torch.cuda.synchronize()
-            plain_ms = start.elapsed_time(end)
+            plain, plain_ms = plain_call(
+                run, f"rk4 {name} {str(dtype)[6:]}", "_run_rk4_plain", *args)
             for k, p, what in zip(kern, plain, ("rows", "ug", "vg")):
                 check(same(k, p), f"rk4 {name} {dtype}: {what} differ from "
                       "the plain run")
@@ -1686,27 +2074,17 @@ def phase_exact_run(run):
     from rwrt_tpu_torch.models import ray
     from rwrt_tpu_torch.solvers import rk45
 
-    cfg = readme_config(run.rt)
-    n_bounds = int(EXACT_DAYS * DAY / cfg.tstep)
     for dtype in (torch.float32, torch.float64):
-        _, args, _, idx = run.run_inputs(dtype, cfg, cfg)
+        # float64: the first EXACT_SUBSET lanes over EXACT_DAYS days.
+        args, idx, cfg = exact_run_args(run, dtype)
         name = str(dtype)[6:]
-        if dtype == torch.float64:
-            args = lane_subset(args, EXACT_SUBSET)
-            groups = args[6][:n_bounds // args[6].shape[1]]
-            args = args[:6] + (groups, n_bounds) + args[8:]
         before = tracer.EXACT_LAUNCHES
         kern = tracer._exact_run(*args)
         check(tracer.EXACT_LAUNCHES == before + 1,
               "exact_run did not launch once")
         ms = cuda_ms(lambda: tracer._exact_run(*args), 3)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        plain = tracer._exact_run_plain(*args)
-        end.record()
-        torch.cuda.synchronize()
-        plain_ms = start.elapsed_time(end)
+        plain, plain_ms = plain_call(run, f"exact_run {name}",
+                                     "_exact_run_plain", *args)
         for n in ("ys", "ugs", "vgs", "lane_att", "trunc"):
             check(same(getattr(kern, n), getattr(plain, n)),
                   f"exact_run {name}: {n} differs from the plain run")
@@ -2169,23 +2547,15 @@ def phase_mixed_dense(run):
     torch = run.torch
     from rwrt_tpu_torch import tracer
 
-    _, args, kw, idx = run.run_inputs(torch.float32, state=torch.float64)
+    args, kw, idx, sub = mixed_dense_args(run)
     before = tracer.LAUNCHES
     kern = tracer._dense_run(*args, **kw)
     check(tracer.LAUNCHES == before + 1, "mixed dense_run did not launch once")
     ms = cuda_ms(lambda: tracer._dense_run(*args, **kw), 3)
-    sub = lane_subset(args, N_SUBSET)
-    groups = sub[6][:MIXED_PLAIN_GROUPS]
-    n_rows = groups.numel()
-    sub = sub[:6] + (groups, n_rows) + sub[8:]
+    n_rows = sub[7]
     part = tracer._dense_run(*sub, **kw)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    plain = tracer._dense_run_plain(*sub, **kw)
-    end.record()
-    torch.cuda.synchronize()
-    plain_ms = start.elapsed_time(end)
+    plain, plain_ms = plain_call(run, "mixed dense_run", "_dense_run_plain",
+                                 *sub, **kw)
     for n in ("ys", "ugs", "vgs", "lane_att", "trunc"):
         check(same(getattr(part, n), getattr(plain, n)),
               f"mixed dense_run: {n} differs from the plain run")
@@ -2284,30 +2654,20 @@ def phase_mixed_rk4(run):
     launch, float64 outputs, rows bitwise equal to the kernel's."""
     torch = run.torch
     from rwrt_tpu_torch import tracer
-    from rwrt_tpu_torch.solvers import rk45
 
     f64 = torch.float64
     key = (f64, torch.float32)
-    for name, cfg, kw in (
-            ("production", rk4_production_config(run.rt),
-             dict(source_lon=run.slon, source_lat=run.slat)),
-            ("default", default_config(run.rt), {})):
-        bg, y0, ug0, vg0, idx = run.entry(
-            torch.float32, None if name == "production" else cfg, f64)
-        args = (bg, y0, ug0, vg0, rk45.as_scalar(cfg.tstep, f64), cfg.nt,
-                rk45.as_scalar(cfg.cut_off_rad, f64))
+    for name, kw in (
+            ("production", dict(source_lon=run.slon, source_lat=run.slat)),
+            ("default", {})):
+        args, idx, cfg = rk4_args(run, name, torch.float32, f64)
+        bg, y0, ug0, vg0 = args[:4]
         before = tracer.RK4_LAUNCHES
         kern = tracer._run_rk4(*args)
         check(tracer.RK4_LAUNCHES == before + 1,
               "mixed rk4 did not launch once")
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        plain = tracer._run_rk4_plain(*args)
-        end.record()
-        torch.cuda.synchronize()
-        plain_ms = start.elapsed_time(end)
         tag = f"mixed rk4 {name}"
+        plain, plain_ms = plain_call(run, tag, "_run_rk4_plain", *args)
         for k, p, what in zip(kern, plain, ("rows", "ug", "vg")):
             check(same(k, p), f"{tag}: {what} differ from the plain run")
         ms = cuda_ms(lambda: tracer._run_rk4_cuda(*args), 3)
@@ -2359,8 +2719,7 @@ def phase_mixed_exact(run):
 
     f64 = torch.float64
     key = (f64, torch.float32)
-    cfg = readme_config(run.rt, MIXED_README_DAYS)
-    _, args, _, idx = run.run_inputs(torch.float32, cfg, cfg, state=f64)
+    args, idx, cfg, sub = mixed_exact_args(run)
     before = tracer.EXACT_LAUNCHES
     kern = tracer._exact_run(*args)
     check(tracer.EXACT_LAUNCHES == before + 1,
@@ -2384,16 +2743,7 @@ def phase_mixed_exact(run):
     in_turns(run, tag, launch, 3, same_as)
     print_choice(run, tag, rk45.exact_instance(args[1].shape[1], key))
     # The plain comparison on a subset: EXACT_SUBSET lanes, EXACT_DAYS days.
-    n_bounds = int(EXACT_DAYS * DAY / cfg.tstep)
-    sub = lane_subset(args, EXACT_SUBSET)
-    sub = sub[:6] + (sub[6][:n_bounds // sub[6].shape[1]], n_bounds) + sub[8:]
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    plain = tracer._exact_run_plain(*sub)
-    end.record()
-    torch.cuda.synchronize()
-    plain_ms = start.elapsed_time(end)
+    plain, plain_ms = plain_call(run, tag, "_exact_run_plain", *sub)
     for inst in kernels.INSTANCES:
         check(same_as(launch(inst, sub), plain),
               f"{tag}: instance {inst} differs from the plain run")
@@ -2632,29 +2982,29 @@ def group_entry(unit, sub, kw, g):
             dict(kw, t0=t), row)
 
 
-def plain_check(run, unit_name, args, kw, out, n_lanes, groups, what):
+def plain_check(run, unit_name, args, kw, out, n_lanes, groups, what,
+                stage=False):
     """The whole-run unit's kernel on n_lanes lanes of its arguments over
     each of ``groups``, entered as ``group_entry`` enters it, against its
-    plain version there, bitwise, and against the full run's rows of those
-    lanes; returns the plain runs' ms."""
-    torch = run.torch
+    plain version there (with ``stage``, the groups' plain runs side by
+    side in a plain stage), bitwise, and against the full run's rows of
+    those lanes; returns the plain runs' ms."""
     from rwrt_tpu_torch import tracer
 
     unit = getattr(tracer, unit_name)
-    plain = getattr(tracer, unit_name + "_plain")
     take = subset_of(run, args[1].shape[1], n_lanes)
     sub = lane_pick(args, take)
+    entries = [group_entry(unit, sub, kw, g) for g in groups]
+    fn = unit_name + "_plain"
+    if stage:
+        wall = plain_stage(run, [(f"{what} group {g}", 1.0, fn, a, k_kw)
+                                 for g, (a, k_kw, _) in zip(groups, entries)])
+        print(f"{what}: plain stage of {len(entries)} groups, {wall:.1f} s")
     ms = 0.0
-    for g in groups:
-        a, k_kw, row = group_entry(unit, sub, kw, g)
+    for g, (a, k_kw, row) in zip(groups, entries):
         k = unit(*a, **k_kw)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        p = plain(*a, **k_kw)
-        end.record()
-        torch.cuda.synchronize()
-        ms += start.elapsed_time(end)
+        p, p_ms = plain_call(run, f"{what} group {g}", fn, *a, **k_kw)
+        ms += p_ms
         equal_runs(k, p, f"{what} group {g}")
         # Row 0 is the entry state: past g = 0 the carry, which dense mode
         # holds at its last step's end, beyond the full run's row there.
@@ -2696,8 +3046,9 @@ def run_record(run, key, what, traj_call, unit_name, of, attempts_flops,
     ms = cuda_ms(lambda: unit(*args, **kw), 2)
     n_groups = args[6].shape[0]
     groups = range(n_groups) if every_group else sorted({0, n_groups - 1})
+    # Every group: the plain runs side by side in a plain stage.
     plain_ms = plain_check(run, unit_name, args, kw, out, n_plain_lanes,
-                           groups, what)
+                           groups, what, stage=every_group)
     b, attempts = grouped_bound(args, out, attempts_flops, rows_flops,
                                 unit_name == "_dense_run")
     trips = out.lane_att.sum(dim=0)
@@ -4604,6 +4955,98 @@ def phase_autodiff(run):
           "the kernel guard (rk4 and rk45)")
 
 
+#: The examples phase: each port example's time limit (s), and the
+#: great-circle demo's alive count at full size (the JAX package's demo,
+#: ``examples/great_circle_demo.py``, on the CPU: every one of its rays).
+EXAMPLE_TIMEOUT = 300
+GREAT_CIRCLE_RAYS = 75
+
+
+def run_examples(run, *calls):
+    """``examples/torch_<name>.py`` with its args and ``--device cuda``,
+    for each (name, *args) of ``calls``, in subprocesses started together,
+    at full size, under the run's temporary directory; raises unless each
+    exits 0. Returns their stdouts."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env.pop("RWRT_SMOKE", None)
+    cwd = Path(run.tmp) / "examples"
+    cwd.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(REPO / "examples" / f"torch_{name}.py"), *args,
+         "--device", "cuda"], cwd=cwd, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for name, *args in calls]
+    outs = []
+    try:
+        for (name, *_), proc in zip(calls, procs):
+            out, err = proc.communicate(timeout=EXAMPLE_TIMEOUT)
+            wall = time.perf_counter() - t0
+            check(proc.returncode == 0, f"examples/torch_{name}.py exited "
+                  f"{proc.returncode}:\n{out}\n{err}")
+            print(f"example torch_{name}.py: ended {wall:.1f} s after the "
+                  "examples' start")
+            for line in out.strip().splitlines():
+                print(f"  {line}")
+            outs.append(out)
+    finally:
+        for proc in procs:       # after a failure: stop the others
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return outs
+
+
+def example_numbers(pattern, text):
+    m = re.search(pattern, text)
+    check(m is not None, f"{pattern!r} not in the example's output")
+    return m.groups()
+
+
+def phase_examples(run):
+    """The port's examples (``examples/torch_*.py``) on the card, each in
+    its own process with ``--device cuda`` (started together), at full
+    size: the great-circle demo (every ray alive at day 30, as in the JAX
+    package's demo) and the plot script on its file, the flux demo (its
+    termination counts sum to the rays seeded, points binned), the adjoint
+    demo (both gradients against its central differences within
+    AD_BARS). Prints when each one ended. The targeting demo is not run here: at ``RWRT_SMOKE=1`` it took
+    over 60 s on the card (the autodiff phase drives ``optimize_seeds``
+    there at a user's size); tests/test_torch_examples.py runs it."""
+    out, flux, adjoint = run_examples(
+        run, ("great_circle_demo",), ("flux_diagnostics_demo",),
+        ("adjoint_sensitivity",))
+    shape, alive = example_numbers(
+        r"integrated \((.*)\) trajectories; (\d+) alive at end", out)
+    check(int(alive) == GREAT_CIRCLE_RAYS,
+          f"great circle: {alive} rays alive, not {GREAT_CIRCLE_RAYS}")
+    traj = Path(run.tmp) / "examples" / "rays_great_circle.npz"
+    png = Path(run.tmp) / "examples" / "rays.png"
+    if importlib.util.find_spec("matplotlib") is None:
+        # The plot script draws on the host with matplotlib, which a GPU
+        # machine need not have; tests/test_torch_examples.py runs it.
+        print("example torch_plot_trajectories.py: not run, matplotlib is "
+              "not installed here")
+    else:
+        run_examples(run, ("plot_trajectories", str(traj), str(png)))
+        check(png.stat().st_size > 0, "the plot script wrote no image")
+
+    counts = json.loads(example_numbers(
+        r"termination counts: (\{.*\})", flux)[0].replace("'", '"'))
+    binned = int(example_numbers(r"trajectory points binned: ([\d,]+)",
+                                 flux)[0].replace(",", ""))
+    rays = 3 * 18 * 7 * 5
+    check(sum(counts.values()) == rays and binned > 0,
+          f"flux demo: counts {counts} over {rays} rays, {binned} binned")
+
+    for what, bar in (("jet scale", AD_BARS["wind"]),
+                      ("seed lat", AD_BARS["seed"])):
+        g, fd = map(float, example_numbers(
+            r"d\(final lat\)/d\(" + what + r"\):\s+grad (\S+)\s+fd (\S+)",
+            adjoint))
+        check(math.isfinite(g) and abs(g - fd) <= bar * max(1.0, abs(fd)),
+              f"adjoint demo d/d({what}): grad {g} against fd {fd}")
+
+
 KERNELS = (
     ("rhs", "rwrt_tpu_torch/csrc/rhs.cu", "rwrt_tpu/models/ray.py:163"),
     ("dense_group", "rwrt_tpu_torch/csrc/dense_run.cu",
@@ -4702,7 +5145,7 @@ def main() -> int:
     run = Run(torch, rt)
     tmp = tempfile.TemporaryDirectory()
     run.tmp = tmp.name
-    for phase in (phase_rhs, phase_dense_group, phase_dense_run,
+    for phase in (phase_plain_ahead, phase_rhs, phase_dense_group, phase_dense_run,
                   phase_dense_lone_lane, phase_main_path, phase_entry,
                   phase_spectral,
                   phase_rk4, phase_exact_group, phase_exact_run,
@@ -4714,7 +5157,7 @@ def main() -> int:
                   phase_ensemble, phase_mesh, phase_time_spectral, phase_cli,
                   phase_flux,
                   phase_wrf_cli, phase_classify, phase_group_time,
-                  phase_gather, phase_autodiff):
+                  phase_gather, phase_autodiff, phase_examples):
         t0 = time.perf_counter()
         phase(run)
         print(f"phase {phase.__name__[6:]} ok in "
@@ -4732,4 +5175,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--plain"]:
+        sys.exit(plain_worker(Path(sys.argv[2]), sys.argv[3:]))
     sys.exit(main())

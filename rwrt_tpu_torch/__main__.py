@@ -14,7 +14,7 @@ import json
 import sys
 
 from rwrt_tpu_torch.config import RunConfig
-from rwrt_tpu_torch.main import RunPaths, run
+from rwrt_tpu_torch.main import RunPaths, add_device_option, run
 
 
 def main(argv=None):
@@ -43,9 +43,7 @@ def main(argv=None):
                          "diagnostics (stationary/non-stationary m-roots, "
                          "rootnum, group velocities, Ks) for the configured "
                          "zwn set")
-    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                    help="where the run goes (default: the CUDA card; a "
-                         "run on a machine without one is an error)")
+    add_device_option(ap)
     args = ap.parse_args(argv)
 
     with open(args.config) as f:

@@ -40,17 +40,32 @@
 // block per SM (__launch_bounds__(256, 1)), so the compiler can load the
 // next fragments under the current MMAs.
 //
-// The MMA of each operand case:
-//   float32 coefficients, bf16 operands: mma.m16n8k16 bf16 with float32
-//     accumulation (the Pallas kernel's preferred_element_type; a product
-//     of two bf16 values is exact in float32).
-//   float32: 3xTF32. x = hi + lo with hi = tf32(x), lo = tf32(x - hi)
-//     (cvt.rna), acc += lo*hi' + hi*lo' + hi*hi' on mma.m16n8k8 tf32. B
-//     arrives split by the wrapper; A is split as its fragment loads.
-//   float64, and bf16 operands over float64 coefficients: mma.m16n8k8 f64
-//     (DMMA; four times the work of m8n8k4 per instruction). With bf16
-//     operands the values are bf16-rounded in float64, so the products are
-//     exact and the sums float64, as in JAX.
+// The operand cases (the Pallas kernel casts the lon basis and the
+// coefficients to any matmul_dtype and sums in the coefficients' dtype;
+// the wrapper's case code, Fmt below, names the dtype). Each takes an MMA
+// whose products of the rounded operands are exact, so the sums are in the
+// coefficients' dtype, as in JAX:
+//   float32, no rounding: 3xTF32. x = hi + lo with hi = tf32(x), lo =
+//     tf32(x - hi) (cvt.rna), acc += lo*hi' + hi*lo' + hi*hi' on
+//     mma.m16n8k8 tf32. B arrives split by the wrapper; A is split as its
+//     fragment loads.
+//   float32 coefficients, bf16 or float8 operands: mma.m16n8k16 bf16 with
+//     float32 accumulation (the Pallas kernel's preferred_element_type;
+//     every float8 value, subnormals and the fnuz ranges included, is
+//     exact in bf16, and a product of two bf16 values is exact in float32).
+//   float32 coefficients, float16 operands: one TF32 plane, one product
+//     (acc += a*b on mma.m16n8k8 tf32): float16 values, subnormals
+//     included, are exact in TF32 and their products in float32.
+//   float64, with or without rounding (bf16, float16, float32, float8):
+//     mma.m16n8k8 f64 (DMMA; four times the work of m8n8k4 per
+//     instruction) on values rounded and held in float64.
+// Rounding (round_to): float16 and float8 once, to nearest even at the
+// format's precision and least exponent (its subnormals), overflowing to
+// inf (float16, e5m2) or NaN (e4m3fn, the fnuz types), and fnuz has no -0;
+// bf16 by __float2bfloat16, from float64 through float32 (as torch and JAX
+// round it); float32 by the cast. The wrapper rounds the coefficients the
+// same way (round_operands); rwrt_spectral_round exposes round_to so the
+// two can be held to each other bitwise.
 // The library builds with -fmad=false; the epilogue's fusing is explicit
 // fma().
 #include <cuda_bf16.h>
@@ -69,14 +84,17 @@ constexpr int kStages = 3;
 constexpr int kBarBytes = 128;       // the ring's mbarriers
 constexpr size_t kMaxSmem = 232448;  // 227 KB, a block's opt-in maximum
 
-enum class Mode { kBf16, kTf32x3, kF64, kF64Bf16 };
+enum class Mode { kBf16, kTf32x3, kTf32, kF64 };
+
+// The operand rounding, by the wrapper's case code (OPERAND_DTYPES).
+enum class Fmt { kNone, kBf16, kF16, kF32, kE4M3, kE5M2, kE4M3Fnuz, kE5M2Fnuz };
 
 // Per case: accumulator type (also lon/lat/out), shared-memory operand
 // type, B planes, k per MMA, row padding (elements) that makes the
 // fragment loads conflict-free (a row stride of 4 mod 8 words, counted in
 // 4-byte words for 16- and 32-bit operands and in 8-byte words for
-// float64), warps that split a row tile's 80 columns, 16-ray row tiles per
-// warp, and the operand rounding of the basis.
+// float64), warps that split a row tile's 80 columns, and 16-ray row tiles
+// per warp.
 template <Mode M>
 struct Cfg;
 
@@ -85,9 +103,6 @@ struct Cfg<Mode::kBf16> {
   using Acc = float;
   using Op = __nv_bfloat16;
   static constexpr int kPlanes = 1, kKStep = 16, kPad = 8, kWN = 1, kMT = 1;
-  static __device__ __forceinline__ Op round(float x) {
-    return __float2bfloat16(x);
-  }
 };
 
 template <>
@@ -95,7 +110,11 @@ struct Cfg<Mode::kTf32x3> {
   using Acc = float;
   using Op = float;
   static constexpr int kPlanes = 2, kKStep = 8, kPad = 4, kWN = 2, kMT = 2;
-  static __device__ __forceinline__ Op round(float x) { return x; }
+};
+
+template <>
+struct Cfg<Mode::kTf32> : Cfg<Mode::kTf32x3> {
+  static constexpr int kPlanes = 1;
 };
 
 template <>
@@ -103,19 +122,90 @@ struct Cfg<Mode::kF64> {
   using Acc = double;
   using Op = double;
   static constexpr int kPlanes = 1, kKStep = 8, kPad = 4, kWN = 2, kMT = 1;
-  static __device__ __forceinline__ Op round(double x) { return x; }
 };
 
+// A format rounded to by round_to: significand bits (with the implicit
+// one), least normal exponent, largest finite value, overflow to inf (else
+// NaN), and whether it has a negative zero.
+template <Fmt F>
+struct Format;
 template <>
-struct Cfg<Mode::kF64Bf16> : Cfg<Mode::kF64> {
-  // Through float32, as torch's .to(torch.bfloat16) from float64 rounds
-  // (c10::BFloat16 is built from a float; JAX on the CPU does the same), so
-  // the basis equals the plain version's; widening back is exact.
-  static __device__ __forceinline__ Op round(double x) {
-    return static_cast<double>(
-        __bfloat162float(__float2bfloat16(static_cast<float>(x))));
-  }
+struct Format<Fmt::kF16> {
+  static constexpr int kP = 11, kEmin = -14;
+  static constexpr double kMax = 65504.0;
+  static constexpr bool kInf = true, kNegZero = true;
 };
+template <>
+struct Format<Fmt::kE4M3> {
+  static constexpr int kP = 4, kEmin = -6;
+  static constexpr double kMax = 448.0;
+  static constexpr bool kInf = false, kNegZero = true;
+};
+template <>
+struct Format<Fmt::kE5M2> {
+  static constexpr int kP = 3, kEmin = -14;
+  static constexpr double kMax = 57344.0;
+  static constexpr bool kInf = true, kNegZero = true;
+};
+template <>
+struct Format<Fmt::kE4M3Fnuz> {
+  static constexpr int kP = 4, kEmin = -7;
+  static constexpr double kMax = 240.0;
+  static constexpr bool kInf = false, kNegZero = false;
+};
+template <>
+struct Format<Fmt::kE5M2Fnuz> {
+  static constexpr int kP = 3, kEmin = -15;
+  static constexpr double kMax = 57344.0;
+  static constexpr bool kInf = false, kNegZero = false;
+};
+
+// x rounded to F, held in T (float or double): exact scalings by powers of
+// two around one round-to-nearest-even (rint in the default mode).
+template <Fmt F, typename T>
+__device__ __forceinline__ T round_to(T x) {
+  if constexpr (F == Fmt::kNone) {
+    return x;
+  } else if constexpr (F == Fmt::kBf16) {
+    return static_cast<T>(
+        __bfloat162float(__float2bfloat16(static_cast<float>(x))));
+  } else if constexpr (F == Fmt::kF32) {
+    return static_cast<T>(static_cast<float>(x));
+  } else {
+    using Q = Format<F>;
+    int e;
+    if constexpr (sizeof(T) == 4) {
+      frexpf(x, &e);  // |x| in [2^(e-1), 2^e)
+    } else {
+      frexp(x, &e);
+    }
+    const int q = max(e - 1, Q::kEmin) - (Q::kP - 1);
+    T r;
+    if constexpr (sizeof(T) == 4) {
+      r = ldexpf(rintf(ldexpf(x, -q)), q);
+    } else {
+      r = ldexp(rint(ldexp(x, -q)), q);
+    }
+    if (fabs(r) > static_cast<T>(Q::kMax)) {
+      r = Q::kInf ? copysign(static_cast<T>(INFINITY), x)
+                  : rwrt::nan_value<T>();
+    }
+    if constexpr (!Q::kNegZero) {
+      if (r == static_cast<T>(0)) r = static_cast<T>(0);
+    }
+    return r;
+  }
+}
+
+// A rounded basis value into the operand type (exact).
+template <typename Op, typename T>
+__device__ __forceinline__ Op to_op(T x) {
+  if constexpr (sizeof(Op) == 2) {
+    return __float2bfloat16(static_cast<float>(x));
+  } else {
+    return static_cast<Op>(x);
+  }
+}
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -227,7 +317,10 @@ __device__ __forceinline__ void mma_step(
 #pragma unroll
       for (int i = 0; i < kMT; ++i) mma_bf16(acc[i][j], af[i], b0, b1);
     }
-  } else if constexpr (M == Mode::kTf32x3) {
+  } else if constexpr (M == Mode::kTf32x3 || M == Mode::kTf32) {
+    // kTf32x3 splits A and reads B's lo plane; kTf32's operands are exact
+    // in TF32 (rounded to float16), one product each.
+    constexpr bool kSplit = M == Mode::kTf32x3;
     uint32_t hi[kMT][4], lo[kMT][4];
 #pragma unroll
     for (int i = 0; i < kMT; ++i) {
@@ -236,22 +329,31 @@ __device__ __forceinline__ void mma_step(
       const float av[4] = {a0[0], a1[0], a0[4], a1[4]};
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        hi[i][q] = tf32_rna(av[q]);
-        lo[i][q] = tf32_rna(av[q] - __uint_as_float(hi[i][q]));
+        if constexpr (kSplit) {
+          hi[i][q] = tf32_rna(av[q]);
+          lo[i][q] = tf32_rna(av[q] - __uint_as_float(hi[i][q]));
+        } else {
+          hi[i][q] = __float_as_uint(av[q]);
+        }
       }
     }
-    const float* bl = bs + kGroupCols * sB;  // the lo plane
+    const float* bl = bs + kGroupCols * sB;  // the lo plane (kTf32x3)
 #pragma unroll
     for (int j = 0; j < kNT; ++j) {
       const int o = (8 * j + g) * sB + kk + t;
       const uint32_t bh0 = __float_as_uint(bs[o]);
       const uint32_t bh1 = __float_as_uint(bs[o + 4]);
-      const uint32_t bl0 = __float_as_uint(bl[o]);
-      const uint32_t bl1 = __float_as_uint(bl[o + 4]);
+      uint32_t bl0 = 0, bl1 = 0;
+      if constexpr (kSplit) {
+        bl0 = __float_as_uint(bl[o]);
+        bl1 = __float_as_uint(bl[o + 4]);
+      }
 #pragma unroll
       for (int i = 0; i < kMT; ++i) {
-        mma_tf32(acc[i][j], lo[i], bh0, bh1);
-        mma_tf32(acc[i][j], hi[i], bl0, bl1);
+        if constexpr (kSplit) {
+          mma_tf32(acc[i][j], lo[i], bh0, bh1);
+          mma_tf32(acc[i][j], hi[i], bl0, bl1);
+        }
         mma_tf32(acc[i][j], hi[i], bh0, bh1);
       }
     }
@@ -292,7 +394,7 @@ size_t smem_bytes(int row_warps, int Kp, int Lp) {
          bm * ((Lp | 8) + C::kWN) * sizeof(typename C::Acc);
 }
 
-template <Mode M>
+template <Mode M, Fmt F>
 __global__ void __launch_bounds__(kThreads, 1)
 spectral_kernel(const typename Cfg<M>::Acc* __restrict__ lon,
                 const typename Cfg<M>::Acc* __restrict__ lat,
@@ -362,16 +464,27 @@ spectral_kernel(const typename Cfg<M>::Acc* __restrict__ lon,
     Op* arow = as + i * sA;
     for (int m = lane; m <= mh; m += 32) {
       if (m == 0) {
-        arow[0] = Cfg<M>::round(Acc(1));
+        arow[0] = to_op<Op>(Acc(1));
       } else {
         Acc sn, cs;
-        sincos(lo * Acc(m), &sn, &cs);
-        arow[m] = Cfg<M>::round(cs);
-        arow[mh + m] = Cfg<M>::round(sn);
+        const Acc x = lo * Acc(m);
+        if constexpr (F == Fmt::kNone) {
+          sincos(x, &sn, &cs);
+        } else {
+          // cos and sin, the functions the plain version calls (held to
+          // PyTorch's bits by pow_parity.py), so that the rounded basis is
+          // the plain version's to the bit: one ulp moved across a
+          // rounding boundary would move an operand by a whole ulp of the
+          // narrow format.
+          cs = cos(x);
+          sn = sin(x);
+        }
+        arow[m] = to_op<Op>(round_to<F>(cs));
+        arow[mh + m] = to_op<Op>(round_to<F>(sn));
       }
     }
     for (int k = 2 * mh + 1 + lane; k < sA; k += 32) {
-      arow[k] = Cfg<M>::round(Acc(0));
+      arow[k] = to_op<Op>(Acc(0));
     }
     Acc* lrow = bl + i * sL;
     for (int l = lane; l < sL; l += 32) {
@@ -463,7 +576,7 @@ spectral_kernel(const typename Cfg<M>::Acc* __restrict__ lon,
   }
 }
 
-template <Mode M>
+template <Mode M, Fmt F>
 int launch(const void* lon, const void* lat, const void* tht,
            const void* packed, int R, int Mp, int L, int C, int Kp, int Lp,
            void* out, cudaStream_t stream) {
@@ -483,42 +596,114 @@ int launch(const void* lon, const void* lat, const void* tht,
   const size_t smem = smem_bytes<M>(row_warps, Kp, Lp);
   if (smem > kMaxSmem) return cudaErrorInvalidConfiguration;
   cudaError_t err = cudaFuncSetAttribute(
-      spectral_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      spectral_kernel<M, F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int bm = block_rays<M>(row_warps);
   const int grid = (R + bm - 1) / bm;
-  spectral_kernel<M><<<grid, row_warps * Cfg<M>::kWN * 32, smem, stream>>>(
+  spectral_kernel<M, F><<<grid, row_warps * Cfg<M>::kWN * 32, smem, stream>>>(
       static_cast<const Acc*>(lon), static_cast<const Acc*>(lat),
       static_cast<const Acc*>(tht), static_cast<const Op*>(packed), R, Mp, L,
       C, Kp, Lp, static_cast<Acc*>(out));
   return cudaGetLastError();
 }
 
+template <Fmt F, typename T>
+__global__ void round_kernel(const T* __restrict__ x, long long n,
+                             T* __restrict__ out) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < n; i += stride) {
+    out[i] = round_to<F>(x[i]);
+  }
+}
+
+template <Fmt F, typename T>
+int launch_round(const void* x, long long n, void* out, cudaStream_t s) {
+  if (n <= 0) return cudaSuccess;
+  const long long blocks = (n + 255) / 256;
+  round_kernel<F, T><<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256,
+                       0, s>>>(static_cast<const T*>(x), n,
+                               static_cast<T*>(out));
+  return cudaGetLastError();
+}
+
+template <typename T>
+int round_case(const void* x, long long n, int fmt, void* out,
+               cudaStream_t s) {
+  switch (static_cast<Fmt>(fmt)) {
+    case Fmt::kNone: return launch_round<Fmt::kNone, T>(x, n, out, s);
+    case Fmt::kBf16: return launch_round<Fmt::kBf16, T>(x, n, out, s);
+    case Fmt::kF16: return launch_round<Fmt::kF16, T>(x, n, out, s);
+    case Fmt::kF32: return launch_round<Fmt::kF32, T>(x, n, out, s);
+    case Fmt::kE4M3: return launch_round<Fmt::kE4M3, T>(x, n, out, s);
+    case Fmt::kE5M2: return launch_round<Fmt::kE5M2, T>(x, n, out, s);
+    case Fmt::kE4M3Fnuz:
+      return launch_round<Fmt::kE4M3Fnuz, T>(x, n, out, s);
+    case Fmt::kE5M2Fnuz:
+      return launch_round<Fmt::kE5M2Fnuz, T>(x, n, out, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
-// packed: pack_coeffs tiles, bfloat16 when bf16, else float32 (hi, lo).
+// packed: pack_coeffs tiles: float32 (hi, lo) for case 0 (no rounding),
+// one float32 plane of float16 values for case 2, one bfloat16 plane for
+// case 1 (bf16) and cases 4-7 (float8); case 3 (float32) is case 0's.
 int rwrt_spectral_f32(const void* lon, const void* lat, const void* tht,
                       const void* packed, int R, int Mp, int L, int C, int Kp,
-                      int Lp, int bf16, void* out, void* stream) {
+                      int Lp, int fmt, void* out, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<Mode::kBf16>(lon, lat, tht, packed, R, Mp, L, C, Kp,
-                                    Lp, out, s)
-              : launch<Mode::kTf32x3>(lon, lat, tht, packed, R, Mp, L, C, Kp,
-                                      Lp, out, s);
+#define RWRT_SPECTRAL(MODE, FMT) \
+  launch<Mode::MODE, Fmt::FMT>(lon, lat, tht, packed, R, Mp, L, C, Kp, Lp, \
+                               out, s)
+  switch (static_cast<Fmt>(fmt)) {
+    case Fmt::kNone:
+    case Fmt::kF32: return RWRT_SPECTRAL(kTf32x3, kNone);
+    case Fmt::kBf16: return RWRT_SPECTRAL(kBf16, kBf16);
+    case Fmt::kF16: return RWRT_SPECTRAL(kTf32, kF16);
+    case Fmt::kE4M3: return RWRT_SPECTRAL(kBf16, kE4M3);
+    case Fmt::kE5M2: return RWRT_SPECTRAL(kBf16, kE5M2);
+    case Fmt::kE4M3Fnuz: return RWRT_SPECTRAL(kBf16, kE4M3Fnuz);
+    case Fmt::kE5M2Fnuz: return RWRT_SPECTRAL(kBf16, kE5M2Fnuz);
+  }
+  return cudaErrorInvalidValue;
 }
 
-// packed: pack_coeffs tiles, float64 (bf16-rounded values when bf16).
+// packed: pack_coeffs tiles, float64, the values rounded to case `fmt`.
 int rwrt_spectral_f64(const void* lon, const void* lat, const void* tht,
                       const void* packed, int R, int Mp, int L, int C, int Kp,
-                      int Lp, int bf16, void* out, void* stream) {
+                      int Lp, int fmt, void* out, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<Mode::kF64Bf16>(lon, lat, tht, packed, R, Mp, L, C, Kp,
-                                       Lp, out, s)
-              : launch<Mode::kF64>(lon, lat, tht, packed, R, Mp, L, C, Kp,
-                                   Lp, out, s);
+  switch (static_cast<Fmt>(fmt)) {
+    case Fmt::kNone: return RWRT_SPECTRAL(kF64, kNone);
+    case Fmt::kBf16: return RWRT_SPECTRAL(kF64, kBf16);
+    case Fmt::kF16: return RWRT_SPECTRAL(kF64, kF16);
+    case Fmt::kF32: return RWRT_SPECTRAL(kF64, kF32);
+    case Fmt::kE4M3: return RWRT_SPECTRAL(kF64, kE4M3);
+    case Fmt::kE5M2: return RWRT_SPECTRAL(kF64, kE5M2);
+    case Fmt::kE4M3Fnuz: return RWRT_SPECTRAL(kF64, kE4M3Fnuz);
+    case Fmt::kE5M2Fnuz: return RWRT_SPECTRAL(kF64, kE5M2Fnuz);
+  }
+#undef RWRT_SPECTRAL
+  return cudaErrorInvalidValue;
+}
+
+// The kernel's operand rounding (round_to) of n values, case `fmt`: held
+// to round_operands bitwise by chip_smoke; not on any run path.
+int rwrt_spectral_round_f32(const void* x, long long n, int fmt, void* out,
+                            void* stream) {
+  return round_case<float>(x, n, fmt, out, static_cast<cudaStream_t>(stream));
+}
+
+int rwrt_spectral_round_f64(const void* x, long long n, int fmt, void* out,
+                            void* stream) {
+  return round_case<double>(x, n, fmt, out,
+                            static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

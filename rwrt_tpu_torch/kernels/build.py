@@ -102,8 +102,10 @@ SIGNATURES = {
                       _D, _D, _L, _I, _P),
     # instance, out (int32 on the host): threads the card keeps resident
     "rwrt_interval_resident": (_I, _P),
-    # lon, lat, tht, packed, R, Mp, L, C, Kp, Lp, bf16, out, stream
+    # lon, lat, tht, packed, R, Mp, L, C, Kp, Lp, operand case, out, stream
     "rwrt_spectral": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    # x, n, operand case, out, stream (the kernel's operand rounding alone)
+    "rwrt_spectral_round": (_P, _L, _I, _P, _P),
     # lon, lat, amp, ug, vg, ky, their row strides, nt, R, keep, u_prev,
     # base_prev, carry_in, fu, fv, asum, cnt, nlon_bins, nlat_bins,
     # inv_dlon, inv_dlat, amp_min, amp_max, speed_min, speed_max, mwn_max,

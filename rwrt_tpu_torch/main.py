@@ -14,6 +14,7 @@ of devices (``parallel.sharding``).
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -188,13 +189,30 @@ def _clock(device: torch.device) -> float:
     return time.perf_counter()
 
 
-def _run_device(device) -> torch.device:
+def run_device(device) -> torch.device:
+    """``device`` as a torch.device; raises on cuda without a card (a run
+    never falls back to the host)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available for this run; pass device='cpu' "
             "(--device cpu) to run on the host")
     return device
+
+
+def add_device_option(ap: argparse.ArgumentParser) -> None:
+    """The ``--device`` option of the CLI and the examples."""
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where the run goes (default: the CUDA card; a "
+                         "run on a machine without one is an error)")
+
+
+def parse_device(doc: str, argv=None) -> torch.device:
+    """A script's only option, ``--device``, parsed from ``argv`` and
+    checked by ``run_device``; ``doc``'s first line is its description."""
+    ap = argparse.ArgumentParser(description=doc.splitlines()[0])
+    add_device_option(ap)
+    return run_device(ap.parse_args(argv).device)
 
 
 def run(config: RunConfig, paths: RunPaths, *, mesh=None, verbose: bool = True,
@@ -222,7 +240,7 @@ def run(config: RunConfig, paths: RunPaths, *, mesh=None, verbose: bool = True,
     list of per-member trajectories.
     """
     config.validate()
-    device = _run_device(device)
+    device = run_device(device)
     if mesh is True:
         mesh = sharding.make_mesh(config.mesh_devices, device.type)
     mesh = sharding.check_mesh(mesh, device)

@@ -16,9 +16,12 @@ CUDA tensor it repacks the coefficients (``pack_coeffs``) and launches
 ``csrc/spectral.cu``, which builds the basis rows in shared memory and
 contracts them on the tensor cores without materializing (R, Mp) or
 (R, L*C); on a CPU tensor it runs ``sample_spectral``. ``LAUNCHES`` counts
-kernel launches. A time-varying stack is fitted frame by frame
-(``fit_spectral_time``), and ``lerp_coeffs`` blends the fit to one time, which
-the same sampler (and kernel) then evaluates.
+kernel launches. Both take the product's operands in any ``matmul_dtype``
+of ``OPERAND_DTYPES``, rounded once as JAX rounds them
+(``round_operands``), with sums in the coefficients' dtype. A time-varying
+stack is fitted frame by frame (``fit_spectral_time``), and ``lerp_coeffs``
+blends the fit to one time, which the same sampler (and kernel) then
+evaluates.
 """
 
 from __future__ import annotations
@@ -215,13 +218,88 @@ def _basis_lat(lat: torch.Tensor, lat0, l_max: int) -> torch.Tensor:
     return torch.cos((lat - lat0)[:, None] * larr[None, :])
 
 
+#: The ``matmul_dtype``s served (every floating dtype that both torch and
+#: JAX name), by the case code ``csrc/spectral.cu`` takes for operands
+#: rounded to them (0: no rounding).
+OPERAND_DTYPES = {torch.bfloat16: 1, torch.float16: 2, torch.float32: 3,
+                  torch.float64: 0, torch.float8_e4m3fn: 4,
+                  torch.float8_e5m2: 5, torch.float8_e4m3fnuz: 6,
+                  torch.float8_e5m2fnuz: 7}
+
+#: The formats rounded to on float64 arithmetic (torch's own casts round
+#: float64 to them through float32, twice, and saturate float8_e4m3fn;
+#: JAX rounds once, overflowing to inf or NaN): significand bits (with the
+#: implicit one), least normal exponent, largest finite value, whether an
+#: overflow is inf (else NaN), whether the format has a negative zero.
+_FORMATS = {torch.float16: (11, -14, 65504.0, True, True),
+            torch.float8_e4m3fn: (4, -6, 448.0, False, True),
+            torch.float8_e5m2: (3, -14, 57344.0, True, True),
+            torch.float8_e4m3fnuz: (4, -7, 240.0, False, False),
+            torch.float8_e5m2fnuz: (3, -15, 57344.0, False, False)}
+
+
+def _pow2(k: torch.Tensor) -> torch.Tensor:
+    """2^k in float64 from its bits, for int64 k in [-1022, 1023]: exact on
+    any device (CUDA's pow(2, k) is not)."""
+    return ((k + 1023) << 52).view(torch.float64)
+
+
+def operand_case(dtype: torch.dtype, matmul_dtype) -> int:
+    """The kernel's case code for operands in ``matmul_dtype`` over
+    ``dtype`` coefficients: 0 for None or a dtype at least as wide as the
+    coefficients (no rounding, as in JAX), else ``OPERAND_DTYPES``' code.
+    Raises ValueError on a dtype outside ``OPERAND_DTYPES``."""
+    if matmul_dtype is None:
+        return 0
+    if not isinstance(matmul_dtype, torch.dtype) or not (
+            matmul_dtype.is_floating_point and not matmul_dtype.is_complex):
+        raise ValueError(f"matmul_dtype must be a floating torch dtype, "
+                         f"got {matmul_dtype!r}")
+    if matmul_dtype not in OPERAND_DTYPES:
+        raise ValueError(
+            f"matmul_dtype={matmul_dtype} is not served; the served operand "
+            f"dtypes are {', '.join(map(str, OPERAND_DTYPES))}")
+    if matmul_dtype.itemsize >= dtype.itemsize:
+        return 0
+    return OPERAND_DTYPES[matmul_dtype]
+
+
+def round_operands(x: torch.Tensor, matmul_dtype) -> torch.Tensor:
+    """``x`` rounded to ``matmul_dtype`` and held in ``x``'s dtype, as the
+    JAX package's ``astype`` rounds it: to float16 and every float8 once,
+    to nearest even at the format's precision, with its subnormals and its
+    overflow (inf for float16 and float8_e5m2, NaN for the others), in
+    float64 arithmetic, then cast back (exactly); to bfloat16 and float32
+    by torch's cast (float64 to bfloat16 through float32, as JAX does). A
+    dtype at least as wide as ``x``'s, or None, leaves ``x`` as it is."""
+    if operand_case(x.dtype, matmul_dtype) == 0:
+        return x
+    if matmul_dtype not in _FORMATS:
+        return x.to(matmul_dtype).to(x.dtype)
+    p, emin, big, inf, neg_zero = _FORMATS[matmul_dtype]
+    v = x.to(torch.float64)
+    _, e = torch.frexp(v)                 # |v| in [2^(e-1), 2^e)
+    # q in [-24, 1021] for finite v; the clamp keeps inf's and NaN's
+    # exponent (unspecified) in _pow2's range.
+    q = (torch.clamp(e.long() - 1, min=emin) - (p - 1)).clamp(-1021, 1021)
+    r = torch.round(v * _pow2(-q)) * _pow2(q)
+    over = torch.full_like(r, float("nan"))
+    if inf:
+        over = torch.copysign(torch.full_like(r, float("inf")), v)
+    r = torch.where(torch.abs(r) > big, over, r)
+    if not neg_zero:
+        r = torch.where(r == 0, torch.zeros_like(r), r)
+    return r.to(x.dtype)
+
+
 def sample_spectral(sbg: SpectralBackground, lon, lat, *,
                     matmul_dtype=None) -> torch.Tensor:
     """Evaluate the spectral background at (lon, lat); returns (R, C).
 
     Rows with |lat| > pi/2 are NaN; NaN positions propagate through the
-    basis. ``matmul_dtype`` (e.g. torch.bfloat16) rounds both product
-    operands to that dtype and accumulates in the coefficient dtype.
+    basis. ``matmul_dtype`` (one of ``OPERAND_DTYPES``) rounds both product
+    operands to that dtype (``round_operands``) and accumulates in the
+    coefficient dtype.
     """
     coeffs = sbg.coeffs
     mp, l_max, c = coeffs.shape
@@ -231,11 +309,11 @@ def sample_spectral(sbg: SpectralBackground, lon, lat, *,
     blon = _basis_lon(lon, (mp - 1) // 2)
     blat = _basis_lat(lat, sbg.lat0, l_max)
     dflat = coeffs.reshape(mp, l_max * c)
-    if matmul_dtype is not None:
-        # Products of two bf16 values are exact in float32, so rounding the
-        # operands and multiplying in acc_dtype IS accumulation in acc_dtype.
-        blon = blon.to(matmul_dtype).to(acc_dtype)
-        dflat = dflat.to(matmul_dtype).to(acc_dtype)
+    # Every operand dtype narrower than acc_dtype has at most half its
+    # significand bits, so the products of the rounded operands are exact
+    # in acc_dtype: multiplying them there IS accumulation in acc_dtype.
+    blon = round_operands(blon, matmul_dtype)
+    dflat = round_operands(dflat, matmul_dtype)
     w = blon @ dflat
     out = torch.einsum("rl,rlc->rc", blat, w.reshape(-1, l_max, c))
     in_range = torch.abs(lat) <= 0.5 * pi
@@ -277,48 +355,49 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def pack_coeffs(coeffs: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+def _operand_type(dtype: torch.dtype, case: int) -> tuple:
+    """The kernel's shared-memory operand dtype and B planes for ``case``
+    over ``dtype`` coefficients: float32 coefficients take bfloat16 for
+    bf16 and float8 operands (every float8 value is exact in bfloat16),
+    float32 for float16 operands (one TF32 plane: float16 values are
+    exact in TF32) and two TF32 planes with no rounding; float64 ones one
+    float64 plane, the operands rounded and held in float64."""
+    if dtype == torch.float32:
+        if case == 0:
+            return torch.float32, 2
+        return (torch.float32 if case == OPERAND_DTYPES[torch.float16]
+                else torch.bfloat16), 1
+    return dtype, 1
+
+
+def pack_coeffs(coeffs: torch.Tensor, matmul_dtype=None) -> torch.Tensor:
     """Repack (Mp, L, C) coefficients into the kernel's tiles:
     (C, G, Kp / KC, P, GROUP, tile_row), G = ceil(L / GROUP) column groups.
 
     Tile (c, g, k) holds coeffs[k * KC + kk, g * GROUP + n, c] at [.., p, n,
     kk], as the kernel's shared memory holds it, so one bulk copy stages it;
-    zero past Mp, past L and in the row pad. float32: P = 2 planes, the
-    3xTF32 split hi = tf32(x), lo = tf32(x - hi). bf16 operands: P = 1,
-    bfloat16 (float32 coefficients) or bfloat16 values held in float64.
-    float64: P = 1, as is.
+    zero past Mp, past L and in the row pad. The values are rounded to
+    ``matmul_dtype`` (``round_operands``) and held as ``_operand_type``
+    says: float32 with no rounding in P = 2 planes, the 3xTF32 split hi =
+    tf32(x), lo = tf32(x - hi); else P = 1.
     """
     mp, l_max, c = coeffs.shape
     kp, _ = packed_dims(mp, l_max)
     g = -(-l_max // GROUP)
-    b = torch.nn.functional.pad(coeffs.permute(2, 1, 0),
-                                (0, kp - mp, 0, g * GROUP - l_max))
-    if bf16:
-        b = b.to(torch.bfloat16)
-        planes = (b.to(torch.float64) if coeffs.dtype == torch.float64
-                  else b)[:, None]
-    elif coeffs.dtype == torch.float32:
+    op, n_planes = _operand_type(coeffs.dtype,
+                                 operand_case(coeffs.dtype, matmul_dtype))
+    b = torch.nn.functional.pad(
+        round_operands(coeffs, matmul_dtype).permute(2, 1, 0),
+        (0, kp - mp, 0, g * GROUP - l_max))
+    if n_planes == 2:
         hi = tf32_round(b)
         planes = torch.stack([hi, tf32_round(b - hi)], dim=1)
     else:
-        planes = b[:, None]
+        planes = b.to(op)[:, None]
     tiles = planes.reshape(c, -1, g, GROUP, kp // KC, KC)
     tiles = tiles.permute(0, 2, 4, 1, 3, 5)
     return torch.nn.functional.pad(
         tiles, (0, tile_row(tiles.dtype) - KC)).contiguous()
-
-
-def _kernel_bf16(dtype: torch.dtype, matmul_dtype) -> bool:
-    """Whether the kernel takes bf16 operands; raises on a matmul_dtype it
-    does not serve."""
-    if matmul_dtype is None or matmul_dtype == dtype:
-        return False
-    if matmul_dtype == torch.bfloat16:
-        return True
-    raise NotImplementedError(
-        f"matmul_dtype={matmul_dtype} over {dtype} coefficients is not "
-        "served by the spectral kernel (ROADMAP Queue 2(c), spectral "
-        "operand dtypes); use None or torch.bfloat16")
 
 
 def sample_spectral_cuda(sbg: SpectralBackground, lon, lat, *,
@@ -326,16 +405,15 @@ def sample_spectral_cuda(sbg: SpectralBackground, lon, lat, *,
     """Kernel-backed evaluation (counterpart of ``sample_spectral_pallas``).
 
     On CUDA tensors it launches ``csrc/spectral.cu``; on CPU tensors it runs
-    ``sample_spectral``. The result equals ``sample_spectral`` up to the
-    order of the contraction's sums. ``matmul_dtype`` is None, the
-    coefficient dtype (the same as None) or torch.bfloat16; any other dtype
-    raises NotImplementedError, on either device.
+    ``sample_spectral``. The result equals ``sample_spectral`` with the same
+    ``matmul_dtype`` up to the order of the contraction's sums. Every dtype
+    of ``OPERAND_DTYPES`` is served, on either device; any other raises
+    ValueError.
     """
     coeffs = sbg.coeffs
-    bf16 = _kernel_bf16(coeffs.dtype, matmul_dtype)
+    operand_case(coeffs.dtype, matmul_dtype)
     if not coeffs.is_cuda:
-        return sample_spectral(sbg, lon, lat,
-                               matmul_dtype=torch.bfloat16 if bf16 else None)
+        return sample_spectral(sbg, lon, lat, matmul_dtype=matmul_dtype)
     global LAUNCHES
     dtype, dev = coeffs.dtype, coeffs.device
     lon = torch.as_tensor(lon).to(device=dev, dtype=dtype).contiguous()
@@ -347,32 +425,49 @@ def sample_spectral_cuda(sbg: SpectralBackground, lon, lat, *,
                       device=dev)
     if lon.shape[0] == 0:
         return out
-    launch_kernel(pack_coeffs(coeffs, bf16), lon, lat, tht, coeffs.shape,
-                  bf16, out)
+    launch_kernel(pack_coeffs(coeffs, matmul_dtype), lon, lat, tht,
+                  coeffs.shape, matmul_dtype, out)
     LAUNCHES += 1
     return out
 
 
-def launch_kernel(packed, lon, lat, tht, coeffs_shape, bf16: bool,
+def launch_kernel(packed, lon, lat, tht, coeffs_shape, matmul_dtype,
                   out) -> None:
     """Launch ``csrc/spectral.cu`` on prepared operands: ``packed`` from
-    ``pack_coeffs``, contiguous (R,) lon, lat and tht = lat - lat0, and the
-    (R, C) output, all on one card in the coefficient dtype. Checks them and
-    raises on what the kernel does not take; counts nothing (the wrapper
-    does)."""
+    ``pack_coeffs`` with the same ``matmul_dtype``, contiguous (R,) lon, lat
+    and tht = lat - lat0, and the (R, C) output, all on one card in the
+    coefficient dtype. Checks them and raises on what the kernel does not
+    take; counts nothing (the wrapper does)."""
     mp, l_max, c = coeffs_shape
     if mp % 2 != 1:
         raise ValueError(f"coefficients need Mp = 2 * m_max + 1 rows, got {mp}")
     dtype, dev, r = lon.dtype, lon.device, lon.shape[0]
+    case = operand_case(dtype, matmul_dtype)
     kp, lp = packed_dims(mp, l_max)
     for name, x in (("lon", lon), ("lat", lat), ("tht", tht)):
         kernels.check_tensor(x, name, device=dev, dtype=dtype, shape=(r,))
     kernels.check_tensor(out, "out", device=dev, dtype=dtype, shape=(r, c))
-    op = torch.bfloat16 if bf16 and dtype == torch.float32 else dtype
+    op, n_planes = _operand_type(dtype, case)
     kernels.check_tensor(
         packed, "packed coeffs", device=dev, dtype=op,
-        shape=(c, -(-l_max // GROUP), kp // KC,
-               2 if dtype == torch.float32 and not bf16 else 1, GROUP,
+        shape=(c, -(-l_max // GROUP), kp // KC, n_planes, GROUP,
                tile_row(op)))
     kernels.launch("rwrt_spectral", dtype, lon, lat, tht, packed, r, mp,
-                   l_max, c, kp, lp, int(bf16), out, kernels.stream(dev))
+                   l_max, c, kp, lp, case, out, kernels.stream(dev))
+
+
+def round_on_card(x: torch.Tensor, matmul_dtype) -> torch.Tensor:
+    """``x`` (float32 or float64) through the kernel's own operand rounding
+    to ``matmul_dtype`` (``rwrt_spectral_round``, the device function its
+    prologue rounds the basis with), held in ``x``'s dtype: the check that
+    it rounds as ``round_operands`` does, which a CPU tensor takes. Not on
+    any run path; counts nothing."""
+    operand_case(x.dtype, matmul_dtype)              # raises on a bad one
+    if not x.is_cuda:
+        return round_operands(x, matmul_dtype)
+    case = 0 if matmul_dtype is None else OPERAND_DTYPES[matmul_dtype]
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    kernels.launch("rwrt_spectral_round", x.dtype, x, x.numel(), case, out,
+                   kernels.stream(x.device))
+    return out

@@ -172,3 +172,60 @@ def test_report_exact_equals_jax_cli(tmp_path, critical_line_field, case):
     died = sum(reports[1][0]["termination"][c] for c in CAUSES)
     assert died > 0, reports[1][0]["termination"]
 
+
+
+@pytest.mark.parametrize("run", list(RUNS))
+def test_classify_float32_counts_equal_jax(critical_line_field, run):
+    """The critical-line workload in float32 (``cal_dtype="float32"``):
+    traced by the JAX package, classified by both packages on the same
+    state, the same cause counts. No RK45 re-run lane comes near the
+    10,000-trip cap there: the port's lanes and the JAX package's
+    batch-wide loop each take a handful of trips."""
+    import jax
+    import jax.numpy as jnp
+    from rwrt_tpu import tracer as jtracer
+    from rwrt_tpu.models import ray as jray
+    from rwrt_tpu.solvers import rk45 as jrk45
+
+    u, v, lat, lon = critical_line_field
+    cfg = dict(CFG, **RUNS[run], cal_dtype="float32")
+    bs = rt.prepare(u, v, lat, lon, cal_dtype="float32")
+    jcfg = rt.RunConfig(**cfg)
+    traj = rt.trace_rays(bs, jcfg)
+    pbs = convert.basic_state_from_numpy(
+        {k: np.asarray(x) for k, x in bs._asdict().items()}, device="cpu")
+    ptraj = convert.trajectories_from_numpy(
+        {k: np.asarray(x) for k, x in traj._asdict().items()}, device="cpu")
+    pcfg = pt.RunConfig(**cfg)
+    assert str(pbs.fields.dtype) == "torch.float32"
+    want = jterm.classify(traj, bs, jcfg)
+    got = pterm.classify(ptraj, pbs, pcfg)
+    assert got.counts == want.counts
+    assert sum(got.counts[c] for c in CAUSES) > 0
+    if run == "rk45":
+        stats = {}
+        pterm.cause_labels(ptraj, pbs, pcfg, pterm.analyze(ptraj).death_step,
+                           stats=stats)
+        trips = int(stats["lane_att"].max())
+        # The JAX package's re-run on the same entry (its classify's
+        # arithmetic): one loop for the batch, its trips the longest lane's.
+        y, t0, _, bound = (jnp.asarray(x.numpy()) for x in stats["entry"])
+        bg = jtracer.make_background(bs, jcfg.freq)
+
+        def rhs_fn(yy, tt=0.0):
+            return jray.rhs(bg, yy, tt)[0]
+
+        rtol = jrk45.validate_tol(jcfg.rtol, jnp.float32)
+        atol = jnp.asarray(jcfg.atol, jnp.float32)
+        min_step = jnp.asarray(min(jcfg.min_step_factor * jcfg.tstep,
+                                   jcfg.tstep * 1e-3), jnp.float32)
+
+        @jax.jit
+        def rerun(y, t0, bound):
+            h0 = jrk45.select_initial_step(rhs_fn, y, rhs_fn(y, t0), rtol,
+                                           atol, t0)
+            return jrk45.integrate_interval(rhs_fn, y, t0, h0, bound, rtol,
+                                            atol, min_step, max_iters=10_000)
+
+        jax_trips = int(rerun(y, t0, bound)[3])
+        assert 0 < trips < 100 and 0 < jax_trips < 100, (trips, jax_trips)

@@ -15,9 +15,11 @@ kernels' mixed-precision instances (a float64 state over a float32
 background), must equal their plain versions bitwise; the
 spectral kernel sums its
 contraction on the tensor cores in another order than the matmul, so it is
-held to 1e-12 (float64, and bf16 operands over float64) and 1e-5
-(float32 by 3xTF32, and bf16 operands over float32) of each channel's max
-|value|, and to bitwise equality between two of its own launches. The
+held to 1e-12 (float64 coefficients, with or without rounded operands) and
+1e-5 (float32 by 3xTF32, and bf16, float16 or float8 operands over
+float32) of each channel's max |value|, to the plain version's non-finite
+positions, and to bitwise equality between two of its own launches; its
+operand rounding is bitwise the plain ``round_operands``. The
 single-group kernels' time instances (over time-varying backgrounds and
 ensembles, in float32, float64 and mixed) are bitwise too. The flux
 kernel's count map, region mask and unwrap carry are bitwise (over time
@@ -476,6 +478,16 @@ def test_exact_and_rk4_wrappers_refuse_bad_inputs(jet_field, dev):
 
 SPECTRAL_BARS = {"float64": 1e-12, "float64_bf16": 1e-12, "float32": 1e-5,
                  "bf16": 1e-5}
+#: The operand dtype of each case (the rest: float32 or float64 coefficients
+#: with the named ``matmul_dtype``).
+SPECTRAL_MM = {"float64": None, "float64_bf16": torch.bfloat16,
+               "float32": None, "bf16": torch.bfloat16}
+for _mm in ("float16", "float8_e4m3fn", "float8_e5m2", "float8_e4m3fnuz",
+            "float8_e5m2fnuz", "float32"):
+    for _dt, _bar in (("float32", 1e-5), ("float64", 1e-12)):
+        if _mm != _dt:
+            SPECTRAL_BARS[f"{_dt}_{_mm}"] = _bar
+            SPECTRAL_MM[f"{_dt}_{_mm}"] = getattr(torch, _mm)
 
 
 @pytest.mark.parametrize("n_rays", [1, 127, 129, 3000])
@@ -488,9 +500,12 @@ def test_spectral_kernel_matches_plain(jet_field, dev, case, trunc, n_fields,
                                        n_rays):
     """Every truncation the JAX kernel serves (m_max 0 is Mp = 1, l_max 1 a
     single latitude mode), C of 1 to 18, ragged R, and NaN lon, NaN lat and
-    |lat| > pi/2 rows; max |diff| over each channel's max |value| on the
-    3000 points."""
-    dtype = torch.float64 if case.startswith("float64") else torch.float32
+    |lat| > pi/2 rows, in every operand case; max |diff| over each
+    channel's max |value| on the 3000 points, over the values finite in
+    both, the non-finite ones (a cast's overflow) where the plain
+    version's are."""
+    dtype = torch.float32 if case in ("float32", "bf16") or case.startswith(
+        "float32_") else torch.float64
     bs, _ = background(jet_field, dtype, dev)
     fit = spec.fit_spectral(bs, m_max=trunc[0], l_max=trunc[1])
     sbg = spec.SpectralBackground(fit.coeffs[..., :n_fields].contiguous(),
@@ -503,9 +518,10 @@ def test_spectral_kernel_matches_plain(jet_field, dev, case, trunc, n_fields,
     lon[1:6] = float("nan")
     lat[6:9] = float("nan")
     lat[9], lat[10] = 1.58, -1.6         # |lat| > pi/2
-    mm = torch.bfloat16 if case.endswith("bf16") else None
+    mm = SPECTRAL_MM[case]
     scale = torch.nan_to_num(
-        spec.sample_spectral(sbg, lon, lat, matmul_dtype=mm).abs()).amax(0)
+        spec.sample_spectral(sbg, lon, lat, matmul_dtype=mm).abs(),
+        posinf=0.0).amax(0)
     lon, lat = lon[:n_rays], lat[:n_rays]
     before = spec.LAUNCHES
     k = spec.sample_spectral_cuda(sbg, lon, lat, matmul_dtype=mm)
@@ -513,6 +529,8 @@ def test_spectral_kernel_matches_plain(jet_field, dev, case, trunc, n_fields,
     p = spec.sample_spectral(sbg, lon, lat, matmul_dtype=mm)
     assert k.shape == (n_rays, n_fields)
     assert torch.equal(torch.isnan(k), torch.isnan(p))
+    assert torch.equal(torch.isinf(k), torch.isinf(p))
+    assert torch.equal(k[torch.isinf(k)], p[torch.isinf(p)])
     if n_rays > 10:
         # NaN lat and |lat| > pi/2 rows; NaN lon rows too, except at
         # m_max = 0, whose lon basis is the constant 1.
@@ -520,7 +538,7 @@ def test_spectral_kernel_matches_plain(jet_field, dev, case, trunc, n_fields,
         assert torch.isnan(k[1:6]).all() == (trunc[0] != 0)
     # Channels that vanish at this truncation (lon derivatives at m_max = 0)
     # have scale 0 and must come out exactly 0.
-    diff = torch.nan_to_num((k - p).abs())
+    diff = torch.where(torch.isfinite(p), (k - p).abs(), 0.0)
     err = torch.where(diff == 0, 0.0, diff / scale).max()
     assert float(err) <= SPECTRAL_BARS[case]
     # A fixed summation order: a second launch is bitwise equal.
@@ -528,14 +546,55 @@ def test_spectral_kernel_matches_plain(jet_field, dev, case, trunc, n_fields,
 
 
 def test_spectral_wrapper_refuses_other_matmul_dtypes(jet_field, dev):
+    """A non-floating dtype, and a floating one that JAX does not take,
+    raise ValueError before any launch; the coefficients' own dtype and a
+    wider one are the no-rounding case, bitwise None's; every served dtype
+    launches the kernel once."""
     bs, _ = background(jet_field, torch.float32, dev)
     sbg = spec.fit_spectral(bs)
     lon = torch.zeros(4, device=dev)
-    with pytest.raises(NotImplementedError):
-        spec.sample_spectral_cuda(sbg, lon, lon, matmul_dtype=torch.float16)
-    same_as_none = spec.sample_spectral_cuda(sbg, lon, lon,
-                                             matmul_dtype=torch.float32)
-    assert same(same_as_none, spec.sample_spectral_cuda(sbg, lon, lon))
+    before = spec.LAUNCHES
+    for bad in (torch.int8, torch.bool, torch.float8_e8m0fnu):
+        with pytest.raises(ValueError):
+            spec.sample_spectral_cuda(sbg, lon, lon, matmul_dtype=bad)
+    assert spec.LAUNCHES == before
+    none = spec.sample_spectral_cuda(sbg, lon, lon)
+    for wide in (torch.float32, torch.float64):
+        assert same(none, spec.sample_spectral_cuda(sbg, lon, lon,
+                                                    matmul_dtype=wide))
+    before = spec.LAUNCHES
+    for mm in spec.OPERAND_DTYPES:
+        spec.sample_spectral_cuda(sbg, lon, lon, matmul_dtype=mm)
+    assert spec.LAUNCHES == before + len(spec.OPERAND_DTYPES)
+
+
+@pytest.mark.parametrize("mm", list(spec.OPERAND_DTYPES), ids=str)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_spectral_rounding_equals_round_operands(dev, dtype, mm):
+    """The kernel's operand rounding (``rwrt_spectral_round``, the device
+    function its prologue rounds the basis with) equals the plain
+    ``round_operands`` bitwise, the sign of zero included, NaN where NaN:
+    on [-1, 1] uniform, log-uniform magnitudes past every subnormal range,
+    exact ties and the specials."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    n = 1 << 20
+    u = torch.rand(n, device=dev, dtype=torch.float64, generator=g) * 2 - 1
+    mag = torch.exp2(-40 * torch.rand(n, device=dev, dtype=torch.float64,
+                                      generator=g))
+    ties = (torch.randint(0, 1 << 11, (n,), device=dev, generator=g) + 0.5
+            ) * torch.exp2(-torch.randint(0, 40, (n,), device=dev,
+                                          generator=g).double()) / 2048
+    x = torch.cat([u, mag * torch.sign(u), ties, -ties,
+                   torch.tensor([0.0, -0.0, float("inf"), -float("inf"),
+                                 float("nan"), 1.0, -1.0, 1e5, -1e5],
+                                dtype=torch.float64, device=dev)]).to(dtype)
+    got = spec.round_on_card(x, mm)
+    want = spec.round_operands(x, mm)
+    int_type = torch.int32 if dtype == torch.float32 else torch.int64
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(torch.where(nan, 0, got).view(int_type),
+                       torch.where(nan, 0, want).view(int_type))
 
 
 def test_trace_rays_on_cuda_goes_through_the_kernels(jet_field, dev):
