@@ -812,7 +812,8 @@ PLAIN_SECONDS = {
     "exact_run float32": 93, "exact_run float64": 31,
     "rk4 production float32": 10, "rk4 production float64": 9,
     "rk4 default float32": 26, "mixed rk4 production": 9,
-    "mixed rk4 default": 31, "mixed dense_run": 25, "mixed exact_run": 41}
+    "mixed rk4 default": 31, "mixed dense_run": 25, "mixed exact_run": 41,
+    "mixed exact production": 40}
 
 
 def timed_plain(fn, args, kw):
@@ -998,9 +999,9 @@ def mixed_exact_args(run):
 
 def phase_plain_ahead(run):
     """The plain stage for the whole-run phases: the plain runs of
-    dense_run, rk4, exact_run, mixed_dense, mixed_rk4 and mixed_exact on
-    the inputs those phases build (the same functions), in worker
-    processes, before any phase times a kernel."""
+    dense_run, rk4, exact_run, mixed_dense, mixed_rk4, mixed_exact and
+    mixed_exact_production on the inputs those phases build (the same
+    functions), in worker processes, before any phase times a kernel."""
     torch = run.torch
     f32, f64 = torch.float32, torch.float64
     jobs = []
@@ -1021,6 +1022,8 @@ def phase_plain_ahead(run):
     jobs.append(("mixed dense_run", "_dense_run_plain", cut, kw))
     jobs.append(("mixed exact_run", "_exact_run_plain",
                  mixed_exact_args(run)[3], {}))
+    jobs.append(("mixed exact production", "_exact_run_plain",
+                 mixed_exact_production_args(run)[3], {}))
     wall = plain_stage(run, [(key, PLAIN_SECONDS[key], fn, args, kw)
                              for key, fn, args, kw in jobs])
     print(f"plain stage: {len(jobs)} plain runs in "
@@ -1262,25 +1265,22 @@ def lane_subset(args, n):
                  and a.shape[-1] == r else a for a in args)
 
 
-def dense_registers(key, variant):
-    """Registers and spill bytes (stores, loads) of the whole-run dense
-    kernel's instance for the (state, field) dtypes ``key`` and background
-    ``variant``, from the build's ``nvcc.log`` (``-Xptxas -v``)."""
-    import torch
+def registers(pattern):
+    """Registers and spill bytes (stores, loads) of every kernel of the
+    build whose mangled name matches the regular expression ``pattern``,
+    from its ``nvcc.log`` (``-Xptxas -v``): {name: (registers, spill)}."""
     from rwrt_tpu_torch.kernels import build
 
-    code = {torch.float32: "f", torch.float64: "d"}
-    tag = (f"dense_kernelI{code[key[0]]}{code[key[1]]}Lb1E"
-           f"Lb{int(variant == '_time')}E")
     log = (build.BUILD_ROOT / build.source_hash() / "nvcc.log").read_text()
-    name, regs, spill = None, None, None
+    found, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = m.group(1)
+            name = m.group(1) if re.search(pattern, m.group(1)) else None
             continue
-        if name is None or tag not in name:
+        if name is None:
             continue
+        regs, spill = found.get(name, (None, None))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -1288,8 +1288,23 @@ def dense_registers(key, variant):
         m = re.search(r"Used (\d+) registers", line)
         if m:
             regs = int(m.group(1))
-    check(regs is not None, f"no register report for {tag} in nvcc.log")
-    return regs, spill
+        found[name] = (regs, spill)
+    return found
+
+
+def dense_registers(key, variant):
+    """Registers and spill bytes (stores, loads) of the whole-run dense
+    kernel's instance for the (state, field) dtypes ``key`` and background
+    ``variant``, from the build's ``nvcc.log`` (``-Xptxas -v``)."""
+    import torch
+
+    code = {torch.float32: "f", torch.float64: "d"}
+    tag = (f"dense_kernelI{code[key[0]]}{code[key[1]]}Lb1E"
+           f"Lb{int(variant == '_time')}E")
+    found = list(registers(re.escape(tag)).values())
+    check(len(found) == 1 and found[0][0] is not None,
+          f"no register report for {tag} in nvcc.log")
+    return found[0]
 
 
 def dense_report(run, what, args, kw, out, floor=True):
@@ -1341,6 +1356,106 @@ def dense_report(run, what, args, kw, out, floor=True):
         msg += (f"; chain floor {ms:.3f} ms (lane {lane} alone, "
                 f"{int(trips[lane])} trips, {ms * 1e3 / int(trips[lane]):.3f}"
                 " us per trip)")
+    print(msg)
+    return rec
+
+
+#: Threads a lane of each exact kernel instance.
+INSTANCE_THREADS = {"lane": 1, "split8": 8}
+
+
+def exact_registers(key, variant, instance):
+    """Registers and spill bytes (stores, loads) of the whole-run exact
+    kernel the launcher takes for the (state, field) dtypes ``key``,
+    background ``variant`` and ``instance`` (without the barrier flag):
+    with a float64 state the repacked ``exact_run_kernel``, in float32
+    the launch-order ``exact_kernel``; from the build's ``nvcc.log``."""
+    import torch
+
+    code = {torch.float32: "f", torch.float64: "d"}
+    inst = {"lane": "4Lane", "split8": "5Split"}[instance]
+    time_flag = f"Lb{int(variant == '_time')}E"
+    if key[0] == torch.float64:
+        tag = (f"exact_run_kernelI{code[key[0]]}{code[key[1]]}Lb0E"
+               f"{time_flag}N4rwrt{inst}E")
+    else:
+        tag = f"exact_kernelIffLb1ELb0E{time_flag}N4rwrt{inst}E"
+    found = list(registers(re.escape(tag)).values())
+    check(len(found) == 1 and found[0][0] is not None,
+          f"no register report for {tag} in nvcc.log")
+    return found[0]
+
+
+def exact_report(run, what, args, kw, out):
+    """Print a whole-run exact launch's instance (the launcher's), its
+    warp occupancy in launch order and, with a float64 state, under the
+    repacking kernel's schedule at its grid, the instance's registers and
+    spills, and its chain floor: its longest lane alone (R = 1) in each
+    instance in turns, bitwise the full run's lane, the least of them.
+    With a float64 state the full run is also held bitwise, on every lane,
+    to the run under the schedule "never" (no window ended early: each
+    lane to its end, as the launch-order kernel ran it), which is timed.
+    Returns {occupancy, repacked_occupancy, registers, spill, never_ms,
+    chain_floor_ms}."""
+    torch = run.torch
+    from rwrt_tpu_torch import kernels, tracer
+    from rwrt_tpu_torch.models import ray
+    from rwrt_tpu_torch.solvers import rk45
+
+    from profile_main_path import repacked_occupancy, warp_occupancy
+
+    bg, y0 = args[0], args[1]
+    r = y0.shape[1]
+    key = kernels.state_key(y0, bg.fields)
+    variant = ray.kernel_background(bg, y0.device, key[1], r)[0]
+    instance = rk45.exact_instance(r, key, variant=variant)
+    k = INSTANCE_THREADS[instance]
+    before = warp_occupancy(out.lane_att, 32 // k)
+    regs, spill = exact_registers(key, variant, instance)
+    rec = dict(occupancy=before, registers=regs, spill=spill,
+               instance=instance)
+    msg = (f"  {what}: instance {instance}, warp occupancy {before:.4f} in "
+           f"launch order")
+    schedule = tracer.EXACT_SCHEDULE[key]
+    if schedule is not None:
+        blocks, block = tracer.exact_grid(key, variant, instance)
+        every, trigger = schedule
+        after, issued = repacked_occupancy(out.lane_att, block // k, blocks,
+                                           every, trigger, 32 // k)
+        never = tracer._exact_run_cuda(*args, **kw, _repack=1 << 30,
+                                       _trigger=1 << 30)
+        equal_runs(out, never, f"{what}: the schedule never")
+        rec["never_ms"] = cuda_ms(lambda: tracer._exact_run_cuda(
+            *args, **kw, _repack=1 << 30, _trigger=1 << 30), 3)
+        rec["repacked_occupancy"] = after
+        msg += (f", {after:.4f} repacked ({blocks} blocks x {block} threads,"
+                f" a repack after {every} iterations or {trigger} lanes "
+                f"left; busiest block {int(issued.max())} warp-iterations, "
+                f"mean {float(issued.mean()):.1f}); every lane bitwise "
+                f"equal to the schedule never's run ({rec['never_ms']:.3f} "
+                "ms)")
+    trips = out.lane_att.sum(dim=0)
+    lane = int(trips.argmax())
+    take = torch.tensor([lane], device=y0.device)
+    one = lane_pick(args, take)
+    alone = {}
+    for inst in TURNS:
+        got = tracer._exact_run_cuda(*one, **kw, instance=inst)
+        for n in ("ys", "ugs", "vgs", "lane_att", "trunc"):
+            check(same(getattr(got, n), getattr(out, n).index_select(-1,
+                                                                     take)),
+                  f"{what}: the longest lane alone ({inst}) differs from "
+                  f"the full run's ({n})")
+        alone.setdefault(inst, []).append(cuda_ms(
+            lambda: tracer._exact_run_cuda(*one, **kw, instance=inst), 2))
+    rec["chain_floor_ms"] = min(min(ts) for ts in alone.values())
+    msg += (f"; kernel exact {variant or 'static'} "
+            f"{'mixed' if key[0] != key[1] else str(key[0])[6:]} "
+            f"{instance}: {regs} registers, spill stores/loads {spill} "
+            f"bytes; chain floor {rec['chain_floor_ms']:.3f} ms (lane {lane}"
+            f" alone, {int(trips[lane])} trips; " + ", ".join(
+                f"{n} {' / '.join(f'{t:.3f}' for t in ts)}"
+                for n, ts in alone.items()) + " ms)")
     print(msg)
     return rec
 
@@ -1768,17 +1883,22 @@ def phase_spectral(run):
             sbg, lo, la, matmul_dtype=mm), 20)
         plain = cuda_ms(lambda: spec.sample_spectral(
             sbg, lo, la, matmul_dtype=mm), 5)
-        # The library call: the product alone, on the rounded basis and
-        # coefficients in the operand dtype (bf16 for float8, which
-        # torch.matmul does not take).
+        # The library call that computes the same function: the product
+        # alone, on the rounded basis and coefficients held in the
+        # coefficients' dtype (float32 with TF32 off, or float64). Beside
+        # it, for a rounded case, the product in the operand dtype (bf16
+        # for float8, which torch.matmul does not take): a narrower
+        # function, whose result is rounded to that dtype.
         mp, nl, nc = sbg.coeffs.shape
-        lib = (dtype if mm is None else torch.bfloat16
-               if mm_name.startswith("float8") else mm)
-        basis = spec.round_operands(
-            spec._basis_lon(lo, (mp - 1) // 2), mm).to(lib)
-        dflat = spec.round_operands(sbg.coeffs, mm).reshape(
-            mp, nl * nc).to(lib)
+        basis = spec.round_operands(spec._basis_lon(lo, (mp - 1) // 2), mm)
+        dflat = spec.round_operands(sbg.coeffs, mm).reshape(mp, nl * nc)
+        basis, dflat = basis.to(dtype), dflat.to(dtype)
         library = cuda_ms(lambda: torch.matmul(basis, dflat), 20)
+        narrow = None
+        if mm is not None:
+            lib = torch.bfloat16 if mm_name.startswith("float8") else mm
+            nb, nd = basis.to(lib), dflat.to(lib)
+            narrow = cuda_ms(lambda: torch.matmul(nb, nd), 20)
         flop = 2.0 * lo.shape[0] * math.prod(sbg.coeffs.shape)
         b = spectral_bound((lo, la, sbg.coeffs, k), flop, name, mm_name)
         bad = int((~torch.isfinite(k)).sum())
@@ -1787,8 +1907,11 @@ def phase_spectral(run):
               f"(the plain version's positions), kernel alone {kern:.4f} "
               f"ms ({flop / kern * 1e-9:.1f} TFLOP/s), "
               f"wrapper {ms:.4f} ms, plain {plain:.4f} ms, library "
-              f"torch.matmul (R, Mp) @ (Mp, L*C) in {str(lib)[6:]} "
-              f"{library:.4f} ms; bound {b['bound_ms']:.4f} ms "
+              f"torch.matmul (R, Mp) @ (Mp, L*C) on the rounded operands "
+              f"in {name} {library:.4f} ms" + (
+                  "" if narrow is None else
+                  f" (in {str(lib)[6:]}, a narrower function: "
+                  f"{narrow:.4f} ms)") + f"; bound {b['bound_ms']:.4f} ms "
               f"({b['bound_by']})")
         if mm is not None:
             print(f"  per channel, coefficients the cast made 0 / inf / "
@@ -1797,7 +1920,7 @@ def phase_spectral(run):
         record = dict(max_abs_err=float(torch.where(
             torch.isfinite(p), (k - p).abs(), 0.0).max()),
             ms=ms, kernel_ms=kern, plain_ms=plain, library_ms=library,
-            **b)
+            narrow_library_ms=narrow, **b)
         run.kernels["spectral"]["cases"].append(
             dict(coefficients=name, matmul_dtype=mm_name, **record))
         if tag == "float32":
@@ -1914,6 +2037,25 @@ def exact_bound(args, out, dtype, attempts, crossings):
                  flops)
 
 
+def group_chain_floor(run, kernel, lane_args, out, what):
+    """A single exact group's chain floor: ``kernel`` (``integrate_group``
+    over ``lane_args``) on the lane with the most attempts (``out[9]``)
+    alone, its rows bitwise the full group's; the ms of its launch."""
+    torch = run.torch
+    r = out[9].numel()
+    lane = int(out[9].argmax())
+    take = torch.tensor([lane], device=run.dev)
+    one = [a.index_select(a.ndim - 1, take).contiguous()
+           if torch.is_tensor(a) and a.ndim and a.shape[-1] == r else a
+           for a in lane_args]
+    check(same(kernel(*one)[0], out[0].index_select(-1, take)),
+          f"{what}: the longest lane alone differs from the full group's")
+    ms = cuda_ms(lambda: kernel(*one), 3)
+    print(f"  {what}: chain floor {ms:.3f} ms (lane {lane} alone, "
+          f"{int(out[9][lane])} attempts)")
+    return ms
+
+
 def phase_exact_group(run):
     """The first 16-bound group of the production seeding in exact mode,
     ``integrate_group``'s kernel against the plain loop on its entry state
@@ -1993,9 +2135,13 @@ def phase_exact_group(run):
               f"{plain_ms:.1f} ms, bound {b['bound_ms']:.4f} ms "
               f"({b['bound_by']})")
         if dtype == torch.float32:
+            floor = group_chain_floor(
+                run, lambda *a: rk45.integrate_group(ray.RayRHS(bg), None,
+                                                     *a),
+                (*carry[:4], *tail), kern, f"exact_group {name}")
             run.kernels["exact_group"] = dict(
                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
-                **b)
+                chain_floor_ms=floor, **b)
     exact_group_mixed(run, cfg)
 
 
@@ -2058,8 +2204,12 @@ def exact_group_mixed(run, cfg):
           f"{rk45.exact_instance(y0.shape[1], key, run=False)}, kernel "
           f"{ms:.3f} ms (CUDA events), plain {plain_ms:.1f} ms, bound "
           f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+    floor = group_chain_floor(
+        run, lambda *a: rk45.integrate_group(ray.RayRHS(bg), None, *a),
+        (*carry[:4], *tail), kern, "exact_group mixed")
     run.kernels["exact_group_mix"] = dict(
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+        chain_floor_ms=floor, **b)
 
 
 def phase_exact_run(run):
@@ -2137,6 +2287,7 @@ def phase_exact_run(run):
         attempts = int(kern.lane_att.sum())
         bnd = exact_bound(args, kern[:5] + kern.carry, dtype, attempts,
                           int(kern.ugs[1:].isfinite().sum()))
+        rec = exact_report(run, tag, args, {}, kern)
         print(f"exact_run {name}: R={args[1].shape[1]}, "
               f"{kern.ys.shape[0] - 1} bounds in {kern.lane_att.shape[0]} "
               f"groups, bitwise equal to the plain run (rows, ug, vg, "
@@ -2150,7 +2301,7 @@ def phase_exact_run(run):
             run.exact_run = (idx, kern)
             run.kernels["exact_run"] = dict(
                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
-                **bnd)
+                chain_floor_ms=rec["chain_floor_ms"], **bnd)
 
 
 def traced(run, cfg, launches_of, n_launches=1, driver=None, stop=(),
@@ -2766,6 +2917,7 @@ def phase_mixed_exact(run):
     attempts = int(kern.lane_att.sum())
     bnd = exact_bound(args, kern[:5] + kern.carry, "mixed", attempts,
                       int(kern.ugs[1:].isfinite().sum()))
+    rec = exact_report(run, tag, args, {}, kern)
     print(f"{tag}: R={args[1].shape[1]}, {kern.ys.shape[0] - 1} bounds "
           f"({MIXED_README_DAYS} days) in {kern.lane_att.shape[0]} groups, "
           f"no truncated lane-group; kernel {ms:.3f} ms (CUDA events), bound "
@@ -2788,10 +2940,82 @@ def phase_mixed_exact(run):
           f"above the prepared state; launches {launches}; float64 outputs, "
           "rows bitwise equal to the kernel's")
     run.kernels["exact_run_mix"] = dict(
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **bnd)
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+        chain_floor_ms=rec["chain_floor_ms"], **bnd)
     run.launches["exact_run_mix"] = launches["exact_run"]
     run.launches["exact_group_mix"] = launches["exact_group"]
     run.mixed_exact = (idx, kern)
+
+
+def mixed_exact_production_args(run):
+    """phase_mixed_exact_production's unit arguments (the production
+    seeding in exact mode over N_DAYS days, interval_batch 16, no pin,
+    float64 over the float32 background) and their plain cut: the first
+    EXACT_SUBSET lanes over EXACT_DAYS days. Returns (args, idx, cfg,
+    cut)."""
+    torch = run.torch
+    cfg = production_config(run.rt, bound_mode="exact", pin_limit=None,
+                            interval_batch=16)
+    _, args, _, idx = run.run_inputs(torch.float32, cfg,
+                                     state=torch.float64)
+    n_bounds = int(EXACT_DAYS * DAY / cfg.tstep)
+    sub = lane_subset(args, EXACT_SUBSET)
+    sub = sub[:6] + (sub[6][:n_bounds // sub[6].shape[1]], n_bounds) + sub[8:]
+    return args, idx, cfg, sub
+
+
+def phase_mixed_exact_production(run):
+    """The production seeding in exact mode (interval_batch 16, no pin) in
+    mixed precision over N_DAYS days: the whole-run kernel's mixed instance
+    on ``trace_rays``' entry state, one launch, timed, no lane-group cut
+    short by the backstop, held bitwise on every lane to the schedule
+    never's run (``exact_report``); every instance bitwise against the
+    plain run on its first EXACT_SUBSET lanes over EXACT_DAYS days; then
+    the run through ``trace_rays``: one exact launch, float64 outputs,
+    rows bitwise equal to the kernel's."""
+    torch = run.torch
+    from rwrt_tpu_torch import kernels, tracer
+
+    args, idx, cfg, sub = mixed_exact_production_args(run)
+    tag = "mixed exact production"
+    before = tracer.EXACT_LAUNCHES
+    kern = tracer._exact_run(*args)
+    check(tracer.EXACT_LAUNCHES == before + 1,
+          f"{tag}: did not launch once")
+    trunc = int(kern.trunc.sum())
+    check(trunc == 0, f"{tag}: {trunc} truncated lane-groups")
+    ms = cuda_ms(lambda: tracer._exact_run(*args), 3)
+    plain, plain_ms = plain_call(run, tag, "_exact_run_plain", *sub)
+    for inst in kernels.INSTANCES:
+        equal_runs(tracer._exact_run_cuda(*sub, instance=inst), plain,
+                   f"{tag} instance {inst}")
+    attempts = int(kern.lane_att.sum())
+    bnd = exact_bound(args, kern[:5] + kern.carry, "mixed", attempts,
+                      int(kern.ugs[1:].isfinite().sum()))
+    rec = exact_report(run, tag, args, {}, kern)
+    trips = kern.lane_att.sum(dim=0)
+    print(f"{tag}: R={args[1].shape[1]}, {kern.ys.shape[0] - 1} bounds "
+          f"({N_DAYS} days) in {kern.lane_att.shape[0]} groups; kernel "
+          f"{ms:.3f} ms (CUDA events), bound {bnd['bound_ms']:.4f} ms "
+          f"({bnd['bound_by']}); step attempts {attempts}, longest lane "
+          f"{int(trips.max())} trips in all; every instance bitwise equal to "
+          f"the plain run on {EXACT_SUBSET} lanes x {EXACT_DAYS} days (plain "
+          f"{plain_ms:.1f} ms)")
+    traj, launches, wall, peak, _, refused = traced(
+        run, mixed(cfg), "exact_run", source_lon=run.slon,
+        source_lat=run.slat)
+    check(refused is None, f"{tag} was refused: {refused}")
+    all_float64(traj, f"{tag} trace_rays")
+    check_rows(traj, idx, kern, tag)
+    print(f"{tag} trace_rays: {traj.lon[0].numel()} rays x {cfg.nt - 1} "
+          f"bounds, wall {wall:.3f} s, peak device memory {peak:.1f} MiB "
+          f"above the prepared state; launches {launches}; float64 outputs, "
+          "rows bitwise equal to the kernel's")
+    run.kernels["exact_run_mix_production"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+        chain_floor_ms=rec["chain_floor_ms"], **bnd)
+    run.launches["exact_run_mix_production"] = launches["exact_run"]
+    del traj, kern
 
 
 # ---- Time-varying backgrounds and ensembles (the time instances) ----
@@ -3065,7 +3289,9 @@ def run_record(run, key, what, traj_call, unit_name, of, attempts_flops,
                             library_ms=None, **b)
     if unit_name == "_dense_run":
         rec = dense_report(run, what, args, kw, out)
-        run.kernels[key]["chain_floor_ms"] = rec["chain_floor_ms"]
+    else:
+        rec = exact_report(run, what, args, kw, out)
+    run.kernels[key]["chain_floor_ms"] = rec["chain_floor_ms"]
     run.launches[key] = launches[of]
     return traj, args, kw, out, dict(wall=wall, peak=peak, ms=ms,
                                       attempts=attempts, launches=launches)
@@ -4683,6 +4909,11 @@ def phase_group_time(run):
                 run.kernels[name] = dict(max_abs_err=0.0, ms=ms,
                                          plain_ms=p_s * 1e3, library_ms=None,
                                          **b)
+                if unit == "exact_group":
+                    run.kernels[name]["chain_floor_ms"] = group_chain_floor(
+                        run, lambda *a, bg=bg: rk45.integrate_group(
+                            ray.RayRHS(bg), None, *a), exact_args, kern,
+                        tag)
                 run.launches[name] = launches[unit]
     print(f"group_time: both single-group kernels' time instances bitwise "
           f"equal to the plain loops over daily frames and two members, in "
@@ -5066,6 +5297,8 @@ KERNELS = (
      "rwrt_tpu/tracer.py:819"),
     ("exact_run_mix", "rwrt_tpu_torch/csrc/exact_run_mix.cu",
      "rwrt_tpu/tracer.py:861"),
+    ("exact_run_mix_production", "rwrt_tpu_torch/csrc/exact_run_mix.cu",
+     "rwrt_tpu/tracer.py:861"),
     ("dense_group_mix", "rwrt_tpu_torch/csrc/dense_run_mix.cu",
      "rwrt_tpu/solvers/rk45.py:494"),
     ("exact_group_mix", "rwrt_tpu_torch/csrc/exact_run_mix.cu",
@@ -5151,7 +5384,8 @@ def main() -> int:
                   phase_rk4, phase_exact_group, phase_exact_run,
                   phase_rk4_path, phase_exact_path, phase_chunked,
                   phase_mixed_dense, phase_mixed_drift, phase_mixed_rk4,
-                  phase_mixed_exact, phase_mixed_chunked, phase_time_rhs,
+                  phase_mixed_exact, phase_mixed_exact_production,
+                  phase_mixed_chunked, phase_time_rhs,
                   phase_time_main_path, phase_time_entry, phase_time_paths,
                   phase_time_chunked,
                   phase_ensemble, phase_mesh, phase_time_spectral, phase_cli,

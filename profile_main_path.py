@@ -7,7 +7,7 @@
                                  [--out DIR (profile_out)]
                                  [--tree DIR]
                                  [--kernels [--schedules 8:0,64:32]]
-                                 [--flux]
+                                 [--exact] [--only REGEX] [--flux]
 
 Runs chip_smoke.py's production seeding (100,800 rays, 30 days, float32)
 through ``rwrt_tpu_torch.trace_rays`` with one of three integrators:
@@ -46,7 +46,29 @@ their trips (the occupancy no schedule can pass, difficulty being unknown
 before the run) and its 1 % of lanes with the most trips alone.
 ``--schedules`` times every shape but the chunked runs under each repack
 schedule listed (EVERY:TRIGGER, the kernel's ``_repack`` and
-``_trigger``; a trigger of 0 ends no window early).
+``_trigger``; a trigger of 0 ends no window early). ``--only REGEX``
+keeps the shapes (of ``--kernels`` or ``--exact``) whose name it
+matches.
+
+``--exact`` times the whole-run exact kernel alone instead (CUDA events,
+the median of ``--runs`` means of 3 launches, each instance in turns:
+Lane, Split, Split, Lane) at the shapes of its float64-state rows and
+of its float32 README runs: the README run (40 days in float32, static
+and over 91 daily frames; 90 days in mixed precision and float64,
+static and over the frames), two time-varying float64 members over 30
+days, and the production seeding in mixed precision and float64 over 30
+days (interval_batch 16, no pin), all of its lanes and its first
+``EXACT_WINDOW_LANES``. Beside each: the bound (chip_smoke's
+``grouped_bound``: inputs and outputs once, this run's attempts and kept
+rows' flops); the instance the launcher
+takes, each instance's warp occupancy in launch order (a team instance
+holds 32 / 8 lanes a warp) and, where the tree has the repacking kernel
+(``tracer.EXACT_SCHEDULE``), as its grid would run them and its time
+under the schedule "never" (no window ends early); the chain floor (the
+longest lane alone, R = 1, in each instance); every instance's rows
+bitwise equal; and the registers and spills of every exact kernel in
+the build's ``nvcc.log``. ``--schedules`` times the repacked shapes under
+each schedule listed too, as with ``--kernels``.
 
 ``--flux`` times the flux binning alone instead (``flux._accumulate_cuda``,
 and the region pass before it, ``flux._region_cuda``; CUDA events, the
@@ -67,6 +89,7 @@ import argparse
 import dataclasses
 import hashlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -168,6 +191,8 @@ def main() -> int:
     ap.add_argument("--tree", type=Path, default=None)
     ap.add_argument("--kernels", action="store_true")
     ap.add_argument("--schedules", default="")
+    ap.add_argument("--exact", action="store_true")
+    ap.add_argument("--only", default="")
     ap.add_argument("--flux", action="store_true")
     args = ap.parse_args()
 
@@ -182,6 +207,8 @@ def main() -> int:
 
     if args.kernels:
         return dense_kernels(torch, rt, args)
+    if args.exact:
+        return exact_kernels(torch, rt, args)
     if args.flux:
         return flux_binning(torch, rt, args)
     from rwrt_tpu_torch.tracer import MaxItersTruncation
@@ -334,6 +361,8 @@ def dense_kernels(torch, rt, args):
     print(f"tree {rt.__file__}; repacking kernel: {grid is not None}")
     rows = []
     for name, (a, kw) in dense_shapes(torch, rt, run).items():
+        if not re.search(args.only, name):
+            continue
         out = tracer._dense_run(*a, **kw)
         ms = median_ms(lambda: tracer._dense_run(*a, **kw), args.runs)
         rec = dict(shape=name, lanes=a[1].shape[1], ms=ms,
@@ -394,6 +423,8 @@ def dense_kernels(torch, rt, args):
     for name, days, steps in (("6 chunks", cs.N_DAYS, cs.CHUNK_STEPS),
                               ("17 chunks", cs.LONG_DAYS,
                                cs.DEFAULT_CHUNK_STEPS)):
+        if not re.search(args.only, name):
+            continue
         c = dataclasses.replace(cfg, ttotal=days * cs.DAY)
         sums = []
         for _ in range(max(args.runs // 2, 1)):
@@ -408,6 +439,167 @@ def dense_kernels(torch, rt, args):
     args.out.mkdir(parents=True, exist_ok=True)
     tag = "change" if grid is not None else "parent"
     with open(args.out / f"dense_kernels_{tag}.jsonl", "a") as fh:
+        for rec in rows:
+            fh.write(json.dumps(rec) + "\n")
+    return 0
+
+
+def exact_call(args, kw, **private):
+    """``tracer._exact_run_cuda`` on a unit call's (args, kwargs), as
+    ``tracer._exact_run`` passes them, with ``private`` arguments."""
+    from rwrt_tpu_torch import tracer
+
+    full = dict(max_iters=1_000_000, barrier=False, t0=None)
+    full.update(zip(("max_iters", "barrier", "t0"), args[12:]))
+    full.update(kw)
+    return tracer._exact_run_cuda(*args[:12], **full, **private)
+
+
+#: Lane counts (the production seeding's first lanes) at which ``--exact``
+#: times the instances in mixed precision and float64, for the team's
+#: window.
+EXACT_WINDOW_LANES = (8192, 16384, 32768)
+
+
+def exact_shapes(torch, rt, run):
+    """The whole-run exact kernel's entry (args, kwargs) at each shape,
+    captured from its run through ``trace_rays`` (or
+    ``trace_rays_ensemble``)."""
+    from rwrt_tpu_torch.tracer import MaxItersTruncation
+
+    f32, f64 = torch.float32, torch.float64
+    readme = cs.readme_config(rt)
+    readme90 = cs.readme_config(rt, cs.LONG_DAYS)
+    tv32 = cs.tv_state(run, cs.LONG_DAYS + 1)
+    tv64 = cs.tv_state(run, cs.LONG_DAYS + 1, f64)
+    members = [cs.tv_state(run, cs.TV_DAYS + 1, f64, sc, ph)
+               for sc, ph in zip(cs.MEMBER_SCALES[:2], cs.MEMBER_PHASES[:2])]
+    prod = cs.mixed(cs.production_config(rt, bound_mode="exact",
+                                         pin_limit=None, interval_batch=16))
+    src = dict(source_lon=run.slon, source_lat=run.slat)
+    cases = (
+        ("readme float32, 40 d", rt.trace_rays, run.bs(f32), readme, {}),
+        ("readme time float32, 40 d, 91 frames", rt.trace_rays, tv32, readme,
+         {}),
+        ("readme mixed, 90 d", rt.trace_rays, run.bs(f32),
+         cs.mixed(readme90), {}),
+        ("readme float64, 90 d", rt.trace_rays, run.bs(f64),
+         cs.in_float64(readme90), {}),
+        ("readme time mixed, 90 d, 91 frames", rt.trace_rays, tv32,
+         cs.mixed(readme90), {}),
+        ("readme time float64, 90 d, 91 frames", rt.trace_rays, tv64,
+         cs.in_float64(readme90), {}),
+        ("2 time-varying members float64, 30 d", rt.trace_rays_ensemble,
+         members, cs.readme_config(rt, cs.TV_DAYS), None),
+        ("production mixed, 30 d", rt.trace_rays, run.bs(f32), prod, src),
+        ("production float64, 30 d", rt.trace_rays, run.bs(f64),
+         cs.in_float64(prod), src))
+    shapes = {}
+    for name, driver, bs, cfg, kw in cases:
+        with cs.captured(run, "_exact_run") as cap:
+            try:
+                # One launch: no reroute to the chunked driver.
+                driver(bs, cfg, **({} if kw is None else
+                                   dict(auto_chunk_bytes=None, **kw)))
+            except MaxItersTruncation:
+                pass
+        shapes[name] = cap.calls[0][:2]
+        if name.startswith("production"):
+            # The team's window: the seeding's first lanes.
+            a, kw = shapes[name]
+            for n in EXACT_WINDOW_LANES:
+                shapes[f"{name}, first {n} lanes"] = (cs.lane_subset(a, n),
+                                                      kw)
+    return shapes
+
+
+def exact_kernels(torch, rt, args):
+    """``--exact``: see the head of this file."""
+    from rwrt_tpu_torch import kernels, tracer
+    from rwrt_tpu_torch.models import ray
+    from rwrt_tpu_torch.solvers import rk45
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    run = cs.Run(torch, rt)
+    schedule = getattr(tracer, "EXACT_SCHEDULE", None)
+    print(f"tree {rt.__file__}; repacking exact kernel: "
+          f"{schedule is not None}")
+    shapes = {name: call for name, call in exact_shapes(torch, rt,
+                                                        run).items()
+              if re.search(args.only, name)}
+    regs = cs.registers("exact")
+    print(json.dumps({"registers": {n: list(r) for n, r in regs.items()}}),
+          flush=True)
+    turns = ("lane", "split8", "split8", "lane")
+    threads = cs.INSTANCE_THREADS
+    rows = []
+    for name, (a, kw) in shapes.items():
+        key = kernels.state_key(a[1], a[0].fields)
+        r = a[1].shape[1]
+        variant = ray.kernel_background(a[0], a[1].device, key[1], r)[0]
+        out = tracer._exact_run(*a, **kw)
+        lane_att = out.lane_att
+        trips = lane_att.sum(dim=0)
+        f32 = key[0] == torch.float32
+        flops = ({"float32": cs.EXACT_ATTEMPT_FLOPS} if f32
+                 else cs.MIX_EXACT_ATTEMPT_FLOPS if key[1] == torch.float32
+                 else {"float64": cs.EXACT_ATTEMPT_FLOPS})
+        unit = "float32" if f32 else "float64"
+        b, _ = cs.grouped_bound(a, out, flops, {unit: cs.KILL_FLOPS}, False)
+        rec = dict(shape=name, lanes=r, attempts=int(lane_att.sum()),
+                   longest=int(trips.max()),
+                   launcher=rk45.exact_instance(r, key, variant=variant),
+                   **b)
+        ms = {inst: [] for inst in threads}
+        for inst in turns:
+            got = exact_call(a, kw, instance=inst)
+            for n in ("ys", "ugs", "vgs", "lane_att", "trunc"):
+                cs.check(cs.same(getattr(got, n), getattr(out, n)),
+                         f"{name}: instance {inst} differs ({n})")
+            ms[inst].append(median_ms(lambda: exact_call(a, kw,
+                                                         instance=inst),
+                                      args.runs))
+        for inst, k in threads.items():
+            rec[f"{inst}_ms"] = ms[inst]
+            rec[f"{inst}_occupancy"] = warp_occupancy(lane_att, 32 // k)
+        if schedule is not None and schedule[key] is not None:
+            blocks, block = tracer.exact_grid(key, variant, rec["launcher"])
+            every, trigger = schedule[key]
+            k = threads[rec["launcher"]]
+            occ, issued = repacked_occupancy(lane_att, block // k, blocks,
+                                             every, trigger, 32 // k)
+            rec.update(grid=[blocks, block], schedule=[every, trigger],
+                       repacked_occupancy=occ,
+                       busiest_block=int(issued.max()),
+                       mean_block=float(issued.mean()))
+            rec["never_ms"] = median_ms(
+                lambda: exact_call(a, kw, _repack=1 << 30,
+                                   _trigger=1 << 30), args.runs)
+            for sched in [x for x in args.schedules.split(",") if x]:
+                e, t = (int(v) for v in sched.split(":"))
+                rec[f"ms_{e}_{t}"] = median_ms(
+                    lambda: exact_call(a, kw, _repack=e,
+                                       _trigger=t or 1 << 30), args.runs)
+                rec[f"occupancy_{e}_{t}"] = repacked_occupancy(
+                    lane_att, block // k, blocks, e, t or None, 32 // k)[0]
+        lane = int(trips.argmax())
+        one = cs.lane_pick(a, torch.tensor([lane], device=a[1].device))
+        for inst in turns:
+            alone = exact_call(one, kw, instance=inst)
+            cs.check(cs.same(alone.ys, out.ys[..., lane:lane + 1]),
+                     f"{name}: the longest lane alone differs")
+            rec.setdefault(f"lone_{inst}_ms", []).append(median_ms(
+                lambda: exact_call(one, kw, instance=inst), 1))
+        rec["chain_floor_ms"] = min(min(rec[f"lone_{i}_ms"]) for i in threads)
+        print(json.dumps(rec), flush=True)
+        rows.append(rec)
+        del out
+    args.out.mkdir(parents=True, exist_ok=True)
+    tag = "change" if schedule is not None else "parent"
+    with open(args.out / f"exact_kernels_{tag}.jsonl", "a") as fh:
         for rec in rows:
             fh.write(json.dumps(rec) + "\n")
     return 0

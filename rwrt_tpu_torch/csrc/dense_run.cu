@@ -69,32 +69,25 @@
 // and the group changes (lane_iterate), so the lanes of a warp that are
 // stepping run each trip together, whichever group each is in.
 //
-// The whole run repacks live lanes into full warps inside the launch, the
-// card's form of the JAX package's peel and bucket schedulers (a vector of
-// lanes there pays its slowest lane as a warp does here; both make no
-// difference to a lane's bits). A persistent grid of the blocks the card
-// keeps resident (dense_resident), each as wide as one SM's registers allow
-// (RunBlock: 512 threads in float32, 384 in its time instance, 256 with a
-// float64 state), deals each block an even share of the lanes; lanes
-// beyond the resident threads wait in a queue (a global counter the
-// wrapper zeroes). The block then alternates:
-//   - a window: each live lane runs up to `every` iterations of its loop,
-//     or until `trigger` lanes have left the block in the window;
-//   - a repack (two barriers): the block counts its live lanes
-//     (__ballot_sync, __popc), moves each one's carry through shared memory
-//     (Slots) into the slot of its rank, so the live lanes take the block's
-//     lowest threads in order and emptied warps issue nothing, and fills the
-//     freed slots from the queue;
-//   - the (ug, vg) post-pass of the lanes that left in the window, one
-//     (lane, row) a thread over the whole block, group_velocity_at at each
-//     row's bound (the expression of the plain post-pass).
-// The wrapper picks `every` and `trigger` by precision (tracer.py
-// DENSE_SCHEDULE): a repack's barriers hold every warp of the block to its
-// slowest, which float32 pays for more than it gains from full warps, so it
-// repacks rarely; float64 repacks as each lane leaves. A lane's arithmetic
-// is the one-thread-a-lane loop's in its order; only the thread that runs
-// it changes between windows, and where its carry sits meanwhile. Rows,
-// (ug, vg), lane_att, trunc and the carry are addressed by the lane's
+// The whole run repacks live lanes into full warps inside the launch
+// (repack.cuh run_lanes, shared with the exact kernel's float64-state
+// runs): a persistent grid of the blocks the card keeps resident
+// (dense_resident), each as wide as one SM's registers allow (RunBlock:
+// 512 threads in float32, 384 in its time instance, 256 with a float64
+// state), deals each block an even share of the lanes and queues the rest;
+// each block alternates windows of up to `every` iterations of each live
+// lane (ended early once `trigger` lanes have left it) with a repack of
+// its live lanes into its lowest threads, a refill from the queue and the
+// (ug, vg) post-pass of the lanes that left in the window, one (lane, row)
+// a thread over the whole block, group_velocity_at at each row's bound
+// (the expression of the plain post-pass). The wrapper picks `every` and
+// `trigger` by precision (tracer.py DENSE_SCHEDULE): a repack's barriers
+// hold every warp of the block to its slowest, which float32 pays for more
+// than it gains from full warps, so it repacks rarely; float64 repacks as
+// each lane leaves. A lane's arithmetic is the one-thread-a-lane loop's in
+// its order; only the thread that runs it changes between windows, and
+// where its carry sits meanwhile. Rows, (ug, vg), lane_att, trunc and the
+// carry are addressed by the lane's
 // index. The single group (integrate_group_dense) keeps one thread a lane
 // in blocks of 128, from the same lane functions.
 //
@@ -143,6 +136,7 @@
 #include <cuda_runtime.h>
 
 #include "dp45.cuh"
+#include "repack.cuh"
 
 namespace {
 
@@ -493,171 +487,98 @@ __device__ __forceinline__ void sample_row(const DenseArgs<S, F, kTime>& a,
   a.vgs[r * RL + i] = vg;
 }
 
-// The carries of a block's lanes between two windows, one slot a thread,
-// in shared memory (structure of arrays: neighbouring slots, neighbouring
+// The carries of a block's lanes between two windows, one slot a lane, in
+// shared memory (structure of arrays: neighbouring slots, neighbouring
 // banks). A lane's bounds, final time and first row follow from g.
-template <typename S, typename F, int B>
-struct Slots {
-  S y[5][B];
-  S t[B], h[B], plon[B], plat[B];
-  F f[5][B];
-  int i[B], g[B], nb[B], att[B], trunc[B], flags[B];
+template <typename S, typename F, int N>
+struct DenseSlots {
+  S y[5][N];
+  S t[N], h[N], plon[N], plat[N];
+  F f[5][N];
+  int i[N], g[N], nb[N], att[N], trunc[N], flags[N];
 };
 
-template <typename S, typename F, int B>
-__device__ __forceinline__ void slot_save(Slots<S, F, B>& s, int k,
-                                          const DenseLane<S, F>& L) {
-#pragma unroll
-  for (int v = 0; v < 5; ++v) {
-    s.y[v][k] = L.y[v];
-    s.f[v][k] = L.f[v];
-  }
-  s.t[k] = L.t;
-  s.h[k] = L.h;
-  s.plon[k] = L.plon;
-  s.plat[k] = L.plat;
-  s.i[k] = L.i;
-  s.g[k] = L.g;
-  s.nb[k] = L.nb;
-  s.att[k] = L.att;
-  s.trunc[k] = L.trunc;
-  s.flags[k] = int(L.rej) | int(L.ns) << 1 | int(L.frozen) << 2 |
-               int(L.alive) << 3;
-}
-
-template <typename S, typename F, bool kTime, int B>
-__device__ __forceinline__ void slot_load(const Slots<S, F, B>& s, int k,
-                                          const DenseArgs<S, F, kTime>& a,
-                                          DenseLane<S, F>& L) {
-#pragma unroll
-  for (int v = 0; v < 5; ++v) {
-    L.y[v] = s.y[v][k];
-    L.f[v] = s.f[v][k];
-  }
-  L.t = s.t[k];
-  L.h = s.h[k];
-  L.plon = s.plon[k];
-  L.plat = s.plat[k];
-  L.i = s.i[k];
-  L.g = s.g[k];
-  L.nb = s.nb[k];
-  L.att = s.att[k];
-  L.trunc = s.trunc[k];
-  const int fl = s.flags[k];
-  L.rej = fl & 1;
-  L.ns = fl & 2;
-  L.frozen = fl & 4;
-  L.alive = fl & 8;
-  const long long g = L.g < 0 ? 0 : L.g;
-  L.bounds = a.bounds + g * a.G;
-  L.t_end = L.g < 0 ? L.t : __ldg(L.bounds + a.G - 1);
-  L.row0 = 1 + g * a.G;
-}
-
-// The whole run on a persistent grid (see the head of this file): each
-// block deals itself its share of the lanes, then repeats a window of
-// `every` loop iterations of each live lane and a repack, until it has no
-// lane left and the queue is empty.
+// The whole run's lane functions, as repack.cuh's run_lanes takes them.
 template <typename S, typename F, bool kTime>
-__device__ __forceinline__ void run_lanes(const DenseArgs<S, F, kTime>& a) {
-  constexpr int B = RunBlock<S, kTime>::kThreads;
-  constexpr int kWarps = B / 32;
-  __shared__ Slots<S, F, B> slots;
-  // The lanes that left in a window, by the window's parity: the repack
-  // after window w samples list w & 1 while window w + 1 fills the
-  // other.
-  __shared__ int done[2][B];
-  __shared__ int n_done[2];
-  __shared__ int warp_live[kWarps];
-  __shared__ int grab_base, grab_take;
+struct DenseRun {
+  const DenseArgs<S, F, kTime>& a;
+  using Lane = DenseLane<S, F>;
+  template <int N>
+  using Slots = DenseSlots<S, F, N>;
+  static constexpr bool kPost = true;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const unsigned below = (1u << (tid & 31)) - 1u;
-  const long long rows = static_cast<long long>(a.n_groups) * a.G;
-  // The lanes dealt at the start: an even share of R for every block
-  // where the grid holds them all, else B a block, the rest queued.
-  const long long nblk = gridDim.x;
-  const bool deal = a.R <= nblk * B;
-  const long long queued0 = deal ? a.R : nblk * B;
-  bool drained = deal;  // block-uniform: the queue is empty
-  bool first = true;
-  int parity = 0;  // the current window's done list
-  if (tid < 2) n_done[tid] = 0;
-
-  DenseLane<S, F> L;
-  bool have = false;
-  for (;;) {
-    // Repack. Count the live lanes, warp by warp.
-    const unsigned live = __ballot_sync(0xffffffffu, have);
-    if ((tid & 31) == 0) warp_live[warp] = __popc(live);
-    __syncthreads();  // the window is over: carries, rows and lists final
-    int n_live = 0, rank = __popc(live & below);
+  __device__ __forceinline__ void start(int i, Lane& L) const {
+    lane_start<true>(a, i, L);
+  }
+  __device__ __forceinline__ decltype(auto) background(const Lane& L) const {
+    return rwrt::lane_background(a.bg, L.i);
+  }
+  template <typename BG>
+  __device__ __forceinline__ bool step(const BG& bg, Lane& L) const {
+    return lane_iterate<true>(a, bg, L);
+  }
+  __device__ __forceinline__ void finish(const Lane& L) const {
+    lane_finish<true>(a, L);
+  }
+  template <int N>
+  __device__ __forceinline__ void save(Slots<N>& s, int k,
+                                       const Lane& L) const {
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const int c = warp_live[w];
-      n_live += c;
-      if (w < warp) rank += c;
+    for (int v = 0; v < 5; ++v) {
+      s.y[v][k] = L.y[v];
+      s.f[v][k] = L.f[v];
     }
-    const int prev = parity;
-    parity ^= 1;
-    const int nd = n_done[prev];
-    // Every live lane's carry into the slot of its rank: the live lanes
-    // take the block's lowest threads, in order, and whole warps go idle.
-    if (have) slot_save(slots, rank, L);
-    if (tid == 0) {
-      // Refill the free slots: the block's share first, then the queue.
-      int base = 0, take = 0;
-      if (first) {
-        const long long b = blockIdx.x;
-        const long long lo = deal ? b * a.R / nblk : b * B;
-        const long long hi = deal ? (b + 1) * a.R / nblk : (b + 1) * B;
-        base = static_cast<int>(lo);
-        take = static_cast<int>(hi - lo);
-      } else if (!drained && n_live < B) {
-        const long long b = queued0 + atomicAdd(a.queue, B - n_live);
-        if (b < a.R) {
-          base = static_cast<int>(b);
-          take = static_cast<int>(a.R - b < B - n_live ? a.R - b
-                                                        : B - n_live);
-        }
-      }
-      grab_base = base;
-      grab_take = take;
-      n_done[parity] = 0;
+    s.t[k] = L.t;
+    s.h[k] = L.h;
+    s.plon[k] = L.plon;
+    s.plat[k] = L.plat;
+    s.i[k] = L.i;
+    s.g[k] = L.g;
+    s.nb[k] = L.nb;
+    s.att[k] = L.att;
+    s.trunc[k] = L.trunc;
+    s.flags[k] = int(L.rej) | int(L.ns) << 1 | int(L.frozen) << 2 |
+                 int(L.alive) << 3;
+  }
+  template <int N>
+  __device__ __forceinline__ void load(const Slots<N>& s, int k,
+                                       Lane& L) const {
+#pragma unroll
+    for (int v = 0; v < 5; ++v) {
+      L.y[v] = s.y[v][k];
+      L.f[v] = s.f[v][k];
     }
-    __syncthreads();  // slots, grab and the next list's count set
-    const int base = grab_base, take = grab_take;
-    if (!first && take < B - n_live) drained = true;
-    first = false;
+    L.t = s.t[k];
+    L.h = s.h[k];
+    L.plon = s.plon[k];
+    L.plat = s.plat[k];
+    L.i = s.i[k];
+    L.g = s.g[k];
+    L.nb = s.nb[k];
+    L.att = s.att[k];
+    L.trunc = s.trunc[k];
+    const int fl = s.flags[k];
+    L.rej = fl & 1;
+    L.ns = fl & 2;
+    L.frozen = fl & 4;
+    L.alive = fl & 8;
+    const long long g = L.g < 0 ? 0 : L.g;
+    L.bounds = a.bounds + g * a.G;
+    L.t_end = L.g < 0 ? L.t : __ldg(L.bounds + a.G - 1);
+    L.row0 = 1 + g * a.G;
+  }
+  // The (ug, vg) of every row of the nd lanes that left, one (lane, row) a
+  // thread over the block's B threads.
+  template <int B>
+  __device__ __forceinline__ void post(const int* done, int nd,
+                                       int tid) const {
+    const long long rows = static_cast<long long>(a.n_groups) * a.G;
     const long long items = nd * rows;
     for (long long w = tid; w < items; w += B) {
-      sample_row(a, done[prev][static_cast<int>(w % nd)], 1 + w / nd);
-    }
-    if (n_live + take == 0) break;
-    have = tid < n_live + take;
-    if (tid < n_live) {
-      slot_load(slots, tid, a, L);
-    } else if (have) {
-      lane_start<true>(a, base + tid - n_live, L);
-    }
-    // The window: up to `every` iterations of each live lane, ended early
-    // once `trigger` lanes have left the block in it.
-    if (have) {
-      const auto& bg = rwrt::lane_background(a.bg, L.i);
-      const volatile int* left = &n_done[parity];
-      for (int k = 0; k < a.every; ++k) {
-        if (lane_iterate<true>(a, bg, L)) {
-          lane_finish<true>(a, L);
-          done[parity][atomicAdd(&n_done[parity], 1)] = L.i;
-          have = false;
-          break;
-        }
-        if (*left >= a.trigger) break;
-      }
+      sample_row(a, done[static_cast<int>(w % nd)], 1 + w / nd);
     }
   }
-}
+};
 
 // The single group: one thread per lane, from entry to exit.
 template <typename S, typename F, bool kTime>
@@ -676,7 +597,8 @@ template <typename S, typename F, bool kRun, bool kTime>
 __global__ void __launch_bounds__(Block<S, kRun, kTime>::kThreads, 1)
 dense_kernel(const DenseArgs<S, F, kTime> a) {
   if constexpr (kRun) {
-    run_lanes(a);
+    rwrt::run_lanes<RunBlock<S, kTime>::kThreads, rwrt::Lane>(
+        DenseRun<S, F, kTime>{a}, a.R, a.queue, a.every, a.trigger);
   } else {
     group_lane(a);
   }
@@ -712,18 +634,8 @@ int launch_group(const DenseArgs<S, F, kTime>& a, cudaStream_t stream) {
 // block.
 template <typename S, typename F, bool kTime>
 int dense_resident(int* out) {
-  int dev = 0, sms = 0, blocks = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, dense_kernel<S, F, true, kTime>, RunBlock<S, kTime>::kThreads, 0);
-  }
-  out[0] = blocks * sms;
-  out[1] = RunBlock<S, kTime>::kThreads;
-  return e;
+  return rwrt::persistent_grid<RunBlock<S, kTime>::kThreads>(
+      dense_kernel<S, F, true, kTime>, out);
 }
 
 template <typename S, typename F, bool kTime>

@@ -1,5 +1,4 @@
 // The float64 entry points of the dense kernel (dense_run.cu), compiled
-// apart from the float32 ones so that the build runs both at once, and as
-// relocatable device code (their controller calls pow_fmad.cu's pow).
+// apart from the float32 ones so that the build runs both at once.
 #define RWRT_DENSE_F64
 #include "dense_run.cu"

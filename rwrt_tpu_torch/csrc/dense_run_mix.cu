@@ -1,7 +1,6 @@
 // The mixed-precision entry points of the dense kernel (dense_run.cu): the
 // whole run and the single group with a double state over a float
 // background, compiled apart from the one-type ones so that the build runs
-// both at once, and as relocatable device code (their controller calls
-// pow_fmad.cu's pow).
+// both at once.
 #define RWRT_DENSE_MIX
 #include "dense_run.cu"

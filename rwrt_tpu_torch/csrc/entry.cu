@@ -35,8 +35,7 @@
 // state and times rounded to F). With S == F every cast is the identity;
 // in mixed precision (S double, F float) f1 - f0 is taken in F and
 // widened, as the JAX package's promotion has it. The float64 pow is
-// pow_fmad.cu's, so the float64 and mixed instances (entry_f64.cu,
-// entry_time_f64.cu) are relocatable. Built with -fmad=false, so each
+// PyTorch's, inline (pow64.cuh). Built with -fmad=false, so each
 // expression rounds as the plain version's separate tensor ops do.
 #include <cuda_runtime.h>
 
@@ -60,11 +59,11 @@ struct EntryArgs {
 };
 
 // x^(1/5) as PyTorch's CUDA pow rounds it: powf in float32, libdevice's
-// pow built with contraction in float64 (pow_fmad.cu).
+// pow built with contraction in float64 (pow64.cuh).
 template <typename S>
 __device__ __forceinline__ S fifth_root(S x) {
   if constexpr (std::is_same<S, double>::value) {
-    return rwrt::dp45::pow_fmad(x, S(1.0 / 5.0));
+    return rwrt::pow64(x, S(1.0 / 5.0));
   } else {
     return pow(x, S(1.0 / 5.0));
   }

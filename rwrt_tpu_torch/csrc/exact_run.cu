@@ -1,18 +1,23 @@
 // Exact-bound Dormand-Prince kernels: every step clamps at every output
-// bound, one thread per lane, from one templated body.
+// bound, one thread (or team) per lane, from one set of lane functions
+// (exact_start, exact_iterate, exact_finish).
 //
 //   exact_kernel<S, F, false, false, kTime, I>
 //                           one group of output bounds in one launch
 //                           (rwrt_exact_group: solvers/rk45.py
 //                           integrate_group on CUDA), with its suspend /
 //                           resume state;
-//   exact_kernel<S, F, true, kBarrier, kTime, I>
+//   exact_kernel<float, float, true, kBarrier, kTime, I>
+//   exact_run_kernel<double, F, kBarrier, kTime, I>
 //                           the whole exact run in one launch
-//                           (rwrt_exact_run: tracer._exact_run on CUDA).
-//                           Each lane walks every group of bounds with each
-//                           group's semantics and writes its rows straight
-//                           into the run's (nt, 5, R) and (nt, R) (ug, vg)
-//                           output.
+//                           (rwrt_exact_run: tracer._exact_run on CUDA):
+//                           in float32 each lane to its end in launch
+//                           order; with a float64 state (F double, or
+//                           float in mixed precision) live lanes repacked
+//                           into full warps on a persistent grid. Each lane
+//                           walks every group of bounds with each group's
+//                           semantics and writes its rows straight into the
+//                           run's (nt, 5, R) and (nt, R) (ug, vg) output.
 //
 // Replaces (rwrt_tpu, fused by XLA there, no Pallas original):
 //   tracer.py:861-936 _run_rk45_grouped, exact branch (:916-922: the group
@@ -56,21 +61,41 @@
 // only where a cheap bound cannot rule the kill out (ray_rhs.cuh
 // kill_mask). A row is written once: at its crossing; at a lane's entry
 // prefill; or NaN at the group's end for the bounds a live lane never
-// saved (killed, or cut short by max_iters). Blocks of 128 threads, as the
-// other integrator kernels. The kernel is templated on the evaluation's
-// instance (ray_rhs.cuh: Lane, Split), which the wrappers choose
-// (solvers/rk45.py exact_instance): 8 threads per lane for the launches
-// of some dozens to a few thousand lanes, one thread per lane elsewhere.
-// A team's threads take the same branches on the same state, so exact
-// mode's per-lane branching never splits a team; its first thread writes
-// the rows and the carry.
+// saved (killed, or cut short by max_iters). The kernels are templated on
+// the evaluation's instance (ray_rhs.cuh: Lane, Split), which the wrappers
+// choose (solvers/rk45.py exact_instance, by lane count and dtypes): 8
+// threads per lane for the launches of some dozens to some thousands of
+// lanes, one thread per lane elsewhere. A team's threads take the same
+// branches on the same state, so exact mode's per-lane branching never
+// splits a team; its first thread writes the rows and the carry.
+//
+// The launch-order kernels run blocks of 128 threads, as the other
+// integrator kernels. The float64-state whole run repacks (repack.cuh
+// run_lanes, the dense kernel's design): lanes differ in their trips per
+// group, and a killed lane skips its remaining bounds, so in launch order
+// a warp's finished lanes idle while its slowest runs, and on FP64 pipes
+// that idle issue is the launch's time; and a launch larger than the card
+// keeps resident waits for a tail wave. A persistent grid of blocks of
+// kRunBlock threads (tracer.exact_grid) deals the lanes, queues the rest,
+// and repacks whole lanes (whole teams) into the lowest threads on the
+// schedule tracer.EXACT_SCHEDULE gives the dtypes. Rows, (ug, vg),
+// lane_att, trunc and the carry are addressed by the lane's index, and a
+// lane's arithmetic is in its order whichever thread runs it. A team over
+// a float64 state also does its per-variable float64 work once (dp45.cuh
+// spreads): each of its first five threads takes one state variable's
+// stage sums, trial state and error-norm term, threads 0 and 1 the kill
+// test's haversine terms (ray_rhs.cuh kill_mask), and shuffles give every
+// thread the results, where the launch-order team computed each on all
+// eight threads. The single group and the float32 whole run keep their
+// launch order and their team's work (their launches are short, or their
+// FP32 pipes not the limit).
 //
 // Types: the state S (y, t, h, the controller, the kill test, the rows)
 // and the background F (the RHS, the stages k and the FSAL carry f):
-// exact_kernel<T, T, ...> is the one-type kernel; exact_kernel<double,
-// float, true, kBarrier, I> the mixed-precision whole run and
-// exact_kernel<double, float, false, false, I> its single group (the _mix
-// entry points, compiled in exact_run_mix.cu). The Dormand-Prince casts are
+// <T, T, ...> is the one-type kernel; exact_run_kernel<double, float,
+// kBarrier, kTime, I> the mixed-precision whole run and
+// exact_kernel<double, float, false, false, kTime, I> its single group (the
+// _mix entry points, compiled in exact_run_mix.cu). The Dormand-Prince casts are
 // dp45.cuh's. The (ug, vg) of a
 // row are the 7th stage's F sample, widened, as the JAX package's grouped
 // path has them; under kBarrier in mixed precision they are sampled at
@@ -97,6 +122,7 @@
 #include <type_traits>
 
 #include "dp45.cuh"
+#include "repack.cuh"
 
 namespace {
 
@@ -137,66 +163,102 @@ struct ExactArgs {
   int R;
   S cut_off, rtol, atol, min_step;
   long long max_iters;
+  // Whole run with a float64 state (repacked): the lane queue's counter
+  // (one int, zero at launch), the most loop iterations between two
+  // repacks, and the lanes that, once they have left the block, end a
+  // window early.
+  int* queue;
+  int every;
+  int trigger;
 };
 
-template <typename S, typename F, bool kRun, bool kBarrier, bool kTime,
-          class I>
-__global__ void __launch_bounds__(rwrt::kBlock)
-    exact_kernel(const ExactArgs<S, F, kTime> a) {
-  static_assert(kRun || !kBarrier, "barrier semantics are a run's");
-  // The barrier path's mixed-precision (ug, vg): sampled at the saved
-  // state in S (see the head of this file).
-  constexpr bool kGvAtSave = kBarrier && !std::is_same<S, F>::value;
-  const int i = (blockIdx.x * blockDim.x + threadIdx.x) / I::kThreads;
-  if (i >= a.R) return;
-  const auto& bg = rwrt::lane_background(a.bg, i);
-  const bool lead = I::lead();
-  const long long RL = a.R;
-  const int G = a.G;
-  const S nan = rwrt::nan_value<S>();
+// Threads per block of the repacked whole run (a float64 state): the
+// widest block whose registers fit one SM (65,536), as the dense kernel's
+// (dense_run.cu RunBlock): at most 255 registers a thread, 32 lanes of a
+// team instance.
+constexpr int kRunBlock = 256;
 
-  S yl[5];
-  F fl[5];
+// One lane's carry between loop iterations: the state and FSAL stage, the
+// controller, the current group g (-1 before the first) with its bounds
+// and final time, the next bound idx (G: finished), the next row to save
+// nb, the attempts and trips in g, the truncation count, the last saved
+// position and (under kBarrier) the NaN-amp walk fixed at g's entry.
+template <typename S, typename F>
+struct ExactLane {
+  S y[5];
+  F f[5];
+  S t, h, t_end, plon, plat;
+  const S* bounds;
+  long long trips;
+  int i, g, idx, nb, att, trunc;
+  bool rej, ns, frozen_g;
+};
+
+// Lane i enters from the carry (and, in the whole run, writes its row 0).
+template <bool kRun, class I, typename S, typename F, bool kTime>
+__device__ __forceinline__ void exact_start(const ExactArgs<S, F, kTime>& a,
+                                            int i, ExactLane<S, F>& L) {
+  const long long RL = a.R;
+  L.i = i;
 #pragma unroll
   for (int v = 0; v < 5; ++v) {
-    yl[v] = a.y[v * RL + i];
-    fl[v] = a.f[v * RL + i];
+    L.y[v] = a.y[v * RL + i];
+    L.f[v] = a.f[v * RL + i];
   }
-  S tl = a.t[i];
-  S hl = a.h[i];
-  S plon, plat;
+  L.t = a.t[i];
+  L.h = a.h[i];
   if constexpr (kRun) {
-    plon = yl[0];
-    plat = yl[1];
-    if (lead) {
+    L.plon = L.y[0];
+    L.plat = L.y[1];
+    if (I::lead()) {
 #pragma unroll
-      for (int v = 0; v < 5; ++v) a.hist[v * RL + i] = yl[v];
+      for (int v = 0; v < 5; ++v) a.hist[v * RL + i] = L.y[v];
       a.ugs[i] = a.ug0[i];
       a.vgs[i] = a.vg0[i];
     }
   } else {
-    plon = a.plon[i];
-    plat = a.plat[i];
+    L.plon = a.plon[i];
+    L.plat = a.plat[i];
   }
+  L.g = -1;
+  L.bounds = a.bounds;
+  L.t_end = L.t;
+  L.idx = 0;
+  L.nb = 0;
+  L.rej = false;
+  L.ns = true;
+  L.frozen_g = false;
+  L.att = 0;
+  L.trips = 0;
+  L.trunc = 0;
+}
 
-  // The current group g (-1 before the first): its bounds, final time, the
-  // lane's next bound idx (G: finished), the next row to save, the
-  // controller flags, attempts and trips.
-  int g = -1;
-  const S* bounds = a.bounds;
-  S t_end = tl;
-  int idx = 0;
-  int nb = 0;
-  bool rej = false;
-  bool ns = true;
-  bool frozen_g = false;  // kBarrier: the NaN-amp walk, fixed at entry
-  int att = 0;
-  long long trips = 0;
-  int trunc = 0;
+// One iteration of lane L's loop: a trip toward its next bound, or the
+// change from one group to the next. Returns true when the lane has closed
+// its last group. The lanes of a warp that are stepping run each trip
+// together, whichever group each is in.
+template <bool kRun, bool kBarrier, class I, typename S, typename F,
+          bool kTime, typename BG>
+__device__ __forceinline__ bool exact_iterate(const ExactArgs<S, F, kTime>& a,
+                                              const BG& bg,
+                                              ExactLane<S, F>& L) {
+  static_assert(kRun || !kBarrier, "barrier semantics are a run's");
+  // The barrier path's mixed-precision (ug, vg): sampled at the saved
+  // state in S (see the head of this file).
+  constexpr bool kGvAtSave = kBarrier && !std::is_same<S, F>::value;
+  // A team over a float64 state spreads its per-variable work (dp45.cuh)
+  // in the whole run, and the kill test's haversine with it.
+  constexpr bool kSpread = kRun && rwrt::dp45::kSpreads<S, I>;
+  using KillI = std::conditional_t<kSpread, I, rwrt::Lane>;
+  const bool lead = I::lead();
+  const long long RL = a.R;
+  const int G = a.G;
+  const int i = L.i;
+  const S nan = rwrt::nan_value<S>();
   auto store = [&](int b, const S row[5], S ug, S vg) {
     if (!lead) return;
     if constexpr (kRun) {
-      const long long r = 1 + static_cast<long long>(g) * G + b;
+      const long long r = 1 + static_cast<long long>(L.g) * G + b;
 #pragma unroll
       for (int v = 0; v < 5; ++v) a.hist[(r * 5 + v) * RL + i] = row[v];
       a.ugs[r * RL + i] = ug;
@@ -209,161 +271,286 @@ __global__ void __launch_bounds__(rwrt::kBlock)
     }
   };
 
-  // ONE loop over the trips and the group changes.
-  for (;;) {
-    if (g < 0 || idx >= G || trips >= a.max_iters) {
-      if (g >= 0) {
-        // Close group g: the bounds a live lane never saved stay NaN (the
-        // entry state's prefill).
-        if (!a.resume) {
-          const S row[5] = {nan, nan, nan, nan, nan};
-          for (int b = nb; b < G; ++b) store(b, row, nan, nan);
-        }
-        // Counted after the group: a lane the backstop left short of the
-        // group's final bound while alive.
-        if constexpr (kRun) {
-          if (tl < t_end && !isnan(yl[0])) ++trunc;
-        }
-        if (lead) a.lane_att[g * RL + i] = att;
+  if (L.g < 0 || L.idx >= G || L.trips >= a.max_iters) {
+    if (L.g >= 0) {
+      // Close group g: the bounds a live lane never saved stay NaN (the
+      // entry state's prefill).
+      if (!a.resume) {
+        const S row[5] = {nan, nan, nan, nan, nan};
+        for (int b = L.nb; b < G; ++b) store(b, row, nan, nan);
       }
-      if (++g == a.n_groups) break;
-      // Open group g.
-      bounds = a.bounds + static_cast<long long>(g) * G;
-      t_end = __ldg(bounds + G - 1);
-      trips = 0;
-      if (a.resume) {
-        rej = a.rejected[i];
-        ns = a.new_step[i];
-        att = a.lane_att[i];
-        idx = a.idx[i];
-      } else {
-        // Entry state: a NaN in the dynamics rows (isnan(mean(y[:4])))
-        // saves the unchanged state at every bound with NaN (ug, vg) and
-        // finishes the lane.
-        rej = false;
-        ns = true;
-        att = 0;
-        idx = 0;
-        nb = 0;
-        if (isnan((yl[0] + yl[1] + yl[2] + yl[3]) / S(4))) {
-          for (int b = 0; b < G; ++b) store(b, yl, nan, nan);
-          idx = nb = G;
-          tl = t_end;
-        }
+      // Counted after the group: a lane the backstop left short of the
+      // group's final bound while alive.
+      if constexpr (kRun) {
+        if (L.t < L.t_end && !isnan(L.y[0])) ++L.trunc;
       }
-      frozen_g =
-          isnan(yl[4]) && !isnan((yl[0] + yl[1] + yl[2] + yl[3]) / S(4));
-      continue;
+      if (lead) a.lane_att[L.g * RL + i] = L.att;
     }
-
-    // One trip toward bound idx of group g.
-    const S bound = __ldg(bounds + idx);
-    // A NaN amp with finite dynamics: walk to the bound, state unchanged,
-    // attempts not counted.
-    const bool frozen =
-        kBarrier ? frozen_g
-                 : isnan(yl[4]) &&
-                       !isnan((yl[0] + yl[1] + yl[2] + yl[3]) / S(4));
-    const S heff = ns ? nan_max(hl, a.min_step) : hl;
-    S t_new = tl + heff;
-    if (t_new > bound) t_new = bound;
-    if (frozen) t_new = bound;
-    const S hs = t_new - tl;
-
-    F k[7][5];
-#pragma unroll
-    for (int v = 0; v < 5; ++v) k[0][v] = fl[v];
-    S y_new[5];
-    rwrt::dp45::trial<S, F, I>(bg, yl, tl, hs, k, y_new);
-    if (frozen) {
-#pragma unroll
-      for (int v = 0; v < 5; ++v) y_new[v] = yl[v];
-    }
-    // The 7th stage samples the state a crossing saves: its (ug, vg) are
-    // the row's (but under kGvAtSave).
-    bool e;
-    S ug_new, vg_new;
-    F y7[5];
-#pragma unroll
-    for (int v = 0; v < 5; ++v) y7[v] = F(y_new[v]);
-    F t7 = F(0);  // the 7th stage's time (time instances only)
-    if constexpr (kTime) t7 = F(t_new);
-    if constexpr (kGvAtSave) {
-      rwrt::ray_rhs<F, I>(bg, y7, t7, k[6], &e);
+    if (++L.g == a.n_groups) return true;
+    // Open group g.
+    L.bounds = a.bounds + static_cast<long long>(L.g) * G;
+    L.t_end = __ldg(L.bounds + G - 1);
+    L.trips = 0;
+    if (a.resume) {
+      L.rej = a.rejected[i];
+      L.ns = a.new_step[i];
+      L.att = a.lane_att[i];
+      L.idx = a.idx[i];
     } else {
-      F ug7, vg7;
-      rwrt::ray_rhs<F, I>(bg, y7, t7, k[6], &e, &ug7, &vg7);
-      ug_new = S(ug7);
-      vg_new = S(vg7);
-    }
-    S error_norm = rwrt::dp45::error_norm(k, hs, yl, y_new, a.atol, a.rtol);
-    if (isnan(error_norm)) error_norm = S(0);
-
-    const bool accept = (error_norm < S(1)) || frozen;
-    S fac_acc, fac_rej;
-    rwrt::dp45::step_factors(error_norm, rej, &fac_acc, &fac_rej);
-    S h_next = accept ? hs * fac_acc : hs * fac_rej;
-    if (frozen) h_next = hl;
-
-    S t_out = accept ? t_new : tl;
-    if (isnan(t_out)) t_out = bound;
-    if (accept) {
-#pragma unroll
-      for (int v = 0; v < 5; ++v) {
-        yl[v] = y_new[v];
-        fl[v] = k[6][v];
+      // Entry state: a NaN in the dynamics rows (isnan(mean(y[:4])))
+      // saves the unchanged state at every bound with NaN (ug, vg) and
+      // finishes the lane.
+      L.rej = false;
+      L.ns = true;
+      L.att = 0;
+      L.idx = 0;
+      L.nb = 0;
+      if (isnan((L.y[0] + L.y[1] + L.y[2] + L.y[3]) / S(4))) {
+        for (int b = 0; b < G; ++b) store(b, L.y, nan, nan);
+        L.idx = L.nb = G;
+        L.t = L.t_end;
       }
     }
-    if (accept && t_out >= bound) {
-      // Crossing: the kill test against the last saved position; a killed
-      // row is NaN (state and (ug, vg)) and so is the carry.
-      const bool killed = rwrt::kill_mask(yl, plon, plat, a.cut_off);
-      if (killed) {
-#pragma unroll
-        for (int v = 0; v < 5; ++v) yl[v] = nan;
-        ug_new = vg_new = nan;
-      }
-      if constexpr (kGvAtSave) {
-        if (!killed) {
-          rwrt::group_velocity_at<S, F, I>(bg, yl, t_new, &ug_new,
-                                           &vg_new);
-        }
-      }
-      store(idx, yl, ug_new, vg_new);
-      nb = idx + 1;
-      plon = yl[0];
-      plat = yl[1];
-      // Dead after the crossing: skip the remaining bounds.
-      idx = isnan(yl[0]) ? G : idx + 1;
-    }
-    tl = t_out;
-    hl = h_next;
-    if (!frozen) {
-      rej = !accept;
-      ns = accept;
-      ++att;
-    }
-    ++trips;
+    L.frozen_g = isnan(L.y[4]) &&
+                 !isnan((L.y[0] + L.y[1] + L.y[2] + L.y[3]) / S(4));
+    return false;
   }
 
-  if (!lead) return;
+  // One trip toward bound idx of group g.
+  const S bound = __ldg(L.bounds + L.idx);
+  // A NaN amp with finite dynamics: walk to the bound, state unchanged,
+  // attempts not counted.
+  const bool frozen =
+      kBarrier ? L.frozen_g
+               : isnan(L.y[4]) &&
+                     !isnan((L.y[0] + L.y[1] + L.y[2] + L.y[3]) / S(4));
+  const S heff = L.ns ? nan_max(L.h, a.min_step) : L.h;
+  S t_new = L.t + heff;
+  if (t_new > bound) t_new = bound;
+  if (frozen) t_new = bound;
+  const S hs = t_new - L.t;
+
+  F k[7][5];
+#pragma unroll
+  for (int v = 0; v < 5; ++v) k[0][v] = L.f[v];
+  S y_new[5];
+  rwrt::dp45::Own<S, F> own;
+  rwrt::dp45::trial<S, F, I, kTime, kSpread>(bg, L.y, L.t, hs, k, y_new,
+                                             &own);
+  if (frozen) {
+#pragma unroll
+    for (int v = 0; v < 5; ++v) y_new[v] = L.y[v];
+    if constexpr (kSpread) own.y_new = own.y;
+  }
+  // The 7th stage samples the state a crossing saves: its (ug, vg) are
+  // the row's (but under kGvAtSave).
+  bool e;
+  S ug_new, vg_new;
+  F y7[5];
+#pragma unroll
+  for (int v = 0; v < 5; ++v) y7[v] = F(y_new[v]);
+  F t7 = F(0);  // the 7th stage's time (time instances only)
+  if constexpr (kTime) t7 = F(t_new);
+  if constexpr (kGvAtSave) {
+    rwrt::ray_rhs<F, I>(bg, y7, t7, k[6], &e);
+  } else {
+    F ug7, vg7;
+    rwrt::ray_rhs<F, I>(bg, y7, t7, k[6], &e, &ug7, &vg7);
+    ug_new = S(ug7);
+    vg_new = S(vg7);
+  }
+  S error_norm;
+  if constexpr (kSpread) {
+    own.k[6] = I::template own<F, 5>(k[6]);
+    error_norm = rwrt::dp45::error_norm<S, F, I>(own, hs, a.atol, a.rtol);
+  } else {
+    error_norm = rwrt::dp45::error_norm(k, hs, L.y, y_new, a.atol, a.rtol);
+  }
+  if (isnan(error_norm)) error_norm = S(0);
+
+  const bool accept = (error_norm < S(1)) || frozen;
+  S fac_acc, fac_rej;
+  rwrt::dp45::step_factors(error_norm, L.rej, &fac_acc, &fac_rej);
+  S h_next = accept ? hs * fac_acc : hs * fac_rej;
+  if (frozen) h_next = L.h;
+
+  S t_out = accept ? t_new : L.t;
+  if (isnan(t_out)) t_out = bound;
+  if (accept) {
+#pragma unroll
+    for (int v = 0; v < 5; ++v) {
+      L.y[v] = y_new[v];
+      L.f[v] = k[6][v];
+    }
+  }
+  if (accept && t_out >= bound) {
+    // Crossing: the kill test against the last saved position; a killed
+    // row is NaN (state and (ug, vg)) and so is the carry.
+    const bool killed =
+        rwrt::kill_mask<S, KillI>(L.y, L.plon, L.plat, a.cut_off);
+    if (killed) {
+#pragma unroll
+      for (int v = 0; v < 5; ++v) L.y[v] = nan;
+      ug_new = vg_new = nan;
+    }
+    if constexpr (kGvAtSave) {
+      if (!killed) {
+        rwrt::group_velocity_at<S, F, I>(bg, L.y, t_new, &ug_new, &vg_new);
+      }
+    }
+    store(L.idx, L.y, ug_new, vg_new);
+    L.nb = L.idx + 1;
+    L.plon = L.y[0];
+    L.plat = L.y[1];
+    // Dead after the crossing: skip the remaining bounds.
+    L.idx = isnan(L.y[0]) ? G : L.idx + 1;
+  }
+  L.t = t_out;
+  L.h = h_next;
+  if (!frozen) {
+    L.rej = !accept;
+    L.ns = accept;
+    ++L.att;
+  }
+  ++L.trips;
+  return false;
+}
+
+// Lane L leaves: its carry, and the whole run's truncation count or the
+// single group's controller flags, next bound and trips.
+template <bool kRun, class I, typename S, typename F, bool kTime>
+__device__ __forceinline__ void exact_finish(const ExactArgs<S, F, kTime>& a,
+                                             const ExactLane<S, F>& L) {
+  if (!I::lead()) return;
+  const long long RL = a.R;
+  const int i = L.i;
 #pragma unroll
   for (int v = 0; v < 5; ++v) {
-    a.y[v * RL + i] = yl[v];
-    a.f[v * RL + i] = fl[v];
+    a.y[v * RL + i] = L.y[v];
+    a.f[v * RL + i] = L.f[v];
   }
-  a.t[i] = tl;
-  a.h[i] = hl;
-  a.plon[i] = plon;
-  a.plat[i] = plat;
+  a.t[i] = L.t;
+  a.h[i] = L.h;
+  a.plon[i] = L.plon;
+  a.plat[i] = L.plat;
   if constexpr (kRun) {
-    a.trunc[i] = trunc;
+    a.trunc[i] = L.trunc;
   } else {
-    a.rejected[i] = rej;
-    a.new_step[i] = ns;
-    a.idx[i] = idx;
-    a.trips[i] = static_cast<int>(trips);
+    a.rejected[i] = L.rej;
+    a.new_step[i] = L.ns;
+    a.idx[i] = L.idx;
+    a.trips[i] = static_cast<int>(L.trips);
   }
+}
+
+// One thread (or team) a lane, each lane run to its end in launch order:
+// the single group, and the float32 whole run.
+template <typename S, typename F, bool kRun, bool kBarrier, bool kTime,
+          class I>
+__global__ void __launch_bounds__(rwrt::kBlock)
+    exact_kernel(const ExactArgs<S, F, kTime> a) {
+  const int i = (blockIdx.x * blockDim.x + threadIdx.x) / I::kThreads;
+  if (i >= a.R) return;
+  const auto& bg = rwrt::lane_background(a.bg, i);
+  ExactLane<S, F> L;
+  exact_start<kRun, I>(a, i, L);
+  while (!exact_iterate<kRun, kBarrier, I>(a, bg, L)) {
+  }
+  exact_finish<kRun, I>(a, L);
+}
+
+// The carries of a block's lanes between two windows, one slot a lane, in
+// shared memory (structure of arrays). A lane's bounds and final time
+// follow from g.
+template <typename S, typename F, int N>
+struct ExactSlots {
+  S y[5][N];
+  S t[N], h[N], plon[N], plat[N];
+  long long trips[N];
+  F f[5][N];
+  int i[N], g[N], idx[N], nb[N], att[N], trunc[N], flags[N];
+};
+
+// The float64-state whole run's lane functions, as repack.cuh's run_lanes
+// takes them.
+template <typename S, typename F, bool kBarrier, bool kTime, class I>
+struct ExactRun {
+  const ExactArgs<S, F, kTime>& a;
+  using Lane = ExactLane<S, F>;
+  template <int N>
+  using Slots = ExactSlots<S, F, N>;
+  static constexpr bool kPost = false;
+
+  __device__ __forceinline__ void start(int i, Lane& L) const {
+    exact_start<true, I>(a, i, L);
+  }
+  __device__ __forceinline__ decltype(auto) background(const Lane& L) const {
+    return rwrt::lane_background(a.bg, L.i);
+  }
+  template <typename BG>
+  __device__ __forceinline__ bool step(const BG& bg, Lane& L) const {
+    return exact_iterate<true, kBarrier, I>(a, bg, L);
+  }
+  __device__ __forceinline__ void finish(const Lane& L) const {
+    exact_finish<true, I>(a, L);
+  }
+  template <int N>
+  __device__ __forceinline__ void save(Slots<N>& s, int k,
+                                       const Lane& L) const {
+#pragma unroll
+    for (int v = 0; v < 5; ++v) {
+      s.y[v][k] = L.y[v];
+      s.f[v][k] = L.f[v];
+    }
+    s.t[k] = L.t;
+    s.h[k] = L.h;
+    s.plon[k] = L.plon;
+    s.plat[k] = L.plat;
+    s.trips[k] = L.trips;
+    s.i[k] = L.i;
+    s.g[k] = L.g;
+    s.idx[k] = L.idx;
+    s.nb[k] = L.nb;
+    s.att[k] = L.att;
+    s.trunc[k] = L.trunc;
+    s.flags[k] = int(L.rej) | int(L.ns) << 1 | int(L.frozen_g) << 2;
+  }
+  template <int N>
+  __device__ __forceinline__ void load(const Slots<N>& s, int k,
+                                       Lane& L) const {
+#pragma unroll
+    for (int v = 0; v < 5; ++v) {
+      L.y[v] = s.y[v][k];
+      L.f[v] = s.f[v][k];
+    }
+    L.t = s.t[k];
+    L.h = s.h[k];
+    L.plon = s.plon[k];
+    L.plat = s.plat[k];
+    L.trips = s.trips[k];
+    L.i = s.i[k];
+    L.g = s.g[k];
+    L.idx = s.idx[k];
+    L.nb = s.nb[k];
+    L.att = s.att[k];
+    L.trunc = s.trunc[k];
+    const int fl = s.flags[k];
+    L.rej = fl & 1;
+    L.ns = fl & 2;
+    L.frozen_g = fl & 4;
+    const long long g = L.g < 0 ? 0 : L.g;
+    L.bounds = a.bounds + g * a.G;
+    L.t_end = L.g < 0 ? L.t : __ldg(L.bounds + a.G - 1);
+  }
+};
+
+// The float64-state whole run on a persistent grid, live lanes (whole
+// teams) repacked into full warps (see the head of this file).
+template <typename S, typename F, bool kBarrier, bool kTime, class I>
+__global__ void __launch_bounds__(kRunBlock, 1)
+    exact_run_kernel(const ExactArgs<S, F, kTime> a) {
+  rwrt::run_lanes<kRunBlock, I>(ExactRun<S, F, kBarrier, kTime, I>{a}, a.R,
+                                a.queue, a.every, a.trigger);
 }
 
 template <typename S, typename F, bool kRun, bool kBarrier, bool kTime>
@@ -378,15 +565,56 @@ int launch_exact(const ExactArgs<S, F, kTime>& a, int inst,
   });
 }
 
-// Resident threads of the whole run (run != 0) or the single group.
-template <typename S, typename F, bool kTime>
-int exact_resident(int run, int inst, int* out) {
+// The float64-state whole run over `blocks` blocks of kRunBlock threads
+// (at most R): the persistent grid of the blocks the card keeps resident
+// (exact_grid), or fewer or more when a caller asks. The lane queue's
+// counter must be zero.
+template <typename S, typename F, bool kBarrier, bool kTime>
+int launch_repacked(const ExactArgs<S, F, kTime>& a, int inst, int blocks,
+                    cudaStream_t stream) {
+  if (a.R <= 0 || a.G <= 0) return cudaSuccess;
+  if (blocks <= 0 || a.every <= 0 || a.trigger <= 0 || a.queue == nullptr) {
+    return cudaErrorInvalidValue;
+  }
+  const int grid = blocks < a.R ? blocks : a.R;
   return rwrt::with_instance(inst, [&](auto tag) {
     using I = decltype(tag);
-    if (run) {
-      return rwrt::resident_threads(
+    exact_run_kernel<S, F, kBarrier, kTime, I>
+        <<<grid, kRunBlock, 0, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// The whole run's grid on the current card for instance inst: out[0] the
+// blocks the card keeps resident at once, out[1] the threads a block. A
+// float64 state: the repacked kernel's persistent grid; float32: the
+// launch-order kernel's blocks of rwrt::kBlock.
+template <typename S, typename F, bool kTime>
+int exact_grid(int inst, int* out) {
+  return rwrt::with_instance(inst, [&](auto tag) {
+    using I = decltype(tag);
+    if constexpr (std::is_same<S, double>::value) {
+      return rwrt::persistent_grid<kRunBlock>(
+          exact_run_kernel<S, F, false, kTime, I>, out);
+    } else {
+      return rwrt::persistent_grid<rwrt::kBlock>(
           exact_kernel<S, F, true, false, kTime, I>, out);
     }
+  });
+}
+
+// Resident threads of the whole run (run != 0: its grid's) or the single
+// group.
+template <typename S, typename F, bool kTime>
+int exact_resident(int run, int inst, int* out) {
+  if (run) {
+    int grid[2] = {0, 0};
+    const int e = exact_grid<S, F, kTime>(inst, grid);
+    *out = grid[0] * grid[1];
+    return e;
+  }
+  return rwrt::with_instance(inst, [&](auto tag) {
+    using I = decltype(tag);
     return rwrt::resident_threads(
         exact_kernel<S, F, false, false, kTime, I>, out);
   });
@@ -422,7 +650,11 @@ ExactArgs<S, F, kTime> exact_args(const rwrt::Background<F, kTime>& bg,
   return a;
 }
 
-// The whole run over background bg (static or a time instance's).
+// The whole run over background bg (static or a time instance's): with a
+// float64 state repacked on `blocks` blocks (lane queue `queue`, a repack
+// at most every `every` loop iterations and once `trigger` lanes have
+// left), in float32 in launch order (blocks, queue, every and trigger
+// unused).
 template <typename S, typename F, bool kTime>
 int run_exact(const rwrt::Background<F, kTime>& bg, void* y, void* t,
               void* h, void* f, void* plon, void* plat, const void* ug0,
@@ -430,6 +662,7 @@ int run_exact(const rwrt::Background<F, kTime>& bg, void* y, void* t,
               void* lane_att, void* trunc, const void* bounds, int G,
               int n_groups, int R, double cut_off, double rtol, double atol,
               double min_step, long long max_iters, int barrier, int inst,
+              int blocks, void* queue, int every, int trigger,
               void* stream) {
   ExactArgs<S, F, kTime> a = exact_args<S, F, kTime>(
       bg, y, t, h, f, plon, plat, lane_att, hist, bounds, G, n_groups, R,
@@ -439,9 +672,17 @@ int run_exact(const rwrt::Background<F, kTime>& bg, void* y, void* t,
   a.ugs = static_cast<S*>(ugs);
   a.vgs = static_cast<S*>(vgs);
   a.trunc = static_cast<int*>(trunc);
+  a.queue = static_cast<int*>(queue);
+  a.every = every;
+  a.trigger = trigger;
   const auto s = static_cast<cudaStream_t>(stream);
-  return barrier ? launch_exact<S, F, true, true, kTime>(a, inst, s)
-                 : launch_exact<S, F, true, false, kTime>(a, inst, s);
+  if constexpr (std::is_same<S, double>::value) {
+    return barrier ? launch_repacked<S, F, true, kTime>(a, inst, blocks, s)
+                   : launch_repacked<S, F, false, kTime>(a, inst, blocks, s);
+  } else {
+    return barrier ? launch_exact<S, F, true, true, kTime>(a, inst, s)
+                   : launch_exact<S, F, true, false, kTime>(a, inst, s);
+  }
 }
 
 // The single group over background bg (static or a time instance's).
@@ -503,8 +744,11 @@ extern "C" {
         inst, stream);                                                        \
   }
 
-// The whole run, state type S over background type F, and the resident
-// counts of the whole run and the single group.
+// The whole run, state type S over background type F (a float64 state on
+// `blocks` blocks with the lane queue's counter `queue`, a repack at most
+// every `every` loop iterations and once `trigger` lanes have left), the
+// resident counts of the whole run and the single group, and the whole
+// run's grid.
 #define RWRT_EXACT_RUN(SUFFIX, S, F)                                          \
   int rwrt_exact_run_##SUFFIX(                                                \
       const void* packed, int W, int H, double lon0, double lat0, double dx,  \
@@ -512,19 +756,23 @@ extern "C" {
       const void* ug0, const void* vg0, void* hist, void* ugs, void* vgs,     \
       void* lane_att, void* trunc, const void* bounds, int G, int n_groups,   \
       int R, double cut_off, double rtol, double atol, double min_step,       \
-      long long max_iters, int barrier, int inst, void* stream) {             \
+      long long max_iters, int barrier, int inst, int blocks, void* queue,    \
+      int every, int trigger, void* stream) {                                 \
     return run_exact<S, F>(                                                   \
         rwrt::make_background<F>(packed, W, H, lon0, lat0, dx, dy), y, t, h,  \
         f, plon, plat, ug0, vg0, hist, ugs, vgs, lane_att, trunc, bounds, G,  \
         n_groups, R, cut_off, rtol, atol, min_step, max_iters, barrier, inst, \
-        stream);                                                              \
+        blocks, queue, every, trigger, stream);                               \
   }                                                                           \
   int rwrt_exact_resident_##SUFFIX(int run, int inst, void* out) {            \
     return exact_resident<S, F, false>(run, inst, static_cast<int*>(out));    \
+  }                                                                           \
+  int rwrt_exact_grid_##SUFFIX(int inst, void* out) {                         \
+    return exact_grid<S, F, false>(inst, static_cast<int*>(out));             \
   }
 
 // Its time instance: the background's time axis and member map after the
-// grid; its resident counts.
+// grid; its resident counts and grid.
 #define RWRT_EXACT_RUN_TIME(SUFFIX, S, F)                                     \
   int rwrt_exact_run_time_##SUFFIX(                                           \
       const void* packed, int W, int H, double lon0, double lat0, double dx,  \
@@ -534,16 +782,19 @@ extern "C" {
       void* vgs, void* lane_att, void* trunc, const void* bounds, int G,      \
       int n_groups, int R, double cut_off, double rtol, double atol,          \
       double min_step, long long max_iters, int barrier, int inst,            \
-      void* stream) {                                                         \
+      int blocks, void* queue, int every, int trigger, void* stream) {        \
     return run_exact<S, F>(                                                   \
         rwrt::make_background<F>(packed, W, H, lon0, lat0, dx, dy, nt, timed, \
                                  t0, tdt, member),                            \
         y, t, h, f, plon, plat, ug0, vg0, hist, ugs, vgs, lane_att, trunc,    \
         bounds, G, n_groups, R, cut_off, rtol, atol, min_step, max_iters,     \
-        barrier, inst, stream);                                               \
+        barrier, inst, blocks, queue, every, trigger, stream);                \
   }                                                                           \
   int rwrt_exact_resident_time_##SUFFIX(int run, int inst, void* out) {       \
     return exact_resident<S, F, true>(run, inst, static_cast<int*>(out));     \
+  }                                                                           \
+  int rwrt_exact_grid_time_##SUFFIX(int inst, void* out) {                    \
+    return exact_grid<S, F, true>(inst, static_cast<int*>(out));              \
   }
 
 // One precision and one kind of background per translation unit, so that

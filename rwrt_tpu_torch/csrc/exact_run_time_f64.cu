@@ -1,7 +1,6 @@
 // The time instances of the exact kernels (exact_run.cu: the whole run and the
 // single group) in float64: a time-varying or ensemble background, compiled
 // apart from the other instances so that the build runs them at once and the
-// static code stays as it is; relocatable device code (its controller calls
-// pow_fmad.cu's pow).
+// static code stays as it is.
 #define RWRT_EXACT_TIME_F64
 #include "exact_run.cu"

@@ -41,8 +41,8 @@
 // wrapper choosing as rk45.exact_instance chooses; a team takes the same
 // branches on the same state, and its first thread writes the lane. Blocks
 // of 128 threads. Types <float, float> and <double, double>: the re-run
-// takes the fields' dtype. The float64 instances (interval_f64.cu) are
-// relocatable: the controller's pow is pow_fmad.cu's.
+// takes the fields' dtype. The float64 controller's pow is PyTorch's,
+// inline (pow64.cuh).
 //
 // Rounding: built with -fmad=false (kernels/build.py), so each expression
 // rounds as the plain version's separate tensor ops do.

@@ -249,6 +249,8 @@ struct Lane {
   static constexpr int kThreads = 1;
   static constexpr int kId = 0;
   static __device__ __forceinline__ bool lead() { return true; }
+  // A branch decision the lane's threads take as one: its own.
+  static __device__ __forceinline__ bool uniform(bool x) { return x; }
   template <typename S, typename F>
   static __device__ __forceinline__ void lerp_row(const F* packed, int cell,
                                                   const S w[4],
@@ -283,6 +285,29 @@ struct Split {
   // The shuffle mask of this thread's team.
   static __device__ __forceinline__ unsigned mask() {
     return 0xffu << ((threadIdx.x & 31) & ~(kThreads - 1));
+  }
+  // A branch decision the team takes as one: its first thread's.
+  static __device__ __forceinline__ bool uniform(bool x) {
+    return __shfl_sync(mask(), int(x), 0, kThreads) != 0;
+  }
+  // a[j] for this thread's rank j (threads past N take a[0]), by selects:
+  // compile-time indices only, so a stays in registers.
+  template <typename T, int N>
+  static __device__ __forceinline__ T own(const T a[N]) {
+    const int t = rank();
+    T x = a[0];
+#pragma unroll
+    for (int j = 1; j < N; ++j) {
+      if (t == j) x = a[j];
+    }
+    return x;
+  }
+  // out[j] = x of the team's thread j, for j < N, in every thread.
+  template <typename T, int N>
+  static __device__ __forceinline__ void share(T x, T out[N]) {
+    const unsigned team = mask();
+#pragma unroll
+    for (int j = 0; j < N; ++j) out[j] = __shfl_sync(team, x, j, kThreads);
   }
   template <typename S, typename F>
   static __device__ __forceinline__ void lerp_row(const F* packed, int cell,
@@ -648,7 +673,12 @@ __device__ __forceinline__ void group_velocity_at(
 // ulps of the distance, so where s (1 + s^2), widened by 0.1 %, is under
 // cut_off it compares below cut_off too, and the answer is the same. NaN
 // or infinite differences fail the test and take the haversine.
-template <typename T>
+//
+// I = Split (the whole-run exact kernel's team over a float64 state) spreads
+// the haversine over the team by operands: threads 0 and 1 take the two
+// sines, then the two cosines, then the two square roots, each with the
+// expression above, and shuffles give every thread both.
+template <typename T, class I = Lane>
 __device__ __forceinline__ bool kill_mask(const T y[5], T lon_prev,
                                           T lat_prev, T cut_off) {
   if (fabs(y[1]) >= T(0.5 * kPi)) return true;
@@ -656,10 +686,24 @@ __device__ __forceinline__ bool kill_mask(const T y[5], T lon_prev,
   const T dlat = y[1] - lat_prev;
   const T s = fabs(dlat) + fabs(dlon);
   if (s * (T(1) + s * s) * T(1.001) < cut_off) return false;
-  const T s_lat = sin(dlat / T(2));
-  const T s_lon = sin(dlon / T(2));
-  const T a = s_lat * s_lat + cos(lat_prev) * cos(y[1]) * (s_lon * s_lon);
-  const T ddis = fabs(T(2) * atan2(sqrt(a), sqrt(T(1) - a)));
+  T ddis;
+  if constexpr (I::kThreads > 1) {
+    const T half[2] = {dlat / T(2), dlon / T(2)};
+    const T lats[2] = {lat_prev, y[1]};
+    T sn[2], cs[2];
+    I::template share<T, 2>(sin(I::template own<T, 2>(half)), sn);
+    I::template share<T, 2>(cos(I::template own<T, 2>(lats)), cs);
+    const T a = sn[0] * sn[0] + cs[0] * cs[1] * (sn[1] * sn[1]);
+    const T r[2] = {a, T(1) - a};
+    T q[2];
+    I::template share<T, 2>(sqrt(I::template own<T, 2>(r)), q);
+    ddis = fabs(T(2) * atan2(q[0], q[1]));
+  } else {
+    const T s_lat = sin(dlat / T(2));
+    const T s_lon = sin(dlon / T(2));
+    const T a = s_lat * s_lat + cos(lat_prev) * cos(y[1]) * (s_lon * s_lon);
+    ddis = fabs(T(2) * atan2(sqrt(a), sqrt(T(1) - a)));
+  }
   return ddis >= cut_off;
 }
 

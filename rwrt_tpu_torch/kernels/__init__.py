@@ -31,6 +31,17 @@ INSTANCES = {"lane": 0, "split8": 8}
 #: (PERF.md section 6), for the RK4 and exact kernels in both dtypes.
 TEAM = "split8"
 TEAM_LANES = (32, 6144)
+#: The team's lane counts for the exact kernel's whole run with a float64
+#: state, by (state, field) dtypes: that kernel repacks its live lanes on a
+#: persistent grid and queues the lanes beyond its slots, so no lane waits
+#: for a second wave and the resident count caps nothing. Measured on an
+#: NVIDIA H100 by ``profile_main_path.py --exact`` (PERF.md section 6):
+#: the team no slower than Lane at every lane count measured up to the
+#: window's most (4,288 README lanes; the production seeding's first
+#: 8,192; float64's 8,864 lanes of two time-varying members), slower at
+#: 16,384 and beyond.
+REPACKED_TEAM_LANES = {(torch.float64, torch.float32): (32, 8192),
+                       (torch.float64, torch.float64): (32, 8864)}
 
 
 @functools.cache
@@ -41,14 +52,18 @@ def library():
     return build.load()
 
 
-def choose_instance(r: int, team_resident: int) -> str:
+def choose_instance(r: int, team_resident=None, lanes=TEAM_LANES) -> str:
     """The instance a launch of ``r`` lanes takes: the team ``TEAM`` where
-    ``TEAM_LANES`` holds r (the lane counts at which the team was measured
-    faster: it lengthens a lone lane's chain and multiplies the card's work
-    by 8) and r * 8 threads fit in what the card keeps resident of the team
-    at once (``team_resident`` threads), so that no lane waits for a second
-    wave; else one thread per lane."""
-    if TEAM_LANES[0] <= r <= min(TEAM_LANES[1], team_resident // 8):
+    ``lanes`` (least, most; ``TEAM_LANES`` unless given) holds r (the lane
+    counts at which the team was measured faster: it lengthens a lone
+    lane's chain and multiplies the card's work by 8) and r * 8 threads
+    fit in what the card keeps resident of the team at once
+    (``team_resident`` threads), so that no lane waits for a second wave;
+    ``team_resident`` None (a launch that queues its lanes) caps nothing.
+    Else one thread per lane."""
+    top = lanes[1] if team_resident is None else min(lanes[1],
+                                                     team_resident // 8)
+    if lanes[0] <= r <= top:
         return TEAM
     return "lane"
 

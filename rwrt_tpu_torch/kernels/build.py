@@ -1,9 +1,8 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
 One ``nvcc`` per ``rwrt_tpu_torch/csrc/*.cu``, all started together,
-compiles a relocatable object each; one more links them (device code
-included) into a shared library with a plain C interface (no PyTorch
-headers, so a build takes seconds), in
+compiles an object each; one more links them into a shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds), in
 ``rwrt_tpu_torch/_build/<hash of the sources>/``, beside ``nvcc.log`` (the
 compiler's ``-Xptxas -v`` report: registers, shared memory, spills per
 kernel). The hash covers the sources, the headers and the flags, so an
@@ -30,25 +29,11 @@ LIB_NAME = "librwrt_kernels.so"
 # expression rounds exactly as the plain PyTorch version's separate ops do
 # and the kernels are bit-comparable to it (the adaptive controller
 # amplifies one-ulp differences chaotically). Explicit fma() calls, as in
-# the spectral contraction, are unaffected.
+# the spectral contraction, are unaffected. PyTorch's own float64 pow,
+# which its build contracts, is written out in csrc/pow64.cuh.
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
               "-fPIC", "-Xptxas=-v")
-#: The units built WITH contraction (``-fmad=true``): libdevice's float64
-#: pow as PyTorch's own build rounds it, which the plain versions' ``**``
-#: runs (csrc/pow_fmad.cu says why).
-CONTRACTED = ("pow_fmad.cu",)
-#: The units built as relocatable device code (``-rdc=true``): those whose
-#: kernels carry a float64 step controller and so call ``CONTRACTED``'s pow
-#: across units, and that unit. The others stay whole-program units: -rdc
-#: costs the float32 kernels registers and 2-35 % of their time (measured
-#: on an H100 when every unit was relocatable), since calls into the math
-#: library's slow paths then take the standard calling convention.
-RELOCATABLE = ("dense_run_f64.cu", "dense_run_mix.cu", "exact_run_f64.cu",
-               "exact_run_mix.cu", "dense_run_time_f64.cu",
-               "dense_run_time_mix.cu", "exact_run_time_f64.cu",
-               "exact_run_time_mix.cu", "interval_f64.cu", "entry_f64.cu",
-               "entry_time_f64.cu", *CONTRACTED)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -90,12 +75,16 @@ SIGNATURES = {
                          _D, _L, _I, _P),
     # packed, W, H, lon0, lat0, dx, dy, y, t, h, f, plon, plat, ug0, vg0,
     # hist, ugs, vgs, lane_att, trunc, bounds, G, n_groups, R, cut_off, rtol,
-    # atol, min_step, max_iters, barrier, instance, stream
+    # atol, min_step, max_iters, barrier, instance, blocks, queue, every,
+    # trigger, stream (blocks .. trigger: the float64-state run's repack)
     "rwrt_exact_run": (_P, _I, _I, _D, _D, _D, _D, _P, _P, _P, _P, _P, _P, _P,
                        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _D, _D, _D,
-                       _L, _I, _I, _P),
+                       _L, _I, _I, _I, _P, _I, _I, _P),
     # run (1: the whole-run kernel, 0: the single group), instance, out
     "rwrt_exact_resident": (_I, _I, _P),
+    # instance, out (int32 on the host): the whole run's resident blocks,
+    # threads a block
+    "rwrt_exact_grid": (_I, _P),
     # packed, W, H, lon0, lat0, dx, dy, y, t, h, t_bound, trips, R, rtol,
     # atol, min_step, max_iters, instance, stream
     "rwrt_interval": (_P, _I, _I, _D, _D, _D, _D, _P, _P, _P, _P, _P, _I, _D,
@@ -147,6 +136,7 @@ for _name in ("rwrt_rhs", "rwrt_entry", "rwrt_rk4_run", "rwrt_exact_run",
 # The occupancy counts of the time instances take the static ones' args.
 SIGNATURES["rwrt_rk4_resident_time"] = SIGNATURES["rwrt_rk4_resident"]
 SIGNATURES["rwrt_exact_resident_time"] = SIGNATURES["rwrt_exact_resident"]
+SIGNATURES["rwrt_exact_grid_time"] = SIGNATURES["rwrt_exact_grid"]
 SIGNATURES["rwrt_dense_resident_time"] = SIGNATURES["rwrt_dense_resident"]
 SIGNATURES["rwrt_interval_resident_time"] = SIGNATURES[
     "rwrt_interval_resident"]
@@ -162,15 +152,8 @@ MIXED = ("rwrt_entry", "rwrt_entry_time", "rwrt_rk4_run",
          "rwrt_exact_run_time", "rwrt_exact_resident_time",
          "rwrt_dense_run_time", "rwrt_exact_group_time",
          "rwrt_dense_group_time", "rwrt_dense_resident",
-         "rwrt_dense_resident_time")
-
-
-def unit_flags(name: str) -> list:
-    """The nvcc flags of the unit ``name``: ``NVCC_FLAGS``, with
-    contraction for ``CONTRACTED`` and -rdc=true for ``RELOCATABLE``."""
-    flags = [("-fmad=true" if f == "-fmad=false" and name in CONTRACTED
-              else f) for f in NVCC_FLAGS]
-    return flags + (["-rdc=true"] if name in RELOCATABLE else [])
+         "rwrt_dense_resident_time", "rwrt_exact_grid",
+         "rwrt_exact_grid_time")
 
 
 def _sources():
@@ -179,8 +162,7 @@ def _sources():
 
 def source_hash() -> str:
     cu, cuh = _sources()
-    digest = hashlib.sha256(
-        " ".join(NVCC_FLAGS + CONTRACTED + RELOCATABLE).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in cu + cuh:
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
@@ -210,8 +192,7 @@ def build() -> Path:
         jobs, objs = [], []
         for src in _sources()[0]:
             objs.append(os.path.join(tmp_dir, src.stem + ".o"))
-            cmd = [nvcc, *unit_flags(src.name), "-c", "-o", objs[-1],
-                   str(src)]
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1], str(src)]
             jobs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -222,7 +203,7 @@ def build() -> Path:
         if any(proc.returncode != 0 for _, proc in jobs):
             raise RuntimeError("nvcc failed:\n" + "\n".join(log))
         tmp = os.path.join(tmp_dir, LIB_NAME)
-        cmd = [nvcc, *ARCH, "-shared", "-rdc=true", "-o", tmp, *objs]
+        cmd = [nvcc, *ARCH, "-shared", "-o", tmp, *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"

@@ -103,7 +103,14 @@ def exact_instance(r: int, dtype, run: bool = True,
     the whole run (``run``, ``tracer._exact_run``) or the single group
     (``integrate_group``). ``dtype`` is a torch dtype or a (state, field)
     pair (``kernels.launch``); ``variant`` "" (a static background) or
-    "_time" (the time instance, ``ray.kernel_background``)."""
+    "_time" (the time instance, ``ray.kernel_background``). The whole run
+    with a float64 state queues its lanes on a persistent grid
+    (``tracer.exact_grid``) and takes its own window,
+    ``kernels.REPACKED_TEAM_LANES``."""
+    key = kernels.dtype_key(dtype)
+    if run and key in kernels.REPACKED_TEAM_LANES:
+        return kernels.choose_instance(
+            r, None, kernels.REPACKED_TEAM_LANES[key])
     return kernels.choose_instance(
         r, kernels.resident("exact", kernels.TEAM, dtype, int(run),
                             variant=variant))

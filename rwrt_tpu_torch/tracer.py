@@ -37,7 +37,9 @@ dense kernel runs one thread per lane and repacks the live lanes into
 full warps inside the launch (``DENSE_SCHEDULE``, ``dense_grid``); the
 RK4 and exact kernels one thread, or a team of 8 threads, per lane, as
 ``rk4_instance`` and
-``solvers/rk45.exact_instance`` choose from the lane count. Each kernel
+``solvers/rk45.exact_instance`` choose from the lane count, and the exact
+kernel with a float64 state repacks its live lanes (or teams) as the dense
+one does (``EXACT_SCHEDULE``, ``exact_grid``). Each kernel
 has a mixed instance (``_mix``, ``kernels.launch``) beside its float32
 and float64 ones, which the wrappers take for a float64 state over a
 float32 background, and a time instance of each (``_time``), which they
@@ -329,6 +331,39 @@ def _dense_grid(card: int, key, variant: str) -> tuple:
     return int(out[0]), int(out[1])
 
 
+#: The whole-run exact kernel's repack schedule (every, trigger) by the
+#: launch's (state, field) dtypes, as ``DENSE_SCHEDULE``'s; None: the
+#: launch-order kernel, each lane (or team) to its end with no persistent
+#: grid (float32, whose README runs sit within 10 % of their chain floor
+#: in launch order). A float64 state repacks on a persistent grid
+#: (``exact_grid``). Measured on an NVIDIA H100 (PERF.md section 6).
+EXACT_SCHEDULE = {
+    (torch.float32, torch.float32): None,
+    (torch.float64, torch.float32): (1000, 1),
+    (torch.float64, torch.float64): (1000, 1),
+}
+
+
+def exact_grid(key, variant: str = "", instance: str = "lane") -> tuple:
+    """(blocks, threads a block) of the whole-run exact kernel's grid on
+    the current card for ``instance``: with a float64 state the persistent
+    grid of the blocks it keeps resident (a team instance holds threads /
+    8 lanes a block); in float32 the launch-order kernel's resident blocks
+    of 128. From the CUDA occupancy calculator (``rwrt_exact_grid``); read
+    once per process and card."""
+    return _exact_grid(torch.cuda.current_device(), tuple(key), variant,
+                       instance)
+
+
+@functools.cache
+def _exact_grid(card: int, key, variant: str, instance: str) -> tuple:
+    """``exact_grid`` on card index ``card``, the current one."""
+    out = torch.zeros(2, dtype=torch.int32)
+    kernels.launch(f"rwrt_exact_grid{variant}", key,
+                   kernels.instance_id(instance), out)
+    return int(out[0]), int(out[1])
+
+
 def rk4_instance(r: int, dtype, variant: str = "") -> str:
     """The RK4 kernel's instance for a launch of ``r`` lanes on the card;
     ``dtype`` a torch dtype or a (state, field) pair, ``variant`` "" (a
@@ -583,7 +618,8 @@ def _exact_run(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off, rtol,
 
     On a CUDA state one launch of ``csrc/exact_run.cu`` does it all, one
     thread (or a team of threads, ``solvers/rk45.exact_instance``) per
-    lane through every group; on a CPU state the plain version
+    lane through every group, with a float64 state live lanes repacked
+    into full warps as others finish; on a CPU state the plain version
     ``_exact_run_plain`` runs.
     """
     run = _exact_run_cuda if y0.is_cuda else _exact_run_plain
@@ -617,13 +653,21 @@ def _exact_run_plain(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
 
 def _exact_run_cuda(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
                     rtol, atol, min_step, max_iters=1_000_000,
-                    barrier=False, instance=None, t0=None) -> GroupedRun:
+                    barrier=False, instance=None, t0=None, *, _blocks=None,
+                    _repack=None, _trigger=None) -> GroupedRun:
     """Launch the whole-run exact kernel once: each lane walks every group
-    and writes its rows straight into the output. ``instance`` (a key of
-    ``kernels.INSTANCES``) overrides ``rk45.exact_instance``'s choice. Reads
-    nothing back from the card. A float64 state over a float32 background
-    takes the mixed instance, and a time-varying or ensemble background
-    the time instance, as ``_dense_run_cuda``."""
+    and writes its rows straight into the output; with a float64 state the
+    blocks of a persistent grid (``exact_grid``) repack their live lanes on
+    the schedule ``EXACT_SCHEDULE`` gives the dtypes and take queued lanes
+    into the freed threads. ``instance`` (a key of ``kernels.INSTANCES``)
+    overrides ``rk45.exact_instance``'s choice. Reads nothing back from
+    the card. A float64 state over a float32 background takes the mixed
+    instance, and a time-varying or ensemble background the time instance,
+    as ``_dense_run_cuda``.
+
+    ``_blocks``, ``_repack`` and ``_trigger`` (another grid or repack
+    schedule, with a float64 state) are for the card tests and the
+    measurement scripts; none changes a bit of the output."""
     global EXACT_LAUNCHES
     key, (variant, bg_args) = _check_run_args(bg, y0, ug0, vg0, h0, f0,
                                               bounds_g, n_bounds, 0)
@@ -631,6 +675,25 @@ def _exact_run_cuda(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
     cut_off, rtol, atol, min_step = (rk45_mod.as_scalar(x, dt)
                                      for x in (cut_off, rtol, atol, min_step))
     r = y0.shape[1]
+    instance = instance or rk45_mod.exact_instance(r, key, variant=variant)
+    schedule = EXACT_SCHEDULE[key]
+    blocks = every = trigger = 1
+    if schedule is None:
+        if (_blocks, _repack, _trigger) != (None, None, None):
+            raise ValueError("_blocks, _repack and _trigger are for the "
+                             "repacked (float64-state) exact run")
+    else:
+        every, trigger = schedule
+        blocks = (exact_grid(key, variant, instance)[0] if _blocks is None
+                  else _blocks)
+        every = every if _repack is None else _repack
+        if _trigger is not None:
+            trigger = _trigger
+        elif trigger is None:
+            trigger = 1 << 30  # no window ends early
+        if min(int(blocks), int(every), int(trigger)) < 1:
+            raise ValueError(f"_blocks ({blocks}), _repack ({every}) and "
+                             f"_trigger ({trigger}) must be at least 1")
     n_groups, group = bounds_g.shape
     ys, ugs, vgs, lane_att, trunc = _run_buffers(y0, n_groups, group)
     # The carry, updated in place by the kernel.
@@ -638,14 +701,15 @@ def _exact_run_cuda(bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds, cut_off,
     t = _entry_time(t0, h0).clone()
     plon = torch.empty_like(h0)
     plat = torch.empty_like(h0)
+    # The lane queue's counter, scratch for the repacked kernel.
+    queue = torch.zeros(1, dtype=torch.int32, device=dev)
     ug0, vg0 = ug0.to(dt), vg0.to(dt)
     kernels.launch(
         f"rwrt_exact_run{variant}", key, *bg_args, y, t, h, f, plon, plat,
         ug0, vg0, ys, ugs, vgs, lane_att, trunc, bounds_g, group, n_groups,
         r, cut_off, rtol, atol, min_step, int(max_iters), int(barrier),
-        kernels.instance_id(
-            instance or rk45_mod.exact_instance(r, key, variant=variant)),
-        kernels.stream(dev))
+        kernels.instance_id(instance), int(blocks), queue, int(every),
+        int(trigger), kernels.stream(dev))
     EXACT_LAUNCHES += 1
     nt = n_bounds + 1
     return GroupedRun(ys[:nt], ugs[:nt], vgs[:nt], lane_att, trunc,

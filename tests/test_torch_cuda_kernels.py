@@ -9,7 +9,9 @@ so on a GPU machine without JAX run it as
 The library is built with -fmad=false, so the RHS kernel, both dense
 kernels (one group, and the whole run with the kill cascade and (ug, vg)),
 the RK4 kernel and both exact kernels (one group with its suspend/resume
-state, and the whole run, with and without the barrier flag), each RK4 and
+state, and the whole run, with and without the barrier flag; with a
+float64 state its lanes repacked on a persistent grid under every
+schedule; their float64 pow bitwise PyTorch's), each RK4 and
 exact kernel in every instance (``kernels.INSTANCES``), and the whole-run
 kernels' mixed-precision instances (a float64 state over a float32
 background), must equal their plain versions bitwise; the
@@ -1818,6 +1820,232 @@ def test_dense_run_grid_and_private_arguments(jet_field, dev):
     for bad in (dict(_blocks=0), dict(_repack=0), dict(_trigger=0)):
         with pytest.raises(ValueError):
             dense_cuda(first_lanes(args, 33), kw, **bad)
+
+
+# The whole-run exact kernel with a float64 state repacks live lanes (and
+# whole teams) into full warps on a persistent grid (csrc/exact_run.cu,
+# repack.cuh), and a team spreads its per-variable float64 work over its
+# threads. Which thread runs a lane, and when, must change no bit: every
+# instance, float64 and mixed, static, time and member backgrounds.
+
+#: The float64-state dtypes (the repacked instances).
+EXACT_REPACK_KEYS = ["float64", "mixed"]
+#: The cases: kills inside groups; a max_iters backstop of 3 trips, so
+#: lanes are truncated among lanes that go on; two NaN-amp lanes walked
+#: among stepping ones; the amp-overflow state one bound per group with
+#: the barrier flag (what ``_run_rk45`` launches) and without it.
+EXACT_REPACK_CASES = {
+    "cutoff": dict(cut_off=0.03),
+    "maxiters": dict(cut_off=0.2, max_iters=3),
+    "nanamp": dict(cut_off=0.2, amp="nan"),
+    "barrier": dict(cut_off=0.2, max_iters=100_000, barrier=True,
+                    amp="overflow", group=1),
+    "overflow": dict(cut_off=0.2, max_iters=100_000, amp="overflow",
+                     group=1),
+}
+_EXACT_REPACK_RUNS = {}
+
+
+def exact_repack_case(jet_field, dev, key, kind, case):
+    """(the case's full-width ``_exact_run`` arguments, its keyword
+    arguments, the plain run on every lane) over ``repack_inputs``' 5,193
+    lanes, made once per (key, kind, case)."""
+    tag = (key, kind, case)
+    if tag not in _EXACT_REPACK_RUNS:
+        (bg, y0, ug0, vg0, h0, _, bounds_g, n_bounds), rtol = (
+            repack_inputs(jet_field, kind, key, dev))
+        kw = dict(EXACT_REPACK_CASES[case])
+        amp = kw.pop("amp", None)
+        if amp == "nan":
+            y0 = amp_nan(y0)
+        elif amp == "overflow":
+            y0 = overflow(y0)
+        if "group" in kw:
+            bounds_g = tracer.padded_bounds(7200.0, 13, kw.pop("group"),
+                                            y0.dtype, dev)
+        f0 = ray.RayRHS(bg)(y0)
+        args = (bg, y0, ug0, vg0, h0, f0, bounds_g, n_bounds,
+                kw.pop("cut_off"), rtol, 1e-6, 7.2)
+        _EXACT_REPACK_RUNS[tag] = (args, kw,
+                                   tracer._exact_run_plain(*args, **kw))
+    return _EXACT_REPACK_RUNS[tag]
+
+
+def lane_slots(key, instance, dev):
+    """(resident blocks, lane slots a block) of the repacked run."""
+    blocks, block = tracer.exact_grid(KEYS[key], "", instance)
+    return blocks, block // (1 if instance == "lane" else 8)
+
+
+#: Lane counts at the warp's, a team block's (32 lanes of 8 threads) and a
+#: Lane block's (256 lanes) edges, and past them.
+EXACT_REPACK_LANES = [1, 3, 4, 5, 31, 32, 33, 255, 256, 257, 4097]
+
+
+@pytest.mark.parametrize("n", EXACT_REPACK_LANES)
+@pytest.mark.parametrize("instance", INSTANCES)
+@pytest.mark.parametrize("kind", REPACK_KINDS)
+@pytest.mark.parametrize("key", EXACT_REPACK_KEYS)
+def test_exact_run_repacking_lane_counts(jet_field, dev, key, kind,
+                                         instance, n):
+    """The repacked kernel over the first n lanes (frozen, polar and killed
+    lanes among them), one launch on the default grid, against the plain
+    run bitwise."""
+    args, kw, p = exact_repack_case(jet_field, dev, key, kind, "cutoff")
+    before = tracer.EXACT_LAUNCHES
+    k = tracer._exact_run_cuda(*first_lanes(args, n), instance=instance,
+                               **kw)
+    assert tracer.EXACT_LAUNCHES == before + 1
+    equal_to_plain(k, p, n)
+    if n == 4097:
+        assert (torch.isnan(k.ys[-1, 0]) & ~torch.isnan(k.ys[0, 3])).any()
+
+
+@pytest.mark.parametrize("edge", [-1, 0, 1])
+@pytest.mark.parametrize("instance", INSTANCES)
+@pytest.mark.parametrize("key", EXACT_REPACK_KEYS)
+def test_exact_run_repacking_resident_wave_edge(jet_field, dev, key,
+                                                instance, edge):
+    """Lane counts at the edge of what a grid of 3 blocks holds at once
+    (3 x the lane slots of a block, -1, 0, +1: the last lane queued or
+    not), and of what the default grid holds; bitwise against the plain
+    run."""
+    args, kw, p = exact_repack_case(jet_field, dev, key, "static", "cutoff")
+    blocks, slots = lane_slots(key, instance, dev)
+    n = 3 * slots + edge
+    k = tracer._exact_run_cuda(*first_lanes(args, n), instance=instance,
+                               _blocks=3, **kw)
+    equal_to_plain(k, p, n)
+    n = min(blocks * slots + edge, args[1].shape[1])
+    k = tracer._exact_run_cuda(*first_lanes(args, n), instance=instance,
+                               **kw)
+    equal_to_plain(k, p, n)
+
+
+@pytest.mark.parametrize("n", [257, 4097])
+@pytest.mark.parametrize("case", ["maxiters", "nanamp", "barrier",
+                                  "overflow"])
+@pytest.mark.parametrize("instance", INSTANCES)
+@pytest.mark.parametrize("kind", REPACK_KINDS)
+@pytest.mark.parametrize("key", EXACT_REPACK_KEYS)
+def test_exact_run_repacking_stragglers(jet_field, dev, key, kind, instance,
+                                        case, n):
+    """Stragglers among easy lanes: the max_iters backstop truncating
+    lanes, NaN-amp lanes walked to each bound, amps overflowing one bound
+    per group with the barrier flag and without; bitwise against the plain
+    run."""
+    args, kw, p = exact_repack_case(jet_field, dev, key, kind, case)
+    k = tracer._exact_run_cuda(*first_lanes(args, n), instance=instance,
+                               **kw)
+    equal_to_plain(k, p, n)
+    if case == "maxiters":
+        assert int(k.trunc.sum()) > 0
+
+
+#: Repack schedules of the exact run (most iterations a window, lanes
+#: whose leaving ends it; None: no early end): every iteration, every 3,
+#: windows ended by the first lane to leave or a warp's worth, windows
+#: longer than any lane (the schedule "never").
+EXACT_SCHEDULES = [(1, None), (3, None), (8, 1), (64, 7), (1000, 32),
+                   (1 << 30, None)]
+
+
+@pytest.mark.parametrize("schedule", EXACT_SCHEDULES)
+@pytest.mark.parametrize("blocks", [1, 3])
+@pytest.mark.parametrize("instance", INSTANCES)
+@pytest.mark.parametrize("kind", ["static", "member_time"])
+@pytest.mark.parametrize("key", EXACT_REPACK_KEYS)
+def test_exact_run_repacking_queue_refills(jet_field, dev, key, kind,
+                                           instance, blocks, schedule):
+    """More lanes than the grid's slots: 1 or 3 blocks over 1,025 lanes
+    take the rest from the queue as lanes leave, under each repack
+    schedule; bitwise against the plain run."""
+    args, kw, p = exact_repack_case(jet_field, dev, key, kind, "cutoff")
+    every, trigger = schedule
+    before = tracer.EXACT_LAUNCHES
+    k = tracer._exact_run_cuda(*first_lanes(args, 1025), instance=instance,
+                               _blocks=blocks, _repack=every,
+                               _trigger=trigger or 1 << 30, **kw)
+    assert tracer.EXACT_LAUNCHES == before + 1
+    equal_to_plain(k, p, 1025)
+
+
+@pytest.mark.parametrize("instance", INSTANCES)
+@pytest.mark.parametrize("key", EXACT_REPACK_KEYS)
+def test_exact_run_repacking_barrier_queue(jet_field, dev, key, instance):
+    """The barrier flag's kernel with the queue refilling every iteration
+    (3 blocks, a repack at each) over 1,025 lanes: bitwise against the
+    flagged plain run."""
+    args, kw, p = exact_repack_case(jet_field, dev, key, "time", "barrier")
+    k = tracer._exact_run_cuda(*first_lanes(args, 1025), instance=instance,
+                               _blocks=3, _repack=1, _trigger=1, **kw)
+    equal_to_plain(k, p, 1025)
+
+
+def test_exact_run_grid_and_private_arguments(jet_field, dev):
+    """The repacked grid: blocks of 256 threads (32 lanes of a team), at
+    least one block a SM; float32 keeps its launch-order blocks of 128 and
+    refuses the private arguments; they refuse values below 1."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for key in EXACT_REPACK_KEYS:
+        for variant in ("", "_time"):
+            for instance in INSTANCES:
+                blocks, block = tracer.exact_grid(KEYS[key], variant,
+                                                  instance)
+                assert block == 256 and blocks >= n_sm
+    assert tracer.exact_grid(KEYS["float32"])[1] == 128
+    args, kw, _ = exact_repack_case(jet_field, dev, "float64", "static",
+                                    "cutoff")
+    for bad in (dict(_blocks=0), dict(_repack=0), dict(_trigger=0)):
+        with pytest.raises(ValueError):
+            tracer._exact_run_cuda(*first_lanes(args, 33), **kw, **bad)
+    f32, rtol = repack_inputs(jet_field, "static", "float32", dev)
+    f32 = first_lanes(f32 + (0.2, rtol, 1e-6, 7.2), 33)
+    with pytest.raises(ValueError):
+        tracer._exact_run_cuda(*f32, _repack=3)
+
+
+def test_exact_instance_windows(dev):
+    """The launcher's instance for the float64-state whole run follows its
+    own window (``kernels.REPACKED_TEAM_LANES``), with no resident cap; the
+    single group and float32 keep ``TEAM_LANES`` and the cap."""
+    for key, (lo, hi) in kernels.REPACKED_TEAM_LANES.items():
+        assert rk45.exact_instance(lo - 1, key) == "lane"
+        assert rk45.exact_instance(lo, key) == kernels.TEAM
+        assert rk45.exact_instance(hi, key) == kernels.TEAM
+        assert rk45.exact_instance(hi + 1, key) == "lane"
+    assert rk45.exact_instance(kernels.TEAM_LANES[1] + 1,
+                               torch.float32) == "lane"
+
+
+def test_pow64_equals_torch_pow(dev, tmp_path):
+    """The kernels' float64 pow (csrc/pow64.cuh, libdevice's pow as
+    PyTorch's contracted build rounds it, written out), built into
+    ``pow_parity.py``'s probe with the kernels' flags, against PyTorch's
+    ``x ** -0.2`` (the controller) and ``x ** 0.2`` (the initial step) on
+    a seeded sample: 2^20 arguments over exp(U(-25, 5)), the first 4,096
+    pow's edge values; bitwise."""
+    import ctypes
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import pow_parity
+
+    lib = pow_parity.build(tmp_path, "false")
+    g = torch.Generator(device=dev).manual_seed(1)
+    n = 1 << 20
+    x = torch.exp(torch.empty(n, dtype=torch.float64, device=dev).uniform_(
+        -25, 5, generator=g))
+    x[:4096] = pow_parity.specials(torch, 4096).to(dev)
+    for case, exponent in ((pow_parity.FUNCTIONS.index("pow64"), -0.2),
+                           (pow_parity.FUNCTIONS.index("pow64 ** 0.2"),
+                            0.2)):
+        out = torch.empty_like(x)
+        assert lib.run(ctypes.c_void_p(x.data_ptr()),
+                       ctypes.c_void_p(x.data_ptr()),
+                       ctypes.c_void_p(out.data_ptr()), n, case, 1) == 0
+        assert same(out, x ** exponent), exponent
 
 
 # ---- The adaptive runs' entry stage (csrc/entry.cu) ----
