@@ -102,9 +102,12 @@ exact_path phase requires and the chunk budget the chunked phase sets):
   rk4          the RK4 kernel (``tracer._run_rk4``) vs the plain
                ``_run_rk4_plain`` over all 360 steps of the production
                seeding's entry state (60,784 lanes), float32, and its first
-               4,096 lanes in float64, bitwise; the kernel's time there and
-               on the default run's entry state; every instance
-               (``kernels.INSTANCES``) bitwise and timed in turns
+               4,096 lanes in float64 (the kernel on all of them, its first
+               4,096 lanes' rows those), and over the default run's 1,080
+               steps (4,288 lanes) in float32 and float64, bitwise; every
+               instance (``kernels.INSTANCES``) bitwise and timed in turns
+               at each; the chain floor (``rk4_floor``: the lane alive
+               longest alone, each instance)
   exact_group  one 16-bound group (``integrate_group`` on CUDA) vs the plain
                loop on the production seeding's entry state, float32 and
                float64, bitwise; every instance bitwise and timed in turns;
@@ -116,10 +119,13 @@ exact_path phase requires and the chunk budget the chunked phase sets):
                every instance bitwise and timed in turns; the barrier
                flag's kernel (``_run_rk45`` on the card: one bound per
                group) vs the flagged plain run on that subset
-  rk4_path    the two RK4 runs through ``trace_rays``, counters reset just
-               before each and read just after: one RK4 launch each, no
-               other whole-run launch, rows bitwise equal to the rk4 phase's;
-               the kernels line reports the production run's launches
+  rk4_path    the RK4 runs through ``trace_rays``, counters reset just
+               before each and read just after: the default run in float32
+               and float64 (the original program's default run) and the
+               production seeding, one RK4 launch each, no other whole-run
+               launch, rows bitwise equal to the rk4 phase's; the kernels
+               line reports the production run's launches (rk4_run) and
+               the float64 default run's (rk4_run_f64)
   exact_path   the README run through ``trace_rays`` the same way: one
                exact-run launch, no single-group or dense launch, rows
                bitwise equal to the exact_run phase's; wall, peak memory,
@@ -151,8 +157,8 @@ exact_path phase requires and the chunk budget the chunked phase sets):
                the day-30 median great-circle drift of float32 and of mixed
                against float64 (a record, not a gate)
   mixed_rk4    both RK4 runs in mixed precision: the kernel against the
-               plain run, bitwise, every instance in turns, and through
-               ``trace_rays`` as rk4_path
+               plain run, bitwise, every instance in turns, the chain
+               floor, and through ``trace_rays`` as rk4_path
   mixed_exact  the README run over MIXED_README_DAYS days in mixed
                precision: no lane-group at the backstop, every instance in
                turns, every instance bitwise against the plain run on
@@ -183,7 +189,8 @@ exact_path phase requires and the chunk budget the chunked phase sets):
                ``RunConfig()``'s default run (90 days, 91 frames) in
                float32, mixed and float64, the README exact run in float32
                (40 days), mixed and float64 (90 days), and the dense
-               production run in mixed and float64 (30 days)
+               production run in mixed and float64 (30 days); each RK4
+               run's chain floor (``rk4_floor``), the ensemble's too
   time_chunked the 30-day time-varying production run in 6 chunks (rows
                bitwise equal to time_main_path's) and the 90-day one
                through ``trace_rays``' reroute (17 chunks, the wall split)
@@ -811,7 +818,8 @@ PLAIN_SECONDS = {
     "dense_run float32": 98, "dense_run float64": 70,
     "exact_run float32": 93, "exact_run float64": 31,
     "rk4 production float32": 10, "rk4 production float64": 9,
-    "rk4 default float32": 26, "mixed rk4 production": 9,
+    "rk4 default float32": 26, "rk4 default float64": 30,
+    "mixed rk4 production": 9,
     "mixed rk4 default": 31, "mixed dense_run": 25, "mixed exact_run": 41,
     "mixed exact production": 40}
 
@@ -954,15 +962,16 @@ def exact_run_args(run, dtype):
 def rk4_args(run, name, dtype, state=None):
     """An RK4 unit's arguments (bg, y0, ug0, vg0, dt, nt, cut_off) on the
     entry state of the production seeding (``name`` "production", 30 days;
-    float64 on its first N_SUBSET lanes) or of the default run, ``state``
-    as for ``Run.entry``. Returns (args, idx, cfg)."""
+    float64 on its first N_SUBSET lanes) or of the default run (all its
+    4,288 lanes), ``state`` as for ``Run.entry``. Returns (args, idx,
+    cfg)."""
     from rwrt_tpu_torch.solvers import rk45
 
     production = name == "production"
     cfg = (rk4_production_config if production else default_config)(run.rt)
     bg, y0, ug0, vg0, idx = run.entry(dtype, None if production else cfg,
                                       state)
-    if dtype == run.torch.float64:
+    if production and dtype == run.torch.float64:
         y0, ug0, vg0 = (x[..., :N_SUBSET].contiguous()
                         for x in (y0, ug0, vg0))
     sdt = state or dtype
@@ -1013,8 +1022,9 @@ def phase_plain_ahead(run):
         jobs.append((f"exact_run {name}", "_exact_run_plain", args, {}))
         jobs.append((f"rk4 production {name}", "_run_rk4_plain",
                      rk4_args(run, "production", dtype)[0], {}))
-    jobs.append(("rk4 default float32", "_run_rk4_plain",
-                 rk4_args(run, "default", f32)[0], {}))
+    for dtype in (f32, f64):
+        jobs.append((f"rk4 default {str(dtype)[6:]}", "_run_rk4_plain",
+                     rk4_args(run, "default", dtype)[0], {}))
     for name in ("production", "default"):
         jobs.append((f"mixed rk4 {name}", "_run_rk4_plain",
                      rk4_args(run, name, f32, f64)[0], {}))
@@ -1265,13 +1275,16 @@ def lane_subset(args, n):
                  and a.shape[-1] == r else a for a in args)
 
 
-def registers(pattern):
+def registers(pattern, log=None):
     """Registers and spill bytes (stores, loads) of every kernel of the
     build whose mangled name matches the regular expression ``pattern``,
-    from its ``nvcc.log`` (``-Xptxas -v``): {name: (registers, spill)}."""
+    from its ``nvcc.log`` (``-Xptxas -v``), or from the text ``log`` of
+    such a report: {name: (registers, spill)}."""
     from rwrt_tpu_torch.kernels import build
 
-    log = (build.BUILD_ROOT / build.source_hash() / "nvcc.log").read_text()
+    if log is None:
+        log = (build.BUILD_ROOT / build.source_hash()
+               / "nvcc.log").read_text()
     found, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -1965,61 +1978,99 @@ def rk4_bound(bg, y0, ug0, vg0, out, dtype):
     return bound(nbytes(bg.fields, y0, ug0, vg0, *out), flops)
 
 
-def phase_rk4(run):
-    """The RK4 kernel against the plain run over all 360 steps of the
-    production seeding's entry state (float32, 60,784 lanes; float64 on its
-    first N_SUBSET lanes), bitwise; the kernel's time there and on the
-    default run's entry state (~4,000 lanes, 1,080 steps)."""
+def rk4_floor(run, args, out, what):
+    """The RK4 run's chain floor: its lane alive longest alone (R = 1),
+    rows bitwise the full run's there, in every instance; prints each
+    instance's ms and returns the least."""
     torch = run.torch
     from rwrt_tpu_torch import kernels, tracer
 
+    lane = int(out[0][:, 0].isfinite().sum(dim=0).argmax())
+    one = lane_pick(args, torch.tensor([lane], device=run.dev))
+    ms = {}
+    for inst in kernels.INSTANCES:
+        alone = tracer._run_rk4_cuda(*one, inst)
+        check(all(same(a, b[..., lane:lane + 1]) for a, b in zip(alone, out)),
+              f"{what}: the lane alive longest alone differs from the full "
+              "run's")
+        ms[inst] = cuda_ms(lambda: tracer._run_rk4_cuda(*one, inst), 3)
+    steps = out[0].shape[0] - 1
+    print(f"  {what}: chain floor {min(ms.values()):.3f} ms (lane {lane} "
+          f"alone, {steps} steps; " + ", ".join(
+              f"{n} {t:.3f}" for n, t in ms.items()) + " ms)")
+    return min(ms.values())
+
+
+def phase_rk4(run):
+    """The RK4 kernel against the plain run over all 360 steps of the
+    production seeding's entry state (float32, 60,784 lanes; float64 on
+    its first N_SUBSET lanes, then the kernel on all of them, whose first
+    N_SUBSET lanes' rows must be the subset's) and over all 1,080 steps of
+    the default run's (4,288 lanes; float32 and float64, the original
+    program's default run), bitwise; at each the kernel's time, every
+    instance bitwise and timed in turns, the launcher's choice, the bound
+    and the chain floor."""
+    torch = run.torch
+    from rwrt_tpu_torch import kernels, tracer
+
+    f32, f64 = torch.float32, torch.float64
     run.rk4 = {}
-    for name in ("production", "default"):
-        for dtype in ((torch.float32, torch.float64) if name == "production"
-                      else (torch.float32,)):
-            args, idx, cfg = rk4_args(run, name, dtype)
-            bg, y0, ug0, vg0 = args[:4]
-            before = tracer.RK4_LAUNCHES
-            kern = tracer._run_rk4(*args)
-            check(tracer.RK4_LAUNCHES == before + 1, "rk4 did not launch once")
-            plain, plain_ms = plain_call(
-                run, f"rk4 {name} {str(dtype)[6:]}", "_run_rk4_plain", *args)
-            for k, p, what in zip(kern, plain, ("rows", "ug", "vg")):
-                check(same(k, p), f"rk4 {name} {dtype}: {what} differ from "
-                      "the plain run")
-            tag = f"rk4 {name} {str(dtype)[6:]}"
+    for name, dtype in (("production", f32), ("production", f64),
+                        ("default", f32), ("default", f64)):
+        args, idx, cfg = rk4_args(run, name, dtype)
+        tag = f"rk4 {name} {str(dtype)[6:]}"
+        before = tracer.RK4_LAUNCHES
+        kern = tracer._run_rk4(*args)
+        check(tracer.RK4_LAUNCHES == before + 1, "rk4 did not launch once")
+        plain, plain_ms = plain_call(run, tag, "_run_rk4_plain", *args)
+        for k, p, what in zip(kern, plain, ("rows", "ug", "vg")):
+            check(same(k, p), f"{tag}: {what} differ from the plain run")
+        err = max(float(torch.nan_to_num(torch.abs(k - p), nan=0.0).max())
+                  for k, p in zip(kern, plain))
+        ref = plain
+        if name == "production" and dtype == f64:
+            for inst in kernels.INSTANCES:
+                check(all(same(a, b) for a, b in zip(
+                    tracer._run_rk4_cuda(*args, inst), plain)),
+                    f"{tag}: instance {inst} differs from the plain run")
+            # The kernel over every lane: its first N_SUBSET lanes' rows are
+            # the subset run's (a lane's bits do not depend on the batch).
+            args = run.entry(f64)[:4] + args[4:]
+            kern = ref = tracer._run_rk4(*args)
+            check(all(same(a[..., :N_SUBSET], b) for a, b in zip(kern, plain)),
+                  f"{tag}: the first {N_SUBSET} lanes of the full run differ "
+                  "from the plain run")
+        bg, y0, ug0, vg0 = args[:4]
 
-            def launch(inst):
-                return tracer._run_rk4_cuda(*args, inst)
+        def launch(inst):
+            return tracer._run_rk4_cuda(*args, inst)
 
-            def same_as(out):
-                return all(same(a, b) for a, b in zip(out, plain))
+        def same_as(out):
+            return all(same(a, b) for a, b in zip(out, ref))
 
-            if dtype == torch.float64:
-                for inst in kernels.INSTANCES:
-                    check(same_as(launch(inst)),
-                          f"{tag}: instance {inst} differs from the plain run")
-                print(f"{tag}: R={y0.shape[1]}, {cfg.nt - 1} steps, every "
-                      f"instance bitwise equal to the plain run; plain "
-                      f"{plain_ms:.1f} ms")
-                continue
-            ms = cuda_ms(lambda: tracer._run_rk4_cuda(*args), 3)
-            b = rk4_bound(bg, y0, ug0, vg0, kern, dtype)
-            alive = float(kern[0][-1, 0].isfinite().float().mean())
-            print(f"{tag}: R={y0.shape[1]}, {cfg.nt - 1} steps, bitwise equal "
-                  f"to the plain run; kernel {ms:.3f} ms (CUDA events), plain "
-                  f"{plain_ms:.1f} ms; bound {b['bound_ms']:.4f} ms "
-                  f"({b['bound_by']}); lanes alive at the end {alive:.4f}")
-            in_turns(run, tag, launch, 3, same_as)
-            print_choice(run, tag, tracer.rk4_instance(y0.shape[1], dtype))
+        ms = cuda_ms(lambda: tracer._run_rk4_cuda(*args), 3)
+        b = rk4_bound(bg, y0, ug0, vg0, kern, dtype)
+        alive = float(kern[0][-1, 0].isfinite().float().mean())
+        on = (f" on its first {N_SUBSET} lanes" if ref is not plain
+              else "")
+        print(f"{tag}: R={y0.shape[1]}, {cfg.nt - 1} steps, bitwise equal "
+              f"to the plain run{on}; kernel {ms:.3f} ms (CUDA events), plain "
+              f"{plain_ms:.1f} ms; bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}); lanes alive at the end {alive:.4f}")
+        in_turns(run, tag, launch, 3, same_as)
+        print_choice(run, tag, tracer.rk4_instance(y0.shape[1], dtype))
+        floor = rk4_floor(run, args, kern, tag)
+        if dtype == f32:
             run.rk4[name] = (idx, kern)
-            if name == "production":
-                err = max(float(torch.nan_to_num(torch.abs(k - p),
-                                                 nan=0.0).max())
-                          for k, p in zip(kern, plain))
-                run.kernels["rk4_run"] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    library_ms=None, **b)
+        elif name == "default":
+            run.rk4["default float64"] = (idx, kern)
+        entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                     library_ms=None, chain_floor_ms=floor, **b)
+        if (name, dtype) == ("production", f32):
+            run.kernels["rk4_run"] = entry
+        elif (name, dtype) == ("default", f64):
+            run.kernels["rk4_run_f64"] = entry
+        del kern, ref, plain
 
 
 def exact_bound(args, out, dtype, attempts, crossings):
@@ -2407,11 +2458,14 @@ def check_rows(traj, idx, kern, what):
 
 
 def phase_rk4_path(run):
-    """The two RK4 runs through ``trace_rays``: ``RunConfig()`` (6,615
-    rays, 90 days) and the production seeding (100,800 rays, 30 days). The
-    kernels line reports the production run's launches."""
+    """The RK4 runs through ``trace_rays``: ``RunConfig()`` (6,615 rays, 90
+    days) over the float32 and the float64 background, and the production
+    seeding (100,800 rays, 30 days). The kernels line reports the
+    production run's launches and the float64 default run's."""
     for name, cfg, kw in (
             ("default", default_config(run.rt), {}),
+            ("default float64", in_float64(default_config(run.rt)),
+             dict(bs=run.bs(run.torch.float64))),
             ("production", rk4_production_config(run.rt),
              dict(source_lon=run.slon, source_lat=run.slat))):
         traj, launches, wall, peak, stats, refused = traced(
@@ -2425,7 +2479,9 @@ def phase_rk4_path(run):
               f"{wall:.3f} s, peak device memory {peak:.1f} MiB above the "
               f"prepared state, alive fraction at the end {alive:.4f}; "
               f"launches {launches}; rows bitwise equal to the rk4 phase's")
-        run.launches["rk4_run"] = launches["rk4_run"]
+        run.launches["rk4_run_f64" if name == "default float64"
+                     else "rk4_run"] = launches["rk4_run"]
+        del traj
 
 
 def phase_exact_path(run):
@@ -2836,6 +2892,7 @@ def phase_mixed_rk4(run):
 
         in_turns(run, tag, launch, 3, same_as)
         print_choice(run, tag, tracer.rk4_instance(y0.shape[1], key))
+        floor = rk4_floor(run, args, kern, tag)
         traj, launches, wall, peak, stats, refused = traced(
             run, mixed(cfg), "rk4_run", **kw)
         check(refused is None and not stats, "an rk4 run filled stats")
@@ -2849,7 +2906,7 @@ def phase_mixed_rk4(run):
                       for k, p in zip(kern, plain))
             run.kernels["rk4_run_mix"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                **b)
+                chain_floor_ms=floor, **b)
             run.launches["rk4_run_mix"] = launches["rk4_run"]
 
 
@@ -3342,6 +3399,7 @@ def rk4_record(run, key, what, traj_call):
     key_dt = kernels.state_key(y0, bg.fields)
     b = rk4_bound(bg, y0, ug0, vg0, out,
                   "mixed" if key_dt[0] != key_dt[1] else y0.dtype)
+    floor = rk4_floor(run, args, out, what)
     print(f"{what}: R={y0.shape[1]}, {nt - 1} steps over {stack_of(bg)}; "
           f"wall {wall:.3f} s, peak device memory {peak:.1f} MiB, launches "
           f"{launches}; kernel {ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
@@ -3350,7 +3408,7 @@ def rk4_record(run, key, what, traj_call):
           f"({plain_ms:.1f} ms) and to the full run; instance "
           f"{tracer.rk4_instance(y0.shape[1], key_dt, '_time')}")
     run.kernels[key] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                            library_ms=None, **b)
+                            library_ms=None, chain_floor_ms=floor, **b)
     run.launches[key] = launches["rk4_run"]
     return traj
 
@@ -5287,6 +5345,8 @@ KERNELS = (
     ("spectral", "rwrt_tpu_torch/csrc/spectral.cu",
      "rwrt_tpu/ops/spectral_sample.py:324"),
     ("rk4_run", "rwrt_tpu_torch/csrc/rk4_run.cu", "rwrt_tpu/tracer.py:819"),
+    ("rk4_run_f64", "rwrt_tpu_torch/csrc/rk4_run.cu",
+     "rwrt_tpu/tracer.py:819"),
     ("exact_group", "rwrt_tpu_torch/csrc/exact_run.cu",
      "rwrt_tpu/solvers/rk45.py:302"),
     ("exact_run", "rwrt_tpu_torch/csrc/exact_run.cu",

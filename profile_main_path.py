@@ -8,6 +8,8 @@
                                  [--tree DIR]
                                  [--kernels [--schedules 8:0,64:32]]
                                  [--exact] [--only REGEX] [--flux]
+                                 [--rk4 [--variants no_gv,no_rows]]
+                                 [--others]
 
 Runs chip_smoke.py's production seeding (100,800 rays, 30 days, float32)
 through ``rwrt_tpu_torch.trace_rays`` with one of three integrators:
@@ -69,6 +71,40 @@ longest lane alone, R = 1, in each instance); every instance's rows
 bitwise equal; and the registers and spills of every exact kernel in
 the build's ``nvcc.log``. ``--schedules`` times the repacked shapes under
 each schedule listed too, as with ``--kernels``.
+
+``--rk4`` times the whole-run RK4 kernel alone instead (CUDA events, the
+median of ``--runs`` means of 3 launches, each instance in turns: Lane,
+Split, Split, Lane) at the shapes of its rows: the default run
+(``RunConfig()``: 4,288 lanes, 1,080 steps) and the production seeding
+(60,784 lanes, 360 steps), each in float32, float64 and mixed precision;
+the default run over 91 daily frames in the three; two time-varying
+members (8,864 lanes, 360 steps); and for the team's window the
+production seeding's first ``RK4_WINDOW_LANES`` lanes in the three and
+the members' first two of those counts. Beside
+each: the bound (chip_smoke's ``rk4_bound``), the instance the launcher
+takes, every instance's rows bitwise equal, and the chain floor (the lane
+alive longest alone, R = 1, in each instance); then the registers and
+spills of every RK4 kernel in the build's ``nvcc.log``. ``--variants``
+also builds the tree's RK4 units with one part of a step taken out
+(``RK4_VARIANTS``: no (ug, vg) sample, no row stores but the last step's;
+measurement builds, in a temporary directory, never part of the package)
+and times each shape and its lone lane in both instances under them.
+
+``--others`` times the other kernels that share ``csrc/ray_rhs.cuh``'s
+sample instead, so that an edit there can be held to a parent tree in
+turns (CUDA events, the median of ``--runs`` means of 3 launches, unless
+named): the whole-run dense kernel at ``--kernels``' shapes; the entry
+stage (``tracer.entry_stage``) on the production seeding's entry lanes
+in float32, float64 and mixed precision, and the RHS kernel (``ray.rhs``,
+``ray.rhs_and_gv``) in float32 and float64, each the kernel's mean
+device time by torch.profiler and its wrapper's by CUDA events (means of
+50 calls); the interval kernel
+(``rk45._integrate_interval_cuda``) from those lanes at t = 0 to
+``OTHERS_INTERVAL_DAYS`` days, at ``OTHERS_INTERVAL_LANES`` lanes, each
+instance in turns (Lane, Split, Split, Lane), every instance's state and
+trips equal. Beside each a digest of its outputs, equal between trees
+that give the same bits. ``--only REGEX`` keeps the rows whose
+"kernel shape" it matches.
 
 ``--flux`` times the flux binning alone instead (``flux._accumulate_cuda``,
 and the region pass before it, ``flux._region_cuda``; CUDA events, the
@@ -194,6 +230,9 @@ def main() -> int:
     ap.add_argument("--exact", action="store_true")
     ap.add_argument("--only", default="")
     ap.add_argument("--flux", action="store_true")
+    ap.add_argument("--rk4", action="store_true")
+    ap.add_argument("--variants", default="")
+    ap.add_argument("--others", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -211,6 +250,10 @@ def main() -> int:
         return exact_kernels(torch, rt, args)
     if args.flux:
         return flux_binning(torch, rt, args)
+    if args.rk4:
+        return rk4_kernels(torch, rt, args)
+    if args.others:
+        return other_kernels(torch, rt, args)
     from rwrt_tpu_torch.tracer import MaxItersTruncation
 
     print(subprocess.run(
@@ -604,6 +647,346 @@ def exact_kernels(torch, rt, args):
             fh.write(json.dumps(rec) + "\n")
     return 0
 
+
+#: Lane counts (the production seeding's first lanes) at which ``--rk4``
+#: times the instances in each precision, for the team's window.
+RK4_WINDOW_LANES = (2048, 6144, 8192, 16384, 32768)
+#: ``--variants``: measurement builds of the RK4 kernel, each the tree's
+#: ``csrc/rk4_run.cu`` (or the file a substitution names first) with
+#: (pattern, replacement) substitutions, each made wherever its pattern
+#: occurs; each variant lists its substitutions for each text of the
+#: kernel it was measured on (this tree's, and the parent's, 251db8e, for
+#: PERF.md's parent columns), the first whose every pattern occurs taken;
+#: a text that none fits is refused. ``no_gv``: a row's (ug, vg) are its
+#: kx and ky, no sample (the last row's is kept); ``no_rows``: a launch
+#: stores only its last rows; ``no_trig``: the evaluation's sin and cos of
+#: the latitude replaced by a multiply-add; ``no_div``: every division of
+#: an evaluation a multiplication. Their values differ from the kernel's:
+#: they only time what a part of the step costs.
+_RHS = "ray_rhs.cuh"
+RK4_VARIANTS = {
+    "no_gv": (
+        ((r"rwrt::ray_rhs<F, I>\(bg, ys, t_a, k1, &m1, &ug, &vg\);",
+          "rwrt::ray_rhs<F, I>(bg, ys, t_a, k1, &m1); ug = yl[2]; "
+          "vg = yl[3];"),
+         (r"rwrt::group_velocity_at<S, F, I>\(bg, yl, t_gv, &ug, &vg\);",
+          "ug = yl[2]; vg = yl[3];"),
+         (r"rwrt::group_velocity_at<S, F, I>\(bg, yn, t_end, &ug, &vg\);",
+          "ug = yn[2]; vg = yn[3];")),
+        ((r"rwrt::group_velocity_at<S, F, I>\(bg, yn, t_end, &ug, &vg\);",
+          "ug = yn[2]; vg = yn[3];"),)),
+    "no_rows": (
+        ((r"if \(s > 0\) store\(a\.row_offset \+ s - 1, yl, ug, vg\);",
+          "if (s > 0 && s + 1 == a.n_steps) "
+          "store(a.row_offset + s - 1, yl, ug, vg);"),
+         (r"store\(a\.row_offset \+ s, yn, ug, vg\);",
+          "if (s + 1 == a.n_steps) store(a.row_offset + s, yn, ug, vg);")),
+        ((r"store\(a\.row_offset \+ s, yn, ug, vg\);",
+          "if (s + 1 == a.n_steps) store(a.row_offset + s, yn, ug, vg);"),)),
+    "no_trig": (
+        ((_RHS, r"sincos\(lat, &sin_phi, &cos_phi\);",
+          "sin_phi = lat; cos_phi = T(1) - lat * lat;"),),),
+    "no_div": (
+        ((_RHS, r"q\[j\] = num\[j\] / den\[j\];",
+          "q[j] = num[j] * den[j];"),
+         (_RHS, r"const T mine = n / d;", "const T mine = n * d;"),
+         (_RHS, r"two_pi\) / T\(bg\.dx\)", "two_pi) * T(bg.dx)"),
+         (_RHS, r"\(lat - T\(bg\.lat0\)\) / T\(bg\.dy\)",
+          "(lat - T(bg.lat0)) * T(bg.dy)"),
+         (_RHS, r"tan_phi = sin_phi / cosm;", "tan_phi = sin_phi * cosm;"),
+         (_RHS, r"kap = ky_q / kx_q;", "kap = ky_q * kx_q;"),
+         (_RHS, r"g\.kap = mwn / zwn;", "g.kap = mwn * zwn;")),
+        ((_RHS, r"q\[j\] = num\[j\] / den\[j\];",
+          "q[j] = num[j] * den[j];"),
+         (_RHS, r"const T mine = n / d;", "const T mine = n * d;"),
+         (_RHS, r"tan_phi = sin_phi / cosm;", "tan_phi = sin_phi * cosm;"))),
+}
+
+
+def rk4_variant_library(tree, name):
+    """The RK4 units of ``tree`` (a checkout's ``rwrt_tpu_torch``) built
+    with ``RK4_VARIANTS[name]`` applied, and the RHS unit for the error
+    strings, into a library in a temporary directory; returns (the ctypes
+    library with the RK4 entry points' signatures set, registers and spills
+    of its kernels as ``chip_smoke.registers`` gives them)."""
+    import ctypes
+    import shutil
+    import tempfile
+
+    from rwrt_tpu_torch.kernels import build
+
+    tmp = Path(tempfile.mkdtemp(prefix=f"rk4_{name}_"))
+    shutil.copytree(Path(tree) / "csrc", tmp / "csrc")
+    texts = {}
+    for subs in RK4_VARIANTS[name]:
+        subs = [s if len(s) == 3 else ("rk4_run.cu",) + s for s in subs]
+        for f, _, _ in subs:
+            texts.setdefault(f, (tmp / "csrc" / f).read_text())
+        if all(re.search(pattern, texts[f]) for f, pattern, _ in subs):
+            for f, pattern, repl in subs:
+                texts[f] = re.sub(pattern, repl, texts[f])
+            break
+    else:
+        raise RuntimeError(f"variant {name}: no form of its substitutions "
+                           "matches this tree's sources")
+    for f, text in texts.items():
+        (tmp / "csrc" / f).write_text(text)
+    nvcc = build.find_nvcc()
+    units = sorted((tmp / "csrc").glob("rk4_run*.cu")) + [
+        tmp / "csrc" / "rhs.cu"]
+    jobs = [(u, subprocess.Popen(
+        [nvcc, *build.NVCC_FLAGS, "-c", "-o", str(u.with_suffix(".o")),
+         str(u)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)) for u in units]
+    log = "\n".join(proc.communicate()[0] for _, proc in jobs)
+    if any(proc.returncode for _, proc in jobs):
+        raise RuntimeError(f"variant {name}: nvcc failed\n{log}")
+    lib_path = tmp / build.LIB_NAME
+    subprocess.run([nvcc, *build.ARCH, "-shared", "-o", str(lib_path),
+                    *(str(u.with_suffix(".o")) for u in units)], check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    for suffix in ("_f32", "_f64", "_mix"):
+        for fn_name, sig in build.SIGNATURES.items():
+            if fn_name.startswith("rwrt_rk4") and hasattr(
+                    lib, fn_name + suffix):
+                fn = getattr(lib, fn_name + suffix)
+                fn.argtypes, fn.restype = list(sig), ctypes.c_int
+    lib.rwrt_error_string.argtypes = [ctypes.c_int]
+    lib.rwrt_error_string.restype = ctypes.c_char_p
+    return lib, cs.registers("rk4", log)
+
+
+def rk4_shapes(torch, rt, run):
+    """The whole-run RK4 kernel's arguments (bg, y0, ug0, vg0, dt, nt,
+    cut_off) at each shape, with the dtype key ``rk4_bound`` takes."""
+    from rwrt_tpu_torch.solvers import rk45
+
+    f32, f64 = torch.float32, torch.float64
+    precisions = (("float32", f32, None), ("float64", f64, None),
+                  ("mixed", f32, f64))
+    shapes = {}
+    for name, cfg in (("default", cs.default_config(rt)),
+                      ("production", cs.rk4_production_config(rt))):
+        for tag, dtype, state in precisions:
+            bg, y0, ug0, vg0, _ = run.entry(
+                dtype, cfg if name == "default" else None, state)
+            sdt = state or dtype
+            a = (bg, y0, ug0, vg0, rk45.as_scalar(cfg.tstep, sdt), cfg.nt,
+                 rk45.as_scalar(cfg.cut_off_rad, sdt))
+            shapes[f"{name} {tag}"] = (a, "mixed" if state else dtype)
+    cfg = dataclasses.replace(cs.default_config(rt),
+                              ttotal=cs.LONG_DAYS * cs.DAY)
+    month = dataclasses.replace(cs.default_config(rt),
+                                ttotal=cs.TV_DAYS * cs.DAY)
+    cases = []
+    for (tag, dtype, state), c, m in zip(
+            precisions, (cfg, cs.in_float64(cfg), cs.mixed(cfg)),
+            (month, cs.in_float64(month), cs.mixed(month))):
+        key = "mixed" if state else dtype
+        cases.append((f"default time {tag}, 91 frames", rt.trace_rays,
+                      cs.tv_state(run, cs.LONG_DAYS + 1, dtype), c,
+                      dict(auto_chunk_bytes=None), key, False))
+        members = [cs.tv_state(run, cs.TV_DAYS + 1, dtype, sc, ph)
+                   for sc, ph in zip(cs.MEMBER_SCALES[:2],
+                                     cs.MEMBER_PHASES[:2])]
+        cases.append((f"2 time-varying members {tag}, 30 d",
+                      rt.trace_rays_ensemble, members, m, {}, key, True))
+    for name, driver, bs, c, kw, key, window in cases:
+        with cs.captured(run, "_run_rk4") as cap:
+            driver(bs, c, **kw)
+        shapes[name] = (cap.calls[0][0], key)
+        if window:
+            # The time instance's window: the members' first lanes.
+            for n in RK4_WINDOW_LANES[:2]:
+                shapes[f"{name}, first {n} lanes"] = (cs.lane_pick(
+                    cap.calls[0][0], torch.arange(n, device=run.dev)), key)
+    for tag, _, _ in precisions:
+        a, key = shapes[f"production {tag}"]
+        for n in RK4_WINDOW_LANES:
+            shapes[f"production {tag}, first {n} lanes"] = (
+                cs.lane_subset(a, n), key)
+    return shapes
+
+
+def rk4_kernels(torch, rt, args):
+    """``--rk4``: see the head of this file."""
+    from rwrt_tpu_torch import kernels, tracer
+    from rwrt_tpu_torch.models import ray
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    run = cs.Run(torch, rt)
+    tree = Path(rt.__file__).parent
+    print(f"tree {tree}", flush=True)
+    shapes = {name: s for name, s in rk4_shapes(torch, rt, run).items()
+              if re.search(args.only, name)}
+    regs = cs.registers("rk4")
+    print(json.dumps({"registers": {n: list(r) for n, r in regs.items()}}),
+          flush=True)
+    turns = ("lane", "split8", "split8", "lane")
+    rows, lone = [], {}
+    for name, (a, dkey) in shapes.items():
+        bg, y0 = a[0], a[1]
+        key = kernels.state_key(y0, bg.fields)
+        r = y0.shape[1]
+        variant = ray.kernel_background(bg, y0.device, key[1], r)[0]
+        out = tracer._run_rk4(*a)
+        b = cs.rk4_bound(bg, y0, a[2], a[3], out, dkey)
+        rec = dict(shape=name, lanes=r, steps=a[5] - 1,
+                   launcher=tracer.rk4_instance(r, key, variant), **b)
+        ms = {inst: [] for inst in cs.INSTANCE_THREADS}
+        for inst in turns:
+            got = tracer._run_rk4_cuda(*a, inst)
+            cs.check(all(cs.same(x, y) for x, y in zip(got, out)),
+                     f"{name}: instance {inst} differs")
+            ms[inst].append(median_ms(
+                lambda: tracer._run_rk4_cuda(*a, inst), args.runs))
+        for inst in cs.INSTANCE_THREADS:
+            rec[f"{inst}_ms"] = ms[inst]
+        # Every lane takes every step; the lane alive longest is the chain.
+        lane = int(out[0][:, 0].isfinite().sum(dim=0).argmax())
+        one = cs.lane_pick(a, torch.tensor([lane], device=y0.device))
+        lone[name] = one
+        for inst in turns:
+            alone = tracer._run_rk4_cuda(*one, inst)
+            cs.check(cs.same(alone[0], out[0][..., lane:lane + 1]),
+                     f"{name}: the lane alone differs")
+            rec.setdefault(f"lone_{inst}_ms", []).append(median_ms(
+                lambda: tracer._run_rk4_cuda(*one, inst), args.runs))
+        rec["chain_floor_ms"] = min(min(rec[f"lone_{i}_ms"])
+                                    for i in cs.INSTANCE_THREADS)
+        rec["us_per_step_floor"] = rec["chain_floor_ms"] * 1e3 / rec["steps"]
+        print(json.dumps(rec), flush=True)
+        rows.append(rec)
+        del out
+    for vname in [v for v in args.variants.split(",") if v]:
+        lib, vregs = rk4_variant_library(tree, vname)
+        print(json.dumps({"variant": vname, "registers": {
+            n: list(r) for n, r in vregs.items()}}), flush=True)
+        built = kernels.library
+        kernels.library = lambda: lib
+        try:
+            for name, (a, _) in shapes.items():
+                rec = dict(variant=vname, shape=name)
+                for inst in cs.INSTANCE_THREADS:
+                    rec[f"{inst}_ms"] = median_ms(
+                        lambda: tracer._run_rk4_cuda(*a, inst), args.runs)
+                    rec[f"lone_{inst}_ms"] = median_ms(
+                        lambda: tracer._run_rk4_cuda(*lone[name], inst),
+                        args.runs)
+                print(json.dumps(rec), flush=True)
+                rows.append(rec)
+        finally:
+            kernels.library = built
+    args.out.mkdir(parents=True, exist_ok=True)
+    with open(args.out / "rk4_kernels.jsonl", "a") as fh:
+        for rec in rows:
+            fh.write(json.dumps(dict(rec, tree=str(tree))) + "\n")
+    return 0
+
+
+#: ``--others``: the interval kernel's bound (days from the entry) and the
+#: lane counts of its launches (the production seeding's first lanes).
+OTHERS_INTERVAL_DAYS = 30
+OTHERS_INTERVAL_LANES = (2048, 60784)
+
+
+def digest(*tensors):
+    """The first 16 hex digits of the sha256 of the tensors' bytes, so that
+    two trees' outputs can be seen to be equal."""
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def other_kernels(torch, rt, args):
+    """``--others``: see the head of this file."""
+    from rwrt_tpu_torch import kernels, tracer
+    from rwrt_tpu_torch.models import ray
+    from rwrt_tpu_torch.solvers import rk45
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    run = cs.Run(torch, rt)
+    print(f"tree {Path(rt.__file__).parent}", flush=True)
+    rows = []
+
+    def emit(rec):
+        if re.search(args.only, f"{rec['kernel']} {rec['shape']}"):
+            print(json.dumps(rec), flush=True)
+            rows.append(rec)
+
+    for name, (a, kw) in dense_shapes(torch, rt, run).items():
+        if not re.search(args.only, f"dense {name}"):
+            continue
+        out = tracer._dense_run(*a, **kw)
+        emit(dict(kernel="dense", shape=name, lanes=a[1].shape[1],
+                  ms=median_ms(lambda: tracer._dense_run(*a, **kw),
+                               args.runs),
+                  rows=digest(out.ys, out.ugs, out.vgs, out.lane_att)))
+        del out
+    cfg = cs.production_config(rt)
+    for tag, dtype, state in (("float32", torch.float32, None),
+                              ("float64", torch.float64, None),
+                              ("mixed", torch.float32, torch.float64)):
+        bg, y0, _, _, _ = run.entry(dtype, None, state)
+        sdt = state or dtype
+        r = y0.shape[1]
+        tol = (rk45.validate_tol(cfg.rtol, sdt), rk45.as_scalar(cfg.atol, sdt))
+
+        def entry():
+            return tracer.entry_stage(bg, y0, 0.0, *tol)
+
+        h0, f0 = entry()
+        emit(dict(kernel="entry", shape=f"production {tag}", lanes=r,
+                  kernel_us=cs.launch_parts(entry, ["entry_kernel"]).get(
+                      "entry_kernel"),
+                  wrapper_ms=cs.cuda_ms(entry, 50), rows=digest(h0, f0)))
+        if state is not None:
+            continue  # the RHS and interval kernels have no mixed instance
+        for gv in (False, True):
+            def rhs():
+                return (ray.rhs_and_gv if gv else ray.rhs)(bg, y0)
+
+            emit(dict(kernel="rhs" + ("_and_gv" if gv else ""),
+                      shape=f"production {tag}", lanes=r,
+                      kernel_us=cs.launch_parts(rhs, ["rhs_kernel"]).get(
+                          "rhs_kernel"),
+                      wrapper_ms=cs.cuda_ms(rhs, 50), rows=digest(*rhs())))
+        step = rk45.as_scalar(min(cfg.min_step_factor * cfg.tstep,
+                                  cfg.tstep * 1e-3), sdt)
+        for n in OTHERS_INTERVAL_LANES:
+            e = [x[..., :n].contiguous() for x in (
+                y0, torch.zeros(r, dtype=sdt, device=run.dev), h0)]
+
+            def interval(inst):
+                return rk45._integrate_interval_cuda(
+                    bg, *e, OTHERS_INTERVAL_DAYS * cs.DAY, *tol, step,
+                    max_iters=10_000, instance=inst)
+
+            out = interval("lane")
+            rec = dict(kernel="interval", shape=f"production {tag}, first "
+                       f"{n} lanes, {OTHERS_INTERVAL_DAYS} d", lanes=n,
+                       launcher=rk45.interval_instance(n, dtype),
+                       trips=int(out[5].sum()), rows=digest(out[0], out[5]))
+            for inst in ("lane", "split8", "split8", "lane"):
+                got = interval(inst)
+                cs.check(cs.same(got[0], out[0])
+                         and torch.equal(got[5], out[5]),
+                         f"interval {n}: instance {inst} differs")
+                rec.setdefault(f"{inst}_ms", []).append(median_ms(
+                    lambda: interval(inst), args.runs))
+            emit(rec)
+    args.out.mkdir(parents=True, exist_ok=True)
+    with open(args.out / "other_kernels.jsonl", "a") as fh:
+        for rec in rows:
+            fh.write(json.dumps(dict(rec, tree=rt.__file__)) + "\n")
+    return 0
 
 
 def flux_binning(torch, rt, args):

@@ -27,23 +27,26 @@
 // Design. Every NaN rule is an explicit mask (never IEEE propagation), as
 // in the plain version, so kx = 0 or infinite inputs give the same NaN
 // pattern. The sample-independent terms (the latitude's sin and cos, the
-// wavenumber ratios and denominators) are computed before the gather so
-// that they may overlap its latency, and floor_mod skips fmod where it is
-// the identity. How a lane's evaluation spreads over threads is the
+// wavenumber ratios, divided beside the cell) are computed before the
+// gather so that they may overlap its latency, and floor_mod skips fmod
+// where it is the identity. How a lane's evaluation spreads over threads is the
 // kernel's INSTANCE, a template argument of every function that samples
 // the background:
 //   Lane      one thread per lane: the row by 12 (float32) or 24 (float64)
-//             16-byte loads of its own, and the evaluation's 10-12 IEEE
+//             16-byte loads of its own, and the evaluation's 14-17 IEEE
 //             divisions one after another. The dense and RHS kernels, and
 //             the RK4 and exact kernels where the lanes fill the card or
 //             are few.
 //   Split     8 threads per lane, an aligned group of a warp: six owner
 //             threads each load and lerp 2 of the 12 fields (8-byte or
-//             16-byte loads); each IEEE division of the Mercator transform
-//             (4), of group velocity and the tendencies (6) and of a raw
-//             group velocity (2) runs on its own thread, one division
-//             instruction for the warp; shuffles give every thread of the
-//             team all fields and all quotients. Everything else runs
+//             16-byte loads); the evaluation's IEEE divisions run in three
+//             groups, each division of a group on its own thread, one
+//             division instruction for the warp: the cell's two beside the
+//             wavenumber ratios (kap, and a raw group velocity's), the
+//             Mercator transform's four beside tan(lat), and those of
+//             group velocity and the tendencies (6) and of a raw group
+//             velocity (2); shuffles give every thread of the team all
+//             fields and all quotients. Everything else runs
 //             identically in every thread of the team, so the team never
 //             diverges and the state needs no broadcast. For launches of
 //             some dozens to a few thousand lanes, where it shortens the
@@ -248,6 +251,10 @@ __device__ __forceinline__ S lerp4(F c00, F c10, F c01, F c11,
 struct Lane {
   static constexpr int kThreads = 1;
   static constexpr int kId = 0;
+  // tan(lat)'s division ahead of the gather, where it overlaps the row's
+  // loads: the lane's divisions run one after another, so beside the
+  // Mercator transform's it would lengthen the chain (PERF.md section 6).
+  static constexpr bool kTanAhead = true;
   static __device__ __forceinline__ bool lead() { return true; }
   // A branch decision the lane's threads take as one: its own.
   static __device__ __forceinline__ bool uniform(bool x) { return x; }
@@ -275,6 +282,8 @@ struct Lane {
 struct Split {
   static constexpr int kThreads = 8;
   static constexpr int kId = 8;
+  // tan(lat)'s division beside the Mercator transform's: one wait fewer.
+  static constexpr bool kTanAhead = false;
   // Owner threads and the fields each lerps: 6 x 2.
   static constexpr int kOwners = 6;
   static constexpr int kPer = kHot / kOwners;
@@ -416,14 +425,22 @@ struct GvTerms {
   bool nk, nm;
 };
 
+// The operands of their one division, kap = mwn / zwn (the caller makes
+// it beside the sample's cell's: cell_operands), ...
 template <typename T>
-__device__ __forceinline__ GvTerms<T> gv_terms(T kx, T ky) {
+__device__ __forceinline__ void gv_ratio(T kx, T ky, T* mwn, T* zwn) {
+  *zwn = isnan(kx) ? T(1) : kx;
+  *mwn = isnan(ky) ? T(0) : ky;
+}
+
+// ... and the terms from its quotient.
+template <typename T>
+__device__ __forceinline__ GvTerms<T> gv_terms(T kx, T ky, T kap) {
   GvTerms<T> g;
   g.nk = isnan(kx);
   g.nm = isnan(ky);
   const T zwn = g.nk ? T(1) : kx;
-  const T mwn = g.nm ? T(0) : ky;
-  g.kap = mwn / zwn;
+  g.kap = kap;
   g.kap2 = g.kap * g.kap;
   const T kap1 = T(1) + g.kap2;
   g.denom = zwn * zwn * kap1 * kap1;
@@ -467,18 +484,30 @@ __device__ __forceinline__ void lerp_frames(const Background<F, true>& bg,
   for (int c = 0; c < kHot; ++c) raw[c] = r0[c] * w0 + r1[c] * w1;
 }
 
-// Mercator sample of the 12 hot fields at a (sanitized) position of type
-// T, at time t, over a background of type F (T = F in the RHS; T = S for
-// a saved state's (ug, vg), where the grid scalars and the corners widen
-// to T). f[] receives the M_* fields, fn[] their NaN flags; cos/sin of lat
-// are returned for reuse.
+// The operands of a sample's two cell divisions at a (sanitized) position
+// of type T: ix = num[0] / den[0], iy = num[1] / den[1]. The caller
+// divides them with its own that need no sample, as one group (one
+// division wait in a team), and passes the quotients to sample_mercator.
+template <typename T, typename F, bool kTime>
+__device__ __forceinline__ void cell_operands(const Background<F, kTime>& bg,
+                                              T lon, T lat, T num[2],
+                                              T den[2]) {
+  num[0] = floor_mod(lon - T(bg.lon0), T(2.0 * kPi));
+  den[0] = T(bg.dx);
+  num[1] = lat - T(bg.lat0);
+  den[1] = T(bg.dy);
+}
+
+// Mercator sample of the 12 hot fields at the cell coordinates (ix, iy)
+// of a (sanitized) position of type T and its latitude, at time t, over a
+// background of type F (T = F in the RHS; T = S for a saved state's (ug,
+// vg), where the grid scalars and the corners widen to T). f[] receives
+// the M_* fields, fn[] their NaN flags; cos/sin of lat are returned for
+// reuse.
 template <typename T, typename F, class I = Lane, bool kTime = false>
 __device__ __forceinline__ void sample_mercator(
-    const Background<F, kTime>& bg, T lon, T lat, T t, T f[kHot],
+    const Background<F, kTime>& bg, T ix, T iy, T lat, T t, T f[kHot],
     bool fn[kHot], T* cos_out, T* sin_out) {
-  const T two_pi = T(2.0 * kPi);
-  T ix = floor_mod(lon - T(bg.lon0), two_pi) / T(bg.dx);
-  T iy = (lat - T(bg.lat0)) / T(bg.dy);
   int x0 = cell_index(ix, bg.W);
   int y0 = cell_index(iy, bg.H);
   T sx = ix - T(x0);
@@ -488,7 +517,8 @@ __device__ __forceinline__ void sample_mercator(
   sincos(lat, &sin_phi, &cos_phi);
   bool live = !(fabs(cos_phi) <= T(kPolarCosCap));
   T cosm = live ? cos_phi : T(1e-6);
-  T tan_phi = sin_phi / cosm;
+  T tan_phi = T(0);
+  if constexpr (I::kTanAhead) tan_phi = sin_phi / cosm;
   const T w[4] = {(T(1) - sx) * sy, sx * sy, (T(1) - sx) * (T(1) - sy),
                   sx * (T(1) - sy)};
   T raw[kHot];
@@ -507,11 +537,13 @@ __device__ __forceinline__ void sample_mercator(
     if (!in_range) raw[c] = nan_value<T>();
   }
 
-  // Field order: u v ux uy vx vy qx qy qxx qxy qyx qyy.
-  const T num[4] = {raw[0], raw[1], raw[2], raw[4]};
-  const T den[4] = {cosm, cosm, cosm, cosm};
-  T q[4];
-  I::template divide<T, 4>(num, den, q);
+  // Field order: u v ux uy vx vy qx qy qxx qxy qyx qyy. The transform's
+  // four divisions as one group, with tan(lat)'s unless it went ahead.
+  const T num[5] = {raw[0], raw[1], raw[2], raw[4], sin_phi};
+  const T den[5] = {cosm, cosm, cosm, cosm, cosm};
+  T q[5];
+  I::template divide<T, I::kTanAhead ? 4 : 5>(num, den, q);
+  if constexpr (!I::kTanAhead) tan_phi = q[4];
   T fmqyx = raw[9] * cosm;
   f[0] = q[0];
   f[1] = q[1];
@@ -554,19 +586,29 @@ __device__ __forceinline__ void rhs_core(const Background<T, kTime>& bg,
   const T ky_q = bad ? T(0) : ky;
   const T amp_q = ampn ? T(0) : amp;
 
-  // The wavenumber terms do not need the sample: ahead of the gather.
-  const T kap = ky_q / kx_q;
+  // The divisions that need no sample, as one group: kap, (kGv) the raw
+  // group velocity's, and the sample's cell; the wavenumber terms from
+  // them ahead of the gather.
+  constexpr int N0 = kGv ? 4 : 3;
+  T num0[N0], den0[N0], q0[N0];
+  num0[0] = ky_q;
+  den0[0] = kx_q;
+  if constexpr (kGv) gv_ratio(kx, ky, &num0[1], &den0[1]);
+  cell_operands(bg, lon_q, lat_q, &num0[N0 - 2], &den0[N0 - 2]);
+  I::template divide<T, N0>(num0, den0, q0);
+  const T kap = q0[0];
   const T kap2 = kap * kap;
   const T kap1 = T(1) + kap2;
   const T kk = kx_q * kx_q * kap1;
   const T denom = kx_q * kx_q * kap1 * kap1;
   GvTerms<T> g{};
-  if constexpr (kGv) g = gv_terms(kx, ky);
+  if constexpr (kGv) g = gv_terms(kx, ky, q0[1]);
 
   T f[kHot];
   bool fn[kHot];
   T cos_q, sin_q;
-  sample_mercator<T, T, I>(bg, lon_q, lat_q, t, f, fn, &cos_q, &sin_q);
+  sample_mercator<T, T, I>(bg, q0[N0 - 2], q0[N0 - 1], lat_q, t, f, fn,
+                           &cos_q, &sin_q);
   T fq[kHot];
 #pragma unroll
   for (int c = 0; c < kHot; ++c) fq[c] = fn[c] ? T(0) : f[c];
@@ -647,12 +689,18 @@ template <typename T, typename F, class I = Lane, bool kTime = false>
 __device__ __forceinline__ void group_velocity_at(
     const Background<F, kTime>& bg, const T y[5], T t, T* ug, T* vg) {
   const bool posn = isnan(y[0]) || isnan(y[1]);
-  const GvTerms<T> g = gv_terms(y[2], y[3]);
+  // kap's division and the sample's cell's, as one group.
+  T num0[3], den0[3], q0[3];
+  gv_ratio(y[2], y[3], &num0[0], &den0[0]);
+  cell_operands(bg, posn ? T(0) : y[0], posn ? T(0) : y[1], &num0[1],
+                &den0[1]);
+  I::template divide<T, 3>(num0, den0, q0);
+  const GvTerms<T> g = gv_terms(y[2], y[3], q0[0]);
   T f[kHot];
   bool fn[kHot];
   T cos_q, sin_q;
-  sample_mercator<T, F, I>(bg, posn ? T(0) : y[0], posn ? T(0) : y[1], t, f,
-                           fn, &cos_q, &sin_q);
+  sample_mercator<T, F, I>(bg, q0[1], q0[2], posn ? T(0) : y[1], t, f, fn,
+                           &cos_q, &sin_q);
   T num[2], q[2];
   const T den[2] = {g.denom, g.denom};
   group_velocity_nums(fn[6] ? T(0) : f[6], fn[7] ? T(0) : f[7], g.kap,

@@ -16,27 +16,41 @@
 // 0.18 ms at 3.35 TB/s. Operations, counted from the sources: per step four
 // RHS evaluations of ~182 flops, 65 for the stage inputs and the update,
 // ~9 for the kill test's cheap bound and ~138 for the (ug, vg) sample: ~940
-// a step, 21 GFLOP there, 0.31 ms at the 67 TFLOP/s float32 peak. The real
+// a step (the plain version's work; the shared sample is counted too), 21
+// GFLOP there, 0.31 ms at the 67 TFLOP/s float32 peak. The real
 // floor is latency: each step is four dependent RHS evaluations (a
 // dependent 48-value gather from the L2-resident background, IEEE
-// divisions, sin and cos) and a fifth sample, and every lane takes every
-// step, so the launch lasts at least n_steps times the latency of one step
-// of a warp.
+// divisions, sin and cos), and every lane takes every step, so the launch
+// lasts at least n_steps times the latency of one step of a warp.
 //
 // Design: the JAX scan becomes a per-lane loop; nothing is read back to the
 // host. Every lane runs the same number of steps, so the warp stays
-// converged and (ug, vg) is sampled in the loop, right after the step. The
-// carry y is read at entry and written at exit, and step s goes to output
-// row row_offset + s, so a chunked driver can run the steps in pieces; with
-// ug0 / vg0 given, row row_offset - 1 receives the entry state and them
-// (the run's row 0). The scalar factors come rounded from the wrapper (dt,
-// 0.5 * dt and dt / 6 in T), as the plain version rounds them. Blocks of
-// 128 threads. The kernel is templated on the evaluation's instance
-// (ray_rhs.cuh: Lane, Split), which the wrapper chooses
-// (tracer.rk4_instance): 8 threads per lane for the launches of some
-// dozens to a few thousand lanes, one thread per lane elsewhere. In a
-// team every thread runs the same steps on the same state and its first
-// thread writes the rows.
+// converged. A row's (ug, vg) are group velocity at the new state, which
+// the next step's first evaluation samples too: with one type the
+// evaluation returns them (ray_rhs.cuh ray_rhs with ug_raw, vg_raw: the
+// same sample, and the RHS's NaN masks at a dead, bad or NaN-wavenumber
+// lane give group_velocity_at's), so no fifth sample sits on the step's
+// chain; a time instance shares it where the next step's time t_start +
+// (s + 1) dt equals the row's t_s + dt to the bit (every documented run:
+// whole-second steps), one test a step that every lane takes alike, and
+// samples apart elsewhere. In mixed precision the row's sample is at the
+// float64 state and the evaluation at its float rounding, so they cannot
+// share: the sample follows its step, as before (PERF.md section 6: issued
+// beside the next evaluation it gained ~1 %, and lost 0.8 % in Lane). Row
+// s is written in step s + 1 and the launch's last row after the loop,
+// but in mixed precision in step s. The carry y is read at entry and
+// written at exit, and step s goes to output row row_offset + s, so a
+// chunked driver can run the steps in pieces; with ug0 / vg0 given, row
+// row_offset - 1 receives the entry state and them (the run's row 0). The
+// scalar factors come rounded from the wrapper (dt, 0.5 * dt and dt / 6
+// in T), as the plain version rounds them. Blocks of 128 threads. The
+// kernel is templated on the evaluation's instance (ray_rhs.cuh: Lane,
+// Split), which the wrapper chooses (tracer.rk4_instance, by
+// kernels.RK4_TEAM_LANES): 8 threads per lane for the launches of some
+// dozens to a few thousand lanes, one thread per lane elsewhere. In a team
+// every thread runs the same steps on the same state, and thread v stores
+// the row's value v (5 and 6: ug, vg), so that a warp stores a row in one
+// instruction.
 //
 // Types: the state S (the carry, the stage inputs before their rounding,
 // the update, the kill test, (ug, vg) and the rows) and the background F
@@ -91,28 +105,52 @@ struct Rk4Args : Rk4Time<S, kTime> {
   S cut_off;
 };
 
+// The bits of a time, to test two for the same value (-0 and 0 apart).
+__device__ __forceinline__ long long time_bits(double t) {
+  return __double_as_longlong(t);
+}
+__device__ __forceinline__ long long time_bits(float t) {
+  return __float_as_int(t);
+}
+
 template <typename S, typename F, bool kTime, class I>
 __global__ void __launch_bounds__(rwrt::kBlock)
     rk4_kernel(const Rk4Args<S, F, kTime> a) {
+  constexpr bool kOneType = std::is_same<S, F>::value;
   const int i = (blockIdx.x * blockDim.x + threadIdx.x) / I::kThreads;
   if (i >= a.R) return;
   const auto& bg = rwrt::lane_background(a.bg, i);
-  const bool lead = I::lead();
   const long long RL = a.R;
   const S nan = rwrt::nan_value<S>();
 
   S yl[5];
 #pragma unroll
   for (int v = 0; v < 5; ++v) yl[v] = a.y[v * RL + i];
+  // Row r: the state and (ug, vg). A team spreads the seven stores over
+  // its threads, thread v storing value v, so that the warp stores a row
+  // in one instruction; one thread a lane stores all seven.
   auto store = [&](long long r, const S row[5], S ug, S vg) {
-    if (!lead) return;
+    if constexpr (I::kThreads == 1) {
 #pragma unroll
-    for (int v = 0; v < 5; ++v) a.ys[(r * 5 + v) * RL + i] = row[v];
-    a.ugs[r * RL + i] = ug;
-    a.vgs[r * RL + i] = vg;
+      for (int v = 0; v < 5; ++v) a.ys[(r * 5 + v) * RL + i] = row[v];
+      a.ugs[r * RL + i] = ug;
+      a.vgs[r * RL + i] = vg;
+    } else {
+      const S vals[7] = {row[0], row[1], row[2], row[3], row[4], ug, vg};
+      const S x = I::template own<S, 7>(vals);
+      const int v = I::rank();
+      S* const out = v < 5 ? a.ys + (r * 5 + v) * RL
+                           : (v == 5 ? a.ugs : a.vgs) + r * RL;
+      if (v < 7) out[i] = x;
+    }
   };
   if (a.ug0 != nullptr) store(a.row_offset - 1, yl, a.ug0[i], a.vg0[i]);
 
+  // One type: row s's (ug, vg) are sampled at step s + 1's state yl and
+  // time t_gv = t_s + dt, by step s + 1's first evaluation where it
+  // samples the same point (a time instance: where its time t_start +
+  // (s + 1) dt is t_gv to the bit); the last row's after the loop.
+  S t_gv = S(0);
   for (int s = 0; s < a.n_steps; ++s) {
     // The step's sample times (time instances only; a static sample reads
     // none): t, t + dt / 2 and t + dt, rounded to F for the RHS.
@@ -129,7 +167,19 @@ __global__ void __launch_bounds__(rwrt::kBlock)
     bool m1, m2, m3, m4;
 #pragma unroll
     for (int v = 0; v < 5; ++v) ys[v] = F(yl[v]);
-    rwrt::ray_rhs<F, I>(bg, ys, t_a, k1, &m1);
+    if constexpr (kOneType) {
+      S ug, vg;
+      // One test a step, the same in every lane.
+      if (kTime && s > 0 && time_bits(t) != time_bits(t_gv)) {
+        rwrt::group_velocity_at<S, F, I>(bg, yl, t_gv, &ug, &vg);
+        rwrt::ray_rhs<F, I>(bg, ys, t_a, k1, &m1);
+      } else {
+        rwrt::ray_rhs<F, I>(bg, ys, t_a, k1, &m1, &ug, &vg);
+      }
+      if (s > 0) store(a.row_offset + s - 1, yl, ug, vg);
+    } else {
+      rwrt::ray_rhs<F, I>(bg, ys, t_a, k1, &m1);
+    }
 #pragma unroll
     for (int v = 0; v < 5; ++v) ys[v] = F(yl[v] + a.half * S(k1[v]));
     rwrt::ray_rhs<F, I>(bg, ys, t_b, k2, &m2);
@@ -152,13 +202,21 @@ __global__ void __launch_bounds__(rwrt::kBlock)
 #pragma unroll
       for (int v = 0; v < 5; ++v) yn[v] = nan;
     }
-    S ug, vg;
-    rwrt::group_velocity_at<S, F, I>(bg, yn, t_end, &ug, &vg);
-    store(a.row_offset + s, yn, ug, vg);
+    if constexpr (!kOneType) {
+      S ug, vg;
+      rwrt::group_velocity_at<S, F, I>(bg, yn, t_end, &ug, &vg);
+      store(a.row_offset + s, yn, ug, vg);
+    }
 #pragma unroll
     for (int v = 0; v < 5; ++v) yl[v] = yn[v];
+    t_gv = t_end;
   }
-  if (lead) {
+  if (kOneType && a.n_steps > 0) {
+    S ug, vg;
+    rwrt::group_velocity_at<S, F, I>(bg, yl, t_gv, &ug, &vg);
+    store(a.row_offset + a.n_steps - 1, yl, ug, vg);
+  }
+  if (I::lead()) {
 #pragma unroll
     for (int v = 0; v < 5; ++v) a.y[v * RL + i] = yl[v];
   }

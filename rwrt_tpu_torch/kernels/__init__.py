@@ -31,6 +31,18 @@ INSTANCES = {"lane": 0, "split8": 8}
 #: (PERF.md section 6), for the RK4 and exact kernels in both dtypes.
 TEAM = "split8"
 TEAM_LANES = (32, 6144)
+#: The team's lane counts for the RK4 kernel's whole run, by variant (""
+#: static, "_time" a time-varying or ensemble background), within what the
+#: card keeps resident of the team (``choose_instance``). Measured on an
+#: NVIDIA H100 by ``profile_main_path.py --rk4`` in float32, float64 and
+#: mixed precision alike (PERF.md section 6): static, the team faster at
+#: the default run's 4,288 lanes and the production seeding's first 2,048,
+#: 6,144 and 8,192, Lane at 16,384; over frames, the team faster at the
+#: default run's 4,288 lanes and two members' first 6,144; at their 8,864
+#: Lane faster in float32 and even in mixed (float64's team, in two waves,
+#: ran faster there, but does not fit the card at once, so the resident
+#: cap takes Lane all the same).
+RK4_TEAM_LANES = {"": (32, 8192), "_time": (32, 6144)}
 #: The team's lane counts for the exact kernel's whole run with a float64
 #: state, by (state, field) dtypes: that kernel repacks its live lanes on a
 #: persistent grid and queues the lanes beyond its slots, so no lane waits

@@ -367,9 +367,12 @@ def _exact_grid(card: int, key, variant: str, instance: str) -> tuple:
 def rk4_instance(r: int, dtype, variant: str = "") -> str:
     """The RK4 kernel's instance for a launch of ``r`` lanes on the card;
     ``dtype`` a torch dtype or a (state, field) pair, ``variant`` "" (a
-    static background) or "_time" (``ray.kernel_background``)."""
+    static background) or "_time" (``ray.kernel_background``): the team
+    in the variant's window, ``kernels.RK4_TEAM_LANES``, where it fits the
+    card's resident count."""
     return kernels.choose_instance(
-        r, kernels.resident("rk4", kernels.TEAM, dtype, variant=variant))
+        r, kernels.resident("rk4", kernels.TEAM, dtype, variant=variant),
+        kernels.RK4_TEAM_LANES[variant])
 
 
 class GroupedRun(NamedTuple):

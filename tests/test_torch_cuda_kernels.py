@@ -974,6 +974,92 @@ def test_rk4_time_instances_equal_plain(jet_field, dev, key, kind, instance,
         assert same(a, b)
 
 
+#: Start times of the RK4 chunks below: a whole number of steps, and one at
+#: which some steps' times t_start + (s + 1) dt differ from the previous
+#: step's t_s + dt, in float32 and float64 (there the kernel samples a
+#: row's (ug, vg) apart from the next step's first evaluation).
+RK4_STARTS = [10 * 7200.0, 100.0 / 3.0]
+
+
+def rk4_steps_apart(t_start, n_steps, dtype):
+    """The steps s > 0 of an RK4 launch whose time t_start + s dt is not the
+    previous step's t_(s-1) + dt, formed in ``dtype`` as the kernel forms
+    them: where a one-type time instance samples the previous row's
+    (ug, vg) apart from the step's first evaluation."""
+    t0, d = dtype(t_start), dtype(7200.0)
+    return [s for s in range(1, n_steps)
+            if t0 + dtype(s) * d != (t0 + dtype(s - 1) * d) + d]
+
+
+def rk4_edge_lanes(y0):
+    """y0 with six of its born lanes made edge cases: killed (all NaN),
+    frozen (|ky| >= 100), at |lat| >= pi/2, a NaN kx and a NaN ky with a
+    finite position, and a NaN amp."""
+    y = y0.clone()
+    born = torch.nonzero(torch.isfinite(y0[3])).flatten()
+    assert born.numel() >= 6
+    nan = float("nan")
+    for lane, (row, value) in zip(born, ((slice(None), nan), (3, 150.0),
+                                         (1, 1.6), (2, nan), (3, nan),
+                                         (4, nan))):
+        y[row, lane] = value
+    return y
+
+
+@pytest.mark.parametrize("n", LANES)
+@pytest.mark.parametrize("instance", INSTANCES)
+@pytest.mark.parametrize("kind", ["static"] + KINDS)
+@pytest.mark.parametrize("key", list(KEYS))
+def test_rk4_instances_edge_lanes_and_chunks(jet_field, dev, key, kind,
+                                             instance, n):
+    """Every RK4 instance (float32, float64, mixed x static, time, member,
+    member of frames; Lane, Split) against the plain run, bitwise, with
+    killed, frozen, polar, NaN-kx, NaN-ky and NaN-amp lanes: the whole run
+    of 12, 1 and 0 steps with row 0; chunks of 6, 1 and 0 steps written
+    at row offset 4 from a carry, entered at a whole-step and at an odd
+    start time. A row's (ug, vg) come from the next step's first
+    evaluation where it samples the same point, so each of these lanes and
+    times is a case of that share."""
+    state, field = KEYS[key]
+    if kind == "static":
+        _, bg = background(jet_field, field, dev)
+        (y0, ug0, vg0, *_), _ = dense_run_inputs(bg, field, dev, state=state)
+        y0, ug0, vg0 = lanes((y0, ug0, vg0), n)
+    else:
+        bg, y0, ug0, vg0, _, _ = varying_inputs(jet_field, kind, key, dev, n)
+    y0 = rk4_edge_lanes(y0)
+    for nt in (13, 2, 1):
+        before = tracer.RK4_LAUNCHES
+        k = tracer._run_rk4_cuda(bg, y0, ug0, vg0, 7200.0, nt, 0.03,
+                                 instance)
+        assert tracer.RK4_LAUNCHES == before + 1
+        p = tracer._run_rk4_plain(bg, y0, ug0, vg0, 7200.0, nt, 0.03)
+        for a, b in zip(k, p):
+            assert a.dtype == state and same(a, b), nt
+        if nt == 13:
+            whole = k
+    assert torch.isnan(whole[0][-1, 0]).any()
+    assert torch.isfinite(whole[0][-1, 0]).any()
+    carry = whole[0][6].contiguous()
+    if kind != "static" and state == field:
+        np_dtype = np.float32 if state == torch.float32 else np.float64
+        # The odd start takes the kernel's own sample in the 6-step chunk,
+        # the whole-step start does not.
+        assert [bool(rk4_steps_apart(t, 6, np_dtype))
+                for t in RK4_STARTS] == [False, True]
+    for t_start in RK4_STARTS:
+        for steps in (6, 1, 0):
+            outs = [torch.full((12,) + tuple(x.shape[1:]), 7.0, dtype=state,
+                               device=dev) for x in whole]
+            ref = [x.clone() for x in outs]
+            y_k = tracer._rk4_launch(bg, carry, 7200.0, steps, 0.03, *outs,
+                                     4, instance=instance, t_start=t_start)
+            y_p = rk4.trace_into(bg, carry, 7200.0, steps, 0.03, *ref, 4,
+                                 t_start=t_start)
+            for a, b in zip(outs + [y_k], ref + [y_p]):
+                assert same(a, b), (t_start, steps)
+
+
 @pytest.mark.parametrize("case", ["default", "barrier"])
 @pytest.mark.parametrize("n", LANES)
 @pytest.mark.parametrize("instance", INSTANCES)

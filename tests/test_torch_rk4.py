@@ -11,7 +11,17 @@ Bars. RK4 has no controller to amplify an ulp, so the port stays within
 round-off of the JAX package: the largest difference measured is 2.0e-16
 of each row's scale after one step and 2.8e-14 after 10 days (120 steps);
 the bars are 10x those, 3e-15 and 3e-13, with NaN masks identical at every
-step.
+step. A float32 sample's group velocity differs from the JAX package's by
+up to 2.0e-8 of its scale (the two libraries' float32 sin and cos); its
+bar is 10x that, 2e-7.
+
+The RK4 kernel takes a row's (ug, vg) from the next step's first
+evaluation (the RHS with the raw group velocity) in place of a separate
+``group_velocity_at``, and shares it in a time instance only where the
+next step's time equals the row's to the bit: the tests below hold the
+plain versions' two samples to each other, bitwise, on the states where
+their NaN masks are formed differently, and the port's RK4 chunk to the
+JAX package's at a start time where the two times differ.
 """
 
 import numpy as np
@@ -25,7 +35,7 @@ from rwrt_tpu import tracer as jtracer
 from rwrt_tpu.models import ray as jray
 from rwrt_tpu.solvers import rk4 as jrk4
 import rwrt_tpu_torch as pt
-from rwrt_tpu_torch import convert
+from rwrt_tpu_torch import convert, kernels
 from rwrt_tpu_torch import tracer as ttracer
 from rwrt_tpu_torch.models import ray as tray
 from rwrt_tpu_torch.solvers import rk4 as trk4
@@ -34,6 +44,7 @@ DT = 7200.0
 CUT_OFF = 0.2
 STEP_BAR = 3e-15
 TEN_DAY_BAR = 3e-13
+STEP_BAR32 = 2e-7
 
 
 @pytest.fixture(scope="module")
@@ -213,3 +224,127 @@ def test_rhs_fail_flag_matches_jax(batch):
     np.testing.assert_array_equal(np.asarray(err), [True, True, False])
     np.testing.assert_array_equal(
         tray.rhs(bgt, torch.as_tensor(y))[1].numpy(), np.asarray(err))
+
+
+#: States at which the RHS and group_velocity_at form their NaN masks
+#: differently: the RHS samples a lane with a NaN wavenumber at (0, 0).
+GV_STATES = ["live", "killed", "nan_kx", "nan_ky", "polar", "nan_amp"]
+
+
+@pytest.fixture(scope="module")
+def batch32(jet_field):
+    """The module's batch over the float32 background, in both packages."""
+    u, v, lat, lon = jet_field
+    bgj = jtracer.make_background(
+        rt.prepare(u, v, lat, lon, cal_dtype="float32"), 0.0)
+    bgt = convert.background_from_numpy(
+        {k: np.asarray(x) for k, x in bgj._asdict().items() if x is not None},
+        device="cpu")
+    return bgj, bgt
+
+
+def gv_state(y0, case, dtype):
+    """Eight born lanes of the batch, the first four made ``case``."""
+    y = np.array(y0[:, np.flatnonzero(np.isfinite(y0[3]))[:8]])
+    edit = {"killed": (slice(None), np.nan), "nan_kx": (2, np.nan),
+            "nan_ky": (3, np.nan), "polar": (1, np.pi / 2 + 1e-3),
+            "nan_amp": (4, np.nan)}
+    if case in edit:
+        row, value = edit[case]
+        y[row, :4] = value
+    if case == "polar":
+        y[1, 2:4] = -np.pi / 2 - 0.25
+    return y.astype(dtype)
+
+
+@pytest.mark.parametrize("case", GV_STATES)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_raw_gv_equals_group_velocity_at(batch, batch32, case, dtype):
+    """The RHS's raw (ug, vg) (``_rhs_core(..., with_raw_gv=True)``) equal
+    ``group_velocity_at`` at the same state and time, bitwise, NaN masks
+    included; both within the bar of the JAX package's ``rhs_and_gv`` and
+    ``group_velocity_at``."""
+    bgj, bgt = (batch[1], batch[2]) if dtype == "float64" else batch32
+    y = gv_state(batch[3][0], case, dtype)
+    yt = torch.as_tensor(y)
+    _, _, ug, vg = tray._rhs_core(bgt, yt, 0.0, True)
+    ug_at, vg_at = tray.group_velocity_at(bgt, *yt[:4])
+    assert same(ug, ug_at) and same(vg, vg_at)
+    _, ug_j, vg_j = jray.rhs_and_gv(bgj, jnp.asarray(y))
+    ug_jat, vg_jat = jray.group_velocity_at(bgj, *jnp.asarray(y)[:4])
+    bar = STEP_BAR if dtype == "float64" else STEP_BAR32
+    assert_close([np.asarray(x) for x in (ug_j, vg_j, ug_jat, vg_jat)],
+                 [x.numpy() for x in (ug, vg, ug_at, vg_at)], bar)
+    if case in ("killed", "nan_kx", "nan_ky"):
+        assert np.isnan(ug.numpy()[:4]).all()
+    assert np.isfinite(ug.numpy()[4:]).all()
+
+
+#: Start times of a chunk at which some step's time t_start + (s + 1) dt
+#: differs from t_s + dt (so the kernel samples a row's (ug, vg) apart
+#: from the next evaluation there).
+ODD_STARTS = [100.0 / 3.0, 1.0 / 7.0]
+
+
+def steps_apart(t_start, n_steps, dtype=np.float64):
+    """The steps s of a chunk whose time t_start + (s + 1) dt is not the
+    previous step's t_s + dt, each formed as the state's dtype forms it."""
+    t0, d = dtype(t_start), dtype(DT)
+    return [s for s in range(n_steps - 1)
+            if t0 + dtype(s + 1) * d != (t0 + dtype(s) * d) + d]
+
+
+@pytest.mark.parametrize("t_start", ODD_STARTS)
+def test_chunk_at_odd_start_matches_jax(jet_field, t_start):
+    """The port's RK4 chunk over a time-varying background (3 frames 0.2
+    days apart from -0.1 days, float64) from a non-integer start time at
+    which the step times differ, against the JAX package's ``_rk4_chunk``,
+    within TEN_DAY_BAR."""
+    from rwrt_tpu.models.basic_state import prepare_time_varying
+
+    u, v, lat, lon = jet_field
+    fu = np.stack([(1.0 + 0.2 * np.sin(k)) * u for k in range(3)])
+    fv = np.stack([np.roll(v, 2 * k, axis=0) for k in range(3)])
+    bsj = prepare_time_varying(fu, fv, lat, lon, bg_t0=-0.1 * 86400.0,
+                               bg_dt=0.2 * 86400.0, cal_dtype="float64")
+    bgj = jtracer.make_background(bsj, 0.0)
+    bgt = convert.background_from_numpy(
+        {k: np.asarray(x) for k, x in bgj._asdict().items() if x is not None},
+        device="cpu")
+    slon, slat = jtracer.source_matrix(0.0, 5.0, 36.0, 8.0, 5, 4)
+    y0 = np.array(jtracer.initialize(bgj, jnp.asarray(slon),
+                                     jnp.asarray(slat),
+                                     jnp.asarray([2.0, 4.0, 6.0]))[0])
+    n = 12
+    assert steps_apart(t_start, n)
+    y_j, ref = jtracer._rk4_chunk(bgj, jnp.asarray(y0), jnp.asarray(DT), n,
+                                  jnp.asarray(CUT_OFF), t_start)
+    y_t, out = ttracer._rk4_chunk(bgt, torch.as_tensor(y0), DT, n, CUT_OFF,
+                                  t_start)
+    assert_close(ref, [x.numpy() for x in out], TEN_DAY_BAR)
+    assert_close([np.asarray(y_j)[None]], [y_t.numpy()[None]], TEN_DAY_BAR)
+    assert np.isfinite(out[1].numpy()[-1]).any()
+
+
+#: The RK4 kernel's (state, field, variant) keys.
+RK4_KEYS = [(state, field, variant)
+            for state, field in ((torch.float32, torch.float32),
+                                 (torch.float64, torch.float64),
+                                 (torch.float64, torch.float32))
+            for variant in ("", "_time")]
+
+
+@pytest.mark.parametrize("key", RK4_KEYS)
+def test_rk4_instance_window(monkeypatch, key):
+    """``tracer.rk4_instance`` takes the team exactly in its variant's
+    window, ``kernels.RK4_TEAM_LANES``, in every precision, capped by the
+    card's resident count (here stand-ins: one that caps nothing, and one
+    below the window's top)."""
+    dtypes, variant = key[:2], key[2]
+    lo, hi = kernels.RK4_TEAM_LANES[variant]
+    for resident, top in ((8 * (hi + 100), hi), (8 * (hi - 7), hi - 7)):
+        monkeypatch.setattr(kernels, "resident",
+                            lambda *a, _r=resident, **k: _r)
+        for r, want in ((lo - 1, "lane"), (lo, kernels.TEAM),
+                        (top, kernels.TEAM), (top + 1, "lane")):
+            assert ttracer.rk4_instance(r, dtypes, variant) == want, (r, top)
