@@ -51,8 +51,12 @@ exact_path phase requires and the chunk budget the chunked phase sets):
                are the stage's, bitwise (else runs it itself) and prints
                the plain ms its worker measured
   rhs          ``ray.rhs`` and ``ray.rhs_and_gv`` (the kernel) vs the
-               plain ``ray._rhs_core`` on 100,800 seeded states; the
-               wrapper's time beside the kernel alone (torch.profiler)
+               plain ``ray._rhs_core`` on 100,800 seeded states, every
+               instance bitwise; the wrapper's time beside the kernel
+               alone (torch.profiler); the RHS and one-step RK4 kernels'
+               instances alone (CUDA graphs, ``graph_ms``) in turns at
+               the lane counts of RHS_SWEEP (the team windows) and one
+               lane alone (the chain floor), float32 and float64
   dense_group  one 60-bound group on the 100,800-ray seed batch, the
                single-group kernel (``integrate_group_dense``) vs the plain
                loop, float64 and float32; its mixed instance bitwise
@@ -91,6 +95,8 @@ exact_path phase requires and the chunk budget the chunked phase sets):
                the four float8 operand dtypes), to 1e-12 (float64) / 1e-5
                (float32) of each channel's max over the values finite in
                both, non-finite positions equal, two launches bitwise;
+               the case's MMA (``spectral_mma``), its packing kernel
+               (``pack_on_card``) bitwise ``pack_coeffs`` and timed alone;
                kernel-alone, wrapper (with the coefficient repack) and plain
                times, achieved TFLOP/s, the bound (the MMA's tensor-core
                peak), the library call ``torch.matmul`` of the rounded
@@ -173,7 +179,8 @@ exact_path phase requires and the chunk budget the chunked phase sets):
                per-lane times over the 31 daily frames, between them and
                past both ends, over the frames, a 4-member stack and a
                4-member x 31-frame stack, float32 and float64: bitwise
-               against the plain ``_rhs_core``
+               against the plain ``_rhs_core``, every instance; the RHS
+               and one-step kernels' time instances alone by lane count
   time_main_path  the production run over the 31 daily frames through
                ``trace_rays`` (counters reset just before and read just
                after: one dense launch, the time instance); its first
@@ -220,7 +227,8 @@ exact_path phase requires and the chunk budget the chunked phase sets):
   time_spectral  ``fit_spectral`` of the 31 frames (``fit_spectral_time``),
                ``lerp_coeffs`` at day 10, the spectral kernel at the
                time-varying run's day-10 positions against the plain
-               sampler (the spectral phase's float32 bar)
+               sampler (the spectral phase's float32 bar), one packing
+               launch, bitwise ``pack_coeffs``
   cli          ``rwrt_tpu_torch.__main__.main`` with --report, every
                counter reset just before each run and read just after:
                examples/reference_run.json (6,615 rays, RK4, float64, 90
@@ -267,15 +275,19 @@ exact_path phase requires and the chunk budget the chunked phase sets):
                over the cli phase's daily frames and the production-size
                run (no output files), counters reset just before and read
                just after: the report's exact causes equal to
-               ``termination.cause_labels`` in process (RK4: four RHS
-               launches, the time instance's over the frames: the RHS
-               kernels' path; RK45: one entry-stage launch, no RHS launch,
-               and one launch of the interval kernel,
-               ``rk45.integrate_interval_rays``); labels,
+               ``termination.cause_labels`` in process (RK4: one launch of
+               the one-step kernel, ``rk4.rk4_step_rays``, its time
+               instance over the frames, and no RHS launch; RK45: one
+               entry-stage launch, no RHS launch, and one launch of the
+               interval kernel, ``rk45.integrate_interval_rays``); labels,
                candidate states and trips per lane against the plain RHS's
                on the card, bitwise (an RK45 re-run cut at
                CLASSIFY_PLAIN_ITERS trips in both), and the report's own
                against them on the lanes it finished within the cut; the
+               RK4 re-run's step kernel in every instance bitwise and
+               alone in turns, its chain floor, the RHS kernel's
+               instances at the same lanes, the re-run's seconds in turns
+               with the four-RHS-launch route (RERUN_TURNS); the
                interval kernel timed at the report's entry and on its
                longest lane alone (the chain floor), and at the cut beside
                the plain loop alone on the same entry and cut (bitwise):
@@ -344,7 +356,8 @@ float64 coefficients (its sums are float64); over float32 coefficients,
 three times over the TF32 peak (495) with no rounding (3xTF32, the
 card's float32-exact product), the fp16 and bf16 peak (989) for float16,
 bfloat16 and the two fnuz float8 types (no hardware format), the fp8
-peak (1,979) for float8_e4m3fn and float8_e5m2;
+peak (1,979) for float8_e4m3fn and float8_e5m2 (which run on the bf16
+MMA: the fp8 tensor cores miss the bar, ``fp8_mode_probe.py``);
 the gather does no arithmetic: its bytes alone.
 
 Prints the card (``nvidia-smi`` name and power limit), per-phase numbers,
@@ -402,6 +415,16 @@ CASCADE_FLOPS = 156
 RK4_STEP_FLOPS = 4 * RHS_FLOPS + 65 + CASCADE_FLOPS
 EXACT_ATTEMPT_FLOPS = ATTEMPT_FLOPS + 19
 KILL_FLOPS = 18
+#: csrc/rk4_run.cu's one-step kernel (the --report-exact RK4 re-run): four
+#: evaluations and 65 for the stage inputs and the update.
+RK4_ONE_STEP_FLOPS = 4 * RHS_FLOPS + 65
+#: Lane counts at which the RHS and one-step kernels' instances are timed
+#: in turns (the team windows ``kernels.RHS_TEAM_LANES`` and
+#: ``RK4_STEP_TEAM_LANES``: 8,192 and 16,384 their tops, 32,768 past
+#: them); the last, the rhs phase's batch.
+RHS_SWEEP = (2048, 8192, 16384, 32768, 100_800)
+#: Launches a CUDA graph of a kernel-alone timing holds.
+GRAPH_REPS = 40
 #: Mixed precision (a float64 state over float32 fields): the same counts
 #: split by the units that do them. A step attempt: the six evaluations and
 #: the products and adds of the stage, 5th-order and error sums (125 + 55 +
@@ -578,6 +601,46 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps=GRAPH_REPS):
+    """Device ms of one ``fn()`` (a wrapper call: its launches and
+    allocations) with no host between launches: ``reps`` calls captured in
+    one CUDA graph, replayed and timed with CUDA events. For kernels whose
+    wrapper's host work outlasts them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, 5) / reps
+
+
+def instance_sweep(what, launch, counts, reps=GRAPH_REPS):
+    """Each instance of a one-evaluation kernel timed alone
+    (``graph_ms``) at each lane count of ``counts``, in turns (TURNS);
+    ``launch(r, instance)`` launches r lanes. Prints and returns {r:
+    {instance: best ms}}."""
+    out = {}
+    for r in counts:
+        times = {}
+        for name in TURNS:
+            t = graph_ms(lambda: launch(r, name), reps)
+            times[name] = min(times.get(name, t), t)
+        out[r] = times
+    print(f"  {what}: instances alone in turns {'/'.join(TURNS)}, best ms "
+          "by lane count: " + "; ".join(
+              f"{r}: " + ", ".join(f"{n} {t:.5f}" for n, t in ts.items())
+              for r, ts in out.items()))
+    return out
+
+
 def wall_s(fn):
     import torch
 
@@ -718,6 +781,12 @@ class Run:
         self.slat = rng.uniform(np.radians(-65), np.radians(65),
                                 N_SOURCES)
         self.kernels = {}
+        #: Launches of kernels whose path is their public entry point
+        #: (``ray.rhs``), by the kernels line's name.
+        self.path_launches = {}
+        #: The rhs phase's sweeps of the RHS and one-step kernels'
+        #: instances, by dtype.
+        self.rhs_sweep = {}
         self.turns = {}
         self.choices = {}
         #: The plain stage's runs not yet taken: key -> (the call, the
@@ -1043,7 +1112,9 @@ def phase_plain_ahead(run):
 
 def phase_rhs(run):
     torch = run.torch
+    from rwrt_tpu_torch import kernels
     from rwrt_tpu_torch.models import ray
+    from rwrt_tpu_torch.solvers import rk4
 
     rng = np.random.default_rng(1)
     n = 100_800
@@ -1057,6 +1128,8 @@ def phase_rhs(run):
     for row in (0, 3, 4):                   # NaN lon / ky / amp
         y[row, rng.choice(n, 500, replace=False)] = np.nan
     y[1, :200] = np.pi / 2 - 1e-3           # inside the polar cap
+    ray.LAUNCHES = 0
+    public = 0
     for dtype, bar in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
         _, bg, _, _, _ = run.seed_batch(dtype)
         yt = torch.as_tensor(y, dtype=dtype, device=run.dev).contiguous()
@@ -1069,6 +1142,7 @@ def phase_rhs(run):
             else:
                 k = (*ray.rhs(bg, yt), None, None)
             check(ray.LAUNCHES == before + 1, "rhs wrapper did not launch")
+            public += 1
             p = ray._rhs_core(bg, yt, 0.0, gv)
             torch.cuda.synchronize()
             if not gv:
@@ -1083,6 +1157,43 @@ def phase_rhs(run):
             tag = f"{str(dtype)[6:]}{'_gv' if gv else ''}"
             print(f"rhs {tag}: max err / row max {e:.3e} (bar {bar:g})")
             check(e <= bar, f"rhs {tag} error {e} > {bar}")
+            # Every instance bitwise the plain version (and so Lane).
+            for inst in kernels.INSTANCES:
+                got = ray._rhs_cuda(bg, yt, gv, 0.0, instance=inst)
+                check(torch.equal(got[1], p[1]) and all(
+                    same(a, b) for a, b in zip(got[:1] + got[2:],
+                                               p[:1] + p[2:])
+                    if a is not None),
+                      f"rhs {tag}: instance {inst} differs from the plain "
+                      "version")
+        # The instances alone by lane count (the team window), the chain
+        # floor (a lone lane), and the one-step RK4 kernel's on the same
+        # states from t = 0 (the --report-exact RK4 re-run's kernel).
+        subsets = {r: yt[:, :r].contiguous() for r in RHS_SWEEP + (1,)}
+        sweep = instance_sweep(
+            f"rhs {str(dtype)[6:]}",
+            lambda r, inst: ray._rhs_cuda(bg, subsets[r], False, 0.0,
+                                          instance=inst), RHS_SWEEP)
+        floor = instance_sweep(
+            f"rhs {str(dtype)[6:]} one lane alone (chain floor)",
+            lambda r, inst: ray._rhs_cuda(bg, subsets[r], False, 0.0,
+                                          instance=inst), (1,))[1]
+        step_sweep = instance_sweep(
+            f"rk4_step {str(dtype)[6:]}",
+            lambda r, inst: rk4.rk4_step_rays(bg, subsets[r], 7200.0, 0.0,
+                                              instance=inst), RHS_SWEEP)
+        step_floor = instance_sweep(
+            f"rk4_step {str(dtype)[6:]} one lane alone (chain floor)",
+            lambda r, inst: rk4.rk4_step_rays(bg, subsets[r], 7200.0, 0.0,
+                                              instance=inst), (1,))[1]
+        chosen = {r: (ray.rhs_instance(r, dtype),
+                      rk4.step_instance(r, dtype)) for r in RHS_SWEEP}
+        print(f"  launcher's instances (rhs, rk4_step) by lane count: "
+              f"{chosen}; chain floors rhs {min(floor.values()):.5f} ms, "
+              f"rk4_step {min(step_floor.values()):.5f} ms")
+        run.rhs_sweep[str(dtype)[6:]] = dict(
+            rhs=sweep, rhs_floor=floor, rk4_step=step_sweep,
+            rk4_step_floor=step_floor)
         if dtype == torch.float32:
             ms = cuda_ms(lambda: ray.rhs(bg, yt), 50)
             alone = launch_parts(lambda: ray.rhs(bg, yt), ("rhs_kernel",),
@@ -1095,16 +1206,22 @@ def phase_rhs(run):
             kernel_ms = None if alone is None else alone / 1e3
             print(f"rhs time at R={n}: wrapper (ray.rhs: its outputs' "
                   f"allocation, the ctypes call, the launch) {ms:.4f} ms, "
-                  f"the kernel alone (torch.profiler) "
+                  f"the kernel alone (torch.profiler, the launcher's "
+                  f"{ray.rhs_instance(n, dtype)}) "
                   + ("not seen" if kernel_ms is None
                      else f"{kernel_ms:.4f} ms")
                   + f", plain {plain:.4f} ms, bound {b['bound_ms']:.4f} ms "
-                  f"({b['bound_by']})")
+                  f"({b['bound_by']}); chain floor "
+                  f"{min(floor.values()):.5f} ms")
             run.kernels["rhs"] = dict(
                 max_abs_err=float(torch.nan_to_num(
                     torch.abs(k[0] - p[0]), nan=0.0).max()),
                 ms=ms, kernel_ms=kernel_ms, plain_ms=plain, library_ms=None,
-                **b)
+                chain_floor_ms=min(floor.values()),
+                ms_by_instance=sweep[n], **b)
+    # The RHS kernel's path is its public entry points: no run launches it.
+    check(ray.LAUNCHES >= public, "rhs: the public wrappers' launches")
+    run.path_launches["rhs"] = public
 
 
 def _group_pos_diff_deg(a, b):
@@ -1560,7 +1677,7 @@ def phase_main_path(run):
     stats = {}
     ray.LAUNCHES = rk45.LAUNCHES = tracer.LAUNCHES = spec.LAUNCHES = 0
     rk45.EXACT_LAUNCHES = tracer.RK4_LAUNCHES = tracer.EXACT_LAUNCHES = 0
-    tracer.ENTRY_LAUNCHES = 0
+    tracer.ENTRY_LAUNCHES = spec.PACK_LAUNCHES = 0
     t0 = time.perf_counter()
     traj = run.rt.trace_rays(bs, cfg, source_lon=run.slon,
                              source_lat=run.slat, stats=stats)
@@ -1568,10 +1685,12 @@ def phase_main_path(run):
     wall = time.perf_counter() - t0
     launches = {"rhs": ray.LAUNCHES, "dense_group": rk45.LAUNCHES,
                 "dense_run": tracer.LAUNCHES, "spectral": spec.LAUNCHES,
+                "spectral_pack": spec.PACK_LAUNCHES,
                 "entry": tracer.ENTRY_LAUNCHES}
     peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
     attempts = int(stats["lane_att"].sum())
-    check(launches["spectral"] == 0, "trace_rays launched the spectral kernel")
+    check(launches["spectral"] == launches["spectral_pack"] == 0,
+          "trace_rays launched the spectral or packing kernel")
     check(launches["dense_run"] == 1,
           f"trace_rays made {launches['dense_run']} whole-run launches, not 1")
     check(launches["dense_group"] == 0,
@@ -1590,10 +1709,11 @@ def phase_main_path(run):
     lon10, lat10 = traj.lon[120].reshape(-1), traj.lat[120].reshape(-1)
     fin = torch.isfinite(lon10) & torch.isfinite(lat10)
     pos = (lon10[fin].contiguous(), lat10[fin].contiguous())
-    spec.LAUNCHES = 0
+    spec.LAUNCHES = spec.PACK_LAUNCHES = 0
     samples = spec.sample_spectral_cuda(sbg, *pos)
     torch.cuda.synchronize()
     launches["spectral"] = spec.LAUNCHES
+    launches["spectral_pack"] = spec.PACK_LAUNCHES
 
     n_rays = 3 * N_SOURCES * 7
     nt = 12 * N_DAYS + 1
@@ -1606,7 +1726,7 @@ def phase_main_path(run):
         check(bool(torch.isfinite(getattr(traj, k)[-1][alive_end]).all()),
               f"non-finite {k} on a lane alive at day 30")
     check(bool(torch.isfinite(samples).all()), "non-finite spectral sample")
-    for k in ("entry", "dense_run", "spectral"):
+    for k in ("entry", "dense_run", "spectral", "spectral_pack"):
         check(launches[k] > 0, f"{k} kernel was not launched")
     # The dense_run phase ran the kernel on this run's entry state.
     idx, kern = run.dense_run
@@ -1644,7 +1764,8 @@ def phase_main_path(run):
     print(f"launches: trace_rays entry {launches['entry']}, rhs "
           f"{launches['rhs']}, dense_run {launches['dense_run']}, "
           f"dense_group {launches['dense_group']}; "
-          f"sampler stage after it: spectral {launches['spectral']} at "
+          f"sampler stage after it: spectral {launches['spectral']} and "
+          f"its packing {launches['spectral_pack']} at "
           f"{pos[0].shape[0]} day-10 points")
     run.launches = launches
     run.day10 = pos
@@ -1813,6 +1934,46 @@ def spectral_bound(args, flop, dtype, mm):
         "float8_e4m3fn", "float8_e5m2") else "fp16")
 
 
+def same_tiles(a, b):
+    """Tensors of one dtype and shape with equal bits, but any NaN's bits
+    where the other has NaN (the tiles of every operand dtype, float8
+    included)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    nan = torch.isnan(a.to(torch.float64))
+    if not torch.equal(nan, torch.isnan(b.to(torch.float64))):
+        return False
+    ia, ib = (x.view(ints[x.dtype.itemsize]) for x in (a, b))
+    return bool(torch.equal(torch.where(nan, 0, ia), torch.where(nan, 0, ib)))
+
+
+def spectral_mma(packed):
+    """The MMA a spectral case runs on, named from its packed tiles'
+    operand dtype and planes (``spectral_sample._operand_type``)."""
+    import torch
+
+    return {torch.float32: "3xTF32", torch.bfloat16: "bf16",
+            torch.float16: "f16", torch.float64: "DMMA"}[packed.dtype]
+
+
+def pack_record(spec, coeffs, mm, what):
+    """The packing kernel (``pack_on_card``) for one case: held
+    bitwise to ``pack_coeffs`` on the card, timed alone (``graph_ms``)
+    beside the plain packing; bound: the coefficients read once and the
+    tiles written once. Returns (tiles, record)."""
+    tiles = spec.pack_on_card(coeffs, mm)
+    check(same_tiles(tiles, spec.pack_coeffs(coeffs, mm)),
+          f"{what}: the packing kernel differs from pack_coeffs")
+    ms = graph_ms(lambda: spec.pack_on_card(coeffs, mm))
+    plain = cuda_ms(lambda: spec.pack_coeffs(coeffs, mm), 10)
+    b = bound(nbytes(coeffs, tiles), 0, "float32")
+    return tiles, dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
+                       library_ms=None, **b)
+
+
 def cast_counts(torch, spec, coeffs, mm):
     """Per channel, the coefficients the cast to ``mm`` turned to 0, to
     +-inf and to NaN."""
@@ -1885,13 +2046,15 @@ def phase_spectral(run):
                 check(same(k, spec.sample_spectral_cuda(
                     sbg, lo, la, matmul_dtype=wide)),
                     f"spectral {tag}: matmul_dtype={wide} is not None's")
-        # The kernel alone, on operands the wrapper would prepare.
-        packed = spec.pack_coeffs(sbg.coeffs, mm)
+        # The kernel alone, on operands the wrapper prepares, packed in
+        # one launch bitwise as pack_coeffs packs them.
+        packed, pack = pack_record(spec, sbg.coeffs, mm, f"spectral {tag}")
         tht = (la - sbg.lat0).contiguous()
         out = torch.empty_like(k)
         kern = cuda_ms(lambda: spec.launch_kernel(
             packed, lo, la, tht, sbg.coeffs.shape, mm, out), 20)
         check(same(out, k), f"spectral {tag}: the kernel alone differs")
+        mode = spectral_mma(packed)
         ms = cuda_ms(lambda: spec.sample_spectral_cuda(
             sbg, lo, la, matmul_dtype=mm), 20)
         plain = cuda_ms(lambda: spec.sample_spectral(
@@ -1915,10 +2078,13 @@ def phase_spectral(run):
         flop = 2.0 * lo.shape[0] * math.prod(sbg.coeffs.shape)
         b = spectral_bound((lo, la, sbg.coeffs, k), flop, name, mm_name)
         bad = int((~torch.isfinite(k)).sum())
-        print(f"spectral {tag}: R={lo.shape[0]}, max err / channel max "
+        print(f"spectral {tag}: mode {mode}, R={lo.shape[0]}, max err / "
+              f"channel max "
               f"{e:.3e} (bar {bar:g}), non-finite {bad} of {k.numel()} "
               f"(the plain version's positions), kernel alone {kern:.4f} "
-              f"ms ({flop / kern * 1e-9:.1f} TFLOP/s), "
+              f"ms ({flop / kern * 1e-9:.1f} TFLOP/s), packing alone "
+              f"{pack['ms']:.5f} ms (plain {pack['plain_ms']:.4f} ms, "
+              f"bitwise), "
               f"wrapper {ms:.4f} ms, plain {plain:.4f} ms, library "
               f"torch.matmul (R, Mp) @ (Mp, L*C) on the rounded operands "
               f"in {name} {library:.4f} ms" + (
@@ -1935,11 +2101,14 @@ def phase_spectral(run):
             ms=ms, kernel_ms=kern, plain_ms=plain, library_ms=library,
             narrow_library_ms=narrow, **b)
         run.kernels["spectral"]["cases"].append(
-            dict(coefficients=name, matmul_dtype=mm_name, **record))
+            dict(coefficients=name, matmul_dtype=mm_name, mode=mode,
+                 max_err_over_channel_max=e, pack_ms=pack["ms"],
+                 pack_plain_ms=pack["plain_ms"], **record))
         if tag == "float32":
             # The main path's case (float32, no rounding): the kernels
             # line's own numbers.
             run.kernels["spectral"].update(record)
+            run.kernels["spectral_pack"] = pack
     # The kernel's operand rounding (the device function its prologue
     # rounds the basis with), bitwise the plain round_operands.
     swept = 0
@@ -2398,26 +2567,27 @@ def reset_launches():
     from rwrt_tpu_torch.solvers import rk45
 
     from rwrt_tpu_torch.probes import gather_probe
+    from rwrt_tpu_torch.solvers import rk4
 
     ray.LAUNCHES = rk45.LAUNCHES = rk45.EXACT_LAUNCHES = spec.LAUNCHES = 0
     rk45.INTERVAL_LAUNCHES = tracer.ENTRY_LAUNCHES = 0
     tracer.LAUNCHES = tracer.RK4_LAUNCHES = tracer.EXACT_LAUNCHES = 0
     flux.LAUNCHES = flux.REGION_LAUNCHES = gather_probe.LAUNCHES = 0
+    rk4.STEP_LAUNCHES = spec.PACK_LAUNCHES = 0
 
 
 def read_launches(launches_of, n_launches, what):
     """The counters since ``reset_launches``: fails unless ``launches_of``
     launched ``n_launches`` times (or, a dict, each of its kernels its
-    count) and no other kernel ran but the RHS, any number of times, and
-    the entry stage, never: where an adaptive run's kernel (dense_run or
-    exact_run) is named, its entry stage once (unless named) and the RHS
-    never."""
+    count) and no other kernel ran but the entry stage: where an adaptive
+    run's kernel (dense_run or exact_run) is named, once (unless named),
+    else never. No run path launches the RHS kernel."""
     from rwrt_tpu_torch import tracer
     from rwrt_tpu_torch.diagnostics import flux
     from rwrt_tpu_torch.models import ray
     from rwrt_tpu_torch.ops import spectral_sample as spec
     from rwrt_tpu_torch.probes import gather_probe
-    from rwrt_tpu_torch.solvers import rk45
+    from rwrt_tpu_torch.solvers import rk4, rk45
 
     launches = {"rhs": ray.LAUNCHES, "dense_group": rk45.LAUNCHES,
                 "dense_run": tracer.LAUNCHES, "spectral": spec.LAUNCHES,
@@ -2427,11 +2597,13 @@ def read_launches(launches_of, n_launches, what):
                 "flux": flux.LAUNCHES, "flux_region": flux.REGION_LAUNCHES,
                 "gather": gather_probe.LAUNCHES,
                 "interval": rk45.INTERVAL_LAUNCHES,
-                "entry": tracer.ENTRY_LAUNCHES}
+                "entry": tracer.ENTRY_LAUNCHES,
+                "rk4_step": rk4.STEP_LAUNCHES,
+                "spectral_pack": spec.PACK_LAUNCHES}
     wants = (launches_of if isinstance(launches_of, dict)
              else {launches_of: n_launches})
     adaptive = "dense_run" in wants or "exact_run" in wants
-    defaults = {"rhs": 0 if adaptive else None, "entry": int(adaptive)}
+    defaults = {"entry": int(adaptive)}
     for k, n in launches.items():
         want = wants.get(k, defaults.get(k, 0))
         check(want is None or n == want,
@@ -2817,7 +2989,8 @@ def phase_mixed_drift(run):
     precision and in float64 (a float64 background): the day-30 median
     great-circle drift of float32 and of mixed against float64, in
     degrees, over the rays finite at day 30 in both; each run's step
-    attempts and its whole-run kernel's time. A record, not a gate."""
+    attempts, its whole-run kernel's time and its bound
+    (``dense_run_bound``). A record, not a gate."""
     torch = run.torch
     from rwrt_tpu_torch import tracer
 
@@ -2840,9 +3013,14 @@ def phase_mixed_drift(run):
         ms = cuda_ms(lambda: tracer._dense_run(*args, **kw), 3)
         res[name] = (torch.stack([traj.lon[-1], traj.lat[-1]]).reshape(2, -1)
                      .double(), int(stats["lane_att"].sum()), ms)
-        del traj, args
+        del traj
+        # The run's bound, as the dense rows of PERF.md count it.
+        b = dense_run_bound(args, tracer._dense_run(*args, **kw),
+                            "mixed" if state is not None else bs_dtype)
+        del args
         print(f"drift {name}: step attempts {res[name][1]}, dense kernel "
-              f"{ms:.3f} ms (CUDA events)")
+              f"{ms:.3f} ms (CUDA events), bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']})")
     ref = res["float64"][0]
     for name in ("float32", "mixed"):
         pos = res[name][0]
@@ -3168,8 +3346,9 @@ def phase_time_rhs(run):
     ensemble of those frames: bitwise equal to the plain ``_rhs_core``, in
     float32 and float64."""
     torch = run.torch
-    from rwrt_tpu_torch import tracer
+    from rwrt_tpu_torch import kernels, tracer
     from rwrt_tpu_torch.models import ray
+    from rwrt_tpu_torch.solvers import rk4
 
     rng = np.random.default_rng(1)
     n = 100_800
@@ -3178,6 +3357,7 @@ def phase_time_rhs(run):
                   rng.uniform(0.5, 2.0, n)])
     for row in (0, 3, 4):
         y[row, rng.choice(n, 500, replace=False)] = np.nan
+    public = 0
     t = rng.uniform(-2.0 * DAY, (TV_DAYS + 3) * DAY, n)
     t[:1000] = DAY * (np.arange(1000) % (TV_DAYS + 1))  # on the frames
     member = torch.as_tensor(rng.integers(0, 4, n), dtype=torch.int32,
@@ -3201,7 +3381,15 @@ def phase_time_rhs(run):
                 before = ray.LAUNCHES
                 k = ray.rhs_and_gv(bg, yt, tt) if gv else ray.rhs(bg, yt, tt)
                 check(ray.LAUNCHES == before + 1, "rhs did not launch")
+                public += 1
                 p = ray._rhs_core(bg, yt, tt, gv)
+                for inst in kernels.INSTANCES:
+                    got = ray._rhs_cuda(bg, yt, gv, tt, instance=inst)
+                    check(all(same(a, b) if a.is_floating_point()
+                              else torch.equal(a, b)
+                              for a, b in zip(got, p) if a is not None),
+                          f"time_rhs {kind} {dtype} gv={gv}: instance "
+                          f"{inst} differs from the plain RHS")
                 p = (p[0], p[2], p[3]) if gv else p[:2]
                 for a, b in zip(k, p):
                     check(same(a, b) if a.is_floating_point()
@@ -3210,7 +3398,25 @@ def phase_time_rhs(run):
                           "the plain RHS")
         print(f"time_rhs {str(dtype)[6:]}: R={n}, time, member and "
               f"member x time backgrounds ({tuple(bg.fields.shape)}), rhs "
-              "and rhs_and_gv bitwise equal to the plain RHS")
+              "and rhs_and_gv bitwise equal to the plain RHS, every "
+              "instance")
+        # The time instances alone by lane count over the frames: the RHS
+        # and the one-step kernel (the team windows' "_time" variant).
+        bg = kinds["time"]
+        subsets = {r: (yt[:, :r].contiguous(), tt[:r].contiguous())
+                   for r in RHS_SWEEP}
+        sweep = instance_sweep(
+            f"rhs_time {str(dtype)[6:]}",
+            lambda r, inst: ray._rhs_cuda(bg, subsets[r][0], False,
+                                          subsets[r][1], instance=inst),
+            RHS_SWEEP)
+        step_sweep = instance_sweep(
+            f"rk4_step_time {str(dtype)[6:]}",
+            lambda r, inst: rk4.rk4_step_rays(bg, subsets[r][0], 7200.0,
+                                              subsets[r][1], instance=inst),
+            RHS_SWEEP)
+        run.rhs_sweep[str(dtype)[6:] + "_time"] = dict(
+            rhs=sweep, rk4_step=step_sweep)
         if dtype == torch.float32:
             bg = kinds["time"]
             ms = cuda_ms(lambda: ray.rhs(bg, yt, tt), 20)
@@ -3223,7 +3429,8 @@ def phase_time_rhs(run):
                   f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
             run.kernels["rhs_time"] = dict(max_abs_err=0.0, ms=ms,
                                            plain_ms=plain, library_ms=None,
-                                           **b)
+                                           ms_by_instance=sweep[n], **b)
+    run.path_launches["rhs_time"] = public
 
 
 def grouped_bound(args, out, attempts_flops, rows_flops, row_samples):
@@ -3858,9 +4065,14 @@ def phase_time_spectral(run):
           f"time fit {tuple(sbg.coeffs.shape)}")
     day10 = spec.lerp_coeffs(sbg, 10.0)
     lon, lat = run.tv_day10
-    before = spec.LAUNCHES
+    before = (spec.LAUNCHES, spec.PACK_LAUNCHES)
     k = spec.sample_spectral_cuda(day10, lon, lat)
-    check(spec.LAUNCHES == before + 1, "the spectral kernel did not launch")
+    check((spec.LAUNCHES, spec.PACK_LAUNCHES) == (before[0] + 1,
+                                                  before[1] + 1),
+          "the spectral and packing kernels did not launch once each")
+    check(same_tiles(spec.pack_on_card(day10.coeffs),
+                    spec.pack_coeffs(day10.coeffs)),
+          "time_spectral: the packing kernel differs from pack_coeffs")
     p = spec.sample_spectral(day10, lon, lat)
     torch.cuda.synchronize()
     check(same_nan(k, p), "time_spectral: NaN rows differ")
@@ -4636,11 +4848,12 @@ def plain_rhs(bg, y, t):
 def phase_classify(run):
     """``--report-exact`` through the CLI in process (no output files) on
     the reference run (RK4), on it over the cli phase's daily frames (the
-    RHS's time instance) and on the production-size run (dense RK45),
-    every counter reset just before and read just after (the run's one
+    time instance) and on the production-size run (dense RK45), every
+    counter reset just before and read just after (the run's one
     whole-run launch; RK45: one entry-stage launch for the run and one for
-    the re-run, no RHS launch, one interval-kernel launch; RK4: 4 RHS
-    launches, the kernels line's rhs and rhs_time): the report's causes
+    the re-run, no RHS launch, one interval-kernel launch; RK4: one launch
+    of the one-step kernel and no RHS launch, the kernels line's rk4_step
+    and rk4_step_time, ``rk4_rerun_record``): the report's causes
     exact, every ray in one bucket, and equal to the counts of the labels
     ``classify`` gave inside the run (``termination.cause_labels``, kept
     and timed with its ``stats``: the re-run's entry, state and each lane's
@@ -4660,7 +4873,7 @@ def phase_classify(run):
     from rwrt_tpu_torch.convert import host
     from rwrt_tpu_torch.diagnostics import termination
     from rwrt_tpu_torch.models import ray
-    from rwrt_tpu_torch.solvers import rk45
+    from rwrt_tpu_torch.solvers import rk4, rk45
 
     with open(REPO / "examples" / "reference_run.json") as f:
         reference = json.load(f)
@@ -4680,12 +4893,13 @@ def phase_classify(run):
 
         def kept(*a, **k):
             before = (ray.LAUNCHES, rk45.INTERVAL_LAUNCHES,
-                      tracer.ENTRY_LAUNCHES)
+                      tracer.ENTRY_LAUNCHES, rk4.STEP_LAUNCHES)
             st = {}
             res, secs = wall_s(lambda: labels_of(*a, stats=st, **k))
             seen.append((res, secs, ray.LAUNCHES - before[0],
                          rk45.INTERVAL_LAUNCHES - before[1],
-                         tracer.ENTRY_LAUNCHES - before[2], st))
+                         tracer.ENTRY_LAUNCHES - before[2],
+                         rk4.STEP_LAUNCHES - before[3], st))
             return res
 
         termination.cause_labels = kept
@@ -4694,7 +4908,8 @@ def phase_classify(run):
             rep, launches, wall = cli_run(
                 run, run.tmp, f"{name}_exact", js, ["--report-exact"],
                 {unit: 1, "interval": int(adaptive),
-                 "entry": 2 * int(adaptive)}, None)
+                 "entry": 2 * int(adaptive),
+                 "rk4_step": int(not adaptive)}, None)
         finally:
             termination.cause_labels = labels_of
         summary = rep["trajectories"]
@@ -4708,21 +4923,23 @@ def phase_classify(run):
             bs, traj = prod["bs"], prod["traj"]
         base = termination.analyze(traj)
         check(len(seen) == 1, f"classify {name}: {len(seen)} re-runs")
-        (labels, k_s, rhs_launches, iv_launches, entry_launches, st), = seen
+        (labels, k_s, rhs_launches, iv_launches, entry_launches,
+         step_launches, st), = seen
         n = labels.size
         check(n == int(((base.death_step >= 1) & (
             base.death_step < cfg.nt)).sum()), f"classify {name}: the "
             "re-run's rays are not the in-process trajectory's dead rays")
         check(n > 0, f"classify {name}: no dead ray")
-        check((iv_launches, rhs_launches, entry_launches)
-              == ((0, 4, 0) if not adaptive else (1, 0, 1)),
-              f"classify {name}: {rhs_launches} RHS, {entry_launches} entry "
-              f"and {iv_launches} interval launches in the re-run")
+        check((iv_launches, rhs_launches, entry_launches, step_launches)
+              == ((0, 0, 0, 1) if not adaptive else (1, 0, 1, 0)),
+              f"classify {name}: {rhs_launches} RHS, {entry_launches} "
+              f"entry, {step_launches} step and {iv_launches} interval "
+              "launches in the re-run")
         if not adaptive:
-            # The RHS kernel's path: the RK4 re-run's four stages (the
-            # time instance's over the daily frames).
-            run.launches["rhs" if name == "reference"
-                         else "rhs_time"] = launches["rhs"]
+            # The one-step kernel's path: the RK4 re-run (the time
+            # instance's over the daily frames).
+            run.launches["rk4_step" if name == "reference"
+                         else "rk4_step_time"] = launches["rk4_step"]
         want = {"no_root": base.counts["no_root"],
                 "survived": base.counts["survived"],
                 **{c: int((labels == i).sum())
@@ -4744,14 +4961,15 @@ def phase_classify(run):
                 f"{json.dumps(summary['termination'])}; --report-exact wall "
                 f"{wall:.3f} s (split {json.dumps(rep['wall_s'])}); the "
                 f"report's re-run {k_s:.4f} s ({rhs_launches} RHS launches, "
-                f"{entry_launches} entry launch, {iv_launches} interval "
-                "launch)")
+                f"{entry_launches} entry launch, {step_launches} step "
+                f"launch, {iv_launches} interval launch)")
         if not adaptive:
             check(np.array_equal(labels, plain) and same(
                 st["state"], ps["state"]), f"classify {name}: the report's "
                 "labels differ from the plain RHS's")
             print(f"{head}; kernels {kc_s:.3f} s, plain RHS {p_s:.3f} s, "
                   "labels and states bitwise per lane, the report's too")
+            rk4_rerun_record(run, name, bs, cfg, st)
             continue
         check(torch.equal(ks["lane_att"], ps["lane_att"]),
               f"classify {name}: trips differ from the plain loop's")
@@ -4843,6 +5061,107 @@ def phase_classify(run):
               f"the same entry and cut {loop_s * 1e3:.1f} ms, bitwise; "
               f"bound {b['bound_ms']:.5f} ms ({b['bound_by']})")
     check(dead > 0, "classify: no dead ray re-run in either run")
+
+
+#: The RK4 re-run's seconds, the route it replaced (``rk4_step`` over the
+#: RHS kernel in Lane, the one instance it had: four RHS launches and the
+#: host's elementwise ops between them) and the one launch, timed in these
+#: turns.
+RERUN_TURNS = ("rhs", "step", "step", "rhs")
+
+
+def rk4_rerun_record(run, name, bs, cfg, st):
+    """The RK4 ``--report-exact`` re-run's one-step kernel on the report's
+    entry (``st``: its stats): every instance bitwise the plain step on the
+    card and timed alone (``graph_ms``) in turns, the launcher's choice
+    beside Lane, the chain floor (one lane alone), the RHS kernel's
+    instances alone at the same lanes and times; the re-run's seconds in
+    turns (RERUN_TURNS) with the four-RHS-launch route it replaced, which
+    gives the same bits; the plain step's ms; the bound. Recorded under
+    rk4_step (the reference run) or rk4_step_time (over daily frames), the
+    RHS's under the rhs or rhs_time record."""
+    torch = run.torch
+    from rwrt_tpu_torch import kernels, tracer
+    from rwrt_tpu_torch.models import ray
+    from rwrt_tpu_torch.solvers import rk4
+
+    y, t0 = st["entry"]
+    n = y.shape[1]
+    bg = tracer.make_background(bs, cfg.freq)
+    dt = cfg.tstep
+    want = rk4.rk4_step(bg, y, dt, t0)
+    check(same(want, st["state"]), f"classify {name}: the report's re-run "
+          "differs from the plain step")
+    for inst in kernels.INSTANCES:
+        check(same(rk4.rk4_step_rays(bg, y, dt, t0, instance=inst), want),
+              f"classify {name}: step instance {inst} differs from the "
+              "plain step")
+    def four(bg_, yy, tt):
+        return ray._rhs_cuda(bg_, yy, False, tt, instance="lane")[:2]
+
+    check(same(rk4.rk4_step(bg, y, dt, t0, rhs=four), want),
+          f"classify {name}: the four-RHS-launch step differs")
+    key = f"classify {name} rk4_step"
+    times = {}
+    for inst in TURNS:
+        times.setdefault(inst, []).append(graph_ms(
+            lambda: rk4.rk4_step_rays(bg, y, dt, t0, instance=inst)))
+    run.turns[key] = times
+    chosen = rk4.step_instance(n, y.dtype, ray.kernel_background(
+        bg, y.device, y.dtype, n)[0])
+    print(f"  {key}: {n} lanes, instances alone in turns "
+          + ", ".join(f"{i} {' / '.join(f'{t:.5f}' for t in ts)} ms"
+                      for i, ts in times.items()))
+    print_choice(run, key, chosen)
+    live = int(torch.nonzero(torch.isfinite(y).all(0))[0])
+    one = (y[:, live:live + 1].contiguous(), t0[live:live + 1].contiguous())
+    floor = {i: graph_ms(lambda: rk4.rk4_step_rays(bg, one[0], dt, one[1],
+                                                   instance=i))
+             for i in kernels.INSTANCES}
+    rhs_alone = {i: graph_ms(lambda: ray._rhs_cuda(bg, y, False, t0,
+                                                   instance=i))
+                 for i in TURNS}
+    rhs_floor = {i: graph_ms(lambda: ray._rhs_cuda(bg, one[0], False, one[1],
+                                                   instance=i))
+                 for i in kernels.INSTANCES}
+    secs = {"rhs": [], "step": []}
+    for route in RERUN_TURNS:
+        fn = ((lambda: rk4.rk4_step(bg, y, dt, t0, rhs=four))
+              if route == "rhs" else (lambda: rk4.rk4_step_rays(bg, y, dt,
+                                                                t0)))
+        secs[route].append(wall_s(fn)[1])
+    wrapper = cuda_ms(lambda: rk4.rk4_step_rays(bg, y, dt, t0), 20)
+    route_ms = cuda_ms(lambda: rk4.rk4_step(bg, y, dt, t0, rhs=four), 20)
+    plain = cuda_ms(lambda: rk4.rk4_step(bg, y, dt, t0), 5)
+    live_n = int(torch.isfinite(y).all(0).sum())
+    field = str(bg.fields.dtype)[6:]
+    b = bound(2 * nbytes(y) + (nbytes(t0) if ray.timed(bg) else 0)
+              + sampled_bytes(bg, ((y[0], y[1], t0),
+                                   (want[0], want[1], t0 + dt))),
+              live_n * (RK4_ONE_STEP_FLOPS + 4 * time_sample_flops(bg)),
+              field)
+    ms = min(times[chosen])
+    print(f"  {key}: the launcher's {chosen} alone {ms:.5f} ms, wrapper "
+          f"{wrapper:.5f} ms; chain floor (lane {live} alone) "
+          + ", ".join(f"{i} {t:.5f}" for i, t in floor.items())
+          + f" ms; the re-run's seconds in turns {'/'.join(RERUN_TURNS)}: "
+          f"four RHS launches {' / '.join(f'{x:.6f}' for x in secs['rhs'])}"
+          f", one launch {' / '.join(f'{x:.6f}' for x in secs['step'])} "
+          f"(device ms {route_ms:.5f} / {wrapper:.5f}); plain step "
+          f"{plain:.4f} ms; bound {b['bound_ms']:.6f} ms ({b['bound_by']})")
+    print(f"  {key}: the RHS kernel alone at these {n} lanes and times "
+          + ", ".join(f"{i} {t:.5f}" for i, t in rhs_alone.items())
+          + " ms; one lane alone "
+          + ", ".join(f"{i} {t:.5f}" for i, t in rhs_floor.items()) + " ms")
+    time_bg = name != "reference"
+    run.kernels["rk4_step_time" if time_bg else "rk4_step"] = dict(
+        max_abs_err=0.0, ms=ms, wrapper_ms=wrapper, plain_ms=plain,
+        library_ms=None, chain_floor_ms=min(floor.values()),
+        ms_by_instance={i: min(t) for i, t in times.items()},
+        rerun_s=secs, four_rhs_launches_ms=route_ms, lanes=n, **b)
+    rec = run.kernels["rhs_time" if time_bg else "rhs"]
+    rec.update(rerun_lanes=n, rerun_ms_by_instance=rhs_alone,
+               rerun_chain_floor_ms=rhs_floor)
 
 
 def bound_of_interval(n, live, trips, esz, bg_bytes, unit):
@@ -5404,6 +5723,12 @@ KERNELS = (
     ("entry", "rwrt_tpu_torch/csrc/entry.cu", "rwrt_tpu/tracer.py:809"),
     ("entry_time", "rwrt_tpu_torch/csrc/entry_time.cu",
      "rwrt_tpu/tracer.py:809"),
+    ("rk4_step", "rwrt_tpu_torch/csrc/rk4_run.cu",
+     "rwrt_tpu/diagnostics/termination.py:162"),
+    ("rk4_step_time", "rwrt_tpu_torch/csrc/rk4_run_time.cu",
+     "rwrt_tpu/diagnostics/termination.py:162"),
+    ("spectral_pack", "rwrt_tpu_torch/csrc/spectral.cu",
+     "rwrt_tpu/ops/spectral_sample.py:357"),
 )
 
 
@@ -5457,6 +5782,7 @@ def main() -> int:
         print(f"phase {phase.__name__[6:]} ok in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
     tmp.cleanup()
+    run.launches.update(run.path_launches)
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,

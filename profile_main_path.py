@@ -9,7 +9,7 @@
                                  [--kernels [--schedules 8:0,64:32]]
                                  [--exact] [--only REGEX] [--flux]
                                  [--rk4 [--variants no_gv,no_rows]]
-                                 [--others]
+                                 [--others] [--spectral]
 
 Runs chip_smoke.py's production seeding (100,800 rays, 30 days, float32)
 through ``rwrt_tpu_torch.trace_rays`` with one of three integrators:
@@ -105,6 +105,17 @@ instance in turns (Lane, Split, Split, Lane), every instance's state and
 trips equal. Beside each a digest of its outputs, equal between trees
 that give the same bits. ``--only REGEX`` keeps the rows whose
 "kernel shape" it matches.
+
+``--spectral`` times the spectral sampler instead, in every operand case
+of chip_smoke's spectral phase (``SPECTRAL_CASES``) on the climatology's
+fit at the production run's day-10 positions (as chip_smoke's main_path
+takes them): the kernel alone on packed coefficients and the wrapper
+(``sample_spectral_cuda``, the packing included), CUDA events, the
+median of ``--runs`` means of 3 calls each, and the packing alone
+(``pack_on_card`` where the tree has it, else ``pack_coeffs``); beside
+each the dtype of the case's packed tiles (which names its MMA) and a
+digest of the output. ``--only REGEX`` keeps the cases
+whose name it matches.
 
 ``--flux`` times the flux binning alone instead (``flux._accumulate_cuda``,
 and the region pass before it, ``flux._region_cuda``; CUDA events, the
@@ -233,6 +244,7 @@ def main() -> int:
     ap.add_argument("--rk4", action="store_true")
     ap.add_argument("--variants", default="")
     ap.add_argument("--others", action="store_true")
+    ap.add_argument("--spectral", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -254,6 +266,8 @@ def main() -> int:
         return rk4_kernels(torch, rt, args)
     if args.others:
         return other_kernels(torch, rt, args)
+    if args.spectral:
+        return spectral_cases(torch, rt, args)
     from rwrt_tpu_torch.tracer import MaxItersTruncation
 
     print(subprocess.run(
@@ -984,6 +998,62 @@ def other_kernels(torch, rt, args):
             emit(rec)
     args.out.mkdir(parents=True, exist_ok=True)
     with open(args.out / "other_kernels.jsonl", "a") as fh:
+        for rec in rows:
+            fh.write(json.dumps(dict(rec, tree=rt.__file__)) + "\n")
+    return 0
+
+
+def spectral_cases(torch, rt, args):
+    """``--spectral``: see the head of this file."""
+    from rwrt_tpu_torch.ops import spectral_sample as spec
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    run = cs.Run(torch, rt)
+    print(f"tree {Path(rt.__file__).parent}", flush=True)
+    traj = rt.trace_rays(run.bs(torch.float32), cs.production_config(rt),
+                         source_lon=run.slon, source_lat=run.slat)
+    lon10, lat10 = traj.lon[120].reshape(-1), traj.lat[120].reshape(-1)
+    fin = torch.isfinite(lon10) & torch.isfinite(lat10)
+    pos = (lon10[fin].contiguous(), lat10[fin].contiguous())
+    del traj
+    pack = getattr(spec, "pack_on_card", spec.pack_coeffs)
+    fits = {}
+    rows = []
+    for name, mm_name in cs.SPECTRAL_CASES:
+        tag = name + ("" if mm_name is None else "_" + mm_name)
+        if not re.search(args.only, tag):
+            continue
+        dtype = getattr(torch, name)
+        mm = None if mm_name is None else getattr(torch, mm_name)
+        if name not in fits:
+            fits[name] = spec.fit_spectral(run.bs(dtype))
+        sbg = fits[name]
+        lo, la = (x.to(dtype) for x in pos)
+        tht = (la - sbg.lat0).contiguous()
+        packed = pack(sbg.coeffs, mm)
+        out = torch.empty((lo.shape[0], sbg.coeffs.shape[2]), dtype=dtype,
+                          device=run.dev)
+
+        def kernel():
+            spec.launch_kernel(packed, lo, la, tht, sbg.coeffs.shape, mm,
+                               out)
+
+        kernel()
+        rec = dict(case=tag, tiles=str(packed.dtype)[6:], lanes=lo.shape[0],
+                   kernel_ms=median_ms(kernel, args.runs),
+                   wrapper_ms=median_ms(lambda: spec.sample_spectral_cuda(
+                       sbg, lo, la, matmul_dtype=mm), args.runs),
+                   pack_ms=median_ms(lambda: pack(sbg.coeffs, mm),
+                                     args.runs),
+                   rows=digest(out))
+        print(json.dumps(rec), flush=True)
+        rows.append(rec)
+    args.out.mkdir(parents=True, exist_ok=True)
+    with open(args.out / "spectral_cases.jsonl", "a") as fh:
         for rec in rows:
             fh.write(json.dumps(dict(rec, tree=rt.__file__)) + "\n")
     return 0

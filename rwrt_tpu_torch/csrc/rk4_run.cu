@@ -1,6 +1,15 @@
-// Fixed-step RK4 kernel: n_steps output steps of every lane in one launch,
-// one thread per lane (rwrt_rk4_run: tracer._run_rk4 and tracer._rk4_chunk
-// on CUDA).
+// Fixed-step RK4 kernels:
+//
+//   rk4_kernel<S, F, kTime, I>       rwrt_rk4_run: n_steps output steps of
+//                                    every lane in one launch
+//                                    (tracer._run_rk4 and tracer._rk4_chunk
+//                                    on CUDA);
+//   rk4_step_kernel<S, F, kTime, I>  rwrt_rk4_step: ONE step of every lane
+//                                    from its own time, no kill test, no
+//                                    row (solvers/rk4.py rk4_step_rays on
+//                                    CUDA: the RK4 re-run of
+//                                    termination.cause_labels, that is
+//                                    --report-exact's exact death causes).
 //
 // Replaces (rwrt_tpu, fused by XLA there, no Pallas original):
 //   solvers/rk4.py:32-40 rk4_step (four RHS stages, the freeze-if-any-flag
@@ -69,6 +78,27 @@
 // instances (kTime: rk4_run_time.cu, rk4_run_time_mix.cu; a time-varying
 // or ensemble background, ray_rhs.cuh) read it; the static instances'
 // code is the code without it.
+//
+// The one-step kernel. Replaces (rwrt_tpu, fused by XLA there):
+// diagnostics/termination.py:160-162 (the RK4 branch of classify's
+// re-run) over solvers/rk4.py:32-40 rk4_step with per-lane t0. Plain
+// PyTorch version: rwrt_tpu_torch/solvers/rk4.py rk4_step. Each dead
+// ray's last saved state takes one step from its own time; the step's
+// four stages were four launches of the RHS kernel with a dozen host-issued
+// elementwise ops between them (the stage inputs, the widened sum, the
+// freeze mask and its where), each lane waiting on none of the others.
+// What bounds it: a re-run is a few hundred to a few thousand lanes, so
+// the card is mostly idle and one lane's chain of four dependent
+// evaluations is the launch's floor; bytes (the state in and out, the
+// lanes' background rows) and flops (4 x 182 + 65 a lane) are far below
+// it. Design: the step in registers, as rk4_kernel's, with the same
+// expressions in the same order (mixed precision's stages rounded to F,
+// their products in S; the freeze where any stage flags err), and the
+// evaluation spread as rk4_kernel's by instance, which the wrapper chooses
+// by lane count (kernels.RK4_STEP_TEAM_LANES): Split's three division
+// waits an evaluation against Lane's fourteen shorten the chain, and its
+// 8 threads a lane cost nothing while the card is idle. A team's thread v
+// stores the state's value v.
 //
 // Rounding: built with -fmad=false (kernels/build.py), so each expression
 // rounds as the plain version's separate tensor ops do.
@@ -264,6 +294,97 @@ int run_rk4(const B& bg, void* y, const void* ug0, const void* vg0, void* ys,
   return launch_rk4<S, F, kTime>(a, inst, static_cast<cudaStream_t>(stream));
 }
 
+// The one-step kernel's arguments: the (5, R) state y, each lane's time
+// t0 (R,) (time instances only), the (5, R) result.
+template <typename S, typename F, bool kTime>
+struct Rk4StepArgs {
+  rwrt::Background<F, kTime> bg;
+  const S* y;
+  const S* t0;
+  S* out;
+  int R;
+  S dt, half, sixth;  // dt, 0.5 * dt, dt / 6, rounded to S
+};
+
+template <typename S, typename F, bool kTime, class I>
+__global__ void __launch_bounds__(rwrt::kBlock)
+    rk4_step_kernel(const Rk4StepArgs<S, F, kTime> a) {
+  const int i = (blockIdx.x * blockDim.x + threadIdx.x) / I::kThreads;
+  if (i >= a.R) return;
+  const auto& bg = rwrt::lane_background(a.bg, i);
+  const long long RL = a.R;
+  S yl[5];
+#pragma unroll
+  for (int v = 0; v < 5; ++v) yl[v] = a.y[v * RL + i];
+  // The stages' times t0, t0 + dt / 2 and t0 + dt in S, rounded to F.
+  F t_a = F(0), t_b = F(0), t_c = F(0);
+  if constexpr (kTime) {
+    const S t = a.t0[i];
+    t_a = F(t);
+    t_b = F(t + a.half);
+    t_c = F(t + a.dt);
+  }
+  F k1[5], k2[5], k3[5], k4[5], ys[5];
+  bool m1, m2, m3, m4;
+#pragma unroll
+  for (int v = 0; v < 5; ++v) ys[v] = F(yl[v]);
+  rwrt::ray_rhs<F, I>(bg, ys, t_a, k1, &m1);
+#pragma unroll
+  for (int v = 0; v < 5; ++v) ys[v] = F(yl[v] + a.half * S(k1[v]));
+  rwrt::ray_rhs<F, I>(bg, ys, t_b, k2, &m2);
+#pragma unroll
+  for (int v = 0; v < 5; ++v) ys[v] = F(yl[v] + a.half * S(k2[v]));
+  rwrt::ray_rhs<F, I>(bg, ys, t_b, k3, &m3);
+#pragma unroll
+  for (int v = 0; v < 5; ++v) ys[v] = F(yl[v] + a.dt * S(k3[v]));
+  rwrt::ray_rhs<F, I>(bg, ys, t_c, k4, &m4);
+  const bool valid = !(m1 || m2 || m3 || m4);
+  S yn[5];
+#pragma unroll
+  for (int v = 0; v < 5; ++v) {
+    const F sum = ((k1[v] + F(2) * k2[v]) + F(2) * k3[v]) + k4[v];
+    yn[v] = valid ? yl[v] + a.sixth * S(sum) : yl[v];
+  }
+  if constexpr (I::kThreads == 1) {
+#pragma unroll
+    for (int v = 0; v < 5; ++v) a.out[v * RL + i] = yn[v];
+  } else {
+    const S x = I::template own<S, 5>(yn);
+    const int v = I::rank();
+    if (v < 5) a.out[v * RL + i] = x;
+  }
+}
+
+template <typename S, typename F, typename B>
+int run_rk4_step(const B& bg, const void* y, const void* t0, void* out, int R,
+                 double dt, double half, double sixth, int inst,
+                 void* stream) {
+  constexpr bool kTime = std::is_same<B, rwrt::Background<F, true>>::value;
+  if (R <= 0) return cudaSuccess;
+  Rk4StepArgs<S, F, kTime> a{};
+  a.bg = bg;
+  a.y = static_cast<const S*>(y);
+  a.t0 = static_cast<const S*>(t0);
+  a.out = static_cast<S*>(out);
+  a.R = R;
+  a.dt = S(dt);
+  a.half = S(half);
+  a.sixth = S(sixth);
+  return rwrt::with_instance(inst, [&](auto tag) {
+    using I = decltype(tag);
+    return rwrt::launch_as<I>(rk4_step_kernel<S, F, kTime, I>, a, R,
+                              static_cast<cudaStream_t>(stream));
+  });
+}
+
+template <typename S, typename F, bool kTime>
+int rk4_step_resident(int inst, int* out) {
+  return rwrt::with_instance(inst, [&](auto tag) {
+    using I = decltype(tag);
+    return rwrt::resident_threads(rk4_step_kernel<S, F, kTime, I>, out);
+  });
+}
+
 }  // namespace
 
 extern "C" {
@@ -282,6 +403,18 @@ extern "C" {
   }                                                                           \
   int rwrt_rk4_resident_##SUFFIX(int inst, void* out) {                       \
     return rk4_resident<S, F, false>(inst, static_cast<int*>(out));           \
+  }                                                                           \
+  int rwrt_rk4_step_##SUFFIX(const void* packed, int W, int H, double lon0,   \
+                             double lat0, double dx, double dy,               \
+                             const void* y, void* out, int R, double dt,      \
+                             double half, double sixth, int inst,             \
+                             void* stream) {                                  \
+    return run_rk4_step<S, F>(                                                \
+        rwrt::make_background<F>(packed, W, H, lon0, lat0, dx, dy), y,        \
+        nullptr, out, R, dt, half, sixth, inst, stream);                      \
+  }                                                                           \
+  int rwrt_rk4_step_resident_##SUFFIX(int inst, void* out) {                  \
+    return rk4_step_resident<S, F, false>(inst, static_cast<int*>(out));      \
   }
 
 // The time instances: the background's time axis and member map after the
@@ -302,6 +435,19 @@ extern "C" {
   }                                                                           \
   int rwrt_rk4_resident_time_##SUFFIX(int inst, void* out) {                  \
     return rk4_resident<S, F, true>(inst, static_cast<int*>(out));            \
+  }                                                                           \
+  int rwrt_rk4_step_time_##SUFFIX(                                            \
+      const void* packed, int W, int H, double lon0, double lat0, double dx,  \
+      double dy, int nt, int timed, double t0, double tdt,                    \
+      const void* member, const void* y, const void* t, void* out, int R,     \
+      double dt, double half, double sixth, int inst, void* stream) {         \
+    return run_rk4_step<S, F>(                                                \
+        rwrt::make_background<F>(packed, W, H, lon0, lat0, dx, dy, nt, timed, \
+                                 t0, tdt, member),                            \
+        y, t, out, R, dt, half, sixth, inst, stream);                         \
+  }                                                                           \
+  int rwrt_rk4_step_resident_time_##SUFFIX(int inst, void* out) {             \
+    return rk4_step_resident<S, F, true>(inst, static_cast<int*>(out));       \
   }
 
 // One group of entry points per unit, so that they compile in parallel:

@@ -42,9 +42,11 @@
 //
 // The operand cases (the Pallas kernel casts the lon basis and the
 // coefficients to any matmul_dtype and sums in the coefficients' dtype;
-// the wrapper's case code, Fmt below, names the dtype). Each takes an MMA
-// whose products of the rounded operands are exact, so the sums are in the
-// coefficients' dtype, as in JAX:
+// the wrapper's case code, Fmt below, names the dtype) and the MODE, the
+// tensor-core format a case runs on (Mode below, which follows from the
+// case and the coefficients' dtype).
+// Each takes an MMA whose products of the rounded operands are exact, so
+// the sums are in the coefficients' dtype, as in JAX:
 //   float32, no rounding: 3xTF32. x = hi + lo with hi = tf32(x), lo =
 //     tf32(x - hi) (cvt.rna), acc += lo*hi' + hi*lo' + hi*hi' on
 //     mma.m16n8k8 tf32. B arrives split by the wrapper; A is split as its
@@ -53,24 +55,37 @@
 //     float32 accumulation (the Pallas kernel's preferred_element_type;
 //     every float8 value, subnormals and the fnuz ranges included, is
 //     exact in bf16, and a product of two bf16 values is exact in float32).
-//   float32 coefficients, float16 operands: one TF32 plane, one product
-//     (acc += a*b on mma.m16n8k8 tf32): float16 values, subnormals
-//     included, are exact in TF32 and their products in float32.
+//   float32 coefficients, float16 operands: mma.m16n8k16 f16, the bf16
+//     mode's fragments with operands held as __half: float16 values,
+//     subnormals, inf and NaN are native, and a product of two is exact in
+//     float32 (11 + 11 bits).
+//   Not the fp8 tensor cores for e4m3fn and e5m2: they keep only ~14 bits
+//     of a sum, within one wgmma too, and miss the 1e-5 bar on the
+//     climatology (fp8_mode_probe.py; PERF.md section 6); sm_90a lowers
+//     mma.sync's e4m3 and e5m2 shapes to a conversion to f16 and HMMAs.
 //   float64, with or without rounding (bf16, float16, float32, float8):
 //     mma.m16n8k8 f64 (DMMA; four times the work of m8n8k4 per
 //     instruction) on values rounded and held in float64.
 // Rounding (round_to): float16 and float8 once, to nearest even at the
 // format's precision and least exponent (its subnormals), overflowing to
-// inf (float16, e5m2) or NaN (e4m3fn, the fnuz types), and fnuz has no -0;
-// bf16 by __float2bfloat16, from float64 through float32 (as torch and JAX
-// round it); float32 by the cast. The wrapper rounds the coefficients the
-// same way (round_operands); rwrt_spectral_round exposes round_to so the
-// two can be held to each other bitwise.
+// inf (float16, e5m2) or NaN (e4m3fn, the fnuz types), and fnuz has no -0,
+// by exact scalings by powers of two built from their bits around one
+// rint, as round_operands forms it (no frexp or ldexp); bf16 by
+// __float2bfloat16, from float64 through float32 (as torch and JAX round
+// it); float32 by the cast. The wrapper rounds the coefficients the same
+// way, in one launch of pack_kernel (pack_on_card; round_operands and
+// pack_coeffs are its plain version); rwrt_spectral_round exposes round_to
+// so that the two can be held to each other bitwise. A rounded case's
+// prologue takes the basis's cos and sin from one sincos, whose two
+// results are cos's and sin's bits (pow_parity.py holds them to PyTorch's).
 // The library builds with -fmad=false; the epilogue's fusing is explicit
 // fma().
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "ray_rhs.cuh"
 
@@ -84,17 +99,18 @@ constexpr int kStages = 3;
 constexpr int kBarBytes = 128;       // the ring's mbarriers
 constexpr size_t kMaxSmem = 232448;  // 227 KB, a block's opt-in maximum
 
-enum class Mode { kBf16, kTf32x3, kTf32, kF64 };
+// The tensor-core format of a case (dispatch_f32, dispatch_f64).
+enum class Mode { kBf16, kTf32x3, kF64, kF16 };
 
 // The operand rounding, by the wrapper's case code (OPERAND_DTYPES).
 enum class Fmt { kNone, kBf16, kF16, kF32, kE4M3, kE5M2, kE4M3Fnuz, kE5M2Fnuz };
 
-// Per case: accumulator type (also lon/lat/out), shared-memory operand
-// type, B planes, k per MMA, row padding (elements) that makes the
-// fragment loads conflict-free (a row stride of 4 mod 8 words, counted in
-// 4-byte words for 16- and 32-bit operands and in 8-byte words for
-// float64), warps that split a row tile's 80 columns, and 16-ray row tiles
-// per warp.
+// Per mode: accumulator type (also lon/lat/out), shared-memory operand
+// type, B planes, k per MMA, the A and B rows' padding (elements) that
+// makes the fragment loads conflict-free (a row stride of 4 mod 8 words,
+// counted in 4-byte words for 16- and 32-bit operands and in 8-byte words
+// for float64), warps that split a row tile's 80 columns, and 16-ray row
+// tiles per warp.
 template <Mode M>
 struct Cfg;
 
@@ -102,26 +118,29 @@ template <>
 struct Cfg<Mode::kBf16> {
   using Acc = float;
   using Op = __nv_bfloat16;
-  static constexpr int kPlanes = 1, kKStep = 16, kPad = 8, kWN = 1, kMT = 1;
+  static constexpr int kPlanes = 1, kKStep = 16, kPad = 8, kWN = 1,
+                       kMT = 1;
+};
+
+template <>
+struct Cfg<Mode::kF16> : Cfg<Mode::kBf16> {
+  using Op = __half;
 };
 
 template <>
 struct Cfg<Mode::kTf32x3> {
   using Acc = float;
   using Op = float;
-  static constexpr int kPlanes = 2, kKStep = 8, kPad = 4, kWN = 2, kMT = 2;
-};
-
-template <>
-struct Cfg<Mode::kTf32> : Cfg<Mode::kTf32x3> {
-  static constexpr int kPlanes = 1;
+  static constexpr int kPlanes = 2, kKStep = 8, kPad = 4, kWN = 2,
+                       kMT = 2;
 };
 
 template <>
 struct Cfg<Mode::kF64> {
   using Acc = double;
   using Op = double;
-  static constexpr int kPlanes = 1, kKStep = 8, kPad = 4, kWN = 2, kMT = 1;
+  static constexpr int kPlanes = 1, kKStep = 8, kPad = 4, kWN = 2,
+                       kMT = 1;
 };
 
 // A format rounded to by round_to: significand bits (with the implicit
@@ -160,8 +179,31 @@ struct Format<Fmt::kE5M2Fnuz> {
   static constexpr bool kInf = false, kNegZero = false;
 };
 
-// x rounded to F, held in T (float or double): exact scalings by powers of
-// two around one round-to-nearest-even (rint in the default mode).
+// 2^k, exactly, from its bits: k in [-1022, 1023] (double) or [-126, 127]
+// (float).
+__device__ __forceinline__ double pow2(int k, double) {
+  return __longlong_as_double(static_cast<long long>(k + 1023) << 52);
+}
+__device__ __forceinline__ float pow2(int k, float) {
+  return __int_as_float((k + 127) << 23);
+}
+
+// floor(log2 |x|) from the exponent field: exact for normal x; the least
+// normal exponent less one for zero and subnormal x, the greatest plus one
+// for inf and NaN (either gives round_to's result, below).
+__device__ __forceinline__ int exponent_of(double x) {
+  return static_cast<int>((__double_as_longlong(x) >> 52) & 0x7ff) - 1023;
+}
+__device__ __forceinline__ int exponent_of(float x) {
+  return ((__float_as_int(x) >> 23) & 0xff) - 127;
+}
+
+// x rounded to F, held in T (float or double). float16 and float8:
+// x * 2^-q rounded to an integer (rint: to nearest even) times 2^q, q the
+// quantum's exponent at x's binade (or the format's least, its
+// subnormals), both scalings exact (round_operands' arithmetic); then the
+// overflow to inf or NaN and fnuz's lack of -0. A zero or subnormal x
+// rounds to a signed zero, inf and NaN pass to the overflow rule.
 template <Fmt F, typename T>
 __device__ __forceinline__ T round_to(T x) {
   if constexpr (F == Fmt::kNone) {
@@ -173,19 +215,8 @@ __device__ __forceinline__ T round_to(T x) {
     return static_cast<T>(static_cast<float>(x));
   } else {
     using Q = Format<F>;
-    int e;
-    if constexpr (sizeof(T) == 4) {
-      frexpf(x, &e);  // |x| in [2^(e-1), 2^e)
-    } else {
-      frexp(x, &e);
-    }
-    const int q = max(e - 1, Q::kEmin) - (Q::kP - 1);
-    T r;
-    if constexpr (sizeof(T) == 4) {
-      r = ldexpf(rintf(ldexpf(x, -q)), q);
-    } else {
-      r = ldexp(rint(ldexp(x, -q)), q);
-    }
+    const int q = max(exponent_of(x), Q::kEmin) - (Q::kP - 1);
+    T r = rint(x * pow2(-q, T(0))) * pow2(q, T(0));
     if (fabs(r) > static_cast<T>(Q::kMax)) {
       r = Q::kInf ? copysign(static_cast<T>(INFINITY), x)
                   : rwrt::nan_value<T>();
@@ -197,11 +228,13 @@ __device__ __forceinline__ T round_to(T x) {
   }
 }
 
-// A rounded basis value into the operand type (exact).
+// A rounded value into the operand type (exact).
 template <typename Op, typename T>
 __device__ __forceinline__ Op to_op(T x) {
-  if constexpr (sizeof(Op) == 2) {
+  if constexpr (std::is_same<Op, __nv_bfloat16>::value) {
     return __float2bfloat16(static_cast<float>(x));
+  } else if constexpr (std::is_same<Op, __half>::value) {
+    return __float2half_rn(static_cast<float>(x));
   } else {
     return static_cast<Op>(x);
   }
@@ -270,6 +303,15 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -293,13 +335,13 @@ __device__ __forceinline__ void mma_f64(double (&d)[4], const double (&a)[4],
 // warp's columns `bs`, at tile column kk). acc[i][j] holds [ray g: cols
 // 2t, 2t+1; ray g+8: cols 2t, 2t+1] of row tile i. The m16n8k8 fragments
 // (tf32 and f64) hold A (g, t), (g+8, t), (g, t+4), (g+8, t+4) and B
-// (t, g), (t+4, g); m16n8k16 bf16 holds pairs of consecutive k.
-template <Mode M, int kMT, int kNT>
+// (t, g), (t+4, g); m16n8k16 (bf16, f16) holds pairs of consecutive k.
+template <Mode M, Fmt F, int kMT, int kNT>
 __device__ __forceinline__ void mma_step(
     typename Cfg<M>::Acc (&acc)[kMT][kNT][4], const typename Cfg<M>::Op* a,
     int sA, const typename Cfg<M>::Op* bs, int sB, int k, int kk, int g,
     int t) {
-  if constexpr (M == Mode::kBf16) {
+  if constexpr (M == Mode::kBf16 || M == Mode::kF16) {
     uint32_t af[kMT][4];
 #pragma unroll
     for (int i = 0; i < kMT; ++i) {
@@ -315,12 +357,16 @@ __device__ __forceinline__ void mma_step(
       const auto* b = bs + (8 * j + g) * sB + kk + 2 * t;
       const uint32_t b0 = ld32(b), b1 = ld32(b + 8);
 #pragma unroll
-      for (int i = 0; i < kMT; ++i) mma_bf16(acc[i][j], af[i], b0, b1);
+      for (int i = 0; i < kMT; ++i) {
+        if constexpr (M == Mode::kBf16) {
+          mma_bf16(acc[i][j], af[i], b0, b1);
+        } else {
+          mma_f16(acc[i][j], af[i], b0, b1);
+        }
+      }
     }
-  } else if constexpr (M == Mode::kTf32x3 || M == Mode::kTf32) {
-    // kTf32x3 splits A and reads B's lo plane; kTf32's operands are exact
-    // in TF32 (rounded to float16), one product each.
-    constexpr bool kSplit = M == Mode::kTf32x3;
+  } else if constexpr (M == Mode::kTf32x3) {
+    // A split as it loads, B's lo plane read beside its hi plane.
     uint32_t hi[kMT][4], lo[kMT][4];
 #pragma unroll
     for (int i = 0; i < kMT; ++i) {
@@ -329,31 +375,22 @@ __device__ __forceinline__ void mma_step(
       const float av[4] = {a0[0], a1[0], a0[4], a1[4]};
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        if constexpr (kSplit) {
-          hi[i][q] = tf32_rna(av[q]);
-          lo[i][q] = tf32_rna(av[q] - __uint_as_float(hi[i][q]));
-        } else {
-          hi[i][q] = __float_as_uint(av[q]);
-        }
+        hi[i][q] = tf32_rna(av[q]);
+        lo[i][q] = tf32_rna(av[q] - __uint_as_float(hi[i][q]));
       }
     }
-    const float* bl = bs + kGroupCols * sB;  // the lo plane (kTf32x3)
+    const float* bl = bs + kGroupCols * sB;  // the lo plane
 #pragma unroll
     for (int j = 0; j < kNT; ++j) {
       const int o = (8 * j + g) * sB + kk + t;
       const uint32_t bh0 = __float_as_uint(bs[o]);
       const uint32_t bh1 = __float_as_uint(bs[o + 4]);
-      uint32_t bl0 = 0, bl1 = 0;
-      if constexpr (kSplit) {
-        bl0 = __float_as_uint(bl[o]);
-        bl1 = __float_as_uint(bl[o + 4]);
-      }
+      const uint32_t bl0 = __float_as_uint(bl[o]);
+      const uint32_t bl1 = __float_as_uint(bl[o + 4]);
 #pragma unroll
       for (int i = 0; i < kMT; ++i) {
-        if constexpr (kSplit) {
-          mma_tf32(acc[i][j], lo[i], bh0, bh1);
-          mma_tf32(acc[i][j], hi[i], bl0, bl1);
-        }
+        mma_tf32(acc[i][j], lo[i], bh0, bh1);
+        mma_tf32(acc[i][j], hi[i], bl0, bl1);
         mma_tf32(acc[i][j], hi[i], bh0, bh1);
       }
     }
@@ -466,19 +503,13 @@ spectral_kernel(const typename Cfg<M>::Acc* __restrict__ lon,
       if (m == 0) {
         arow[0] = to_op<Op>(Acc(1));
       } else {
+        // sincos's sin and cos are the bits of the sin and cos the plain
+        // version calls (pow_parity.py holds them to PyTorch's), so that
+        // the rounded basis is the plain version's to the bit: one ulp
+        // moved across a rounding boundary would move an operand by a
+        // whole ulp of the narrow format.
         Acc sn, cs;
-        const Acc x = lo * Acc(m);
-        if constexpr (F == Fmt::kNone) {
-          sincos(x, &sn, &cs);
-        } else {
-          // cos and sin, the functions the plain version calls (held to
-          // PyTorch's bits by pow_parity.py), so that the rounded basis is
-          // the plain version's to the bit: one ulp moved across a
-          // rounding boundary would move an operand by a whole ulp of the
-          // narrow format.
-          cs = cos(x);
-          sn = sin(x);
-        }
+        sincos(lo * Acc(m), &sn, &cs);
         arow[m] = to_op<Op>(round_to<F>(cs));
         arow[mh + m] = to_op<Op>(round_to<F>(sn));
       }
@@ -522,7 +553,7 @@ spectral_kernel(const typename Cfg<M>::Acc* __restrict__ lon,
     const Op* bs = bst + s * stage + b_off;
 #pragma unroll
     for (int kk = 0; kk < kKC; kk += Cfg<M>::kKStep) {
-      mma_step<M, kMT, kNT>(acc, a, sA, bs, sB, kc * kKC + kk, kk, g, t);
+      mma_step<M, F, kMT, kNT>(acc, a, sA, bs, sB, kc * kKC + kk, kk, g, t);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
@@ -590,7 +621,8 @@ int launch(const void* lon, const void* lat, const void* tht,
   // As many rays per block as shared memory allows (A and the latitude
   // basis grow with them); fewer warps below 256 threads on wide fits.
   int row_warps = kThreads / (32 * Cfg<M>::kWN);
-  while (row_warps > 1 && smem_bytes<M>(row_warps, Kp, Lp) > kMaxSmem) {
+  while (row_warps > 1 &&
+         smem_bytes<M>(row_warps, Kp, Lp) > kMaxSmem) {
     row_warps /= 2;
   }
   const size_t smem = smem_bytes<M>(row_warps, Kp, Lp);
@@ -647,50 +679,157 @@ int round_case(const void* x, long long n, int fmt, void* out,
   return cudaErrorInvalidValue;
 }
 
+// pack_coeffs in one launch: coefficients (Mp, L, C) in T, rounded to
+// case F (round_to), into the tiles of mode M, one thread an element of
+// the output (C, G, Kp / kKC, planes, kGroupCols, kKC + kPad): tile (c,
+// g, kc) holds coeffs[kc * kKC + kk, g * kGroupCols + n, c] at [p, n, kk],
+// zero past Mp, past L and in the row pad; the tf32x3 mode's two planes
+// are hi = tf32(x) and lo = tf32(x - hi), each rounded to nearest with
+// ties away as spectral_sample.tf32_round (and cvt.rna) rounds. Replaces no TPU kernel: the Pallas kernel cast its
+// operands inside; here the packing was the wrapper's dozen PyTorch ops
+// (round_operands' frexp, scalings, round and wheres in float64, then the
+// pad, permute and copy), 0.02-0.32 ms a call, against a few microseconds
+// of bytes. Bound: bytes (the coefficients read once, the tiles written
+// once).
+__device__ __forceinline__ float tf32_ties_away(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & ~0x1FFFu);
+}
+
+template <Mode M, Fmt F, typename T>
+__global__ void pack_kernel(const T* __restrict__ coeffs, int Mp, int L,
+                            int C, int G, int nkc,
+                            typename Cfg<M>::Op* __restrict__ out,
+                            long long n) {
+  using Op = typename Cfg<M>::Op;
+  constexpr int kRow = kKC + Cfg<M>::kPad;
+  constexpr int kPlane = kGroupCols * kRow;
+  constexpr int kTile = Cfg<M>::kPlanes * kPlane;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < n; i += stride) {
+    const long long tile = i / kTile;
+    const int pos = static_cast<int>(i - tile * kTile);
+    const int plane = pos / kPlane;
+    const int e = pos - plane * kPlane;
+    const int col = e / kRow;
+    const int kk = e - col * kRow;
+    const int kc = static_cast<int>(tile % nkc);
+    const int g = static_cast<int>((tile / nkc) % G);
+    const int c = static_cast<int>(tile / (static_cast<long long>(nkc) * G));
+    const int k = kc * kKC + kk;
+    const int l = g * kGroupCols + col;
+    Op v = to_op<Op>(T(0));
+    if (kk < kKC && k < Mp && l < L) {
+      const T x = coeffs[(static_cast<long long>(k) * L + l) * C + c];
+      if constexpr (M == Mode::kTf32x3) {
+        const float hi = tf32_ties_away(x);
+        v = plane == 0 ? hi : tf32_ties_away(x - hi);
+      } else {
+        v = to_op<Op>(round_to<F>(x));
+      }
+    }
+    out[i] = v;
+  }
+}
+
+template <Mode M, Fmt F, typename T>
+int launch_pack(const void* coeffs, int Mp, int L, int C, void* out,
+                cudaStream_t s) {
+  if (Mp < 1 || L < 1 || C < 1) return cudaErrorInvalidValue;
+  const int G = (L + kGroupCols - 1) / kGroupCols;
+  const int nkc = (Mp + kKC - 1) / kKC;
+  const long long n = static_cast<long long>(C) * G * nkc *
+                      Cfg<M>::kPlanes * kGroupCols *
+                      (kKC + Cfg<M>::kPad);
+  const long long blocks = (n + 255) / 256;
+  pack_kernel<M, F, T><<<static_cast<int>(blocks < 8192 ? blocks : 8192),
+                         256, 0, s>>>(
+      static_cast<const T*>(coeffs), Mp, L, C, G, nkc,
+      static_cast<typename Cfg<M>::Op*>(out), n);
+  return cudaGetLastError();
+}
+
+// The kernel (or, with pack, the packing kernel) of case `fmt` over
+// float32 coefficients, in the mode that follows from it: 3xTF32 for no
+// rounding (and float32 operands), the f16 mode for float16, the bf16 mode
+// for bf16 and every float8.
+template <bool kPack>
+int dispatch_f32(int fmt, const void* lon, const void* lat, const void* tht,
+                 const void* src, int R, int Mp, int L, int C, int Kp,
+                 int Lp, void* out, cudaStream_t s) {
+#define RWRT_CASE(MODE, FMT)                                               \
+  return kPack ? launch_pack<Mode::MODE, Fmt::FMT,                         \
+                             typename Cfg<Mode::MODE>::Acc>(src, Mp, L, C, \
+                                                            out, s)       \
+               : launch<Mode::MODE, Fmt::FMT>(lon, lat, tht, src, R, Mp,  \
+                                              L, C, Kp, Lp, out, s)
+  switch (static_cast<Fmt>(fmt)) {
+    case Fmt::kNone:
+    case Fmt::kF32: RWRT_CASE(kTf32x3, kNone);
+    case Fmt::kBf16: RWRT_CASE(kBf16, kBf16);
+    case Fmt::kF16: RWRT_CASE(kF16, kF16);
+    case Fmt::kE4M3: RWRT_CASE(kBf16, kE4M3);
+    case Fmt::kE5M2: RWRT_CASE(kBf16, kE5M2);
+    case Fmt::kE4M3Fnuz: RWRT_CASE(kBf16, kE4M3Fnuz);
+    case Fmt::kE5M2Fnuz: RWRT_CASE(kBf16, kE5M2Fnuz);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The same over float64 coefficients: every case in the f64 mode.
+template <bool kPack>
+int dispatch_f64(int fmt, const void* lon, const void* lat, const void* tht,
+                 const void* src, int R, int Mp, int L, int C, int Kp,
+                 int Lp, void* out, cudaStream_t s) {
+  switch (static_cast<Fmt>(fmt)) {
+    case Fmt::kNone: RWRT_CASE(kF64, kNone);
+    case Fmt::kBf16: RWRT_CASE(kF64, kBf16);
+    case Fmt::kF16: RWRT_CASE(kF64, kF16);
+    case Fmt::kF32: RWRT_CASE(kF64, kF32);
+    case Fmt::kE4M3: RWRT_CASE(kF64, kE4M3);
+    case Fmt::kE5M2: RWRT_CASE(kF64, kE5M2);
+    case Fmt::kE4M3Fnuz: RWRT_CASE(kF64, kE4M3Fnuz);
+    case Fmt::kE5M2Fnuz: RWRT_CASE(kF64, kE5M2Fnuz);
+  }
+#undef RWRT_CASE
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
-// packed: pack_coeffs tiles: float32 (hi, lo) for case 0 (no rounding),
-// one float32 plane of float16 values for case 2, one bfloat16 plane for
-// case 1 (bf16) and cases 4-7 (float8); case 3 (float32) is case 0's.
+// packed: pack_coeffs tiles of case `fmt`: float32 (hi, lo) with no
+// rounding, one bfloat16 plane for bf16 and every float8, one float16
+// plane for float16.
 int rwrt_spectral_f32(const void* lon, const void* lat, const void* tht,
                       const void* packed, int R, int Mp, int L, int C, int Kp,
                       int Lp, int fmt, void* out, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-#define RWRT_SPECTRAL(MODE, FMT) \
-  launch<Mode::MODE, Fmt::FMT>(lon, lat, tht, packed, R, Mp, L, C, Kp, Lp, \
-                               out, s)
-  switch (static_cast<Fmt>(fmt)) {
-    case Fmt::kNone:
-    case Fmt::kF32: return RWRT_SPECTRAL(kTf32x3, kNone);
-    case Fmt::kBf16: return RWRT_SPECTRAL(kBf16, kBf16);
-    case Fmt::kF16: return RWRT_SPECTRAL(kTf32, kF16);
-    case Fmt::kE4M3: return RWRT_SPECTRAL(kBf16, kE4M3);
-    case Fmt::kE5M2: return RWRT_SPECTRAL(kBf16, kE5M2);
-    case Fmt::kE4M3Fnuz: return RWRT_SPECTRAL(kBf16, kE4M3Fnuz);
-    case Fmt::kE5M2Fnuz: return RWRT_SPECTRAL(kBf16, kE5M2Fnuz);
-  }
-  return cudaErrorInvalidValue;
+  return dispatch_f32<false>(fmt, lon, lat, tht, packed, R, Mp, L, C, Kp, Lp,
+                             out, static_cast<cudaStream_t>(stream));
 }
 
 // packed: pack_coeffs tiles, float64, the values rounded to case `fmt`.
 int rwrt_spectral_f64(const void* lon, const void* lat, const void* tht,
                       const void* packed, int R, int Mp, int L, int C, int Kp,
                       int Lp, int fmt, void* out, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (static_cast<Fmt>(fmt)) {
-    case Fmt::kNone: return RWRT_SPECTRAL(kF64, kNone);
-    case Fmt::kBf16: return RWRT_SPECTRAL(kF64, kBf16);
-    case Fmt::kF16: return RWRT_SPECTRAL(kF64, kF16);
-    case Fmt::kF32: return RWRT_SPECTRAL(kF64, kF32);
-    case Fmt::kE4M3: return RWRT_SPECTRAL(kF64, kE4M3);
-    case Fmt::kE5M2: return RWRT_SPECTRAL(kF64, kE5M2);
-    case Fmt::kE4M3Fnuz: return RWRT_SPECTRAL(kF64, kE4M3Fnuz);
-    case Fmt::kE5M2Fnuz: return RWRT_SPECTRAL(kF64, kE5M2Fnuz);
-  }
-#undef RWRT_SPECTRAL
-  return cudaErrorInvalidValue;
+  return dispatch_f64<false>(fmt, lon, lat, tht, packed, R, Mp, L, C, Kp, Lp,
+                             out, static_cast<cudaStream_t>(stream));
+}
+
+// pack_coeffs of (Mp, L, C) coefficients for case `fmt`, in one launch
+// (spectral_sample.pack_on_card).
+int rwrt_spectral_pack_f32(const void* coeffs, int Mp, int L, int C, int fmt,
+                           void* out, void* stream) {
+  return dispatch_f32<true>(fmt, nullptr, nullptr, nullptr, coeffs, 0, Mp, L,
+                            C, 0, 0, out, static_cast<cudaStream_t>(stream));
+}
+
+int rwrt_spectral_pack_f64(const void* coeffs, int Mp, int L, int C, int fmt,
+                           void* out, void* stream) {
+  return dispatch_f64<true>(fmt, nullptr, nullptr, nullptr, coeffs, 0, Mp, L,
+                            C, 0, 0, out, static_cast<cudaStream_t>(stream));
 }
 
 // The kernel's operand rounding (round_to) of n values, case `fmt`: held

@@ -14,8 +14,9 @@ RK45 re-run is one launch of the interval kernel
 to its own bound in registers), after one launch of the entry-stage
 kernel for the initial step (``tracer.entry_stage``: ``csrc/entry.cu``,
 at each lane's own time over a time-varying background); the RK4
-re-run's one step is four RHS launches (``ray.rhs``: ``csrc/rhs.cu``, or
-``rhs_time.cu``).
+re-run's one step is one launch of the step kernel
+(``rk4.rk4_step_rays``: ``csrc/rk4_run.cu``, each lane's four stages in
+registers from its own time).
 """
 
 from __future__ import annotations
@@ -129,18 +130,19 @@ def cause_labels(traj, bs, config, death_step, rhs=None,
                   mid-stage latitude mask)
       other    -- death not reproduced by the re-run
 
-    ``rhs`` (bg, y, t) -> (dy, err) evaluates the RHS: by default
-    ``ray.rhs``, the RHS kernel on a CUDA state, and the RK45 re-run's
+    ``rhs`` (bg, y, t) -> (dy, err) evaluates the RHS: by default the
+    RK4 re-run's step through ``rk4.rk4_step_rays`` and the RK45 re-run's
     initial step through ``tracer.entry_stage`` and its loop through
-    ``rk45.integrate_interval_rays`` (one launch of the entry kernel and
-    one of the interval kernel on a CUDA state, the plain versions on a
-    CPU one); a plain callable
-    (``lambda bg, y, t: ray._rhs_core(bg, y, t, False)[:2]``) runs the
-    plain version, through ``rk45.integrate_interval`` in RK45. ``stats``
+    ``rk45.integrate_interval_rays`` (on a CUDA state one launch of the
+    step kernel, or one of the entry kernel and one of the interval
+    kernel; the plain versions on a CPU one); a callable
+    (``lambda bg, y, t: ray._rhs_core(bg, y, t, False)[:2]``, or
+    ``ray.rhs``) runs the plain step or loop over it: ``rk4.rk4_step``,
+    ``rk45.integrate_interval``. ``stats``
     (a dict, or None) receives the re-run's candidate state (``"state"``,
-    (5, n) on ``bs``'s device) and, in RK45, its entry (``"entry"``: y,
-    t0, h0 and the bounds) and each lane's trips (``"lane_att"``, (n,)
-    int32).
+    (5, n) on ``bs``'s device), its entry (``"entry"``: y and t0; in RK45
+    also h0 and the bounds) and, in RK45, each lane's trips
+    (``"lane_att"``, (n,) int32).
     """
     from rwrt_tpu_torch import tracer as tracer_mod
     from rwrt_tpu_torch.constants import pi
@@ -149,7 +151,6 @@ def cause_labels(traj, bs, config, death_step, rhs=None,
     from rwrt_tpu_torch.solvers import rk45 as rk45_mod
 
     plain = rhs is not None
-    rhs = rhs if plain else ray_mod.rhs
     nt = traj.lon.shape[0]
     died = (death_step >= 1) & (death_step < nt)
     idx = np.argwhere(died)
@@ -172,7 +173,11 @@ def cause_labels(traj, bs, config, death_step, rhs=None,
     bg = tracer_mod.make_background(bs, config.freq)
     cut_off = rk45_mod.as_scalar(config.cut_off_rad, dtype)
     if config.integrator == "rk4":
-        y_new = rk4_mod.rk4_step(bg, y, config.tstep, t0, rhs=rhs)
+        if plain:
+            y_new = rk4_mod.rk4_step(bg, y, config.tstep, t0, rhs=rhs)
+        else:
+            y_new = rk4_mod.rk4_step_rays(bg, y, config.tstep, t0)
+        stats["entry"] = (y, t0)
     else:
         def rhs_fn(yy, tt=0.0):
             return rhs(bg, yy, tt)[0]

@@ -43,6 +43,18 @@ TEAM_LANES = (32, 6144)
 #: ran faster there, but does not fit the card at once, so the resident
 #: cap takes Lane all the same).
 RK4_TEAM_LANES = {"": (32, 8192), "_time": (32, 6144)}
+#: The team's lane counts for the RHS kernel (``ray.rhs``) and the one-step
+#: RK4 kernel (``solvers.rk4.rk4_step_rays``, the ``--report-exact`` RK4
+#: re-run), by variant, within what the card keeps resident of the team.
+#: One evaluation (or one step) a lane: the launch lasts its lanes' chain
+#: until they fill the card, so the team, whose divisions wait three times
+#: an evaluation where Lane's wait fourteen, holds until its threads
+#: crowd the card. Swept on an NVIDIA H100 by ``chip_smoke.py``'s rhs
+#: and time_rhs phases (``RHS_SWEEP``; PERF.md section 6): the RHS team
+#: no slower than Lane to 16,384 lanes in float32 and float64, slower at
+#: 32,768; the step's team to 8,192 (at 16,384 4 % slower in float64).
+RHS_TEAM_LANES = {"": (1, 16384), "_time": (1, 16384)}
+RK4_STEP_TEAM_LANES = {"": (1, 8192), "_time": (1, 8192)}
 #: The team's lane counts for the exact kernel's whole run with a float64
 #: state, by (state, field) dtypes: that kernel repacks its live lanes on a
 #: persistent grid and queues the lanes beyond its slots, so no lane waits

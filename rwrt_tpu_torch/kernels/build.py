@@ -42,8 +42,12 @@ _D = ctypes.c_double
 
 #: C signature of every exported function; each returns a cudaError_t.
 SIGNATURES = {
-    # packed, W, H, lon0, lat0, dx, dy, y, R, dy_out, err, ug, vg, stream
-    "rwrt_rhs": (_P, _I, _I, _D, _D, _D, _D, _P, _I, _P, _P, _P, _P, _P),
+    # packed, W, H, lon0, lat0, dx, dy, y, R, dy_out, err, ug, vg,
+    # instance, stream
+    "rwrt_rhs": (_P, _I, _I, _D, _D, _D, _D, _P, _I, _P, _P, _P, _P, _I,
+                 _P),
+    # instance, out (int32 on the host): threads the card keeps resident
+    "rwrt_rhs_resident": (_I, _P),
     # packed, W, H, lon0, lat0, dx, dy, y, R, rtol, atol, f0, h, stream
     "rwrt_entry": (_P, _I, _I, _D, _D, _D, _D, _P, _I, _D, _D, _P, _P, _P),
     # packed, W, H, lon0, lat0, dx, dy, y, t, h, f, rejected, new_step,
@@ -67,6 +71,12 @@ SIGNATURES = {
                      _I, _I, _D, _D, _D, _D, _I, _P),
     # instance, out (int32 on the host): threads the card keeps resident
     "rwrt_rk4_resident": (_I, _P),
+    # packed, W, H, lon0, lat0, dx, dy, y, out, R, dt, half, sixth,
+    # instance, stream
+    "rwrt_rk4_step": (_P, _I, _I, _D, _D, _D, _D, _P, _P, _I, _D, _D, _D, _I,
+                      _P),
+    # instance, out (int32 on the host): threads the card keeps resident
+    "rwrt_rk4_step_resident": (_I, _P),
     # packed, W, H, lon0, lat0, dx, dy, y, t, h, f, plon, plat, rejected,
     # new_step, lane_att, idx, trips, hist, bounds, G, R, resume, cut_off,
     # rtol, atol, min_step, max_iters, instance, stream
@@ -93,6 +103,8 @@ SIGNATURES = {
     "rwrt_interval_resident": (_I, _P),
     # lon, lat, tht, packed, R, Mp, L, C, Kp, Lp, operand case, out, stream
     "rwrt_spectral": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    # coeffs, Mp, L, C, operand case, out, stream (the tiles)
+    "rwrt_spectral_pack": (_P, _I, _I, _I, _I, _P, _P),
     # x, n, operand case, out, stream (the kernel's operand rounding alone)
     "rwrt_spectral_round": (_P, _L, _I, _P, _P),
     # lon, lat, amp, ug, vg, ky, their row strides, nt, R, keep, u_prev,
@@ -113,27 +125,30 @@ SIGNATURES = {
 #: The time instances' entry points (``<name>_time``: a time-varying or
 #: ensemble background, ``models.ray.kernel_background``): the static
 #: signature with the background's nt, timed, t0, dt and member map after
-#: the grid (packed, W, H, lon0, lat0, dx, dy); the RHS's and the entry
-#: stage's take the lanes' times (a pointer) after y, the RK4 run the
-#: carry's time after cut_off.
+#: the grid (packed, W, H, lon0, lat0, dx, dy); the RHS's, the entry
+#: stage's and the RK4 step's take the lanes' times (a pointer) after y,
+#: the RK4 run the carry's time after cut_off.
 _VAR = (_I, _I, _D, _D, _P)
 
 
 def _time_signature(name: str) -> tuple:
     sig = SIGNATURES[name]
     sig = sig[:7] + _VAR + sig[7:]
-    if name in ("rwrt_rhs", "rwrt_entry"):
+    if name in ("rwrt_rhs", "rwrt_entry", "rwrt_rk4_step"):
         sig = sig[:13] + (_P,) + sig[13:]
     if name == "rwrt_rk4_run":
         sig = sig[:-2] + (_D,) + sig[-2:]
     return sig
 
 
-for _name in ("rwrt_rhs", "rwrt_entry", "rwrt_rk4_run", "rwrt_exact_run",
-              "rwrt_dense_run", "rwrt_exact_group", "rwrt_dense_group",
-              "rwrt_interval"):
+for _name in ("rwrt_rhs", "rwrt_entry", "rwrt_rk4_run", "rwrt_rk4_step",
+              "rwrt_exact_run", "rwrt_dense_run", "rwrt_exact_group",
+              "rwrt_dense_group", "rwrt_interval"):
     SIGNATURES[_name + "_time"] = _time_signature(_name)
 # The occupancy counts of the time instances take the static ones' args.
+SIGNATURES["rwrt_rhs_resident_time"] = SIGNATURES["rwrt_rhs_resident"]
+SIGNATURES["rwrt_rk4_step_resident_time"] = SIGNATURES[
+    "rwrt_rk4_step_resident"]
 SIGNATURES["rwrt_rk4_resident_time"] = SIGNATURES["rwrt_rk4_resident"]
 SIGNATURES["rwrt_exact_resident_time"] = SIGNATURES["rwrt_exact_resident"]
 SIGNATURES["rwrt_exact_grid_time"] = SIGNATURES["rwrt_exact_grid"]
@@ -143,10 +158,13 @@ SIGNATURES["rwrt_interval_resident_time"] = SIGNATURES[
 
 
 #: The entry points that also have a mixed-precision instance (``_mix``: a
-#: float64 state over float32 fields): the integrator kernels, whole run
-#: and single group, their occupancy counts, and the entry stage.
+#: float64 state over float32 fields): the integrator kernels, whole run,
+#: single group and one RK4 step, their occupancy counts, and the entry
+#: stage.
 MIXED = ("rwrt_entry", "rwrt_entry_time", "rwrt_rk4_run",
-         "rwrt_rk4_resident", "rwrt_exact_run",
+         "rwrt_rk4_resident", "rwrt_rk4_step", "rwrt_rk4_step_time",
+         "rwrt_rk4_step_resident", "rwrt_rk4_step_resident_time",
+         "rwrt_exact_run",
          "rwrt_exact_group", "rwrt_exact_resident", "rwrt_dense_run",
          "rwrt_dense_group", "rwrt_rk4_run_time", "rwrt_rk4_resident_time",
          "rwrt_exact_run_time", "rwrt_exact_resident_time",

@@ -228,12 +228,25 @@ def _rhs(bg, y, t, with_raw_gv: bool):
     return _rhs_core(bg, y, t, with_raw_gv)
 
 
-def _rhs_cuda(bg: Background, y: torch.Tensor, with_raw_gv: bool, t=0.0):
-    """Launch the RHS kernel: one thread per lane. A state wider than the
-    background (mixed precision) is cast to the background's dtype first,
-    and so is the time, as ``_rhs_core`` casts them at entry. A static
-    background takes the static instance, which reads no time; any other
-    takes the time instance with the lanes' times (t a scalar or (R,))."""
+def rhs_instance(r: int, dtype, variant: str = "") -> str:
+    """The RHS kernel's instance for a launch of ``r`` lanes on the card
+    (``variant`` "" or "_time", ``kernel_background``'s): the team in
+    ``kernels.RHS_TEAM_LANES``' window where it fits the card's resident
+    count, else one thread per lane."""
+    return kernels.choose_instance(
+        r, kernels.resident("rhs", kernels.TEAM, dtype, variant=variant),
+        kernels.RHS_TEAM_LANES[variant])
+
+
+def _rhs_cuda(bg: Background, y: torch.Tensor, with_raw_gv: bool, t=0.0,
+              instance=None):
+    """Launch the RHS kernel, in ``rhs_instance``'s instance unless
+    ``instance`` (a key of ``kernels.INSTANCES``) is given. A state wider
+    than the background (mixed precision) is cast to the background's dtype
+    first, and so is the time, as ``_rhs_core`` casts them at entry. A
+    static background takes the static instance, which reads no time; any
+    other takes the time instance with the lanes' times (t a scalar or
+    (R,))."""
     global LAUNCHES
     y = y.to(bg.fields.dtype)
     kernels.check_tensor(y, "y", device=y.device, dtype=y.dtype)
@@ -252,8 +265,10 @@ def _rhs_cuda(bg: Background, y: torch.Tensor, with_raw_gv: bool, t=0.0):
         else:
             t = torch.full((r,), float(t), dtype=y.dtype, device=y.device)
         extra = (t,)
+    inst = instance or rhs_instance(r, y.dtype, variant)
     kernels.launch(f"rwrt_rhs{variant}", y.dtype, *bg_args, y, *extra, r,
-                   dy, err, ug, vg, kernels.stream(y.device))
+                   dy, err, ug, vg, kernels.instance_id(inst),
+                   kernels.stream(y.device))
     LAUNCHES += 1
     return dy, err, ug, vg
 

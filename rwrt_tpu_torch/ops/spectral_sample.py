@@ -12,16 +12,19 @@ points is a (R, Mp) @ (Mp, L*C) product followed by a latitude contraction.
 ``fit_spectral`` is host numpy, carried over from the JAX package.
 ``sample_spectral`` is the plain PyTorch evaluation. ``sample_spectral_cuda``
 replaces the JAX package's Pallas kernel ``sample_spectral_pallas``: on a
-CUDA tensor it repacks the coefficients (``pack_coeffs``) and launches
+CUDA tensor it repacks the coefficients in one launch of the packing
+kernel (``pack_on_card``; its plain version ``pack_coeffs``) and launches
 ``csrc/spectral.cu``, which builds the basis rows in shared memory and
 contracts them on the tensor cores without materializing (R, Mp) or
 (R, L*C); on a CPU tensor it runs ``sample_spectral``. ``LAUNCHES`` counts
-kernel launches. Both take the product's operands in any ``matmul_dtype``
-of ``OPERAND_DTYPES``, rounded once as JAX rounds them
-(``round_operands``), with sums in the coefficients' dtype. A time-varying
-stack is fitted frame by frame (``fit_spectral_time``), and ``lerp_coeffs``
-blends the fit to one time, which the same sampler (and kernel) then
-evaluates.
+sampler launches, ``PACK_LAUNCHES`` packing launches. Both take the
+product's operands in any ``matmul_dtype`` of ``OPERAND_DTYPES``, rounded
+once as JAX rounds them (``round_operands``), with sums in the
+coefficients' dtype; each case runs on a tensor-core format whose
+products of the rounded operands are exact (``_operand_type``). A
+time-varying stack is fitted frame by frame (``fit_spectral_time``), and
+``lerp_coeffs`` blends the fit to one time, which the same sampler (and
+kernel) then evaluates.
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ from rwrt_tpu_torch.ops.interp import _cell_index, mercator_transform
 
 #: Number of spectral kernel launches in this process.
 LAUNCHES = 0
+#: Number of packing kernel launches (``pack_on_card``) in this process.
+PACK_LAUNCHES = 0
 
 
 class SpectralBackground(NamedTuple):
@@ -342,9 +347,10 @@ def packed_dims(mp: int, l_max: int) -> tuple[int, int]:
 
 
 def tile_row(dtype: torch.dtype) -> int:
-    """Elements in a tile row: ``KC`` plus the kernel's pad (kPad), which
-    makes its shared-memory fragment loads free of bank conflicts."""
-    return KC + (8 if dtype == torch.bfloat16 else 4)
+    """Elements in a tile row of operand ``dtype``: ``KC`` plus the
+    kernel's pad (kPad), which makes its shared-memory fragment loads free
+    of bank conflicts: 8 for 16-bit operands, 4 for 32- and 64-bit ones."""
+    return KC + (8 if dtype.itemsize == 2 else 4)
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -357,17 +363,19 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
 
 def _operand_type(dtype: torch.dtype, case: int) -> tuple:
     """The kernel's shared-memory operand dtype and B planes for ``case``
-    over ``dtype`` coefficients: float32 coefficients take bfloat16 for
-    bf16 and float8 operands (every float8 value is exact in bfloat16),
-    float32 for float16 operands (one TF32 plane: float16 values are
-    exact in TF32) and two TF32 planes with no rounding; float64 ones one
-    float64 plane, the operands rounded and held in float64."""
-    if dtype == torch.float32:
-        if case == 0:
-            return torch.float32, 2
-        return (torch.float32 if case == OPERAND_DTYPES[torch.float16]
-                else torch.bfloat16), 1
-    return dtype, 1
+    over ``dtype`` coefficients, which name its tensor-core format (the
+    kernel's Mode): two TF32 planes (held as float32) with no rounding
+    (3xTF32), one float16 plane for float16 operands (the f16 MMA), one
+    bfloat16 plane for bf16 and every float8 (the bf16 MMA: every float8
+    value is exact in bfloat16); over float64 coefficients one float64
+    plane, the operands rounded and held in float64 (DMMA)."""
+    if dtype == torch.float64:
+        return dtype, 1
+    if case == 0:
+        return torch.float32, 2
+    if case == OPERAND_DTYPES[torch.float16]:
+        return torch.float16, 1
+    return torch.bfloat16, 1
 
 
 def pack_coeffs(coeffs: torch.Tensor, matmul_dtype=None) -> torch.Tensor:
@@ -379,7 +387,8 @@ def pack_coeffs(coeffs: torch.Tensor, matmul_dtype=None) -> torch.Tensor:
     zero past Mp, past L and in the row pad. The values are rounded to
     ``matmul_dtype`` (``round_operands``) and held as ``_operand_type``
     says: float32 with no rounding in P = 2 planes, the 3xTF32 split hi =
-    tf32(x), lo = tf32(x - hi); else P = 1.
+    tf32(x), lo = tf32(x - hi); else P = 1. The plain version of
+    ``pack_on_card``.
     """
     mp, l_max, c = coeffs.shape
     kp, _ = packed_dims(mp, l_max)
@@ -398,6 +407,27 @@ def pack_coeffs(coeffs: torch.Tensor, matmul_dtype=None) -> torch.Tensor:
     tiles = tiles.permute(0, 2, 4, 1, 3, 5)
     return torch.nn.functional.pad(
         tiles, (0, tile_row(tiles.dtype) - KC)).contiguous()
+
+
+def pack_on_card(coeffs: torch.Tensor, matmul_dtype=None) -> torch.Tensor:
+    """``pack_coeffs`` on CUDA coefficients in one launch of the packing
+    kernel (``rwrt_spectral_pack``: the kernel's own rounding, bitwise
+    ``round_operands``'), counted in ``PACK_LAUNCHES``; on CPU
+    coefficients ``pack_coeffs``."""
+    case = operand_case(coeffs.dtype, matmul_dtype)
+    if not coeffs.is_cuda:
+        return pack_coeffs(coeffs, matmul_dtype)
+    global PACK_LAUNCHES
+    op, n_planes = _operand_type(coeffs.dtype, case)
+    mp, l_max, c = coeffs.shape
+    kp, _ = packed_dims(mp, l_max)
+    coeffs = coeffs.contiguous()
+    out = torch.empty((c, -(-l_max // GROUP), kp // KC, n_planes, GROUP,
+                       tile_row(op)), dtype=op, device=coeffs.device)
+    kernels.launch("rwrt_spectral_pack", coeffs.dtype, coeffs, mp, l_max, c,
+                   case, out, kernels.stream(coeffs.device))
+    PACK_LAUNCHES += 1
+    return out
 
 
 def sample_spectral_cuda(sbg: SpectralBackground, lon, lat, *,
@@ -425,7 +455,7 @@ def sample_spectral_cuda(sbg: SpectralBackground, lon, lat, *,
                       device=dev)
     if lon.shape[0] == 0:
         return out
-    launch_kernel(pack_coeffs(coeffs, matmul_dtype), lon, lat, tht,
+    launch_kernel(pack_on_card(coeffs, matmul_dtype), lon, lat, tht,
                   coeffs.shape, matmul_dtype, out)
     LAUNCHES += 1
     return out
@@ -434,9 +464,9 @@ def sample_spectral_cuda(sbg: SpectralBackground, lon, lat, *,
 def launch_kernel(packed, lon, lat, tht, coeffs_shape, matmul_dtype,
                   out) -> None:
     """Launch ``csrc/spectral.cu`` on prepared operands: ``packed`` from
-    ``pack_coeffs`` with the same ``matmul_dtype``, contiguous (R,) lon, lat
-    and tht = lat - lat0, and the (R, C) output, all on one card in the
-    coefficient dtype. Checks them and raises on what the kernel does not
+    ``pack_on_card`` (or ``pack_coeffs``) with the same ``matmul_dtype``,
+    contiguous (R,) lon, lat and tht = lat - lat0, and the (R, C) output,
+    all on one card in the coefficient dtype. Checks them and raises on what the kernel does not
     take; counts nothing (the wrapper does)."""
     mp, l_max, c = coeffs_shape
     if mp % 2 != 1:

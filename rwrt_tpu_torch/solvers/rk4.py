@@ -20,8 +20,11 @@ t + dt.
 On the card the whole run is one launch of ``csrc/rk4_run.cu``
 (``tracer._run_rk4``); this module is what that kernel is held against. It
 calls the plain RHS (``models/ray._rhs_core``) on every device; a caller
-of ``rk4_step`` may pass the dispatching ``ray.rhs`` instead
-(``diagnostics/termination.classify``).
+of ``rk4_step`` may pass the dispatching ``ray.rhs`` instead. One step of
+every lane from its own time, as ``diagnostics/termination.classify``'s
+re-run takes it, is ``rk4_step_rays``: on a CUDA state one launch of
+``csrc/rk4_run.cu``'s step kernel (``STEP_LAUNCHES`` counts them), on a
+CPU state ``rk4_step``.
 """
 
 from __future__ import annotations
@@ -30,8 +33,12 @@ from typing import Tuple
 
 import torch
 
+from rwrt_tpu_torch import kernels
 from rwrt_tpu_torch.models import ray as ray_mod
 from rwrt_tpu_torch.models.ray import Background, S_KX, S_KY, S_LAT, S_LON
+
+#: Launches of the one-step kernel in this process.
+STEP_LAUNCHES = 0
 
 
 def step_factors(dt, dtype: torch.dtype) -> Tuple[float, float, float]:
@@ -74,6 +81,53 @@ def rk4_step(bg: Background, y: torch.Tensor, dt, t=0.0,
     valid = ~(m1 | m2 | m3 | m4)
     y_prop = y + sixth * wide(k1 + 2.0 * k2 + 2.0 * k3 + k4)
     return torch.where(valid[None, :], y_prop, y)
+
+
+def rk4_step_rays(bg: Background, y: torch.Tensor, dt, t0=0.0,
+                  instance=None) -> torch.Tensor:
+    """One RK4 step of every lane of y (5, R) from its own time t0 (a
+    scalar or (R,), in the state's dtype), freeze semantics as
+    ``rk4_step``'s: the candidate state (5, R), with no kill test.
+
+    On a CPU state ``rk4_step`` with the plain stages. On a CUDA state one
+    launch of the step kernel (``rwrt_rk4_step``; ``rwrt_rk4_step_time``
+    over a time-varying or ensemble background), bitwise ``rk4_step``'s
+    result, in ``step_instance``'s instance unless ``instance`` (a key of
+    ``kernels.INSTANCES``) is given. A float64 state over a float32
+    background takes the mixed instance."""
+    if not y.is_cuda:
+        return rk4_step(bg, y, dt, t0)
+    global STEP_LAUNCHES
+    dev, dtype = y.device, y.dtype
+    key = kernels.state_key(y, bg.fields)
+    if y.ndim != 2 or y.shape[0] != 5:
+        raise ValueError(f"y must be (5, R); got {tuple(y.shape)}")
+    r = y.shape[1]
+    y = y.contiguous()
+    variant, bg_args = ray_mod.kernel_background(bg, dev, key[1], r)
+    extra = ()
+    if variant:
+        t = torch.as_tensor(t0, dtype=dtype, device=dev)
+        extra = (t.expand(r).contiguous(),)
+    out = torch.empty_like(y)
+    kernels.launch(
+        f"rwrt_rk4_step{variant}", key, *bg_args, y, *extra, out, r,
+        *step_factors(dt, dtype),
+        kernels.instance_id(instance or step_instance(r, key, variant)),
+        kernels.stream(dev))
+    STEP_LAUNCHES += 1
+    return out
+
+
+def step_instance(r: int, dtype, variant: str = "") -> str:
+    """The one-step kernel's instance for ``r`` lanes on the card
+    (``dtype`` a torch dtype or a (state, field) pair, ``variant`` "" or
+    "_time"): the team in ``kernels.RK4_STEP_TEAM_LANES``' window where it
+    fits the card's resident count, else one thread per lane."""
+    return kernels.choose_instance(
+        r, kernels.resident("rk4_step", kernels.TEAM, dtype,
+                            variant=variant),
+        kernels.RK4_STEP_TEAM_LANES[variant])
 
 
 def step_time(t_start, s: int, dt, dtype: torch.dtype, device):

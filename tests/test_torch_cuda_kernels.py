@@ -31,7 +31,10 @@ The interval kernel (``rk45.integrate_interval_rays``: each lane's RK45
 loop to its own bound in one launch) is bitwise the plain loop in every
 instance, static and time-varying, at caps that bind and that do not;
 ``termination.classify``'s re-run on the card goes through it (RK45) or
-the RHS kernel (RK4) and labels every lane as the plain RHS does. The
+the one-step RK4 kernel (RK4, ``rk4.rk4_step_rays``: bitwise the plain
+step in every instance) and labels every lane as the plain RHS does; the
+RHS kernel's team instance is bitwise its Lane instance. The spectral
+packing kernel (``spec.pack_on_card``) is bitwise ``pack_coeffs``. The
 entry-stage kernel (``tracer.entry_stage``: f0 and the initial step in
 one launch) is bitwise its plain route in every instance, and every
 adaptive path makes one entry launch and no RHS launch. The gather
@@ -1309,12 +1312,12 @@ def test_shsf_filters_arrays_on_the_card(jet_field, dev):
 @pytest.mark.parametrize("integrator", ["rk4", "rk45"])
 def test_classify_evaluates_through_the_rhs_kernel(jet_field, dev,
                                                    integrator, kind):
-    """``termination.classify``'s re-run on the card: RK4's one step four
-    launches of the RHS kernel (its time instance over daily frames);
-    RK45's one entry-stage launch for the initial step and no RHS launch,
-    then one launch of the interval kernel for the whole re-run; no other
-    kernel; per-lane labels and candidate states equal to the plain RHS's
-    run on the card."""
+    """``termination.classify``'s re-run on the card: RK4's one step one
+    launch of the step kernel (``rk4.rk4_step_rays``, its time instance
+    over daily frames) and no RHS launch; RK45's one entry-stage launch for
+    the initial step and no RHS launch, then one launch of the interval
+    kernel for the whole re-run; no other kernel; per-lane labels and
+    candidate states equal to the plain RHS's run on the card."""
     from rwrt_tpu_torch.diagnostics import flux, termination
 
     cfg = pt.RunConfig(zwn=(1.0, 3.0, 5.0), sw_lon=0.0, sw_lat=-60.0,
@@ -1332,17 +1335,18 @@ def test_classify_evaluates_through_the_rhs_kernel(jet_field, dev,
     death = termination.analyze(traj).death_step
     assert int(((death >= 1) & (death < cfg.nt)).sum()) > 0
     def counts():
-        return (ray.LAUNCHES, rk45.INTERVAL_LAUNCHES, tracer.ENTRY_LAUNCHES,
-                rk45.LAUNCHES, rk45.EXACT_LAUNCHES, tracer.LAUNCHES,
-                tracer.RK4_LAUNCHES, tracer.EXACT_LAUNCHES, flux.LAUNCHES)
+        return (ray.LAUNCHES, rk4.STEP_LAUNCHES, rk45.INTERVAL_LAUNCHES,
+                tracer.ENTRY_LAUNCHES, rk45.LAUNCHES, rk45.EXACT_LAUNCHES,
+                tracer.LAUNCHES, tracer.RK4_LAUNCHES, tracer.EXACT_LAUNCHES,
+                flux.LAUNCHES)
 
     before = counts()
     ks, ps = {}, {}
     k = termination.cause_labels(traj, bs, cfg, death, stats=ks)
     after = counts()
     moved = tuple(a - b for a, b in zip(after, before))
-    assert moved == ((4, 0, 0) if integrator == "rk4" else (0, 1, 1)) + (
-        0,) * 6
+    assert moved == ((0, 1, 0, 0) if integrator == "rk4"
+                     else (0, 0, 1, 1)) + (0,) * 6
     p = termination.cause_labels(
         traj, bs, cfg, death,
         rhs=lambda bg, y, t: ray._rhs_core(bg, y, t, False)[:2], stats=ps)
@@ -1350,6 +1354,100 @@ def test_classify_evaluates_through_the_rhs_kernel(jet_field, dev,
     assert same(ks["state"], ps["state"])
     if integrator == "rk45":
         assert torch.equal(ks["lane_att"], ps["lane_att"])
+
+
+@pytest.mark.parametrize("n", LANES + [4000])
+@pytest.mark.parametrize("instance", INSTANCES)
+@pytest.mark.parametrize("kind", ["static"] + KINDS)
+@pytest.mark.parametrize("key", list(KEYS))
+def test_rk4_step_kernel_equals_plain(jet_field, dev, key, kind, instance,
+                                      n):
+    """The one-step kernel (``rk4.rk4_step_rays``: float32, float64, mixed
+    x static, time, member, member of frames; Lane, Split) against the
+    plain ``rk4_step`` on the card, bitwise, from per-lane times over,
+    between and past the frames, with killed, frozen, polar, NaN-kx,
+    NaN-ky and NaN-amp lanes; one launch each."""
+    state, field = KEYS[key]
+    _, bg0 = background(jet_field, field, dev)
+    y = rk4_edge_lanes(seeded_states(state, dev)[:, :n].contiguous())
+    bg = (bg0 if kind == "static"
+          else varying_background(jet_field, kind, field, dev, n))
+    rng = np.random.default_rng(4)
+    t0 = torch.as_tensor(rng.uniform(-1.0 * DAY, 1.5 * DAY, n), dtype=state,
+                         device=dev)
+    before = (rk4.STEP_LAUNCHES, ray.LAUNCHES)
+    k = rk4.rk4_step_rays(bg, y, 7200.0, t0, instance=instance)
+    assert (rk4.STEP_LAUNCHES, ray.LAUNCHES) == (before[0] + 1, before[1])
+    p = rk4.rk4_step(bg, y, 7200.0, t0)
+    assert k.dtype == state and same(k, p)
+    assert same(k, rk4.rk4_step(bg, y, 7200.0, t0, rhs=ray.rhs))
+    frozen = ~torch.isnan(y).any(0) & (k == y).all(0)
+    assert int(frozen.sum()) > 0
+
+
+@pytest.mark.parametrize("n", [1, 37, 5000])
+@pytest.mark.parametrize("gv", [False, True])
+@pytest.mark.parametrize("kind", ["static"] + KINDS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rhs_team_equals_lane(jet_field, dev, dtype, kind, gv, n):
+    """The RHS kernel's team instance (Split) bitwise its Lane instance and
+    the plain ``_rhs_core``, static and over frames and members, at lane
+    counts in and below a warp."""
+    y = seeded_states(dtype, dev)[:, :n].contiguous()
+    if kind == "static":
+        _, bg = background(jet_field, dtype, dev)
+    else:
+        bg = varying_background(jet_field, kind, dtype, dev, n)
+    t = torch.as_tensor(np.random.default_rng(6).uniform(
+        -1.0 * DAY, 1.5 * DAY, n), dtype=dtype, device=dev)
+    outs = [ray._rhs_cuda(bg, y, gv, t, instance=inst)
+            for inst in INSTANCES]
+    p = ray._rhs_core(bg, y, t, gv)
+    for k in outs:
+        assert torch.equal(k[1], outs[0][1]) and torch.equal(k[1], p[1])
+        for a, b in zip(k[:1] + k[2:], p[:1] + p[2:]):
+            if a is not None:
+                assert same(a, b)
+
+
+#: Every operand case the packing kernel serves: (coefficient dtype,
+#: matmul_dtype).
+PACK_CASES = [(dt, mm) for dt in DTYPES
+              for mm in [None] + list(spec.OPERAND_DTYPES)]
+
+
+def same_bits(a, b):
+    """Equal tensors of one dtype and shape: their bits equal, but any NaN
+    bits where the other has NaN."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    nan = torch.isnan(a.to(torch.float64))
+    if not torch.equal(nan, torch.isnan(b.to(torch.float64))):
+        return False
+    ia, ib = (x.view(ints[x.dtype.itemsize]) for x in (a, b))
+    return torch.equal(torch.where(nan, 0, ia), torch.where(nan, 0, ib))
+
+
+@pytest.mark.parametrize("trunc", [(None, None), (9, 11), (0, None),
+                                   (None, 1)],
+                         ids=["full", "m9_l11", "m0", "l1"])
+@pytest.mark.parametrize("case", PACK_CASES, ids=str)
+def test_spectral_pack_kernel_equals_pack_coeffs(jet_field, dev, case,
+                                                 trunc):
+    """The packing kernel (``pack_on_card``, one launch) bitwise
+    ``pack_coeffs`` on the card in every case, the float8 casts'
+    overflow (NaN, inf) included: coefficients scaled past 448 and 57344
+    in some channels."""
+    dtype, mm = case
+    bs, _ = background(jet_field, dtype, dev)
+    fit = spec.fit_spectral(bs, m_max=trunc[0], l_max=trunc[1])
+    coeffs = fit.coeffs * torch.logspace(0, 6, fit.coeffs.shape[-1],
+                                         dtype=dtype, device=dev)
+    before = (spec.PACK_LAUNCHES, spec.LAUNCHES)
+    got = spec.pack_on_card(coeffs, mm)
+    assert (spec.PACK_LAUNCHES, spec.LAUNCHES) == (before[0] + 1, before[1])
+    assert same_bits(got, spec.pack_coeffs(coeffs, mm))
 
 
 def interval_inputs(jet_field, kind, dtype, dev):

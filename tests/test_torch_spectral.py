@@ -332,10 +332,10 @@ def test_tf32_round_is_nearest_ties_away():
 
 
 def unpack(packed):
-    """pack_coeffs' tiles back to (C, P, G * GROUP, Kp): the coefficients
-    channel-major, as the kernel's MMAs see them."""
+    """pack_coeffs' tiles back to (C, P, G * GROUP, Kp) in float64: the
+    coefficients channel-major, as the kernel's MMAs see them."""
     c, g, nkc, p, group, _ = packed.shape
-    x = packed[..., :tspec.KC].permute(0, 3, 1, 4, 2, 5)
+    x = packed.to(torch.float64)[..., :tspec.KC].permute(0, 3, 1, 4, 2, 5)
     return x.reshape(c, p, g * group, nkc * tspec.KC)
 
 
@@ -352,12 +352,23 @@ for _f8 in ("float8_e4m3fn", "float8_e5m2", "float8_e4m3fnuz",
         torch, _f8)
 
 
+def pack_case(case):
+    """(coefficient dtype, matmul_dtype) of a PACK_CASES key."""
+    dtype = torch.float64 if case.startswith("float64") else torch.float32
+    return dtype, PACK_CASES[case]
+
+
 @pytest.mark.parametrize("trunc", [(None, None), (0, None), (None, 1),
                                    (9, 11)])
 @pytest.mark.parametrize("case", list(PACK_CASES))
 def test_pack_coeffs_round_trips(trunc, case):
-    dtype = torch.float64 if case.startswith("float64") else torch.float32
-    mm = PACK_CASES[case]
+    """Every case's tiles: the operand dtype of its MMA (float32 hi and lo
+    planes with no rounding, a bfloat16 plane for bf16 and the float8
+    cases over float32, float16 held as __half, float64 over float64) and
+    shape, zeros
+    in the row pad, past Mp and past L, and every value ``round_operands``'
+    exactly (3xTF32's hi + lo within 2^-22 of the coefficient)."""
+    dtype, mm = pack_case(case)
     coeffs = fits(np.float64, *trunc)[1].coeffs.to(dtype)
     mp, l_max, c = coeffs.shape
     kp, lp = tspec.packed_dims(mp, l_max)
@@ -367,32 +378,40 @@ def test_pack_coeffs_round_trips(trunc, case):
     split = dtype == torch.float32 and tspec.operand_case(dtype, mm) == 0
     planes = 2 if split else 1
     groups = -(-l_max // tspec.GROUP)
-    narrow = mm is not None and mm != torch.float16 and mm.itemsize < 4
-    assert packed.dtype == (torch.bfloat16 if dtype == torch.float32
-                            and narrow else dtype)
+    if dtype == torch.float64:
+        want_dtype = dtype
+    elif split:
+        want_dtype = torch.float32
+    elif mm == torch.float16:
+        want_dtype = torch.float16
+    else:
+        want_dtype = torch.bfloat16
+    assert packed.dtype == want_dtype
     assert packed.shape == (c, groups, kp // tspec.KC, planes, tspec.GROUP,
                             tspec.tile_row(packed.dtype))
+    assert tspec.tile_row(packed.dtype) == tspec.KC + {
+        2: 8, 4: 4, 8: 4}[packed.dtype.itemsize]
     assert packed.is_contiguous()
     # Zero in the row pad, past Mp and past L, in every plane.
-    assert not packed[..., tspec.KC:].ne(0).any()
+    assert not packed[..., tspec.KC:].to(torch.float64).ne(0).any()
     full = unpack(packed)
     assert not full[..., mp:].ne(0).any()
     assert not full[:, :, l_max:].ne(0).any()
     # hi + lo summed exactly (float64) returns the coefficients.
-    back = full.to(torch.float64).sum(dim=1)[:, :l_max, :mp]
+    back = full.sum(dim=1)[:, :l_max, :mp]
     back = back.permute(2, 1, 0)
     if split:
-        assert (full.view(torch.int32) & 0x1FFF).eq(0).all()
+        assert (packed.view(torch.int32) & 0x1FFF).eq(0).all()
         x = coeffs.double()
         assert ((back - x).abs() <= x.abs() * 2.0 ** -22).all()
     else:
         # The operands rounded once, held exactly in the plane's dtype.
         want = tspec.round_operands(coeffs, mm)
-        assert torch.equal(back.to(dtype), want)
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(back), nan)
+        assert torch.equal(back.to(dtype)[~nan], want[~nan])
         if mm is not None and mm.itemsize < dtype.itemsize:
             assert not torch.equal(want, coeffs)
-        if mm == torch.float16 and dtype == torch.float32:
-            assert (full.view(torch.int32) & 0x1FFF).eq(0).all()
 
 
 def climatology_fit(dtype):
@@ -415,11 +434,12 @@ def climatology_fit(dtype):
 
 def emulate_kernel(sbg, lon, lat, matmul_dtype=None, passes=3):
     """``csrc/spectral.cu``'s algorithm in plain torch on the CPU: the
-    packed coefficient tiles, the basis as the kernel's prologue
-    builds it (zero past Mp and L, rounded to ``matmul_dtype``), the m
-    contraction per channel as the kernel's MMAs take it (3xTF32 from
-    hi/lo splits in float32 with no rounding, or one tf32 pass with
-    ``passes=1``), then the per-row latitude reduction."""
+    packed coefficient tiles, the basis as the kernel's prologue builds it (zero past Mp and L, rounded
+    to ``matmul_dtype``), the m contraction per channel as the kernel's
+    MMAs take it (3xTF32 from hi/lo splits in float32 with no rounding, or
+    one tf32 pass with ``passes=1``; exact products of the rounded
+    operands summed in the coefficients' dtype otherwise), then the per-row
+    latitude reduction."""
     coeffs = sbg.coeffs
     dtype = coeffs.dtype
     mp, l_max, _ = coeffs.shape
@@ -458,10 +478,12 @@ def test_kernel_algorithm_meets_bars_on_climatology(case, bar):
     """The kernel's arithmetic, emulated, against JAX ``sample_spectral`` on
     the 144 x 73 climatology fit at 3000 points: 3xTF32 meets the float32
     bar (max |diff| / channel max), where one TF32 pass does not; rounded
-    operands meet it too, with the non-finite channels of an overflowing
-    cast (e4m3fn past 448) where JAX has them."""
-    np_dtype = np.float64 if case.startswith("float64") else np.float32
-    mm = PACK_CASES[case]
+    operands meet it too (float16 in the f16 MMA's half-precision tiles,
+    the float8 types in the bf16 MMA's tiles, whose products are exact),
+    with the non-finite channels of an overflowing cast (e4m3fn past 448)
+    where JAX has them."""
+    dtype, mm = pack_case(case)
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
     ref_fit, out_fit = climatology_fit(np_dtype)
     assert tuple(out_fit.coeffs.shape) == (145, 73, 18)
     lon, lat = points(np_dtype, n=3000, seed=8)
