@@ -73,6 +73,7 @@ from rwrt_tpu_torch.ops.groupvel import group_velocity
 from rwrt_tpu_torch.parallel import sharding
 from rwrt_tpu_torch.solvers import rk4 as rk4_mod
 from rwrt_tpu_torch.solvers import rk45 as rk45_mod
+from rwrt_tpu_torch.utils import observability
 
 
 class RayTrajectories(NamedTuple):
@@ -113,8 +114,8 @@ def make_background(bs: BasicState, freq: float) -> Background:
     return Background(
         fields=interp.pack_corners(bs.fields[..., : interp.NUM_HOT])
         .contiguous(),
-        lon0=rk45_mod.as_scalar(bs.lon[0], dtype),
-        lat0=rk45_mod.as_scalar(bs.lat[0], dtype),
+        lon0=rk45_mod.as_scalar(_read(bs.lon[0]), dtype),
+        lat0=rk45_mod.as_scalar(_read(bs.lat[0]), dtype),
         dx=rk45_mod.as_scalar(bs.dx, dtype),
         dy=rk45_mod.as_scalar(bs.dy, dtype),
         freq=rk45_mod.as_scalar(freq, dtype),
@@ -158,9 +159,9 @@ def initialize(
         from rwrt_tpu_torch.ops.cubic_host import (
             initial_roots_reference_order)
 
-        roots = torch.as_tensor(initial_roots_reference_order(
-            fmu, fmv, fmqx, fmqy, float(bg.freq), zwn)).to(
-                device=bg.fields.device, dtype=bg.fields.dtype)
+        roots = _upload(initial_roots_reference_order(
+            *(_read(x) for x in (fmu, fmv, fmqx, fmqy)), float(bg.freq),
+            _read(zwn)), bg.fields.device, bg.fields.dtype)
     else:
         roots, _ = solve_dispersion_cubic(
             fmu[:, None], fmv[:, None], fmqx[:, None], fmqy[:, None],
@@ -298,6 +299,36 @@ def initial_step_sizes(bg, y0, rtol, atol):
 LAUNCHES = 0
 RK4_LAUNCHES = 0
 EXACT_LAUNCHES = 0
+
+#: Points on ``trace_rays``' and ``trace_rays_ensemble``'s path where the
+#: host waits for the card, in this process: each copy of host data to a
+#: device tensor (``_upload``) and each read of a device tensor's value
+#: (``_read``). A CPU state counts none; the chunked driver's own copies
+#: (``utils/checkpoint.py``) are not counted.
+HOST_SYNCS = 0
+
+
+def _host_sync(device) -> None:
+    global HOST_SYNCS
+    if device.type != "cpu":
+        HOST_SYNCS += 1
+
+
+def _upload(a, device, dtype=None) -> torch.Tensor:
+    """``a`` (an array, or a tensor) as a tensor on ``device``; a copy of
+    host data to a device counts in ``HOST_SYNCS``."""
+    t = a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a))
+    if t.device.type == "cpu":
+        _host_sync(device)
+    return t.to(device=device, dtype=dtype)
+
+
+def _read(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the host; a read of a device tensor counts in
+    ``HOST_SYNCS``."""
+    _host_sync(t.device)
+    return t.cpu()
+
 
 #: The whole-run dense kernel's repack schedule (every, trigger) by the
 #: launch's (state, field) dtypes: each block repacks its live lanes after
@@ -935,7 +966,7 @@ class MaxItersTruncation(RuntimeError):
 def _check_truncation(trunc):
     """Raise ``MaxItersTruncation`` where ``trunc`` (a count, or a tensor
     of counts on any device: one host read) sums to more than 0."""
-    n = int(torch.as_tensor(trunc).sum())
+    n = int(_read(torch.as_tensor(trunc).sum()))
     if n:
         raise MaxItersTruncation(
             f"adaptive integration hit the max_iters backstop with {n} "
@@ -1023,8 +1054,8 @@ def seed_state(bg, source_lon, source_lat, zwn, config: RunConfig,
                               config.root_order)
     if initial_state is None:
         return y0, ug0, vg0
-    y0 = torch.as_tensor(initial_state).to(device=bg.fields.device,
-                                           dtype=bg.fields.dtype)
+    y0 = _upload(torch.as_tensor(initial_state), bg.fields.device,
+                 bg.fields.dtype)
     want = (5, 3 * source_lon.shape[0] * zwn.shape[0])
     if tuple(y0.shape) != want:
         raise ValueError(f"initial_state shape {tuple(y0.shape)} mismatch; "
@@ -1034,6 +1065,7 @@ def seed_state(bg, source_lon, source_lat, zwn, config: RunConfig,
     return y0.contiguous(), ug0, vg0
 
 
+@observability.spanned("rwrt.trace_rays")
 def trace_rays(
     bs: BasicState,
     config: RunConfig,
@@ -1084,6 +1116,11 @@ def trace_rays(
         per-shard loop counts). An rk4 run takes no adaptive steps and
         puts nothing there. A rerouted run fills it as
         ``trace_rays_chunked`` does.
+
+    Under a recording ``torch.profiler`` the call is the span
+    ``rwrt.trace_rays`` (``utils.observability.span``), its stages the
+    spans ``rwrt.inputs`` (the uploads, ``make_background``),
+    ``rwrt.seed`` (``seed_state``) and ``_run_lanes``' in turn.
     """
     config.validate()
     dtype = bs.fields.dtype
@@ -1101,22 +1138,19 @@ def trace_rays(
                 bs, config, verbose=False, source_lon=source_lon,
                 source_lat=source_lat, mesh=mesh,
                 initial_state=initial_state, stats=stats)
-    if source_lon is None:
-        source_lon, source_lat = source_matrix(
-            config.sw_lon, config.sw_lat, config.dlon, config.dlat,
-            config.nnx, config.nny,
-        )
-
-    def to_dev(a):
-        return torch.as_tensor(np.asarray(a)).to(device=device, dtype=dtype)
-
-    source_lon = to_dev(source_lon)
-    source_lat = to_dev(source_lat)
-    zwn = to_dev(config.zwn_array())
-
-    bg = make_background(bs, config.freq)
-    y0, ug0, vg0 = seed_state(bg, source_lon, source_lat, zwn, config,
-                              initial_state)
+    with observability.span("rwrt.inputs"):
+        if source_lon is None:
+            source_lon, source_lat = source_matrix(
+                config.sw_lon, config.sw_lat, config.dlon, config.dlat,
+                config.nnx, config.nny,
+            )
+        source_lon = _upload(source_lon, device, dtype)
+        source_lat = _upload(source_lat, device, dtype)
+        zwn = _upload(config.zwn_array(), device, dtype)
+        bg = make_background(bs, config.freq)
+    with observability.span("rwrt.seed"):
+        y0, ug0, vg0 = seed_state(bg, source_lon, source_lat, zwn, config,
+                                  initial_state)
     ys, ugs, vgs = _run_lanes(bg, y0, ug0, vg0, config,
                               config.state_dtype == "float64", stats, mesh)
     out_shape = (config.nt, 3, source_lon.shape[0], len(config.zwn))
@@ -1130,79 +1164,87 @@ def _run_lanes(bg, y0, ug0, vg0, config: RunConfig, wide: bool,
     map moves with its lanes), the state widened to float64 when ``wide``
     (mixed precision), the branch's run (over a ``mesh``, one per shard
     of the compacted lanes, ``_run_sharded``), the truncation check, and
-    the compacted lanes expanded back. Returns (ys (nt, 5, R), ugs, vgs
-    (nt, R))."""
+    the compacted lanes expanded back; each stage a span
+    (``rwrt.compact``, ``rwrt.run``, ``rwrt.truncation``, ``rwrt.expand``).
+    Returns (ys (nt, 5, R), ugs, vgs (nt, R))."""
     device = y0.device
     n_rays = y0.shape[1]
     y0_full, ug0_full, vg0_full = y0, ug0, vg0
     take = None
     if config.compact_rootless:
-        idx = compact_lane_indices(torch.isfinite(y0[4]).cpu().numpy())
-        if idx is not None:
-            take = torch.as_tensor(idx, device=device)
-            y0 = y0.index_select(1, take).contiguous()
-            ug0 = ug0.index_select(0, take)
-            vg0 = vg0.index_select(0, take)
-            if bg.member_ids is not None:
-                bg = bg._replace(
-                    member_ids=bg.member_ids.index_select(0, take))
+        with observability.span("rwrt.compact"):
+            idx = compact_lane_indices(
+                _read(torch.isfinite(y0[4])).numpy())
+            if idx is not None:
+                take = _upload(idx, device)
+                y0 = y0.index_select(1, take).contiguous()
+                ug0 = ug0.index_select(0, take)
+                vg0 = vg0.index_select(0, take)
+                if bg.member_ids is not None:
+                    bg = bg._replace(
+                        member_ids=bg.member_ids.index_select(0, take))
     n_lanes = y0.shape[1]
 
     nt = config.nt
-    if wide:
-        # Mixed precision: the state, the run's scalars and the controller
-        # in float64; the RHS rounds the state to the background's dtype
-        # at entry (models/ray.py). The cast is exact, and a no-op over a
-        # float64 background.
-        y0 = y0.to(torch.float64)
-    dtype = y0.dtype
-    dt = rk45_mod.as_scalar(config.tstep, dtype)
-    cut_off = rk45_mod.as_scalar(config.cut_off_rad, dtype)
+    trunc = None
+    with observability.span("rwrt.run"):
+        if wide:
+            # Mixed precision: the state, the run's scalars and the
+            # controller in float64; the RHS rounds the state to the
+            # background's dtype at entry (models/ray.py). The cast is
+            # exact, and a no-op over a float64 background.
+            y0 = y0.to(torch.float64)
+        dtype = y0.dtype
+        dt = rk45_mod.as_scalar(config.tstep, dtype)
+        cut_off = rk45_mod.as_scalar(config.cut_off_rad, dtype)
 
-    def run(runner, *args, **kw):
-        """``runner`` over the lanes, or over each shard of them: its
-        per-lane outputs (rows, and an adaptive run's lane_att) gathered;
-        an adaptive run's trunc and iters per shard, iters (n_shards,
-        n_groups) the most attempts of a shard's real lane in each
-        group."""
-        if mesh is None:
-            return runner(bg, y0, ug0, vg0, *args, **kw)
-        outs, r = _run_sharded(mesh, bg, (y0, ug0, vg0),
-                               lambda *a: runner(*a, *args, **kw))
-        rows = gather_tree([o[:3] for o in outs], r, device)
-        if len(outs[0]) == 3:
-            return rows
-        lane_att = _gather_lanes([o[6] for o in outs], r, device)
-        w = outs[0][6].shape[1]
-        iters = torch.nn.functional.pad(lane_att, (0, mesh.size * w - r))
-        iters = iters.reshape(-1, mesh.size, w).amax(dim=2).T
-        return (*rows, iters, 6 * iters,
-                torch.stack([o[5].to(device) for o in outs]), lane_att)
+        def run(runner, *args, **kw):
+            """``runner`` over the lanes, or over each shard of them: its
+            per-lane outputs (rows, and an adaptive run's lane_att)
+            gathered; an adaptive run's trunc and iters per shard, iters
+            (n_shards, n_groups) the most attempts of a shard's real lane
+            in each group."""
+            if mesh is None:
+                return runner(bg, y0, ug0, vg0, *args, **kw)
+            outs, r = _run_sharded(mesh, bg, (y0, ug0, vg0),
+                                   lambda *a: runner(*a, *args, **kw))
+            rows = gather_tree([o[:3] for o in outs], r, device)
+            if len(outs[0]) == 3:
+                return rows
+            lane_att = _gather_lanes([o[6] for o in outs], r, device)
+            w = outs[0][6].shape[1]
+            iters = torch.nn.functional.pad(lane_att, (0, mesh.size * w - r))
+            iters = iters.reshape(-1, mesh.size, w).amax(dim=2).T
+            return (*rows, iters, 6 * iters,
+                    torch.stack([o[5].to(device) for o in outs]), lane_att)
 
-    if config.integrator == "rk4":
-        ys, ugs, vgs = run(_run_rk4, dt, nt, cut_off)
-    else:
-        min_step = min(config.min_step_factor * config.tstep,
-                       config.tstep * 1e-3)
-        rtol = rk45_mod.validate_tol(config.rtol, dtype)
-        atol = rk45_mod.as_scalar(config.atol, dtype)
-        min_step = rk45_mod.as_scalar(min_step, dtype)
-        if config.interval_batch > 1 and nt > 2:
-            out = run(
-                _run_rk45_grouped, dt, nt, cut_off, rtol, atol, min_step,
-                group=min(config.interval_batch, nt - 1),
-                dense=config.bound_mode == "dense",
-                pin_limit=config.pin_limit,
-                pin_mwn=None if config.pin_limit is None else config.pin_mwn,
-            )
+        if config.integrator == "rk4":
+            ys, ugs, vgs = run(_run_rk4, dt, nt, cut_off)
         else:
-            out = run(_run_rk45, dt, nt, cut_off, rtol, atol, min_step)
-        ys, ugs, vgs, iters, _, trunc, lane_att = out
-        if stats is not None:
-            stats["lane_att"] = lane_att
-            if mesh is not None:
-                stats["shard_iters"] = iters
-        _check_truncation(trunc)
+            min_step = min(config.min_step_factor * config.tstep,
+                           config.tstep * 1e-3)
+            rtol = rk45_mod.validate_tol(config.rtol, dtype)
+            atol = rk45_mod.as_scalar(config.atol, dtype)
+            min_step = rk45_mod.as_scalar(min_step, dtype)
+            if config.interval_batch > 1 and nt > 2:
+                out = run(
+                    _run_rk45_grouped, dt, nt, cut_off, rtol, atol,
+                    min_step, group=min(config.interval_batch, nt - 1),
+                    dense=config.bound_mode == "dense",
+                    pin_limit=config.pin_limit,
+                    pin_mwn=(None if config.pin_limit is None
+                             else config.pin_mwn),
+                )
+            else:
+                out = run(_run_rk45, dt, nt, cut_off, rtol, atol, min_step)
+            ys, ugs, vgs, iters, _, trunc, lane_att = out
+            if stats is not None:
+                stats["lane_att"] = lane_att
+                if mesh is not None:
+                    stats["shard_iters"] = iters
+    if trunc is not None:
+        with observability.span("rwrt.truncation"):
+            _check_truncation(trunc)
 
     if take is None:
         return ys, ugs, vgs
@@ -1213,24 +1255,26 @@ def _run_lanes(bg, y0, ug0, vg0, config: RunConfig, wide: bool,
     # step 1). (ug, vg) are NaN beyond step 0 either way. The targets take
     # the history's dtype, which a float64 state makes wider than the
     # seeds'.
-    if config.integrator == "rk45":
-        ys_f = y0_full[None].to(dtype).expand(
-            (nt,) + tuple(y0_full.shape)).clone()
-    else:
-        ys_f = torch.full((nt,) + tuple(y0_full.shape), float("nan"),
-                          dtype=dtype, device=device)
-        ys_f[0] = y0_full
-    ys_f[..., take] = ys[..., :n_lanes]
-    ugs_f = torch.full((nt, n_rays), float("nan"), dtype=dtype,
-                       device=device)
-    vgs_f = ugs_f.clone()
-    ugs_f[0] = ug0_full
-    vgs_f[0] = vg0_full
-    ugs_f[:, take] = ugs[:, :n_lanes]
-    vgs_f[:, take] = vgs[:, :n_lanes]
+    with observability.span("rwrt.expand"):
+        if config.integrator == "rk45":
+            ys_f = y0_full[None].to(dtype).expand(
+                (nt,) + tuple(y0_full.shape)).clone()
+        else:
+            ys_f = torch.full((nt,) + tuple(y0_full.shape), float("nan"),
+                              dtype=dtype, device=device)
+            ys_f[0] = y0_full
+        ys_f[..., take] = ys[..., :n_lanes]
+        ugs_f = torch.full((nt, n_rays), float("nan"), dtype=dtype,
+                           device=device)
+        vgs_f = ugs_f.clone()
+        ugs_f[0] = ug0_full
+        vgs_f[0] = vg0_full
+        ugs_f[:, take] = ugs[:, :n_lanes]
+        vgs_f[:, take] = vgs[:, :n_lanes]
     return ys_f, ugs_f, vgs_f
 
 
+@observability.spanned("rwrt.trace_rays_ensemble")
 def trace_rays_ensemble(bs_members, config: RunConfig, source_lon=None,
                         source_lat=None, mesh=None,
                         stats: Optional[dict] = None):
@@ -1253,7 +1297,9 @@ def trace_rays_ensemble(bs_members, config: RunConfig, source_lon=None,
     the JAX package. ``mesh``: as ``trace_rays``' (the flattened lanes
     split, each shard's member map with them; pad lanes take member 0).
     ``stats``: as ``trace_rays``' (the flattened lanes' attempts of an
-    rk45 run).
+    rk45 run). Spans as ``trace_rays``', the root ``rwrt.trace_rays_ensemble``
+    (``rwrt.inputs`` holds the members' backgrounds and their stack,
+    ``rwrt.seed`` their ``initialize``).
     """
     config.validate()
     if not bs_members:
@@ -1270,27 +1316,25 @@ def trace_rays_ensemble(bs_members, config: RunConfig, source_lon=None,
                                        or m.bg_dt != first.bg_dt):
             raise ValueError("time-varying ensemble members must share frame "
                              "count and time metadata (bg_t0, bg_dt)")
-    if source_lon is None:
-        source_lon, source_lat = source_matrix(
-            config.sw_lon, config.sw_lat, config.dlon, config.dlat,
-            config.nnx, config.nny,
-        )
-
-    def to_dev(a):
-        return torch.as_tensor(np.asarray(a)).to(device=device, dtype=dtype)
-
-    source_lon = to_dev(source_lon)
-    source_lat = to_dev(source_lat)
-    zwn = to_dev(config.zwn_array())
-    members = [make_background(m, config.freq) for m in bs_members]
-    inits = [initialize(bg, source_lon, source_lat, zwn, config.root_order)
-             for bg in members]
-    r_single = inits[0][0].shape[1]
-    ens_bg = members[0]._replace(
-        fields=torch.stack([bg.fields for bg in members]).contiguous(),
-        member_ids=torch.arange(
-            len(members), dtype=torch.int32,
-            device=device).repeat_interleave(r_single))
+    with observability.span("rwrt.inputs"):
+        if source_lon is None:
+            source_lon, source_lat = source_matrix(
+                config.sw_lon, config.sw_lat, config.dlon, config.dlat,
+                config.nnx, config.nny,
+            )
+        source_lon = _upload(source_lon, device, dtype)
+        source_lat = _upload(source_lat, device, dtype)
+        zwn = _upload(config.zwn_array(), device, dtype)
+        members = [make_background(m, config.freq) for m in bs_members]
+        r_single = 3 * source_lon.shape[0] * zwn.shape[0]
+        ens_bg = members[0]._replace(
+            fields=torch.stack([bg.fields for bg in members]).contiguous(),
+            member_ids=torch.arange(
+                len(members), dtype=torch.int32,
+                device=device).repeat_interleave(r_single))
+    with observability.span("rwrt.seed"):
+        inits = [initialize(bg, source_lon, source_lat, zwn,
+                            config.root_order) for bg in members]
     ys, ugs, vgs = _run_lanes(
         ens_bg, *(torch.cat(x, dim=-1) for x in zip(*inits)), config,
         False, stats, mesh)

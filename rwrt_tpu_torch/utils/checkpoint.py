@@ -45,7 +45,6 @@ from rwrt_tpu_torch.models import ray as ray_mod
 from rwrt_tpu_torch.models.basic_state import BasicState
 from rwrt_tpu_torch.parallel import sharding
 from rwrt_tpu_torch.solvers import rk45 as rk45_mod
-from rwrt_tpu_torch.tracer import RayTrajectories
 from rwrt_tpu_torch.utils.observability import Progress, run_banner
 
 FIELDS = ("lon", "lat", "kx", "ky", "amp", "ug", "vg")
@@ -167,7 +166,7 @@ def trace_rays_chunked(
     compact_min_width: int = 256,
     max_chunks: Optional[int] = None,
     stats: Optional[dict] = None,
-) -> RayTrajectories:
+) -> _tracer.RayTrajectories:
     """Like ``tracer.trace_rays`` but in chunks of ``chunk_steps`` output
     steps, with progress, checkpointing and the history on the host.
 
@@ -610,7 +609,7 @@ def trace_rays_chunked(
             split.lap("compact")
 
     out_shape = (nt, 3, source_lon.shape[0], len(config.zwn))
-    traj = RayTrajectories(**{
+    traj = _tracer.RayTrajectories(**{
         k: torch.from_numpy(hist[k][:, :n_rays].reshape(out_shape))
         for k in FIELDS})
     if verbose:

@@ -1,20 +1,24 @@
-"""Observability: the run banner, the chunked driver's progress bar and the
-device profile.
+"""Observability: the run banner, the chunked driver's progress bar, the
+device profile and the spans inside it.
 
 Port of ``rwrt_tpu/utils/observability.py``: ``run_banner`` and
 ``Progress`` (the reference's configuration banner and text progress bar),
 host-side and unchanged, and ``profile``, which is ``torch.profiler`` here
 where the JAX package has ``jax.profiler``; the step attempts come from the
-integrators themselves (``stats["lane_att"]``).
+integrators themselves (``stats["lane_att"]``). ``span`` and ``spanned``
+name the stages of a call in that profile (``tracer.trace_rays``' spans).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import sys
 import tempfile
 import time
+
+import torch
 
 from rwrt_tpu_torch.config import RunConfig
 from rwrt_tpu_torch.constants import day
@@ -74,8 +78,6 @@ def profile(logdir=None):
     ``logdir`` defaults to ``rwrt_tpu_torch_profile`` under the temporary
     directory. Yields the profiler, whose ``key_averages()`` give the time
     by operator and kernel."""
-    import torch
-
     logdir = logdir or os.path.join(tempfile.gettempdir(),
                                     "rwrt_tpu_torch_profile")
     os.makedirs(logdir, exist_ok=True)
@@ -85,3 +87,36 @@ def profile(logdir=None):
     with torch.profiler.profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+#: What ``span`` returns while no profiler records.
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that marks its block as the stage ``name`` in the trace of
+    a recording ``torch.profiler`` (``profile``, or any other): a host range
+    on the trace's clock, nesting the operators called in it and, through
+    them, the device work they launched (its ``device_time_total``).
+
+    The range is recorded as an operator (``_RecordFunctionFast``), not as
+    ``record_function``'s user annotation, which the profiler also lays on
+    the device's timeline: a trace's device events stay the device's work.
+    While no profiler records, one shared null context, after one check."""
+    if not torch._C._autograd._profiler_enabled():
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(name)
+
+
+def spanned(name: str):
+    """Decorate a function to run inside ``span(name)``."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return call
+
+    return wrap
