@@ -88,6 +88,15 @@ exact_path phase requires and the chunk budget the chunked phase sets):
                against its plain route; wrapper timed, and at t = 0 in
                float32 the kernel alone and the plain route too, against
                its bound (the background rows its samples read)
+  seed         the seed stage (``tracer.initialize``: one launch of
+               ``csrc/seed.cu``) bitwise against its plain route on the
+               card, on the reference's default run (2,205 points,
+               float64: the benchmark cell's seeding) and the production
+               seeding (33,600 points) in float32 and float64; wrapper,
+               kernel alone and plain route timed against the bound (the
+               background rows the sources sample, the seeds written);
+               then the default run through ``trace_rays``: one seed
+               launch
   spectral     spectral kernel vs ``sample_spectral`` at the day-10
                positions and three NaN / out-of-range rows, in every operand
                case (SPECTRAL_CASES: float64 and float32 coefficients, with
@@ -1868,6 +1877,112 @@ def phase_entry(run):
             entry_record(run, "entry float32, per-lane times", bg, y0, t)
 
 
+#: The seed kernel's flops a point, counted from csrc/seed.cu on its
+#: longest branch: the sample (119, as the RHS's), the coefficients (13),
+#: the degree (15), the monic depressed cubic and its trigonometric roots
+#: (37), two Newton polishes of each root (66), the window and the order
+#: (15), group velocity and amp for each root (57).
+SEED_FLOPS = 119 + 13 + 15 + 37 + 66 + 15 + 57
+SEED_REPS = 50
+
+
+def seed_record(run, name, bg, inputs, timed=False):
+    """The seed stage on one seeding: ``tracer.initialize`` (one launch of
+    ``csrc/seed.cu``) bitwise against its plain route on the card
+    (``_initialize_plain``); the wrapper timed (CUDA events over
+    SEED_REPS calls), and with ``timed`` the kernel alone (torch.profiler)
+    and the plain route's wall too; its bound: the background rows the
+    sources sample (``sampled_bytes``), the sources and zwn in, y0, ug0
+    and vg0 out, and SEED_FLOPS a point."""
+    torch = run.torch
+    from rwrt_tpu_torch import tracer
+
+    before = tracer.SEED_LAUNCHES
+    got = tracer.initialize(bg, *inputs)
+    check(tracer.SEED_LAUNCHES == before + 1,
+          f"{name}: initialize did not make one seed launch")
+    want = tracer._initialize_plain(bg, *inputs)
+    torch.cuda.synchronize()
+    for what, a, b in zip(("y0", "ug0", "vg0"), got, want):
+        check(a.dtype == b.dtype and a.shape == b.shape and same(a, b),
+              f"{name}: {what} differs from the plain route")
+    check(bool(torch.isfinite(got[0][3]).any()), f"{name}: no root")
+
+    def kernel():
+        return tracer.initialize(bg, *inputs)
+
+    ms = cuda_ms(kernel, SEED_REPS)
+    alone_us = plain_ms = None
+    if timed:
+        alone_us = launch_parts(kernel, ("seed_kernel",),
+                                reps=SEED_REPS).get("seed_kernel")
+        plain_ms = cuda_ms(lambda: tracer._initialize_plain(bg, *inputs), 10)
+    points = got[1].numel() // 3
+    read = sampled_bytes(bg, ((inputs[0], inputs[1], 0.0),))
+    small = nbytes(*inputs, *got)
+    b = bound(read + small, points * SEED_FLOPS,
+              str(bg.fields.dtype).split(".")[-1])
+    kernel_ms = None if alone_us is None else alone_us / 1e3
+    roots = int(torch.isfinite(got[0][3]).sum())
+    print(f"{name}: {points} points ({got[1].numel()} lanes, {roots} with a "
+          f"root), y0, ug0 and vg0 bitwise the plain route's; wrapper "
+          f"{ms:.4f} ms"
+          + ("" if not timed else
+             ", the kernel alone (torch.profiler) "
+             + ("not seen" if kernel_ms is None else f"{kernel_ms:.4f} ms")
+             + f", plain {plain_ms:.4f} ms")
+          + f"; bound {b['bound_ms']:.5f} ms ({b['bound_by']}; "
+          f"{read / 1e6:.3f} MB of background rows sampled, "
+          f"{small / 1e6:.3f} MB of sources and seeds in and out)")
+    return dict(max_abs_err=0.0, ms=ms, kernel_ms=kernel_ms,
+                plain_ms=plain_ms, library_ms=None, **b)
+
+
+def phase_seed(run):
+    """The seed stage (``tracer.initialize``: one launch of
+    ``csrc/seed.cu``) bitwise against its plain route on the card: the
+    reference's default run (``RunConfig()``: 2,205 points, float64, the
+    benchmark cell's seeding; the kernels line's ``seed``) and the
+    production seeding (33,600 points) in float32 and float64, each timed
+    beside its plain route; then sources of another dtype than the
+    background's, which the launch refuses. The path phases count one seed
+    launch in each of their runs (``traced``)."""
+    torch = run.torch
+    from rwrt_tpu_torch import tracer
+
+    cfg = default_config(run.rt)
+    slon, slat = tracer.source_matrix(cfg.sw_lon, cfg.sw_lat, cfg.dlon,
+                                      cfg.dlat, cfg.nnx, cfg.nny)
+    for name, dtype, lon, lat, zwn in (
+            ("seed default float64", torch.float64, slon, slat,
+             cfg.zwn_array()),
+            ("seed production float32", torch.float32, run.slon, run.slat,
+             np.arange(1.0, 8.0)),
+            ("seed production float64", torch.float64, run.slon, run.slat,
+             np.arange(1.0, 8.0))):
+        bg = tracer.make_background(run.bs(dtype), cfg.freq)
+        inputs = tuple(torch.as_tensor(x, dtype=dtype, device=run.dev)
+                       for x in (lon, lat, zwn))
+        rec = seed_record(run, name, bg, inputs, timed=True)
+        if name == "seed default float64":
+            run.kernels["seed"] = rec
+    # Inputs of another dtype than the background's are refused at the
+    # launch, not seeded by a quiet plain route in the promoted dtype.
+    bg = tracer.make_background(run.bs(torch.float32), cfg.freq)
+    before = tracer.SEED_LAUNCHES
+    try:
+        tracer.initialize(bg, *(torch.as_tensor(x, dtype=torch.float64,
+                                                device=run.dev)
+                                for x in (slon, slat, cfg.zwn_array())))
+        refused = None
+    except ValueError as e:
+        refused = e
+    check(refused is not None and tracer.SEED_LAUNCHES == before,
+          "initialize seeded float64 sources over a float32 background")
+    print(f"seed: float64 sources over a float32 background refused "
+          f"({refused})")
+
+
 def phase_time_entry(run):
     """The entry stage's time instance on the time_main_path run's entry
     state (the lanes it compacted over the TV_DAYS-day daily frames) at
@@ -2530,8 +2645,10 @@ def traced(run, cfg, launches_of, n_launches=1, driver=None, stop=(),
     arguments) on the climatology background (or ``bs``), float32, with
     every launch
     counter set to 0 just before it and read just after: ``n_launches``
-    of ``launches_of`` and none of the other kernels but, as
-    ``read_launches`` has it, the RHS or an adaptive run's entry stage.
+    of ``launches_of``, one seed launch (every driver seeds once, an
+    ensemble's members in one launch, before any run or refusal of a
+    resume) and none of the other kernels but, as ``read_launches`` has
+    it, the RHS or an adaptive run's entry stage.
     Returns
     (traj, launches, wall s, peak MiB above the prepared state, stats,
     the MaxItersTruncation, or exception of a type in ``stop``, that
@@ -2554,7 +2671,7 @@ def traced(run, cfg, launches_of, n_launches=1, driver=None, stop=(),
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
-    launches = read_launches(launches_of, n_launches, "trace_rays")
+    launches = read_launches(launches_of, n_launches, "trace_rays", seeds=1)
     return traj, launches, wall, peak, stats, refused
 
 
@@ -2573,15 +2690,17 @@ def reset_launches():
     rk45.INTERVAL_LAUNCHES = tracer.ENTRY_LAUNCHES = 0
     tracer.LAUNCHES = tracer.RK4_LAUNCHES = tracer.EXACT_LAUNCHES = 0
     flux.LAUNCHES = flux.REGION_LAUNCHES = gather_probe.LAUNCHES = 0
-    rk4.STEP_LAUNCHES = spec.PACK_LAUNCHES = 0
+    rk4.STEP_LAUNCHES = spec.PACK_LAUNCHES = tracer.SEED_LAUNCHES = 0
 
 
-def read_launches(launches_of, n_launches, what):
+def read_launches(launches_of, n_launches, what, seeds=0):
     """The counters since ``reset_launches``: fails unless ``launches_of``
     launched ``n_launches`` times (or, a dict, each of its kernels its
-    count) and no other kernel ran but the entry stage: where an adaptive
+    count; None leaves a kernel unchecked) and no other kernel ran but the
+    entry stage and the seed stage: the entry stage, where an adaptive
     run's kernel (dense_run or exact_run) is named, once (unless named),
-    else never. No run path launches the RHS kernel."""
+    else never; the seed kernel ``seeds`` times (unless named). No run
+    path launches the RHS kernel."""
     from rwrt_tpu_torch import tracer
     from rwrt_tpu_torch.diagnostics import flux
     from rwrt_tpu_torch.models import ray
@@ -2599,11 +2718,12 @@ def read_launches(launches_of, n_launches, what):
                 "interval": rk45.INTERVAL_LAUNCHES,
                 "entry": tracer.ENTRY_LAUNCHES,
                 "rk4_step": rk4.STEP_LAUNCHES,
-                "spectral_pack": spec.PACK_LAUNCHES}
+                "spectral_pack": spec.PACK_LAUNCHES,
+                "seed": tracer.SEED_LAUNCHES}
     wants = (launches_of if isinstance(launches_of, dict)
              else {launches_of: n_launches})
     adaptive = "dense_run" in wants or "exact_run" in wants
-    defaults = {"entry": int(adaptive)}
+    defaults = {"entry": int(adaptive), "seed": seeds}
     for k, n in launches.items():
         want = wants.get(k, defaults.get(k, 0))
         check(want is None or n == want,
@@ -2633,7 +2753,8 @@ def phase_rk4_path(run):
     """The RK4 runs through ``trace_rays``: ``RunConfig()`` (6,615 rays, 90
     days) over the float32 and the float64 background, and the production
     seeding (100,800 rays, 30 days). The kernels line reports the
-    production run's launches and the float64 default run's."""
+    production run's launches and the float64 default run's (its RK4 and
+    its seed launches: the benchmark cell's request)."""
     for name, cfg, kw in (
             ("default", default_config(run.rt), {}),
             ("default float64", in_float64(default_config(run.rt)),
@@ -2653,6 +2774,8 @@ def phase_rk4_path(run):
               f"launches {launches}; rows bitwise equal to the rk4 phase's")
         run.launches["rk4_run_f64" if name == "default float64"
                      else "rk4_run"] = launches["rk4_run"]
+        if name == "default float64":
+            run.launches["seed"] = launches["seed"]
         del traj
 
 
@@ -4104,10 +4227,13 @@ def save_wind(path, u, v, lat, lon, **extra):
     return str(path)
 
 
-def cli_run(run, tmp, name, cfg, flags, launches_of, n_launches):
+def cli_run(run, tmp, name, cfg, flags, launches_of, n_launches,
+            seeds=1):
     """``python -m rwrt_tpu_torch --config <name>.json --report ...`` in
     process (``rwrt_tpu_torch.__main__.main``, on the card), every launch
-    counter set to 0 just before it and read just after. ``cfg`` is the
+    counter set to 0 just before it and read just after, ``seeds`` seed
+    launches among them (a root_order='fortran' run seeds on the host,
+    none). ``cfg`` is the
     JSON (inputuv, bsfile, ncfile and RunConfig keys). Returns (report,
     launches, wall s)."""
     import os
@@ -4126,7 +4252,8 @@ def cli_run(run, tmp, name, cfg, flags, launches_of, n_launches):
           f"cli {name}: nonzero exit")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches(launches_of, n_launches, f"cli {name}")
+    launches = read_launches(launches_of, n_launches, f"cli {name}",
+                             seeds=seeds)
     with open(report) as f:
         rep = json.load(f)
     check(rep["backend"] == "cuda" and rep["device_name"]
@@ -4440,7 +4567,7 @@ def phase_cli(run):
                   ncfile=os.path.join(tmp, "ray_fortran.npz"))
         cfg = config(js)
         rep, launches, wall = cli_run(run, tmp, "fortran", js, [],
-                                      "rk4_run", 1)
+                                      "rk4_run", 1, seeds=0)
         bs = state(static, cfg)
         traj = rt.trace_rays(bs, cfg)
         file_equals(js["ncfile"], traj, "cli fortran")
@@ -5397,7 +5524,8 @@ AD_FD_DAYS = 5
 
 def phase_autodiff(run):
     """Gradients on the card through the plain, differentiable route (no
-    kernel: every counter set to 0 at the start and read at the end), on
+    kernel but the seed kernel of the no-grad runs: every counter set to 0
+    at the start and read at the end), on
     the climatology in float64: d(final lat)/d(wind scale) through
     ``prepare`` -> ``make_background`` -> ``initialize`` -> 24 RK4 steps
     and d/d(seed lat), against central differences (AD_EPS, AD_BARS);
@@ -5431,6 +5559,7 @@ def phase_autodiff(run):
 
     torch.cuda.synchronize()
     reset_launches()
+    calls = tracer.SEED_CALLS
     for name, at in (("wind", 0), ("seed", 1)):
         x = [t64(1.0), t64(0.25)]
         x[at] = x[at].clone().requires_grad_(True)
@@ -5447,6 +5576,11 @@ def phase_autodiff(run):
               f"{err:.3e} (bar {AD_BARS[name]:g})")
         check(math.isfinite(g) and err <= AD_BARS[name],
               f"autodiff d/d({name}) {g} against {fd}")
+    # The gradients seed by the plain route, the differences' four
+    # no-grad calls by the kernel.
+    check((tracer.SEED_CALLS - calls, tracer.SEED_LAUNCHES) == (6, 4),
+          f"autodiff: {tracer.SEED_CALLS - calls} seed calls and "
+          f"{tracer.SEED_LAUNCHES} seed launches, not 6 and 4")
 
     # The targeting run.
     bs = run.rt.prepare(run.u, run.v, run.lat, run.lon, read_dtype=f64,
@@ -5541,7 +5675,7 @@ def phase_autodiff(run):
           f"above the state; optimize_seeds {opt_s:.2f} s "
           f"({opt_s / AD_STEPS:.2f} s per Adam step, its final forward "
           f"passes included), peak {peak:.2f} GiB")
-    read_launches({"rhs": 0}, 0, "the autodiff phase")
+    read_launches({"rhs": 0, "seed": None}, 0, "the autodiff phase")
 
     # The guard: a state whose fields carry a graph, into the kernels.
     ut = u.clone().requires_grad_(True)
@@ -5723,6 +5857,7 @@ KERNELS = (
     ("entry", "rwrt_tpu_torch/csrc/entry.cu", "rwrt_tpu/tracer.py:809"),
     ("entry_time", "rwrt_tpu_torch/csrc/entry_time.cu",
      "rwrt_tpu/tracer.py:809"),
+    ("seed", "rwrt_tpu_torch/csrc/seed.cu", "rwrt_tpu/tracer.py:85"),
     ("rk4_step", "rwrt_tpu_torch/csrc/rk4_run.cu",
      "rwrt_tpu/diagnostics/termination.py:162"),
     ("rk4_step_time", "rwrt_tpu_torch/csrc/rk4_run_time.cu",
@@ -5765,7 +5900,7 @@ def main() -> int:
     run.tmp = tmp.name
     for phase in (phase_plain_ahead, phase_rhs, phase_dense_group, phase_dense_run,
                   phase_dense_lone_lane, phase_main_path, phase_entry,
-                  phase_spectral,
+                  phase_seed, phase_spectral,
                   phase_rk4, phase_exact_group, phase_exact_run,
                   phase_rk4_path, phase_exact_path, phase_chunked,
                   phase_mixed_dense, phase_mixed_drift, phase_mixed_rk4,

@@ -120,6 +120,10 @@ SIGNATURES = {
                          _P, _P),
     # table, width, idx, R, out, stream
     "rwrt_gather": (_P, _I, _P, _I, _P, _P),
+    # packed, W, H, lon0, lat0, dx, dy, lon, lat, zwn, nsource, nzwn,
+    # members, freq, y0, ug0, vg0, stream
+    "rwrt_seed": (_P, _I, _I, _D, _D, _D, _D, _P, _P, _P, _I, _I, _I, _D, _P,
+                  _P, _P, _P),
 }
 
 #: The time instances' entry points (``<name>_time``: a time-varying or
@@ -143,7 +147,7 @@ def _time_signature(name: str) -> tuple:
 
 for _name in ("rwrt_rhs", "rwrt_entry", "rwrt_rk4_run", "rwrt_rk4_step",
               "rwrt_exact_run", "rwrt_dense_run", "rwrt_exact_group",
-              "rwrt_dense_group", "rwrt_interval"):
+              "rwrt_dense_group", "rwrt_interval", "rwrt_seed"):
     SIGNATURES[_name + "_time"] = _time_signature(_name)
 # The occupancy counts of the time instances take the static ones' args.
 SIGNATURES["rwrt_rhs_resident_time"] = SIGNATURES["rwrt_rhs_resident"]

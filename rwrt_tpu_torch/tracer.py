@@ -46,7 +46,10 @@ float32 background, and a time instance of each (``_time``), which they
 take for a time-varying or ensemble background
 (``models.ray.kernel_background``). Before an adaptive run's one launch,
 its entry stage (f0 and Hairer's initial step) is one launch of
-``csrc/entry.cu`` (``entry_stage``, ``ENTRY_LAUNCHES``).
+``csrc/entry.cu`` (``entry_stage``, ``ENTRY_LAUNCHES``). Before either,
+the seeds (``initialize``: the roots of the dispersion cubic and the
+initial group velocity at every source and zwn) are one launch of
+``csrc/seed.cu`` (``SEED_LAUNCHES``), for all of an ensemble's members.
 
 The ray batch is flattened to R = 3 * nsource * nzwn lanes in C order of
 (root, source, zwn), so results reshape directly to (nt, 3, nsource, nzwn).
@@ -124,6 +127,12 @@ def make_background(bs: BasicState, freq: float) -> Background:
     )
 
 
+#: Seed-stage kernel launches (``csrc/seed.cu``) and ``initialize`` calls,
+#: plain or kernel, in this process.
+SEED_LAUNCHES = 0
+SEED_CALLS = 0
+
+
 def initialize(
     bg: Background,
     source_lon: torch.Tensor,
@@ -144,10 +153,91 @@ def initialize(
     depends on LAPACK's eigenvalue order, which the device solver cannot
     reproduce. One host read and a host solve, once per run.
 
-    Returns y0 (5, R), ug0 (R,), vg0 (R,).
+    An ensemble background (``member_ids`` over member-major lanes, R =
+    3 * nsource * nzwn a member, as ``trace_rays_ensemble`` lays them)
+    seeds each member's R lanes from the stack its lanes map to.
+
+    A call whose background is on the card takes one launch of
+    ``csrc/seed.cu`` (``SEED_LAUNCHES``) where ``_seed_kernel_takes`` it:
+    canonical order and no input that carries a gradient. The launch
+    raises ValueError unless the sources and zwn are of the background's
+    dtype and device. Every other call (a CPU background, a gradient
+    through the seeds, root_order='fortran') takes the plain composition
+    (``_initialize_plain``), which gives the same bits. ``SEED_CALLS``
+    counts every call.
+
+    Returns y0 (5, R), ug0 (R,), vg0 (R,) (R summed over the members).
     """
+    global SEED_CALLS
     if root_order not in ("canonical", "fortran"):
         raise ValueError(f"unknown root_order {root_order!r}")
+    SEED_CALLS += 1
+    inputs = (source_lon, source_lat, zwn)
+    if bg.fields.is_cuda and _seed_kernel_takes(bg, inputs, root_order):
+        return _initialize_cuda(bg, *inputs)
+    return _initialize_plain(bg, *inputs, root_order)
+
+
+def _seed_kernel_takes(bg: Background, inputs, root_order: str) -> bool:
+    """Whether ``initialize`` on the card launches the seed kernel: root
+    order 'canonical' and, while grad mode is on, no input (the
+    background's stack among them) that requires grad."""
+    if root_order != "canonical":
+        return False
+    return not (torch.is_grad_enabled() and any(
+        t.requires_grad for t in (bg.fields, *inputs)))
+
+
+def _initialize_cuda(bg, source_lon, source_lat, zwn):
+    """Launch the seed kernel: one thread per (member, source, zwn) point
+    samples the background at its source, solves the cubic and writes its
+    three lanes. A static background takes the static instance; any other
+    the time instance, a time-varying stack at t = 0, an ensemble's stacks
+    by its member map. Raises ValueError unless the sources and zwn are
+    vectors of the background's dtype and device."""
+    global SEED_LAUNCHES
+    dev, dtype = bg.fields.device, bg.fields.dtype
+    source_lon, source_lat, zwn = (
+        x.contiguous() for x in (source_lon, source_lat, zwn))
+    nsource, nzwn = source_lon.shape[0], zwn.shape[0]
+    for x, name, n in ((source_lon, "source_lon", nsource),
+                       (source_lat, "source_lat", nsource),
+                       (zwn, "zwn", nzwn)):
+        kernels.check_tensor(x, name, device=dev, dtype=dtype, shape=(n,))
+    r = 3 * nsource * nzwn
+    lanes = r if bg.member_ids is None else bg.member_ids.shape[0]
+    if r and lanes % r:
+        raise ValueError(f"member_ids ({lanes} lanes) is not whole members "
+                         f"of {r} lanes")
+    variant, bg_args = ray_mod.kernel_background(bg, dev, dtype, lanes)
+    out = torch.empty((7, lanes), dtype=dtype, device=dev)
+    kernels.launch(f"rwrt_seed{variant}", dtype, *bg_args,
+                   source_lon, source_lat, zwn, nsource, nzwn, lanes // max(r, 1),
+                   float(bg.freq), out, out[5], out[6], kernels.stream(dev))
+    SEED_LAUNCHES += 1
+    return out[:5], out[5], out[6]
+
+
+def _initialize_plain(bg, source_lon, source_lat, zwn,
+                      root_order="canonical"):
+    """The plain version of ``initialize`` (any device): the sample, the
+    roots (``ops/cubic``), amp and (ug, vg) (``ops/groupvel``) as PyTorch
+    ops, differentiable throughout; an ensemble's members in turn, each
+    member's sources sampled by the map at their root-0, zwn-0 lanes."""
+    if bg.member_ids is None:
+        return _seed_plain(bg, source_lon, source_lat, zwn, root_order)
+    nsource, nzwn = source_lon.shape[0], zwn.shape[0]
+    r = 3 * nsource * nzwn
+    parts = [_seed_plain(
+        bg._replace(member_ids=bg.member_ids[i:i + nsource * nzwn:nzwn]),
+        source_lon, source_lat, zwn, root_order)
+        for i in range(0, bg.member_ids.shape[0], max(r, 1))]
+    return tuple(torch.cat(x, dim=-1) for x in zip(*parts))
+
+
+def _seed_plain(bg, source_lon, source_lat, zwn, root_order):
+    """``_initialize_plain`` for one member (``bg.member_ids`` None, or the
+    (nsource,) member of each source)."""
     nsource = source_lon.shape[0]
     nzwn = zwn.shape[0]
 
@@ -1299,7 +1389,8 @@ def trace_rays_ensemble(bs_members, config: RunConfig, source_lon=None,
     ``stats``: as ``trace_rays``' (the flattened lanes' attempts of an
     rk45 run). Spans as ``trace_rays``', the root ``rwrt.trace_rays_ensemble``
     (``rwrt.inputs`` holds the members' backgrounds and their stack,
-    ``rwrt.seed`` their ``initialize``).
+    ``rwrt.seed`` the stack's ``initialize``: on the card one seed launch
+    for all members).
     """
     config.validate()
     if not bs_members:
@@ -1333,11 +1424,10 @@ def trace_rays_ensemble(bs_members, config: RunConfig, source_lon=None,
                 len(members), dtype=torch.int32,
                 device=device).repeat_interleave(r_single))
     with observability.span("rwrt.seed"):
-        inits = [initialize(bg, source_lon, source_lat, zwn,
-                            config.root_order) for bg in members]
-    ys, ugs, vgs = _run_lanes(
-        ens_bg, *(torch.cat(x, dim=-1) for x in zip(*inits)), config,
-        False, stats, mesh)
+        y0, ug0, vg0 = initialize(ens_bg, source_lon, source_lat, zwn,
+                                  config.root_order)
+    ys, ugs, vgs = _run_lanes(ens_bg, y0, ug0, vg0, config, False, stats,
+                              mesh)
     out_shape = (config.nt, 3, source_lon.shape[0], len(config.zwn))
     return [_traj_from(*(a[..., i * r_single:(i + 1) * r_single]
                          for a in (ys, ugs, vgs)),

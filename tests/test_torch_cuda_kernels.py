@@ -37,7 +37,15 @@ RHS kernel's team instance is bitwise its Lane instance. The spectral
 packing kernel (``spec.pack_on_card``) is bitwise ``pack_coeffs``. The
 entry-stage kernel (``tracer.entry_stage``: f0 and the initial step in
 one launch) is bitwise its plain route in every instance, and every
-adaptive path makes one entry launch and no RHS launch. The gather
+adaptive path makes one entry launch and no RHS launch. The seed kernel
+(``tracer.initialize``: the roots of the dispersion cubic and the initial
+group velocity in one launch) is bitwise its plain route in float32 and
+float64 over static, time-varying and ensemble backgrounds, on every
+branch of the closed form; a ``trace_rays`` or ``trace_rays_ensemble``
+call makes one seed launch and gives the bits it gives with the seeds
+on the plain route; gradients and root_order='fortran' take the
+plain route, and sources or zwn of another dtype or device than the
+background's are refused. The gather
 kernel is a copy: bitwise. Gradients take the plain route on the
 card (the roots' implicit-function backward equal to the CPU's, a
 gradient through prepare -> RK4 equal to the CPU's to 1e-9), and every
@@ -51,6 +59,7 @@ import torch
 import rwrt_tpu_torch as pt
 from rwrt_tpu_torch import kernels, tracer
 from rwrt_tpu_torch.models import ray
+from rwrt_tpu_torch.ops import interp
 from rwrt_tpu_torch.ops import spectral_sample as spec
 from rwrt_tpu_torch.solvers import rk4, rk45
 
@@ -2389,6 +2398,235 @@ def test_chunked_resume_without_saved_h(jet_field, dev, kind, tmp_path):
     alive = (torch.isfinite(want.lon[step - 1])
              & torch.isfinite(want.ky[step - 1]))
     assert bool(torch.isfinite(got.lon[-1][alive]).any())
+
+
+# ---- The seed stage (csrc/seed.cu) ----
+
+#: The seed kernel's regime grid: (u, v, qx, qy) at each node of the
+#: equator row, where a source samples them exactly (cos 0 = 1, no blend):
+#: at zwn 1 and freq 0 the cubic c3 = v, c2 = u, c1 = v + qx, c0 = u - qy
+#: of one branch of the closed form; the last node at zwn 2**-16 a double
+#: root of the quadratic that c0's last bit makes a pair with |Im| = 2**-27
+#: (below delt), whose real part fills two slots: tied keys.
+SEED_NODES = (
+    (-6.0, 1.0, 10.0, 0.0),          # trigonometric: 1, 2, 3
+    (0.0, 1.0, -8.0, -6.0),          # trigonometric: 1, 2, -3
+    (0.0, 1.0, 0.0, -1.0),           # Cardano: one real root
+    (-150.0, 1.0, -1.0, -150.0),     # 150 (past mwn_cap), 0, 0
+    (1.0, 1e-9, -3.0, -1.0),         # a leading coefficient near the demotion
+    (1.0, 0.0, -3.0, -1.0),          # quadratic: 1, 2
+    (0.0, 0.0, 2.0, 1.0),            # linear: 0.5
+    (0.0, 0.0, 0.0, 0.0),            # all zero: no root
+    (2.0 ** 16, 0.0, -2.0 ** -15, -2.0 ** -38),  # the tiny-Im pair
+)
+SEED_ZWN = (1.0, 2.0 ** -16, 0.0, 3.0)
+#: The jet case's zonal wavenumbers (zwn = 0 among them) and frequency.
+SEED_JET_ZWN = (0.0, 0.5, 1.0, 2.0, 3.0, 5.0, 7.0, 12.0)
+SEED_FREQ = 2.0 * np.pi / (30.0 * DAY)
+
+
+def regime_stack(dtype, dev, scale=1.0):
+    """The corner-packed (W, H, 48) stack of SEED_NODES (times ``scale``, a
+    power of two: the same branches) on a 0.25-rad grid, lat 0 its row 2."""
+    raw = np.zeros((len(SEED_NODES) + 1, 5, interp.NUM_HOT))
+    for i, (u, v, qx, qy) in enumerate(SEED_NODES + SEED_NODES[-1:]):
+        raw[i, :, [interp.F_U, interp.F_V, interp.F_QX, interp.F_QY]] = (
+            np.array([u, v, qx, qy])[:, None] * scale)
+    return interp.pack_corners(torch.as_tensor(raw, dtype=dtype, device=dev))
+
+
+def seed_case(jet_field, dev, dtype, kind, grid):
+    """(bg, (source_lon, source_lat, zwn)) for the seed kernel: the regime
+    grid with a source at each node (freq 0), or the jet (freq SEED_FREQ)
+    under a source matrix from 80 S to 80 N with a source in the polar cap,
+    one past the pole and one at a NaN longitude; ``kind`` static, 31
+    frames (t = 0 between two of them), three static members or three
+    members of frames, member-major as ``trace_rays_ensemble`` lays them."""
+    if grid == "regimes":
+        n = len(SEED_NODES)
+        lon = np.arange(n) * 0.25
+        lat = np.zeros(n)
+        zwn = SEED_ZWN
+        stacks = [regime_stack(dtype, dev, s) for s in (1.0, 2.0, 0.5)]
+        if kind in ("time", "member_time"):
+            # Equal frames; t = 0 half-way between frames 0 and 1.
+            stacks = [torch.stack([st] * 31) for st in stacks]
+        fields = (stacks[0] if kind in ("static", "time")
+                  else torch.stack(stacks))
+        bg = ray.Background(fields=fields.contiguous(), lon0=0.0, lat0=-0.5,
+                            dx=0.25, dy=0.25, freq=0.0, bg_t0=-0.5 * DAY,
+                            bg_dt=DAY)
+    else:
+        lon, lat = tracer.source_matrix(0.0, -80.0, 10.0, 10.0, 36, 17)
+        lon = np.concatenate([lon, [1.0, 2.0, np.nan]])
+        lat = np.concatenate([lat, np.radians([89.5, 91.0, 10.0])])
+        zwn = SEED_JET_ZWN
+        bg = (background(jet_field, dtype, dev)[1] if kind == "static"
+              else varying_background(jet_field, kind, dtype, dev, 1))
+        bg = bg._replace(freq=rk45.as_scalar(SEED_FREQ, dtype))
+    inputs = tuple(torch.as_tensor(x, dtype=dtype, device=dev)
+                   for x in (lon, lat, zwn))
+    if kind in ("member", "member_time"):
+        r = 3 * len(lon) * len(zwn)
+        bg = bg._replace(member_ids=torch.arange(
+            3, dtype=torch.int32, device=dev).repeat_interleave(r))
+    return bg, inputs
+
+
+def bits_same(a, b):
+    """The same bits at every position, NaN positions alike (their
+    payloads aside)."""
+    ints = {4: torch.int32, 8: torch.int64}[a.element_size()]
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        torch.isnan(a), torch.isnan(b)) and torch.equal(
+        torch.nan_to_num(a).view(ints), torch.nan_to_num(b).view(ints))
+
+
+def seed_branches(bg, source_lon, source_lat, zwn):
+    """The closed form's branches (ops/cubic.py) the (source, zwn) points
+    of a static background take, from its coefficients."""
+    f = ray.sample_bg(bg, source_lon, source_lat, 0.0)
+    fu, fv, fqx, fqy = (f[i][:, None] for i in (interp.M_U, interp.M_V,
+                                                interp.M_QX, interp.M_QY))
+    kz = torch.where(zwn != 0, zwn, torch.ones_like(zwn))[None, :]
+    ps = bg.freq / kz * 6.3712e6
+    c3 = fv.expand(-1, zwn.shape[0])
+    c2 = kz * (fu - ps)
+    c1 = kz * kz * fv + fqx
+    c0 = kz ** 3 * (fu - ps) - fqy * kz
+    tau = 1e4 * torch.finfo(c3.dtype).eps
+    s = [c3.abs() * 1e6, c2.abs() * 1e4, c1.abs() * 100.0, c0.abs()]
+    smax = torch.maximum(torch.maximum(s[0], s[1]), torch.maximum(s[2], s[3]))
+    big = [x >= tau * smax for x in s]
+    some = smax > 0
+    deg3 = big[0] & some
+    deg2 = ~big[0] & big[1] & some
+    deg1 = ~big[0] & ~big[1] & big[2] & some
+    b, c, d = c2 / c3, c1 / c3, c0 / c3
+    p = c - b * b / 3.0
+    q = 2.0 * b ** 3 / 27.0 - b * c / 3.0 + d
+    disc = (0.5 * q) ** 2 + (p / 3.0) ** 3
+    disc2 = c1 * c1 - 4.0 * c2 * c0
+    q_im = disc2.abs().sqrt() / (2.0 * c2.abs())
+    return {"cardano": deg3 & (disc > 0), "trigonometric": deg3 & ~(disc > 0),
+            "quadratic": deg2 & (disc2 >= 0),
+            "tiny-Im pair": deg2 & (disc2 < 0) & (q_im < 1e-8),
+            "linear": deg1, "no root": ~(deg3 | deg2 | deg1),
+            "zwn 0": (zwn == 0)[None, :].expand_as(deg3)}
+
+
+@pytest.mark.parametrize("grid", ["regimes", "jet"])
+@pytest.mark.parametrize("kind", ENTRY_KINDS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_seed_kernel_equals_plain(jet_field, dev, dtype, kind, grid):
+    """``tracer.initialize`` on the card (one launch of the seed kernel)
+    against its plain route on the card, bitwise: y0, ug0 and vg0 in
+    float32 and float64, static and time instances (31 frames at t = 0,
+    static members, members of frames); on the regime grid every branch of
+    the closed form, zwn = 0, a root past mwn_cap and tied keys; on the jet
+    a nonzero frequency, the polar cap, a source past the pole and a NaN
+    longitude."""
+    bg, inputs = seed_case(jet_field, dev, dtype, kind, grid)
+    before = (tracer.SEED_CALLS, tracer.SEED_LAUNCHES)
+    got = tracer.initialize(bg, *inputs)
+    assert (tracer.SEED_CALLS, tracer.SEED_LAUNCHES) == (before[0] + 1,
+                                                         before[1] + 1)
+    want = tracer._initialize_plain(bg, *inputs)
+    for name, a, b in zip(("y0", "ug0", "vg0"), got, want):
+        assert bits_same(a, b), name
+    assert bool(torch.isfinite(got[0][3]).any())
+    if grid == "regimes":
+        if kind == "static":
+            hit = seed_branches(bg, *inputs)
+            assert [k for k, x in hit.items() if not x.any()] == []
+        ky = got[0][3].reshape(-1, 3, len(SEED_NODES), len(SEED_ZWN))
+        # The tiny-Im pair's real part in two slots; 150 past the window.
+        pair = torch.tensor([2.0 ** -16] * 2, dtype=dtype, device=dev)
+        assert torch.equal(ky[:, :2, -1, 1], pair.expand(ky.shape[0], 2))
+        assert bool(torch.isnan(ky[:, 2, -1, 1]).all())
+        assert int(torch.isfinite(ky[0, :, 3, 0]).sum()) == 2
+
+
+@pytest.mark.parametrize("call", ["trace_rays", "trace_rays_ensemble"])
+def test_trace_rays_seeds_in_one_launch(jet_field, dev, call, monkeypatch):
+    """A ``trace_rays`` call (and a three-member ``trace_rays_ensemble``)
+    makes one ``initialize`` call and one seed launch, and its whole output
+    is bitwise the one it gives with the seeds on the plain route."""
+    u, v, lat, lon = jet_field
+    cfg = pt.RunConfig(zwn=(1.0, 2.0, 3.0, 5.0), sw_lon=0.0, sw_lat=-40.0,
+                       dlon=20.0, dlat=10.0, nnx=18, nny=9, tstep=7200.0,
+                       ttotal=2 * DAY, cal_dtype="float64")
+    states = [pt.prepare(u * s, v, lat, lon, cal_dtype=torch.float64,
+                         device=dev) for s in (1.0, 0.9, 1.1)]
+
+    def run():
+        if call == "trace_rays_ensemble":
+            return pt.trace_rays_ensemble(states, cfg)
+        return [pt.trace_rays(states[0], cfg)]
+
+    before = (tracer.SEED_CALLS, tracer.SEED_LAUNCHES)
+    got = run()
+    assert (tracer.SEED_CALLS, tracer.SEED_LAUNCHES) == (before[0] + 1,
+                                                         before[1] + 1)
+    monkeypatch.setattr(tracer, "_seed_kernel_takes", lambda *a: False)
+    want = run()
+    assert (tracer.SEED_CALLS, tracer.SEED_LAUNCHES) == (before[0] + 2,
+                                                         before[1] + 1)
+    for a, b in zip(got, want):
+        for k in a._fields:
+            assert bits_same(getattr(a, k), getattr(b, k)), k
+
+
+@pytest.mark.parametrize("case", ["gradient", "fortran"])
+def test_seed_takes_the_plain_route_for_gradients_and_fortran(jet_field, dev,
+                                                              case):
+    """On the card a gradient-carrying source and root_order='fortran'
+    take the plain route (a call, no launch): the gradient's seeds equal
+    the kernel's, and carry the source latitude's gradient; the fortran
+    seeds fill the kernel's layout."""
+    _, bg = background(jet_field, torch.float64, dev)
+    slon, slat = tracer.source_matrix(0.0, -40.0, 20.0, 10.0, 18, 9)
+    inputs = [torch.as_tensor(x, dtype=torch.float64, device=dev)
+              for x in (slon, slat, (1.0, 2.0, 3.0))]
+    kernel = tracer.initialize(bg, *inputs)
+    if case == "gradient":
+        inputs[1].requires_grad_(True)
+    before = (tracer.SEED_CALLS, tracer.SEED_LAUNCHES)
+    got = tracer.initialize(bg, *inputs, root_order=(
+        "fortran" if case == "fortran" else "canonical"))
+    assert (tracer.SEED_CALLS, tracer.SEED_LAUNCHES) == (before[0] + 1,
+                                                         before[1])
+    if case == "gradient":
+        for a, b in zip(got, kernel):
+            assert bits_same(a.detach(), b)
+        (g,) = torch.autograd.grad(got[0][1].sum(), inputs[1])
+        assert torch.equal(g, torch.full_like(g, 9.0))
+    else:
+        assert [tuple(a.shape) for a in got] == [tuple(a.shape)
+                                                 for a in kernel]
+
+
+@pytest.mark.parametrize("case", ["float64_sources", "host_sources",
+                                  "float64_zwn"])
+def test_seed_refuses_mismatched_inputs(jet_field, dev, case):
+    """On the card a call without gradients whose sources or zwn are not
+    of the background's dtype and device raises ValueError and launches
+    nothing: no quiet plain route, no seeds in the promoted dtype."""
+    _, bg = background(jet_field, torch.float32, dev)
+    slon, slat = tracer.source_matrix(0.0, -40.0, 20.0, 10.0, 18, 9)
+    inputs = [torch.as_tensor(x, dtype=torch.float32, device=dev)
+              for x in (slon, slat, (1.0, 2.0, 3.0))]
+    if case == "float64_sources":
+        inputs[:2] = [x.double() for x in inputs[:2]]
+    elif case == "host_sources":
+        inputs[:2] = [x.cpu() for x in inputs[:2]]
+    else:
+        inputs[2] = inputs[2].double()
+    before = (tracer.SEED_CALLS, tracer.SEED_LAUNCHES)
+    with pytest.raises(ValueError):
+        tracer.initialize(bg, *inputs)
+    assert (tracer.SEED_CALLS, tracer.SEED_LAUNCHES) == (before[0] + 1,
+                                                         before[1])
 
 
 # ---- The flux region pass in row tiles (csrc/flux.cu region_kernel) ----
