@@ -330,11 +330,16 @@ def main(argv=None, *, device=None, root=ROOT) -> int:
     t_ref = time.perf_counter()
     readings = {}
     if judged:
-        ref = check.Reference(config, inputs, device)
+        ref = check.Reference(config, inputs, device, seed=args.seed)
         readings = ref.judge(program_states, judged)
     checks = check.checks(readings, lim, bool(judged))
     log(f"portbench: reference {time.perf_counter() - t_ref:.3f} s over "
         f"{sum(j.idx.numel() for j in judged)} judged rays")
+    counts = {k: v for k, v in readings.items()
+              if k.startswith(("excused.", "reference."))}
+    if counts:
+        log(f"portbench: deaths excused and rays the reference gave up: "
+            f"{json.dumps(counts)}")
 
     found = imports.forbidden(sys.modules)
     if found:
